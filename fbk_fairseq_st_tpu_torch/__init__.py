@@ -1,0 +1,22 @@
+"""PyTorch/CUDA port of fbk_fairseq_st_tpu for NVIDIA Hopper (H100).
+
+The JAX package ``fbk_fairseq_st_tpu`` is the reference; this package keeps
+its module layout and names so each module's counterpart is easy to find.
+It imports ``torch`` and ``numpy`` only — never ``jax`` and nothing of the
+JAX package.
+
+Implemented slice: the serving path of ``conv_transformer`` — fbank
+frames in, beam-search hypotheses out::
+
+    from fbk_fairseq_st_tpu_torch.models.conv_transformer import build_model
+    from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator
+
+    model = build_model("conv_transformer", tgt_dict, input_feat_per_channel=80)
+    hypos = SequenceGenerator(tgt_dict, beam_size=5).generate([model], sample)
+
+Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops.conv_frontend import ConvFrontend, ConvFrontendConfig, conv_frontend
-from ..ops.core import LayerNorm, Linear, dropout, get_activation, lengths_to_padding_mask
+from ..ops.core import GeneratorLike, LayerNorm, Linear, dropout, get_activation, lengths_to_padding_mask
 from ..ops.positional import PositionalEmbedding
 from ..ops.transformer_layer import TransformerEncoderLayer, TransformerLayerConfig
 from .base import EncoderOut
@@ -102,7 +102,7 @@ class ConvTransformerEncoder(ConvFrontend):
             if m is not None:
                 m.init(generator)
 
-    def forward(self, src_tokens, src_lengths, generator: Optional[torch.Generator] = None
+    def forward(self, src_tokens, src_lengths, generator: GeneratorLike = None
                 ) -> EncoderOut:
         """src_tokens: (B, T, F) fbank frames; src_lengths: (B,)."""
         cfg = self.cfg
@@ -151,11 +151,11 @@ class ConvolutionalTransformerModel(nn.Module):
         self.decoder.init(generator)
         return self
 
-    def encode(self, src_tokens, src_lengths, generator: Optional[torch.Generator] = None
+    def encode(self, src_tokens, src_lengths, generator: GeneratorLike = None
                ) -> EncoderOut:
         return self.encoder(src_tokens, src_lengths, generator)
 
-    def forward(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
+    def forward(self, batch: Dict[str, Any], generator: GeneratorLike = None):
         """batch: src_tokens (B, T, F), src_lengths, prev_output_tokens.
         Returns (logits (B, T_tgt, V), extra) with the EncoderOut in extra."""
         encoder_out = self.encode(batch["src_tokens"], batch["src_lengths"], generator)
@@ -347,11 +347,12 @@ def configs(arch: str, tgt_dict, src_dict=None, **overrides
 
 
 def build_model(arch: str, tgt_dict, src_dict=None, device: DeviceLike = None,
-                seed: int = 0, **overrides) -> ConvolutionalTransformerModel:
-    """Build ``arch`` with weights drawn from ``seed``, in eval mode, on
-    ``device`` (the CUDA card when None; raises without one)."""
+                seed: int = 0, train: bool = False, **overrides) -> ConvolutionalTransformerModel:
+    """Build ``arch`` with weights drawn from ``seed`` on ``device`` (the
+    CUDA card when None; raises without one), in eval mode unless
+    ``train``."""
     device = resolve_device(device)
     encoder_cfg, decoder_cfg = configs(arch, tgt_dict, src_dict, **overrides)
     model = ConvolutionalTransformerModel(encoder_cfg, decoder_cfg)
     model.init(torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return model.to(device).train(train)

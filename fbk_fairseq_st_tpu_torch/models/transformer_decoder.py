@@ -20,7 +20,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..ops.core import LayerNorm, dropout, embedding, normal_
+from ..ops.core import GeneratorLike, LayerNorm, dropout, embedding, normal_
 from ..ops.positional import PositionalEmbedding
 from ..ops.transformer_layer import (
     TransformerDecoderLayer,
@@ -106,7 +106,7 @@ class TransformerDecoder(nn.Module):
         return torch.matmul(x, w.t().to(x.dtype))
 
     def forward(self, prev_output_tokens, encoder_out, encoder_padding_mask=None,
-                generator: Optional[torch.Generator] = None):
+                generator: GeneratorLike = None):
         """Teacher forcing: prev_output_tokens (B, T) -> (logits (B, T, V), {}).
         Self-attention is causal with pad keys masked."""
         x = self._embed(prev_output_tokens, encoder_out.dtype, generator)

@@ -9,7 +9,11 @@ preallocated ``(B, H, T_max, Dh)`` self-attention cache written in place at
 head-averaged ``need_weights``. Activations are batch-first (B, T, D).
 
 Flash routing follows the JAX eligibility rules: no cache, mask ``None`` or
-causal, no penalty, no ``need_weights``, dropout not active. In auto mode
+causal, no penalty, no ``need_weights``. Calls with dropout active take the
+flash route too, with the kernel's in-kernel dropout and one seed drawn per
+call from the run's CPU generator (JAX sent them there on the TPU only,
+whose hardware PRNG the CPU interpreter lacks); the dense path keeps the
+non-TPU meaning (an fp32 softmax VJP and a Bernoulli mask). In auto mode
 (``set_flash_attention(None)``) every eligible call on a CUDA tensor goes to
 the hand-written kernel; the JAX ``FLASH_MIN_KEY_LEN`` gate was a TPU v5e
 crossover and is not adopted. On a CPU tensor the flash route runs the
@@ -23,7 +27,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from .core import NEG_INF, Linear, dropout
+from .core import NEG_INF, GeneratorLike, Linear, draw_seed, dropout
 from .kernels.flash_attention import flash_attention
 
 
@@ -134,7 +138,7 @@ class MultiheadAttention(nn.Module):
         value=None,
         key_padding_mask=None,
         attn_mask=None,
-        generator: Optional[torch.Generator] = None,
+        generator: GeneratorLike = None,
         cache: Optional[Dict[str, Any]] = None,
         cache_index: Optional[int] = None,
         static_kv: bool = False,
@@ -177,7 +181,6 @@ class MultiheadAttention(nn.Module):
             and (attn_mask is None or causal)
             and cfg.penalty is None
             and not need_weights
-            and not dropout_active
         ):
             out = flash_attention(
                 q.reshape(b * h, tq, hd),
@@ -186,6 +189,8 @@ class MultiheadAttention(nn.Module):
                 key_bias(key_padding_mask, b, s, h, q.device),
                 1.0,  # q is pre-scaled above
                 causal=causal,
+                dropout_rate=cfg.dropout if dropout_active else 0.0,
+                dropout_seed=draw_seed(generator) if dropout_active else None,
             ).reshape(b, h, tq, hd)
             return self.out_proj(_merge_heads(out)), None, cache
 

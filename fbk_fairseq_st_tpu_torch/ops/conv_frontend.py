@@ -12,8 +12,10 @@ Semantics kept:
   * activation BEFORE BatchNorm, then dropout at max(p, 0.1);
   * ConvAttention2D: one packed 3x3 conv gives q|k|v head channels, q is
     scaled by C**-0.5 before BN+ReLU, time attention (over T, padded keys
-    masked) goes through the flash route with scale 1.0, frequency
-    attention (over F, no mask) is dense, then a 3x3 out conv + BN + ReLU;
+    masked) goes through the flash route with scale 1.0 and, in training,
+    the kernel's dropout at ``dropout_p`` (one seed per call from the run's
+    CPU generator), frequency attention (over F, no mask) is dense, then a
+    3x3 out conv + BN + ReLU;
     the frontend adds the residual around each block;
   * the channels-major flatten (B, C, T, F) -> (B, T, C*F).
 
@@ -25,14 +27,23 @@ not ported (ROADMAP Queue A4).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .attention import flash_enabled, key_bias
-from .core import NEG_INF, BatchNorm, dropout, get_activation, normal_, xavier_uniform_
+from .core import (
+    NEG_INF,
+    BatchNorm,
+    GeneratorLike,
+    draw_seed,
+    dropout,
+    get_activation,
+    normal_,
+    xavier_uniform_,
+)
 from .kernels.flash_attention import flash_attention
 
 
@@ -112,7 +123,7 @@ class ConvAttention2D(nn.Module):
             bn.init()
 
     def forward(self, x, key_padding_mask=None, dropout_p: float = 0.0,
-                generator: Optional[torch.Generator] = None):
+                generator: GeneratorLike = None):
         """x: (B, C, T, F); key_padding_mask: (B, T) True at pads.
         Returns (B, C, T, F) (without the residual)."""
         b, c, t, f = x.shape
@@ -127,13 +138,15 @@ class ConvAttention2D(nn.Module):
         # time attention: contract over frequency -> (B, H, T, T); F' acts as
         # the head dim of the flash kernel (the wrapper pads it)
         dropout_active = self.training and dropout_p > 0.0 and generator is not None
-        if flash_enabled(x) and not dropout_active:
+        if flash_enabled(x):
             attn_t = flash_attention(
                 q.reshape(b * h, t, f),
                 k.reshape(b * h, t, f),
                 v.reshape(b * h, t, f),
                 key_bias(key_padding_mask, b, t, h, x.device),
                 1.0,  # q is pre-scaled above
+                dropout_rate=dropout_p if dropout_active else 0.0,
+                dropout_seed=draw_seed(generator) if dropout_active else None,
             ).reshape(b, h, t, f)
         else:
             wt = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -156,7 +169,7 @@ class ConvAttention2D(nn.Module):
 
 
 def conv_attention_2d(block: ConvAttention2D, x, key_padding_mask=None,
-                      dropout_p: float = 0.0, generator: Optional[torch.Generator] = None):
+                      dropout_p: float = 0.0, generator: GeneratorLike = None):
     """JAX-layout entry: x (B, T, F, C) -> (B, T, F, C)."""
     y = block(x.permute(0, 3, 1, 2), key_padding_mask, dropout_p, generator)
     return y.permute(0, 2, 3, 1)
@@ -198,12 +211,11 @@ class ConvFrontend(nn.Module):
             for blk in self.attn_2d:
                 blk.init(generator)
 
-    def forward(self, x, lengths, generator: Optional[torch.Generator] = None):
+    def forward(self, x, lengths, generator: GeneratorLike = None):
         return conv_frontend(self, x, lengths, generator)
 
 
-def conv_frontend(frontend: ConvFrontend, x, lengths,
-                  generator: Optional[torch.Generator] = None):
+def conv_frontend(frontend: ConvFrontend, x, lengths, generator: GeneratorLike = None):
     """x: (B, T, F) fbank, lengths (B,) -> ((B, T', C*F), new lengths)."""
     cfg = frontend.frontend_cfg
     act = get_activation(cfg.activation)

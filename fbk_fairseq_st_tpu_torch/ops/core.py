@@ -7,14 +7,15 @@ a set of ``init_*`` + pure functions over parameter pytrees, the port has
 on tensors that hold the arithmetic. Compute runs in the input dtype, with
 LayerNorm and BatchNorm statistics always in fp32.
 
-Randomness is drawn from an explicit ``torch.Generator``; the meaning of
-``dropout`` is the JAX non-TPU branch (a Bernoulli keep mask, ``x / keep``).
+Randomness is drawn from an explicit ``torch.Generator`` (or the
+``Generators`` pair of a training run); the meaning of ``dropout`` is the
+JAX non-TPU branch (a Bernoulli keep mask, ``x / keep``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -101,14 +102,49 @@ class LayerNorm(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Dropout
+# Randomness and dropout
 # ---------------------------------------------------------------------------
 
-def dropout(x, rate: float, generator: Optional[torch.Generator], training: bool):
+class Generators(NamedTuple):
+    """The randomness of a training run: dropout masks are drawn on
+    ``device``, a generator on the activations' device; the flash kernels'
+    dropout seeds on ``host``, a CPU generator, so that taking one as a
+    Python int never waits for the card."""
+    device: torch.Generator
+    host: torch.Generator
+
+
+GeneratorLike = Union[torch.Generator, Generators, None]
+
+
+def make_generators(seed: int, device) -> Generators:
+    device = torch.device(device)
+    host = torch.Generator().manual_seed(seed)
+    if device.type == "cpu":
+        return Generators(host, host)
+    return Generators(torch.Generator(device=device).manual_seed(seed), host)
+
+
+def device_generator(generator: GeneratorLike) -> Optional[torch.Generator]:
+    return generator.device if isinstance(generator, Generators) else generator
+
+
+def draw_seed(generator: GeneratorLike) -> int:
+    """One 63-bit seed for a flash kernel's in-kernel dropout, drawn per
+    call (the counterpart of JAX's ``rng.next()`` at each flash call)."""
+    host = generator.host if isinstance(generator, Generators) else generator
+    if host is None or host.device.type != "cpu":
+        raise ValueError("flash dropout seeds come from a CPU generator: pass Generators "
+                         "(a draw on the card would sync the host at every layer)")
+    return int(torch.randint(0, 2 ** 63 - 1, (), generator=host))
+
+
+def dropout(x, rate: float, generator: GeneratorLike, training: bool):
     """Inverted dropout with a Bernoulli(1 - rate) keep mask drawn from
     ``generator`` (which must live on ``x``'s device)."""
     if not training or rate == 0.0:
         return x
+    generator = device_generator(generator)
     if generator is None:
         raise ValueError("dropout in training mode needs an explicit torch.Generator")
     keep = 1.0 - rate

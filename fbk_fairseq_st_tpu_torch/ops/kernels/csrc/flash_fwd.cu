@@ -1,17 +1,19 @@
 // Flash-attention forward for Hopper (sm_90a), plain CUDA C++.
 //
 // Replaces fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py::_fwd_kernel
-// (launched by _fwd_impl through pl.pallas_call) for dropout rate 0:
+// (launched by _fwd_impl through pl.pallas_call), dropout included:
 //
-//   out[b, t] = softmax_s(scale * q[b, t] . k[b, s] + bias[b, s]) . v[b, s]
-//   lse[b, t] = m + log(l)       (fp32 per-row log-sum-exp)
+//   p[b, t, s]  = exp(scale * q[b, t] . k[b, s] + bias[b, s] - m)
+//   out[b, t]   = sum_s p * keep . v[b, s] / max(l * (1 - rate), 1e-30)
+//   lse[b, t]   = m + log(max(l, 1e-30))      (fp32 per-row log-sum-exp)
 //
-// with the causal future mask (cols <= rows, both from 0, top-left aligned
-// also when T != S) replacing masked scores by NEG_INF = -1e9, the running
-// max starting at NEG_INF (never -inf), out = acc / max(l, 1e-30) and
-// lse = m + log(max(l, 1e-30)), exactly as the Pallas kernel. Keys past S
-// get weight exactly 0, so a row whose real keys are all masked averages
-// over the S keys it was given, as the dense path does.
+// where m and l are the running max and sum of the UNDROPPED p, keep is the
+// Philox keep flag of element (b, t, s) (flash_common.cuh; all 1 at rate 0),
+// the causal future mask (cols <= rows, both from 0, top-left aligned also
+// when T != S) replaces masked scores by NEG_INF = -1e9, and the running
+// max starts at NEG_INF (never -inf), exactly as the Pallas kernel. Keys
+// past S get weight exactly 0, so a row whose real keys are all masked
+// averages over the S keys it was given, as the dense path does.
 //
 // Design. One thread block of 256 threads per (bh, 64-row q tile). The q
 // tile sits in shared memory as fp32; a loop walks 64-key kv tiles staged
@@ -19,43 +21,35 @@
 // causal). Each thread owns 4 rows and 4 score columns of the 64x64 tile,
 // then 4 rows and D/16 output columns; the running m and l of its rows live
 // in registers, replicated over the 16 threads of a row and reduced with
-// warp shuffles. Scores, softmax and the accumulator are fp32 whatever the
-// input type (fp32 or bf16); the products run on the CUDA cores as FMAs.
-// Ragged T and S are masked in the kernel, so the caller never pads the
-// sequence axes; the head dim D is a template over {16, 32, 64, 128} and
-// the wrapper zero-pads q/k/v up to it.
+// warp shuffles. The probabilities go through shared memory to the P.V
+// product; at rate > 0 a masking pass between the two walks that tile in
+// groups of 4 keys, one Philox call per group, and zeroes the dropped
+// entries after l has summed them. Scores, softmax and the accumulator are
+// fp32 whatever the input type (fp32 or bf16); the products run on the CUDA
+// cores as FMAs. Ragged T and S are masked in the kernel, so the caller
+// never pads the sequence axes; the head dim D is a template over
+// {16, 32, 64, 128} and the wrapper zero-pads q/k/v up to it.
 //
-// What bounds it. At the main-path shapes (encoder self-attention of the
-// base conv_transformer: bh = 128, T = S = 128, D = 64) the function needs
-// 4*bh*T*S*D = 537 MFLOP and moves q, k, v, out = 16.8 MB in fp32: about
-// 8 us at the H100 SXM's 67 TFLOP/s of fp32 (no tensor cores), about 5 us
-// at 3.35 TB/s, so it is bound by operations; in bf16 the 8.4 MB take
-// about 2.5 us and the 0.54 us of tensor-core work is below it, so bytes
-// bound it. This first design is simple and correct, not fast: it uses no
-// tensor cores (mma.sync / wgmma), no TMA and no pipelining, and it re-reads
-// the score tile through shared memory. Making it fast is later work.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// What bounds it. At the training shapes (encoder self-attention of the
+// base conv_transformer at batch 128: bh = 512, T = S = 128, D = 64) the
+// function needs 4*bh*T*S*D = 2.15 GFLOP and moves q, k, v, out = 67 MB in
+// fp32: 32 us at the H100 SXM's 67 TFLOP/s of fp32 (no tensor cores),
+// 20 us at 3.35 TB/s, so operations bound it; in bf16 the 34 MB take 10 us
+// and the 2.2 us of tensor-core work is below it, so bytes bound it. The
+// dropout pass adds one Philox call (10 rounds, ~60 integer instructions)
+// per 4 scores, about a sixth of the tile's FMAs. This first design is
+// simple and correct, not fast: it uses no tensor cores (mma.sync /
+// wgmma), no TMA and no pipelining, and it re-reads the score tile through
+// shared memory. Making it fast is later work.
 
 #include <math.h>
 #include <stddef.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;    // q rows per block
-constexpr int kBlockN = 64;    // keys per kv tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr float kNegInf = -1e9f;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+using namespace flash;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -71,13 +65,15 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  T* __restrict__ out, float* __restrict__ lse, int t_len,
-                 int s_len, float scale, int causal) {
+                 int s_len, float scale, int causal, uint32_t drop_thresh,
+                 float keep_prob, uint64_t seed) {
   constexpr int QS = D + 1;         // q/k row strides: padding keeps the
   constexpr int KS = D + 1;         // 16 rows a warp reads on 16 banks
   constexpr int PS = kBlockN + 1;
   constexpr int RPT = kBlockM / 16; // rows per thread
   constexpr int CPT = kBlockN / 16; // score columns per thread
   constexpr int DPT = D / 16;       // output columns per thread
+  constexpr int GROUPS = kBlockN / 4;
 
   extern __shared__ float smem[];
   float* qs = smem;
@@ -174,12 +170,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
+      l[i] = l[i] * alpha + rs;  // l sums the undropped p
       m[i] = mx;
 #pragma unroll
       for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
+
+    if (drop_thresh != 0u) {
+      // zero the dropped probabilities, 4 keys per Philox call
+      for (int it = tid; it < kBlockM * GROUPS; it += kThreads) {
+        const int r = it / GROUPS, g = it % GROUPS;
+        if (q0 + r >= t_len || s0 + 4 * g >= s_len) continue;
+        const uint4 bits = dropout_bits(seed, (uint32_t)bh, q0 + r, s0 + 4 * g);
+        float* p = ps + r * PS + 4 * g;
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          if (word(bits, w) < drop_thresh) p[w] = 0.f;
+      }
+      __syncthreads();
+    }
 
 #pragma unroll 8
     for (int c = 0; c < kBlockN; ++c) {
@@ -199,18 +209,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= t_len) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l[i] * keep_prob, 1e-30f);
     T* orow = out + (bh * t_len + row) * D;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) store_from_f32(orow + tx + 16 * j, acc[i][j] / den);
-    if (tx == 0) lse[bh * t_len + row] = m[i] + logf(den);
+    if (tx == 0) lse[bh * t_len + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
+struct Args {
+  const void *q, *k, *v, *bias;
+  void *out, *lse;
+  int bh, t_len, s_len;
+  float scale;
+  int causal;
+  uint32_t drop_thresh;
+  float keep_prob;
+  uint64_t seed;
+};
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* out, void* lse, int bh, int t_len,
-                   int s_len, float scale, int causal, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   // above 48 KB of dynamic shared memory a kernel must opt in (per device,
   // so it is set on every launch rather than cached)
@@ -218,31 +237,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((t_len + kBlockM - 1) / kBlockM, bh);
+  const dim3 grid((a.t_len + kBlockM - 1) / kBlockM, a.bh);
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), static_cast<float*>(lse), t_len, s_len, scale,
-      causal);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
+      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.t_len, a.s_len,
+      a.scale, a.causal, a.drop_thresh, a.keep_prob, a.seed);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v,
-                       const void* bias, void* out, void* lse, int bh,
-                       int t_len, int s_len, int head_dim, float scale,
-                       int causal, cudaStream_t stream) {
+cudaError_t dispatch_d(const Args& a, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, bias, out, lse, bh, t_len, s_len, scale, causal, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, bias, out, lse, bh, t_len, s_len, scale, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, bias, out, lse, bh, t_len, s_len, scale, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, bias, out, lse, bh, t_len, s_len, scale, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch<T, 16>(a, stream);
+    case 32: return launch<T, 32>(a, stream);
+    case 64: return launch<T, 64>(a, stream);
+    case 128: return launch<T, 128>(a, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -250,19 +261,20 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 
 // q: (bh, t_len, head_dim), k/v: (bh, s_len, head_dim), contiguous, all of
 // one type (is_bf16 ? bf16 : fp32); bias: (bh, s_len) fp32; out like q;
-// lse: (bh, t_len) fp32. Launches on `stream` and returns cudaGetLastError().
+// lse: (bh, t_len) fp32. drop_thresh = 0 turns dropout off; keep_prob is
+// 1 - rate. Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* bias, void* out, void* lse, int bh,
                          int t_len, int s_len, int head_dim, float scale,
-                         int causal, int is_bf16, void* stream) {
+                         int causal, uint32_t drop_thresh, float keep_prob,
+                         uint64_t seed, int is_bf16, void* stream) {
   if (bh <= 0 || bh > 65535 || t_len <= 0 || s_len <= 0)
     return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, bias, out, lse, bh, t_len, s_len,
+               scale, causal, drop_thresh, keep_prob, seed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? dispatch_d<__nv_bfloat16>(q, k, v, bias, out, lse, bh, t_len,
-                                          s_len, head_dim, scale, causal, s)
-              : dispatch_d<float>(q, k, v, bias, out, lse, bh, t_len, s_len,
-                                  head_dim, scale, causal, s);
+  cudaError_t err = is_bf16 ? dispatch_d<__nv_bfloat16>(a, head_dim, s)
+                            : dispatch_d<float>(a, head_dim, s);
   return (int)err;
 }
 

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from .attention import MHAConfig, MultiheadAttention, init_cache
-from .core import LayerNorm, Linear, dropout, get_activation
+from .core import GeneratorLike, LayerNorm, Linear, dropout, get_activation
 
 
 class TransformerLayerConfig(NamedTuple):
@@ -78,7 +78,7 @@ class TransformerEncoderLayer(_FFNMixin, nn.Module):
             m.init(generator)
 
     def forward(self, x, key_padding_mask=None, attn_mask=None,
-                generator: Optional[torch.Generator] = None):
+                generator: GeneratorLike = None):
         cfg = self.cfg
         residual = x
         if cfg.normalize_before:
@@ -118,7 +118,7 @@ class TransformerDecoderLayer(_FFNMixin, nn.Module):
         encoder_padding_mask=None,
         self_attn_mask=None,
         self_attn_padding_mask=None,
-        generator: Optional[torch.Generator] = None,
+        generator: GeneratorLike = None,
         cache: Optional[Dict[str, Any]] = None,
         cache_index: Optional[int] = None,
     ):

@@ -212,7 +212,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(files) > 10
     for path in files:
         roots = set(_imported_roots(path))
-        assert not roots & {"jax", "jaxlib", "flax", "fbk_fairseq_st_tpu"}, (path, roots)
+        assert not roots & {"jax", "jaxlib", "flax", "optax", "fbk_fairseq_st_tpu"}, (path, roots)
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

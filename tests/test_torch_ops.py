@@ -96,12 +96,19 @@ def test_flash_attention_matches_jax_kernel(case):
 
 
 def test_flash_attention_cpu_route_counts_no_launch_and_refuses_dropout():
+    """The CPU route runs the plain versions at any rate, launches nothing,
+    and refuses dropout it cannot reproduce: without a seed, or at a rate
+    outside [0, 1)."""
     q, k, v, bias = map(torch.tensor, _flash_inputs(2, 5, 6, 8, True))
-    before = tflash.launches
+    tflash.reset_launches()
     tflash.flash_attention(q, k, v, bias, 1.0)
-    assert tflash.launches == before  # the plain version is not a launch
-    with pytest.raises(NotImplementedError):
+    tflash.flash_attention(q, k, v, bias, 1.0, dropout_rate=0.1, dropout_seed=7)
+    assert tflash.launches == 0  # the plain version is not a launch
+    assert (tflash.launches_fwd, tflash.launches_bwd_fused) == (0, 0)
+    with pytest.raises(ValueError):
         tflash.flash_attention(q, k, v, bias, 1.0, dropout_rate=0.1)
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, k, v, bias, 1.0, dropout_rate=1.0, dropout_seed=7)
     with pytest.raises(ValueError):
         tflash.flash_attention(q, k, v, bias[:, :3], 1.0)
 
@@ -209,7 +216,8 @@ def test_mha_cached_steps_match_jax():
 
 def test_mha_flash_routing_rules(monkeypatch, flash_routes):
     """Auto mode sends nothing to the flash route on CPU tensors; forced on,
-    only cache-free calls without penalty/need_weights/active dropout go."""
+    cache-free calls without penalty/need_weights go, dropout-active ones
+    included (with a seed for the in-kernel dropout)."""
     _, _, module = _mha_pair()
     calls = []
     real = tattn.flash_attention
@@ -228,7 +236,7 @@ def test_mha_flash_routing_rules(monkeypatch, flash_routes):
         module.train()
         module.cfg = module.cfg._replace(dropout=0.1)
         module(x, generator=torch.Generator().manual_seed(0))
-    assert len(calls) == 1
+    assert len(calls) == 2
 
 
 # ---------------------------------------------------------------------------

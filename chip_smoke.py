@@ -8,27 +8,39 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
   1. device: the card's name and power limit (nvidia-smi) — raises without
      CUDA;
   2. build: compiles every kernel from the sources in this checkout (one
-     nvcc per source, all started together, sm_90a) and reports the
-     seconds and the ptxas registers and spills of each;
+     nvcc per source, all started together, sm_90a: flash_fwd, flash_bwd,
+     dynamic_conv) and reports the seconds and the ptxas registers and
+     spills of each;
   3. kernels at the serving shapes: the flash forward against its plain
      PyTorch version in fp32 (TF32 off) and bf16, with kernel, plain and
      library (scaled_dot_product_attention, a yardstick the port never
      calls) times per call (CUDA events), the kernel's own device time
      (torch.profiler), and the card's bound for the same work;
   4. kernels at the training shapes (the train step's four attention
-     calls at batch 128): the forward's dropout keep mask against
-     ``philox.keep_mask`` (exactly), the forward at the training dropout
-     rate, and the fused and split backwards, against the plain versions
-     on the same inputs and seed, with the same times and bounds (the
-     library time of a backward is SDPA's forward + backward at rate 0);
-  5. serve (main path 1): the conv_transformer base preset at full width
+     calls at batch 128, and the lightconv decoder's encoder attention at
+     batch 64 with keys padded on the left): the forward's dropout keep
+     mask against ``philox.keep_mask`` (exactly), the forward at the
+     training dropout rate, and the fused and split backwards, against the
+     plain versions on the same inputs and seed, with the same times and
+     bounds (the library time of a backward is SDPA's forward + backward
+     at rate 0);
+  5. dynamic-conv kernels: ``dynamic_conv_fwd`` and ``dynamic_conv_bwd``
+     against ``dynamic_conv_reference`` / ``dynamic_conv_backward_reference``
+     in fp32 (TF32 off) and bf16 at the serving shapes (B 32, T 60, C 1024,
+     H 16, centred K 3, 7, 15, 31; B 8, T 250, K 31), the training shapes
+     (B 64, T 56, every K of 3, 7, 15, 31 centred and causal) and a ragged
+     one (T 37, C 48, H 3, even K 4),
+     with the wrapper's, the kernel's device, the plain and the bound times
+     (no single PyTorch call computes a per-position band product, so no
+     library time);
+  6. serve (main path 1): the conv_transformer base preset at full width
      (256/768/4, 6+6 layers, 80 mels, vocabulary 8000, random weights from
      a seed) serves three requests with beam 5 through
      ``SequenceGenerator``; checks the hypotheses and the forward launches
      per request, times the encoder, profiles one request, and holds the
      flash route against the dense route and the card against the plain
      CPU path;
-  6. train (main path 2): the ``bench.py::_measure_train`` configuration
+  7. train (main path 2): the ``bench.py::_measure_train`` configuration
      (label-smoothed CE 0.1, Adam (0.9, 0.98), lr 2e-3 inverse_sqrt over
      4000 warmup updates, clip-norm 10, --bf16) at full width on a fixed
      batch of 128 utterances of 409-512 frames and 48 target tokens:
@@ -36,12 +48,33 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      MFU; exactly 20 flash forward and 20 fused backward launches a step
      (20 dq + 20 dkv with ``FUSED_BWD = False``, a shorter run); the loss
      finite and falling; one profiled step;
-  7. train-step cross-checks in fp32 (TF32 off): flash against dense
+  8. train-step cross-checks in fp32 (TF32 off): flash against dense
      route and fused against split backward (training mode, every dropout
      rate 0 but the frontend's forced 0.1, drawn alike on both sides), and
      card against the plain CPU path on 2 utterances (eval-mode criterion),
      and the card's dense route against the CPU as the floor of the two;
-  8. the ``kernels`` line, the card line, and the final ``ok`` line.
+  9. serve (main path 3): ``dynamicconv_wmt_en_de_big`` at full width
+     (1024/4096/16, conv_dim 1024, GLU, 7 + 6 layers, K = 3, 7, 15, 31...,
+     source and target dictionaries of 32,768 symbols, random weights from
+     a seed) serves three requests (32 sentences of 10-60 tokens, 8 of
+     200-250, 1 of 30) collated by the port's ``LanguagePairDataset``
+     (sources padded on the left), beam 5; checks the hypotheses and
+     exactly 7 ``dynamic_conv_fwd`` and 0 flash launches a request, source
+     tokens/s, the idle share of one profiled request, the kernel route
+     against the plain route on every request (fp32 encoder output and
+     teacher-forced logits, and identical top hypotheses) and the card
+     against the CPU on 2 sentences;
+ 10. train (main path 4): ``TranslationTask.build_model`` ->
+     ``Trainer.train_step`` with the arguments of phase 7 and ``--bf16`` on
+     one batch of 64 pairs of 40-56 source and 40-56 target tokens: step
+     ms, target tokens/s, MFU, peak memory, one profiled step; exactly 13
+     ``dynamic_conv_fwd``, 13 ``dynamic_conv_bwd``, 6 flash forward and 6
+     fused backward launches a step; the loss finite and falling;
+ 11. lightconv train-step cross-checks in fp32: the kernel route against
+     the plain route of the dynamic conv (training mode, dropout rates 0),
+     and the card against the plain CPU path on 2 pairs (eval-mode
+     criterion);
+ 12. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Tolerances (stated here, checked below):
   * kernels against their plain versions: atol 1e-4 in fp32 (the same
@@ -49,11 +82,17 @@ Tolerances (stated here, checked below):
     |out| < 4) and 5e-2 for dq/dk/dv (one bf16 rounding of gradients up to
     |g| ~ 10, the dropout's 1/(1 - rate) included); lse 1e-4 (fp32 in both
     types); the keep mask exactly;
-  * the serving model, flash vs dense and card vs CPU: atol 1e-3 in fp32
-    (8 attention layers summed in another order);
+  * dynamic conv against its plain version: out and dx at the atols
+    above (out and dx are sums of K products, convex in x for out, with
+    |out|, |dx| < 5); dw, a sum of C/H = 64 products that reaches |dw| ~
+    40, at 1e-5 (fp32) and 1e-2 (bf16, one rounding at 2^-8) of max|dw|;
+  * the serving models, flash vs dense, kernel vs plain route and card vs
+    CPU: atol 1e-3 in fp32 (8 attention or 13 conv layers summed in
+    another order);
   * train-step cross-checks: the loss rtol 1e-5 (the same forward in fp32);
     gnorm and the gradients' global relative difference 5e-3 where the two
-    sides compute the forward differently (flash vs dense, card vs CPU) and
+    sides compute the forward differently (flash vs dense, conv kernel vs
+    plain route, card vs CPU) and
     1e-5 where they share it (fused vs split). A forward that differs in its
     last bits flips the ReLU derivative of the pre-activations that lie
     within rounding of 0, and each flip moves whole rows of a weight
@@ -67,8 +106,8 @@ Tolerances (stated here, checked below):
     size, and a gradient that is 0 up to rounding may take either sign.
 
 MFU counts 3x the forward's matmul, conv and attention FLOPs (2 per
-multiply-add) at the shapes the step computes (``train_flops``), against
-the H100's 989 TFLOP/s of dense bf16.
+multiply-add) at the shapes the step computes (``train_flops``,
+``lightconv_train_flops``), against the H100's 989 TFLOP/s of dense bf16.
 """
 
 from __future__ import annotations
@@ -96,6 +135,7 @@ PEAK_BF16 = 989e12
 ATOL_KERNEL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ATOL_GRAD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 ATOL_LSE = 1e-4
+RTOL_DW = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 ATOL_MODEL = 1e-3
 RTOL_STEP_LOSS = 1e-5
 RTOL_STEP_GRAD = {"other_forward": 5e-3, "same_forward": 1e-5}
@@ -127,17 +167,50 @@ KERNEL_SHAPES = [
     ("long_encoder_self_attention", 32, 750, 750, 64, False, True),
 ]
 
-# (name, bh, T, S, D, causal, dropout rate): the flash calls of the train
-# step at batch 128 (4 heads, T' = 512 / 4 frames, 48 target tokens); all
-# have padded keys
+# (name, bh, T, S, D, causal, dropout rate, keys padded on the left): the
+# flash calls of the conv_transformer train step at batch 128 (4 heads,
+# T' = 512 / 4 frames, 48 target tokens) and the lightconv decoder's
+# encoder attention at batch 64 (16 heads, 56 tokens, sources padded on
+# the left); all have padded keys
 TRAIN_KERNEL_SHAPES = [
-    ("encoder_self_attention", 512, 128, 128, 64, False, 0.1),
-    ("time_attention", 512, 128, 128, 20, False, 0.3),
-    ("decoder_causal_self_attention", 512, 48, 48, 64, True, 0.1),
-    ("cross_attention", 512, 48, 128, 64, False, 0.1),
+    ("encoder_self_attention", 512, 128, 128, 64, False, 0.1, False),
+    ("time_attention", 512, 128, 128, 20, False, 0.3, False),
+    ("decoder_causal_self_attention", 512, 48, 48, 64, True, 0.1, False),
+    ("cross_attention", 512, 48, 128, 64, False, 0.1, False),
+    ("lightconv_cross_attention", 1024, 56, 56, 64, False, 0.1, True),
 ]
 
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+# the lightconv paths (dynamicconv_wmt_en_de_big, models/lightconv.py)
+LC_ARCH = "dynamicconv_wmt_en_de_big"
+LC_VOCAB = 32768  # each of the source and target dictionaries, a 32 k BPE
+LC_TRAIN_BATCH = 64
+LC_TRAIN_LEN = (40, 56)  # source and target tokens a pair
+LC_TIMED_STEPS = 10
+DCONV_LAUNCHES_PER_REQUEST = 7  # the encoder's layers
+DCONV_LAUNCHES_PER_STEP = 13  # 7 encoder + 6 teacher-forced decoder layers
+LC_FLASH_LAUNCHES_PER_STEP = 6  # the decoder's encoder attention
+
+# (name, B, T, C, H, K, padding_l): the dynamic conv's calls on the main
+# paths, every (K, padding_l) pair of the encoder (centred) and of the
+# teacher-forced decoder (causal), and the long serving request
+DCONV_SHAPES = [
+    ("serve_k3", 32, 60, 1024, 16, 3, 1),
+    ("serve_k7", 32, 60, 1024, 16, 7, 3),
+    ("serve_k15", 32, 60, 1024, 16, 15, 7),
+    ("serve_k31", 32, 60, 1024, 16, 31, 15),
+    ("serve_long_k31", 8, 250, 1024, 16, 31, 15),
+    ("train_k31_centred", 64, 56, 1024, 16, 31, 15),
+    ("train_k3", 64, 56, 1024, 16, 3, 1),
+    ("train_k7", 64, 56, 1024, 16, 7, 3),
+    ("train_k15", 64, 56, 1024, 16, 15, 7),
+    ("train_k3_causal", 64, 56, 1024, 16, 3, 2),
+    ("train_k7_causal", 64, 56, 1024, 16, 7, 6),
+    ("train_k15_causal", 64, 56, 1024, 16, 15, 14),
+    ("train_k31_causal", 64, 56, 1024, 16, 31, 30),
+    ("ragged", 4, 37, 48, 3, 4, 1),
+]
+
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "dynamic_conv")
 
 
 def emit(obj) -> None:
@@ -174,26 +247,39 @@ def _device_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, match, iters: int = 20):
-    """Mean device time per call of ``fn`` of the kernels whose name
-    ``match`` accepts (a substring or a predicate), from a torch.profiler
-    (CUPTI) trace; None if the trace holds none."""
+def device_ms(fn, match, iters: int = 20, tries: int = 3):
+    """Device time of the one kernel launch of a call of ``fn`` whose name
+    ``match`` accepts (a substring or a predicate): the median duration of
+    the matching events of a torch.profiler (CUPTI) trace over ``iters``
+    calls. A trace may miss some of its kernel records (a chip run saw one
+    of a wrapper's 20 launches at a fifth of its CUDA-event time, and
+    another trace with none), so the median and not the sum is taken, and
+    a trace that caught none is taken again; None if every try was empty."""
     from torch.profiler import ProfilerActivity, profile
 
     accept = match if callable(match) else (lambda name: match in name)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total for e in _device_events(prof) if accept(e.name)]
-    return sum(times) / iters / 1e3 if times else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time_total for e in _device_events(prof) if accept(e.name)]
+        if times:
+            return float(np.median(times)) / 1e3
+    return None
+
+
+# kernel classes of a profile: (class, a name substring that marks it)
+KERNEL_CLASSES = (("dynamic_conv", "dynamic_conv_"), ("flash", "flash_"), ("gemm", "gemm"),
+                  ("gemm", "nvjet"), ("gemm", "gemv"))
 
 
 def profile_window(fn):
-    """Device busy time and the kernels that take it while ``fn`` runs
-    (torch.profiler, device activity only), beside the host wall time."""
+    """Device busy time, the kernels that take it and its split by kernel
+    class while ``fn`` runs (torch.profiler, device activity only), beside
+    the host wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -207,7 +293,11 @@ def profile_window(fn):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e6
     busy_s = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return wall_s, busy_s, [(name[:80], s) for name, s in top]
+    classes = {}
+    for name, sec in by_name.items():
+        cls = next((c for c, mark in KERNEL_CLASSES if mark in name), "other")
+        classes[cls] = classes.get(cls, 0.0) + sec
+    return wall_s, busy_s, [(name[:80], s) for name, s in top], classes
 
 
 def causal_pairs(t: int, s: int, causal: bool) -> int:
@@ -240,7 +330,7 @@ def backward_bound_ms(kind, bh, t, s, d, causal, dtype):
     return bound_ms(inputs + outputs, 2.0 * products * bh * causal_pairs(t, s, causal) * d, dtype)
 
 
-def random_attention_inputs(gen, bh, t, s, d, dtype, padded=True):
+def random_attention_inputs(gen, bh, t, s, d, dtype, padded=True, left=False):
     q = torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((bh, s, d), generator=gen, device="cuda").to(dtype)
     v = torch.randn((bh, s, d), generator=gen, device="cuda").to(dtype)
@@ -248,7 +338,9 @@ def random_attention_inputs(gen, bh, t, s, d, dtype, padded=True):
     if padded:  # ragged key lengths, as the batches give them
         lengths = torch.randint(s // 2, s + 1, (bh,), generator=gen, device="cuda")
         lengths[0] = s
-        bias = torch.where(torch.arange(s, device="cuda")[None, :] >= lengths[:, None], -1e9, 0.0)
+        pos = torch.arange(s, device="cuda")[None, :]
+        pads = pos < (s - lengths)[:, None] if left else pos >= lengths[:, None]
+        bias = torch.where(pads, -1e9, 0.0)
     return q, k, v, bias
 
 
@@ -355,7 +447,7 @@ def check_training_kernels(fa, philox):
     rows = []
     worst = {(kind, dtype): 0.0 for kind in ("fwd", "bwd_fused", "bwd_split")
              for dtype in (torch.float32, torch.bfloat16)}
-    for name, bh, t, s, d, causal, rate in TRAIN_KERNEL_SHAPES:
+    for name, bh, t, s, d, causal, rate, left in TRAIN_KERNEL_SHAPES:
         seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=torch.Generator().manual_seed(len(rows))))
         got, valid = kernel_keep_mask(fa, bh, t, s, causal, rate, seed)
         want = philox.keep_mask(seed, bh, t, s, rate, device="cuda")
@@ -368,7 +460,7 @@ def check_training_kernels(fa, philox):
                                  f"at {mismatches} elements")
 
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, bias = random_attention_inputs(gen, bh, t, s, d, dtype)
+            q, k, v, bias = random_attention_inputs(gen, bh, t, s, d, dtype, left=left)
             g = torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
             scale = d ** -0.5
             drop = dict(dropout_rate=rate, dropout_seed=seed)
@@ -410,7 +502,8 @@ def check_training_kernels(fa, philox):
 
             fwd = lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal, **drop)  # noqa: E731
             base = {"phase": "train_kernel_check", "shape": name, "bh": bh, "T": t, "S": s, "D": d,
-                    "causal": causal, "rate": rate, "dtype": str(dtype).replace("torch.", "")}
+                    "causal": causal, "rate": rate, "keys_padded_on_the_left": left,
+                    "dtype": str(dtype).replace("torch.", "")}
             timings = {
                 "flash_attention_fwd": dict(
                     kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd, "flash_fwd_kernel"),
@@ -453,7 +546,7 @@ def check_training_kernels(fa, philox):
 
 
 # ---------------------------------------------------------------------------
-# 5. serve
+# 6. serve
 # ---------------------------------------------------------------------------
 
 def make_request(rng, n, lo, hi, max_frames):
@@ -538,11 +631,11 @@ def serve(card, d, fa, attention, build_model, SequenceGenerator):
         model.encode(src, lengths)
         torch.cuda.synchronize()
         encode_s = time.perf_counter() - t0
-    wall_s, busy_s, top = profile_window(lambda: gen.generate([model], sample))
+    wall_s, busy_s, top, classes = profile_window(lambda: gen.generate([model], sample))
     emit({"phase": "profile", "request": name, "encode_s": encode_s,
           "decode_s_profiled": wall_s, "device_busy_s": busy_s,
           "device_idle_share_profiled": 1.0 - busy_s / wall_s,
-          "top_kernels_s": top, "card": card})
+          "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
 
     # flash route against the dense route on the first request
     batch = {"src_tokens": src, "src_lengths": lengths,
@@ -590,7 +683,7 @@ def serve(card, d, fa, attention, build_model, SequenceGenerator):
 
 
 # ---------------------------------------------------------------------------
-# 6. train
+# 7. train
 # ---------------------------------------------------------------------------
 
 def train_args(**overrides):
@@ -724,9 +817,9 @@ def train(card, d, fa, modules):
           "loss_per_token_last5": last, "gnorm_last": gnorms[-1], "lr_last": float(outs[-1]["lr"]),
           "card": card})
 
-    wall_s, busy_s, top = profile_window(lambda: trainer.train_step([sample]))
+    wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
     emit({"phase": "train_profile", "step_s": wall_s, "device_busy_s": busy_s,
-          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "card": card})
+          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
 
     # the split backward: the same path with FUSED_BWD = False
     fa.FUSED_BWD = False
@@ -785,7 +878,7 @@ def compare_steps(label, a, b, forward, lr=0.002):
     pa = dict(model_a.named_parameters())
     num = den = 0.0
     max_dp = 0.0
-    moved_apart = 0
+    apart = {}
     for name, p in model_b.named_parameters():
         q = pa[name]
         ga, gb = q.grad.detach().double().cpu(), p.grad.detach().double().cpu()
@@ -793,13 +886,15 @@ def compare_steps(label, a, b, forward, lr=0.002):
         den += float(ga.square().sum())
         dp = (q.detach().cpu() - p.detach().cpu()).abs()
         max_dp = max(max_dp, float(dp.max()))
-        moved_apart += int((dp > lr).sum())
+        apart[name] = int((dp > lr).sum())
+    moved_apart = sum(apart.values())
+    most_apart = sorted(((n, c) for n, c in apart.items() if c), key=lambda nc: -nc[1])[:4]
     grad_rel = (num / max(den, 1e-30)) ** 0.5
     rtol = RTOL_STEP_GRAD[forward]
     row = {"phase": "train_step_check", "check": label, "loss": [loss_a, loss_b], "gnorm": [gn_a, gn_b],
            "loss_rel_err": abs(loss_a - loss_b) / abs(loss_b), "gnorm_rel_err": abs(gn_a - gn_b) / abs(gn_b),
            "grad_global_rel_diff": grad_rel, "max_param_abs_diff": max_dp,
-           "param_elements_apart_by_more_than_lr": moved_apart,
+           "param_elements_apart_by_more_than_lr": moved_apart, "most_apart": most_apart,
            "loss_rtol": RTOL_STEP_LOSS, "grad_rtol": rtol}
     emit(row)
     if not (row["loss_rel_err"] <= RTOL_STEP_LOSS and row["gnorm_rel_err"] <= rtol
@@ -834,6 +929,340 @@ def check_train_steps(d, fa, attention, modules):
 
 
 # ---------------------------------------------------------------------------
+# 5. dynamic-conv kernels
+# ---------------------------------------------------------------------------
+
+def valid_taps(t: int, k: int, padding_l: int) -> int:
+    """(position, tap) pairs whose input t + tap - padding_l lies in [0, T):
+    the multiply-adds a channel needs (taps on the zero halo need none)."""
+    return sum(max(0, min(t, pos + k - padding_l) - max(0, pos - padding_l)) for pos in range(t))
+
+
+def dconv_bound_ms(kind, b, t, c, h, k, padding_l, dtype):
+    """The forward moves x, w in and out back; the backward x, w, g in and
+    dx, dw out. Multiply-adds: B C valid_taps for out, twice that for dx
+    and dw."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    xs, ws = b * t * c, b * t * h * k
+    nbytes = item * ((2 * xs + ws) if kind == "fwd" else (3 * xs + 2 * ws))
+    macs = b * c * valid_taps(t, k, padding_l) * (1 if kind == "fwd" else 2)
+    return bound_ms(nbytes, 2.0 * macs, dtype)
+
+
+def check_dconv_kernels(dconv):
+    """Each dynamic-conv call in fp32 and bf16: the forward and the backward
+    against the plain versions on the same inputs; times and bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    worst = {(kind, dtype): 0.0 for kind in ("fwd", "bwd") for dtype in (torch.float32, torch.bfloat16)}
+    for name, b, t, c, h, k, pad_l in DCONV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
+            w = torch.softmax(torch.randn((b, t, h, k), generator=gen, device="cuda"), dim=-1).to(dtype)
+            g = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
+            out_k = dconv.dynamic_conv(x, w, pad_l)
+            dx_k, dw_k = dconv.dynamic_conv_backward(x, w, g, pad_l)
+            out_p = dconv.dynamic_conv_reference(x, w, pad_l)
+            dx_p, dw_p = dconv.dynamic_conv_backward_reference(x, w, g, pad_l)
+            torch.cuda.synchronize()
+            err = lambda a, b_: (a.float() - b_.float()).abs().max().item()  # noqa: E731
+            errs = {"fwd": err(out_k, out_p), "dx": err(dx_k, dx_p), "dw": err(dw_k, dw_p)}
+            dw_tol = RTOL_DW[dtype] * dw_p.float().abs().max().item()
+            ok = errs["fwd"] <= ATOL_KERNEL[dtype] and errs["dx"] <= ATOL_GRAD[dtype] and errs["dw"] <= dw_tol
+            worst[("fwd", dtype)] = max(worst[("fwd", dtype)], errs["fwd"])
+            worst[("bwd", dtype)] = max(worst[("bwd", dtype)], errs["dx"], errs["dw"])
+            base = {"phase": "dconv_kernel_check", "shape": name, "B": b, "T": t, "C": c, "H": h, "K": k,
+                    "padding_l": pad_l, "dtype": str(dtype).replace("torch.", ""), "library_ms": None}
+            fwd = lambda: dconv.dynamic_conv(x, w, pad_l)  # noqa: E731
+            bwd = lambda: dconv.dynamic_conv_backward(x, w, g, pad_l)  # noqa: E731
+            timings = {
+                "dynamic_conv_fwd": dict(
+                    kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd, "dynamic_conv_fwd_kernel"),
+                    plain_ms=time_ms(lambda: dconv.dynamic_conv_reference(x, w, pad_l)),
+                    max_abs_err=errs["fwd"], atol=ATOL_KERNEL[dtype],
+                    bound=dconv_bound_ms("fwd", b, t, c, h, k, pad_l, dtype)),
+                "dynamic_conv_bwd": dict(
+                    kernel_ms=time_ms(bwd), kernel_device_ms=device_ms(bwd, "dynamic_conv_bwd_kernel"),
+                    plain_ms=time_ms(lambda: dconv.dynamic_conv_backward_reference(x, w, g, pad_l)),
+                    max_abs_err=max(errs["dx"], errs["dw"]), dx_max_abs_err=errs["dx"],
+                    dw_max_abs_err=errs["dw"], atol=ATOL_GRAD[dtype], dw_tol=dw_tol,
+                    bound=dconv_bound_ms("bwd", b, t, c, h, k, pad_l, dtype)),
+            }
+            for kernel, tm in timings.items():
+                tm["bound_ms"], tm["bound_by"] = tm.pop("bound")
+                row = {**base, "kernel": kernel, **tm}
+                emit(row)
+                rows.append(row)
+            if not ok:
+                raise AssertionError(f"dynamic conv disagrees with its plain version at {name} {dtype}: "
+                                     f"{errs}, dw tolerance {dw_tol}")
+    return rows, worst
+
+
+# ---------------------------------------------------------------------------
+# 9.-11. the lightconv paths
+# ---------------------------------------------------------------------------
+
+def lc_dictionary(Dictionary):
+    d = Dictionary()
+    for i in range(LC_VOCAB - 4):
+        d.add_symbol(f"tok{i}")
+    d.finalize(padding_factor=8)
+    return d
+
+
+def text_pairs(rng, n, lo, hi, vocab, tgt=None):
+    """n random sentences of lo-hi tokens (the last one eos), and targets
+    of ``tgt`` = (lo, hi) tokens when given; the first source is hi long."""
+    lengths = rng.randint(lo, hi + 1, size=n)
+    lengths[0] = hi
+    src = [np.append(rng.randint(4, vocab, size=m - 1), 2) for m in lengths]
+    if tgt is None:
+        return src, None
+    tgt_lengths = rng.randint(tgt[0], tgt[1] + 1, size=n)
+    return src, [np.append(rng.randint(4, vocab, size=m - 1), 2) for m in tgt_lengths]
+
+
+def collate(LanguagePairDataset, src_dict, tgt_dict, src, tgt=None):
+    """The port's collater over all pairs (sources padded on the left)."""
+    ds = LanguagePairDataset(src, [len(s) for s in src], src_dict, tgt,
+                             None if tgt is None else [len(t) for t in tgt], tgt_dict)
+    return ds.collater([ds[i] for i in range(len(src))])
+
+
+def launch_counts(fa, dconv):
+    return {"flash_fwd": fa.launches_fwd, "flash_bwd_fused": fa.launches_bwd_fused,
+            "flash_bwd_dq": fa.launches_bwd_dq, "flash_bwd_dkv": fa.launches_bwd_dkv,
+            "dconv_fwd": dconv.launches_fwd, "dconv_bwd": dconv.launches_bwd}
+
+
+def reset_counts(fa, dconv):
+    fa.reset_launches()
+    dconv.reset_launches()
+
+
+def serve_lightconv(card, dicts, fa, dconv, modules):
+    build_model, SequenceGenerator = modules["build_model"], modules["SequenceGenerator"]
+    LanguagePairDataset = modules["LanguagePairDataset"]
+    src_dict, tgt_dict = dicts
+    model = build_model(LC_ARCH, tgt_dict, src_dict, seed=0)
+    params = sum(p.numel() for p in model.parameters())
+    cfg = model.cfg
+    emit({"phase": "lightconv_model", "arch": LC_ARCH, "params": params, "embed_dim": cfg.embed_dim,
+          "ffn_dim": cfg.ffn_dim, "heads": cfg.encoder_layers[0].heads, "conv_dim": cfg.encoder_layers[0].conv_dim,
+          "encoder_kernels": [lc.kernel_size for lc in cfg.encoder_layers],
+          "decoder_kernels": [lc.kernel_size for lc in cfg.decoder_layers],
+          "glu": cfg.encoder_layers[0].glu, "dropout": cfg.dropout,
+          "attention_dropout": cfg.encoder_layers[0].attention_dropout,
+          "weight_dropout": cfg.encoder_layers[0].weight_dropout,
+          "input_dropout": cfg.encoder_layers[0].input_dropout,
+          "src_vocab": cfg.src_vocab, "tgt_vocab": cfg.tgt_vocab, "use_kernel": model.use_kernel})
+    gen = SequenceGenerator(tgt_dict, beam_size=BEAM, max_len_b=MAX_LEN_B)
+    rng = np.random.RandomState(3)
+    requests = [(name, collate(LanguagePairDataset, src_dict, tgt_dict, text_pairs(rng, n, lo, hi, LC_VOCAB)[0]))
+                for name, n, lo, hi in (("wmt_32x10-60", 32, 10, 60), ("long_8x200-250", 8, 200, 250),
+                                        ("single_1x30", 1, 30, 30))]
+    gen.generate([model], requests[2][1])  # warm-up
+
+    reset_counts(fa, dconv)
+    served = []
+    for name, sample in requests:
+        before = launch_counts(fa, dconv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hypos = gen.generate([model], sample)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        n = len(sample["net_input"]["src_lengths"])
+        check_hypotheses(hypos, tgt_dict.eos(), n)
+        grew = {k: v - before[k] for k, v in launch_counts(fa, dconv).items()}
+        want = {k: DCONV_LAUNCHES_PER_REQUEST if k == "dconv_fwd" else 0 for k in grew}
+        if grew != want:
+            raise AssertionError(f"{name}: launches grew by {grew}, expected {want}")
+        src_tokens = int(sample["net_input"]["src_lengths"].sum())
+        served.append((name, sample, hypos))
+        emit({"phase": "serve_lightconv", "request": name, "sentences": n, "decode_s": decode_s,
+              "source_tokens": src_tokens, "source_tokens_per_s": src_tokens / decode_s,
+              "launches": grew, "mean_hyp_len": float(np.mean([len(s[0]["tokens"]) for s in hypos])),
+              "card": card})
+    launches = launch_counts(fa, dconv)
+
+    name, sample, hypos = served[0]
+    wall_s, busy_s, top, classes = profile_window(lambda: gen.generate([model], sample))
+    emit({"phase": "profile_lightconv", "request": name, "decode_s_profiled": wall_s, "device_busy_s": busy_s,
+          "device_idle_share_profiled": 1.0 - busy_s / wall_s, "top_kernels_s": top,
+          "busy_by_class_s": classes, "card": card})
+
+    # the kernel route against the plain route of the dynamic conv
+    def teacher_forced(sample, hypos, device="cuda"):
+        net = sample["net_input"]
+        return {"src_tokens": torch.as_tensor(net["src_tokens"], device=device),
+                "src_lengths": torch.as_tensor(net["src_lengths"], device=device),
+                "prev_output_tokens": torch.as_tensor(
+                    teacher_forced_tokens(hypos, tgt_dict.pad(), tgt_dict.eos()), device=device)}
+
+    for name, sample, hypos in served:
+        batch = teacher_forced(sample, hypos)
+        with torch.no_grad():
+            logits_k, extra_k = model(batch)
+            model.use_kernel = False
+            logits_p, extra_p = model(batch)
+            hypos_p = gen.generate([model], sample)
+            model.use_kernel = True
+        enc_err = (extra_k["encoder_out"].encoder_out - extra_p["encoder_out"].encoder_out).abs().max().item()
+        logit_err = (logits_k - logits_p).abs().max().item()
+        same = sum(list(a[0]["tokens"]) == list(b[0]["tokens"]) for a, b in zip(hypos, hypos_p))
+        del logits_k, logits_p
+        emit({"phase": "lightconv_kernel_vs_plain", "request": name, "encoder_max_abs_err": enc_err,
+              "logits_max_abs_err": logit_err, "atol": ATOL_MODEL,
+              "identical_top_hypotheses": f"{same}/{len(hypos)}"})
+        if not (enc_err <= ATOL_MODEL and logit_err <= ATOL_MODEL and same == len(hypos)):
+            raise AssertionError(f"{name}: the dynamic conv's kernel and plain routes disagree on the "
+                                 "full-width model")
+
+    # the card against the plain CPU path on 2 sentences
+    two_src, _ = text_pairs(np.random.RandomState(4), 2, 20, 30, LC_VOCAB)
+    two = collate(LanguagePairDataset, src_dict, tgt_dict, two_src)
+    hypos_two = gen.generate([model], two)
+    cpu_model = build_model(LC_ARCH, tgt_dict, src_dict, device="cpu", seed=0)
+    with torch.no_grad():
+        logits_cpu, extra_cpu = cpu_model(teacher_forced(two, hypos_two, "cpu"))
+        logits_gpu, extra_gpu = model(teacher_forced(two, hypos_two))
+    enc_err = (extra_gpu["encoder_out"].encoder_out.cpu() - extra_cpu["encoder_out"].encoder_out).abs().max().item()
+    logit_err = (logits_gpu.cpu() - logits_cpu).abs().max().item()
+    hypos_cpu = gen.generate([cpu_model], two)
+    same = sum(list(a[0]["tokens"]) == list(b[0]["tokens"]) for a, b in zip(hypos_two, hypos_cpu))
+    emit({"phase": "lightconv_card_vs_cpu", "sentences": 2, "encoder_max_abs_err": enc_err,
+          "logits_max_abs_err": logit_err, "atol": ATOL_MODEL, "identical_top_hypotheses": f"{same}/2"})
+    if not (enc_err <= ATOL_MODEL and logit_err <= ATOL_MODEL):
+        raise AssertionError("the card and the plain CPU path disagree on the full-width lightconv model")
+    return launches
+
+
+def lightconv_train_flops(cfg, batch, src_len, tgt_len):
+    """FLOPs of one lightconv train step: 3x the forward's, 2 per
+    multiply-add, at the padded shapes (B, S source, L target tokens;
+    E embed, Cd conv_dim, F ffn, H heads, K taps, V target vocabulary):
+
+      conv layer on N tokens: 2 B N E Cd (x2 with GLU) + 2 B N Cd H K
+          (kernel prediction) + 2 B N Cd K (band) + 2 B N Cd E + 4 B N E F
+      decoder layer adds encoder attention: 4 B L E^2 (q, out)
+          + 4 B S E^2 (k, v) + 4 B L S E
+      output projection: 2 B L E V
+    """
+    def conv_layer(lc, n):
+        lin1 = 2 * lc.conv_dim if lc.glu else lc.conv_dim
+        return batch * n * (2.0 * lc.embed_dim * lin1 + 2.0 * lc.conv_dim * lc.heads * lc.kernel_size
+                            + 2.0 * lc.conv_dim * lc.kernel_size + 2.0 * lc.conv_dim * lc.embed_dim
+                            + 4.0 * lc.embed_dim * lc.ffn_dim)
+
+    e = cfg.embed_dim
+    fwd = sum(conv_layer(lc, src_len) for lc in cfg.encoder_layers)
+    fwd += sum(conv_layer(lc, tgt_len) + 4.0 * batch * tgt_len * e * e + 4.0 * batch * src_len * e * e
+               + 4.0 * batch * tgt_len * src_len * e for lc in cfg.decoder_layers)
+    fwd += 2.0 * batch * tgt_len * e * cfg.tgt_vocab
+    return 3.0 * fwd
+
+
+def lc_train_sample(modules, dicts, rng, batch):
+    src_dict, tgt_dict = dicts
+    src, tgt = text_pairs(rng, batch, *LC_TRAIN_LEN, LC_VOCAB, tgt=LC_TRAIN_LEN)
+    return collate(modules["LanguagePairDataset"], src_dict, tgt_dict, src, tgt)
+
+
+def staged_text(sample, device="cuda"):
+    """The collated sample's arrays on the device ahead of the step."""
+    put = lambda x: torch.as_tensor(x).to(device)  # noqa: E731
+    return {**sample, "target": put(sample["target"]),
+            "net_input": {k: put(v) for k, v in sample["net_input"].items()}}
+
+
+def lc_train_args(**overrides):
+    return train_args(arch=LC_ARCH, max_source_positions=1024, max_target_positions=1024, **overrides)
+
+
+def train_lightconv(card, dicts, fa, dconv, modules):
+    Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
+    args = lc_train_args()
+    task = TranslationTask(args, *dicts)
+    model = task.build_model(args)
+    trainer = Trainer(args, task, model, task.build_criterion(args))
+    sample = staged_text(lc_train_sample(modules, dicts, np.random.RandomState(5), LC_TRAIN_BATCH))
+    net = sample["net_input"]
+    src_len, tgt_len = net["src_tokens"].shape[1], net["prev_output_tokens"].shape[1]
+    flops = lightconv_train_flops(model.cfg, LC_TRAIN_BATCH, src_len, tgt_len)
+
+    outs = [trainer.train_step([sample]) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts(fa, dconv)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LC_TIMED_STEPS):
+            outs.append(trainer.train_step([sample]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) / LC_TIMED_STEPS * 1e3)
+    launches = launch_counts(fa, dconv)
+    steps = REPEATS * LC_TIMED_STEPS
+    want = {"flash_fwd": LC_FLASH_LAUNCHES_PER_STEP * steps, "flash_bwd_fused": LC_FLASH_LAUNCHES_PER_STEP * steps,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "dconv_fwd": DCONV_LAUNCHES_PER_STEP * steps, "dconv_bwd": DCONV_LAUNCHES_PER_STEP * steps}
+    if launches != want:
+        raise AssertionError(f"lightconv train launches {launches}, expected {want} over {steps} steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    per_token = [float(o["loss"]) / float(o["sample_size"]) for o in outs]
+    gnorms = [float(o["gnorm"]) for o in outs]
+    if not (np.isfinite(per_token).all() and np.isfinite(gnorms).all()):
+        raise AssertionError("non-finite loss or gnorm in the lightconv train phase")
+    first, last = float(np.mean(per_token[1:6])), float(np.mean(per_token[-5:]))
+    if not last < first:
+        raise AssertionError(f"the lightconv loss did not fall on a fixed batch: {first} -> {last}")
+    median = float(np.median(step_ms))
+    tgt_tokens = int(sample["ntokens"])
+    emit({"phase": "train_lightconv", "arch": LC_ARCH, "batch": LC_TRAIN_BATCH, "src_len": src_len,
+          "tgt_len": tgt_len, "target_tokens": tgt_tokens, "dtype": "bfloat16",
+          "step_ms_median": median, "step_ms_repeats": step_ms, "step_ms_spread": max(step_ms) - min(step_ms),
+          "target_tokens_per_s": tgt_tokens / (median / 1e3), "flops_per_step": flops,
+          "mfu": flops / (median / 1e3) / PEAK_BF16, "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "peak_memory_gb": peak_gb, "loss_per_token_first": per_token[0], "loss_per_token_steps_1_5": first,
+          "loss_per_token_last5": last, "gnorm_last": gnorms[-1], "lr_last": float(outs[-1]["lr"]), "card": card})
+
+    wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
+    emit({"phase": "train_lightconv_profile", "step_s": wall_s, "device_busy_s": busy_s,
+          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
+    return launches
+
+
+def one_lc_step(dicts, modules, device, sample, use_kernel, deterministic=False):
+    """A fresh full-width fp32 lightconv (seed 1) after one train step with
+    lr 2e-3 from the first update; returns (model, step outputs)."""
+    Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
+    args = lc_train_args(bf16=False, dropout=0.0, attention_dropout=0.0, relu_dropout=0.0,
+                         weight_dropout=0.0, input_dropout=0.0, warmup_updates=1, warmup_init_lr=0.002)
+    task = TranslationTask(args, *dicts)
+    model = task.build_model(args, device=device)
+    model.use_kernel = use_kernel
+    criterion = task.build_criterion(args)
+    trainer = Trainer(args, task, model, _EvalCriterion(criterion) if deterministic else criterion)
+    return model, trainer.train_step([sample])
+
+
+def check_lightconv_steps(dicts, modules):
+    sample = staged_text(lc_train_sample(modules, dicts, np.random.RandomState(6), 32))
+    kernel = one_lc_step(dicts, modules, "cuda", sample, use_kernel=True)
+    plain = one_lc_step(dicts, modules, "cuda", sample, use_kernel=False)
+    compare_steps("lightconv_kernel_vs_plain", kernel, plain, "other_forward")
+    del kernel, plain
+    small = lc_train_sample(modules, dicts, np.random.RandomState(7), 2)
+    cpu = one_lc_step(dicts, modules, "cpu", staged_text(small, "cpu"), use_kernel=False, deterministic=True)
+    card = one_lc_step(dicts, modules, "cuda", staged_text(small), use_kernel=True, deterministic=True)
+    compare_steps("lightconv_card_vs_cpu", card, cpu, "other_forward")
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entry(name, source, replaces, launches, rows, worst_fp32, worst_bf16, timed_at):
     head = next(r for r in rows if r["kernel"] == name and r["shape"] == timed_at[0]
@@ -849,22 +1278,42 @@ def kernel_entry(name, source, replaces, launches, rows, worst_fp32, worst_bf16,
     }
 
 
+def dconv_entry(name, launches, rows, worst_fp32, worst_bf16, timed_at):
+    head = next(r for r in rows if r["kernel"] == name and r["shape"] == timed_at[0]
+                and r["dtype"] == timed_at[1])
+    return {
+        "name": name, "route": "cuda", "source": "fbk_fairseq_st_tpu_torch/ops/kernels/csrc/dynamic_conv.cu",
+        "replaces": "fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py:24",
+        "launches": launches, "max_abs_err": worst_fp32, "max_abs_err_bf16": worst_bf16,
+        "ms": head["kernel_ms"], "device_ms": head["kernel_device_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "timed_at": f"{timed_at[0]} B{head['B']} T{head['T']} C{head['C']} H{head['H']} K{head['K']} "
+                    f"padding_l {head['padding_l']} {timed_at[1]}",
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
-    from fbk_fairseq_st_tpu_torch.data import Dictionary
+    from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset
     from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator
+    from fbk_fairseq_st_tpu_torch.models import build_model as build_any_model
     from fbk_fairseq_st_tpu_torch.models.conv_transformer import build_model
     from fbk_fairseq_st_tpu_torch.ops import attention
     from fbk_fairseq_st_tpu_torch.ops.kernels import build as kernel_build
+    from fbk_fairseq_st_tpu_torch.ops.kernels import dynamic_conv as dconv
     from fbk_fairseq_st_tpu_torch.ops.kernels import flash_attention as fa
     from fbk_fairseq_st_tpu_torch.ops.kernels import philox
-    from fbk_fairseq_st_tpu_torch.tasks import SpeechRecognitionTask
+    from fbk_fairseq_st_tpu_torch.tasks import SpeechRecognitionTask, TranslationTask
     from fbk_fairseq_st_tpu_torch.train import Trainer
 
-    modules = {"Trainer": Trainer, "SpeechRecognitionTask": SpeechRecognitionTask}
+    modules = {"Trainer": Trainer, "SpeechRecognitionTask": SpeechRecognitionTask,
+               "TranslationTask": TranslationTask, "LanguagePairDataset": LanguagePairDataset,
+               "SequenceGenerator": SequenceGenerator, "build_model": build_any_model}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -882,19 +1331,30 @@ def main() -> int:
         d.add_symbol(f"tok{i}")
     d.finalize(padding_factor=8)
 
-    # 3. and 4. kernels against their plain versions
+    # 3.-5. kernels against their plain versions
     _, serve_worst = check_serving_kernels(fa)
     rows, worst = check_training_kernels(fa, philox)
     for dtype in (torch.float32, torch.bfloat16):
         worst[("fwd", dtype)] = max(worst[("fwd", dtype)], serve_worst[dtype])
-    # 5.-7. the two main paths and the train-step cross-checks
+    dconv_rows, dconv_worst = check_dconv_kernels(dconv)
+    # 6.-11. the four main paths and the train-step cross-checks
     serve_launches = serve(card, d, fa, attention, build_model, SequenceGenerator)
     train_launches = train(card, d, fa, modules)
     check_train_steps(d, fa, attention, modules)
+    torch.cuda.empty_cache()
+    lc_dicts = (lc_dictionary(Dictionary), lc_dictionary(Dictionary))
+    lc_serve_launches = serve_lightconv(card, lc_dicts, fa, dconv, modules)
+    torch.cuda.empty_cache()
+    lc_train_launches = train_lightconv(card, lc_dicts, fa, dconv, modules)
+    torch.cuda.empty_cache()
+    check_lightconv_steps(lc_dicts, modules)
 
-    # 8. kernels line, card line, ok line
-    launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
-    emit({"phase": "main_path_launches", "serve": serve_launches, "train": train_launches})
+    # 12. kernels line, card line, ok line
+    launches = {k: serve_launches[k] + train_launches[k] + lc_serve_launches[f"flash_{k}"]
+                + lc_train_launches[f"flash_{k}"] for k in serve_launches}
+    launches.update({k: lc_serve_launches[k] + lc_train_launches[k] for k in ("dconv_fwd", "dconv_bwd")})
+    emit({"phase": "main_path_launches", "serve": serve_launches, "train": train_launches,
+          "serve_lightconv": lc_serve_launches, "train_lightconv": lc_train_launches})
     for k, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path launched no {k} kernel")
@@ -912,6 +1372,14 @@ def main() -> int:
         kernel_entry("flash_attention_bwd_dkv", csrc + "flash_bwd.cu", pallas + "386", launches["bwd_dkv"],
                      rows, worst[("bwd_split", f32)], worst[("bwd_split", b16)], timed_at),
     ]
+    dconv_at = ("train_k31_centred", "bfloat16")
+    kernels += [
+        dconv_entry("dynamic_conv_fwd", launches["dconv_fwd"], dconv_rows, dconv_worst[("fwd", f32)],
+                    dconv_worst[("fwd", b16)], dconv_at),
+        dconv_entry("dynamic_conv_bwd", launches["dconv_bwd"], dconv_rows, dconv_worst[("bwd", f32)],
+                    dconv_worst[("bwd", b16)], dconv_at),
+    ]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

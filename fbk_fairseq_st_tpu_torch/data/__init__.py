@@ -1,3 +1,4 @@
 from .dictionary import Dictionary
+from .language_pair_dataset import LanguagePairDataset, collate_tokens
 
-__all__ = ["Dictionary"]
+__all__ = ["Dictionary", "LanguagePairDataset", "collate_tokens"]

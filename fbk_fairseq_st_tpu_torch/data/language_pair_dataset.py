@@ -1,0 +1,122 @@
+"""Text translation pairs and their collater, numpy only.
+
+The port's own copy of ``fbk_fairseq_st_tpu/data/language_pair_dataset.py``
+(``__getitem__`` :57, ``collater`` :72-142) and of
+``data/datasets.py::collate_tokens`` (:71), as the serving and training
+paths of a text model need them (reference fairseq/data/
+language_pair_dataset.py:17-110):
+
+  * sources padded on the left by default, targets on the right;
+  * rows sorted by descending source length (a stable sort);
+  * ``prev_output_tokens`` is the target with its last token (eos) moved
+    to the front;
+  * ``pad_to_src_len`` / ``pad_to_tgt_len`` / ``pad_to_bsz`` pad to fixed
+    shapes (extra rows get id -1, pads and length 0).
+
+Alignments, size filtering, the batch order of an epoch and the options
+no port caller sets yet (``input_feeding``, ``append_eos_to_target``, an
+``eos`` other than </s>) come with the wiring (ROADMAP Queue A9).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+
+
+def collate_tokens(values: List[np.ndarray], pad_idx: int, eos_idx: Optional[int] = None,
+                   left_pad: bool = False, move_eos_to_beginning: bool = False,
+                   pad_to_length: Optional[int] = None) -> np.ndarray:
+    """Pad a list of 1-D token arrays into a (B, T) int64 batch. With
+    ``move_eos_to_beginning`` each row's last token (its terminator) moves
+    to the front."""
+    size = max(len(v) for v in values)
+    if pad_to_length is not None:
+        size = max(size, pad_to_length)
+    res = np.full((len(values), size), pad_idx, dtype=np.int64)
+    for i, v in enumerate(values):
+        v = np.asarray(v)
+        if move_eos_to_beginning:
+            v = np.concatenate([v[-1:], v[:-1]])
+        if left_pad:
+            res[i, size - len(v):] = v
+        else:
+            res[i, :len(v)] = v
+    return res
+
+
+class LanguagePairDataset:
+    """``src`` / ``tgt``: sequences of 1-D token-id arrays (each ending in
+    eos), with their sizes, as the JAX constructor takes them."""
+
+    def __init__(self, src, src_sizes, src_dict, tgt=None, tgt_sizes=None, tgt_dict=None,
+                 left_pad_source: bool = True, left_pad_target: bool = False):
+        self.src = src
+        self.tgt = tgt
+        self.src_sizes = np.array(src_sizes)
+        self.tgt_sizes = np.array(tgt_sizes) if tgt_sizes is not None else None
+        self.src_dict = src_dict
+        self.tgt_dict = tgt_dict if tgt_dict is not None else src_dict
+        self.left_pad_source = left_pad_source
+        self.left_pad_target = left_pad_target
+
+    def __getitem__(self, index: int):
+        tgt_item = np.asarray(self.tgt[index]) if self.tgt is not None else None
+        return {"id": index, "source": np.asarray(self.src[index]), "target": tgt_item}
+
+    def __len__(self) -> int:
+        return len(self.src)
+
+    def collater(self, samples, pad_to_src_len: Optional[int] = None,
+                 pad_to_tgt_len: Optional[int] = None, pad_to_bsz: Optional[int] = None):
+        """A list of ``__getitem__`` items -> {id, nsentences, ntokens,
+        net_input: {src_tokens, src_lengths, prev_output_tokens}, target}
+        as numpy arrays."""
+        if len(samples) == 0:
+            return {}
+        pad_idx = self.src_dict.pad()
+        ids = np.array([s["id"] for s in samples], dtype=np.int64)
+        src_tokens = collate_tokens([s["source"] for s in samples], pad_idx, self.src_dict.eos(),
+                                    left_pad=self.left_pad_source, pad_to_length=pad_to_src_len)
+        src_lengths = np.array([len(s["source"]) for s in samples], np.int64)
+        sort_order = np.argsort(-src_lengths, kind="stable")
+        ids, src_tokens, src_lengths = ids[sort_order], src_tokens[sort_order], src_lengths[sort_order]
+
+        target = prev_output_tokens = None
+        ntokens = int(src_lengths.sum())
+        if samples[0].get("target") is not None:
+            tgt_pad, tgt_eos = self.tgt_dict.pad(), self.tgt_dict.eos()
+            targets = [s["target"] for s in samples]
+            target = collate_tokens(targets, tgt_pad, tgt_eos, left_pad=self.left_pad_target,
+                                    pad_to_length=pad_to_tgt_len)[sort_order]
+            ntokens = int(sum(len(t) for t in targets))
+            prev_output_tokens = collate_tokens(
+                targets, tgt_pad, tgt_eos, left_pad=self.left_pad_target, move_eos_to_beginning=True,
+                pad_to_length=pad_to_tgt_len)[sort_order]
+
+        nsentences = len(samples)
+        if pad_to_bsz is not None and pad_to_bsz > nsentences:
+            extra = pad_to_bsz - nsentences
+
+            def pad_rows(a, fill):
+                if a is None:
+                    return None
+                return np.concatenate([a, np.full((extra,) + a.shape[1:], fill, a.dtype)])
+
+            ids = pad_rows(ids, -1)
+            src_tokens = pad_rows(src_tokens, pad_idx)
+            src_lengths = pad_rows(src_lengths, 0)
+            target = pad_rows(target, self.tgt_dict.pad())
+            prev_output_tokens = pad_rows(prev_output_tokens, self.tgt_dict.pad())
+
+        batch = {
+            "id": ids,
+            "nsentences": nsentences,
+            "ntokens": ntokens,
+            "net_input": {"src_tokens": src_tokens, "src_lengths": src_lengths},
+            "target": target,
+        }
+        if prev_output_tokens is not None:
+            batch["net_input"]["prev_output_tokens"] = prev_output_tokens
+        return batch

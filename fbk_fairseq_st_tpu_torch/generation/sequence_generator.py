@@ -13,13 +13,18 @@ the same decision procedure:
   * eos candidates within the top K finalize into K slots with the score
     normalized by (step+1)**len_penalty; the remaining top K non-eos
     candidates continue (the active-mask / blacklist mechanics);
-  * finished sentences keep their rows frozen; the self-attention caches
-    are reordered by one flat (B*K) gather.
+  * finished sentences keep their rows frozen; every model's incremental
+    caches follow the surviving beams by one flat (B*K) order, which the
+    model applies in its ``reorder_cache(cache, order)`` (fairseq's
+    ``reorder_incremental_state``; the JAX loop gathers every cache leaf).
 
-The loop stops when every sentence is finished or step > max_len, which
-costs one host sync per step. The cross-attention caches are not
-reordered: the flat order only permutes rows within a sentence, whose
-encoder K/V rows are identical, so the gather would return the same tensor.
+The source is whatever the models' ``encode`` takes: (B, T, F) fbank frames
+for conv_transformer, (B, T) token ids for lightconv. The loop stops when
+every sentence is finished or step > max_len, which costs one host sync per
+step. A model may leave caches that hold only encoder rows (the
+cross-attention K/V) as they are: the flat order only permutes rows within
+a sentence, whose encoder rows are identical, so the gather would return
+the same tensor.
 """
 
 from __future__ import annotations
@@ -55,6 +60,10 @@ class EnsembleModel:
             m.init_cache(batch, max_len, enc, dtype)
             for m, enc in zip(self.models, encoder_outs)
         ]
+
+    def reorder_caches(self, caches, order) -> None:
+        for m, cache in zip(self.models, caches):
+            m.reorder_cache(cache, order)
 
     def forward_decoder(self, tokens, encoder_outs, caches, step: int):
         """tokens (BK, 1) -> averaged log-probs (BK, V); caches are written
@@ -114,8 +123,9 @@ class SequenceGenerator:
     @torch.no_grad()
     def generate(self, models, sample, prefix_tokens=None) -> List[List[dict]]:
         """models: a list of models (or an EnsembleModel), in eval mode, all
-        on one device; sample: {"net_input": {"src_tokens": (B, T, F),
-        "src_lengths": (B,)}} as tensors or numpy arrays.
+        on one device; sample: {"net_input": {"src_tokens", "src_lengths":
+        (B,)}} as tensors or numpy arrays, src_tokens (B, T, F) fbank frames
+        or (B, T) token ids as the models take them.
 
         Returns, per sentence, up to ``beam`` hypo dicts sorted by score
         descending: {tokens, score, positional_scores, alignment}."""
@@ -270,14 +280,10 @@ class SequenceGenerator:
             blacklist = torch.where(frozen, blacklist, new_blacklist)
             origin = torch.where(frozen, origin, new_origin)
 
-            # reorder the self-attention caches: one flat (B*K) gather
+            # reorder the incremental caches: one flat (B*K) order
             flat_order = (flat_base + sel_beams).reshape(-1)
             flat_order = torch.where(finished.repeat_interleave(K), identity_order, flat_order)
-            for model_caches in caches:
-                for layer_cache in model_caches:
-                    self_cache = layer_cache["self"]
-                    self_cache["k"] = self_cache["k"].index_select(0, flat_order)
-                    self_cache["v"] = self_cache["v"].index_select(0, flat_order)
+            ensemble.reorder_caches(caches, flat_order)
 
             finished = new_finished
             step += 1

@@ -1,10 +1,47 @@
+"""The port's model families and the table of their arch presets.
+
+``ARCHITECTURES`` maps each preset the port runs to its family's module,
+which has ``defaults(arch)`` and ``build_model(arch, tgt_dict,
+src_dict=None, device=None, seed=0, train=False, **overrides)``;
+``build_model`` and ``arch_defaults`` dispatch on it, and an arch that no
+family has raises ``NotImplementedError``.
+"""
+
+from typing import Any, Dict
+
+from . import conv_transformer, lightconv
 from .base import EncoderOut, reorder_encoder_out
-from .conv_transformer import ARCHITECTURES, ConvolutionalTransformerModel, build_model
+from .conv_transformer import ConvolutionalTransformerModel
+from .lightconv import LightConvModel
+
+ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv) for arch in family.ARCHITECTURES}
+
+
+def _family(arch: str):
+    if arch not in ARCHITECTURES:
+        raise NotImplementedError(
+            f"--arch {arch}: the port has the conv_transformer and lightconv families "
+            "(ROADMAP Queue A10)")
+    return ARCHITECTURES[arch]
+
+
+def arch_defaults(arch: str) -> Dict[str, Any]:
+    """The options ``arch`` reads, under the JAX package's arg names, with
+    their values when none is given."""
+    return _family(arch).defaults(arch)
+
+
+def build_model(arch: str, tgt_dict, src_dict=None, **kwargs):
+    """``arch``'s family's ``build_model``."""
+    return _family(arch).build_model(arch, tgt_dict, src_dict, **kwargs)
+
 
 __all__ = [
     "ARCHITECTURES",
     "ConvolutionalTransformerModel",
     "EncoderOut",
+    "LightConvModel",
+    "arch_defaults",
     "build_model",
     "reorder_encoder_out",
 ]

@@ -176,6 +176,9 @@ class ConvolutionalTransformerModel(nn.Module):
             tokens, cache, step, encoder_padding_mask=encoder_out.encoder_padding_mask
         )
 
+    def reorder_cache(self, cache, order) -> None:
+        self.decoder.reorder_cache(cache, order)
+
 
 # ---------------------------------------------------------------------------
 # Arch presets and construction
@@ -255,6 +258,11 @@ ARCHITECTURES = {
     "conv_transformer_big2": conv_transformer_big2,
     "conv_transformer_giant": conv_transformer_giant,
 }
+
+
+def defaults(arch: str) -> Dict[str, Any]:
+    """The options of ``arch`` with their values when none is given."""
+    return ARCHITECTURES[arch]()
 
 
 def _parse_convolutions(expr: Optional[str]) -> Tuple[Tuple[int, int, int], ...]:

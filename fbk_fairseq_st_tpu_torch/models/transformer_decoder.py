@@ -131,6 +131,15 @@ class TransformerDecoder(nn.Module):
             for layer in self.layers
         ]
 
+    def reorder_cache(self, cache: List[Dict[str, Any]], order) -> None:
+        """Gather every layer's self-attention K/V by ``order`` (B*K rows).
+        The cross K/V stay: a beam reorder only permutes rows within a
+        sentence, whose encoder rows are identical."""
+        for layer_cache in cache:
+            self_cache = layer_cache["self"]
+            self_cache["k"] = self_cache["k"].index_select(0, order)
+            self_cache["v"] = self_cache["v"].index_select(0, order)
+
     def step(self, tokens, cache, step_index: int, encoder_padding_mask=None):
         """tokens (B, 1) -> logits (B, V); the caches are written in place."""
         x = self._embed(tokens, cache[0]["self"]["k"].dtype, None, step=step_index)

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -80,3 +80,26 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _LOADED[name] = lib
         return lib
+
+
+def bind(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
+    """``load(name)`` with the ctypes ``argtypes`` of each function in
+    ``signatures`` set, each returning its ``cudaError_t`` as an int, and
+    ``lib.error_string`` bound to the source's ``<name>_error_string``."""
+    lib = load(name)
+    if not hasattr(lib, "error_string"):
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.error_string = getattr(lib, f"{name}_error_string")
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on(lib: ctypes.CDLL, fn: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize does not report it)."""
+    if err != 0:
+        msg = lib.error_string(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {err})")

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ..core import NEG_INF
 from . import philox
+from .build import bind, raise_on
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -244,7 +245,7 @@ def _forward_cuda(q, k, v, bias, scale, causal, rate, seed):
             thresh, keep_prob, seed, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(lib, "flash_fwd", err)
+    raise_on(lib, "flash_fwd", err)
     launches_fwd += 1
     return out, lse
 
@@ -275,24 +276,18 @@ def flash_attention_backward(q, k, v, bias, out, lse, grad, scale: float, causal
             dq32 = torch.zeros((bh, t, d), dtype=torch.float32, device=q.device)
             err = lib.flash_bwd_fused(*common, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                       bh, t, s, d, *tail, stream)
-            _raise_on(lib, "flash_bwd_fused", err)
+            raise_on(lib, "flash_bwd_fused", err)
             launches_bwd_fused += 1
             dq = dq32.to(q.dtype)
         else:
             dq = torch.empty_like(q)
             err = lib.flash_bwd_dq(*common, dq.data_ptr(), bh, t, s, d, *tail, stream)
-            _raise_on(lib, "flash_bwd_dq", err)
+            raise_on(lib, "flash_bwd_dq", err)
             launches_bwd_dq += 1
             err = lib.flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), bh, t, s, d, *tail, stream)
-            _raise_on(lib, "flash_bwd_dkv", err)
+            raise_on(lib, "flash_bwd_dkv", err)
             launches_bwd_dkv += 1
     return dq, dk, dv
-
-
-def _raise_on(lib, fn: str, err: int) -> None:
-    if err != 0:
-        msg = lib.error_string(err).decode()
-        raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {err})")
 
 
 _P = ctypes.c_void_p
@@ -311,14 +306,4 @@ _SIGNATURES = {
 
 
 def _library(name: str) -> ctypes.CDLL:
-    from .build import load
-
-    lib = load(name)
-    if not hasattr(lib, "error_string"):
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.error_string = getattr(lib, f"{name}_error_string")
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(name, _SIGNATURES[name])

@@ -1,16 +1,17 @@
 """Task base class: the component factory of the train step.
 
 Counterpart of ``fbk_fairseq_st_tpu/tasks/base.py`` as far as the train
-step needs it: ``build_model``, ``build_criterion`` and the
-``augment_batch`` hook (identity here). Datasets, batch iterators and the
-generator factory come with the wiring (ROADMAP Queue A9).
+step needs it: ``build_model`` (any family of ``models.ARCHITECTURES``),
+``build_criterion`` and the ``augment_batch`` hook (identity here).
+Datasets, batch iterators and the generator factory come with the wiring
+(ROADMAP Queue A9).
 """
 
 from __future__ import annotations
 
 from ..criterions import CRITERIONS, NOT_YET
 from ..device import DeviceLike
-from ..models.conv_transformer import ARCHITECTURES, build_model
+from ..models import arch_defaults, build_model
 
 
 class Task:
@@ -18,14 +19,12 @@ class Task:
         self.args = args
 
     def build_model(self, args, device: DeviceLike = None):
-        """The model of ``args.arch`` in training mode, weights from
-        ``args.seed``, on ``device`` (the CUDA card when None). The arch's
-        options are read from ``args`` under the JAX package's names."""
+        """The model of ``args.arch`` (any preset of ``models.ARCHITECTURES``)
+        in training mode, weights from ``args.seed``, on ``device`` (the CUDA
+        card when None). The arch's options are read from ``args`` under the
+        JAX package's names."""
         arch = args.arch
-        if arch not in ARCHITECTURES:
-            raise NotImplementedError(
-                f"--arch {arch}: only the conv_transformer family is ported (ROADMAP Queue A10)")
-        options = {k: getattr(args, k) for k in ARCHITECTURES[arch]() if hasattr(args, k)}
+        options = {k: getattr(args, k) for k in arch_defaults(arch) if hasattr(args, k)}
         return build_model(arch, self.target_dictionary, self.source_dictionary, device=device,
                            seed=getattr(args, "seed", 1), train=True, **options)
 

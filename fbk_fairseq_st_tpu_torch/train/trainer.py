@@ -7,7 +7,11 @@ Counterpart of ``fbk_fairseq_st_tpu/train/trainer.py`` (``train_step``
     (``_cast_batch`` :281) and the model computes in their type, each op
     casting its fp32 weight at use; master params, grads and Adam state
     stay fp32. No ``torch.autocast``, which keeps another set of ops in
-    fp32 than the JAX step does;
+    fp32 than the JAX step does. A text model (token ids in, no float
+    feature to cast) reads the step's type from the batch's
+    ``compute_dtype``, so its embeddings start in bf16 within the step and
+    the model itself keeps no type: the JAX step leaves such a model in
+    fp32 (ROADMAP Queue C), the reference fairseq casts it to bf16;
   * the update (``_apply_grads`` :341): grads / max(sample_size, 1), the
     global norm, the clip scale min(1, clip / (gnorm + 1e-6)), Adam, with
     the scheduler's lr at ``num_updates`` taken before the step;
@@ -74,7 +78,8 @@ class Trainer:
     def _device_batch(self, sample) -> Optional[Dict[str, torch.Tensor]]:
         """A collated sample (``net_input`` + ``target``, numpy arrays or
         tensors) -> a flat dict of tensors on the device; integer arrays
-        become int64 and the float features take the compute type."""
+        become int64 and the float features take the compute type, which
+        ``compute_dtype`` names for a model that has no float input."""
         if not sample:
             return None
         batch = dict(sample["net_input"])
@@ -89,6 +94,7 @@ class Trainer:
             else:
                 t = t.long()
             out[key] = t.to(self.device, non_blocking=True)
+        out["compute_dtype"] = self.compute_dtype
         return out
 
     def train_step(self, samples: List[dict]) -> Optional[Dict[str, torch.Tensor]]:

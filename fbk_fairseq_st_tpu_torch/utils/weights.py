@@ -13,6 +13,15 @@ layout:
   * ``embed_out`` -> ``output_projection.weight``;
   * (V, D) tables (embeddings, output projections) are copied as they are.
 
+Three kinds of 2-D ``weight`` leaf of the lightconv family are not linear
+weights and are copied as they are too: a lightweight convolution's (H, K)
+kernel (``...conv.weight``) and the (V, D) tables ``encoder_embed.weight``
+and ``decoder_embed.weight``. ``export_parameters`` transposes all three (a
+fault of the JAX package, ROADMAP Queue C); everywhere else the bridge and
+the export agree name for name and value for value. A dynamic conv's
+``conv.weight_linear`` is a linear and is transposed. The exceptions are
+by name among 2-D leaves only: a 4-D leaf always takes the conv layout.
+
 The tree's leaves are numpy arrays (or anything ``np.asarray`` accepts).
 """
 
@@ -46,10 +55,15 @@ _LEAF_NAMES = {
     "out_proj_b": "out_proj.bias",
     "embed_out": "output_projection.weight",
 }
+# 2-D weights that are no linear's: copied as they are
 _NO_TRANSPOSE_SUFFIX = (
     "embed_tokens.weight",
     "embed_positions.weight",
     "output_projection.weight",
+    # lightconv: (V, D) tables and the lightweight conv's (H, K) kernel
+    "encoder_embed.weight",
+    "decoder_embed.weight",
+    ".conv.weight",
 )
 
 
@@ -76,9 +90,7 @@ def fork_name(parts: List[str]) -> str:
 
 def fork_layout(name: str, arr: np.ndarray) -> np.ndarray:
     """JAX array layout -> the fork's."""
-    if name.endswith(_NO_TRANSPOSE_SUFFIX):
-        return arr
-    if arr.ndim == 2 and name.endswith("weight"):
+    if arr.ndim == 2 and name.endswith("weight") and not name.endswith(_NO_TRANSPOSE_SUFFIX):
         return arr.T  # (in, out) -> nn.Linear (out, in)
     if arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW

@@ -17,8 +17,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      calls) times per call (CUDA events), the kernel's own device time
      (torch.profiler), and the card's bound for the same work;
   4. kernels at the training shapes (the train step's four attention
-     calls at batch 128, and the lightconv decoder's encoder attention at
-     batch 64 with keys padded on the left): the forward's dropout keep
+     calls at batch 128, the lightconv decoder's encoder attention at
+     batch 64 with keys padded on the left, and the long-context step's
+     two at S 2048): the forward's dropout keep
      mask against ``philox.keep_mask`` (exactly), the forward at the
      training dropout rate, and the fused and split backwards, against the
      plain versions on the same inputs and seed, with the same times and
@@ -74,14 +75,49 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      the plain route of the dynamic conv (training mode, dropout rates 0),
      and the card against the plain CPU path on 2 pairs (eval-mode
      criterion);
- 12. the ``kernels`` line, the card line, and the final ``ok`` line.
+ 12. the single-pass kernel: ``flash_fwd_single`` against
+     ``flash_fwd_single_reference`` in fp32 (TF32 off) and bf16 at the
+     sweep's shapes (bh 32, S 2048, not causal; bh 64, S 2048, causal) at
+     every ``t_block`` the kernel takes there, and a ragged case (bh 4,
+     T 300, S 333, keys padded) at every ``t_block``, with the wrapper's,
+     the device, the plain, the SDPA and the bound times;
+ 13. the flash sweep (main path 5, the one path that runs the single-pass
+     kernel): ``scripts/bench_flash_sweep.run`` in full, its rows and the
+     inputs of the gate and FUSED_BWD decisions;
+ 14. train (main path 6), the ``bench.py::_measure_ctc_flagship``
+     configuration: ``conv_transformer_big`` with ``ctc_multi_loss`` over
+     label-smoothed CE 0.1, CTC after encoder layer 4 with weight 0.5 and
+     CTC compression, the arguments of phase 7, through
+     ``SpeechTranslationCTCTask`` -> ``Trainer.train_step`` on 128
+     utterances of 409-512 frames, 48 target and 64 transcript tokens
+     (a 700-symbol source dictionary; the task adds ``<ctc_blank>`` after
+     its symbols): step ms, frames/s, MFU, peak memory, exactly 20 flash
+     forward and 20 fused backward launches a step, the loss finite and
+     falling, the logged ``ctc_loss`` finite, one profiled step, and the
+     launches and device time of the UER's edit distance;
+ 15. CTC cross-checks in fp32 (TF32 off): flash against dense route at
+     batch 32 (training mode, dropout rates 0) and the card against the
+     plain CPU path on 2 utterances (eval-mode criterion), with the
+     compressed lengths identical on both sides (asserted);
+ 16. train (main path 7), ``bench.py``'s ``flash_longcontext_train``: the
+     base conv_transformer on 8 utterances of 6554-8192 frames (T' = 2048
+     after the frontend), ``max_source_positions`` 8192, bf16: step ms,
+     frames/s, MFU, peak memory, exactly 20 flash forward and 20 fused
+     backward launches a step, the loss finite, one
+     profiled step; then flash against dense route in fp32 at the same
+     shapes (the dense route's (8, 4, 2048, 2048) scores fit the card);
+ 17. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Tolerances (stated here, checked below):
   * kernels against their plain versions: atol 1e-4 in fp32 (the same
     sums in another order); in bf16 2e-2 for out (one bf16 rounding of
     |out| < 4) and 5e-2 for dq/dk/dv (one bf16 rounding of gradients up to
     |g| ~ 10, the dropout's 1/(1 - rate) included); lse 1e-4 (fp32 in both
-    types); the keep mask exactly;
+    types); the keep mask exactly; the single-pass kernel's bf16 out
+    besides element by element within 1e-3 + 8e-3 |plain| (one bf16 ulp of
+    the plain value, 2^-7 of it at most, and P rounded alike on both
+    sides): at S = 2048 a typical |out| is about 0.03, so 2e-2 alone would
+    pass a dropped key chunk;
   * dynamic conv against its plain version: out and dx at the atols
     above (out and dx are sums of K products, convex in x for out, with
     |out|, |dx| < 5); dw, a sum of C/H = 64 products that reaches |dw| ~
@@ -115,7 +151,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 import types
@@ -125,6 +160,10 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# the timers, the card line and the SDPA mask: the sweep module's
+from fbk_fairseq_st_tpu_torch.scripts.bench_flash_sweep import (  # noqa: E402
+    card_line, device_busy, sdpa_mask, time_ms)
 
 # H100 SXM data sheet (dense): memory 3.35 TB/s; fp32 outside the tensor
 # cores 67 TFLOP/s; bf16 tensor cores 989 TFLOP/s.
@@ -135,6 +174,7 @@ PEAK_BF16 = 989e12
 ATOL_KERNEL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ATOL_GRAD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 ATOL_LSE = 1e-4
+SINGLE_BF16_LIMIT = (1e-3, 8e-3)  # (atol, rtol of |plain|), element by element
 RTOL_DW = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 ATOL_MODEL = 1e-3
 RTOL_STEP_LOSS = 1e-5
@@ -169,15 +209,18 @@ KERNEL_SHAPES = [
 
 # (name, bh, T, S, D, causal, dropout rate, keys padded on the left): the
 # flash calls of the conv_transformer train step at batch 128 (4 heads,
-# T' = 512 / 4 frames, 48 target tokens) and the lightconv decoder's
-# encoder attention at batch 64 (16 heads, 56 tokens, sources padded on
-# the left); all have padded keys
+# T' = 512 / 4 frames, 48 target tokens), the lightconv decoder's encoder attention at batch 64 (16 heads, 56
+# tokens, sources padded on the left) and the long-context step's encoder
+# self-attention and time attention (batch 8, T' = 2048); all have padded
+# keys
 TRAIN_KERNEL_SHAPES = [
     ("encoder_self_attention", 512, 128, 128, 64, False, 0.1, False),
     ("time_attention", 512, 128, 128, 20, False, 0.3, False),
     ("decoder_causal_self_attention", 512, 48, 48, 64, True, 0.1, False),
     ("cross_attention", 512, 48, 128, 64, False, 0.1, False),
     ("lightconv_cross_attention", 1024, 56, 56, 64, False, 0.1, True),
+    ("long_encoder_self_attention", 32, 2048, 2048, 64, False, 0.1, False),
+    ("long_time_attention", 32, 2048, 2048, 20, False, 0.3, False),
 ]
 
 # the lightconv paths (dynamicconv_wmt_en_de_big, models/lightconv.py)
@@ -210,33 +253,30 @@ DCONV_SHAPES = [
     ("ragged", 4, 37, 48, 3, 4, 1),
 ]
 
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "dynamic_conv")
+# the single-pass kernel's checks: (name, bh, T, S, causal, padded keys),
+# each at every t_block the kernel takes (8, 16)
+SINGLE_SHAPES = [
+    ("bh32_S2048", 32, 2048, 2048, False, False),
+    ("bh64_S2048_causal", 64, 2048, 2048, True, False),
+    ("ragged_bh4_T300_S333", 4, 300, 333, False, True),
+]
+
+# the CTC flagship (bench.py:344-423)
+CTC_ARCH = "conv_transformer_big"
+CTC_SRC_SYMBOLS = 700
+CTC_TR_LEN = 64
+CTC_TIMED_STEPS = 10
+
+# the long-context train step (bench.py:505-507)
+LONG_BATCH = 8
+LONG_FRAMES = 8192
+LONG_TIMED_STEPS = 5
+
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "dynamic_conv", "flash_fwd_single")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _device_events(prof):
@@ -279,18 +319,22 @@ KERNEL_CLASSES = (("dynamic_conv", "dynamic_conv_"), ("flash", "flash_"), ("gemm
 def profile_window(fn):
     """Device busy time, the kernels that take it and its split by kernel
     class while ``fn`` runs (torch.profiler, device activity only), beside
-    the host wall time."""
+    the host wall time. A trace that caught no device event (a chip run
+    saw one, for a long-context step) is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
     by_name = {}
-    for e in _device_events(prof):
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e6
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        for e in _device_events(prof):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e6
+        if by_name:
+            break
     busy_s = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     classes = {}
@@ -342,14 +386,6 @@ def random_attention_inputs(gen, bh, t, s, d, dtype, padded=True, left=False):
         pads = pos < (s - lengths)[:, None] if left else pos >= lengths[:, None]
         bias = torch.where(pads, -1e9, 0.0)
     return q, k, v, bias
-
-
-def sdpa_mask(bias, t, s, causal, dtype):
-    mask = bias[:, None, :]
-    if causal:
-        future = torch.ones((t, s), dtype=torch.bool, device="cuda").triu(1)
-        mask = mask.masked_fill(future[None], -1e9)
-    return mask.to(dtype)
 
 
 def build_kernels(kernel_build):
@@ -416,14 +452,20 @@ def check_serving_kernels(fa):
 def kernel_keep_mask(fa, bh, t, s, causal, rate, seed, device="cuda"):
     """The keep mask as the forward kernel applies it. With q = k = 0 and
     bias 0 every unmasked weight is 1 and l_i counts row i's keys, so with
-    V the identity out[i, j] = keep(i, j) / (l_i (1 - rate)). Returns
-    (mask, the entries it is defined on)."""
-    d = fa.kernel_head_dim(s)
+    V the identity on a window of D keys (0 elsewhere) out[i, c] =
+    keep(i, j0 + c) / (l_i (1 - rate)); the windows tile the S keys, one
+    launch each. Returns (mask, the entries it is defined on)."""
+    d = fa.kernel_head_dim(min(s, fa.KERNEL_HEAD_DIMS[-1]))
     q = torch.zeros((bh, t, d), device=device)
     k = torch.zeros((bh, s, d), device=device)
-    v = torch.eye(s, d, device=device).expand(bh, s, d)
-    out = fa.flash_attention(q, k, v, torch.zeros((bh, s), device=device), 1.0, causal=causal,
-                             dropout_rate=rate, dropout_seed=seed)[..., :s]
+    windows = []
+    for j0 in range(0, s, d):
+        n = min(d, s - j0)
+        v = torch.zeros((s, d), device=device)
+        v[j0:j0 + n, :n] = torch.eye(n, device=device)
+        windows.append(fa.flash_attention(q, k, v.expand(bh, s, d), torch.zeros((bh, s), device=device), 1.0,
+                                          causal=causal, dropout_rate=rate, dropout_seed=seed)[..., :n])
+    out = torch.cat(windows, dim=-1)
     rows = torch.arange(t, device=device)[:, None]
     cols = torch.arange(s, device=device)[None, :]
     keys = torch.clamp(rows + 1, max=s) if causal else torch.full_like(rows, s)
@@ -582,7 +624,7 @@ def teacher_forced_tokens(hypos, pad, eos):
     return prev
 
 
-def serve(card, d, fa, attention, build_model, SequenceGenerator):
+def serve(card, d, fa, dconv, single, attention, build_model, SequenceGenerator):
     model = build_model(
         "conv_transformer", d, seed=0, input_feat_per_channel=N_MELS,
         max_source_positions=2048, max_target_positions=512,
@@ -597,7 +639,7 @@ def serve(card, d, fa, attention, build_model, SequenceGenerator):
     attention.set_flash_attention(None)  # auto: every eligible call on the card
     gen.generate([model], requests[2][1])  # warm-up (cuDNN plans, allocator)
 
-    fa.reset_launches()
+    reset_counts(fa, dconv, single)
     served = []
     for name, sample in requests:
         before = fa.launches
@@ -617,8 +659,7 @@ def serve(card, d, fa, attention, build_model, SequenceGenerator):
               "audio_s": audio_s, "rtf": decode_s / audio_s, "flash_launches": grew,
               "mean_hyp_len": float(np.mean([len(s[0]["tokens"]) for s in hypos])),
               "card": card})
-    launches = {"fwd": fa.launches_fwd, "bwd_fused": fa.launches_bwd_fused,
-                "bwd_dq": fa.launches_bwd_dq, "bwd_dkv": fa.launches_bwd_dkv}
+    launches = launch_counts(fa, dconv, single)
 
     # where the time goes in the first request: the encoder alone, then the
     # device's busy time over a profiled run of the whole request
@@ -765,7 +806,7 @@ def train_flops(enc, dec, batch, frames, tgt_len):
     return 3.0 * fwd
 
 
-def train(card, d, fa, modules):
+def train(card, d, fa, dconv, single, modules):
     Trainer, SpeechRecognitionTask = modules["Trainer"], modules["SpeechRecognitionTask"]
     args = train_args()
     task = SpeechRecognitionTask(args, d)
@@ -780,7 +821,7 @@ def train(card, d, fa, modules):
         outs.append(trainer.train_step([sample]))
     torch.cuda.synchronize()
 
-    fa.reset_launches()
+    reset_counts(fa, dconv, single)
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for _ in range(REPEATS):
@@ -790,11 +831,10 @@ def train(card, d, fa, modules):
             outs.append(trainer.train_step([sample]))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
-    launches = {"fwd": fa.launches_fwd, "bwd_fused": fa.launches_bwd_fused,
-                "bwd_dq": fa.launches_bwd_dq, "bwd_dkv": fa.launches_bwd_dkv}
+    launches = launch_counts(fa, dconv, single)
     steps = REPEATS * TIMED_STEPS
-    want = {"fwd": FLASH_LAUNCHES_PER_STEP * steps, "bwd_fused": FLASH_LAUNCHES_PER_STEP * steps,
-            "bwd_dq": 0, "bwd_dkv": 0}
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=FLASH_LAUNCHES_PER_STEP * steps, flash_bwd_fused=FLASH_LAUNCHES_PER_STEP * steps)
     if launches != want:
         raise AssertionError(f"train launches {launches}, expected {want} over {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -825,17 +865,17 @@ def train(card, d, fa, modules):
     fa.FUSED_BWD = False
     trainer.train_step([sample])
     torch.cuda.synchronize()
-    fa.reset_launches()
+    reset_counts(fa, dconv, single)
     t0 = time.perf_counter()
     for _ in range(SPLIT_STEPS):
         trainer.train_step([sample])
     torch.cuda.synchronize()
     split_ms = (time.perf_counter() - t0) / SPLIT_STEPS * 1e3
     fa.FUSED_BWD = True
-    split = {"fwd": fa.launches_fwd, "bwd_fused": fa.launches_bwd_fused,
-             "bwd_dq": fa.launches_bwd_dq, "bwd_dkv": fa.launches_bwd_dkv}
-    want = {"fwd": FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS, "bwd_fused": 0,
-            "bwd_dq": FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS, "bwd_dkv": FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS}
+    split = launch_counts(fa, dconv, single)
+    want = {k: 0 for k in split}
+    want.update(flash_fwd=FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS, flash_bwd_dq=FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS,
+                flash_bwd_dkv=FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS)
     if split != want:
         raise AssertionError(f"split-backward launches {split}, expected {want}")
     emit({"phase": "train", "backward": "split", "steps": SPLIT_STEPS, "step_ms": split_ms,
@@ -1030,18 +1070,20 @@ def collate(LanguagePairDataset, src_dict, tgt_dict, src, tgt=None):
     return ds.collater([ds[i] for i in range(len(src))])
 
 
-def launch_counts(fa, dconv):
+def launch_counts(fa, dconv, single):
     return {"flash_fwd": fa.launches_fwd, "flash_bwd_fused": fa.launches_bwd_fused,
             "flash_bwd_dq": fa.launches_bwd_dq, "flash_bwd_dkv": fa.launches_bwd_dkv,
-            "dconv_fwd": dconv.launches_fwd, "dconv_bwd": dconv.launches_bwd}
+            "dconv_fwd": dconv.launches_fwd, "dconv_bwd": dconv.launches_bwd,
+            "flash_fwd_single": single.launches}
 
 
-def reset_counts(fa, dconv):
+def reset_counts(fa, dconv, single):
     fa.reset_launches()
     dconv.reset_launches()
+    single.reset_launches()
 
 
-def serve_lightconv(card, dicts, fa, dconv, modules):
+def serve_lightconv(card, dicts, fa, dconv, single, modules):
     build_model, SequenceGenerator = modules["build_model"], modules["SequenceGenerator"]
     LanguagePairDataset = modules["LanguagePairDataset"]
     src_dict, tgt_dict = dicts
@@ -1064,10 +1106,10 @@ def serve_lightconv(card, dicts, fa, dconv, modules):
                                         ("single_1x30", 1, 30, 30))]
     gen.generate([model], requests[2][1])  # warm-up
 
-    reset_counts(fa, dconv)
+    reset_counts(fa, dconv, single)
     served = []
     for name, sample in requests:
-        before = launch_counts(fa, dconv)
+        before = launch_counts(fa, dconv, single)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hypos = gen.generate([model], sample)
@@ -1075,7 +1117,7 @@ def serve_lightconv(card, dicts, fa, dconv, modules):
         decode_s = time.perf_counter() - t0
         n = len(sample["net_input"]["src_lengths"])
         check_hypotheses(hypos, tgt_dict.eos(), n)
-        grew = {k: v - before[k] for k, v in launch_counts(fa, dconv).items()}
+        grew = {k: v - before[k] for k, v in launch_counts(fa, dconv, single).items()}
         want = {k: DCONV_LAUNCHES_PER_REQUEST if k == "dconv_fwd" else 0 for k in grew}
         if grew != want:
             raise AssertionError(f"{name}: launches grew by {grew}, expected {want}")
@@ -1085,7 +1127,7 @@ def serve_lightconv(card, dicts, fa, dconv, modules):
               "source_tokens": src_tokens, "source_tokens_per_s": src_tokens / decode_s,
               "launches": grew, "mean_hyp_len": float(np.mean([len(s[0]["tokens"]) for s in hypos])),
               "card": card})
-    launches = launch_counts(fa, dconv)
+    launches = launch_counts(fa, dconv, single)
 
     name, sample, hypos = served[0]
     wall_s, busy_s, top, classes = profile_window(lambda: gen.generate([model], sample))
@@ -1181,7 +1223,7 @@ def lc_train_args(**overrides):
     return train_args(arch=LC_ARCH, max_source_positions=1024, max_target_positions=1024, **overrides)
 
 
-def train_lightconv(card, dicts, fa, dconv, modules):
+def train_lightconv(card, dicts, fa, dconv, single, modules):
     Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
     args = lc_train_args()
     task = TranslationTask(args, *dicts)
@@ -1194,7 +1236,7 @@ def train_lightconv(card, dicts, fa, dconv, modules):
 
     outs = [trainer.train_step([sample]) for _ in range(WARMUP_STEPS)]
     torch.cuda.synchronize()
-    reset_counts(fa, dconv)
+    reset_counts(fa, dconv, single)
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for _ in range(REPEATS):
@@ -1204,11 +1246,12 @@ def train_lightconv(card, dicts, fa, dconv, modules):
             outs.append(trainer.train_step([sample]))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) / LC_TIMED_STEPS * 1e3)
-    launches = launch_counts(fa, dconv)
+    launches = launch_counts(fa, dconv, single)
     steps = REPEATS * LC_TIMED_STEPS
     want = {"flash_fwd": LC_FLASH_LAUNCHES_PER_STEP * steps, "flash_bwd_fused": LC_FLASH_LAUNCHES_PER_STEP * steps,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "dconv_fwd": DCONV_LAUNCHES_PER_STEP * steps, "dconv_bwd": DCONV_LAUNCHES_PER_STEP * steps}
+            "dconv_fwd": DCONV_LAUNCHES_PER_STEP * steps, "dconv_bwd": DCONV_LAUNCHES_PER_STEP * steps,
+            "flash_fwd_single": 0}
     if launches != want:
         raise AssertionError(f"lightconv train launches {launches}, expected {want} over {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1263,33 +1306,319 @@ def check_lightconv_steps(dicts, modules):
 
 
 # ---------------------------------------------------------------------------
+# 12.-13. the single-pass kernel and the flash sweep
+# ---------------------------------------------------------------------------
 
-def kernel_entry(name, source, replaces, launches, rows, worst_fp32, worst_bf16, timed_at):
-    head = next(r for r in rows if r["kernel"] == name and r["shape"] == timed_at[0]
-                and r["dtype"] == timed_at[1])
+def check_single_kernel(single):
+    """flash_fwd_single against its plain version in fp32 and bf16 at the
+    sweep's shapes and a ragged one, at every t_block the kernel takes."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, bh, t, s, causal, padded in SINGLE_SHAPES:
+        d = 64
+        scale = d ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = random_attention_inputs(gen, bh, s, s, d, dtype, padded)
+            q = q[:, :t].contiguous()
+            out_p, lse_p = single.flash_fwd_single_reference(q, k, v, bias, scale, causal)
+            plain_ms = time_ms(lambda: single.flash_fwd_single_reference(q, k, v, bias, scale, causal), iters=5)
+            mask = sdpa_mask(bias, t, s, causal, dtype)
+            library_ms = time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), iters=5)
+            for tb in single.T_BLOCKS:
+                run = lambda: single.flash_fwd_single(q, k, v, bias, scale, causal=causal, t_block=tb)  # noqa: E731
+                out_k, lse_k = run()
+                torch.cuda.synchronize()
+                diff = (out_k.float() - out_p.float()).abs()
+                err = diff.max().item()
+                lse_err = (lse_k - lse_p).abs().max().item()
+                atol, rtol = SINGLE_BF16_LIMIT if dtype == torch.bfloat16 else (ATOL_KERNEL[dtype], 0.0)
+                limit_ratio = (diff / (atol + rtol * out_p.float().abs())).max().item()
+                row = {"phase": "single_kernel_check", "kernel": "flash_fwd_single", "shape": name, "bh": bh,
+                       "T": t, "S": s, "D": d, "causal": causal, "rate": 0.0, "t_block": tb,
+                       "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "lse_max_abs_err": lse_err,
+                       "atol": ATOL_KERNEL[dtype], "elementwise_limit": [atol, rtol],
+                       "max_err_over_elementwise_limit": limit_ratio, "kernel_ms": time_ms(run, iters=5),
+                       "kernel_device_ms": device_ms(run, "flash_fwd_single_kernel", iters=5),
+                       "plain_ms": plain_ms, "library_ms": library_ms}
+                row["bound_ms"], row["bound_by"] = attention_bound_ms(bh, t, s, d, causal, dtype)
+                emit(row)
+                rows.append(row)
+                if not (err <= ATOL_KERNEL[dtype] and limit_ratio <= 1.0 and lse_err <= ATOL_LSE):
+                    raise AssertionError(f"flash_fwd_single disagrees with its plain version at {name} {dtype} "
+                                         f"t_block {tb}: max|out| err {err} ({limit_ratio} of the element-wise "
+                                         f"limit), max|lse| err {lse_err}")
+                worst[dtype] = max(worst[dtype], err)
+            del q, k, v, bias, out_p, lse_p, mask
+            torch.cuda.empty_cache()
+    # past its shared memory (t_block 16 at S 3308) or at another head dim
+    # the wrapper raises before any launch and nothing falls back
+    for s, d, tb in ((3308, 64, 16), (256, 32, 8)):
+        q, k, v, bias = random_attention_inputs(gen, 1, s, s, d, torch.bfloat16, padded=False)
+        before = single.launches
+        try:
+            single.flash_fwd_single(q, k, v, bias, d ** -0.5, t_block=tb)
+        except ValueError as exc:
+            emit({"phase": "single_kernel_refuses", "S": s, "D": d, "t_block": tb, "error": str(exc)})
+        else:
+            raise AssertionError(f"flash_fwd_single took S {s} D {d} t_block {tb}, past what it is built for")
+        if single.launches != before:
+            raise AssertionError("flash_fwd_single launched a shape it refuses")
+    return rows, worst
+
+
+def flash_sweep(card, sweep, fa, dconv, single):
+    """The port's flash sweep in full (its own asserts hold each
+    single-pass tile against the flash forward)."""
+    t0 = time.perf_counter()
+    reset_counts(fa, dconv, single)
+    rows = sweep.run()
+    launches = launch_counts(fa, dconv, single)
+    sweep.print_table(rows)
+    for r in rows:
+        emit({"phase": "flash_sweep", **r})
+    emit({"phase": "flash_sweep_decision_inputs", **sweep.gate_from(rows),
+          "seconds": time.perf_counter() - t0, "card": card})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 14.-15. the CTC flagship
+# ---------------------------------------------------------------------------
+
+def ctc_dictionaries(Dictionary, d):
+    """The target dictionary and a 700-symbol source dictionary; the task
+    adds <ctc_blank> after the source symbols."""
+    sd = Dictionary()
+    for i in range(CTC_SRC_SYMBOLS):
+        sd.add_symbol(f"s{i}")
+    sd.finalize(padding_factor=8)
+    return d, sd
+
+
+def ctc_args(**overrides):
+    """bench.py:367-380 under the JAX package's names."""
+    return train_args(arch=CTC_ARCH, criterion="ctc_multi_loss",
+                      underlying_criterion="label_smoothed_cross_entropy", ctc_encoder_layer=4,
+                      ctc_weight=0.5, ctc_compress_out=True, **overrides)
+
+
+def ctc_sample(d, rng, batch=TRAIN_BATCH):
+    """bench.py:390-398: the train sample plus 64 transcript tokens a row
+    over the source symbols (4 .. 703, never the blank at 704)."""
+    sample = train_sample(d, rng, batch=batch)
+    tr = rng.randint(4, 4 + CTC_SRC_SYMBOLS, size=(batch, CTC_TR_LEN)).astype(np.int64)
+    sample["transcript_target"] = tr
+    sample["transcript_target_lengths"] = np.full((batch,), CTC_TR_LEN, np.int64)
+    sample["net_input"]["transcript_prev_output_tokens"] = np.concatenate(
+        [np.full((batch, 1), d.eos(), np.int64), tr[:, :-1]], axis=1)
+    return sample
+
+
+def staged_ctc(sample, dtype, device="cuda"):
+    out = staged(sample, dtype, device)
+    for key in ("transcript_target", "transcript_target_lengths"):
+        out[key] = torch.as_tensor(sample[key]).to(device)
+    out["net_input"]["transcript_prev_output_tokens"] = torch.as_tensor(
+        sample["net_input"]["transcript_prev_output_tokens"]).to(device)
+    return out
+
+
+def timed_steps(trainer, sample, steps, repeats=REPEATS):
+    outs, step_ms = [], []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            outs.append(trainer.train_step([sample]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) / steps * 1e3)
+    return outs, step_ms
+
+
+def train_ctc(card, dicts, fa, dconv, single, modules):
+    Trainer, Task = modules["Trainer"], modules["SpeechTranslationCTCTask"]
+    args = ctc_args()
+    task = Task(args, *dicts)
+    model = task.build_model(args)
+    trainer = Trainer(args, task, model, task.build_criterion(args))
+    sample = staged_ctc(ctc_sample(dicts[0], np.random.RandomState(0)), torch.bfloat16)
+    frames_per_batch = int(sample["net_input"]["src_lengths"].sum())
+    enc = model.encoder_cfg
+    t_out = enc.frontend.out_length(TRAIN_FRAMES)
+    flops = (train_flops(enc, model.decoder_cfg, TRAIN_BATCH, TRAIN_FRAMES, TGT_LEN)
+             + 3 * 2.0 * TRAIN_BATCH * t_out * enc.embed_dim * enc.ctc_vocab_size)  # ctc_fc
+
+    outs = [trainer.train_step([sample]) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts(fa, dconv, single)
+    torch.cuda.reset_peak_memory_stats()
+    timed, step_ms = timed_steps(trainer, sample, CTC_TIMED_STEPS)
+    outs += timed
+    launches = launch_counts(fa, dconv, single)
+    steps = REPEATS * CTC_TIMED_STEPS
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=FLASH_LAUNCHES_PER_STEP * steps, flash_bwd_fused=FLASH_LAUNCHES_PER_STEP * steps)
+    if launches != want:
+        raise AssertionError(f"ctc flagship launches {launches}, expected {want} over {steps} steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    per_sample = [float(o["loss"]) / float(o["sample_size"]) for o in outs]
+    ctc_losses = [float(o["ctc_loss"]) for o in outs]
+    gnorms = [float(o["gnorm"]) for o in outs]
+    if not (np.isfinite(per_sample).all() and np.isfinite(gnorms).all() and np.isfinite(ctc_losses).all()):
+        raise AssertionError("non-finite loss, ctc_loss or gnorm in the ctc flagship phase")
+    first, last = float(np.mean(per_sample[1:6])), float(np.mean(per_sample[-5:]))
+    if not last < first:
+        raise AssertionError(f"the ctc flagship loss did not fall on a fixed batch: {first} -> {last}")
+    median = float(np.median(step_ms))
+    metrics = modules["CTCMultiLoss"].reduce_metrics([outs[-1]])
+    emit({"phase": "train_ctc_flagship", "arch": CTC_ARCH, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+          "tgt_len": TGT_LEN, "transcript_len": CTC_TR_LEN, "ctc_vocab": enc.ctc_vocab_size,
+          "blank": dicts[1].index("<ctc_blank>"), "dtype": "bfloat16", "step_ms_median": median,
+          "step_ms_repeats": step_ms, "step_ms_spread": max(step_ms) - min(step_ms),
+          "frames_per_s": frames_per_batch / (median / 1e3), "flops_per_step": flops,
+          "mfu": flops / (median / 1e3) / PEAK_BF16, "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "peak_memory_gb": peak_gb, "loss_per_sample_size_first": per_sample[0],
+          "loss_per_sample_size_steps_1_5": first, "loss_per_sample_size_last5": last,
+          "ctc_loss_first": ctc_losses[0], "ctc_loss_last": ctc_losses[-1], "metrics_last": metrics,
+          "gnorm_last": gnorms[-1], "lr_last": float(outs[-1]["lr"]), "card": card})
+
+    wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
+    # the UER's edit distance at the step's shapes: (B, T') predictions
+    # against (B, 64) transcripts
+    model.eval()
+    with torch.no_grad():
+        enc_out = model.encode(sample["net_input"]["src_tokens"], sample["net_input"]["src_lengths"])
+        pred, counts = modules["ctc_greedy_decode"](enc_out.ctc_out, enc_out.ctc_lengths, dicts[1].index("<ctc_blank>"))
+    lev = lambda: modules["levenshtein"](pred, counts, sample["transcript_target"],  # noqa: E731
+                                         sample["transcript_target_lengths"])
+    lev_kernels, lev_busy_ms = device_busy(lev, iters=3)
+    emit({"phase": "train_ctc_flagship_profile", "step_s": wall_s, "device_busy_s": busy_s,
+          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes,
+          "edit_distance_kernels": lev_kernels, "edit_distance_device_ms": lev_busy_ms,
+          "compressed_len_mean": float(enc_out.src_lengths.float().mean()), "card": card})
+    return launches
+
+
+def one_ctc_step(dicts, modules, device, sample, deterministic=False):
+    """A fresh full-width fp32 CTC flagship model (seed 1) after one train
+    step; returns (model, step outputs, the compressed lengths of the
+    step's forward)."""
+    Trainer, Task = modules["Trainer"], modules["SpeechTranslationCTCTask"]
+    args = ctc_args(bf16=False, dropout=0.0, attention_dropout=0.0, relu_dropout=0.0,
+                    warmup_updates=1, warmup_init_lr=0.002)
+    task = Task(args, *dicts)
+    model = task.build_model(args, device=device)
+    criterion = task.build_criterion(args)
+    trainer = Trainer(args, task, model, _EvalCriterion(criterion) if deterministic else criterion)
+    seen = []
+    hook = model.encoder.register_forward_hook(lambda m, i, out: seen.append(out.src_lengths.detach().cpu()))
+    out = trainer.train_step([sample])
+    hook.remove()
+    return (model, out), seen[0]
+
+
+def check_ctc_steps(dicts, modules, attention):
+    sample = staged_ctc(ctc_sample(dicts[0], np.random.RandomState(9), batch=32), torch.float32)
+    attention.set_flash_attention(None)
+    flash, len_flash = one_ctc_step(dicts, modules, "cuda", sample)
+    attention.set_flash_attention(False)
+    dense, len_dense = one_ctc_step(dicts, modules, "cuda", sample)
+    attention.set_flash_attention(None)
+    check_lengths("ctc_flash_vs_dense", len_flash, len_dense)
+    compare_steps("ctc_flash_vs_dense", flash, dense, "other_forward")
+    del flash, dense
+    small = ctc_sample(dicts[0], np.random.RandomState(10), batch=2)
+    cpu, len_cpu = one_ctc_step(dicts, modules, "cpu", staged_ctc(small, torch.float32, "cpu"), deterministic=True)
+    card, len_card = one_ctc_step(dicts, modules, "cuda", staged_ctc(small, torch.float32), deterministic=True)
+    check_lengths("ctc_card_vs_cpu", len_card, len_cpu)
+    compare_steps("ctc_card_vs_cpu", card, cpu, "other_forward")
+
+
+def check_lengths(label, a, b):
+    same = torch.equal(a, b)
+    emit({"phase": "ctc_compressed_lengths", "check": label, "identical": same,
+          "mean_length": float(a.float().mean()), "rows": int(a.numel())})
+    if not same:
+        raise AssertionError(f"{label}: the compressed lengths differ: {a.tolist()} vs {b.tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# 16. the long-context train step
+# ---------------------------------------------------------------------------
+
+def train_long(card, d, fa, dconv, single, modules):
+    Trainer, SpeechRecognitionTask = modules["Trainer"], modules["SpeechRecognitionTask"]
+    args = train_args(max_source_positions=LONG_FRAMES)
+    task = SpeechRecognitionTask(args, d)
+    model = task.build_model(args)
+    trainer = Trainer(args, task, model, task.build_criterion(args))
+    sample = staged(train_sample(d, np.random.RandomState(0), batch=LONG_BATCH, frames=LONG_FRAMES), torch.bfloat16)
+    frames_per_batch = int(sample["net_input"]["src_lengths"].sum())
+    flops = train_flops(model.encoder_cfg, model.decoder_cfg, LONG_BATCH, LONG_FRAMES, TGT_LEN)
+
+    outs = [trainer.train_step([sample]) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts(fa, dconv, single)
+    torch.cuda.reset_peak_memory_stats()
+    timed, step_ms = timed_steps(trainer, sample, LONG_TIMED_STEPS)
+    outs += timed
+    launches = launch_counts(fa, dconv, single)
+    steps = REPEATS * LONG_TIMED_STEPS
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=FLASH_LAUNCHES_PER_STEP * steps, flash_bwd_fused=FLASH_LAUNCHES_PER_STEP * steps)
+    if launches != want:
+        raise AssertionError(f"long-context launches {launches}, expected {want} over {steps} steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_token = [float(o["loss"]) / float(o["sample_size"]) for o in outs]
+    if not (np.isfinite(per_token).all() and np.isfinite([float(o["gnorm"]) for o in outs]).all()):
+        raise AssertionError("non-finite loss or gnorm in the long-context phase")
+    median = float(np.median(step_ms))
+    emit({"phase": "train_longcontext", "arch": "conv_transformer", "batch": LONG_BATCH, "frames": LONG_FRAMES,
+          "encoder_len": model.encoder_cfg.frontend.out_length(LONG_FRAMES), "tgt_len": TGT_LEN,
+          "dtype": "bfloat16", "step_ms_median": median, "step_ms_repeats": step_ms,
+          "step_ms_spread": max(step_ms) - min(step_ms), "frames_per_s": frames_per_batch / (median / 1e3),
+          "flops_per_step": flops, "mfu": flops / (median / 1e3) / PEAK_BF16,
+          "launches_per_step": {k: v / steps for k, v in launches.items()}, "peak_memory_gb": peak_gb,
+          "loss_per_token_first": per_token[0], "loss_per_token_last": per_token[-1], "card": card})
+    wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
+    emit({"phase": "train_longcontext_profile", "step_s": wall_s, "device_busy_s": busy_s,
+          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
+    return launches
+
+
+def check_long_steps(d, modules, attention):
+    """Flash against dense route on one fp32 long-context step."""
+    sample = staged(train_sample(d, np.random.RandomState(11), batch=LONG_BATCH, frames=LONG_FRAMES), torch.float32)
+    attention.set_flash_attention(None)
+    flash = one_step(d, modules, "cuda", sample, max_source_positions=LONG_FRAMES)
+    attention.set_flash_attention(False)
+    torch.cuda.reset_peak_memory_stats()
+    dense = one_step(d, modules, "cuda", sample, max_source_positions=LONG_FRAMES)
+    emit({"phase": "longcontext_dense_step", "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    attention.set_flash_attention(None)
+    compare_steps("longcontext_flash_vs_dense", flash, dense, "other_forward")
+
+
+# ---------------------------------------------------------------------------
+
+def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32, worst_bf16, timed_at):
+    """The ``kernels`` line's entry of ``name``, timed at its row of
+    ``row_kernel`` at ``timed_at`` = (shape, dtype[, t_block])."""
+    head = next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
+                and r["dtype"] == timed_at[1] and r.get("t_block") == (timed_at[2] if len(timed_at) > 2 else None))
+    where = (f"B{head['B']} T{head['T']} C{head['C']} H{head['H']} K{head['K']} padding_l {head['padding_l']}"
+             if "K" in head else f"bh{head['bh']} T{head['T']} S{head['S']} D{head['D']} rate {head['rate']}")
+    if "t_block" in head:
+        where += f" t_block {head['t_block']}"
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": worst_fp32, "max_abs_err_bf16": worst_bf16,
         "ms": head["kernel_ms"], "device_ms": head["kernel_device_ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "timed_at": f"{timed_at[0]} bh{head['bh']} T{head['T']} S{head['S']} D{head['D']} "
-                    f"rate {head['rate']} {timed_at[1]}",
-    }
-
-
-def dconv_entry(name, launches, rows, worst_fp32, worst_bf16, timed_at):
-    head = next(r for r in rows if r["kernel"] == name and r["shape"] == timed_at[0]
-                and r["dtype"] == timed_at[1])
-    return {
-        "name": name, "route": "cuda", "source": "fbk_fairseq_st_tpu_torch/ops/kernels/csrc/dynamic_conv.cu",
-        "replaces": "fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py:24",
-        "launches": launches, "max_abs_err": worst_fp32, "max_abs_err_bf16": worst_bf16,
-        "ms": head["kernel_ms"], "device_ms": head["kernel_device_ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None,
-        "timed_at": f"{timed_at[0]} B{head['B']} T{head['T']} C{head['C']} H{head['H']} K{head['K']} "
-                    f"padding_l {head['padding_l']} {timed_at[1]}",
+        "library_ms": head["library_ms"], "timed_at": f"{timed_at[0]} {where} {timed_at[1]}",
     }
 
 
@@ -1298,22 +1627,28 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    sys.path.insert(0, ROOT)
+    from fbk_fairseq_st_tpu_torch.criterions import CTCMultiLoss
     from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset
     from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator
     from fbk_fairseq_st_tpu_torch.models import build_model as build_any_model
     from fbk_fairseq_st_tpu_torch.models.conv_transformer import build_model
     from fbk_fairseq_st_tpu_torch.ops import attention
+    from fbk_fairseq_st_tpu_torch.ops.ctc import ctc_greedy_decode
+    from fbk_fairseq_st_tpu_torch.ops.edit_distance import levenshtein
     from fbk_fairseq_st_tpu_torch.ops.kernels import build as kernel_build
     from fbk_fairseq_st_tpu_torch.ops.kernels import dynamic_conv as dconv
     from fbk_fairseq_st_tpu_torch.ops.kernels import flash_attention as fa
+    from fbk_fairseq_st_tpu_torch.ops.kernels import flash_fwd_single as single
     from fbk_fairseq_st_tpu_torch.ops.kernels import philox
-    from fbk_fairseq_st_tpu_torch.tasks import SpeechRecognitionTask, TranslationTask
+    from fbk_fairseq_st_tpu_torch.scripts import bench_flash_sweep as sweep
+    from fbk_fairseq_st_tpu_torch.tasks import SpeechRecognitionTask, SpeechTranslationCTCTask, TranslationTask
     from fbk_fairseq_st_tpu_torch.train import Trainer
 
     modules = {"Trainer": Trainer, "SpeechRecognitionTask": SpeechRecognitionTask,
                "TranslationTask": TranslationTask, "LanguagePairDataset": LanguagePairDataset,
-               "SequenceGenerator": SequenceGenerator, "build_model": build_any_model}
+               "SequenceGenerator": SequenceGenerator, "build_model": build_any_model,
+               "SpeechTranslationCTCTask": SpeechTranslationCTCTask, "CTCMultiLoss": CTCMultiLoss,
+               "ctc_greedy_decode": ctc_greedy_decode, "levenshtein": levenshtein}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1331,53 +1666,77 @@ def main() -> int:
         d.add_symbol(f"tok{i}")
     d.finalize(padding_factor=8)
 
-    # 3.-5. kernels against their plain versions
+    # 3.-5., 12. kernels against their plain versions
     _, serve_worst = check_serving_kernels(fa)
     rows, worst = check_training_kernels(fa, philox)
     for dtype in (torch.float32, torch.bfloat16):
         worst[("fwd", dtype)] = max(worst[("fwd", dtype)], serve_worst[dtype])
     dconv_rows, dconv_worst = check_dconv_kernels(dconv)
-    # 6.-11. the four main paths and the train-step cross-checks
-    serve_launches = serve(card, d, fa, attention, build_model, SequenceGenerator)
-    train_launches = train(card, d, fa, modules)
+    single_rows, single_worst = check_single_kernel(single)
+
+    # the main paths, each with every count set to 0 just before it
+    paths = {}
+
+    def drive(name, fn, *args):
+        """Run a path that resets the counts just before its main work and
+        returns them just after it (before its cross-checks)."""
+        paths[name] = fn(*args)
+        torch.cuda.empty_cache()
+
+    # 6.-11. conv_transformer and dynamicconv, serving and training
+    drive("serve", serve, card, d, fa, dconv, single, attention, build_model, SequenceGenerator)
+    drive("train", train, card, d, fa, dconv, single, modules)
     check_train_steps(d, fa, attention, modules)
-    torch.cuda.empty_cache()
     lc_dicts = (lc_dictionary(Dictionary), lc_dictionary(Dictionary))
-    lc_serve_launches = serve_lightconv(card, lc_dicts, fa, dconv, modules)
-    torch.cuda.empty_cache()
-    lc_train_launches = train_lightconv(card, lc_dicts, fa, dconv, modules)
+    drive("serve_lightconv", serve_lightconv, card, lc_dicts, fa, dconv, single, modules)
+    drive("train_lightconv", train_lightconv, card, lc_dicts, fa, dconv, single, modules)
     torch.cuda.empty_cache()
     check_lightconv_steps(lc_dicts, modules)
+    torch.cuda.empty_cache()
+    # 13. the flash sweep
+    drive("flash_sweep", flash_sweep, card, sweep, fa, dconv, single)
+    if paths["flash_sweep"]["flash_fwd_single"] == 0:
+        raise AssertionError("the flash sweep launched no flash_fwd_single kernel")
+    # 14.-16. the CTC flagship and the long-context step
+    ctc_dicts = ctc_dictionaries(Dictionary, d)
+    drive("train_ctc_flagship", train_ctc, card, ctc_dicts, fa, dconv, single, modules)
+    check_ctc_steps(ctc_dicts, modules, attention)
+    torch.cuda.empty_cache()
+    drive("train_longcontext", train_long, card, d, fa, dconv, single, modules)
+    check_long_steps(d, modules, attention)
 
-    # 12. kernels line, card line, ok line
-    launches = {k: serve_launches[k] + train_launches[k] + lc_serve_launches[f"flash_{k}"]
-                + lc_train_launches[f"flash_{k}"] for k in serve_launches}
-    launches.update({k: lc_serve_launches[k] + lc_train_launches[k] for k in ("dconv_fwd", "dconv_bwd")})
-    emit({"phase": "main_path_launches", "serve": serve_launches, "train": train_launches,
-          "serve_lightconv": lc_serve_launches, "train_lightconv": lc_train_launches})
+    # 17. kernels line, card line, ok line
+    launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
+    emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():
         if n == 0:
-            raise AssertionError(f"the main path launched no {k} kernel")
+            raise AssertionError(f"the main paths launched no {k} kernel")
     csrc = "fbk_fairseq_st_tpu_torch/ops/kernels/csrc/"
     pallas = "fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py:"
     timed_at = ("encoder_self_attention", "bfloat16")
     f32, b16 = torch.float32, torch.bfloat16
     kernels = [
-        kernel_entry("flash_attention_fwd", csrc + "flash_fwd.cu", pallas + "117", launches["fwd"],
-                     rows, worst[("fwd", f32)], worst[("fwd", b16)], timed_at),
-        kernel_entry("flash_attention_bwd_fused", csrc + "flash_bwd.cu", pallas + "277", launches["bwd_fused"],
-                     rows, worst[("bwd_fused", f32)], worst[("bwd_fused", b16)], timed_at),
-        kernel_entry("flash_attention_bwd_dq", csrc + "flash_bwd.cu", pallas + "218", launches["bwd_dq"],
-                     rows, worst[("bwd_split", f32)], worst[("bwd_split", b16)], timed_at),
-        kernel_entry("flash_attention_bwd_dkv", csrc + "flash_bwd.cu", pallas + "386", launches["bwd_dkv"],
-                     rows, worst[("bwd_split", f32)], worst[("bwd_split", b16)], timed_at),
+        kernel_entry("flash_fwd", "flash_attention_fwd", csrc + "flash_fwd.cu", pallas + "117",
+                     launches["flash_fwd"], rows, worst[("fwd", f32)], worst[("fwd", b16)], timed_at),
+        kernel_entry("flash_bwd_fused", "flash_attention_bwd_fused", csrc + "flash_bwd.cu", pallas + "277",
+                     launches["flash_bwd_fused"], rows, worst[("bwd_fused", f32)], worst[("bwd_fused", b16)],
+                     timed_at),
+        kernel_entry("flash_bwd_dq", "flash_attention_bwd_dq", csrc + "flash_bwd.cu", pallas + "218",
+                     launches["flash_bwd_dq"], rows, worst[("bwd_split", f32)], worst[("bwd_split", b16)], timed_at),
+        kernel_entry("flash_bwd_dkv", "flash_attention_bwd_dkv", csrc + "flash_bwd.cu", pallas + "386",
+                     launches["flash_bwd_dkv"], rows, worst[("bwd_split", f32)], worst[("bwd_split", b16)],
+                     timed_at),
     ]
     dconv_at = ("train_k31_centred", "bfloat16")
+    conv_src, conv_tpu = csrc + "dynamic_conv.cu", "fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py:24"
     kernels += [
-        dconv_entry("dynamic_conv_fwd", launches["dconv_fwd"], dconv_rows, dconv_worst[("fwd", f32)],
-                    dconv_worst[("fwd", b16)], dconv_at),
-        dconv_entry("dynamic_conv_bwd", launches["dconv_bwd"], dconv_rows, dconv_worst[("bwd", f32)],
-                    dconv_worst[("bwd", b16)], dconv_at),
+        kernel_entry("dynamic_conv_fwd", "dynamic_conv_fwd", conv_src, conv_tpu, launches["dconv_fwd"], dconv_rows,
+                     dconv_worst[("fwd", f32)], dconv_worst[("fwd", b16)], dconv_at),
+        kernel_entry("dynamic_conv_bwd", "dynamic_conv_bwd", conv_src, conv_tpu, launches["dconv_bwd"], dconv_rows,
+                     dconv_worst[("bwd", f32)], dconv_worst[("bwd", b16)], dconv_at),
+        kernel_entry("flash_fwd_single", "flash_fwd_single", csrc + "flash_fwd_single.cu",
+                     "fbk_fairseq_st_tpu/scripts/bench_flash_sweep.py:28", launches["flash_fwd_single"],
+                     single_rows, single_worst[f32], single_worst[b16], ("bh32_S2048", "bfloat16", 16)),
     ]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -59,9 +59,9 @@ class LabelSmoothedCrossEntropyCriterion(Criterion):
         ``training`` flag), runs it teacher-forced and returns the summed
         loss, the sample size and the logging dict of JAX :85-91."""
         model.train(training)
-        logits, _ = model(batch, generator)
+        net_output = model(batch, generator)
+        loss, nll_loss = self.compute_loss(model, net_output, batch)
         target = batch["target"]
-        loss, nll_loss = label_smoothed_nll_from_logits(logits, target, self.eps, self.padding_idx)
         ntokens = (target != self.padding_idx).sum()
         nsentences = torch.full((), target.shape[0], dtype=torch.int64, device=target.device)
         sample_size = nsentences if self.sentence_avg else ntokens
@@ -73,3 +73,9 @@ class LabelSmoothedCrossEntropyCriterion(Criterion):
             "sample_size": sample_size,
         }
         return loss, sample_size, logging_output
+
+    def compute_loss(self, model, net_output, batch):
+        """(loss, nll_loss) of ``net_output = (logits, extra)``, summed
+        (JAX ``compute_loss``; also the underlying loss of
+        ``ctc_multi_loss``)."""
+        return label_smoothed_nll_from_logits(net_output[0], batch["target"], self.eps, self.padding_idx)

@@ -4,16 +4,20 @@ Counterpart of ``fbk_fairseq_st_tpu/models/conv_transformer.py``: fbank
 (B, T, F) -> strided Conv2d stack (+BatchNorm, activation before BN,
 dropout >= .1) -> two ConvAttention2D residual blocks -> channels-major
 flatten -> fc3 + activation -> audio positions (padding_idx 0) -> N
-transformer encoder layers (optional distance penalties) -> final LayerNorm;
-the decoder is the shared TransformerDecoder.
+transformer encoder layers (optional distance penalties) -> final LayerNorm,
+with the CTC head (``ctc_fc``) and the EACL-2021 CTC compression after encoder
+layer ``ctc_encoder_layer`` (``ops/ctc.py``); the decoder is the shared
+TransformerDecoder.
 
 The arch presets ``conv_transformer`` / ``_big`` / ``_big2`` / ``_giant``
 are plain functions returning the reference defaults; ``build_model`` takes
 an arch name, the target dictionary and overrides named as the JAX
 package's command-line args (``encoder_layers=2``, ...).
 
-CTC compression (``ctc_compress_out``) raises until ``ops/ctc.py`` is
-ported (ROADMAP Queue A6).
+With ``ctc_compress_out`` the layers after the CTC layer run on the
+compressed states: the row count stays T' and the key padding mask is
+rebuilt from the compressed lengths (JAX :166-175), so no length is read
+on the host.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..ops.conv_frontend import ConvFrontend, ConvFrontendConfig, conv_frontend
 from ..ops.core import GeneratorLike, LayerNorm, Linear, dropout, get_activation, lengths_to_padding_mask
+from ..ops.ctc import ctc_compress
 from ..ops.positional import PositionalEmbedding
 from ..ops.transformer_layer import TransformerEncoderLayer, TransformerLayerConfig
 from .base import EncoderOut
@@ -79,8 +84,6 @@ class ConvTransformerEncoder(ConvFrontend):
 
     def __init__(self, cfg: ConvTransformerEncoderConfig):
         super().__init__(cfg.frontend)
-        if cfg.ctc_compress_out:
-            raise NotImplementedError("CTC compression needs ops/ctc.py (ROADMAP Queue A6)")
         self.cfg = cfg
         self.fc3 = Linear(cfg.frontend.flat_dim, cfg.embed_dim)
         # audio positions use padding_idx=0 (reference conv_transformer.py:229)
@@ -121,6 +124,9 @@ class ConvTransformerEncoder(ConvFrontend):
             if self.ctc_fc is not None and cfg.ctc_encoder_layer == i + 1:
                 ctc_out = self.ctc_fc(x)
                 ctc_padding_mask, ctc_lengths = padding_mask, lengths
+                if cfg.ctc_compress_out:
+                    x, lengths = ctc_compress(x, ctc_out, lengths, cfg.ctc_compress_strategy)
+                    padding_mask = lengths_to_padding_mask(lengths, x.shape[1])
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return EncoderOut(
@@ -131,6 +137,10 @@ class ConvTransformerEncoder(ConvFrontend):
             ctc_padding_mask=ctc_padding_mask,
             ctc_lengths=ctc_lengths,
         )
+
+    def ctc_features(self, encoder_states_at_layer):
+        """CTC logits from layer-k states (JAX :192)."""
+        return self.ctc_fc(encoder_states_at_layer)
 
 
 class ConvolutionalTransformerModel(nn.Module):

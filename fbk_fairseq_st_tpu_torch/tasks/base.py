@@ -9,7 +9,7 @@ Datasets, batch iterators and the generator factory come with the wiring
 
 from __future__ import annotations
 
-from ..criterions import CRITERIONS, NOT_YET
+from ..criterions import CRITERIONS
 from ..device import DeviceLike
 from ..models import arch_defaults, build_model
 
@@ -30,8 +30,6 @@ class Task:
 
     def build_criterion(self, args):
         name = args.criterion
-        if name in NOT_YET:
-            raise NotImplementedError(f"--criterion {name}: needs {NOT_YET[name]}")
         if name not in CRITERIONS:
             raise NotImplementedError(f"--criterion {name} is not ported (ROADMAP Queue A10)")
         return CRITERIONS[name].build_criterion(args, self)

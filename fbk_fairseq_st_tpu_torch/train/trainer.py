@@ -14,7 +14,10 @@ Counterpart of ``fbk_fairseq_st_tpu/train/trainer.py`` (``train_step``
     fp32 (ROADMAP Queue C), the reference fairseq casts it to bf16;
   * the update (``_apply_grads`` :341): grads / max(sample_size, 1), the
     global norm, the clip scale min(1, clip / (gnorm + 1e-6)), Adam, with
-    the scheduler's lr at ``num_updates`` taken before the step;
+    the scheduler's lr at ``num_updates`` taken before the step. The
+    sample size is the one the criterion *returns* (:307-310), summed over
+    the microbatches as ``ss_acc`` (:392-396); ``ctc_multi_loss`` returns
+    the transcript token count and logs the target token count;
   * ``update_freq``: a list of samples accumulates grads, sample sizes and
     logging outputs (:592-610). Every microbatch starts from the update's
     BatchNorm running stats and the last one's update is kept, as the JAX
@@ -76,14 +79,17 @@ class Trainer:
         self._num_updates = 0
 
     def _device_batch(self, sample) -> Optional[Dict[str, torch.Tensor]]:
-        """A collated sample (``net_input`` + ``target``, numpy arrays or
-        tensors) -> a flat dict of tensors on the device; integer arrays
-        become int64 and the float features take the compute type, which
+        """A collated sample (numpy arrays or tensors) -> a flat dict of
+        tensors on the device: the ``net_input`` fields and every
+        array-valued top-level key but ``id`` (``target``,
+        ``transcript_target``, ``transcript_target_lengths``, ...), as the
+        JAX ``_device_batch`` (:456) keeps them. Integer arrays become int64
+        and the float features take the compute type, which
         ``compute_dtype`` names for a model that has no float input."""
         if not sample:
             return None
         batch = dict(sample["net_input"])
-        batch["target"] = sample["target"]
+        batch.update((k, v) for k, v in sample.items() if k not in ("net_input", "id", "ntokens", "nsentences"))
         out = {}
         for key, value in batch.items():
             if value is None or not hasattr(value, "shape"):
@@ -111,14 +117,16 @@ class Trainer:
             start_buffers = [b.detach().clone() for b in self.model.buffers()]
 
         logs: Dict[str, Any] = {}
+        sample_size = 0
         for i, batch in enumerate(batches):
             if i:
                 with torch.no_grad():
                     for buf, start in zip(self.model.buffers(), start_buffers):
                         buf.copy_(start)
             batch = self.task.augment_batch(batch, self.generators)
-            loss, _, logging_output = self.criterion(self.model, batch, self.generators, training=True)
+            loss, size, logging_output = self.criterion(self.model, batch, self.generators, training=True)
             loss.backward()
+            sample_size = sample_size + size
             for k, v in logging_output.items():
                 logs[k] = logs[k] + v if k in logs else v
 
@@ -128,7 +136,7 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        denom = torch.clamp(logs["sample_size"].float(), min=1.0)
+        denom = torch.clamp(torch.as_tensor(sample_size, device=self.device).float(), min=1.0)
         torch._foreach_div_(grads, denom)
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.clip_norm > 0:

@@ -225,9 +225,6 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 
 def test_off_path_options_raise():
-    with pytest.raises(NotImplementedError):
-        tct.build_model("conv_transformer", torch_dictionary(), device="cpu",
-                        ctc_compress_out=True, **SMALL)
     for option in (dict(adaptive_softmax_cutoff="1000,4000"), dict(adaptive_input=True)):
         with pytest.raises(NotImplementedError):
             tct.build_model("conv_transformer", torch_dictionary(), device="cpu", **option, **SMALL)

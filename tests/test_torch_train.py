@@ -382,7 +382,7 @@ def test_off_path_training_options_raise():
         SpeechRecognitionTask(argparse.Namespace(**{**vars(args), "specaugment": True}), torch_dictionary())
     task = SpeechRecognitionTask(args, torch_dictionary())
     with pytest.raises(NotImplementedError):
-        task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "ctc_multi_loss"}))
+        task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "cross_entropy"}))
     model = tct.build_model("conv_transformer", torch_dictionary(), device="cpu", **SMALL)
     crit = task.build_criterion(args)
     for option in (dict(fsdp=True), dict(steps_per_execution=4), dict(optimizer="sgd"),

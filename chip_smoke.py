@@ -14,8 +14,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
   3. kernels at the serving shapes: the flash forward against its plain
      PyTorch version in fp32 (TF32 off) and bf16, with kernel, plain and
      library (scaled_dot_product_attention, a yardstick the port never
-     calls) times per call (CUDA events), the kernel's own device time
-     (torch.profiler), and the card's bound for the same work;
+     calls: the fastest of its fused backends, flash, memory-efficient
+     and cuDNN, each timed alone and named, never its math fallback) times
+     per call (CUDA events), the kernel's own device time (torch.profiler),
+     and the card's bound for the same work;
   4. kernels at the training shapes (the train step's four attention
      calls at batch 128, the lightconv decoder's encoder attention at
      batch 64 with keys padded on the left, and the long-context step's
@@ -75,12 +77,15 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      the plain route of the dynamic conv (training mode, dropout rates 0),
      and the card against the plain CPU path on 2 pairs (eval-mode
      criterion);
- 12. the single-pass kernel: ``flash_fwd_single`` against
-     ``flash_fwd_single_reference`` in fp32 (TF32 off) and bf16 at the
-     sweep's shapes (bh 32, S 2048, not causal; bh 64, S 2048, causal) at
-     every ``t_block`` the kernel takes there, and a ragged case (bh 4,
-     T 300, S 333, keys padded) at every ``t_block``, with the wrapper's,
-     the device, the plain, the SDPA and the bound times;
+ 12. the single-pass kernels: ``flash_fwd_single`` against
+     ``flash_fwd_single_reference`` in fp32 (TF32 off, the CUDA-core
+     kernel at t_block 8 and 16) and bf16 (the tensor-core kernel at
+     t_block 64 and 128) at the sweep's shapes (bh 32, S 2048, not causal;
+     bh 64, S 2048, causal) and a ragged case (bh 4, T 300, S 333, keys
+     padded), and in bf16 a long ragged row (bh 2, T 700, S 8192, padded)
+     past the fp32 kernel's shared memory, with the wrapper's, the device,
+     the plain, the SDPA and the bound times; then the refusals: D 32 in
+     both types, S 3308 at t_block 16 in fp32 and t_block 16 in bf16;
  13. the flash sweep (main path 5, the one path that runs the single-pass
      kernel): ``scripts/bench_flash_sweep.run`` in full, its rows and the
      inputs of the gate and FUSED_BWD decisions;
@@ -161,9 +166,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-# the timers, the card line and the SDPA mask: the sweep module's
+# the timers, the card line and the SDPA yardstick: the sweep module's
 from fbk_fairseq_st_tpu_torch.scripts.bench_flash_sweep import (  # noqa: E402
-    card_line, device_busy, sdpa_mask, time_ms)
+    card_line, device_busy, time_library, time_ms)
 
 # H100 SXM data sheet (dense): memory 3.35 TB/s; fp32 outside the tensor
 # cores 67 TFLOP/s; bf16 tensor cores 989 TFLOP/s.
@@ -253,13 +258,16 @@ DCONV_SHAPES = [
     ("ragged", 4, 37, 48, 3, 4, 1),
 ]
 
-# the single-pass kernel's checks: (name, bh, T, S, causal, padded keys),
-# each at every t_block the kernel takes (8, 16)
+# the single-pass kernels' checks: (name, bh, T, S, causal, padded keys,
+# types), each at every t_block the type's kernel takes
+# (flash_fwd_single.T_BLOCKS); S 8192 is past the fp32 kernel's shared memory
 SINGLE_SHAPES = [
-    ("bh32_S2048", 32, 2048, 2048, False, False),
-    ("bh64_S2048_causal", 64, 2048, 2048, True, False),
-    ("ragged_bh4_T300_S333", 4, 300, 333, False, True),
+    ("bh32_S2048", 32, 2048, 2048, False, False, (torch.float32, torch.bfloat16)),
+    ("bh64_S2048_causal", 64, 2048, 2048, True, False, (torch.float32, torch.bfloat16)),
+    ("ragged_bh4_T300_S333", 4, 300, 333, False, True, (torch.float32, torch.bfloat16)),
+    ("ragged_bh2_T700_S8192", 2, 700, 8192, False, True, (torch.bfloat16,)),
 ]
+SINGLE_TIMED_AT = ("bh32_S2048", "bfloat16", 64)  # the kernels line's row
 
 # the CTC flagship (bench.py:344-423)
 CTC_ARCH = "conv_transformer_big"
@@ -411,8 +419,6 @@ def build_kernels(kernel_build):
 # ---------------------------------------------------------------------------
 
 def check_serving_kernels(fa):
-    from torch.nn.functional import scaled_dot_product_attention
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
     for name, bh, t, s, d, causal, padded in KERNEL_SHAPES:
@@ -428,8 +434,8 @@ def check_serving_kernels(fa):
                 raise AssertionError(f"flash_fwd disagrees with its plain version at {name} {dtype}: "
                                      f"max|out| err {err}, max|lse| err {lse_err}")
             worst[dtype] = max(worst[dtype], err)
-            mask = sdpa_mask(bias, t, s, causal, dtype)
             fwd = lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal)  # noqa: E731
+            library_ms, library_backend = time_library(q, k, v, bias, scale, causal)
             row = {
                 "phase": "kernel_check", "kernel": "flash_attention_fwd", "shape": name,
                 "bh": bh, "T": t, "S": s, "D": d, "causal": causal, "rate": 0.0,
@@ -437,7 +443,7 @@ def check_serving_kernels(fa):
                 "max_abs_err": err, "lse_max_abs_err": lse_err, "atol": ATOL_KERNEL[dtype],
                 "kernel_ms": time_ms(fwd), "kernel_device_ms": device_ms(fwd, "flash_fwd_kernel"),
                 "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal)),
-                "library_ms": time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)),
+                "library_ms": library_ms, "library_backend": library_backend,
             }
             row["bound_ms"], row["bound_by"] = attention_bound_ms(bh, t, s, d, causal, dtype)
             emit(row)
@@ -483,8 +489,6 @@ def _pad_d(x, d_kernel):
 def check_training_kernels(fa, philox):
     """Each training-shape call in fp32 and bf16: mask, forward, both
     backwards against the plain versions; times and bounds."""
-    from torch.nn.functional import scaled_dot_product_attention
-
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     worst = {(kind, dtype): 0.0 for kind in ("fwd", "bwd_fused", "bwd_split")
@@ -536,12 +540,7 @@ def check_training_kernels(fa, philox):
             for kind, err in errs.items():
                 worst[(kind, dtype)] = max(worst[(kind, dtype)], err)
 
-            mask = sdpa_mask(bias, t, s, causal, dtype)
-            qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
-
-            def sdpa_fwd_bwd():
-                scaled_dot_product_attention(qr, kr, vr, attn_mask=mask, scale=scale).backward(g)
-
+            library_ms, library_backend = time_library(q, k, v, bias, scale, causal)
             fwd = lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal, **drop)  # noqa: E731
             base = {"phase": "train_kernel_check", "shape": name, "bh": bh, "T": t, "S": s, "D": d,
                     "causal": causal, "rate": rate, "keys_padded_on_the_left": left,
@@ -550,7 +549,7 @@ def check_training_kernels(fa, philox):
                 "flash_attention_fwd": dict(
                     kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd, "flash_fwd_kernel"),
                     plain_ms=time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal, rate, seed)),
-                    library_ms=time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)),
+                    library_ms=library_ms, library_backend=library_backend,
                     max_abs_err=errs["fwd"], lse_max_abs_err=lse_err, atol=ATOL_KERNEL[dtype],
                     bound=attention_bound_ms(bh, t, s, d, causal, dtype)),
                 "flash_attention_bwd_fused": dict(
@@ -570,9 +569,10 @@ def check_training_kernels(fa, philox):
             split_ms = time_ms(bwd(False))
             plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
                 q, k, v, bias, out_k, lse_k, g, scale, causal, rate, seed))
-            library_bwd_ms = time_ms(sdpa_fwd_bwd)
+            library_bwd_ms, library_bwd_backend = time_library(q, k, v, bias, scale, causal, grad=g)
             for kernel in ("flash_attention_bwd_fused", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
                 timings[kernel].update(plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
+                                       library_backend=library_bwd_backend,
                                        library="sdpa forward+backward, rate 0")
             # the split pair's wrapper call launches both kernels
             timings["flash_attention_bwd_dq"]["kernel_ms"] = split_ms
@@ -1311,22 +1311,20 @@ def check_lightconv_steps(dicts, modules):
 
 def check_single_kernel(single):
     """flash_fwd_single against its plain version in fp32 and bf16 at the
-    sweep's shapes and a ragged one, at every t_block the kernel takes."""
-    from torch.nn.functional import scaled_dot_product_attention
-
+    sweep's shapes and ragged ones, at every t_block each type's kernel
+    takes; then the shapes it refuses."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for name, bh, t, s, causal, padded in SINGLE_SHAPES:
+    for name, bh, t, s, causal, padded, dtypes in SINGLE_SHAPES:
         d = 64
         scale = d ** -0.5
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v, bias = random_attention_inputs(gen, bh, s, s, d, dtype, padded)
             q = q[:, :t].contiguous()
             out_p, lse_p = single.flash_fwd_single_reference(q, k, v, bias, scale, causal)
             plain_ms = time_ms(lambda: single.flash_fwd_single_reference(q, k, v, bias, scale, causal), iters=5)
-            mask = sdpa_mask(bias, t, s, causal, dtype)
-            library_ms = time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), iters=5)
-            for tb in single.T_BLOCKS:
+            library_ms, library_backend = time_library(q, k, v, bias, scale, causal, iters=5)
+            for tb in single.T_BLOCKS[dtype]:
                 run = lambda: single.flash_fwd_single(q, k, v, bias, scale, causal=causal, t_block=tb)  # noqa: E731
                 out_k, lse_k = run()
                 torch.cuda.synchronize()
@@ -1341,7 +1339,7 @@ def check_single_kernel(single):
                        "atol": ATOL_KERNEL[dtype], "elementwise_limit": [atol, rtol],
                        "max_err_over_elementwise_limit": limit_ratio, "kernel_ms": time_ms(run, iters=5),
                        "kernel_device_ms": device_ms(run, "flash_fwd_single_kernel", iters=5),
-                       "plain_ms": plain_ms, "library_ms": library_ms}
+                       "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": library_backend}
                 row["bound_ms"], row["bound_by"] = attention_bound_ms(bh, t, s, d, causal, dtype)
                 emit(row)
                 rows.append(row)
@@ -1350,19 +1348,22 @@ def check_single_kernel(single):
                                          f"t_block {tb}: max|out| err {err} ({limit_ratio} of the element-wise "
                                          f"limit), max|lse| err {lse_err}")
                 worst[dtype] = max(worst[dtype], err)
-            del q, k, v, bias, out_p, lse_p, mask
+            del q, k, v, bias, out_p, lse_p
             torch.cuda.empty_cache()
-    # past its shared memory (t_block 16 at S 3308) or at another head dim
+    # another head dim in either type, past the fp32 kernel's shared memory
+    # (t_block 16 at S 3308), or a tile the bf16 kernel is not built for:
     # the wrapper raises before any launch and nothing falls back
-    for s, d, tb in ((3308, 64, 16), (256, 32, 8)):
-        q, k, v, bias = random_attention_inputs(gen, 1, s, s, d, torch.bfloat16, padded=False)
+    for dtype, s, d, tb in ((torch.float32, 256, 32, 8), (torch.bfloat16, 256, 32, 64),
+                            (torch.float32, 3308, 64, 16), (torch.bfloat16, 256, 64, 16)):
+        q, k, v, bias = random_attention_inputs(gen, 1, s, s, d, dtype, padded=False)
         before = single.launches
         try:
             single.flash_fwd_single(q, k, v, bias, d ** -0.5, t_block=tb)
         except ValueError as exc:
-            emit({"phase": "single_kernel_refuses", "S": s, "D": d, "t_block": tb, "error": str(exc)})
+            emit({"phase": "single_kernel_refuses", "dtype": str(dtype).replace("torch.", ""), "S": s, "D": d,
+                  "t_block": tb, "error": str(exc)})
         else:
-            raise AssertionError(f"flash_fwd_single took S {s} D {d} t_block {tb}, past what it is built for")
+            raise AssertionError(f"flash_fwd_single took {dtype} S {s} D {d} t_block {tb}, past what it is built for")
         if single.launches != before:
             raise AssertionError("flash_fwd_single launched a shape it refuses")
     return rows, worst
@@ -1618,7 +1619,8 @@ def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32,
         "launches": launches, "max_abs_err": worst_fp32, "max_abs_err_bf16": worst_bf16,
         "ms": head["kernel_ms"], "device_ms": head["kernel_device_ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "timed_at": f"{timed_at[0]} {where} {timed_at[1]}",
+        "library_ms": head["library_ms"], "library_backend": head.get("library_backend"),
+        "timed_at": f"{timed_at[0]} {where} {timed_at[1]}",
     }
 
 
@@ -1736,7 +1738,7 @@ def main() -> int:
                      dconv_worst[("bwd", f32)], dconv_worst[("bwd", b16)], dconv_at),
         kernel_entry("flash_fwd_single", "flash_fwd_single", csrc + "flash_fwd_single.cu",
                      "fbk_fairseq_st_tpu/scripts/bench_flash_sweep.py:28", launches["flash_fwd_single"],
-                     single_rows, single_worst[f32], single_worst[b16], ("bh32_S2048", "bfloat16", 16)),
+                     single_rows, single_worst[f32], single_worst[b16], SINGLE_TIMED_AT),
     ]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

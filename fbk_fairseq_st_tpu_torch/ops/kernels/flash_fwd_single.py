@@ -1,36 +1,39 @@
-"""The single-pass attention forward: the CUDA kernel's wrapper and its
+"""The single-pass attention forward: the CUDA kernels' wrapper and their
 plain version.
 
 Counterpart of ``fbk_fairseq_st_tpu/scripts/bench_flash_sweep.py``
 (``_fwd_single_kernel`` :28, ``fwd_single`` :60): one tile of ``t_block``
-query rows against the whole S at once, a plain softmax with no online
-rescale, P rounded to the input type before the P.V product. It is a
+query rows against the whole S, a plain softmax with no online rescale of
+the output, P rounded to the input type before the P.V product. It is a
 candidate of the flash sweep (``scripts/bench_flash_sweep.py``) and nothing
-on a model path calls it. The kernel is ``csrc/flash_fwd_single.cu``.
+on a model path calls it. The kernels are ``csrc/flash_fwd_single.cu``.
 
 ``flash_fwd_single`` takes the port's flash layouts: q (BH, T, D), k/v
 (BH, S, D) in fp32 or bf16, ``mask_bias`` (BH, S) fp32, and returns out
 (BH, T, D) in q's type and lse (BH, T) fp32. On a CUDA tensor it launches
-the kernel or raises: the kernel is built for the sweep's D = 64 at
-``t_block`` 8 and 16 only, and a shape whose rows' scores do not fit the
-block's shared memory (``smem_bytes`` > ``SMEM_LIMIT``) is refused too. On
+the kernel or raises (``check_shape``): both are built for D = 64 only;
+bf16 runs on the tensor cores at ``t_block`` 64 and 128 and any S; fp32
+on the CUDA cores at ``t_block`` 8 and 16, where the rows' scores over S
+must fit the block's shared memory (``smem_bytes`` <= ``SMEM_LIMIT``). On
 a CPU tensor it runs ``flash_fwd_single_reference``, at any shape.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..core import NEG_INF
 from .build import bind, raise_on
 
-HEAD_DIM = 64  # the one head dim the kernel is built for
-T_BLOCKS = (8, 16)
+HEAD_DIM = 64  # the one head dim the kernels are built for
+T_BLOCKS = {torch.float32: (8, 16), torch.bfloat16: (64, 128)}  # built tiles, per input type
+DEFAULT_T_BLOCK = {torch.float32: 16, torch.bfloat16: 64}  # the faster tile at the sweep's shapes (PERF.md)
 SMEM_LIMIT = 232448  # bytes of shared memory an H100 block can opt into
-_CHUNK = 64  # keys the kernel stages per chunk
+_CHUNK = 64  # keys the kernels stage per chunk
+_STAGES = 3  # the bf16 kernel's ring of K + V chunks
 
 # Kernel launches since the last reset (the plain version does not count).
 launches = 0
@@ -41,10 +44,26 @@ def reset_launches() -> None:
     launches = 0
 
 
-def smem_bytes(t_block: int, s: int) -> int:
-    """Shared memory of one block: the rows' fp32 scores over the whole S,
-    the q tile and one k/v chunk (rows padded to D + 1 floats)."""
+def smem_bytes(t_block: int, s: int, dtype=torch.float32) -> int:
+    """Shared memory of one block. fp32: the rows' scores over the whole S,
+    the q tile and one k/v chunk (rows padded to D + 1 floats). bf16: the q
+    tile and a ring of 64-key K and V chunks, whatever S is."""
+    if dtype == torch.bfloat16:
+        return 2 * HEAD_DIM * (t_block + _STAGES * 2 * _CHUNK)
     return 4 * (t_block * s + (t_block + _CHUNK) * (HEAD_DIM + 1))
+
+
+def check_shape(dtype, d: int, s: int, t_block: int, bh: int = 1) -> None:
+    """Raise ValueError for a shape the kernel of ``dtype`` is not built
+    for; needs no card."""
+    if d != HEAD_DIM or t_block not in T_BLOCKS[dtype]:
+        raise ValueError(f"flash_fwd_single: the {dtype} kernel takes D {HEAD_DIM} and t_block in "
+                         f"{T_BLOCKS[dtype]}, got D {d} t_block {t_block}")
+    if smem_bytes(t_block, s, dtype) > SMEM_LIMIT:
+        raise ValueError(f"flash_fwd_single: t_block {t_block} x S {s} needs {smem_bytes(t_block, s, dtype)} "
+                         f"bytes of shared memory, over the {SMEM_LIMIT} a block can have")
+    if bh > 65535:
+        raise ValueError(f"flash_fwd_single: bh {bh} > 65535")
 
 
 def flash_fwd_single_reference(q, k, v, mask_bias, scale: float, causal: bool = False
@@ -68,10 +87,11 @@ def flash_fwd_single_reference(q, k, v, mask_bias, scale: float, causal: bool = 
     return out.to(q.dtype), (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]
 
 
-def flash_fwd_single(q, k, v, mask_bias, scale: float, causal: bool = False, t_block: int = 16
+def flash_fwd_single(q, k, v, mask_bias, scale: float, causal: bool = False, t_block: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """softmax(scale * q k^T + bias[key], causal-masked) v in one pass over
-    the whole S per ``t_block`` rows. Returns (out, lse)."""
+    the whole S per ``t_block`` rows (default ``DEFAULT_T_BLOCK``).
+    Returns (out, lse)."""
     if q.dim() != 3 or k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_fwd_single: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     bh, t, d = q.shape
@@ -80,22 +100,18 @@ def flash_fwd_single(q, k, v, mask_bias, scale: float, causal: bool = False, t_b
         raise ValueError(f"flash_fwd_single: mask_bias {tuple(mask_bias.shape)} != {(bh, s)}")
     if not q.is_cuda:
         return flash_fwd_single_reference(q, k, v, mask_bias, scale, causal)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in T_BLOCKS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_fwd_single: q/k/v must share fp32 or bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d != HEAD_DIM or t_block not in T_BLOCKS:
-        raise ValueError(f"flash_fwd_single: the kernel takes D {HEAD_DIM} and t_block in {T_BLOCKS}, "
-                         f"got D {d} t_block {t_block}")
-    if smem_bytes(t_block, s) > SMEM_LIMIT:
-        raise ValueError(f"flash_fwd_single: t_block {t_block} x S {s} needs {smem_bytes(t_block, s)} bytes "
-                         f"of shared memory, over the {SMEM_LIMIT} a block can have")
-    if bh > 65535:
-        raise ValueError(f"flash_fwd_single: bh {bh} > 65535")
+    t_block = DEFAULT_T_BLOCK[q.dtype] if t_block is None else t_block
+    check_shape(q.dtype, d, s, t_block, bh)
     return _forward_cuda(q, k, v, mask_bias.to(torch.float32), float(scale), bool(causal), t_block)
 
 
 def _forward_cuda(q, k, v, bias, scale, causal, t_block):
     global launches
-    q, k, v, bias = q.contiguous(), k.contiguous(), v.contiguous(), bias.contiguous()
+    # contiguous, and 16-byte aligned for the bf16 kernel's cp.async
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q.contiguous(), k.contiguous(), v.contiguous()))
+    bias = bias.contiguous()
     bh, t, _ = q.shape
     s = k.shape[1]
     out = torch.empty_like(q)

@@ -5,13 +5,16 @@ Counterpart of ``fbk_fairseq_st_tpu/scripts/bench_flash_sweep.py``
 chosen from:
 
   * the single-pass forward (``ops/kernels/flash_fwd_single.py``) at each
-    ``t_block`` the kernel takes (8 and 16: a larger tile's scores over
-    S = 2048 do not fit a block's shared memory), each first checked
+    ``t_block`` its bf16 kernel takes (64 and 128), each first checked
     against the port's flash forward (max |out difference| < 2e-2,
     asserted, as the JAX sweep's ``measure_fwd_single`` does);
   * the flash forward and the fused and the split backward;
   * ``scaled_dot_product_attention`` with the same mask, forward and
-    forward + backward, as a yardstick (the port never calls it);
+    forward + backward, as a yardstick (the port never calls it): each of
+    its fused backends (flash, memory-efficient, cuDNN) alone, through
+    ``library_attention``, and the fastest kept with its name. PyTorch's
+    math fallback is never timed: a shape that no fused backend takes
+    has no library time;
   * the port's dense route against its flash route, forward + backward of
     ``MultiheadAttention`` (the encoder self-attention: 256 wide, 4 heads,
     attention dropout 0.1, training mode) and of ``ConvAttention2D`` (the
@@ -29,7 +32,7 @@ sweep's (t_block, s_block) grid has no counterpart here. Times are CUDA
 events around 20 calls, the best of 3 repeats, after a warm-up.
 
 ``chip_smoke.py`` drives ``run`` as a path and times with this module's
-``time_ms``, ``device_busy`` and ``sdpa_mask`` too.
+``time_ms``, ``device_busy`` and ``time_library`` too.
 
 Run on a machine with the card:
 
@@ -43,13 +46,14 @@ from __future__ import annotations
 
 import json
 import subprocess
+import warnings
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
 from ..ops import attention
 from ..ops.conv_frontend import ConvAttention2D
-from ..ops.core import make_generators
+from ..ops.core import NEG_INF, make_generators
 from ..ops.kernels import flash_attention as fa
 from ..ops.kernels import flash_fwd_single as single
 
@@ -58,6 +62,7 @@ KERNEL_SHAPES = ((32, 2048, False), (64, 2048, True))  # (bh, S, causal)
 ROUTE_KEY_LENGTHS = (128, 512, 2048)
 ROUTE_ROWS = 16384  # batch x key length of the train steps' encoder
 SINGLE_ATOL = 2e-2
+LIBRARY_BACKENDS = ("flash", "efficient", "cudnn")  # SDPA's fused backends
 
 
 def card_line() -> str:
@@ -108,21 +113,70 @@ def inputs(bh: int, s: int):
     return q, k, v, torch.zeros((bh, s), device="cuda")
 
 
-def sdpa_mask(bias, t: int, s: int, causal: bool, dtype):
-    """The (BH, T, S) additive mask of ``scaled_dot_product_attention``
-    for a (BH, S) key bias, causal above the diagonal."""
-    mask = bias[:, None, :]
+def library_mask(bias, t: int, causal: bool, dtype):
+    """The ``attn_mask`` of ``library_attention`` for a (BH, S) key bias,
+    made once per input set (it reads the bias on the host): None when the
+    bias is all zero; else the bias as (1, BH, 1, S), or materialised as
+    (1, BH, T, S) with NEG_INF above the diagonal when also causal."""
+    if not bool(bias.any()):
+        return None
+    mask = bias.to(dtype)[None, :, None, :]
     if causal:
-        future = torch.ones((t, s), dtype=torch.bool, device=bias.device).triu(1)
-        mask = mask.masked_fill(future[None], -1e9)
-    return mask.to(dtype)
+        future = torch.ones((t, bias.shape[1]), dtype=torch.bool, device=bias.device).triu(1)
+        mask = mask.masked_fill(future, NEG_INF)
+    return mask
+
+
+def library_attention(q, k, v, mask, scale: float, causal: bool, backend: str):
+    """``scaled_dot_product_attention`` on the kernels' (BH, T, D) layouts,
+    viewed as (1, BH, T, D), under ``sdpa_kernel`` with the one fused
+    ``backend`` ("flash", "efficient" or "cudnn") allowed: a shape it does
+    not take raises and never runs on the math path. ``mask`` from
+    ``library_mask``; causal with no mask is ``is_causal`` (top-left
+    aligned, as the kernels). Returns (BH, T, D). The port never calls
+    this on a model path: it is the yardstick of the kernels' times."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention
+
+    chosen = {"flash": SDPBackend.FLASH_ATTENTION, "efficient": SDPBackend.EFFICIENT_ATTENTION,
+              "cudnn": SDPBackend.CUDNN_ATTENTION}[backend]
+    with sdpa_kernel([chosen]):
+        return scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask,
+                                            is_causal=causal and mask is None, scale=scale)[0]
+
+
+def time_library(q, k, v, bias, scale: float, causal: bool, grad=None, iters: int = 20):
+    """The fastest fused SDPA backend on these inputs, forward alone (grad
+    None) or forward + backward of ``grad``: each backend timed alone
+    (``time_ms``), those that refuse the shape skipped. Returns (ms,
+    backend), or (None, None) when every backend refuses."""
+    mask = library_mask(bias, q.shape[1], causal, q.dtype)
+    if grad is not None:
+        q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    best = (None, None)
+    for name in LIBRARY_BACKENDS:
+        def call(name=name):
+            out = library_attention(q, k, v, mask, scale, causal, name)
+            if grad is not None:
+                torch.autograd.grad(out, (q, k, v), grad)
+        try:
+            with warnings.catch_warnings():  # a refusing backend warns why, then raises
+                warnings.simplefilter("ignore")
+                call()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        ms = time_ms(call, iters)
+        if best[0] is None or ms < best[0]:
+            best = (ms, name)
+    return best
 
 
 def measure_single(bh: int, s: int, causal: bool, t_block: int) -> Dict:
     """The single-pass forward at ``t_block``: checked against the port's
     flash forward first, then timed."""
     row = {"kind": "single_pass_fwd", "bh": bh, "S": s, "D": D, "causal": causal, "t_block": t_block,
-           "smem_bytes": single.smem_bytes(t_block, s)}
+           "smem_bytes": single.smem_bytes(t_block, s, torch.bfloat16)}
     q, k, v, bias = inputs(bh, s)
     scale = D ** -0.5
     out, lse = single.flash_fwd_single(q, k, v, bias, scale, causal=causal, t_block=t_block)
@@ -138,8 +192,6 @@ def measure_single(bh: int, s: int, causal: bool, t_block: int) -> Dict:
 def measure_flash(bh: int, s: int, causal: bool) -> List[Dict]:
     """The flash forward, the fused and the split backward, and SDPA with
     the same mask, forward and forward + backward."""
-    from torch.nn.functional import scaled_dot_product_attention
-
     q, k, v, bias = inputs(bh, s)
     scale = D ** -0.5
     out, lse = fa.flash_attention(q, k, v, bias, scale, causal=causal, return_lse=True)
@@ -154,23 +206,18 @@ def measure_flash(bh: int, s: int, causal: bool) -> List[Dict]:
                 fa.FUSED_BWD = True
         return run
 
-    mask = sdpa_mask(bias, s, s, causal, q.dtype)
-    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        scaled_dot_product_attention(qr, kr, vr, attn_mask=mask, scale=scale).backward(g)
-
     base = {"bh": bh, "S": s, "D": D, "causal": causal}
     fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal))
     fused_ms, split_ms = time_ms(bwd(True)), time_ms(bwd(False))
-    sdpa_fwd_ms = time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
-    sdpa_ms = time_ms(sdpa_fwd_bwd)
+    sdpa_fwd_ms, fwd_backend = time_library(q, k, v, bias, scale, causal)
+    sdpa_ms, fwd_bwd_backend = time_library(q, k, v, bias, scale, causal, grad=g)
     return [
         {**base, "kind": "flash_fwd", "fwd_ms": fwd_ms},
         {**base, "kind": "flash_bwd_fused", "bwd_ms": fused_ms, "fwd_bwd_ms": fwd_ms + fused_ms},
         {**base, "kind": "flash_bwd_split", "bwd_ms": split_ms, "fwd_bwd_ms": fwd_ms + split_ms},
-        {**base, "kind": "sdpa", "fwd_ms": sdpa_fwd_ms, "fwd_bwd_ms": sdpa_ms,
-         "note": "yardstick with the same mask; the port never calls it"},
+        {**base, "kind": "sdpa", "fwd_ms": sdpa_fwd_ms, "fwd_backend": fwd_backend, "fwd_bwd_ms": sdpa_ms,
+         "fwd_bwd_backend": fwd_bwd_backend,
+         "note": "yardstick with the same mask, the fastest fused backend; the port never calls it"},
     ]
 
 
@@ -223,7 +270,7 @@ def run() -> List[Dict]:
         raise RuntimeError("bench_flash_sweep measures the CUDA card and there is none")
     rows = []
     for bh, s, causal in KERNEL_SHAPES:
-        rows += [measure_single(bh, s, causal, tb) for tb in single.T_BLOCKS]
+        rows += [measure_single(bh, s, causal, tb) for tb in single.T_BLOCKS[torch.bfloat16]]
         rows += measure_flash(bh, s, causal)
     for kind in ("mha", "time_attention"):
         rows += [measure_routes(kind, s) for s in ROUTE_KEY_LENGTHS]
@@ -264,7 +311,9 @@ def print_table(rows: List[Dict]) -> None:
                   f"flash {r['flash_wall_ms']:8.3f}; kernels: dense {r['dense_kernels_per_call']:.0f}  "
                   f"flash {r['flash_kernels_per_call']:.0f}")
         else:
-            times = "  ".join(f"{k} {r[k]:8.3f}" for k in ("fwd_ms", "bwd_ms", "fwd_bwd_ms") if k in r)
+            times = "  ".join(f"{k} {r[k]:8.3f}" if r[k] is not None else f"{k} refused"
+                              for k in ("fwd_ms", "bwd_ms", "fwd_bwd_ms") if k in r)
+            times += "".join(f" ({k} {r[k]})" for k in ("fwd_backend", "fwd_bwd_backend") if k in r)
             print(f"{shape:<26} {r['kind']:<22} {times}")
 
 

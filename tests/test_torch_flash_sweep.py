@@ -1,8 +1,8 @@
 """PyTorch port, the flash sweep's slice on the CPU: the single-pass
 forward's plain version against the JAX sweep's Pallas kernel
 (``_fwd_single_kernel``, interpret mode, with ``fwd_single``'s block specs),
-the wrapper's shared-memory limit, the sweep's decision helper and the
-flash route's auto mode.
+the wrapper's per-type shape limits, the SDPA yardstick's fused-only
+helper, the sweep's decision helper and the flash route's auto mode.
 
 The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
 against this plain version there. Tolerances are stated per test."""
@@ -88,16 +88,81 @@ def test_single_pass_reference_matches_the_flash_reference(causal):
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
 
 
-def test_shared_memory_limit():
-    """A block holds t_block x S fp32 scores, the q tile and one 64-key
-    chunk (rows padded to D + 1): the kernel's two tiles (D 64, t_block 8
-    and 16) fit S = 2048, t_block 16 up to S = 3307 and t_block 8 up to
-    S = 6679; the wrapper refuses anything past that on the card."""
-    assert single.HEAD_DIM == 64 and single.T_BLOCKS == (8, 16)
-    assert single.smem_bytes(16, 2048) == 4 * (16 * 2048 + 16 * 65 + 64 * 65)
-    assert all(single.smem_bytes(tb, 2048) <= single.SMEM_LIMIT for tb in single.T_BLOCKS)
-    assert single.smem_bytes(16, 3307) == single.SMEM_LIMIT < single.smem_bytes(16, 3308)
-    assert single.smem_bytes(8, 6679) <= single.SMEM_LIMIT < single.smem_bytes(8, 6680)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_shared_memory_limit(dtype):
+    """Both kernels take D 64 only. fp32: a block holds t_block x S fp32
+    scores, the q tile and one 64-key chunk (rows padded to D + 1), so its
+    tiles (t_block 8 and 16) fit S = 2048, t_block 16 up to S = 3307 and
+    t_block 8 up to S = 6679. bf16: a block holds the q tile and a 3-slot
+    ring of 64-key K and V chunks whatever S is, so its tiles (64 and 128)
+    take any S. ``check_shape`` refuses the rest, needing no card."""
+    assert single.HEAD_DIM == 64
+    if dtype == torch.float32:
+        assert single.T_BLOCKS[dtype] == (8, 16)
+        assert single.smem_bytes(16, 2048, dtype) == 4 * (16 * 2048 + 16 * 65 + 64 * 65)
+        assert all(single.smem_bytes(tb, 2048, dtype) <= single.SMEM_LIMIT for tb in single.T_BLOCKS[dtype])
+        assert single.smem_bytes(16, 3307, dtype) == single.SMEM_LIMIT < single.smem_bytes(16, 3308, dtype)
+        assert single.smem_bytes(8, 6679, dtype) <= single.SMEM_LIMIT < single.smem_bytes(8, 6680, dtype)
+        single.check_shape(dtype, 64, 3307, 16)
+        single.check_shape(dtype, 64, 6679, 8)
+        refused = [(64, 3308, 16), (64, 6680, 8), (32, 256, 8), (64, 256, 64)]
+    else:
+        assert single.T_BLOCKS[dtype] == (64, 128)
+        assert single.smem_bytes(64, 2048, dtype) == 2 * 64 * (64 + 3 * 2 * 64) == 57344
+        assert single.smem_bytes(128, 1 << 20, dtype) == single.smem_bytes(128, 2048, dtype) == 65536
+        for s in (1, 333, 3308, 8192, 1 << 20):
+            for tb in single.T_BLOCKS[dtype]:
+                single.check_shape(dtype, 64, s, tb)
+        refused = [(32, 2048, 64), (128, 2048, 128), (64, 2048, 8), (64, 2048, 16), (64, 2048, 256)]
+    for d, s, tb in refused:
+        with pytest.raises(ValueError):
+            single.check_shape(dtype, d, s, tb)
+    with pytest.raises(ValueError):
+        single.check_shape(dtype, 64, 256, single.T_BLOCKS[dtype][0], bh=65536)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["unpadded", "padded"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_library_attention_runs_a_fused_backend(causal, padded):
+    """The SDPA yardstick on the kernels' (BH, T, D) layouts under the CPU
+    build's fused backend alone (flash) equals ``flash_attention_reference``
+    at atol 1e-5 (fp32, the same function summed in another order): no
+    mask, ``is_causal``, the (1, BH, 1, S) key bias, or the materialised
+    causal + padded mask. Ragged T 37, S 53."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rng = np.random.RandomState(2)
+    q = torch.tensor(rng.randn(3, 37, 16).astype(np.float32))
+    k, v = (torch.tensor(rng.randn(3, 53, 16).astype(np.float32)) for _ in range(2))
+    bias = torch.zeros(3, 53)
+    if padded:
+        bias[1, 45:] = -1e9
+        bias[2, 30:] = -1e9
+    mask = tsweep.library_mask(bias, 37, causal, q.dtype)
+    assert (mask is None) == (not padded)
+    if padded:
+        assert tuple(mask.shape) == ((1, 3, 37, 53) if causal else (1, 3, 1, 53))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        got = tsweep.library_attention(q, k, v, mask, 0.4, causal, "flash")
+    want, _ = tflash.flash_attention_reference(q, k, v, bias, 0.4, causal)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_library_attention_never_takes_the_math_path():
+    """The 3-D call the yardstick used to make (q/k/v (BH, T, D), a
+    (BH, T, S) mask) has no fused backend and raises under the fused-only
+    context, as does ``library_attention`` with a backend that refuses
+    the shape (the CPU build has no memory-efficient backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention
+
+    q, k, v = (torch.randn(2, 8, 16, generator=torch.Generator().manual_seed(i)) for i in range(3))
+    mask = torch.zeros(2, 8, 8)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]):
+        with pytest.raises(RuntimeError):
+            scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.25)
+    with pytest.raises(RuntimeError):
+        tsweep.library_attention(q, k, v, None, 0.25, False, "efficient")
 
 
 def test_sweep_needs_the_card(monkeypatch):

@@ -9,8 +9,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      CUDA;
   2. build: compiles every kernel from the sources in this checkout (one
      nvcc per source, all started together, sm_90a: flash_fwd, flash_bwd,
-     dynamic_conv) and reports the seconds and the ptxas registers and
-     spills of each;
+     flash_bwd_tc, dynamic_conv, flash_fwd_single) and reports the seconds
+     and the ptxas registers and spills of each;
   3. kernels at the serving shapes: the flash forward against its plain
      PyTorch version in fp32 (TF32 off) and bf16, with kernel, plain and
      library (scaled_dot_product_attention, a yardstick the port never
@@ -21,12 +21,15 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
   4. kernels at the training shapes (the train step's four attention
      calls at batch 128, the lightconv decoder's encoder attention at
      batch 64 with keys padded on the left, and the long-context step's
-     two at S 2048): the forward's dropout keep
-     mask against ``philox.keep_mask`` (exactly), the forward at the
-     training dropout rate, and the fused and split backwards, against the
-     plain versions on the same inputs and seed, with the same times and
-     bounds (the library time of a backward is SDPA's forward + backward
-     at rate 0);
+     two at S 2048), in fp32 and bf16, and one bf16 call at D 16: the
+     forward's dropout keep mask against ``philox.keep_mask`` (exactly),
+     the forward at the training dropout rate, and the fused backward and
+     the split pair (on the tensor cores in bf16 at D 32 and 64, on the CUDA
+     cores in fp32 and at D 16), against the plain versions on the same
+     inputs and seed, with the same times and bounds (the library time of a
+     backward is SDPA's forward + backward at rate 0); then, at the long
+     D 64 call in bf16, the pair's dq, dk, dv again, bitwise equal to the
+     first (asserted), and the fused kernel's dQ spread;
   5. dynamic-conv kernels: ``dynamic_conv_fwd`` and ``dynamic_conv_bwd``
      against ``dynamic_conv_reference`` / ``dynamic_conv_backward_reference``
      in fp32 (TF32 off) and bf16 at the serving shapes (B 32, T 60, C 1024,
@@ -48,9 +51,11 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      4000 warmup updates, clip-norm 10, --bf16) at full width on a fixed
      batch of 128 utterances of 409-512 frames and 48 target tokens:
      3 warm-up steps, then 20 timed steps 3 times; step ms, frames/s and
-     MFU; exactly 20 flash forward and 20 fused backward launches a step
-     (20 dq + 20 dkv with ``FUSED_BWD = False``, a shorter run); the loss
-     finite and falling; one profiled step;
+     MFU; exactly 20 flash forward launches a step, 20 + 20 tensor-core
+     dq + dkv and no fused or CUDA-core backward (``BF16_BACKWARD``); the
+     loss finite and falling; one profiled step; then short runs with each backward forced
+     (fused, the pair in bf16, the pair in fp32 on the CUDA cores), their
+     launches exact;
   8. train-step cross-checks in fp32 (TF32 off): flash against dense
      route and fused against split backward (training mode, every dropout
      rate 0 but the frontend's forced 0.1, drawn alike on both sides), and
@@ -71,8 +76,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      ``Trainer.train_step`` with the arguments of phase 7 and ``--bf16`` on
      one batch of 64 pairs of 40-56 source and 40-56 target tokens: step
      ms, target tokens/s, MFU, peak memory, one profiled step; exactly 13
-     ``dynamic_conv_fwd``, 13 ``dynamic_conv_bwd``, 6 flash forward and 6
-     fused backward launches a step; the loss finite and falling;
+     ``dynamic_conv_fwd``, 13 ``dynamic_conv_bwd``, 6 flash forward and
+     6 + 6 tensor-core dq + dkv a step; the loss finite and falling;
  11. lightconv train-step cross-checks in fp32: the kernel route against
      the plain route of the dynamic conv (training mode, dropout rates 0),
      and the card against the plain CPU path on 2 pairs (eval-mode
@@ -88,7 +93,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      both types, S 3308 at t_block 16 in fp32 and t_block 16 in bf16;
  13. the flash sweep (main path 5, the one path that runs the single-pass
      kernel): ``scripts/bench_flash_sweep.run`` in full, its rows and the
-     inputs of the gate and FUSED_BWD decisions;
+     inputs of the gate and backward decisions (the fused kernel's and the
+     pair's device time at each of the model path's backward calls, and
+     whether the pair wins there: it must win at every call, asserted);
  14. train (main path 6), the ``bench.py::_measure_ctc_flagship``
      configuration: ``conv_transformer_big`` with ``ctc_multi_loss`` over
      label-smoothed CE 0.1, CTC after encoder layer 4 with weight 0.5 and
@@ -97,7 +104,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      utterances of 409-512 frames, 48 target and 64 transcript tokens
      (a 700-symbol source dictionary; the task adds ``<ctc_blank>`` after
      its symbols): step ms, frames/s, MFU, peak memory, exactly 20 flash
-     forward and 20 fused backward launches a step, the loss finite and
+     forward launches and 20 + 20 tensor-core dq + dkv a step, the
+     loss finite and
      falling, the logged ``ctc_loss`` finite, one profiled step, and the
      launches and device time of the UER's edit distance;
  15. CTC cross-checks in fp32 (TF32 off): flash against dense route at
@@ -107,8 +115,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
  16. train (main path 7), ``bench.py``'s ``flash_longcontext_train``: the
      base conv_transformer on 8 utterances of 6554-8192 frames (T' = 2048
      after the frontend), ``max_source_positions`` 8192, bf16: step ms,
-     frames/s, MFU, peak memory, exactly 20 flash forward and 20 fused
-     backward launches a step, the loss finite, one
+     frames/s, MFU, peak memory, exactly 20 flash forward launches and
+     20 + 20 tensor-core dq + dkv a step, the loss finite, one
      profiled step; then flash against dense route in fp32 at the same
      shapes (the dense route's (8, 4, 2048, 2048) scores fit the card);
  17. the ``kernels`` line, the card line, and the final ``ok`` line.
@@ -116,16 +124,23 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
 Tolerances (stated here, checked below):
   * kernels against their plain versions: atol 1e-4 in fp32 (the same
     sums in another order); in bf16 2e-2 for out (one bf16 rounding of
-    |out| < 4) and 5e-2 for dq/dk/dv (one bf16 rounding of gradients up to
-    |g| ~ 10, the dropout's 1/(1 - rate) included); lse 1e-4 (fp32 in both
-    types); the keep mask exactly; the single-pass kernel's bf16 out
+    |out| < 4); lse 1e-4 (fp32 in both types); the keep mask exactly; the
+    flash dq, dk and dv in bf16 each within 1e-2 of its own max|plain|
+    (one bf16 rounding of the output, 2^-8 of it at most, with ds and w_v
+    rounded to bf16 alike on both sides; the fused kernel keeps them in
+    fp32, which moves a sum of S terms by about 2^-9 of it): at S = 2048
+    every gradient is a sum of ~2048 terms of weight ~1/2048 and typically
+    0.02-0.04, so the 5e-2 atol it replaces passed a kernel that returned
+    zeros, and a zero gradient now misses by its whole max; the single-pass
+    kernel's bf16 out
     besides element by element within 1e-3 + 8e-3 |plain| (one bf16 ulp of
     the plain value, 2^-7 of it at most, and P rounded alike on both
     sides): at S = 2048 a typical |out| is about 0.03, so 2e-2 alone would
     pass a dropped key chunk;
-  * dynamic conv against its plain version: out and dx at the atols
-    above (out and dx are sums of K products, convex in x for out, with
-    |out|, |dx| < 5); dw, a sum of C/H = 64 products that reaches |dw| ~
+  * dynamic conv against its plain version: out and dx at atol 1e-4 in
+    fp32, in bf16 out at 2e-2 and dx at 5e-2 (out and dx are sums of K
+    products, convex in x for out, with |out|, |dx| < 5: one bf16
+    rounding); dw, a sum of C/H = 64 products that reaches |dw| ~
     40, at 1e-5 (fp32) and 1e-2 (bf16, one rounding at 2^-8) of max|dw|;
   * the serving models, flash vs dense, kernel vs plain route and card vs
     CPU: atol 1e-3 in fp32 (8 attention or 13 conv layers summed in
@@ -168,7 +183,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # the timers, the card line and the SDPA yardstick: the sweep module's
 from fbk_fairseq_st_tpu_torch.scripts.bench_flash_sweep import (  # noqa: E402
-    card_line, device_busy, time_library, time_ms)
+    TRAIN_BACKWARD_SHAPES, card_line, device_busy, time_library, time_ms)
 
 # H100 SXM data sheet (dense): memory 3.35 TB/s; fp32 outside the tensor
 # cores 67 TFLOP/s; bf16 tensor cores 989 TFLOP/s.
@@ -178,6 +193,7 @@ PEAK_BF16 = 989e12
 
 ATOL_KERNEL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ATOL_GRAD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+RTOL_GRAD_BF16 = 1e-2  # flash dq / dk / dv in bf16: of max|plain|, tensor by tensor
 ATOL_LSE = 1e-4
 SINGLE_BF16_LIMIT = (1e-3, 8e-3)  # (atol, rtol of |plain|), element by element
 RTOL_DW = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -199,9 +215,7 @@ TGT_LEN = 48
 WARMUP_STEPS = 3
 TIMED_STEPS = 20
 REPEATS = 3
-SPLIT_STEPS = 5
-# 2 time attention + 6 encoder + 6 decoder causal self + 6 cross
-FLASH_LAUNCHES_PER_STEP = 20
+SPLIT_STEPS = 5  # the short runs with each backward forced
 
 # (name, bh, T, S, D, causal, padded keys): the flash calls of the serving path
 KERNEL_SHAPES = [
@@ -212,21 +226,28 @@ KERNEL_SHAPES = [
     ("long_encoder_self_attention", 32, 750, 750, 64, False, True),
 ]
 
-# (name, bh, T, S, D, causal, dropout rate, keys padded on the left): the
-# flash calls of the conv_transformer train step at batch 128 (4 heads,
-# T' = 512 / 4 frames, 48 target tokens), the lightconv decoder's encoder attention at batch 64 (16 heads, 56
-# tokens, sources padded on the left) and the long-context step's encoder
-# self-attention and time attention (batch 8, T' = 2048); all have padded
-# keys
-TRAIN_KERNEL_SHAPES = [
-    ("encoder_self_attention", 512, 128, 128, 64, False, 0.1, False),
-    ("time_attention", 512, 128, 128, 20, False, 0.3, False),
-    ("decoder_causal_self_attention", 512, 48, 48, 64, True, 0.1, False),
-    ("cross_attention", 512, 48, 128, 64, False, 0.1, False),
-    ("lightconv_cross_attention", 1024, 56, 56, 64, False, 0.1, True),
-    ("long_encoder_self_attention", 32, 2048, 2048, 64, False, 0.1, False),
-    ("long_time_attention", 32, 2048, 2048, 20, False, 0.3, False),
+# (name, bh, T, S, D, causal, dropout rate, keys padded on the left,
+# types): the flash calls of the train steps (the sweep's
+# TRAIN_BACKWARD_SHAPES: the conv_transformer step at batch 128, the
+# lightconv decoder's encoder attention at batch 64, the long-context step
+# at T' = 2048; all with padded keys) in fp32 and bf16, and one bf16 call at
+# D 16, where the split pair runs on the CUDA cores (no model reaches it)
+TRAIN_KERNEL_SHAPES = [(*shape, (torch.float32, torch.bfloat16)) for shape in TRAIN_BACKWARD_SHAPES] + [
+    ("d16_bf16", 64, 100, 100, 16, False, 0.1, False, (torch.bfloat16,)),
 ]
+DETERMINISM_AT = "long_encoder_self_attention"  # bf16: the pair's bits compared across launches
+
+# flash calls a conv_transformer train step makes: 2 time attention (F' =
+# 20 padded to 32), 6 encoder self-attention, 6 decoder causal
+# self-attention, 6 cross-attention; each one forward and one backward
+CT_FLASH_CALLS_PER_STEP = 20
+# the route every bf16 backward call of the train steps takes (kernel D 32
+# and 64): the tensor-core dq + dkv pair, since the sweep measured it
+# faster than the fused kernel at each of them (phase 13 asserts that it
+# still is); the step phases hold their launch counts to it
+BF16_BACKWARD = "split_tc"
+BACKWARD_KERNELS = {"fused": ("flash_bwd_fused",), "split_tc": ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
+                    "split_cuda_core": ("flash_bwd_dq", "flash_bwd_dkv")}
 
 # the lightconv paths (dynamicconv_wmt_en_de_big, models/lightconv.py)
 LC_ARCH = "dynamicconv_wmt_en_de_big"
@@ -280,7 +301,7 @@ LONG_BATCH = 8
 LONG_FRAMES = 8192
 LONG_TIMED_STEPS = 5
 
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "dynamic_conv", "flash_fwd_single")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "flash_bwd_tc", "dynamic_conv", "flash_fwd_single")
 
 
 def emit(obj) -> None:
@@ -293,6 +314,9 @@ def _device_events(prof):
     from torch.autograd import DeviceType
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+CARD = [None]  # the card's nvidia-smi line, set by main
 
 
 def device_ms(fn, match, iters: int = 20, tries: int = 3):
@@ -486,14 +510,29 @@ def _pad_d(x, d_kernel):
     return torch.nn.functional.pad(x, (0, d_kernel - x.shape[-1])).contiguous()
 
 
+def grad_errors(got, want, dtype):
+    """Against the plain gradients: fp32 the largest absolute difference of
+    dq, dk, dv; bf16 the largest of each tensor's max|kernel - plain| over
+    its max|plain|. Returns (max abs err, that ratio, the max|plain| of dq,
+    dk, dv, within the limit)."""
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+    tops = [b.float().abs().max().item() for b in want]
+    ratio = max(e / max(t, 1e-30) for e, t in zip(errs, tops))
+    ok = ratio <= RTOL_GRAD_BF16 if dtype == torch.bfloat16 else max(errs) <= ATOL_GRAD[dtype]
+    return max(errs), ratio, tops, ok
+
+
 def check_training_kernels(fa, philox):
-    """Each training-shape call in fp32 and bf16: mask, forward, both
-    backwards against the plain versions; times and bounds."""
+    """Each training-shape call in its types: mask, forward, the fused
+    backward and the split pair (on the tensor cores in bf16 at D 32 and 64,
+    on the CUDA cores otherwise) against the plain versions; the pair's
+    determinism; times and bounds."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    worst = {(kind, dtype): 0.0 for kind in ("fwd", "bwd_fused", "bwd_split")
+    worst = {(kind, dtype): 0.0 for kind in ("fwd", "bwd_fused", "bwd_cuda_core", "bwd_tc")
              for dtype in (torch.float32, torch.bfloat16)}
-    for name, bh, t, s, d, causal, rate, left in TRAIN_KERNEL_SHAPES:
+    worst_ratio = {}
+    for name, bh, t, s, d, causal, rate, left, dtypes in TRAIN_KERNEL_SHAPES:
         seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=torch.Generator().manual_seed(len(rows))))
         got, valid = kernel_keep_mask(fa, bh, t, s, causal, rate, seed)
         want = philox.keep_mask(seed, bh, t, s, rate, device="cuda")
@@ -505,7 +544,7 @@ def check_training_kernels(fa, philox):
             raise AssertionError(f"{name}: the forward kernel's keep mask differs from philox.keep_mask "
                                  f"at {mismatches} elements")
 
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v, bias = random_attention_inputs(gen, bh, t, s, d, dtype, left=left)
             g = torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
             scale = d ** -0.5
@@ -514,6 +553,8 @@ def check_training_kernels(fa, philox):
             out_p, lse_p = fa.flash_attention_reference(q, k, v, bias, scale, causal, rate, seed)
             # both backwards against the plain one, on the kernel's out and lse
             dk = fa.kernel_head_dim(d)
+            route = fa.split_route(dtype, dk)
+            split = "bwd_tc" if route == "tc" else "bwd_cuda_core"
             qp, kp, vp, op, gp = (_pad_d(x, dk) for x in (q, k, v, out_k, g))
             bwd_args = (qp, kp, vp, bias, op, lse_k, gp, scale, causal, rate, seed)
             want_grads = fa.flash_attention_backward_reference(q, k, v, bias, out_k, lse_k, g, scale,
@@ -521,22 +562,21 @@ def check_training_kernels(fa, philox):
 
             def bwd(fused):
                 def run():
-                    fa.FUSED_BWD = fused
-                    try:
+                    with fa.backward_forced(fused):
                         return fa.flash_attention_backward(*bwd_args)
-                    finally:
-                        fa.FUSED_BWD = True
                 return run
 
-            grads = {kind: [x[..., :d] for x in bwd(fused)()]
-                     for kind, fused in (("bwd_fused", True), ("bwd_split", False))}
+            grads = {kind: [x[..., :d] for x in bwd(fused)()] for kind, fused in (("bwd_fused", True), (split, False))}
             torch.cuda.synchronize()
             errs = {"fwd": (out_k.float() - out_p.float()).abs().max().item()}
             lse_err = (lse_k - lse_p).abs().max().item()
-            for kind, gr in grads.items():
-                errs[kind] = max((a.float() - b.float()).abs().max().item() for a, b in zip(gr, want_grads))
+            checks = {kind: grad_errors(gr, want_grads, dtype) for kind, gr in grads.items()}
+            for kind, (err, ratio, _, _) in checks.items():
+                errs[kind] = err
+                if dtype == torch.bfloat16:
+                    worst_ratio[kind] = max(worst_ratio.get(kind, 0.0), ratio)
             ok = (errs["fwd"] <= ATOL_KERNEL[dtype] and lse_err <= ATOL_LSE
-                  and max(errs["bwd_fused"], errs["bwd_split"]) <= ATOL_GRAD[dtype])
+                  and all(c[3] for c in checks.values()))
             for kind, err in errs.items():
                 worst[(kind, dtype)] = max(worst[(kind, dtype)], err)
 
@@ -544,7 +584,18 @@ def check_training_kernels(fa, philox):
             fwd = lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal, **drop)  # noqa: E731
             base = {"phase": "train_kernel_check", "shape": name, "bh": bh, "T": t, "S": s, "D": d,
                     "causal": causal, "rate": rate, "keys_padded_on_the_left": left,
-                    "dtype": str(dtype).replace("torch.", "")}
+                    "dtype": str(dtype).replace("torch.", ""), "card": CARD[0]}
+
+            def grad_fields(kind):
+                err, ratio, tops, _ = checks[kind]
+                limit = ({"max_err_over_max_plain": ratio, "rtol_of_max_plain": RTOL_GRAD_BF16}
+                         if dtype == torch.bfloat16 else {"atol": ATOL_GRAD[dtype]})
+                return dict(max_abs_err=err, max_abs_plain_dq_dk_dv=tops, **limit)
+
+            tc = route == "tc"
+            dq_name, dkv_name = ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel") if tc else (
+                "flash_bwd_q_kernel", lambda n: "flash_bwd_kv_kernel" in n and "false>" in n)
+            suffix = "_tc" if tc else ""
             timings = {
                 "flash_attention_fwd": dict(
                     kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd, "flash_fwd_kernel"),
@@ -555,36 +606,55 @@ def check_training_kernels(fa, philox):
                 "flash_attention_bwd_fused": dict(
                     kernel_ms=time_ms(bwd(True)),
                     kernel_device_ms=device_ms(bwd(True), lambda n: "flash_bwd_kv_kernel" in n and "true>" in n),
-                    max_abs_err=errs["bwd_fused"], atol=ATOL_GRAD[dtype],
-                    bound=backward_bound_ms("fused", bh, t, s, d, causal, dtype)),
-                "flash_attention_bwd_dq": dict(
-                    kernel_device_ms=device_ms(bwd(False), "flash_bwd_q_kernel"),
-                    max_abs_err=errs["bwd_split"], atol=ATOL_GRAD[dtype],
-                    bound=backward_bound_ms("dq", bh, t, s, d, causal, dtype)),
-                "flash_attention_bwd_dkv": dict(
-                    kernel_device_ms=device_ms(bwd(False), lambda n: "flash_bwd_kv_kernel" in n and "false>" in n),
-                    max_abs_err=errs["bwd_split"], atol=ATOL_GRAD[dtype],
-                    bound=backward_bound_ms("dkv", bh, t, s, d, causal, dtype)),
+                    wrapper_device_ms=device_busy(bwd(True))[1],
+                    bound=backward_bound_ms("fused", bh, t, s, d, causal, dtype), **grad_fields("bwd_fused")),
+                "flash_attention_bwd_dq" + suffix: dict(
+                    kernel_device_ms=device_ms(bwd(False), dq_name),
+                    bound=backward_bound_ms("dq", bh, t, s, d, causal, dtype), **grad_fields(split)),
+                "flash_attention_bwd_dkv" + suffix: dict(
+                    kernel_device_ms=device_ms(bwd(False), dkv_name),
+                    bound=backward_bound_ms("dkv", bh, t, s, d, causal, dtype), **grad_fields(split)),
             }
             split_ms = time_ms(bwd(False))
+            split_device_ms = device_busy(bwd(False))[1]
             plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
                 q, k, v, bias, out_k, lse_k, g, scale, causal, rate, seed))
             library_bwd_ms, library_bwd_backend = time_library(q, k, v, bias, scale, causal, grad=g)
-            for kernel in ("flash_attention_bwd_fused", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            for kernel in list(timings)[1:]:
                 timings[kernel].update(plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
                                        library_backend=library_bwd_backend,
                                        library="sdpa forward+backward, rate 0")
             # the split pair's wrapper call launches both kernels
-            timings["flash_attention_bwd_dq"]["kernel_ms"] = split_ms
-            timings["flash_attention_bwd_dkv"]["kernel_ms"] = split_ms
+            for kernel in list(timings)[2:]:
+                timings[kernel].update(kernel_ms=split_ms, wrapper_device_ms=split_device_ms, split_route=route)
             for kernel, tm in timings.items():
                 tm["bound_ms"], tm["bound_by"] = tm.pop("bound")
                 row = {**base, "kernel": kernel, **tm}
                 emit(row)
                 rows.append(row)
             if not ok:
-                raise AssertionError(f"training-shape check failed at {name} {dtype}: {errs}, lse {lse_err}")
-    return rows, worst
+                raise AssertionError(f"training-shape check failed at {name} {dtype}: {errs}, lse {lse_err}, "
+                                     f"{ {kind: c[:3] for kind, c in checks.items()} }")
+            if name == DETERMINISM_AT and dtype == torch.bfloat16:
+                check_determinism(bwd, grads[split], grads["bwd_fused"], d)
+            del q, k, v, bias, g, out_k, out_p, want_grads, grads
+            torch.cuda.empty_cache()
+    return rows, worst, worst_ratio
+
+
+def check_determinism(bwd, pair, fused, d):
+    """The split pair again on the same inputs: bitwise equal (asserted);
+    the fused kernel's dQ again: its spread reported (fp32 atomics)."""
+    pair2 = [x[..., :d] for x in bwd(False)()]
+    fused2 = [x[..., :d] for x in bwd(True)()]
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(pair, pair2)]
+    spread = [(a.float() - b.float()).abs().max().item() for a, b in zip(fused, fused2)]
+    emit({"phase": "backward_determinism", "shape": DETERMINISM_AT, "dtype": "bfloat16",
+          "pair_bitwise_equal_dq_dk_dv": same, "fused_max_abs_spread_dq_dk_dv": spread,
+          "fused_dq_elements_that_differ": int((fused[0] != fused2[0]).sum()), "card": CARD[0]})
+    if not all(same):
+        raise AssertionError(f"the split pair is not deterministic at {DETERMINISM_AT}: {same}")
 
 
 # ---------------------------------------------------------------------------
@@ -833,8 +903,7 @@ def train(card, d, fa, dconv, single, modules):
         step_ms.append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
     launches = launch_counts(fa, dconv, single)
     steps = REPEATS * TIMED_STEPS
-    want = {k: 0 for k in launches}
-    want.update(flash_fwd=FLASH_LAUNCHES_PER_STEP * steps, flash_bwd_fused=FLASH_LAUNCHES_PER_STEP * steps)
+    want = step_launches(launches, steps, CT_FLASH_CALLS_PER_STEP)
     if launches != want:
         raise AssertionError(f"train launches {launches}, expected {want} over {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -848,7 +917,7 @@ def train(card, d, fa, dconv, single, modules):
         raise AssertionError(f"the loss did not fall on a fixed batch: {first} -> {last}")
     median = float(np.median(step_ms))
     emit({"phase": "train", "arch": "conv_transformer", "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
-          "tgt_len": TGT_LEN, "dtype": "bfloat16", "backward": "fused",
+          "tgt_len": TGT_LEN, "dtype": "bfloat16", "backward": BF16_BACKWARD,
           "step_ms_median": median, "step_ms_repeats": step_ms, "step_ms_spread": max(step_ms) - min(step_ms),
           "frames_per_s": frames_per_batch / (median / 1e3), "flops_per_step": flops,
           "mfu": flops / (median / 1e3) / PEAK_BF16, "flash_launches_per_step":
@@ -861,26 +930,45 @@ def train(card, d, fa, dconv, single, modules):
     emit({"phase": "train_profile", "step_s": wall_s, "device_busy_s": busy_s,
           "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
 
-    # the split backward: the same path with FUSED_BWD = False
-    fa.FUSED_BWD = False
-    trainer.train_step([sample])
-    torch.cuda.synchronize()
-    reset_counts(fa, dconv, single)
-    t0 = time.perf_counter()
-    for _ in range(SPLIT_STEPS):
-        trainer.train_step([sample])
-    torch.cuda.synchronize()
-    split_ms = (time.perf_counter() - t0) / SPLIT_STEPS * 1e3
-    fa.FUSED_BWD = True
-    split = launch_counts(fa, dconv, single)
-    want = {k: 0 for k in split}
-    want.update(flash_fwd=FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS, flash_bwd_dq=FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS,
-                flash_bwd_dkv=FLASH_LAUNCHES_PER_STEP * SPLIT_STEPS)
-    if split != want:
-        raise AssertionError(f"split-backward launches {split}, expected {want}")
-    emit({"phase": "train", "backward": "split", "steps": SPLIT_STEPS, "step_ms": split_ms,
-          "flash_launches_per_step": {k: v / SPLIT_STEPS for k, v in split.items()}, "card": card})
-    return {k: launches[k] + split[k] for k in launches}
+    # the same path with each backward forced, in short runs: the fused
+    # kernel and the split pair in bf16, and the split pair in fp32, where
+    # it runs on the CUDA cores
+    total = dict(launches)
+    fp32_args = train_args(bf16=False)
+    fp32_trainer = Trainer(fp32_args, task, task.build_model(fp32_args), task.build_criterion(fp32_args))
+    fp32_sample = staged(train_sample(d, np.random.RandomState(0)), torch.float32)
+    for route, fused, tr, smp, dtype, n in (("fused", True, trainer, sample, torch.bfloat16, SPLIT_STEPS),
+                                             ("split_tc", False, trainer, sample, torch.bfloat16, SPLIT_STEPS),
+                                             ("split_cuda_core", False, fp32_trainer, fp32_sample, torch.float32, 2)):
+        with fa.backward_forced(fused):
+            tr.train_step([smp])
+            torch.cuda.synchronize()
+            reset_counts(fa, dconv, single)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                tr.train_step([smp])
+            torch.cuda.synchronize()
+            forced_ms = (time.perf_counter() - t0) / n * 1e3
+            got = launch_counts(fa, dconv, single)
+            want = step_launches(got, n, CT_FLASH_CALLS_PER_STEP, route)
+        if got != want:
+            raise AssertionError(f"{route} backward ({dtype}) launches {got}, expected {want}")
+        emit({"phase": "train", "backward": route,
+              "dtype": str(dtype).replace("torch.", ""), "steps": n, "step_ms": forced_ms,
+              "flash_launches_per_step": {k: v / n for k, v in got.items()}, "card": card})
+        total = {k: total[k] + got[k] for k in total}
+    del fp32_trainer
+    return total
+
+
+def step_launches(counts, steps, calls, route=BF16_BACKWARD):
+    """The launches ``steps`` train steps make, as ``counts``' keys:
+    ``calls`` flash forwards a step and as many backwards by ``route``
+    (``BACKWARD_KERNELS``), besides nothing else."""
+    want = {k: 0 for k in counts}
+    for name in ("flash_fwd",) + BACKWARD_KERNELS[route]:
+        want[name] = steps * calls
+    return want
 
 
 class _EvalCriterion:
@@ -951,9 +1039,8 @@ def check_train_steps(d, fa, attention, modules):
     attention.set_flash_attention(None)
     compare_steps("flash_vs_dense", flash, dense, "other_forward")
 
-    fa.FUSED_BWD = False
-    split = one_step(d, modules, "cuda", sample)
-    fa.FUSED_BWD = True
+    with fa.backward_forced(False):  # fp32: the split pair on the CUDA cores
+        split = one_step(d, modules, "cuda", sample)
     compare_steps("fused_vs_split", flash, split, "same_forward")
 
     # the plain CPU path (dense: auto mode sends no CPU call to the flash
@@ -1073,6 +1160,7 @@ def collate(LanguagePairDataset, src_dict, tgt_dict, src, tgt=None):
 def launch_counts(fa, dconv, single):
     return {"flash_fwd": fa.launches_fwd, "flash_bwd_fused": fa.launches_bwd_fused,
             "flash_bwd_dq": fa.launches_bwd_dq, "flash_bwd_dkv": fa.launches_bwd_dkv,
+            "flash_bwd_dq_tc": fa.launches_bwd_dq_tc, "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc,
             "dconv_fwd": dconv.launches_fwd, "dconv_bwd": dconv.launches_bwd,
             "flash_fwd_single": single.launches}
 
@@ -1248,10 +1336,8 @@ def train_lightconv(card, dicts, fa, dconv, single, modules):
         step_ms.append((time.perf_counter() - t0) / LC_TIMED_STEPS * 1e3)
     launches = launch_counts(fa, dconv, single)
     steps = REPEATS * LC_TIMED_STEPS
-    want = {"flash_fwd": LC_FLASH_LAUNCHES_PER_STEP * steps, "flash_bwd_fused": LC_FLASH_LAUNCHES_PER_STEP * steps,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "dconv_fwd": DCONV_LAUNCHES_PER_STEP * steps, "dconv_bwd": DCONV_LAUNCHES_PER_STEP * steps,
-            "flash_fwd_single": 0}
+    want = step_launches(launches, steps, LC_FLASH_LAUNCHES_PER_STEP)
+    want.update(dconv_fwd=DCONV_LAUNCHES_PER_STEP * steps, dconv_bwd=DCONV_LAUNCHES_PER_STEP * steps)
     if launches != want:
         raise AssertionError(f"lightconv train launches {launches}, expected {want} over {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1267,6 +1353,7 @@ def train_lightconv(card, dicts, fa, dconv, single, modules):
     tgt_tokens = int(sample["ntokens"])
     emit({"phase": "train_lightconv", "arch": LC_ARCH, "batch": LC_TRAIN_BATCH, "src_len": src_len,
           "tgt_len": tgt_len, "target_tokens": tgt_tokens, "dtype": "bfloat16",
+          "backward": BF16_BACKWARD,
           "step_ms_median": median, "step_ms_repeats": step_ms, "step_ms_spread": max(step_ms) - min(step_ms),
           "target_tokens_per_s": tgt_tokens / (median / 1e3), "flops_per_step": flops,
           "mfu": flops / (median / 1e3) / PEAK_BF16, "launches_per_step": {k: v / steps for k, v in launches.items()},
@@ -1379,8 +1466,11 @@ def flash_sweep(card, sweep, fa, dconv, single):
     sweep.print_table(rows)
     for r in rows:
         emit({"phase": "flash_sweep", **r})
-    emit({"phase": "flash_sweep_decision_inputs", **sweep.gate_from(rows),
-          "seconds": time.perf_counter() - t0, "card": card})
+    decision = sweep.gate_from(rows)
+    emit({"phase": "flash_sweep_decision_inputs", **decision, "seconds": time.perf_counter() - t0, "card": card})
+    if not decision["pair_wins_everywhere"]:
+        raise AssertionError(f"the fused backward beat the tensor-core pair at a train step's call, so the "
+                             f"committed route {BF16_BACKWARD} needs a gate: {decision['pair_wins_by_call']}")
     return launches
 
 
@@ -1459,8 +1549,7 @@ def train_ctc(card, dicts, fa, dconv, single, modules):
     outs += timed
     launches = launch_counts(fa, dconv, single)
     steps = REPEATS * CTC_TIMED_STEPS
-    want = {k: 0 for k in launches}
-    want.update(flash_fwd=FLASH_LAUNCHES_PER_STEP * steps, flash_bwd_fused=FLASH_LAUNCHES_PER_STEP * steps)
+    want = step_launches(launches, steps, CT_FLASH_CALLS_PER_STEP)  # compression keeps T' static rows
     if launches != want:
         raise AssertionError(f"ctc flagship launches {launches}, expected {want} over {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1477,7 +1566,8 @@ def train_ctc(card, dicts, fa, dconv, single, modules):
     metrics = modules["CTCMultiLoss"].reduce_metrics([outs[-1]])
     emit({"phase": "train_ctc_flagship", "arch": CTC_ARCH, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
           "tgt_len": TGT_LEN, "transcript_len": CTC_TR_LEN, "ctc_vocab": enc.ctc_vocab_size,
-          "blank": dicts[1].index("<ctc_blank>"), "dtype": "bfloat16", "step_ms_median": median,
+          "blank": dicts[1].index("<ctc_blank>"), "dtype": "bfloat16", "backward": BF16_BACKWARD,
+          "step_ms_median": median,
           "step_ms_repeats": step_ms, "step_ms_spread": max(step_ms) - min(step_ms),
           "frames_per_s": frames_per_batch / (median / 1e3), "flops_per_step": flops,
           "mfu": flops / (median / 1e3) / PEAK_BF16, "launches_per_step": {k: v / steps for k, v in launches.items()},
@@ -1568,8 +1658,7 @@ def train_long(card, d, fa, dconv, single, modules):
     outs += timed
     launches = launch_counts(fa, dconv, single)
     steps = REPEATS * LONG_TIMED_STEPS
-    want = {k: 0 for k in launches}
-    want.update(flash_fwd=FLASH_LAUNCHES_PER_STEP * steps, flash_bwd_fused=FLASH_LAUNCHES_PER_STEP * steps)
+    want = step_launches(launches, steps, CT_FLASH_CALLS_PER_STEP)
     if launches != want:
         raise AssertionError(f"long-context launches {launches}, expected {want} over {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1579,8 +1668,9 @@ def train_long(card, d, fa, dconv, single, modules):
     median = float(np.median(step_ms))
     emit({"phase": "train_longcontext", "arch": "conv_transformer", "batch": LONG_BATCH, "frames": LONG_FRAMES,
           "encoder_len": model.encoder_cfg.frontend.out_length(LONG_FRAMES), "tgt_len": TGT_LEN,
-          "dtype": "bfloat16", "step_ms_median": median, "step_ms_repeats": step_ms,
-          "step_ms_spread": max(step_ms) - min(step_ms), "frames_per_s": frames_per_batch / (median / 1e3),
+          "dtype": "bfloat16", "backward": BF16_BACKWARD, "step_ms_median": median,
+          "step_ms_repeats": step_ms, "step_ms_spread": max(step_ms) - min(step_ms),
+          "frames_per_s": frames_per_batch / (median / 1e3),
           "flops_per_step": flops, "mfu": flops / (median / 1e3) / PEAK_BF16,
           "launches_per_step": {k: v / steps for k, v in launches.items()}, "peak_memory_gb": peak_gb,
           "loss_per_token_first": per_token[0], "loss_per_token_last": per_token[-1], "card": card})
@@ -1605,16 +1695,22 @@ def check_long_steps(d, modules, attention):
 
 # ---------------------------------------------------------------------------
 
-def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32, worst_bf16, timed_at):
-    """The ``kernels`` line's entry of ``name``, timed at its row of
-    ``row_kernel`` at ``timed_at`` = (shape, dtype[, t_block])."""
-    head = next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
+def find_row(rows, row_kernel, timed_at):
+    return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
                 and r["dtype"] == timed_at[1] and r.get("t_block") == (timed_at[2] if len(timed_at) > 2 else None))
+
+
+def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32, worst_bf16, timed_at, also_at=None):
+    """The ``kernels`` line's entry of ``name``, timed at its row of
+    ``row_kernel`` at ``timed_at`` = (shape, dtype[, t_block]), with the
+    times of its row at ``also_at`` beside them when given. A kernel with
+    no fp32 form reports its bf16 error as ``max_abs_err``."""
+    head = find_row(rows, row_kernel, timed_at)
     where = (f"B{head['B']} T{head['T']} C{head['C']} H{head['H']} K{head['K']} padding_l {head['padding_l']}"
              if "K" in head else f"bh{head['bh']} T{head['T']} S{head['S']} D{head['D']} rate {head['rate']}")
     if "t_block" in head:
         where += f" t_block {head['t_block']}"
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": worst_fp32, "max_abs_err_bf16": worst_bf16,
         "ms": head["kernel_ms"], "device_ms": head["kernel_device_ms"],
@@ -1622,6 +1718,19 @@ def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32,
         "library_ms": head["library_ms"], "library_backend": head.get("library_backend"),
         "timed_at": f"{timed_at[0]} {where} {timed_at[1]}",
     }
+    if worst_fp32 is None:
+        entry["max_abs_err"] = worst_bf16
+    for key in ("max_err_over_max_plain", "wrapper_device_ms", "split_route"):
+        if key in head:
+            entry[key] = head[key]
+    if also_at is not None:
+        r = find_row(rows, row_kernel, also_at)
+        entry["at_" + also_at[0]] = {
+            "bh": r["bh"], "T": r["T"], "S": r["S"], "D": r["D"], "dtype": also_at[1],
+            **{k: r.get(k) for k in ("kernel_ms", "kernel_device_ms", "wrapper_device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms", "library_backend",
+                                     "max_abs_err", "max_err_over_max_plain")}}
+    return entry
 
 
 def main() -> int:
@@ -1656,6 +1765,7 @@ def main() -> int:
 
     # 1. device
     card = card_line()
+    CARD[0] = card
     print(card, flush=True)
     emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -1670,7 +1780,7 @@ def main() -> int:
 
     # 3.-5., 12. kernels against their plain versions
     _, serve_worst = check_serving_kernels(fa)
-    rows, worst = check_training_kernels(fa, philox)
+    rows, worst, worst_ratio = check_training_kernels(fa, philox)
     for dtype in (torch.float32, torch.bfloat16):
         worst[("fwd", dtype)] = max(worst[("fwd", dtype)], serve_worst[dtype])
     dconv_rows, dconv_worst = check_dconv_kernels(dconv)
@@ -1716,19 +1826,28 @@ def main() -> int:
     csrc = "fbk_fairseq_st_tpu_torch/ops/kernels/csrc/"
     pallas = "fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py:"
     timed_at = ("encoder_self_attention", "bfloat16")
+    long_at = ("long_encoder_self_attention", "bfloat16")
+    cuda_core_at = ("encoder_self_attention", "float32")  # in bf16 the pair runs on the tensor cores
     f32, b16 = torch.float32, torch.bfloat16
     kernels = [
         kernel_entry("flash_fwd", "flash_attention_fwd", csrc + "flash_fwd.cu", pallas + "117",
                      launches["flash_fwd"], rows, worst[("fwd", f32)], worst[("fwd", b16)], timed_at),
         kernel_entry("flash_bwd_fused", "flash_attention_bwd_fused", csrc + "flash_bwd.cu", pallas + "277",
                      launches["flash_bwd_fused"], rows, worst[("bwd_fused", f32)], worst[("bwd_fused", b16)],
-                     timed_at),
+                     timed_at, long_at),
         kernel_entry("flash_bwd_dq", "flash_attention_bwd_dq", csrc + "flash_bwd.cu", pallas + "218",
-                     launches["flash_bwd_dq"], rows, worst[("bwd_split", f32)], worst[("bwd_split", b16)], timed_at),
+                     launches["flash_bwd_dq"], rows, worst[("bwd_cuda_core", f32)], worst[("bwd_cuda_core", b16)],
+                     cuda_core_at),
         kernel_entry("flash_bwd_dkv", "flash_attention_bwd_dkv", csrc + "flash_bwd.cu", pallas + "386",
-                     launches["flash_bwd_dkv"], rows, worst[("bwd_split", f32)], worst[("bwd_split", b16)],
-                     timed_at),
+                     launches["flash_bwd_dkv"], rows, worst[("bwd_cuda_core", f32)], worst[("bwd_cuda_core", b16)],
+                     cuda_core_at),
+        kernel_entry("flash_bwd_dq_tc", "flash_attention_bwd_dq_tc", csrc + "flash_bwd_tc.cu", pallas + "218",
+                     launches["flash_bwd_dq_tc"], rows, None, worst[("bwd_tc", b16)], timed_at, long_at),
+        kernel_entry("flash_bwd_dkv_tc", "flash_attention_bwd_dkv_tc", csrc + "flash_bwd_tc.cu", pallas + "386",
+                     launches["flash_bwd_dkv_tc"], rows, None, worst[("bwd_tc", b16)], timed_at, long_at),
     ]
+    for entry, kind in zip(kernels[1:], ("bwd_fused", "bwd_cuda_core", "bwd_cuda_core", "bwd_tc", "bwd_tc")):
+        entry["worst_bf16_err_over_max_plain"] = worst_ratio.get(kind)
     dconv_at = ("train_k31_centred", "bfloat16")
     conv_src, conv_tpu = csrc + "dynamic_conv.cu", "fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py:24"
     kernels += [

@@ -26,12 +26,11 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import NEG_INF
-from .build import bind, raise_on
+from .build import SMEM_LIMIT, bind, raise_on
 
 HEAD_DIM = 64  # the one head dim the kernels are built for
 T_BLOCKS = {torch.float32: (8, 16), torch.bfloat16: (64, 128)}  # built tiles, per input type
 DEFAULT_T_BLOCK = {torch.float32: 16, torch.bfloat16: 64}  # the faster tile at the sweep's shapes (PERF.md)
-SMEM_LIMIT = 232448  # bytes of shared memory an H100 block can opt into
 _CHUNK = 64  # keys the kernels stage per chunk
 _STAGES = 3  # the bf16 kernel's ring of K + V chunks
 

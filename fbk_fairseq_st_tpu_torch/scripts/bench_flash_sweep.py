@@ -9,6 +9,12 @@ chosen from:
     against the port's flash forward (max |out difference| < 2e-2,
     asserted, as the JAX sweep's ``measure_fwd_single`` does);
   * the flash forward and the fused and the split backward;
+  * the backward decision: at each of the model path's backward calls
+    (``TRAIN_BACKWARD_SHAPES``, bf16) the fused kernel's device time
+    against the split pair's, each the summed device time of one backward
+    wrapper call (its kernels, delta's reduction and the fused kernel's fp32
+    dQ buffer included), from which ``gate_from`` reports, call by call,
+    whether the pair wins (``flash_attention.pair_wins``);
   * ``scaled_dot_product_attention`` with the same mask, forward and
     forward + backward, as a yardstick (the port never calls it): each of
     its fused backends (flash, memory-efficient, cuDNN) alone, through
@@ -59,6 +65,23 @@ from ..ops.kernels import flash_fwd_single as single
 
 D = 64
 KERNEL_SHAPES = ((32, 2048, False), (64, 2048, True))  # (bh, S, causal)
+# (name, bh, T, S, D, causal, dropout rate, keys padded on the left): the
+# flash calls of the train steps, each with keys padded as the batches pad
+# them: the conv_transformer step at batch 128 (4 heads, T' = 512 / 4
+# frames, 48 target tokens), the lightconv decoder's encoder attention at
+# batch 64 (16 heads, 56 tokens, sources padded on the left) and the
+# long-context step's encoder self-attention and time attention (batch 8,
+# T' = 2048)
+TRAIN_BACKWARD_SHAPES = [
+    ("encoder_self_attention", 512, 128, 128, 64, False, 0.1, False),
+    ("time_attention", 512, 128, 128, 20, False, 0.3, False),
+    ("decoder_causal_self_attention", 512, 48, 48, 64, True, 0.1, False),
+    ("cross_attention", 512, 48, 128, 64, False, 0.1, False),
+    ("lightconv_cross_attention", 1024, 56, 56, 64, False, 0.1, True),
+    ("long_encoder_self_attention", 32, 2048, 2048, 64, False, 0.1, False),
+    ("long_time_attention", 32, 2048, 2048, 20, False, 0.3, False),
+]
+BWD_AGREE_RTOL = 1e-2  # the pair against the fused kernel, of max|fused|, bf16
 ROUTE_KEY_LENGTHS = (128, 512, 2048)
 ROUTE_ROWS = 16384  # batch x key length of the train steps' encoder
 SINGLE_ATOL = 2e-2
@@ -199,26 +222,79 @@ def measure_flash(bh: int, s: int, causal: bool) -> List[Dict]:
 
     def bwd(fused: bool):
         def run():
-            fa.FUSED_BWD = fused
-            try:
+            with fa.backward_forced(fused):
                 return fa.flash_attention_backward(q, k, v, bias, out, lse, g, scale, causal)
-            finally:
-                fa.FUSED_BWD = True
         return run
 
     base = {"bh": bh, "S": s, "D": D, "causal": causal}
     fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal))
     fused_ms, split_ms = time_ms(bwd(True)), time_ms(bwd(False))
+    fused_dev, split_dev = device_busy(bwd(True))[1], device_busy(bwd(False))[1]
     sdpa_fwd_ms, fwd_backend = time_library(q, k, v, bias, scale, causal)
     sdpa_ms, fwd_bwd_backend = time_library(q, k, v, bias, scale, causal, grad=g)
     return [
         {**base, "kind": "flash_fwd", "fwd_ms": fwd_ms},
-        {**base, "kind": "flash_bwd_fused", "bwd_ms": fused_ms, "fwd_bwd_ms": fwd_ms + fused_ms},
-        {**base, "kind": "flash_bwd_split", "bwd_ms": split_ms, "fwd_bwd_ms": fwd_ms + split_ms},
+        {**base, "kind": "flash_bwd_fused", "bwd_ms": fused_ms, "fwd_bwd_ms": fwd_ms + fused_ms,
+         "bwd_device_ms": fused_dev},
+        {**base, "kind": "flash_bwd_split", "bwd_ms": split_ms, "fwd_bwd_ms": fwd_ms + split_ms,
+         "bwd_device_ms": split_dev, "route": fa.split_route(torch.bfloat16, D)},
         {**base, "kind": "sdpa", "fwd_ms": sdpa_fwd_ms, "fwd_backend": fwd_backend, "fwd_bwd_ms": sdpa_ms,
          "fwd_bwd_backend": fwd_bwd_backend,
          "note": "yardstick with the same mask, the fastest fused backend; the port never calls it"},
     ]
+
+
+def backward_inputs(bh: int, t: int, s: int, d: int, causal: bool, rate: float, left: bool, seed: int = 0):
+    """bf16 q, k, v, dO of N(0, 1) at the kernels' head dim (zero-padded
+    from ``d``), a key bias with lengths in [S/2, S] (padded on the left
+    when ``left``), and the forward's out and lse at ``rate`` with a seed
+    drawn from ``seed``; returns (args of ``flash_attention_backward``)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dk = fa.kernel_head_dim(d)
+    pad = lambda x: torch.nn.functional.pad(x, (0, dk - d)).contiguous()  # noqa: E731
+    q = pad(torch.randn((bh, t, d), generator=gen, device="cuda").to(torch.bfloat16))
+    k, v = (pad(torch.randn((bh, s, d), generator=gen, device="cuda").to(torch.bfloat16)) for _ in range(2))
+    g = pad(torch.randn((bh, t, d), generator=gen, device="cuda").to(torch.bfloat16))
+    lengths = torch.randint(s // 2, s + 1, (bh,), generator=gen, device="cuda")
+    lengths[0] = s
+    pos = torch.arange(s, device="cuda")[None, :]
+    pads = pos < (s - lengths)[:, None] if left else pos >= lengths[:, None]
+    bias = torch.where(pads, NEG_INF, 0.0)
+    drop_seed = int(torch.randint(0, 2 ** 62, (), generator=torch.Generator().manual_seed(seed)))
+    scale = d ** -0.5
+    out, lse = fa.flash_attention(q, k, v, bias, scale, causal=causal, dropout_rate=rate,
+                                  dropout_seed=drop_seed, return_lse=True)
+    return q, k, v, bias, out, lse, g, scale, causal, rate, drop_seed
+
+
+def measure_backward(name: str, bh: int, t: int, s: int, d: int, causal: bool, rate: float,
+                     left: bool) -> Dict:
+    """The fused kernel against the split pair at one backward call of the
+    model path, bf16: the summed device time of one backward wrapper call
+    by each route (``device_busy``), which the decision reads, and its wall
+    time; the pair's gradients are first checked against the fused
+    kernel's (max difference <= ``BWD_AGREE_RTOL`` of max|fused| each,
+    asserted)."""
+    args = backward_inputs(bh, t, s, d, causal, rate, left)
+
+    def bwd(fused: bool):
+        def run():
+            with fa.backward_forced(fused):
+                return fa.flash_attention_backward(*args)
+        return run
+
+    for a, b, grad in zip(bwd(False)(), bwd(True)(), ("dq", "dk", "dv")):
+        err, top = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+        if not err <= BWD_AGREE_RTOL * top:
+            raise AssertionError(f"{name}: the split pair's {grad} differs from the fused kernel's by {err} "
+                                 f"(max|fused| {top})")
+    row = {"kind": "bwd_route", "shape": name, "bh": bh, "T": t, "S": s, "D": d, "kernel_D": fa.kernel_head_dim(d),
+           "causal": causal, "rate": rate, "dtype": "bfloat16",
+           "pair_route": fa.split_route(torch.bfloat16, fa.kernel_head_dim(d))}
+    for route, fused in (("fused", True), ("pair", False)):
+        row[f"{route}_kernels_per_call"], row[f"{route}_device_ms"] = device_busy(bwd(fused))
+        row[f"{route}_wall_ms"] = time_ms(bwd(fused))
+    return row
 
 
 def _route_module(kind: str):
@@ -272,6 +348,7 @@ def run() -> List[Dict]:
     for bh, s, causal in KERNEL_SHAPES:
         rows += [measure_single(bh, s, causal, tb) for tb in single.T_BLOCKS[torch.bfloat16]]
         rows += measure_flash(bh, s, causal)
+    rows += [measure_backward(*shape) for shape in TRAIN_BACKWARD_SHAPES]
     for kind in ("mha", "time_attention"):
         rows += [measure_routes(kind, s) for s in ROUTE_KEY_LENGTHS]
     return rows
@@ -280,8 +357,10 @@ def run() -> List[Dict]:
 def gate_from(rows: List[Dict]) -> Dict:
     """Per caller, the largest measured key length up to which the dense
     route's device time beats the flash route's by more than 10 % at every
-    measured length (None when it does not at the shortest), and the
-    faster backward at S = 2048."""
+    measured length (None when it does not at the shortest); the fused and
+    pair device times of the ``bwd_route`` rows, whether the pair wins at
+    each (``fa.pair_wins``) and at all of them; and the device times of
+    both backwards at S = 2048, not causal."""
     gates = {}
     for kind in sorted({r["kind"] for r in rows if r["kind"].startswith("route_")}):
         ratios = sorted((r["S"], r["dense_over_flash"]) for r in rows if r["kind"] == kind)
@@ -291,11 +370,15 @@ def gate_from(rows: List[Dict]) -> Dict:
                 break
             below = s
         gates[kind[len("route_"):]] = below
-    bwd = {r["kind"]: r["bwd_ms"] for r in rows if r["kind"].startswith("flash_bwd") and r["S"] == 2048
+    calls = [r for r in rows if r["kind"] == "bwd_route"]
+    wins = fa.pair_wins({r["shape"]: (r["fused_device_ms"], r["pair_device_ms"]) for r in calls})
+    bwd = {r["kind"]: r["bwd_device_ms"] for r in rows if r["kind"].startswith("flash_bwd") and r["S"] == 2048
            and not r["causal"]}
     return {"dense_faster_by_10pct_up_to_key_len": gates,
-            "fused_bwd_faster_at_2048": bwd.get("flash_bwd_fused", 0.0) <= bwd.get("flash_bwd_split", 0.0),
-            "bwd_ms_at_2048_non_causal": bwd}
+            "pair_wins_by_call": wins, "pair_wins_everywhere": all(wins.values()),
+            "bwd_device_ms_by_call": {r["shape"]: {"S": r["S"], "fused": r["fused_device_ms"],
+                                                   "pair": r["pair_device_ms"]} for r in calls},
+            "bwd_device_ms_at_2048_non_causal": bwd}
 
 
 def print_table(rows: List[Dict]) -> None:
@@ -305,6 +388,10 @@ def print_table(rows: List[Dict]) -> None:
         if r["kind"] == "single_pass_fwd":
             print(f"{shape:<26} single-pass fwd t_block={r['t_block']:>3}: {r['fwd_ms']:8.3f} ms "
                   f"(max|d| vs flash {r['max_abs_err_vs_flash']:.2e})")
+        elif r["kind"] == "bwd_route":
+            print(f"{r['shape']:<26} backward device ms: fused {r['fused_device_ms']:8.3f}  "
+                  f"pair ({r['pair_route']}) {r['pair_device_ms']:8.3f}; wall ms: fused {r['fused_wall_ms']:8.3f}  "
+                  f"pair {r['pair_wall_ms']:8.3f}")
         elif r["kind"].startswith("route_"):
             print(f"{shape:<26} {r['kind']:<22} fwd+bwd device ms: dense {r['dense_device_ms']:8.3f}  "
                   f"flash {r['flash_device_ms']:8.3f}; wall ms: dense {r['dense_wall_ms']:8.3f}  "

@@ -174,17 +174,23 @@ def test_sweep_needs_the_card(monkeypatch):
 def test_gate_from_rows():
     """Per caller, the gate length is the largest measured key length up
     to which the dense route's device time beats flash by more than 10 %
-    at every length; the backward choice is the faster one at S = 2048."""
+    at every length; whether the tensor-core pair wins comes from the
+    device times of the ``bwd_route`` rows (``pair_wins``), and the S =
+    2048 backwards are reported by device time, not wall time."""
     def route(kind, s, ratio):
         return {"kind": f"route_{kind}", "S": s, "dense_over_flash": ratio}
 
-    bwd = [{"kind": "flash_bwd_fused", "S": 2048, "causal": False, "bwd_ms": 3.0},
-           {"kind": "flash_bwd_split", "S": 2048, "causal": False, "bwd_ms": 5.0}]
+    bwd = [{"kind": "flash_bwd_fused", "S": 2048, "causal": False, "bwd_ms": 3.0, "bwd_device_ms": 2.9},
+           {"kind": "flash_bwd_split", "S": 2048, "causal": False, "bwd_ms": 5.0, "bwd_device_ms": 1.1},
+           {"kind": "bwd_route", "shape": "short", "S": 128, "fused_device_ms": 0.2, "pair_device_ms": 0.3},
+           {"kind": "bwd_route", "shape": "long", "S": 2048, "fused_device_ms": 3.0, "pair_device_ms": 1.0}]
     rows = [route("mha", 128, 0.8), route("time_attention", 128, 0.85), route("mha", 512, 0.95),
             route("time_attention", 512, 0.8), route("mha", 2048, 0.5), route("time_attention", 2048, 1.3)]
     got = tsweep.gate_from(rows + bwd)
     assert got["dense_faster_by_10pct_up_to_key_len"] == {"mha": 128, "time_attention": 512}
-    assert got["fused_bwd_faster_at_2048"]
+    assert got["pair_wins_by_call"] == {"short": False, "long": True}
+    assert not got["pair_wins_everywhere"]
+    assert got["bwd_device_ms_at_2048_non_causal"] == {"flash_bwd_fused": 2.9, "flash_bwd_split": 1.1}
     rows[0]["dense_over_flash"] = 1.05
     assert tsweep.gate_from(rows + bwd)["dense_faster_by_10pct_up_to_key_len"]["mha"] is None
 

@@ -9,11 +9,13 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      CUDA;
   2. build: compiles every kernel from the sources in this checkout (one
      nvcc per source, all started together, sm_90a: flash_fwd, flash_fwd_tc,
-     flash_bwd, flash_bwd_tc, dynamic_conv, flash_fwd_single) and reports
-     the seconds and the ptxas registers and spills of each;
+     flash_fwd_tf32x3, flash_bwd, flash_bwd_tc, flash_bwd_tf32x3,
+     dynamic_conv, flash_fwd_single) and reports the seconds and the ptxas
+     registers and spills of each;
   3. kernels at the serving shapes: the flash forward against its plain
-     PyTorch version in fp32 (TF32 off, the CUDA-core kernel) and bf16
-     (the tensor-core kernel at kernel D 32 and 64), with kernel, plain and
+     PyTorch version in fp32 (TF32 off: the tf32x3 kernel, which serving
+     runs, and the CUDA-core kernel launched directly) and bf16 (the
+     tensor-core kernel at kernel D 32 and 64), with kernel, plain and
      library (scaled_dot_product_attention, a yardstick the port never
      calls: the fastest of its fused backends, flash, memory-efficient
      and cuDNN, each timed alone and named, never its math fallback) times
@@ -24,16 +26,18 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      batch 64 with keys padded on the left, the long-context step's two at
      S 2048, a ragged call and a causal one with T > S), in fp32 and bf16,
      and one bf16 call at D 16: the forward's dropout keep mask against
-     ``philox.keep_mask`` (exactly: probed in fp32 through the CUDA-core
-     kernel, and in bf16 at D 64 and D 32 through the tensor-core kernel),
-     the forward at the training dropout rate (on the tensor cores in bf16
-     at D 32 and 64), and the fused backward and
-     the split pair (on the tensor cores in bf16 at D 32 and 64, on the CUDA
-     cores in fp32 and at D 16), against the plain versions on the same
-     inputs and seed, with the same times and bounds (the library time of a
-     backward is SDPA's forward + backward at rate 0); then, at the long
-     D 64 call in bf16, the pair's dq, dk, dv again, bitwise equal to the
-     first (asserted), and the fused kernel's dQ spread;
+     ``philox.keep_mask`` (exactly: probed through the CUDA-core kernel in
+     fp32, the tf32x3 kernel at D 64 and D 32, and the bf16 tensor-core
+     kernel at D 64 and D 32, each launched directly), the forward at the
+     training dropout rate (on the tensor cores at D 32 and 64: "tc" in
+     bf16, "tf32x3" in fp32), and the fused backward and the split pair of
+     the call's route (the same tensor-core routes; the CUDA cores at
+     D 16), and in fp32 at D 32 and 64 the CUDA-core forward and pair
+     launched directly, against the plain versions on the same inputs and
+     seed, with the same times and bounds (the library time of a backward
+     is SDPA's forward + backward at rate 0); then, at the long D 64 call in
+     each type, the tensor-core pair's dq, dk, dv again, bitwise equal to
+     the first (asserted), and the fused kernel's dQ spread;
   5. dynamic-conv kernels: ``dynamic_conv_fwd`` and ``dynamic_conv_bwd``
      against ``dynamic_conv_reference`` / ``dynamic_conv_backward_reference``
      in fp32 (TF32 off) and bf16 at the serving shapes (B 32, T 60, C 1024,
@@ -49,7 +53,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      ``SequenceGenerator``; checks the hypotheses and the forward launches
      per request, times the encoder, profiles one request, and holds the
      flash route against the dense route and the card against the plain
-     CPU path;
+     CPU path; exactly 8 tf32x3 forwards a request (serving is fp32) and
+     no other kernel;
   7. train (main path 2): the ``bench.py::_measure_train`` configuration
      (label-smoothed CE 0.1, Adam (0.9, 0.98), lr 2e-3 inverse_sqrt over
      4000 warmup updates, clip-norm 10, --bf16) at full width on a fixed
@@ -58,14 +63,17 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      MFU; exactly 20 tensor-core flash forward launches a step and no
      CUDA-core one (``BF16_FORWARD``), 20 + 20 tensor-core dq + dkv and no
      fused or CUDA-core backward (``BF16_BACKWARD``); the
-     loss finite and falling; one profiled step; then short runs with each backward forced
-     (fused, the pair in bf16, the pair in fp32 on the CUDA cores, where the
-     forward runs on the CUDA cores too), their launches exact;
+     loss finite and falling; one profiled step; then short runs with
+     each bf16 backward forced (fused, the pair) and the fp32 step by its
+     rule (20 tf32x3 forwards, 20 + 20 tf32x3 dq + dkv), their launches
+     exact, and one profiled fp32 step;
   8. train-step cross-checks in fp32 (TF32 off): flash against dense
-     route and fused against split backward (training mode, every dropout
-     rate 0 but the frontend's forced 0.1, drawn alike on both sides), and
-     card against the plain CPU path on 2 utterances (eval-mode criterion),
-     and the card's dense route against the CPU as the floor of the two;
+     route and fused against the tf32x3 pair (training mode, every dropout
+     rate 0 but the frontend's forced 0.1, drawn alike on both sides),
+     their launches exact (20 tf32x3 forwards and 20 + 20 tf32x3 dq + dkv;
+     none; 20 tf32x3 forwards and 20 fused), and card against the plain
+     CPU path on 2 utterances (eval-mode criterion), and the card's dense
+     route against the CPU as the floor of the two;
   9. serve (main path 3): ``dynamicconv_wmt_en_de_big`` at full width
      (1024/4096/16, conv_dim 1024, GLU, 7 + 6 layers, K = 3, 7, 15, 31...,
      source and target dictionaries of 32,768 symbols, random weights from
@@ -99,11 +107,12 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      both types, S 3308 at t_block 16 in fp32 and t_block 16 in bf16;
  13. the flash sweep (main path 5, the one path that runs the single-pass
      kernel): ``scripts/bench_flash_sweep.run`` in full, its rows and the
-     inputs of the gate, forward and backward decisions (the fused kernel's
-     and the pair's device time at each of the model path's backward calls,
-     the CUDA-core and the tensor-core forward's at each of its attention
+     inputs of the gate, forward and backward decisions in bf16 and fp32
+     (the fused kernel's and the tensor-core pair's device time at each of
+     the model path's backward calls, the CUDA-core pair's beside them, the
+     CUDA-core and the tensor-core forward's at each of its attention
      calls, and whether the tensor-core kernels win there: they must win at
-     every call, asserted);
+     every call in both types, asserted);
  14. train (main path 6), the ``bench.py::_measure_ctc_flagship``
      configuration: ``conv_transformer_big`` with ``ctc_multi_loss`` over
      label-smoothed CE 0.1, CTC after encoder layer 4 with weight 0.5 and
@@ -132,7 +141,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
 
 Tolerances (stated here, checked below):
   * kernels against their plain versions: atol 1e-4 in fp32 (the same
-    sums in another order); in bf16 2e-2 for out (one bf16 rounding of
+    sums in another order; the tf32x3 kernels' three tf32 products a
+    product leave about 2^-21 of |a||b| each, where one tf32 product would
+    miss 1e-4, tests/test_torch_tf32x3.py); in bf16 2e-2 for out (one bf16 rounding of
     |out| < 4); lse 1e-4 (fp32 in both types); the keep mask exactly (the
     probe's 0/1 test within 1e-3 in fp32 and 2^-8 in bf16, where only the
     output's final rounding, 2^-9 of it, differs); the
@@ -194,12 +205,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # the timers, the card line and the SDPA yardstick: the sweep module's
 from fbk_fairseq_st_tpu_torch.scripts.bench_flash_sweep import (  # noqa: E402
-    FWD_KERNEL_NAMES, TRAIN_BACKWARD_SHAPES, card_line, device_busy, device_ms, time_library, time_ms)
+    BWD_KERNEL_NAMES, FWD_KERNEL_NAMES, TRAIN_BACKWARD_SHAPES, card_line, device_busy, device_ms, time_library,
+    time_ms)
 
-# H100 SXM data sheet (dense): memory 3.35 TB/s; fp32 outside the tensor
-# cores 67 TFLOP/s; bf16 tensor cores 989 TFLOP/s.
+# H100 SXM data sheet (dense): memory 3.35 TB/s; bf16 tensor cores 989
+# TFLOP/s. fp32 products at fp32 accuracy: 165 TFLOP/s, the tensor cores'
+# 495 TFLOP/s of TF32 over the three TF32 products that make one fp32-faithful
+# product (3xTF32, the rate the memory-efficient SDPA backend's fp32 products
+# and the port's tf32x3 kernels run at); the CUDA cores' 67 TFLOP/s of fp32
+# is below it, so a bound at 67 would not be the card's least time.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PEAK_BF16 = 989e12
 
 ATOL_KERNEL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -207,7 +223,10 @@ ATOL_GRAD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 RTOL_GRAD_BF16 = 1e-2  # flash dq / dk / dv in bf16: of max|plain|, tensor by tensor
 ATOL_LSE = 1e-4
 KEEP_PROBE_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -8}
-KEEP_PROBE_BF16_D = (64, 32)  # the tensor-core forward's head dims
+# the keep-mask probes: (forward route, kernel head dim; None: the CUDA-core
+# kernel at kernel_head_dim(min(S, 128))), each route's type
+KEEP_PROBES = (("cuda_core", None), ("tf32x3", 64), ("tf32x3", 32), ("tc", 64), ("tc", 32))
+KEEP_PROBE_DTYPES = {"cuda_core": torch.float32, "tf32x3": torch.float32, "tc": torch.bfloat16}
 SINGLE_BF16_LIMIT = (1e-3, 8e-3)  # (atol, rtol of |plain|), element by element
 RTOL_DW = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 ATOL_MODEL = 1e-3
@@ -251,24 +270,30 @@ TRAIN_KERNEL_SHAPES = [(*shape, (torch.float32, torch.bfloat16)) for shape in TR
     ("causal_bh6_T130_S77", 6, 130, 77, 64, True, 0.1, False, (torch.float32, torch.bfloat16)),
     ("d16_bf16", 64, 100, 100, 16, False, 0.1, False, (torch.bfloat16,)),
 ]
-# each forward route's row name (flash_attention.fwd_route)
-FWD_ROWS = {"tc": "flash_attention_fwd_tc", "cuda_core": "flash_attention_fwd"}
-DETERMINISM_AT = "long_encoder_self_attention"  # bf16: the pair's bits compared across launches
+# each forward route's row name and worst-error kind (flash_attention.fwd_route)
+FWD_ROWS = {"tc": "flash_attention_fwd_tc", "tf32x3": "flash_attention_fwd_tf32x3", "cuda_core": "flash_attention_fwd"}
+FWD_KINDS = {"tc": "fwd_tc", "tf32x3": "fwd_tf32x3", "cuda_core": "fwd"}
+# each backward route's worst-error kind and row suffix
+BWD_KINDS = {"fused": "bwd_fused", "cuda_core": "bwd_cuda_core", "tc": "bwd_tc", "tf32x3": "bwd_tf32x3"}
+ROW_SUFFIX = {"cuda_core": "", "tc": "_tc", "tf32x3": "_tf32x3"}
+DETERMINISM_AT = "long_encoder_self_attention"  # each type's pair: its bits compared across launches
 
 # flash calls a conv_transformer train step makes: 2 time attention (F' =
 # 20 padded to 32), 6 encoder self-attention, 6 decoder causal
 # self-attention, 6 cross-attention; each one forward and one backward
 CT_FLASH_CALLS_PER_STEP = 20
-# the routes every bf16 call of the train steps takes (kernel D 32 and 64):
-# the tensor-core forward and the tensor-core dq + dkv pair, since the
-# sweep measured each faster than its CUDA-core or fused counterpart at
-# each of them (phase 13 asserts that they still are); the step phases hold
-# their launch counts to them. fp32 steps take the CUDA-core forward.
+# the routes every call of the train steps takes (kernel D 32 and 64): the
+# tensor-core forward and the tensor-core dq + dkv pair of the step's type
+# (bf16 "tc", fp32 "tf32x3"), since the sweep measured each faster than its
+# CUDA-core or fused counterpart at each of them (phase 13 asserts that
+# they still are); the step phases hold their launch counts to them, and
+# serving (fp32) to FP32_FORWARD
 BF16_FORWARD = "flash_fwd_tc"
-FP32_FORWARD = "flash_fwd"
+FP32_FORWARD = "flash_fwd_tf32x3"
 BF16_BACKWARD = "split_tc"
+FP32_BACKWARD = "split_tf32x3"
 BACKWARD_KERNELS = {"fused": ("flash_bwd_fused",), "split_tc": ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
-                    "split_cuda_core": ("flash_bwd_dq", "flash_bwd_dkv")}
+                    "split_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")}
 
 # the lightconv paths (dynamicconv_wmt_en_de_big, models/lightconv.py)
 LC_ARCH = "dynamicconv_wmt_en_de_big"
@@ -322,7 +347,8 @@ LONG_BATCH = 8
 LONG_FRAMES = 8192
 LONG_TIMED_STEPS = 5
 
-KERNEL_SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "dynamic_conv", "flash_fwd_single")
+KERNEL_SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_fwd_tf32x3", "flash_bwd", "flash_bwd_tc", "flash_bwd_tf32x3",
+                  "dynamic_conv", "flash_fwd_single")
 
 
 def emit(obj) -> None:
@@ -439,45 +465,50 @@ def build_kernels(kernel_build):
 # 3. kernels at the serving shapes
 # ---------------------------------------------------------------------------
 
-def fwd_kernel(fa, dtype, d):
-    """(route, row name, kernel name) of the forward a call of ``dtype``
-    at head dim ``d`` launches."""
-    route = fa.fwd_route(dtype, fa.kernel_head_dim(d))
-    return route, FWD_ROWS[route], FWD_KERNEL_NAMES[route]
-
-
 def check_serving_kernels(fa):
+    """Each serving-shape call in fp32 and bf16: the forward of the call's
+    route through ``flash_attention`` (the tensor cores at kernel D 32 and
+    64: "tf32x3" in fp32, "tc" in bf16), and in fp32 there also the
+    CUDA-core forward, launched directly, against the plain version; times
+    and bounds."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, worst = [], {}
     for name, bh, t, s, d, causal, padded in KERNEL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            route, row_kernel, kernel_name = fwd_kernel(fa, dtype, d)
             q, k, v, bias = random_attention_inputs(gen, bh, t, s, d, dtype, padded)
             scale = d ** -0.5
-            out_k, lse_k = fa.flash_attention(q, k, v, bias, scale, causal=causal, return_lse=True)
+            dk = fa.kernel_head_dim(d)
+            route = fa.fwd_route(dtype, dk)
+            calls = {route: lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal, return_lse=True)}
+            if route == "tf32x3":
+                qp, kp, vp = (_pad_d(x, dk) for x in (q, k, v))
+                calls["cuda_core"] = lambda: fa.forward_cuda_core(qp, kp, vp, bias, scale, causal, 0.0, 0)
             out_p, lse_p = fa.flash_attention_reference(q, k, v, bias, scale, causal)
-            torch.cuda.synchronize()
-            err = (out_k.float() - out_p.float()).abs().max().item()
-            lse_err = (lse_k - lse_p).abs().max().item()
-            if not (err <= ATOL_KERNEL[dtype] and lse_err <= ATOL_LSE):
-                raise AssertionError(f"{kernel_name} disagrees with its plain version at {name} {dtype}: "
-                                     f"max|out| err {err}, max|lse| err {lse_err}")
-            key = ("fwd_tc" if route == "tc" else "fwd", dtype)
-            worst[key] = max(worst.get(key, 0.0), err)
-            fwd = lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal)  # noqa: E731
             library_ms, library_backend = time_library(q, k, v, bias, scale, causal)
-            row = {
-                "phase": "kernel_check", "kernel": row_kernel, "route": route, "shape": name,
-                "bh": bh, "T": t, "S": s, "D": d, "causal": causal, "rate": 0.0,
-                "dtype": str(dtype).replace("torch.", ""),
-                "max_abs_err": err, "lse_max_abs_err": lse_err, "atol": ATOL_KERNEL[dtype],
-                "kernel_ms": time_ms(fwd), "kernel_device_ms": device_ms(fwd, kernel_name),
-                "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal)),
-                "library_ms": library_ms, "library_backend": library_backend, "card": CARD[0],
-            }
-            row["bound_ms"], row["bound_by"] = attention_bound_ms(bh, t, s, d, causal, dtype)
-            emit(row)
-            rows.append(row)
+            plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal))
+            for r, call in calls.items():
+                out_k, lse_k = call()
+                torch.cuda.synchronize()
+                err = (out_k[..., :d].float() - out_p.float()).abs().max().item()
+                lse_err = (lse_k - lse_p).abs().max().item()
+                if not (err <= ATOL_KERNEL[dtype] and lse_err <= ATOL_LSE):
+                    raise AssertionError(f"{FWD_KERNEL_NAMES[r]} disagrees with its plain version at {name} {dtype}: "
+                                         f"max|out| err {err}, max|lse| err {lse_err}")
+                key = (FWD_KINDS[r], dtype)
+                worst[key] = max(worst.get(key, 0.0), err)
+                row = {
+                    "phase": "kernel_check", "kernel": FWD_ROWS[r], "route": r,
+                    "launch": "flash_attention" if r == route else "direct", "shape": name,
+                    "bh": bh, "T": t, "S": s, "D": d, "causal": causal, "rate": 0.0,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "max_abs_err": err, "lse_max_abs_err": lse_err, "atol": ATOL_KERNEL[dtype],
+                    "kernel_ms": time_ms(call), "kernel_device_ms": device_ms(call, FWD_KERNEL_NAMES[r]),
+                    "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": library_backend,
+                    "card": CARD[0],
+                }
+                row["bound_ms"], row["bound_by"] = attention_bound_ms(bh, t, s, d, causal, dtype)
+                emit(row)
+                rows.append(row)
     return rows, worst
 
 
@@ -485,33 +516,34 @@ def check_serving_kernels(fa):
 # 4. kernels at the training shapes
 # ---------------------------------------------------------------------------
 
-def kernel_keep_mask(fa, bh, t, s, causal, rate, seed, dtype=torch.float32, d=None, device="cuda"):
-    """The keep mask as the forward kernel of ``dtype`` at head dim ``d``
-    applies it: by default fp32 at D = kernel_head_dim(min(S, 128)) (the
-    CUDA-core kernel); bf16 at D 32 or 64 runs the tensor-core kernel. With
-    q = k = 0 and bias 0 every unmasked weight is exactly 1 and l_i counts
-    row i's keys, so with V the identity on a window of D keys (0
-    elsewhere, exact in bf16) out[i, c] = keep(i, j0 + c) / (l_i (1 -
-    rate)); the windows tile the S keys, one launch each. In bf16 only the
-    output's final rounding (2^-9 of it) differs, so the 0/1 test takes
-    ``KEEP_PROBE_TOL``. Returns (mask, the entries it is defined on)."""
-    d = d or fa.kernel_head_dim(min(s, fa.KERNEL_HEAD_DIMS[-1]))
+def kernel_keep_mask(fa, bh, t, s, causal, rate, seed, route, d, device="cuda"):
+    """The keep mask as the forward kernel of ``route`` at kernel head dim
+    ``d`` applies it, launched directly ("cuda_core" in fp32, "tf32x3" in
+    fp32, "tc" in bf16). With q = k = 0 and bias 0 every unmasked weight is
+    exactly 1 and l_i counts row i's keys, so with V the identity on a
+    window of D keys (0 elsewhere, exact in bf16 and in tf32) out[i, c] =
+    keep(i, j0 + c) / (l_i (1 - rate)); the windows tile the S keys, one
+    launch each. In bf16 only the output's final rounding (2^-9 of it)
+    differs, so the 0/1 test takes ``KEEP_PROBE_TOL``. Returns (mask, the
+    entries it is defined on)."""
+    dtype = KEEP_PROBE_DTYPES[route]
+    launch = fa.FORWARDS[route]
     q = torch.zeros((bh, t, d), device=device, dtype=dtype)
     k = torch.zeros((bh, s, d), device=device, dtype=dtype)
+    bias = torch.zeros((bh, s), device=device)
     windows = []
     for j0 in range(0, s, d):
         n = min(d, s - j0)
         v = torch.zeros((s, d), device=device, dtype=dtype)
         v[j0:j0 + n, :n] = torch.eye(n, device=device, dtype=dtype)
-        windows.append(fa.flash_attention(q, k, v.expand(bh, s, d), torch.zeros((bh, s), device=device), 1.0,
-                                          causal=causal, dropout_rate=rate, dropout_seed=seed)[..., :n])
+        windows.append(launch(q, k, v.expand(bh, s, d), bias, 1.0, causal, rate, seed)[0][..., :n])
     out = torch.cat(windows, dim=-1).float()
     rows = torch.arange(t, device=device)[:, None]
     cols = torch.arange(s, device=device)[None, :]
     keys = torch.clamp(rows + 1, max=s) if causal else torch.full_like(rows, s)
     scaled = out * keys[None].float() * (1.0 - rate)
     if not torch.all((scaled - scaled.round()).abs() < KEEP_PROBE_TOL[dtype]):
-        raise AssertionError(f"the {dtype} probe's output is not a 0/1 mask times 1 / (l (1 - rate))")
+        raise AssertionError(f"the {route} probe's output is not a 0/1 mask times 1 / (l (1 - rate))")
     valid = (cols <= rows) if causal else torch.ones((t, s), dtype=torch.bool, device=device)
     return scaled.round() == 1, valid.expand(bh, t, s)
 
@@ -533,27 +565,31 @@ def grad_errors(got, want, dtype):
 
 
 def check_training_kernels(fa, philox):
-    """Each training-shape call in its types: mask, forward, the fused
-    backward and the split pair (on the tensor cores in bf16 at D 32 and 64,
-    on the CUDA cores otherwise) against the plain versions; the pair's
-    determinism; times and bounds."""
+    """Each training-shape call in its types: the keep mask through every
+    forward kernel that draws it; the forward and the split pair of the
+    call's route (on the tensor cores at D 32 and 64: "tc" in bf16, "tf32x3"
+    in fp32; on the CUDA cores otherwise) and the fused backward, and in
+    fp32 at D 32 and 64 also the CUDA-core forward and pair, which no
+    default route takes there, launched directly, all against the plain
+    versions; the tensor-core pairs' determinism; times and bounds."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    worst = {(kind, dtype): 0.0 for kind in ("fwd", "fwd_tc", "bwd_fused", "bwd_cuda_core", "bwd_tc")
+    worst = {(kind, dtype): 0.0 for kind in (*FWD_KINDS.values(), *BWD_KINDS.values())
              for dtype in (torch.float32, torch.bfloat16)}
     worst_ratio = {}
     for name, bh, t, s, d, causal, rate, left, dtypes in TRAIN_KERNEL_SHAPES:
         seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=torch.Generator().manual_seed(len(rows))))
         want = philox.keep_mask(seed, bh, t, s, rate, device="cuda")
-        for probe_dtype, probe_d in ((torch.float32, None),
-                                     *((torch.bfloat16, pd) for pd in KEEP_PROBE_BF16_D)):
-            got, valid = kernel_keep_mask(fa, bh, t, s, causal, rate, seed, probe_dtype, probe_d)
+        for probe_route, probe_d in KEEP_PROBES:
+            probe_d = probe_d or fa.kernel_head_dim(min(s, fa.KERNEL_HEAD_DIMS[-1]))
+            got, valid = kernel_keep_mask(fa, bh, t, s, causal, rate, seed, probe_route, probe_d)
             mismatches = int((got != want)[valid].sum())
             keep_frac = float(want[valid].float().mean())
-            probe_kernel = fwd_kernel(fa, probe_dtype, probe_d or fa.kernel_head_dim(min(s, 128)))[2]
+            probe_kernel = FWD_KERNEL_NAMES[probe_route]
             emit({"phase": "keep_mask_check", "shape": name, "bh": bh, "T": t, "S": s, "rate": rate,
-                  "dtype": str(probe_dtype).replace("torch.", ""), "kernel": probe_kernel,
-                  "elements": int(valid.sum()), "mismatches": mismatches, "keep_fraction": keep_frac})
+                  "dtype": str(KEEP_PROBE_DTYPES[probe_route]).replace("torch.", ""), "D": probe_d,
+                  "kernel": probe_kernel, "elements": int(valid.sum()), "mismatches": mismatches,
+                  "keep_fraction": keep_frac})
             if mismatches:
                 raise AssertionError(f"{name}: {probe_kernel}'s keep mask differs from philox.keep_mask "
                                      f"at {mismatches} elements")
@@ -565,114 +601,109 @@ def check_training_kernels(fa, philox):
             g = torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
             scale = d ** -0.5
             drop = dict(dropout_rate=rate, dropout_seed=seed)
-            out_k, lse_k = fa.flash_attention(q, k, v, bias, scale, causal=causal, return_lse=True, **drop)
-            out_p, lse_p = fa.flash_attention_reference(q, k, v, bias, scale, causal, rate, seed)
-            fwd_route_, fwd_row, fwd_name = fwd_kernel(fa, dtype, d)
-            fwd_kind = "fwd_tc" if fwd_route_ == "tc" else "fwd"
-            # both backwards against the plain one, on the kernel's out and lse
             dk = fa.kernel_head_dim(d)
-            route = fa.split_route(dtype, dk)
-            split = "bwd_tc" if route == "tc" else "bwd_cuda_core"
-            qp, kp, vp, op, gp = (_pad_d(x, dk) for x in (q, k, v, out_k, g))
-            bwd_args = (qp, kp, vp, bias, op, lse_k, gp, scale, causal, rate, seed)
+            route = fa.fwd_route(dtype, dk)  # the split pair's too
+            # the CUDA-core kernels at the tensor-core routes' head dims in
+            # fp32, which no default route takes, launched directly
+            routes = [route] + (["cuda_core"] if route == "tf32x3" else [])
+            qp, kp, vp, gp = (_pad_d(x, dk) for x in (q, k, v, g))
+            fwd_calls = {route: lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal, return_lse=True,
+                                                           **drop)}
+            if "cuda_core" in routes[1:]:
+                fwd_calls["cuda_core"] = lambda: fa.forward_cuda_core(qp, kp, vp, bias, scale, causal, rate, seed)
+            out_p, lse_p = fa.flash_attention_reference(q, k, v, bias, scale, causal, rate, seed)
+            out_k, lse_k = fwd_calls[route]()
+            fwd_errs = {}
+            for r, call in fwd_calls.items():
+                out_r, lse_r = call()
+                fwd_errs[r] = ((out_r[..., :d].float() - out_p.float()).abs().max().item(),
+                               (lse_r - lse_p).abs().max().item())
+            # every backward against the plain one, on the public forward's out and lse
+            bwd_args = (qp, kp, vp, bias, _pad_d(out_k, dk), lse_k, gp, scale, causal, rate, seed)
             want_grads = fa.flash_attention_backward_reference(q, k, v, bias, out_k, lse_k, g, scale,
                                                                causal, rate, seed)
-
-            def bwd(fused):
-                def run():
-                    with fa.backward_forced(fused):
-                        return fa.flash_attention_backward(*bwd_args)
-                return run
-
-            grads = {kind: [x[..., :d] for x in bwd(fused)()] for kind, fused in (("bwd_fused", True), (split, False))}
+            bwd_calls = {"fused": lambda: fa.backward_fused(*bwd_args)}
+            for r in routes:
+                bwd_calls[r] = lambda r=r: fa.backward_pair(r, *bwd_args)
+            grads = {r: [x[..., :d] for x in call()] for r, call in bwd_calls.items()}
             torch.cuda.synchronize()
-            errs = {fwd_kind: (out_k.float() - out_p.float()).abs().max().item()}
-            lse_err = (lse_k - lse_p).abs().max().item()
-            checks = {kind: grad_errors(gr, want_grads, dtype) for kind, gr in grads.items()}
-            for kind, (err, ratio, _, _) in checks.items():
-                errs[kind] = err
+            checks = {r: grad_errors(gr, want_grads, dtype) for r, gr in grads.items()}
+            for r, (out_err, _) in fwd_errs.items():
+                worst[(FWD_KINDS[r], dtype)] = max(worst[(FWD_KINDS[r], dtype)], out_err)
+            for r, (err, ratio, _, _) in checks.items():
+                worst[(BWD_KINDS[r], dtype)] = max(worst[(BWD_KINDS[r], dtype)], err)
                 if dtype == torch.bfloat16:
-                    worst_ratio[kind] = max(worst_ratio.get(kind, 0.0), ratio)
-            ok = (errs[fwd_kind] <= ATOL_KERNEL[dtype] and lse_err <= ATOL_LSE
+                    worst_ratio[BWD_KINDS[r]] = max(worst_ratio.get(BWD_KINDS[r], 0.0), ratio)
+            ok = (all(e <= ATOL_KERNEL[dtype] and le <= ATOL_LSE for e, le in fwd_errs.values())
                   and all(c[3] for c in checks.values()))
-            for kind, err in errs.items():
-                worst[(kind, dtype)] = max(worst[(kind, dtype)], err)
 
             library_ms, library_backend = time_library(q, k, v, bias, scale, causal)
-            fwd = lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal, **drop)  # noqa: E731
+            plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal, rate, seed))
+            plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
+                q, k, v, bias, out_k, lse_k, g, scale, causal, rate, seed))
+            library_bwd_ms, library_bwd_backend = time_library(q, k, v, bias, scale, causal, grad=g)
             base = {"phase": "train_kernel_check", "shape": name, "bh": bh, "T": t, "S": s, "D": d,
                     "causal": causal, "rate": rate, "keys_padded_on_the_left": left,
                     "dtype": str(dtype).replace("torch.", ""), "card": CARD[0]}
+            bwd_common = dict(plain_ms=plain_bwd_ms, library_ms=library_bwd_ms, library_backend=library_bwd_backend,
+                              library="sdpa forward+backward, rate 0")
 
-            def grad_fields(kind):
-                err, ratio, tops, _ = checks[kind]
+            def grad_fields(r):
+                err, ratio, tops, _ = checks[r]
                 limit = ({"max_err_over_max_plain": ratio, "rtol_of_max_plain": RTOL_GRAD_BF16}
                          if dtype == torch.bfloat16 else {"atol": ATOL_GRAD[dtype]})
                 return dict(max_abs_err=err, max_abs_plain_dq_dk_dv=tops, **limit)
 
-            tc = route == "tc"
-            dq_name, dkv_name = ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel") if tc else (
-                "flash_bwd_q_kernel", lambda n: "flash_bwd_kv_kernel" in n and "false>" in n)
-            suffix = "_tc" if tc else ""
-            timings = {
-                fwd_row: dict(
-                    kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd, fwd_name), route=fwd_route_,
-                    plain_ms=time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal, rate, seed)),
-                    library_ms=library_ms, library_backend=library_backend,
-                    max_abs_err=errs[fwd_kind], lse_max_abs_err=lse_err, atol=ATOL_KERNEL[dtype],
-                    bound=attention_bound_ms(bh, t, s, d, causal, dtype)),
-                "flash_attention_bwd_fused": dict(
-                    kernel_ms=time_ms(bwd(True)),
-                    kernel_device_ms=device_ms(bwd(True), lambda n: "flash_bwd_kv_kernel" in n and "true>" in n),
-                    wrapper_device_ms=device_busy(bwd(True))[1],
-                    bound=backward_bound_ms("fused", bh, t, s, d, causal, dtype), **grad_fields("bwd_fused")),
-                "flash_attention_bwd_dq" + suffix: dict(
-                    kernel_device_ms=device_ms(bwd(False), dq_name),
-                    bound=backward_bound_ms("dq", bh, t, s, d, causal, dtype), **grad_fields(split)),
-                "flash_attention_bwd_dkv" + suffix: dict(
-                    kernel_device_ms=device_ms(bwd(False), dkv_name),
-                    bound=backward_bound_ms("dkv", bh, t, s, d, causal, dtype), **grad_fields(split)),
-            }
-            split_ms = time_ms(bwd(False))
-            split_device_ms = device_busy(bwd(False))[1]
-            plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
-                q, k, v, bias, out_k, lse_k, g, scale, causal, rate, seed))
-            library_bwd_ms, library_bwd_backend = time_library(q, k, v, bias, scale, causal, grad=g)
-            for kernel in list(timings)[1:]:
-                timings[kernel].update(plain_ms=plain_bwd_ms, library_ms=library_bwd_ms,
-                                       library_backend=library_bwd_backend,
-                                       library="sdpa forward+backward, rate 0")
-            # the split pair's wrapper call launches both kernels
-            for kernel in list(timings)[2:]:
-                timings[kernel].update(kernel_ms=split_ms, wrapper_device_ms=split_device_ms, split_route=route)
+            timings = {}
+            for r, call in fwd_calls.items():
+                timings[FWD_ROWS[r]] = dict(
+                    kernel_ms=time_ms(call), kernel_device_ms=device_ms(call, FWD_KERNEL_NAMES[r]), route=r,
+                    launch="flash_attention" if r == route else "direct", plain_ms=plain_fwd_ms,
+                    library_ms=library_ms, library_backend=library_backend, max_abs_err=fwd_errs[r][0],
+                    lse_max_abs_err=fwd_errs[r][1], atol=ATOL_KERNEL[dtype],
+                    bound=attention_bound_ms(bh, t, s, d, causal, dtype))
+            fused = bwd_calls["fused"]
+            timings["flash_attention_bwd_fused"] = dict(
+                kernel_ms=time_ms(fused), kernel_device_ms=device_ms(fused, BWD_KERNEL_NAMES["fused"][0]),
+                wrapper_device_ms=device_busy(fused)[1], bound=backward_bound_ms("fused", bh, t, s, d, causal, dtype),
+                **grad_fields("fused"), **bwd_common)
+            for r in routes:
+                pair = bwd_calls[r]
+                pair_ms, pair_device_ms = time_ms(pair), device_busy(pair)[1]
+                for kind, match in zip(("dq", "dkv"), BWD_KERNEL_NAMES[r]):
+                    timings[f"flash_attention_bwd_{kind}{ROW_SUFFIX[r]}"] = dict(
+                        kernel_ms=pair_ms, wrapper_device_ms=pair_device_ms, split_route=r,
+                        kernel_device_ms=device_ms(pair, match),
+                        bound=backward_bound_ms(kind, bh, t, s, d, causal, dtype), **grad_fields(r), **bwd_common)
             for kernel, tm in timings.items():
                 tm["bound_ms"], tm["bound_by"] = tm.pop("bound")
                 row = {**base, "kernel": kernel, **tm}
                 emit(row)
                 rows.append(row)
             if not ok:
-                raise AssertionError(f"training-shape check failed at {name} {dtype}: {errs}, lse {lse_err}, "
-                                     f"{ {kind: c[:3] for kind, c in checks.items()} }")
-            if name == DETERMINISM_AT and dtype == torch.bfloat16:
-                check_determinism(bwd, grads[split], grads["bwd_fused"], d)
+                raise AssertionError(f"training-shape check failed at {name} {dtype}: forward {fwd_errs}, "
+                                     f"{ {r: c[:3] for r, c in checks.items()} }")
+            if name == DETERMINISM_AT:
+                check_determinism(bwd_calls[route], bwd_calls["fused"], grads[route], grads["fused"], d, dtype)
             del q, k, v, bias, g, out_k, out_p, want_grads, grads
             torch.cuda.empty_cache()
     return rows, worst, worst_ratio
 
 
-def check_determinism(bwd, pair, fused, d):
-    """The split pair again on the same inputs: bitwise equal (asserted);
-    the fused kernel's dQ again: its spread reported (fp32 atomics)."""
-    pair2 = [x[..., :d] for x in bwd(False)()]
-    fused2 = [x[..., :d] for x in bwd(True)()]
+def check_determinism(pair_call, fused_call, pair, fused, d, dtype):
+    """The tensor-core pair again on the same inputs: bitwise equal
+    (asserted); the fused kernel's dQ again: its spread reported (fp32
+    atomics)."""
+    pair2 = [x[..., :d] for x in pair_call()]
+    fused2 = [x[..., :d] for x in fused_call()]
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(pair, pair2)]
     spread = [(a.float() - b.float()).abs().max().item() for a, b in zip(fused, fused2)]
-    emit({"phase": "backward_determinism", "shape": DETERMINISM_AT, "dtype": "bfloat16",
+    emit({"phase": "backward_determinism", "shape": DETERMINISM_AT, "dtype": str(dtype).replace("torch.", ""),
           "pair_bitwise_equal_dq_dk_dv": same, "fused_max_abs_spread_dq_dk_dv": spread,
           "fused_dq_elements_that_differ": int((fused[0] != fused2[0]).sum()), "card": CARD[0]})
     if not all(same):
-        raise AssertionError(f"the split pair is not deterministic at {DETERMINISM_AT}: {same}")
+        raise AssertionError(f"the {dtype} split pair is not deterministic at {DETERMINISM_AT}: {same}")
 
 
 # ---------------------------------------------------------------------------
@@ -730,7 +761,7 @@ def serve(card, d, fa, dconv, single, attention, build_model, SequenceGenerator)
     reset_counts(fa, dconv, single)
     served = []
     for name, sample in requests:
-        before = fa.launches
+        before = launch_counts(fa, dconv, single)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hypos = gen.generate([model], sample)
@@ -738,13 +769,16 @@ def serve(card, d, fa, dconv, single, attention, build_model, SequenceGenerator)
         decode_s = time.perf_counter() - t0
         n = len(sample["net_input"]["src_lengths"])
         check_hypotheses(hypos, d.eos(), n)
-        grew = fa.launches - before
-        if grew != FLASH_LAUNCHES_PER_REQUEST:
-            raise AssertionError(f"{name}: flash launches grew by {grew}, expected {FLASH_LAUNCHES_PER_REQUEST}")
+        grew = {k: c - before[k] for k, c in launch_counts(fa, dconv, single).items()}
+        want = {k: FLASH_LAUNCHES_PER_REQUEST if k == FP32_FORWARD else 0 for k in grew}
+        if grew != want:
+            raise AssertionError(f"{name}: launches grew by {grew}, expected {FLASH_LAUNCHES_PER_REQUEST} "
+                                 f"{FP32_FORWARD} and nothing else")
+        grew = grew[FP32_FORWARD]
         audio_s = float(sample["net_input"]["src_lengths"].sum()) * FRAME_SECONDS
         served.append((name, sample, hypos))
         emit({"phase": "serve", "request": name, "utterances": n, "decode_s": decode_s,
-              "audio_s": audio_s, "rtf": decode_s / audio_s, "flash_launches": grew,
+              "audio_s": audio_s, "rtf": decode_s / audio_s, "flash_launches": grew, "forward": FP32_FORWARD,
               "mean_hyp_len": float(np.mean([len(s[0]["tokens"]) for s in hypos])),
               "card": card})
     launches = launch_counts(fa, dconv, single)
@@ -949,15 +983,15 @@ def train(card, d, fa, dconv, single, modules):
           "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
 
     # the same path with each backward forced, in short runs: the fused
-    # kernel and the split pair in bf16, and the split pair in fp32, where
-    # it runs on the CUDA cores
+    # kernel and the split pair in bf16; then the fp32 step by its own rule,
+    # the tf32x3 forward and pair
     total = dict(launches)
     fp32_args = train_args(bf16=False)
     fp32_trainer = Trainer(fp32_args, task, task.build_model(fp32_args), task.build_criterion(fp32_args))
     fp32_sample = staged(train_sample(d, np.random.RandomState(0)), torch.float32)
     for route, fused, tr, smp, dtype, n in (("fused", True, trainer, sample, torch.bfloat16, SPLIT_STEPS),
                                              ("split_tc", False, trainer, sample, torch.bfloat16, SPLIT_STEPS),
-                                             ("split_cuda_core", False, fp32_trainer, fp32_sample, torch.float32, 2)):
+                                             (FP32_BACKWARD, None, fp32_trainer, fp32_sample, torch.float32, 2)):
         forward = BF16_FORWARD if dtype == torch.bfloat16 else FP32_FORWARD
         with fa.backward_forced(fused):
             tr.train_step([smp])
@@ -976,6 +1010,10 @@ def train(card, d, fa, dconv, single, modules):
               "dtype": str(dtype).replace("torch.", ""), "steps": n, "step_ms": forced_ms,
               "flash_launches_per_step": {k: v / n for k, v in got.items()}, "card": card})
         total = {k: total[k] + got[k] for k in total}
+    wall_s, busy_s, top, classes = profile_window(lambda: fp32_trainer.train_step([fp32_sample]))
+    emit({"phase": "train_fp32_profile", "forward": FP32_FORWARD, "backward": FP32_BACKWARD, "step_s": wall_s,
+          "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top,
+          "busy_by_class_s": classes, "card": card})
     del fp32_trainer
     return total
 
@@ -1049,18 +1087,35 @@ def compare_steps(label, a, b, forward, lr=0.002):
         raise AssertionError(f"train-step check {label} failed: {row}")
 
 
+def counted_step(fa, want, *args, **kwargs):
+    """``one_step(*args)`` with the flash launches of its step held to
+    ``want`` ({kernel: launches}, every other flash kernel 0)."""
+    fa.reset_launches()
+    step = one_step(*args, **kwargs)
+    got = {"flash_" + name.removeprefix("launches_"): getattr(fa, name) for name in fa._COUNTERS}
+    if got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"an fp32 cross-check step launched {got}, expected {want}")
+    return step
+
+
 def check_train_steps(d, fa, attention, modules):
+    """fp32 steps (TF32 off): flash (the tf32x3 forward and pair, 20 + 20 +
+    20 launches) against dense (none), the fused backward (20 tf32x3
+    forwards + 20 fused) against the tf32x3 pair, and the card against the
+    CPU."""
+    calls = CT_FLASH_CALLS_PER_STEP
+    tf32x3 = {FP32_FORWARD: calls, **{k: calls for k in BACKWARD_KERNELS[FP32_BACKWARD]}}
     sample = staged(train_sample(d, np.random.RandomState(1), batch=32), torch.float32)
     attention.set_flash_attention(None)
-    flash = one_step(d, modules, "cuda", sample)
+    flash = counted_step(fa, tf32x3, d, modules, "cuda", sample)
     attention.set_flash_attention(False)
-    dense = one_step(d, modules, "cuda", sample)
+    dense = counted_step(fa, {}, d, modules, "cuda", sample)
     attention.set_flash_attention(None)
     compare_steps("flash_vs_dense", flash, dense, "other_forward")
 
-    with fa.backward_forced(False):  # fp32: the split pair on the CUDA cores
-        split = one_step(d, modules, "cuda", sample)
-    compare_steps("fused_vs_split", flash, split, "same_forward")
+    with fa.backward_forced(True):  # fp32: the fused kernel after the tf32x3 forward
+        fused = counted_step(fa, {FP32_FORWARD: calls, "flash_bwd_fused": calls}, d, modules, "cuda", sample)
+    compare_steps("fused_vs_split", fused, flash, "same_forward")
 
     # the plain CPU path (dense: auto mode sends no CPU call to the flash
     # route) against the card's flash route, and the floor: its dense route
@@ -1177,10 +1232,8 @@ def collate(LanguagePairDataset, src_dict, tgt_dict, src, tgt=None):
 
 
 def launch_counts(fa, dconv, single):
-    return {"flash_fwd": fa.launches_fwd, "flash_fwd_tc": fa.launches_fwd_tc, "flash_bwd_fused": fa.launches_bwd_fused,
-            "flash_bwd_dq": fa.launches_bwd_dq, "flash_bwd_dkv": fa.launches_bwd_dkv,
-            "flash_bwd_dq_tc": fa.launches_bwd_dq_tc, "flash_bwd_dkv_tc": fa.launches_bwd_dkv_tc,
-            "dconv_fwd": dconv.launches_fwd, "dconv_bwd": dconv.launches_bwd,
+    counts = {"flash_" + name.removeprefix("launches_"): getattr(fa, name) for name in fa._COUNTERS}
+    return {**counts, "dconv_fwd": dconv.launches_fwd, "dconv_bwd": dconv.launches_bwd,
             "flash_fwd_single": single.launches}
 
 
@@ -1493,6 +1546,12 @@ def flash_sweep(card, sweep, fa, dconv, single):
     if not decision["tc_fwd_wins_everywhere"]:
         raise AssertionError(f"the CUDA-core forward beat the tensor-core forward at a train step's call, so "
                              f"the committed route {BF16_FORWARD} needs a gate: {decision['tc_fwd_wins_by_call']}")
+    if not decision["tf32x3_fwd_wins_everywhere"]:
+        raise AssertionError(f"the CUDA-core forward beat the tf32x3 forward at a train step's fp32 call, so the "
+                             f"committed route {FP32_FORWARD} needs a gate: {decision['tf32x3_fwd_wins_by_call']}")
+    if not decision["tf32x3_bwd_wins_everywhere"]:
+        raise AssertionError(f"the fused backward beat the tf32x3 pair at a train step's fp32 call, so the "
+                             f"committed route {FP32_BACKWARD} needs a gate: {decision['tf32x3_bwd_wins_by_call']}")
     return launches
 
 
@@ -1727,7 +1786,8 @@ def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32,
     """The ``kernels`` line's entry of ``name``, timed at its row of
     ``row_kernel`` at ``timed_at`` = (shape, dtype[, t_block]), with the
     times of its row at ``also_at`` beside them when given. A kernel with
-    no fp32 form reports its bf16 error as ``max_abs_err``."""
+    no fp32 form reports its bf16 error as ``max_abs_err``; one with no
+    bf16 form has no ``max_abs_err_bf16``."""
     head = find_row(rows, row_kernel, timed_at)
     where = (f"B{head['B']} T{head['T']} C{head['C']} H{head['H']} K{head['K']} padding_l {head['padding_l']}"
              if "K" in head else f"bh{head['bh']} T{head['T']} S{head['S']} D{head['D']} rate {head['rate']}")
@@ -1743,6 +1803,8 @@ def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32,
     }
     if worst_fp32 is None:
         entry["max_abs_err"] = worst_bf16
+    if worst_bf16 is None:
+        del entry["max_abs_err_bf16"]
     for key in ("max_err_over_max_plain", "wrapper_device_ms", "split_route"):
         if key in head:
             entry[key] = head[key]
@@ -1850,30 +1912,43 @@ def main() -> int:
     pallas = "fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py:"
     timed_at = ("encoder_self_attention", "bfloat16")
     long_at = ("long_encoder_self_attention", "bfloat16")
-    cuda_core_at = ("encoder_self_attention", "float32")  # in bf16 these run on the tensor cores
+    # fp32: the serving and fp32-step calls; the CUDA-core kernels are
+    # launched directly there (no default route takes them at D 32 and 64)
+    f32_at = ("encoder_self_attention", "float32")
+    f32_long_at = ("long_encoder_self_attention", "float32")
     f32, b16 = torch.float32, torch.bfloat16
     kernels = [
         kernel_entry("flash_fwd", "flash_attention_fwd", csrc + "flash_fwd.cu", pallas + "117",
-                     launches["flash_fwd"], rows, worst[("fwd", f32)], worst[("fwd", b16)], cuda_core_at,
-                     ("long_encoder_self_attention", "float32")),
+                     launches["flash_fwd"], rows, worst[("fwd", f32)], worst[("fwd", b16)], f32_at, f32_long_at),
         kernel_entry("flash_fwd_tc", "flash_attention_fwd_tc", csrc + "flash_fwd_tc.cu", pallas + "117",
                      launches["flash_fwd_tc"], rows, None, worst[("fwd_tc", b16)], timed_at, long_at),
+        kernel_entry("flash_fwd_tf32x3", "flash_attention_fwd_tf32x3", csrc + "flash_fwd_tf32x3.cu", pallas + "117",
+                     launches["flash_fwd_tf32x3"], rows, worst[("fwd_tf32x3", f32)], None, f32_at, f32_long_at),
         kernel_entry("flash_bwd_fused", "flash_attention_bwd_fused", csrc + "flash_bwd.cu", pallas + "277",
                      launches["flash_bwd_fused"], rows, worst[("bwd_fused", f32)], worst[("bwd_fused", b16)],
-                     timed_at, long_at),
+                     f32_at, f32_long_at),
         kernel_entry("flash_bwd_dq", "flash_attention_bwd_dq", csrc + "flash_bwd.cu", pallas + "218",
                      launches["flash_bwd_dq"], rows, worst[("bwd_cuda_core", f32)], worst[("bwd_cuda_core", b16)],
-                     cuda_core_at),
+                     f32_at),
         kernel_entry("flash_bwd_dkv", "flash_attention_bwd_dkv", csrc + "flash_bwd.cu", pallas + "386",
                      launches["flash_bwd_dkv"], rows, worst[("bwd_cuda_core", f32)], worst[("bwd_cuda_core", b16)],
-                     cuda_core_at),
+                     f32_at),
         kernel_entry("flash_bwd_dq_tc", "flash_attention_bwd_dq_tc", csrc + "flash_bwd_tc.cu", pallas + "218",
                      launches["flash_bwd_dq_tc"], rows, None, worst[("bwd_tc", b16)], timed_at, long_at),
         kernel_entry("flash_bwd_dkv_tc", "flash_attention_bwd_dkv_tc", csrc + "flash_bwd_tc.cu", pallas + "386",
                      launches["flash_bwd_dkv_tc"], rows, None, worst[("bwd_tc", b16)], timed_at, long_at),
+        kernel_entry("flash_bwd_dq_tf32x3", "flash_attention_bwd_dq_tf32x3", csrc + "flash_bwd_tf32x3.cu",
+                     pallas + "218", launches["flash_bwd_dq_tf32x3"], rows, worst[("bwd_tf32x3", f32)], None,
+                     f32_at, f32_long_at),
+        kernel_entry("flash_bwd_dkv_tf32x3", "flash_attention_bwd_dkv_tf32x3", csrc + "flash_bwd_tf32x3.cu",
+                     pallas + "386", launches["flash_bwd_dkv_tf32x3"], rows, worst[("bwd_tf32x3", f32)], None,
+                     f32_at, f32_long_at),
     ]
-    for entry, kind in zip(kernels[2:], ("bwd_fused", "bwd_cuda_core", "bwd_cuda_core", "bwd_tc", "bwd_tc")):
-        entry["worst_bf16_err_over_max_plain"] = worst_ratio.get(kind)
+    for entry in kernels:
+        kind = {"flash_bwd_fused": "bwd_fused", "flash_bwd_dq": "bwd_cuda_core", "flash_bwd_dkv": "bwd_cuda_core",
+                "flash_bwd_dq_tc": "bwd_tc", "flash_bwd_dkv_tc": "bwd_tc"}.get(entry["name"])
+        if kind:
+            entry["worst_bf16_err_over_max_plain"] = worst_ratio.get(kind)
     dconv_at = ("train_k31_centred", "bfloat16")
     conv_src, conv_tpu = csrc + "dynamic_conv.cu", "fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py:24"
     kernels += [

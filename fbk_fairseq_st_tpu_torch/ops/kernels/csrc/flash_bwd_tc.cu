@@ -46,7 +46,11 @@
 //     elements by __shfl_sync (2 shuffles a tile in the dq orientation, 4 in
 //     dkv's), so each group is drawn once a tile. dq draws through
 //     flash_common.cuh::row_frame_keep_bits, the tensor-core forward's own
-//     code in the same frame (flash_fwd_tc.cu).
+//     code in the same frame (flash_fwd_tc.cu), dkv through
+//     key_frame_keep_bits, as the fp32 kernels do (flash_bwd_tf32x3.cu).
+//     The per-element steps between the products (ds; w_v and ds) are
+//     hopper_mma.cuh::dq_ds_step and dkv_wv_ds_step, which the fp32 pair
+//     shares.
 //
 // What bounds it. At the long-context encoder call (bh 32, T = S = 2048,
 // D 64) dq does 3 products of 2 T S D a head (51.5 GFLOP) and dkv 4 (68.7
@@ -69,8 +73,6 @@ using namespace flash;
 constexpr int kTile = 64;     // q rows a dq block, keys a dkv block; rows or keys a chunk
 constexpr int kThreadsTc = 128;
 constexpr int kStages = 3;    // ring slots
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const __nv_bfloat16 *q, *k, *v, *dout;
@@ -170,27 +172,7 @@ flash_bwd_dq_tc_kernel(Args a) {
     hmma::product_nt<D>(sc, qf, kt, lane);
     hmma::product_nt<D>(dp, df, vt, lane);
 
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      // keep bits of rows w0.., keys s0 + 8 n.., as the forward draws them
-      uint32_t kbits[2] = {0xfu, 0xfu};
-      if (a.drop_thresh) row_frame_keep_bits(kbits, a.seed, a.drop_thresh, (uint32_t)bh, w0, s0 + 8 * n, lane);
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int j = s0 + 8 * n + 2 * t4 + cc;
-        const bool in = j < a.s_len;
-        const float bj = in ? __ldg(biasb + j) : 0.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float x = fmaf(sc[n][2 * h + cc], a.scale, bj);
-          if (a.causal && j > rows[h]) x = kNegInf;
-          const float w = (in && row_ok[h]) ? hmma::ex2((x - lse[h]) * kLog2e) : 0.f;
-          const bool keep = (kbits[h] >> (2 * (t4 & 1) + cc)) & 1u;
-          const float dpv = keep ? dp[n][2 * h + cc] * a.inv_keep : 0.f;
-          sc[n][2 * h + cc] = w * (dpv - delta[h]);  // ds
-        }
-      }
-    }
+    hmma::dq_ds_step(sc, dp, a, biasb, s0, rows, row_ok, lse, delta, w0, (uint32_t)bh, lane);
     // dQ += ds K: ds of keys 16 kk..16 kk+15 is the A fragment of k-step kk
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -295,38 +277,7 @@ flash_bwd_dkv_tc_kernel(Args a) {
     hmma::product_nt<D>(st, kf, qt, lane);
     hmma::product_nt<D>(dpt, vf, dot, lane);
 
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      // keep bits: lane L draws row r0 + 8 n + (L & 7), keys k0 + 4 (L >> 3)..+3
-      uint32_t kbits[2][2] = {{0xfu, 0xfu}, {0xfu, 0xfu}};
-      if (a.drop_thresh) {
-        const uint32_t mine = keep_bits(a.seed, a.drop_thresh, (uint32_t)bh, r0 + 8 * n + (lane & 7),
-                                        k0 + 4 * (lane >> 3));
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int cc = 0; cc < 2; ++cc)
-            kbits[h][cc] = __shfl_sync(kFull, mine, ((g >> 2) + 2 * h) * 8 + 2 * t4 + cc);
-      }
-      const float2 l2 = *reinterpret_cast<const float2*>(lses + 8 * n + 2 * t4);
-      const float2 d2 = *reinterpret_cast<const float2*>(deltas + 8 * n + 2 * t4);
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int row = r0 + 8 * n + 2 * t4 + cc;
-        const bool row_ok = row < a.t_len;
-        const float lse = cc ? l2.y : l2.x, delta = cc ? d2.y : d2.x;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float x = fmaf(st[n][2 * h + cc], a.scale, bk[h]);
-          if (a.causal && keys[h] > row) x = kNegInf;
-          const float w = (row_ok && key_ok[h]) ? hmma::ex2((x - lse) * kLog2e) : 0.f;
-          const bool keep = (kbits[h][cc] >> (g & 3)) & 1u;
-          const float dpv = keep ? dpt[n][2 * h + cc] * a.inv_keep : 0.f;
-          st[n][2 * h + cc] = keep ? w * a.inv_keep : 0.f;  // w_v
-          dpt[n][2 * h + cc] = w * (dpv - delta);           // ds
-        }
-      }
-    }
+    hmma::dkv_wv_ds_step(st, dpt, a, lses, deltas, r0, keys, key_ok, bk, k0, (uint32_t)bh, lane);
     // dV += w_v^T dO and dK += ds^T Q: rows 16 kk..16 kk+15 are k-step kk
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {

@@ -39,7 +39,9 @@
 //   * at rate > 0 the keep flags of flash_common.cuh's mapping, drawn by
 //     row_frame_keep_bits (one Philox4x32-10 call a lane per m16n8 tile,
 //     handed out by __shfl_sync), the code dq (flash_bwd_tc.cu) re-draws
-//     them with; dropped p goes to 0 after l has summed it;
+//     them with; dropped p goes to 0 after l has summed it (these steps
+//     are hopper_mma.cuh::online_softmax_step, which flash_fwd_tf32x3.cu
+//     shares);
 //   * P rounded to bf16 straight into the A fragments of O += P V (V's B
 //     fragments by ldmatrix.trans): P never goes through shared memory.
 // A causal tile stops at the chunk holding its last row's diagonal; rows
@@ -71,7 +73,6 @@ using namespace flash;
 constexpr int kTile = 64;        // q rows a block, keys a chunk
 constexpr int kThreadsTc = 128;  // a warp per 16 rows
 constexpr int kStages = 3;       // ring slots
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -153,51 +154,7 @@ flash_fwd_tc_kernel(Args a) {
     float sc[8][4];  // rows x keys: tile n holds keys s0 + 8 n..
     hmma::product_nt<D>(sc, qf, kt, lane);
 
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int j = s0 + 8 * n + 2 * t4 + cc;
-        const bool in = j < a.s_len;
-        const float bj = in ? __ldg(biasb + j) : 0.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float x = fmaf(sc[n][2 * h + cc], a.scale, bj);
-          if (a.causal && j > rows[h]) x = kNegInf;
-          x = in ? x : -INFINITY;  // not a key: weight exactly 0
-          sc[n][2 * h + cc] = x;
-          mx[h] = fmaxf(mx[h], x);
-        }
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
-      const float alpha = hmma::ex2((m[h] - mx[h]) * kLog2e);
-      m[h] = mx[h];
-      l[h] *= alpha;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * h] *= alpha;
-        acc[n][2 * h + 1] *= alpha;
-      }
-    }
-
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      uint32_t kbits[2] = {0xfu, 0xfu};
-      if (a.drop_thresh) row_frame_keep_bits(kbits, a.seed, a.drop_thresh, (uint32_t)bh, w0, s0 + 8 * n, lane);
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float p = hmma::ex2((sc[n][2 * h + cc] - m[h]) * kLog2e);
-          l[h] += p;  // l sums the undropped p
-          const bool keep = (kbits[h] >> (2 * (t4 & 1) + cc)) & 1u;
-          sc[n][2 * h + cc] = keep ? p : 0.f;
-        }
-    }
+    hmma::online_softmax_step(sc, m, l, acc, a, biasb, s0, rows, w0, (uint32_t)bh, lane);
     // O += P V: P of keys 16 kk..16 kk+15 is the A fragment of k-step kk
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {

@@ -3,7 +3,8 @@
 // loads from tiles of 128-byte rows (64 bf16: head dim 64) or 64-byte rows
 // (32 bf16: head dim 32) whose 16-byte pieces are XOR-swizzled, and a ring
 // of shared-memory slots filled by cp.async. Every tile helper takes the
-// row width RB in bytes as a template argument, 128 by default.
+// row width RB in bytes as a template argument, 128 by default; fp32 tiles
+// have 256-byte (head dim 64) or 128-byte (head dim 32) rows.
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + t, g in 0..7, t in 0..3):
 //   A (16 x 16, row major), 4 registers of 2 bf16:
@@ -16,11 +17,36 @@
 // So the C fragments of two neighbouring 8-column tiles, rounded to bf16 and
 // packed in pairs, are the A fragment of the next product over those 16
 // columns, with no trip through shared memory.
+//
+// The fp32 kernels (flash_fwd_tf32x3.cu, flash_bwd_tf32x3.cu) run
+// mma.sync.m16n8k8 on tf32 operands, three products for one (3xTF32, the
+// scheme of CUTLASS's OpMultiplyAddFastF32): x = big + small with
+// big = tf32(x) and small = tf32(x - big), both rounded to nearest as
+// cvt.rna does (split_tf32), and a.b = a_small.b_big + a_big.b_small +
+// a_big.b_big summed in fp32, the small products first; the dropped a_small.b_small and the two
+// roundings leave about 2^-21 of |a||b| a product, where one tf32 product
+// leaves 2^-11. Its fragments, one fp32 (tf32) value a register:
+//   A (16 x 8): a[0] = (row g, k t)   a[1] = (row g+8, k t)
+//               a[2] = (row g, k t+4) a[3] = (row g+8, k t+4)
+//   B (8 x 8):  b[0] = (k t, col g)   b[1] = (k t+4, col g)
+//   C/D: as above (the m16n8k16 C fragment).
+// ldmatrix (b16) reads an 8 x 4 fp32 tile as it reads an 8 x 8 bf16 one, so
+// the A and B address helpers below serve fp32 tiles too, with k-step kk
+// covering 8 fp32 columns (32 bytes) instead of 16 bf16. A C fragment is
+// not an A fragment here: a lane holds keys 2t, 2t+1 of a tile, where A
+// wants k t and t+4. The sum over the 8 keys of a k-step does not care
+// about their order, so product_t_3x reads c[0], c[1] as k t and t + 4 and
+// loads the B fragment in the same order (b[0] from key 2t, b[1] from key
+// 2t + 1), with ld.shared from the swizzled tile: no ldmatrix.trans exists
+// for 32-bit elements.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace hmma {
 
@@ -33,13 +59,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // Byte offset of 16-byte piece `piece` of tile row `row`, in a tile of RB-byte
 // rows. One ldmatrix matrix reads 8 consecutive rows (the first a multiple of
 // 8) at one piece column; the XOR puts those 8 pieces in 8 different groups
-// of 4 banks. RB 128 (8 pieces a row, each row on all 32 banks): piece
-// ^ (row & 7). RB 64 (4 pieces, two rows share the 32 banks, rows r and
-// r + 1 on different halves): piece ^ ((row >> 1) & 3).
+// of 4 banks. RB 128 or 256 (8 or 16 pieces a row, each 128 bytes of a row
+// on all 32 banks): piece ^ (row & 7). RB 64 (4 pieces, two rows share the
+// 32 banks, rows r and r + 1 on different halves): piece ^ ((row >> 1) & 3).
 template <int RB = kRowBytes>
 __device__ __forceinline__ uint32_t swz(int row, int piece) {
-  static_assert(RB == 128 || RB == 64, "tile rows are 64 or 128 bytes");
-  if constexpr (RB == 128) return row * RB + ((piece ^ (row & 7)) << 4);
+  static_assert(RB == 256 || RB == 128 || RB == 64, "tile rows are 64, 128 or 256 bytes");
+  if constexpr (RB >= 128) return row * RB + ((piece ^ (row & 7)) << 4);
   else return row * RB + ((piece ^ ((row >> 1) & 3)) << 4);
 }
 
@@ -64,18 +90,19 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool va
                :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-// ROWS rows of RB / 2 bf16 from `src` (row stride RB / 2) into the swizzled
-// tile at `dst`, by the block's NT threads; rows at or past `valid_rows` are
-// zeroed.
-template <int ROWS, int NT, int RB = kRowBytes>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
-                                          int valid_rows, int tid) {
-  constexpr int kLogPieces = RB == 128 ? 3 : 2;  // 16-byte pieces a row: 8 or 4
+// ROWS rows of RB bytes of T (bf16 or fp32) from `src` (row stride RB bytes)
+// into the swizzled tile at `dst`, by the block's NT threads; rows at or past
+// `valid_rows` are zeroed.
+template <int ROWS, int NT, int RB = kRowBytes, typename T = __nv_bfloat16>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* src, int valid_rows, int tid) {
+  constexpr int kLogPieces = RB == 256 ? 4 : RB == 128 ? 3 : 2;  // 16-byte pieces a row: 16, 8 or 4
+  constexpr int kRow = RB / static_cast<int>(sizeof(T));  // elements a row
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a piece
 #pragma unroll
   for (int i = tid; i < (ROWS << kLogPieces); i += NT) {
     const int r = i >> kLogPieces, c = i & ((1 << kLogPieces) - 1);
     const bool ok = r < valid_rows;
-    cp_async16(dst + swz<RB>(r, c), src + (ok ? r * (RB / 2) + c * 8 : 0), ok);
+    cp_async16(dst + swz<RB>(r, c), src + (ok ? r * kRow + c * kPer : 0), ok);
   }
 }
 
@@ -189,6 +216,241 @@ __device__ __forceinline__ void a_from_c(uint32_t (&af)[4], const float (&c)[8][
   for (int i = 0; i < 4; ++i) {
     const int n = 2 * kk + (i >> 1), h = i & 1;
     af[i] = pack_bf16(c[n][2 * h], c[n][2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 products on fp32 tiles (rows of 4 D bytes), for flash_fwd_tf32x3.cu
+// and flash_bwd_tf32x3.cu.
+// ---------------------------------------------------------------------------
+
+// x = big + small, each x's tf32 rounding as cvt.rna.tf32.f32 gives it (to
+// nearest, ties away from zero), by integer adds: half a unit of the 10th
+// mantissa bit added to the magnitude's bits, then the low 13 bits dropped
+// (big) or left for the tensor core, which reads only a tf32 operand's top
+// 19 bits (small). The same split by two cvt.rna.tf32.f32 ran the fp32
+// kernels markedly slower in development runs on an H100.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// d += a . b, tf32 in, fp32 sums.
+__device__ __forceinline__ void mma_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in 3xTF32 from the split fragments (ab, as) and (bb, bs).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+  mma_1688(d, as, bb[0], bb[1]);
+  mma_1688(d, ab, bs[0], bs[1]);
+  mma_1688(d, ab, bb[0], bb[1]);
+}
+
+// c[n] = A . B^T in 3xTF32 for the 16 rows a0.. of the row-major fp32 tile
+// `at` (64 x D; the warp's rows of Q, dO, K or V, which stay in shared
+// memory: A fragments read per k-step by ldmatrix, a_frag_addr with k-steps
+// of 8 columns, hold no registers across the loop) against the NT * 8 rows
+// r0.. of the row-major fp32 tile `t` (64 x D): C tile n holds rows
+// r0 + 8 n..r0 + 8 n + 7 of `t`. Each fragment is split where it is used.
+template <int D, int NT>
+__device__ __forceinline__ void product_nt_3x(float (&c)[NT][4], uint32_t at, int a0, uint32_t t,
+                                              int r0, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t a[4], ab[4], as[4];
+    ldmatrix_x4(a, a_frag_addr<4 * D>(at, a0, kk, lane));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ab[i], as[i]);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4], bb[4], bs[4];
+      ldmatrix_x4(b, b_frag_addr<4 * D>(t, r0 + 16 * np, kk, lane));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(b[i]), bb[i], bs[i]);
+      mma_3xtf32(c[2 * np], ab, as, {bb[0], bb[1]}, {bs[0], bs[1]});
+      mma_3xtf32(c[2 * np + 1], ab, as, {bb[2], bb[3]}, {bs[2], bs[3]});
+    }
+  }
+}
+
+// acc[n] += A . B in 3xTF32 over KS k-steps of 8: A from the C fragments
+// c[kk] (the warp's 16 rows by the 8 keys of k-step kk), a lane's keys 2t
+// and 2t + 1 taken as A's k t and t + 4; B from rows r0 + 8 kk.. of the
+// row-major fp32 tile at `bt` (a pointer into shared memory, 64 x D) in the
+// same order: b[0] = bt[r0 + 8 kk + 2t][8 n + g], b[1] = bt[.. + 1][8 n + g].
+// Those two ld.shared of a warp hit 32 different banks: with r0 a multiple
+// of 8, row r0 + 8 kk + 2t XORs the pieces with 2t and the two pieces of the
+// 8 columns land in 8 different 16-byte groups of a 128-byte line.
+template <int D, int KS>
+__device__ __forceinline__ void product_t_3x(float (&acc)[D / 8][4], const float (&c)[KS][4],
+                                             const unsigned char* bt, int r0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t ab[4], as[4];
+    const float a[4] = {c[kk][0], c[kk][2], c[kk][1], c[kk][3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
+    const int r = r0 + 8 * kk + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int piece = 2 * n + (g >> 2), word = (g & 3) << 2;
+      uint32_t bb[2], bs[2];
+      split_tf32(*reinterpret_cast<const float*>(bt + swz<4 * D>(r, piece) + word), bb[0], bs[0]);
+      split_tf32(*reinterpret_cast<const float*>(bt + swz<4 * D>(r + 1, piece) + word), bb[1], bs[1]);
+      mma_3xtf32(acc[n], ab, as, bb, bs);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The per-element steps between the products of the tensor-core attention
+// kernels, on C fragments (the same in m16n8k16 and m16n8k8), shared by the
+// bf16 kernels (flash_fwd_tc.cu, flash_bwd_tc.cu) and the fp32 ones
+// (flash_fwd_tf32x3.cu, flash_bwd_tf32x3.cu). `a` is the kernel's argument
+// struct (s_len, t_len, scale, causal, drop_thresh, seed, and inv_keep in
+// the backward); rows are queries and keys are keys in both frames.
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The forward's online-softmax step on the raw scores of NT 8-key tiles
+// from key s0 (rows x keys; this thread's rows `rows`, the warp's first w0):
+// scale, bias and the causal triangle (NEG_INF; keys past S -inf, weight
+// exactly 0); the rows' max over the chunk (the quad's 4 lanes) into m,
+// with alpha = exp(m_old - m) applied to l and to the NA O fragments; then
+// p = exp(s - m) on the special-function unit (m stays in natural units),
+// summed into this lane's l undropped and left in sc where kept, 0 where
+// dropped (the bits of flash::row_frame_keep_bits).
+template <int NT, int NA, typename Args>
+__device__ __forceinline__ void online_softmax_step(float (&sc)[NT][4], float (&m)[2], float (&l)[2],
+                                                    float (&acc)[NA][4], const Args& a, const float* biasb,
+                                                    int s0, const int (&rows)[2], int w0, uint32_t bh,
+                                                    int lane) {
+  const int t4 = lane & 3;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int j = s0 + 8 * n + 2 * t4 + cc;
+      const bool in = j < a.s_len;
+      const float bj = in ? __ldg(biasb + j) : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = fmaf(sc[n][2 * h + cc], a.scale, bj);
+        if (a.causal && j > rows[h]) x = flash::kNegInf;
+        x = in ? x : -INFINITY;  // not a key: weight exactly 0
+        sc[n][2 * h + cc] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float alpha = ex2((m[h] - mx[h]) * kLog2e);
+    m[h] = mx[h];
+    l[h] *= alpha;
+#pragma unroll
+    for (int n = 0; n < NA; ++n) {
+      acc[n][2 * h] *= alpha;
+      acc[n][2 * h + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    uint32_t kbits[2] = {0xfu, 0xfu};
+    if (a.drop_thresh) flash::row_frame_keep_bits(kbits, a.seed, a.drop_thresh, bh, w0, s0 + 8 * n, lane);
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p = ex2((sc[n][2 * h + cc] - m[h]) * kLog2e);
+        l[h] += p;  // l sums the undropped p
+        const bool keep = (kbits[h] >> (2 * (t4 & 1) + cc)) & 1u;
+        sc[n][2 * h + cc] = keep ? p : 0.f;
+      }
+  }
+}
+
+// dq's step on the raw scores sc and dp = dO V^T of NT 8-key tiles from key
+// key0 (rows x keys): w = exp(s - lse) (0 for keys past S and rows past T),
+// and ds = w (dp keep / (1 - rate) - delta) left in sc, with the keep bits
+// the forward drew (flash::row_frame_keep_bits).
+template <int NT, typename Args>
+__device__ __forceinline__ void dq_ds_step(float (&sc)[NT][4], const float (&dp)[NT][4], const Args& a,
+                                           const float* biasb, int key0, const int (&rows)[2],
+                                           const bool (&row_ok)[2], const float (&lse)[2],
+                                           const float (&delta)[2], int w0, uint32_t bh, int lane) {
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    uint32_t kbits[2] = {0xfu, 0xfu};
+    if (a.drop_thresh) flash::row_frame_keep_bits(kbits, a.seed, a.drop_thresh, bh, w0, key0 + 8 * n, lane);
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int j = key0 + 8 * n + 2 * t4 + cc;
+      const bool in = j < a.s_len;
+      const float bj = in ? __ldg(biasb + j) : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = fmaf(sc[n][2 * h + cc], a.scale, bj);
+        if (a.causal && j > rows[h]) x = flash::kNegInf;
+        const float w = (in && row_ok[h]) ? ex2((x - lse[h]) * kLog2e) : 0.f;
+        const bool keep = (kbits[h] >> (2 * (t4 & 1) + cc)) & 1u;
+        const float dpv = keep ? dp[n][2 * h + cc] * a.inv_keep : 0.f;
+        sc[n][2 * h + cc] = w * (dpv - delta[h]);  // ds
+      }
+    }
+  }
+}
+
+// dkv's step in the transposed frame on the raw S^T in st and dP^T in dpt
+// of NT 8-row tiles from row r0 (keys x rows; this thread's keys `keys`,
+// the warp's first k0, their bias bk; the chunk's lse and delta from
+// `lses` and `deltas`, row r0 first): w = exp(s - lse) (0 past T and S),
+// w_v = w keep / (1 - rate) left in st and ds = w (dp keep / (1 - rate) -
+// delta) in dpt, with the keep bits of flash::key_frame_keep_bits.
+template <int NT, typename Args>
+__device__ __forceinline__ void dkv_wv_ds_step(float (&st)[NT][4], float (&dpt)[NT][4], const Args& a,
+                                               const float* lses, const float* deltas, int r0,
+                                               const int (&keys)[2], const bool (&key_ok)[2],
+                                               const float (&bk)[2], int k0, uint32_t bh, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    uint32_t kbits[2][2] = {{0xfu, 0xfu}, {0xfu, 0xfu}};
+    if (a.drop_thresh) flash::key_frame_keep_bits(kbits, a.seed, a.drop_thresh, bh, r0 + 8 * n, k0, lane);
+    const float2 l2 = *reinterpret_cast<const float2*>(lses + 8 * n + 2 * t4);
+    const float2 d2 = *reinterpret_cast<const float2*>(deltas + 8 * n + 2 * t4);
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int row = r0 + 8 * n + 2 * t4 + cc;
+      const bool row_ok = row < a.t_len;
+      const float lse = cc ? l2.y : l2.x, delta = cc ? d2.y : d2.x;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = fmaf(st[n][2 * h + cc], a.scale, bk[h]);
+        if (a.causal && keys[h] > row) x = flash::kNegInf;
+        const float w = (row_ok && key_ok[h]) ? ex2((x - lse) * kLog2e) : 0.f;
+        const bool keep = (kbits[h][cc] >> (g & 3)) & 1u;
+        const float dpv = keep ? dpt[n][2 * h + cc] * a.inv_keep : 0.f;
+        st[n][2 * h + cc] = keep ? w * a.inv_keep : 0.f;  // w_v
+        dpt[n][2 * h + cc] = w * (dpv - delta);           // ds
+      }
+    }
   }
 }
 

@@ -4,11 +4,13 @@ the plain versions.
 Counterpart of ``fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py``
 (public ``flash_attention`` :554, the ``_flash`` custom_vjp :504-551). The
 kernels are ``csrc/flash_fwd.cu`` (``_fwd_kernel``, dropout included, on the
-CUDA cores), ``csrc/flash_fwd_tc.cu`` (``_fwd_kernel`` on the tensor cores),
-``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``, and ``_dq_kernel`` /
-``_dkv_kernel`` on the CUDA cores) and ``csrc/flash_bwd_tc.cu``
-(``_dq_kernel`` / ``_dkv_kernel`` on the tensor cores); their source notes
-say what bounds them.
+CUDA cores), ``csrc/flash_fwd_tc.cu`` (``_fwd_kernel`` on the tensor cores,
+bf16), ``csrc/flash_fwd_tf32x3.cu`` (``_fwd_kernel`` on the tensor cores,
+fp32 in 3xTF32 products), ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``, and
+``_dq_kernel`` / ``_dkv_kernel`` on the CUDA cores), ``csrc/flash_bwd_tc.cu``
+(``_dq_kernel`` / ``_dkv_kernel`` on the tensor cores, bf16) and
+``csrc/flash_bwd_tf32x3.cu`` (the same pair, fp32 in 3xTF32 products);
+their source notes say what bounds them.
 
 ``flash_attention`` keeps the JAX contract: q (BH, T, D), k/v (BH, S, D),
 ``mask_bias`` (BH, S) additive key bias (0, or NEG_INF at pads), ``scale``
@@ -42,8 +44,12 @@ from . import philox
 from .build import bind, raise_on
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-TC_HEAD_DIMS = (32, 64)  # the tensor-core kernels' head dims
+TC_HEAD_DIMS = (32, 64)  # the tensor-core kernels' head dims, bf16 and fp32
 TC_TILE = 64  # q rows or keys a block of the tensor-core kernels
+# the kernels of each tensor-core route: the forward, dq and dkv
+TC_KERNELS = {"tc": ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
+              "tf32x3": ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")}
+TC_DTYPES = {"tc": torch.bfloat16, "tf32x3": torch.float32}
 
 # The backward of a CUDA call: the fused kernel (dQ, dK, dV in one launch,
 # dQ added with fp32 atomics, so its last bits vary from run to run) or the
@@ -53,27 +59,36 @@ FUSED_BWD: Optional[bool] = None
 
 # Kernel launches since the last reset (the plain versions do not count).
 launches_fwd = 0  # the forward on the CUDA cores
-launches_fwd_tc = 0  # the forward on the tensor cores
+launches_fwd_tc = 0  # the forward on the tensor cores, bf16
+launches_fwd_tf32x3 = 0  # the forward on the tensor cores, fp32
 launches_bwd_fused = 0
 launches_bwd_dq = 0  # the split pair on the CUDA cores
 launches_bwd_dkv = 0
-launches_bwd_dq_tc = 0  # the split pair on the tensor cores
+launches_bwd_dq_tc = 0  # the split pair on the tensor cores, bf16
 launches_bwd_dkv_tc = 0
+launches_bwd_dq_tf32x3 = 0  # the split pair on the tensor cores, fp32
+launches_bwd_dkv_tf32x3 = 0
+_COUNTERS = ("launches_fwd", "launches_fwd_tc", "launches_fwd_tf32x3", "launches_bwd_fused", "launches_bwd_dq",
+             "launches_bwd_dkv", "launches_bwd_dq_tc", "launches_bwd_dkv_tc", "launches_bwd_dq_tf32x3",
+             "launches_bwd_dkv_tf32x3")
 
 
 def __getattr__(name: str):
-    # ``launches``: the forward count of both routes, the name the serving
+    # ``launches``: the forward count of every route, the name the serving
     # path reads
     if name == "launches":
-        return launches_fwd + launches_fwd_tc
+        return launches_fwd + launches_fwd_tc + launches_fwd_tf32x3
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launches() -> None:
-    global launches_fwd, launches_fwd_tc, launches_bwd_fused, launches_bwd_dq, launches_bwd_dkv
-    global launches_bwd_dq_tc, launches_bwd_dkv_tc
-    launches_fwd = launches_fwd_tc = launches_bwd_fused = launches_bwd_dq = launches_bwd_dkv = 0
-    launches_bwd_dq_tc = launches_bwd_dkv_tc = 0
+    for name in _COUNTERS:
+        globals()[name] = 0
+
+
+def _count(kernel: str) -> None:
+    """One launch of ``kernel`` (a library function's name)."""
+    globals()["launches_" + kernel.removeprefix("flash_")] += 1
 
 
 def kernel_head_dim(d: int) -> int:
@@ -89,44 +104,53 @@ def kernel_head_dim(d: int) -> int:
 
 def fwd_route(dtype, d: int) -> str:
     """The forward kernel of a CUDA call of ``dtype`` at kernel head dim
-    ``d``: "tc" (``csrc/flash_fwd_tc.cu``) wherever the split pair runs on
-    the tensor cores, for the same reasons (``split_route``); else
-    "cuda_core" (``csrc/flash_fwd.cu``). The tensor-core kernel is held to
-    beat the CUDA-core one at every train-step call (``tc_fwd_wins``)."""
+    ``d``: the tensor cores wherever the split pair runs on them, for the
+    same reasons (``split_route``): "tc" (``csrc/flash_fwd_tc.cu``) in bf16,
+    "tf32x3" (``csrc/flash_fwd_tf32x3.cu``) in fp32; else "cuda_core"
+    (``csrc/flash_fwd.cu``). Each tensor-core kernel is held to beat the
+    CUDA-core one at every train-step call of its type (``tc_fwd_wins``)."""
     return split_route(dtype, d)
 
 
 def fwd_check_shape(route: str, bh: int, t: int, d: int) -> None:
     """Raise ValueError for a forward that the route's kernel does not
-    take; needs no card. "tc": bh is the grid's x dimension and takes any
-    batch, the 64-row q tiles its y dimension, at most 65,535; head dim 32
-    or 64. "cuda_core": bh is the grid's y dimension, at most 65,535."""
-    if route == "tc":
+    take; needs no card. "tc" and "tf32x3": bh is the grid's x dimension
+    and takes any batch, the 64-row q tiles its y dimension, at most
+    65,535; head dim 32 or 64. "cuda_core": bh is the grid's y dimension,
+    at most 65,535."""
+    if route in TC_KERNELS:
+        name = TC_KERNELS[route][0]
         if d not in TC_HEAD_DIMS:
-            raise ValueError(f"flash_fwd_tc: head dim {d} not in {TC_HEAD_DIMS}")
+            raise ValueError(f"{name}: head dim {d} not in {TC_HEAD_DIMS}")
         if -(-t // TC_TILE) > 65535:
-            raise ValueError(f"flash_fwd_tc: T {t} over 65,535 tiles of {TC_TILE}")
+            raise ValueError(f"{name}: T {t} over 65,535 tiles of {TC_TILE}")
     elif bh > 65535:
         raise ValueError(f"flash_fwd: bh {bh} > 65535")
 
 
 def tc_fwd_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
     """The forward route's rule, per call: from {call: (CUDA-core ms,
-    tensor-core ms)} device times, whether the tensor-core kernel is at
-    least as fast as the CUDA-core one there. ``fwd_route`` takes the
-    tensor cores at every bf16 call at D 32 and 64 because this held at
-    each of the train steps' calls; a call where it fails needs a gate."""
+    tensor-core ms)} device times, whether the tensor-core kernel of the
+    call's type ("tc" in bf16, "tf32x3" in fp32) is at least as fast as the
+    CUDA-core one there. ``fwd_route`` takes the tensor cores at every call
+    at D 32 and 64 because this held at each of the train steps' calls in
+    both types; a call where it fails needs a gate."""
     return {name: tc <= cuda_core for name, (cuda_core, tc) in times.items()}
 
 
 def split_route(dtype, d: int) -> str:
     """The split pair's kernels for a call of ``dtype`` at kernel head dim
-    ``d``: "tc", the tensor cores (``csrc/flash_bwd_tc.cu``), for bf16 at
-    D 32 and 64 (every model's heads, and the time attention's F' = 20
-    padded to 32); "cuda_core" (``csrc/flash_bwd.cu``) for fp32, where TF32
-    would not be exact against the fp32 plain version, and for bf16 at D 16
-    and 128, which no model reaches."""
-    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "cuda_core"
+    ``d``: at D 32 and 64 (every model's heads, and the time attention's
+    F' = 20 padded to 32) the tensor cores, "tc" (``csrc/flash_bwd_tc.cu``)
+    in bf16 and "tf32x3" (``csrc/flash_bwd_tf32x3.cu``, three tf32 products
+    a product, within the fp32 limits where one is not) in fp32;
+    "cuda_core" (``csrc/flash_bwd.cu``) at D 16 and 128, which no model
+    reaches."""
+    if d in TC_HEAD_DIMS:
+        for route, dt in TC_DTYPES.items():
+            if dtype == dt:
+                return route
+    return "cuda_core"
 
 
 def use_fused_backward(dtype, d: int) -> bool:
@@ -134,11 +158,11 @@ def use_fused_backward(dtype, d: int) -> bool:
     fused kernel: ``FUSED_BWD`` when set; else the fused kernel where the
     split pair would run on the CUDA cores (1.5x slower than fused) and the
     tensor-core pair everywhere it runs, since it beat the fused kernel at
-    every backward call of the train steps (``pair_wins``, PERF.md
-    section 6)."""
+    every backward call of the train steps in its type (``pair_wins``,
+    PERF.md section 6)."""
     if FUSED_BWD is not None:
         return FUSED_BWD
-    return split_route(dtype, d) != "tc"
+    return split_route(dtype, d) == "cuda_core"
 
 
 @contextlib.contextmanager
@@ -156,22 +180,25 @@ def backward_forced(fused: Optional[bool]):
 
 def pair_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
     """The backward decision's rule, per call: from {call: (fused ms, pair
-    ms)} device times, whether the tensor-core pair is at least as fast as
-    the fused kernel there. ``use_fused_backward`` takes the pair on every
-    call because this held at each of the train steps' backward calls; a
-    call where it fails is a crossover that needs a key-count gate."""
+    ms)} device times, whether the tensor-core pair of the call's type is
+    at least as fast as the fused kernel there. ``use_fused_backward`` takes
+    the pair on every call because this held at each of the train steps'
+    backward calls in both types; a call where it fails is a crossover that
+    needs a key-count gate."""
     return {name: pair <= fused for name, (fused, pair) in times.items()}
 
 
-def tc_check_shape(d: int, t: int, s: int) -> None:
-    """Raise ValueError for a shape the tensor-core pair does not take;
-    needs no card. bh is the grid's x dimension and takes any batch; the
-    64-row and 64-key tiles are its y dimension, at most 65,535. Its shared
-    memory does not depend on T or S (``csrc/flash_bwd_tc.cu``)."""
+def tc_check_shape(d: int, t: int, s: int, route: str = "tc") -> None:
+    """Raise ValueError for a shape the tensor-core pair of ``route`` ("tc"
+    or "tf32x3") does not take; needs no card. bh is the grid's x dimension
+    and takes any batch; the 64-row and 64-key tiles are its y dimension,
+    at most 65,535. Its shared memory does not depend on T or S
+    (``csrc/flash_bwd_tc.cu``, ``csrc/flash_bwd_tf32x3.cu``)."""
+    name = "flash_bwd_" + route
     if d not in TC_HEAD_DIMS:
-        raise ValueError(f"flash_bwd_tc: head dim {d} not in {TC_HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {d} not in {TC_HEAD_DIMS}")
     if max(-(-t // TC_TILE), -(-s // TC_TILE)) > 65535:
-        raise ValueError(f"flash_bwd_tc: T {t} or S {s} over 65,535 tiles of {TC_TILE}")
+        raise ValueError(f"{name}: T {t} or S {s} over 65,535 tiles of {TC_TILE}")
 
 
 # ---------------------------------------------------------------------------
@@ -349,8 +376,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def _forward_cuda(q, k, v, bias, scale, causal, rate, seed):
-    route = fwd_route(q.dtype, q.shape[2])
-    return (forward_tc if route == "tc" else forward_cuda_core)(q, k, v, bias, scale, causal, rate, seed)
+    return FORWARDS[fwd_route(q.dtype, q.shape[2])](q, k, v, bias, scale, causal, rate, seed)
 
 
 def forward_cuda_core(q, k, v, bias, scale: float, causal: bool, rate: float, seed: int):
@@ -373,19 +399,33 @@ def forward_cuda_core(q, k, v, bias, scale: float, causal: bool, rate: float, se
 def forward_tc(q, k, v, bias, scale: float, causal: bool, rate: float, seed: int):
     """One launch of ``csrc/flash_fwd_tc.cu`` (bf16 at kernel head dim 32 or
     64) on CUDA tensors; returns (out, lse)."""
-    global launches_fwd_tc
+    return _forward_tensor_cores("tc", q, k, v, bias, scale, causal, rate, seed)
+
+
+def forward_tf32x3(q, k, v, bias, scale: float, causal: bool, rate: float, seed: int):
+    """One launch of ``csrc/flash_fwd_tf32x3.cu`` (fp32 at kernel head dim
+    32 or 64, 3xTF32 products) on CUDA tensors; returns (out, lse)."""
+    return _forward_tensor_cores("tf32x3", q, k, v, bias, scale, causal, rate, seed)
+
+
+def _forward_tensor_cores(route, q, k, v, bias, scale, causal, rate, seed):
+    name = TC_KERNELS[route][0]
     q, k, v, bias = _aligned(q), _aligned(k), _aligned(v), bias.contiguous()
     bh, t, d = q.shape
-    fwd_check_shape("tc", bh, t, d)
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_fwd_tc: bf16 only, got {q.dtype}")
+    fwd_check_shape(route, bh, t, d)
+    if q.dtype != TC_DTYPES[route]:
+        raise TypeError(f"{name}: {TC_DTYPES[route]} only, got {q.dtype}")
     out, lse, args = _forward_args(q, k, v, bias, scale, causal, rate, seed)
-    lib = _library("flash_fwd_tc")
+    lib = _library(name)
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd_tc(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on(lib, "flash_fwd_tc", err)
-    launches_fwd_tc += 1
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on(lib, name, err)
+    _count(name)
     return out, lse
+
+
+# each forward route's launch, on CUDA tensors at a kernel head dim
+FORWARDS = {"tc": forward_tc, "tf32x3": forward_tf32x3, "cuda_core": forward_cuda_core}
 
 
 def _forward_args(q, k, v, bias, scale, causal, rate, seed):
@@ -402,60 +442,78 @@ def flash_attention_backward(q, k, v, bias, out, lse, grad, scale: float, causal
                              rate: float = 0.0, seed: int = 0):
     """(dq, dk, dv) of ``flash_attention``. CPU tensors run
     ``flash_attention_backward_reference``. CUDA tensors, at the kernels'
-    head dim, launch the fused kernel or the split pair
-    (``use_fused_backward``), the pair on the tensor cores or the CUDA cores
-    (``split_route``). delta = rowsum(dO * O) is a PyTorch op in fp32 here,
-    as JAX computes it in XLA outside its kernels."""
-    global launches_bwd_fused, launches_bwd_dq, launches_bwd_dkv, launches_bwd_dq_tc, launches_bwd_dkv_tc
+    head dim, launch the fused kernel (``backward_fused``) or the split
+    pair (``backward_pair``; ``use_fused_backward``), the pair on the
+    tensor cores in bf16 or fp32 or on the CUDA cores (``split_route``)."""
     if not q.is_cuda:
         return flash_attention_backward_reference(q, k, v, bias, out, lse, grad, scale, causal, rate, seed)
-    bh, t, d = q.shape
-    s = k.shape[1]
-    route = "fused" if use_fused_backward(q.dtype, d) else split_route(q.dtype, d)
-    if route == "tc":
-        tc_check_shape(d, t, s)
-    # contiguous, and 16-byte aligned for the tensor-core pair's cp.async
+    if use_fused_backward(q.dtype, q.shape[2]):
+        return backward_fused(q, k, v, bias, out, lse, grad, scale, causal, rate, seed)
+    return backward_pair(split_route(q.dtype, q.shape[2]), q, k, v, bias, out, lse, grad, scale, causal, rate, seed)
+
+
+def _backward_args(q, k, v, bias, out, lse, grad, scale, causal, rate, seed):
+    """The contiguous (16-byte aligned, for the tensor-core pairs' cp.async)
+    inputs' pointers, and the launch arguments' tail. delta = rowsum(dO * O)
+    is a PyTorch op in fp32 here, as JAX computes it in XLA outside its
+    kernels; it is returned so that it lives until the launches."""
     q, k, v, grad = (_aligned(x) for x in (q, k, v, grad.to(q.dtype)))
     bias = bias.contiguous()
     delta = (grad.float() * out.float()).sum(dim=-1)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
     thresh, keep_prob, seed = _dropout_args(rate, seed)
-    is_bf16 = int(q.dtype == torch.bfloat16)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), grad.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
-    tail = (scale, int(causal), thresh, keep_prob, seed)
-    if route == "tc":
-        dq = torch.empty_like(q)
-        lib = _library("flash_bwd_tc")
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_bwd_dq_tc(*common, dq.data_ptr(), bh, t, s, d, *tail, stream)
-            raise_on(lib, "flash_bwd_dq_tc", err)
-            launches_bwd_dq_tc += 1
-            err = lib.flash_bwd_dkv_tc(*common, dk.data_ptr(), dv.data_ptr(), bh, t, s, d, *tail, stream)
-            raise_on(lib, "flash_bwd_dkv_tc", err)
-            launches_bwd_dkv_tc += 1
-        return dq, dk, dv
+    return (q, k, v, grad, bias, delta), common, (scale, int(causal), thresh, keep_prob, seed)
+
+
+def backward_fused(q, k, v, bias, out, lse, grad, scale: float, causal: bool = False, rate: float = 0.0,
+                   seed: int = 0):
+    """One launch of ``csrc/flash_bwd.cu::flash_bwd_fused`` (fp32 or bf16,
+    any kernel head dim, dQ added with fp32 atomics into a zeroed buffer) on
+    CUDA tensors; returns (dq, dk, dv)."""
+    global launches_bwd_fused
+    bh, t, d = q.shape
+    kept, common, tail = _backward_args(q, k, v, bias, out, lse, grad, scale, causal, rate, seed)
+    dk, dv = torch.empty_like(kept[1]), torch.empty_like(kept[2])
+    dq32 = torch.zeros((bh, t, d), dtype=torch.float32, device=q.device)
     lib = _library("flash_bwd")
-    tail = tail + (is_bf16,)
+    with torch.cuda.device(q.device):
+        err = lib.flash_bwd_fused(*common, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, k.shape[1], d,
+                                  *tail, int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on(lib, "flash_bwd_fused", err)
+    launches_bwd_fused += 1
+    return dq32.to(q.dtype), dk, dv
+
+
+def backward_pair(route: str, q, k, v, bias, out, lse, grad, scale: float, causal: bool = False,
+                  rate: float = 0.0, seed: int = 0):
+    """One launch each of the dq and the dkv kernel of the split pair of
+    ``route`` on CUDA tensors: "tc" (``csrc/flash_bwd_tc.cu``, bf16),
+    "tf32x3" (``csrc/flash_bwd_tf32x3.cu``, fp32) or "cuda_core"
+    (``csrc/flash_bwd.cu``, either type, any kernel head dim); returns
+    (dq, dk, dv), each written once (deterministic)."""
+    bh, t, d = q.shape
+    s = k.shape[1]
+    if route in TC_KERNELS:
+        tc_check_shape(d, t, s, route)
+        if q.dtype != TC_DTYPES[route]:
+            raise TypeError(f"flash_bwd_{route}: {TC_DTYPES[route]} only, got {q.dtype}")
+        lib_name, dq_name, dkv_name = "flash_bwd_" + route, *TC_KERNELS[route][1:]
+    else:
+        lib_name, dq_name, dkv_name = "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"
+    kept, common, tail = _backward_args(q, k, v, bias, out, lse, grad, scale, causal, rate, seed)
+    if route not in TC_KERNELS:
+        tail = tail + (int(q.dtype == torch.bfloat16),)
+    dq, dk, dv = torch.empty_like(kept[0]), torch.empty_like(kept[1]), torch.empty_like(kept[2])
+    lib = _library(lib_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "fused":
-            dq32 = torch.zeros((bh, t, d), dtype=torch.float32, device=q.device)
-            err = lib.flash_bwd_fused(*common, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                      bh, t, s, d, *tail, stream)
-            raise_on(lib, "flash_bwd_fused", err)
-            launches_bwd_fused += 1
-            dq = dq32.to(q.dtype)
-        else:
-            dq = torch.empty_like(q)
-            err = lib.flash_bwd_dq(*common, dq.data_ptr(), bh, t, s, d, *tail, stream)
-            raise_on(lib, "flash_bwd_dq", err)
-            launches_bwd_dq += 1
-            err = lib.flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), bh, t, s, d, *tail, stream)
-            raise_on(lib, "flash_bwd_dkv", err)
-            launches_bwd_dkv += 1
+        err = getattr(lib, dq_name)(*common, dq.data_ptr(), bh, t, s, d, *tail, stream)
+        raise_on(lib, dq_name, err)
+        _count(dq_name)
+        err = getattr(lib, dkv_name)(*common, dk.data_ptr(), dv.data_ptr(), bh, t, s, d, *tail, stream)
+        raise_on(lib, dkv_name, err)
+        _count(dkv_name)
     return dq, dk, dv
 
 
@@ -470,6 +528,9 @@ _SIGNATURES = {
     "flash_fwd_tc": {
         "flash_fwd_tc": [_P] * 6 + [_I] * 4 + _TC_TAIL,
     },
+    "flash_fwd_tf32x3": {
+        "flash_fwd_tf32x3": [_P] * 6 + [_I] * 4 + _TC_TAIL,
+    },
     "flash_bwd": {
         "flash_bwd_fused": [_P] * 10 + [_I] * 4 + _TAIL,
         "flash_bwd_dq": [_P] * 8 + [_I] * 4 + _TAIL,
@@ -478,6 +539,10 @@ _SIGNATURES = {
     "flash_bwd_tc": {
         "flash_bwd_dq_tc": [_P] * 8 + [_I] * 4 + _TC_TAIL,
         "flash_bwd_dkv_tc": [_P] * 9 + [_I] * 4 + _TC_TAIL,
+    },
+    "flash_bwd_tf32x3": {
+        "flash_bwd_dq_tf32x3": [_P] * 8 + [_I] * 4 + _TC_TAIL,
+        "flash_bwd_dkv_tf32x3": [_P] * 9 + [_I] * 4 + _TC_TAIL,
     },
 }
 

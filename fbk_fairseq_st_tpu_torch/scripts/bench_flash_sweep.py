@@ -11,18 +11,25 @@ chosen from:
   * the flash forward (on the tensor cores and on the CUDA cores) and the
     fused and the split backward;
   * the forward route: at each of the model path's attention calls
-    (``TRAIN_BACKWARD_SHAPES``, bf16, at their dropout rates) the
-    tensor-core forward's device time against the CUDA-core forward's (the
-    median of a trace's launches, ``device_ms``), each launched directly (``flash_attention.forward_tc`` /
-    ``forward_cuda_core``) after their outputs are checked against each
-    other, from which ``gate_from`` reports, call by call, whether the
-    tensor cores win (``flash_attention.tc_fwd_wins``);
+    (``TRAIN_BACKWARD_SHAPES``, at their dropout rates), in bf16 and in
+    fp32, the tensor-core forward's device time (``flash_attention.forward_tc``
+    in bf16, ``forward_tf32x3`` in fp32) against the CUDA-core forward's
+    (``forward_cuda_core``; the median of a trace's launches,
+    ``device_ms``), each launched directly after their outputs are checked
+    against each other, from which ``gate_from`` reports, call by call and
+    type by type, whether the tensor cores win
+    (``flash_attention.tc_fwd_wins``);
   * the backward decision: at each of the model path's backward calls
-    (``TRAIN_BACKWARD_SHAPES``, bf16) the fused kernel's device time
-    against the split pair's, each the summed device time of one backward
-    wrapper call (its kernels, delta's reduction and the fused kernel's fp32
-    dQ buffer included), from which ``gate_from`` reports, call by call,
-    whether the pair wins (``flash_attention.pair_wins``);
+    (``TRAIN_BACKWARD_SHAPES``), in bf16 and in fp32, the fused kernel's
+    device time against the tensor-core split pair's ("tc" in bf16,
+    "tf32x3" in fp32), each the device time of its kernels' launches (the
+    median launch of each, ``device_ms``: dq + dkv against the fused
+    kernel; delta's reduction, which both pay, and the fused kernel's dQ
+    buffer are left out), from which ``gate_from`` reports, call by call and
+    type by type, whether the pair wins (``flash_attention.pair_wins``);
+    beside them, for the record, the CUDA-core pair's
+    (``flash_attention.backward_pair("cuda_core", ...)``), which no default
+    route takes at these head dims;
   * ``scaled_dot_product_attention`` with the same mask, forward and
     forward + backward, as a yardstick (the port never calls it): each of
     its fused backends (flash, memory-efficient, cuDNN) alone, through
@@ -73,7 +80,15 @@ from ..ops.kernels import flash_attention as fa
 from ..ops.kernels import flash_fwd_single as single
 
 D = 64
-FWD_KERNEL_NAMES = {"tc": "flash_fwd_tc_kernel", "cuda_core": "flash_fwd_kernel"}  # by fwd_route
+FWD_KERNEL_NAMES = {"tc": "flash_fwd_tc_kernel", "tf32x3": "flash_fwd_tf32x3_kernel",
+                    "cuda_core": "flash_fwd_kernel"}  # by fwd_route
+# each backward route's kernels in a trace (the fused kernel; dq, dkv)
+BWD_KERNEL_NAMES = {
+    "fused": (lambda n: "flash_bwd_kv_kernel" in n and "true>" in n,),
+    "cuda_core": ("flash_bwd_q_kernel", lambda n: "flash_bwd_kv_kernel" in n and "false>" in n),
+    "tc": ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"),
+    "tf32x3": ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel"),
+}
 KERNEL_SHAPES = ((32, 2048, False), (64, 2048, True))  # (bh, S, causal)
 # (name, bh, T, S, D, causal, dropout rate, keys padded on the left): the
 # flash calls of the train steps, each with keys padded as the batches pad
@@ -91,8 +106,18 @@ TRAIN_BACKWARD_SHAPES = [
     ("long_encoder_self_attention", 32, 2048, 2048, 64, False, 0.1, False),
     ("long_time_attention", 32, 2048, 2048, 20, False, 0.3, False),
 ]
-BWD_AGREE_RTOL = 1e-2  # the pair against the fused kernel, of max|fused|, bf16
-FWD_AGREE_ATOL = (2e-2, 1e-4)  # the two forwards' out (one bf16 rounding of |out| < 4) and lse
+# the pair against the fused kernel: bf16 of max|fused| (a rounding of
+# ds and w_v to bf16 in the pair, none in the fused kernel), fp32 absolute
+# (each within 1e-4 of the plain backward on the card)
+BWD_AGREE = {torch.bfloat16: ("rtol", 1e-2), torch.float32: ("atol", 1e-4)}
+# the two forwards' out and lse: bf16 one rounding of |out| < 4; fp32 each
+# within 1e-4 of the plain forward
+FWD_AGREE_ATOL = {torch.bfloat16: (2e-2, 1e-4), torch.float32: (1e-4, 1e-4)}
+# the tensor-core route of each type, and gate_from's names for its forward
+# flag, its backward flag and its device times (bf16 under the names they
+# had before fp32 had a route)
+TC_ROUTES = {"bfloat16": "tc", "float32": "tf32x3"}
+FLAG_NAMES = {"tc": ("tc_fwd_wins", "pair_wins", ""), "tf32x3": ("tf32x3_fwd_wins", "tf32x3_bwd_wins", "tf32x3_")}
 ROUTE_KEY_LENGTHS = (128, 512, 2048)
 ROUTE_ROWS = 16384  # batch x key length of the train steps' encoder
 SINGLE_ATOL = 2e-2
@@ -286,17 +311,19 @@ def measure_flash(bh: int, s: int, causal: bool) -> List[Dict]:
     ]
 
 
-def backward_inputs(bh: int, t: int, s: int, d: int, causal: bool, rate: float, left: bool, seed: int = 0):
-    """bf16 q, k, v, dO of N(0, 1) at the kernels' head dim (zero-padded
-    from ``d``), a key bias with lengths in [S/2, S] (padded on the left
-    when ``left``), and the forward's out and lse at ``rate`` with a seed
-    drawn from ``seed``; returns (args of ``flash_attention_backward``)."""
+def backward_inputs(bh: int, t: int, s: int, d: int, causal: bool, rate: float, left: bool, seed: int = 0,
+                    dtype=torch.bfloat16):
+    """q, k, v, dO of N(0, 1) in ``dtype`` at the kernels' head dim
+    (zero-padded from ``d``), a key bias with lengths in [S/2, S] (padded on
+    the left when ``left``), and the forward's out and lse at ``rate`` with
+    a seed drawn from ``seed``; returns (args of
+    ``flash_attention_backward``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dk = fa.kernel_head_dim(d)
     pad = lambda x: torch.nn.functional.pad(x, (0, dk - d)).contiguous()  # noqa: E731
-    q = pad(torch.randn((bh, t, d), generator=gen, device="cuda").to(torch.bfloat16))
-    k, v = (pad(torch.randn((bh, s, d), generator=gen, device="cuda").to(torch.bfloat16)) for _ in range(2))
-    g = pad(torch.randn((bh, t, d), generator=gen, device="cuda").to(torch.bfloat16))
+    q = pad(torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype))
+    k, v = (pad(torch.randn((bh, s, d), generator=gen, device="cuda").to(dtype)) for _ in range(2))
+    g = pad(torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype))
     lengths = torch.randint(s // 2, s + 1, (bh,), generator=gen, device="cuda")
     lengths[0] = s
     pos = torch.arange(s, device="cuda")[None, :]
@@ -310,27 +337,28 @@ def backward_inputs(bh: int, t: int, s: int, d: int, causal: bool, rate: float, 
 
 
 def measure_forward(name: str, bh: int, t: int, s: int, d: int, causal: bool, rate: float,
-                    left: bool) -> Dict:
-    """The tensor-core forward against the CUDA-core forward at one
-    attention call of the model path, bf16, each launched directly: the
-    device time of its one kernel launch (``device_ms``, the median over a
-    trace, which stays right when the trace misses records), which the
-    route's rule reads, and the wall time of a call; their outputs are
-    first checked against each other (out and lse within
-    ``FWD_AGREE_ATOL``, asserted)."""
-    q, k, v, bias, _, _, _, scale, causal, rate, seed = backward_inputs(bh, t, s, d, causal, rate, left)
-    routes = {"tc": fa.forward_tc, "cuda_core": fa.forward_cuda_core}
-    calls = {route: (lambda launch=launch: launch(q, k, v, bias, scale, causal, rate, seed))
-             for route, launch in routes.items()}
-    (out_tc, lse_tc), (out_cc, lse_cc) = calls["tc"](), calls["cuda_core"]()
+                    left: bool, dtype=torch.bfloat16) -> Dict:
+    """The tensor-core forward of ``dtype`` ("tc" in bf16, "tf32x3" in
+    fp32) against the CUDA-core forward at one attention call of the model
+    path, each launched directly: the device time of its one kernel launch
+    (``device_ms``, the median over a trace, which stays right when the
+    trace misses records), which the route's rule reads, and the wall time
+    of a call; their outputs are first checked against each other (out and
+    lse within ``FWD_AGREE_ATOL``, asserted)."""
+    q, k, v, bias, _, _, _, scale, causal, rate, seed = backward_inputs(bh, t, s, d, causal, rate, left,
+                                                                        dtype=dtype)
+    tc = fa.fwd_route(dtype, fa.kernel_head_dim(d))
+    calls = {route: (lambda launch=fa.FORWARDS[route]: launch(q, k, v, bias, scale, causal, rate, seed))
+             for route in (tc, "cuda_core")}
+    (out_tc, lse_tc), (out_cc, lse_cc) = calls[tc](), calls["cuda_core"]()
     err = (out_tc.float() - out_cc.float()).abs().max().item()
     lse_err = (lse_tc - lse_cc).abs().max().item()
-    if not (err <= FWD_AGREE_ATOL[0] and lse_err <= FWD_AGREE_ATOL[1]):
-        raise AssertionError(f"{name}: the tensor-core forward differs from the CUDA-core one by {err} "
+    if not (err <= FWD_AGREE_ATOL[dtype][0] and lse_err <= FWD_AGREE_ATOL[dtype][1]):
+        raise AssertionError(f"{name} {dtype}: the tensor-core forward differs from the CUDA-core one by {err} "
                              f"(out), {lse_err} (lse)")
     row = {"kind": "fwd_route", "shape": name, "bh": bh, "T": t, "S": s, "D": d, "kernel_D": fa.kernel_head_dim(d),
-           "causal": causal, "rate": rate, "dtype": "bfloat16", "max_abs_err_tc_vs_cuda_core": err,
-           "lse_max_abs_err_tc_vs_cuda_core": lse_err}
+           "causal": causal, "rate": rate, "dtype": str(dtype).replace("torch.", ""), "route": tc,
+           "max_abs_err_tc_vs_cuda_core": err, "lse_max_abs_err_tc_vs_cuda_core": lse_err}
     for route, call in calls.items():
         row[f"{route}_device_ms"] = device_ms(call, FWD_KERNEL_NAMES[route])
         row[f"{route}_wall_ms"] = time_ms(call)
@@ -338,14 +366,17 @@ def measure_forward(name: str, bh: int, t: int, s: int, d: int, causal: bool, ra
 
 
 def measure_backward(name: str, bh: int, t: int, s: int, d: int, causal: bool, rate: float,
-                     left: bool) -> Dict:
-    """The fused kernel against the split pair at one backward call of the
-    model path, bf16: the summed device time of one backward wrapper call
-    by each route (``device_busy``), which the decision reads, and its wall
-    time; the pair's gradients are first checked against the fused
-    kernel's (max difference <= ``BWD_AGREE_RTOL`` of max|fused| each,
-    asserted)."""
-    args = backward_inputs(bh, t, s, d, causal, rate, left)
+                     left: bool, dtype=torch.bfloat16) -> Dict:
+    """The fused kernel against the tensor-core split pair of ``dtype`` at
+    one backward call of the model path: the device time of each route's
+    kernels (the median launch of each, ``device_ms``, summed over dq and
+    dkv), which the decision reads, and the wall time of a wrapper call,
+    with the CUDA-core pair's beside them. Medians, not a trace's sum:
+    traces lose records (fp32 calls kept 2.9-3.2 of their 4 kernels a call
+    in ``device_busy``), and a lost record reads as speed. The pair's
+    gradients are first checked against the fused kernel's (within
+    ``BWD_AGREE``, asserted)."""
+    args = backward_inputs(bh, t, s, d, causal, rate, left, dtype=dtype)
 
     def bwd(fused: bool):
         def run():
@@ -353,17 +384,23 @@ def measure_backward(name: str, bh: int, t: int, s: int, d: int, causal: bool, r
                 return fa.flash_attention_backward(*args)
         return run
 
+    kind, limit = BWD_AGREE[dtype]
     for a, b, grad in zip(bwd(False)(), bwd(True)(), ("dq", "dk", "dv")):
         err, top = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
-        if not err <= BWD_AGREE_RTOL * top:
-            raise AssertionError(f"{name}: the split pair's {grad} differs from the fused kernel's by {err} "
-                                 f"(max|fused| {top})")
+        if not err <= (limit * top if kind == "rtol" else limit):
+            raise AssertionError(f"{name} {dtype}: the split pair's {grad} differs from the fused kernel's by "
+                                 f"{err} (max|fused| {top})")
     row = {"kind": "bwd_route", "shape": name, "bh": bh, "T": t, "S": s, "D": d, "kernel_D": fa.kernel_head_dim(d),
-           "causal": causal, "rate": rate, "dtype": "bfloat16",
-           "pair_route": fa.split_route(torch.bfloat16, fa.kernel_head_dim(d))}
-    for route, fused in (("fused", True), ("pair", False)):
-        row[f"{route}_kernels_per_call"], row[f"{route}_device_ms"] = device_busy(bwd(fused))
-        row[f"{route}_wall_ms"] = time_ms(bwd(fused))
+           "causal": causal, "rate": rate, "dtype": str(dtype).replace("torch.", ""),
+           "pair_route": fa.split_route(dtype, fa.kernel_head_dim(d))}
+    cuda_core_pair = lambda: fa.backward_pair("cuda_core", *args)  # noqa: E731
+    for route, run, kernels in (("fused", bwd(True), "fused"), ("pair", bwd(False), row["pair_route"]),
+                                ("cuda_core_pair", cuda_core_pair, "cuda_core")):
+        times = [device_ms(run, name) for name in BWD_KERNEL_NAMES[kernels]]
+        if None in times:
+            raise RuntimeError(f"{name} {dtype}: no trace kept a launch of the {route} kernels")
+        row[f"{route}_device_ms"] = sum(times)
+        row[f"{route}_wall_ms"] = time_ms(run)
     return row
 
 
@@ -418,8 +455,9 @@ def run() -> List[Dict]:
     for bh, s, causal in KERNEL_SHAPES:
         rows += [measure_single(bh, s, causal, tb) for tb in single.T_BLOCKS[torch.bfloat16]]
         rows += measure_flash(bh, s, causal)
-    rows += [measure_forward(*shape) for shape in TRAIN_BACKWARD_SHAPES]
-    rows += [measure_backward(*shape) for shape in TRAIN_BACKWARD_SHAPES]
+    for dtype in (torch.bfloat16, torch.float32):
+        rows += [measure_forward(*shape, dtype=dtype) for shape in TRAIN_BACKWARD_SHAPES]
+        rows += [measure_backward(*shape, dtype=dtype) for shape in TRAIN_BACKWARD_SHAPES]
     for kind in ("mha", "time_attention"):
         rows += [measure_routes(kind, s) for s in ROUTE_KEY_LENGTHS]
     return rows
@@ -429,10 +467,12 @@ def gate_from(rows: List[Dict]) -> Dict:
     """Per caller, the largest measured key length up to which the dense
     route's device time beats the flash route's by more than 10 % at every
     measured length (None when it does not at the shortest); the fused and
-    pair device times of the ``bwd_route`` rows, whether the pair wins at
-    each (``fa.pair_wins``) and at all of them; the same for the forward's
-    ``fwd_route`` rows, CUDA-core against tensor-core (``fa.tc_fwd_wins``);
-    and the device times of both backwards at S = 2048, not causal."""
+    pair device times of the bf16 ``bwd_route`` rows, whether the pair wins
+    at each (``fa.pair_wins``) and at all of them; the same for the bf16
+    forward's ``fwd_route`` rows, CUDA-core against tensor-core
+    (``fa.tc_fwd_wins``); both again for the fp32 rows under ``tf32x3_``
+    names; and the device times of both backwards at S = 2048, not causal.
+    A row without a ``dtype`` is bf16."""
     gates = {}
     for kind in sorted({r["kind"] for r in rows if r["kind"].startswith("route_")}):
         ratios = sorted((r["S"], r["dense_over_flash"]) for r in rows if r["kind"] == kind)
@@ -442,20 +482,28 @@ def gate_from(rows: List[Dict]) -> Dict:
                 break
             below = s
         gates[kind[len("route_"):]] = below
-    calls = [r for r in rows if r["kind"] == "bwd_route"]
-    wins = fa.pair_wins({r["shape"]: (r["fused_device_ms"], r["pair_device_ms"]) for r in calls})
-    bwd = {r["kind"]: r["bwd_device_ms"] for r in rows if r["kind"].startswith("flash_bwd") and r["S"] == 2048
-           and not r["causal"]}
-    fwd_calls = [r for r in rows if r["kind"] == "fwd_route"]
-    fwd_wins = fa.tc_fwd_wins({r["shape"]: (r["cuda_core_device_ms"], r["tc_device_ms"]) for r in fwd_calls})
-    return {"dense_faster_by_10pct_up_to_key_len": gates,
-            "tc_fwd_wins_by_call": fwd_wins, "tc_fwd_wins_everywhere": all(fwd_wins.values()),
-            "fwd_device_ms_by_call": {r["shape"]: {"S": r["S"], "cuda_core": r["cuda_core_device_ms"],
-                                                   "tc": r["tc_device_ms"]} for r in fwd_calls},
-            "pair_wins_by_call": wins, "pair_wins_everywhere": all(wins.values()),
-            "bwd_device_ms_by_call": {r["shape"]: {"S": r["S"], "fused": r["fused_device_ms"],
-                                                   "pair": r["pair_device_ms"]} for r in calls},
-            "bwd_device_ms_at_2048_non_causal": bwd}
+    out = {"dense_faster_by_10pct_up_to_key_len": gates}
+    for dtype, tc in TC_ROUTES.items():
+        fwd_flag, bwd_flag, prefix = FLAG_NAMES[tc]
+        of_type = [r for r in rows if r.get("dtype", "bfloat16") == dtype]
+        fwd_calls = [r for r in of_type if r["kind"] == "fwd_route"]
+        fwd_wins = fa.tc_fwd_wins({r["shape"]: (r["cuda_core_device_ms"], r[f"{tc}_device_ms"]) for r in fwd_calls})
+        calls = [r for r in of_type if r["kind"] == "bwd_route"]
+        wins = fa.pair_wins({r["shape"]: (r["fused_device_ms"], r["pair_device_ms"]) for r in calls})
+        out.update({
+            f"{fwd_flag}_by_call": fwd_wins, f"{fwd_flag}_everywhere": all(fwd_wins.values()),
+            f"{prefix}fwd_device_ms_by_call": {r["shape"]: {"S": r["S"], "cuda_core": r["cuda_core_device_ms"],
+                                                            tc: r[f"{tc}_device_ms"]} for r in fwd_calls},
+            f"{bwd_flag}_by_call": wins, f"{bwd_flag}_everywhere": all(wins.values()),
+            f"{prefix}bwd_device_ms_by_call": {
+                r["shape"]: {"S": r["S"], "fused": r["fused_device_ms"], "pair": r["pair_device_ms"],
+                             **{k: r[k + "_device_ms"] for k in ("cuda_core_pair",) if k + "_device_ms" in r}}
+                for r in calls},
+        })
+    out["bwd_device_ms_at_2048_non_causal"] = {
+        r["kind"]: r["bwd_device_ms"] for r in rows if r["kind"].startswith("flash_bwd") and r["S"] == 2048
+        and not r["causal"]}
+    return out
 
 
 def print_table(rows: List[Dict]) -> None:
@@ -466,12 +514,14 @@ def print_table(rows: List[Dict]) -> None:
             print(f"{shape:<26} single-pass fwd t_block={r['t_block']:>3}: {r['fwd_ms']:8.3f} ms "
                   f"(max|d| vs flash {r['max_abs_err_vs_flash']:.2e})")
         elif r["kind"] == "fwd_route":
-            print(f"{r['shape']:<26} forward device ms: cuda_core {r['cuda_core_device_ms']:8.3f}  "
-                  f"tc {r['tc_device_ms']:8.3f}; wall ms: cuda_core {r['cuda_core_wall_ms']:8.3f}  "
-                  f"tc {r['tc_wall_ms']:8.3f}")
+            tc = r["route"]
+            print(f"{r['shape']:<26} {r['dtype']:<8} forward device ms: cuda_core {r['cuda_core_device_ms']:8.3f}  "
+                  f"{tc} {r[f'{tc}_device_ms']:8.3f}; wall ms: cuda_core {r['cuda_core_wall_ms']:8.3f}  "
+                  f"{tc} {r[f'{tc}_wall_ms']:8.3f}")
         elif r["kind"] == "bwd_route":
-            print(f"{r['shape']:<26} backward device ms: fused {r['fused_device_ms']:8.3f}  "
-                  f"pair ({r['pair_route']}) {r['pair_device_ms']:8.3f}; wall ms: fused {r['fused_wall_ms']:8.3f}  "
+            print(f"{r['shape']:<26} {r['dtype']:<8} backward device ms: fused {r['fused_device_ms']:8.3f}  "
+                  f"pair ({r['pair_route']}) {r['pair_device_ms']:8.3f}  cuda_core pair "
+                  f"{r['cuda_core_pair_device_ms']:8.3f}; wall ms: fused {r['fused_wall_ms']:8.3f}  "
                   f"pair {r['pair_wall_ms']:8.3f}")
         elif r["kind"].startswith("route_"):
             print(f"{shape:<26} {r['kind']:<22} fwd+bwd device ms: dense {r['dense_device_ms']:8.3f}  "

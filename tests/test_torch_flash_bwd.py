@@ -1,8 +1,9 @@
 """PyTorch port, the flash backward's routing on the CPU: which kernels a
 CUDA call would take (``split_route``, ``use_fused_backward``), the
-tensor-core pair's shape limits, the decision rule on device times
-(``pair_wins``, which the flash sweep's ``gate_from`` also reads), and the
-CPU route, which runs the plain backward whatever the decision.
+tensor-core pairs' shape limits (bf16 and fp32), the decision rule on
+device times (``pair_wins``, which the flash sweep's ``gate_from`` also
+reads, in each type), and the CPU route, which runs the plain backward
+whatever the decision.
 
 The kernels themselves run only on the card: ``chip_smoke.py`` holds them
 against ``flash_attention_backward_reference`` there. Tolerances are stated
@@ -21,10 +22,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @pytest.mark.parametrize("d", tflash.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_split_route(dtype, d):
-    """The tensor cores take bf16 at kernel head dims 32 and 64 (every
-    model's heads and the time attention's padded F' = 20); fp32 (TF32
-    would not be exact) and bf16 at 16 and 128 stay on the CUDA cores."""
-    want = "tc" if dtype == "bfloat16" and d in (32, 64) else "cuda_core"
+    """The tensor cores take both types at kernel head dims 32 and 64
+    (every model's heads and the time attention's padded F' = 20): bf16 as
+    "tc", fp32 as "tf32x3" (three tf32 products a product, within the fp32
+    limits where one is not); 16 and 128 stay on the CUDA cores."""
+    want = ({"bfloat16": "tc", "float32": "tf32x3"}[dtype] if d in (32, 64) else "cuda_core")
     assert tflash.split_route(DTYPES[dtype], d) == want
 
 
@@ -44,6 +46,23 @@ def test_tensor_core_pair_shapes(d):
 def test_tensor_core_pair_refuses_other_head_dims(d):
     with pytest.raises(ValueError):
         tflash.tc_check_shape(d, 128, 128)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_tf32x3_pair_shapes(d):
+    """The fp32 pair's grids are the bf16 pair's: any bh, at most 65,535
+    tiles of 64 rows or keys; its error names its kernels."""
+    for t, s in [(1, 1), (48, 128), (2048, 2048), (65535 * 64, 7), (3, 65535 * 64)]:
+        tflash.tc_check_shape(d, t, s, "tf32x3")
+    for t, s in [(65535 * 64 + 1, 64), (64, 65535 * 64 + 1)]:
+        with pytest.raises(ValueError, match="flash_bwd_tf32x3"):
+            tflash.tc_check_shape(d, t, s, "tf32x3")
+
+
+@pytest.mark.parametrize("d", [16, 20, 128])
+def test_tf32x3_pair_refuses_other_head_dims(d):
+    with pytest.raises(ValueError, match="flash_bwd_tf32x3"):
+        tflash.tc_check_shape(d, 128, 128, "tf32x3")
 
 
 # {call: (fused ms, pair ms)} device times, and whether the pair wins at each
@@ -71,6 +90,26 @@ def test_pair_wins(case):
 
 
 @pytest.mark.parametrize("case", sorted(RULE_CASES))
+def test_gate_from_takes_the_fp32_rule_on_device_times(case):
+    """``gate_from`` reads the fp32 ``bwd_route`` rows (the tf32x3 pair
+    against the fused kernel) apart from the bf16 ones, under its
+    ``tf32x3_bwd_`` flags, with the CUDA-core pair's time beside them."""
+    times, want = RULE_CASES[case]
+    rows = [{"kind": "bwd_route", "dtype": "float32", "shape": name, "S": 128, "fused_device_ms": f,
+             "pair_device_ms": p, "cuda_core_pair_device_ms": 2 * f, "fused_wall_ms": p, "pair_wall_ms": f}
+            for name, (f, p) in times.items()]
+    bf16 = {"kind": "bwd_route", "dtype": "bfloat16", "shape": "other", "S": 128, "fused_device_ms": 0.1,
+            "pair_device_ms": 0.2}
+    got = tsweep.gate_from(rows + [bf16])
+    assert got["tf32x3_bwd_wins_by_call"] == want
+    assert got["tf32x3_bwd_wins_everywhere"] == all(want.values())
+    assert got["tf32x3_bwd_device_ms_by_call"] == {
+        r["shape"]: {"S": r["S"], "fused": r["fused_device_ms"], "pair": r["pair_device_ms"],
+                     "cuda_core_pair": r["cuda_core_pair_device_ms"]} for r in rows}
+    assert got["pair_wins_by_call"] == {"other": False}
+
+
+@pytest.mark.parametrize("case", sorted(RULE_CASES))
 def test_gate_from_takes_the_rule_on_device_times(case):
     """The sweep's ``gate_from`` applies the same rule to its ``bwd_route``
     rows' device times (never their wall times), reports those times, and
@@ -89,12 +128,13 @@ def test_gate_from_takes_the_rule_on_device_times(case):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_use_fused_backward(monkeypatch, dtype, forced):
     """``FUSED_BWD`` forces a route when set; else the fused kernel takes
-    every call whose pair would run on the CUDA cores (fp32, bf16 at D 16
-    and 128) and the tensor-core pair every other call."""
+    every call whose pair would run on the CUDA cores (either type at D 16
+    and 128) and the tensor-core pair of the call's type every other
+    call."""
     monkeypatch.setattr(tflash, "FUSED_BWD", forced)
     for d in tflash.KERNEL_HEAD_DIMS:
-        rule = tflash.split_route(DTYPES[dtype], d) != "tc"
-        assert rule == (dtype == "float32" or d in (16, 128))
+        rule = tflash.split_route(DTYPES[dtype], d) == "cuda_core"
+        assert rule == (d in (16, 128))
         assert tflash.use_fused_backward(DTYPES[dtype], d) == (forced if forced is not None else rule)
 
 
@@ -135,6 +175,45 @@ def test_cpu_backward_is_the_plain_version_whatever_the_decision(monkeypatch, dt
         assert leaf.grad.dtype == dt
         torch.testing.assert_close(leaf.grad, w, rtol=0, atol=0)
         torch.testing.assert_close(dr, w, rtol=0, atol=0)
-    counts = (tflash.launches_fwd, tflash.launches_bwd_fused, tflash.launches_bwd_dq, tflash.launches_bwd_dkv,
-              tflash.launches_bwd_dq_tc, tflash.launches_bwd_dkv_tc)
-    assert counts == (0,) * 6
+    counts = [getattr(tflash, name) for name in tflash._COUNTERS]
+    assert counts == [0] * 10
+
+
+# (bh, T, S, D before padding, causal, rate): fp32 backward calls of the
+# tf32x3 pair: a ragged call over several 64-row and 64-key chunks, causal
+# with T > S at the time attention's D 20 (padded to 32), and a long one
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_d64", "causal_d20", "long_d32"])
+def test_tf32x3_pair_matches_the_plain_backward_on_the_card(case):
+    """fp32 on the card, TF32 off on the plain side: dq, dk and dv of the
+    tf32x3 pair within 1e-4 of ``flash_attention_backward_reference`` on
+    the kernel forward's out and lse (3xTF32 products, the same keep
+    bits), one launch each of its dq and dkv kernels and nothing else, and
+    bitwise equal across two calls (each output written once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bh, t, s, d, causal, rate = {"ragged_d64": (4, 200, 333, 64, False, 0.1),
+                                 "causal_d20": (3, 130, 77, 20, True, 0.3),
+                                 "long_d32": (2, 700, 1500, 32, False, 0.1)}[case]
+    rng = np.random.RandomState(4)
+    q, g = (torch.tensor(rng.randn(bh, t, d).astype(np.float32)).cuda() for _ in range(2))
+    k, v = (torch.tensor(rng.randn(bh, s, d).astype(np.float32)).cuda() for _ in range(2))
+    bias = torch.zeros(bh, s, device="cuda")
+    bias[1, s - s // 3:] = -1e9
+    dk_ = tflash.kernel_head_dim(d)
+    pad = lambda x: torch.nn.functional.pad(x, (0, dk_ - d))  # noqa: E731
+    out, lse = tflash.flash_attention(pad(q), pad(k), pad(v), bias, d ** -0.5, causal=causal, dropout_rate=rate,
+                                      dropout_seed=3, return_lse=True)
+    args = (pad(q), pad(k), pad(v), bias, out, lse, pad(g), d ** -0.5, causal, rate, 3)
+    tflash.reset_launches()
+    got = tflash.flash_attention_backward(*args)
+    again = tflash.flash_attention_backward(*args)
+    want = tflash.flash_attention_backward_reference(q, k, v, bias, out[..., :d], lse, g, d ** -0.5, causal, rate, 3)
+    torch.cuda.synchronize()
+    counts = (tflash.launches_bwd_dq_tf32x3, tflash.launches_bwd_dkv_tf32x3, tflash.launches_bwd_fused,
+              tflash.launches_bwd_dq, tflash.launches_bwd_dq_tc)
+    assert counts == (2, 2, 0, 0, 0)
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, b), name
+        assert (a[..., :d] - w).abs().max().item() <= 1e-4, name

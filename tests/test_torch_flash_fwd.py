@@ -1,9 +1,10 @@
 """PyTorch port, the flash forward's routing on the CPU: which kernel a
 CUDA call would take (``fwd_route``), each route's shape limits
-(``fwd_check_shape``: the tensor-core kernel takes any bh, the CUDA-core
-kernel at most 65,535), the route's rule on device times (``tc_fwd_wins``,
-which the flash sweep's ``gate_from`` also reads), and the CPU route, which
-runs the plain forward and launches nothing.
+(``fwd_check_shape``: the tensor-core kernels, bf16 and fp32, take any bh,
+the CUDA-core kernel at most 65,535), the route's rule on device times
+(``tc_fwd_wins``, which the flash sweep's ``gate_from`` also reads, in
+each type), and the CPU route, which runs the plain forward and launches
+nothing.
 
 The kernels themselves run only on the card: ``chip_smoke.py`` holds them
 against ``flash_attention_reference`` there, and the test marked ``cuda``
@@ -24,11 +25,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @pytest.mark.parametrize("d", tflash.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_fwd_route(dtype, d):
-    """The tensor cores take bf16 at kernel head dims 32 and 64 (every
-    model's heads and the time attention's padded F' = 20), as the split
-    backward; fp32 (TF32 would not be exact) and bf16 at 16 and 128 stay on
-    the CUDA cores."""
-    want = "tc" if dtype == "bfloat16" and d in (32, 64) else "cuda_core"
+    """The tensor cores take both types at kernel head dims 32 and 64
+    (every model's heads and the time attention's padded F' = 20), as the
+    split backward: bf16 as "tc", fp32 as "tf32x3" (three tf32 products a
+    product); 16 and 128 stay on the CUDA cores."""
+    want = ({"bfloat16": "tc", "float32": "tf32x3"}[dtype] if d in (32, 64) else "cuda_core")
     assert tflash.fwd_route(DTYPES[dtype], d) == want
     assert tflash.fwd_route(DTYPES[dtype], d) == tflash.split_route(DTYPES[dtype], d)
 
@@ -47,6 +48,22 @@ def test_tensor_core_forward_shapes(d):
 def test_tensor_core_forward_refuses_other_head_dims(d):
     with pytest.raises(ValueError):
         tflash.fwd_check_shape("tc", 8, 128, d)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_tf32x3_forward_shapes(d):
+    """The fp32 tensor-core forward's grid is the bf16 one's: any bh, at
+    most 65,535 q tiles of 64 rows."""
+    for bh, t in [(1, 1), (128, 750), (65536, 48), (10 ** 6, 7), (3, 65535 * 64)]:
+        tflash.fwd_check_shape("tf32x3", bh, t, d)
+    with pytest.raises(ValueError, match="flash_fwd_tf32x3"):
+        tflash.fwd_check_shape("tf32x3", 1, 65535 * 64 + 1, d)
+
+
+@pytest.mark.parametrize("d", [16, 20, 128])
+def test_tf32x3_forward_refuses_other_head_dims(d):
+    with pytest.raises(ValueError, match="flash_fwd_tf32x3"):
+        tflash.fwd_check_shape("tf32x3", 8, 128, d)
 
 
 @pytest.mark.parametrize("d", tflash.KERNEL_HEAD_DIMS)
@@ -83,6 +100,25 @@ def test_tc_fwd_wins(case):
     the CUDA-core forward's, call by call."""
     times, want = RULE_CASES[case]
     assert tflash.tc_fwd_wins(times) == want
+
+
+@pytest.mark.parametrize("case", sorted(RULE_CASES))
+def test_gate_from_takes_the_fp32_forward_rule_on_device_times(case):
+    """``gate_from`` reads the fp32 ``fwd_route`` rows (the tf32x3 forward
+    against the CUDA-core one) apart from the bf16 ones, under its
+    ``tf32x3_fwd_`` flags; a bf16 row that the fp32 rule would judge
+    otherwise does not move them."""
+    times, want = RULE_CASES[case]
+    rows = [{"kind": "fwd_route", "dtype": "float32", "shape": name, "S": 750, "cuda_core_device_ms": cc,
+             "tf32x3_device_ms": tc, "cuda_core_wall_ms": tc, "tf32x3_wall_ms": cc} for name, (cc, tc) in times.items()]
+    bf16 = {"kind": "fwd_route", "dtype": "bfloat16", "shape": "other", "S": 128, "cuda_core_device_ms": 0.1,
+            "tc_device_ms": 0.2}
+    got = tsweep.gate_from(rows + [bf16])
+    assert got["tf32x3_fwd_wins_by_call"] == want
+    assert got["tf32x3_fwd_wins_everywhere"] == all(want.values())
+    assert got["tf32x3_fwd_device_ms_by_call"] == {r["shape"]: {"S": r["S"], "cuda_core": r["cuda_core_device_ms"],
+                                                               "tf32x3": r["tf32x3_device_ms"]} for r in rows}
+    assert got["tc_fwd_wins_by_call"] == {"other": False}
 
 
 @pytest.mark.parametrize("case", sorted(RULE_CASES))
@@ -127,10 +163,8 @@ def test_cpu_forward_is_the_plain_version_and_launches_nothing(dtype, causal):
         assert out.dtype == DTYPES[dtype]
         torch.testing.assert_close(out, want_out, rtol=0, atol=0)
         torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
-    counts = (tflash.launches, tflash.launches_fwd, tflash.launches_fwd_tc, tflash.launches_bwd_fused,
-              tflash.launches_bwd_dq, tflash.launches_bwd_dkv, tflash.launches_bwd_dq_tc,
-              tflash.launches_bwd_dkv_tc)
-    assert counts == (0,) * 8
+    counts = [tflash.launches] + [getattr(tflash, name) for name in tflash._COUNTERS]
+    assert counts == [0] * 11
 
 
 def test_plain_forward_rounds_p_to_the_input_type():
@@ -174,4 +208,34 @@ def test_tensor_core_kernel_matches_the_plain_version_on_the_card(case):
     torch.cuda.synchronize()
     assert (tflash.launches_fwd_tc, tflash.launches_fwd) == (1, 0)
     assert (out.float() - want_out.float()).abs().max().item() <= 2e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+# (bh, T, S, D before padding, causal, rate): fp32 calls of the tf32x3
+# forward: the serving encoder's shape with padded keys, a ragged call over
+# several 64-key chunks, the time attention's D 20 (padded to 32) causal
+# with T > S, and a long ragged row
+TF32X3_CARD_SHAPES = {"serve_d64": (8, 128, 128, 64, False, 0.0), "ragged_d64": (4, 200, 333, 64, False, 0.1),
+                      "causal_d20": (3, 130, 77, 20, True, 0.3), "long_d32": (2, 700, 1500, 32, False, 0.1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TF32X3_CARD_SHAPES))
+def test_tf32x3_kernel_matches_the_plain_version_on_the_card(case):
+    """fp32 on the card, TF32 off on the plain side: the tf32x3 forward's
+    out and lse within 1e-4 of the plain version's (three tf32 products a
+    product leave about 2^-21 of |q||k| and |p||v|; the same keep bits);
+    one launch of ``flash_fwd_tf32x3`` a call and none of the others."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bh, t, s, d, causal, rate = TF32X3_CARD_SHAPES[case]
+    q, k, v, bias = (x.cuda() for x in _inputs(bh, t, s, d, torch.float32))
+    tflash.reset_launches()
+    out, lse = tflash.flash_attention(q, k, v, bias, d ** -0.5, causal=causal, dropout_rate=rate,
+                                      dropout_seed=9, return_lse=True)
+    want_out, want_lse = tflash.flash_attention_reference(q, k, v, bias, d ** -0.5, causal, rate, 9)
+    torch.cuda.synchronize()
+    assert (tflash.launches_fwd_tf32x3, tflash.launches_fwd, tflash.launches_fwd_tc) == (1, 0, 0)
+    assert (out - want_out).abs().max().item() <= 1e-4
     assert (lse - want_lse).abs().max().item() <= 1e-4

@@ -10,8 +10,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
   2. build: compiles every kernel from the sources in this checkout (one
      nvcc per source, all started together, sm_90a: flash_fwd, flash_fwd_tc,
      flash_fwd_tf32x3, flash_bwd, flash_bwd_tc, flash_bwd_tf32x3,
-     dynamic_conv, flash_fwd_single) and reports the seconds and the ptxas
-     registers and spills of each;
+     dynamic_conv, dynamic_conv_tc, flash_fwd_single) and reports the
+     seconds and the ptxas registers and spills of each;
   3. kernels at the serving shapes: the flash forward against its plain
      PyTorch version in fp32 (TF32 off: the tf32x3 kernel, which serving
      runs, and the CUDA-core kernel launched directly) and bf16 (the
@@ -38,15 +38,23 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      is SDPA's forward + backward at rate 0); then, at the long D 64 call in
      each type, the tensor-core pair's dq, dk, dv again, bitwise equal to
      the first (asserted), and the fused kernel's dQ spread;
-  5. dynamic-conv kernels: ``dynamic_conv_fwd`` and ``dynamic_conv_bwd``
-     against ``dynamic_conv_reference`` / ``dynamic_conv_backward_reference``
-     in fp32 (TF32 off) and bf16 at the serving shapes (B 32, T 60, C 1024,
-     H 16, centred K 3, 7, 15, 31; B 8, T 250, K 31), the training shapes
-     (B 64, T 56, every K of 3, 7, 15, 31 centred and causal) and a ragged
-     one (T 37, C 48, H 3, even K 4),
-     with the wrapper's, the kernel's device, the plain and the bound times
-     (no single PyTorch call computes a per-position band product, so no
-     library time);
+  5. dynamic-conv kernels: the tensor-core ``dynamic_conv_fwd_tc`` and
+     ``dynamic_conv_bwd_tc`` (every model path's) and the first, CUDA-core
+     ``dynamic_conv_fwd`` and ``dynamic_conv_bwd`` (launched directly,
+     ``route="cuda_core"``) against ``dynamic_conv_reference`` /
+     ``dynamic_conv_backward_reference`` in fp32 (TF32 off) and bf16 at the
+     serving shapes (B 32, T 60, C 1024, H 16, centred K 3, 7, 15, 31; B 8,
+     T 250, K 31), the training shapes (B 64, T 56, every K of 3, 7, 15, 31
+     centred and causal), a ragged one (T 37, C 48, H 3, even K 4) and
+     ``dynamicconv_iwslt_de_en``'s widths (C 512, H 4, K 31, centred and
+     causal), with the wrapper's, the kernel's device (median launch), the
+     plain and the bound times (no single PyTorch call computes a
+     per-position band product, so no library time), the bf16
+     ``train_k31`` rows also with a cold L2 (128 MB written between
+     launches); the tensor-core backward bitwise equal across two launches
+     (asserted); and ``dconv_tc_wins_everywhere``: the tensor-core forward's
+     and backward's median launch each at most the CUDA-core one's at each
+     of the 13 main-path calls in both types (asserted);
   6. serve (main path 1): the conv_transformer base preset at full width
      (256/768/4, 6+6 layers, 80 mels, vocabulary 8000, random weights from
      a seed) serves three requests with beam 5 through
@@ -80,7 +88,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      a seed) serves three requests (32 sentences of 10-60 tokens, 8 of
      200-250, 1 of 30) collated by the port's ``LanguagePairDataset``
      (sources padded on the left), beam 5; checks the hypotheses and
-     exactly 7 ``dynamic_conv_fwd`` and 0 flash launches a request, source
+     exactly 7 ``dynamic_conv_fwd_tc`` launches a request and no other
+     kernel (no flash, no CUDA-core dynamic conv), source
      tokens/s, the idle share of one profiled request, the kernel route
      against the plain route on every request (fp32 encoder output and
      teacher-forced logits, and identical top hypotheses) and the card
@@ -89,9 +98,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      ``Trainer.train_step`` with the arguments of phase 7 and ``--bf16`` on
      one batch of 64 pairs of 40-56 source and 40-56 target tokens: step
      ms, target tokens/s, MFU, peak memory, one profiled step; exactly 13
-     ``dynamic_conv_fwd``, 13 ``dynamic_conv_bwd``, 6 tensor-core flash
-     forward and 6 + 6 tensor-core dq + dkv a step; the loss finite and
-     falling;
+     ``dynamic_conv_fwd_tc``, 13 ``dynamic_conv_bwd_tc``, 6 tensor-core
+     flash forward and 6 + 6 tensor-core dq + dkv a step, and 0 CUDA-core
+     dynamic conv; the loss finite and falling;
  11. lightconv train-step cross-checks in fp32: the kernel route against
      the plain route of the dynamic conv (training mode, dropout rates 0),
      and the card against the plain CPU path on 2 pairs (eval-mode
@@ -137,7 +146,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      launches and 20 + 20 tensor-core dq + dkv a step, the loss finite, one
      profiled step; then flash against dense route in fp32 at the same
      shapes (the dense route's (8, 4, 2048, 2048) scores fit the card);
- 17. the ``kernels`` line, the card line, and the final ``ok`` line.
+ 17. the ``kernels`` line (the CUDA-core dynamic-conv kernels with 0 main-path
+     launches, marked as reached by a direct call only), the card line, and
+     the final ``ok`` line.
 
 Tolerances (stated here, checked below):
   * kernels against their plain versions: atol 1e-4 in fp32 (the same
@@ -159,11 +170,14 @@ Tolerances (stated here, checked below):
     the plain value, 2^-7 of it at most, and P rounded alike on both
     sides): at S = 2048 a typical |out| is about 0.03, so 2e-2 alone would
     pass a dropped key chunk;
-  * dynamic conv against its plain version: out and dx at atol 1e-4 in
-    fp32, in bf16 out at 2e-2 and dx at 5e-2 (out and dx are sums of K
-    products, convex in x for out, with |out|, |dx| < 5: one bf16
-    rounding); dw, a sum of C/H = 64 products that reaches |dw| ~
-    40, at 1e-5 (fp32) and 1e-2 (bf16, one rounding at 2^-8) of max|dw|;
+  * dynamic conv against its plain version, both routes: out and dx at
+    atol 1e-4 in fp32 (the tensor-core kernels' 3xTF32 products leave
+    about 2^-21 of |a||b| each; one TF32 product misses dw's limit,
+    tests/test_torch_dynamic_conv_tc.py), in bf16 out at 2e-2 and dx at
+    5e-2 (out and dx are sums of K products, convex in x for out, with
+    |out|, |dx| < 5: one bf16 rounding); dw, a sum of C/H = 64 products
+    that reaches |dw| ~ 40, at 1e-5 (fp32) and 1e-2 (bf16, one rounding at
+    2^-8) of max|dw|;
   * the serving models, flash vs dense, kernel vs plain route and card vs
     CPU: atol 1e-3 in fp32 (8 attention or 13 conv layers summed in
     another order);
@@ -303,6 +317,11 @@ LC_TRAIN_LEN = (40, 56)  # source and target tokens a pair
 LC_TIMED_STEPS = 10
 DCONV_LAUNCHES_PER_REQUEST = 7  # the encoder's layers
 DCONV_LAUNCHES_PER_STEP = 13  # 7 encoder + 6 teacher-forced decoder layers
+# the dynamic conv's route on every model path: the tensor-core kernels
+# (csrc/dynamic_conv_tc.cu); the first, CUDA-core kernels (csrc/dynamic_conv.cu)
+# are launched by phase 5's direct calls only
+DCONV_FORWARD, DCONV_BACKWARD = "dconv_fwd_tc", "dconv_bwd_tc"
+DCONV_DIRECT_ONLY = ("dconv_fwd", "dconv_bwd")
 LC_FLASH_LAUNCHES_PER_STEP = 6  # the decoder's encoder attention
 
 # (name, B, T, C, H, K, padding_l): the dynamic conv's calls on the main
@@ -323,7 +342,18 @@ DCONV_SHAPES = [
     ("train_k15_causal", 64, 56, 1024, 16, 15, 14),
     ("train_k31_causal", 64, 56, 1024, 16, 31, 30),
     ("ragged", 4, 37, 48, 3, 4, 1),
+    # dynamicconv_iwslt_de_en's widths (C 512, H 4: r = 128, two channel chunks)
+    ("iwslt_k31_centred", 64, 56, 512, 4, 31, 15),
+    ("iwslt_k31_causal", 64, 56, 512, 4, 31, 30),
 ]
+# the 13 main-path calls, where the tensor-core kernels must win
+DCONV_MAIN_SHAPES = tuple(name for name, *_ in DCONV_SHAPES if name.startswith(("serve_", "train_")))
+DCONV_COLD_AT = ("train_k31_centred", "train_k31_causal")  # bf16 rows also timed with a cold L2
+L2_FLUSH_BYTES = 128 << 20  # written between launches: over the H100's 50 MB L2
+# each route's (forward, backward) kernels, by row name; a trace names each
+# kernel "<row name>_kernel"
+DCONV_ROUTES = {"tc": ("dynamic_conv_fwd_tc", "dynamic_conv_bwd_tc"),
+                "cuda_core": ("dynamic_conv_fwd", "dynamic_conv_bwd")}
 
 # the single-pass kernels' checks: (name, bh, T, S, causal, padded keys,
 # types), each at every t_block the type's kernel takes
@@ -348,7 +378,7 @@ LONG_FRAMES = 8192
 LONG_TIMED_STEPS = 5
 
 KERNEL_SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_fwd_tf32x3", "flash_bwd", "flash_bwd_tc", "flash_bwd_tf32x3",
-                  "dynamic_conv", "flash_fwd_single")
+                  "dynamic_conv", "dynamic_conv_tc", "flash_fwd_single")
 
 
 def emit(obj) -> None:
@@ -1150,53 +1180,96 @@ def dconv_bound_ms(kind, b, t, c, h, k, padding_l, dtype):
     return bound_ms(nbytes, 2.0 * macs, dtype)
 
 
+def dconv_device_ms(fn, kernel, cold=None):
+    """The median device launch of ``kernel`` in calls of ``fn``; with
+    ``cold``, a buffer over the L2's size written before each call. A trace
+    may catch no launch at all (one chip run saw three such in a row at one
+    call), so up to six are taken."""
+    call = fn if cold is None else (lambda: (cold.zero_(), fn()))
+    ms = device_ms(call, kernel + "_kernel", tries=6)
+    if ms is None:
+        raise AssertionError(f"no {kernel} launch in six traces")
+    return ms
+
+
 def check_dconv_kernels(dconv):
-    """Each dynamic-conv call in fp32 and bf16: the forward and the backward
-    against the plain versions on the same inputs; times and bounds."""
+    """Each dynamic-conv call in fp32 and bf16: the tensor-core forward and
+    backward (every model path's) and the CUDA-core pair (a direct call)
+    against the plain versions on the same inputs, the tensor-core backward
+    bitwise equal across two launches; times and bounds, the bf16
+    ``DCONV_COLD_AT`` rows also with a cold L2; and whether the tensor-core
+    kernels' median launch is at most the CUDA-core ones' at every main-path
+    call in both types (``dconv_tc_wins_everywhere``, asserted)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
+    cold = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     rows = []
-    worst = {(kind, dtype): 0.0 for kind in ("fwd", "bwd") for dtype in (torch.float32, torch.bfloat16)}
+    worst = {(kind, dtype): 0.0 for kind in ("fwd", "bwd", "fwd_tc", "bwd_tc")
+             for dtype in (torch.float32, torch.bfloat16)}
+    wins = {}
     for name, b, t, c, h, k, pad_l in DCONV_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
             w = torch.softmax(torch.randn((b, t, h, k), generator=gen, device="cuda"), dim=-1).to(dtype)
             g = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
-            out_k = dconv.dynamic_conv(x, w, pad_l)
-            dx_k, dw_k = dconv.dynamic_conv_backward(x, w, g, pad_l)
             out_p = dconv.dynamic_conv_reference(x, w, pad_l)
             dx_p, dw_p = dconv.dynamic_conv_backward_reference(x, w, g, pad_l)
-            torch.cuda.synchronize()
-            err = lambda a, b_: (a.float() - b_.float()).abs().max().item()  # noqa: E731
-            errs = {"fwd": err(out_k, out_p), "dx": err(dx_k, dx_p), "dw": err(dw_k, dw_p)}
             dw_tol = RTOL_DW[dtype] * dw_p.float().abs().max().item()
-            ok = errs["fwd"] <= ATOL_KERNEL[dtype] and errs["dx"] <= ATOL_GRAD[dtype] and errs["dw"] <= dw_tol
-            worst[("fwd", dtype)] = max(worst[("fwd", dtype)], errs["fwd"])
-            worst[("bwd", dtype)] = max(worst[("bwd", dtype)], errs["dx"], errs["dw"])
+            err = lambda a, b_: (a.float() - b_.float()).abs().max().item()  # noqa: E731
             base = {"phase": "dconv_kernel_check", "shape": name, "B": b, "T": t, "C": c, "H": h, "K": k,
                     "padding_l": pad_l, "dtype": str(dtype).replace("torch.", ""), "library_ms": None}
-            fwd = lambda: dconv.dynamic_conv(x, w, pad_l)  # noqa: E731
-            bwd = lambda: dconv.dynamic_conv_backward(x, w, g, pad_l)  # noqa: E731
-            timings = {
-                "dynamic_conv_fwd": dict(
-                    kernel_ms=time_ms(fwd), kernel_device_ms=device_ms(fwd, "dynamic_conv_fwd_kernel"),
-                    plain_ms=time_ms(lambda: dconv.dynamic_conv_reference(x, w, pad_l)),
-                    max_abs_err=errs["fwd"], atol=ATOL_KERNEL[dtype],
-                    bound=dconv_bound_ms("fwd", b, t, c, h, k, pad_l, dtype)),
-                "dynamic_conv_bwd": dict(
-                    kernel_ms=time_ms(bwd), kernel_device_ms=device_ms(bwd, "dynamic_conv_bwd_kernel"),
-                    plain_ms=time_ms(lambda: dconv.dynamic_conv_backward_reference(x, w, g, pad_l)),
-                    max_abs_err=max(errs["dx"], errs["dw"]), dx_max_abs_err=errs["dx"],
-                    dw_max_abs_err=errs["dw"], atol=ATOL_GRAD[dtype], dw_tol=dw_tol,
-                    bound=dconv_bound_ms("bwd", b, t, c, h, k, pad_l, dtype)),
-            }
-            for kernel, tm in timings.items():
-                tm["bound_ms"], tm["bound_by"] = tm.pop("bound")
-                row = {**base, "kernel": kernel, **tm}
-                emit(row)
-                rows.append(row)
-            if not ok:
-                raise AssertionError(f"dynamic conv disagrees with its plain version at {name} {dtype}: "
-                                     f"{errs}, dw tolerance {dw_tol}")
+            plain = {"fwd": time_ms(lambda: dconv.dynamic_conv_reference(x, w, pad_l)),
+                     "bwd": time_ms(lambda: dconv.dynamic_conv_backward_reference(x, w, g, pad_l))}
+            bounds = {kind: dconv_bound_ms(kind, b, t, c, h, k, pad_l, dtype) for kind in ("fwd", "bwd")}
+            device = {}
+            for route, (fwd_name, bwd_name) in DCONV_ROUTES.items():
+                out_k = dconv.dynamic_conv_forward(x, w, pad_l, route=route)
+                dx_k, dw_k = dconv.dynamic_conv_backward(x, w, g, pad_l, route=route)
+                torch.cuda.synchronize()
+                errs = {"fwd": err(out_k, out_p), "dx": err(dx_k, dx_p), "dw": err(dw_k, dw_p)}
+                suffix = "_tc" if route == "tc" else ""
+                worst[("fwd" + suffix, dtype)] = max(worst[("fwd" + suffix, dtype)], errs["fwd"])
+                worst[("bwd" + suffix, dtype)] = max(worst[("bwd" + suffix, dtype)], errs["dx"], errs["dw"])
+                repeat = None
+                if route == "tc":
+                    dx_2, dw_2 = dconv.dynamic_conv_backward(x, w, g, pad_l, route=route)
+                    repeat = bool(torch.equal(dx_2, dx_k) and torch.equal(dw_2, dw_k))
+                fwd = lambda: dconv.dynamic_conv_forward(x, w, pad_l, route=route)  # noqa: E731
+                bwd = lambda: dconv.dynamic_conv_backward(x, w, g, pad_l, route=route)  # noqa: E731
+                timings = {
+                    fwd_name: dict(kernel_ms=time_ms(fwd), kernel_device_ms=dconv_device_ms(fwd, fwd_name),
+                                   plain_ms=plain["fwd"], max_abs_err=errs["fwd"], atol=ATOL_KERNEL[dtype],
+                                   bound=bounds["fwd"]),
+                    bwd_name: dict(kernel_ms=time_ms(bwd), kernel_device_ms=dconv_device_ms(bwd, bwd_name),
+                                   plain_ms=plain["bwd"], max_abs_err=max(errs["dx"], errs["dw"]),
+                                   dx_max_abs_err=errs["dx"], dw_max_abs_err=errs["dw"], atol=ATOL_GRAD[dtype],
+                                   dw_tol=dw_tol, bitwise_repeat=repeat, bound=bounds["bwd"]),
+                }
+                if name in DCONV_COLD_AT and dtype == torch.bfloat16:
+                    timings[fwd_name]["kernel_device_ms_cold"] = dconv_device_ms(fwd, fwd_name, cold)
+                    timings[bwd_name]["kernel_device_ms_cold"] = dconv_device_ms(bwd, bwd_name, cold)
+                for kernel, tm in timings.items():
+                    tm["bound_ms"], tm["bound_by"] = tm.pop("bound")
+                    row = {**base, "kernel": kernel, "route": route, **tm}
+                    emit(row)
+                    rows.append(row)
+                device[route] = (timings[fwd_name]["kernel_device_ms"], timings[bwd_name]["kernel_device_ms"])
+                ok = errs["fwd"] <= ATOL_KERNEL[dtype] and errs["dx"] <= ATOL_GRAD[dtype] and errs["dw"] <= dw_tol
+                if not ok:
+                    raise AssertionError(f"dynamic conv ({route}) disagrees with its plain version at {name} "
+                                         f"{dtype}: {errs}, dw tolerance {dw_tol}")
+                if repeat is False:
+                    raise AssertionError(f"dynamic_conv_bwd_tc is not bitwise repeatable at {name} {dtype}")
+            if name in DCONV_MAIN_SHAPES:
+                wins[f"{name} {base['dtype']}"] = {
+                    "fwd": device["tc"][0] <= device["cuda_core"][0], "bwd": device["tc"][1] <= device["cuda_core"][1],
+                    "fwd_ms": [device["tc"][0], device["cuda_core"][0]],
+                    "bwd_ms": [device["tc"][1], device["cuda_core"][1]]}
+    everywhere = all(v["fwd"] and v["bwd"] for v in wins.values())
+    emit({"phase": "dconv_tc_wins", "dconv_tc_wins_everywhere": everywhere, "calls": len(wins), "by_call": wins,
+          "card": CARD[0]})
+    if not everywhere:
+        lost = sorted(call for call, v in wins.items() if not (v["fwd"] and v["bwd"]))
+        raise AssertionError(f"the tensor-core dynamic conv is slower than the CUDA-core kernels at {lost}")
     return rows, worst
 
 
@@ -1234,6 +1307,7 @@ def collate(LanguagePairDataset, src_dict, tgt_dict, src, tgt=None):
 def launch_counts(fa, dconv, single):
     counts = {"flash_" + name.removeprefix("launches_"): getattr(fa, name) for name in fa._COUNTERS}
     return {**counts, "dconv_fwd": dconv.launches_fwd, "dconv_bwd": dconv.launches_bwd,
+            "dconv_fwd_tc": dconv.launches_fwd_tc, "dconv_bwd_tc": dconv.launches_bwd_tc,
             "flash_fwd_single": single.launches}
 
 
@@ -1278,7 +1352,7 @@ def serve_lightconv(card, dicts, fa, dconv, single, modules):
         n = len(sample["net_input"]["src_lengths"])
         check_hypotheses(hypos, tgt_dict.eos(), n)
         grew = {k: v - before[k] for k, v in launch_counts(fa, dconv, single).items()}
-        want = {k: DCONV_LAUNCHES_PER_REQUEST if k == "dconv_fwd" else 0 for k in grew}
+        want = {k: DCONV_LAUNCHES_PER_REQUEST if k == DCONV_FORWARD else 0 for k in grew}
         if grew != want:
             raise AssertionError(f"{name}: launches grew by {grew}, expected {want}")
         src_tokens = int(sample["net_input"]["src_lengths"].sum())
@@ -1409,7 +1483,7 @@ def train_lightconv(card, dicts, fa, dconv, single, modules):
     launches = launch_counts(fa, dconv, single)
     steps = REPEATS * LC_TIMED_STEPS
     want = step_launches(launches, steps, LC_FLASH_LAUNCHES_PER_STEP)
-    want.update(dconv_fwd=DCONV_LAUNCHES_PER_STEP * steps, dconv_bwd=DCONV_LAUNCHES_PER_STEP * steps)
+    want.update({DCONV_FORWARD: DCONV_LAUNCHES_PER_STEP * steps, DCONV_BACKWARD: DCONV_LAUNCHES_PER_STEP * steps})
     if launches != want:
         raise AssertionError(f"lightconv train launches {launches}, expected {want} over {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1805,7 +1879,7 @@ def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32,
         entry["max_abs_err"] = worst_bf16
     if worst_bf16 is None:
         del entry["max_abs_err_bf16"]
-    for key in ("max_err_over_max_plain", "wrapper_device_ms", "split_route"):
+    for key in ("max_err_over_max_plain", "wrapper_device_ms", "split_route", "kernel_device_ms_cold"):
         if key in head:
             entry[key] = head[key]
     if also_at is not None:
@@ -1906,7 +1980,7 @@ def main() -> int:
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():
-        if n == 0:
+        if n == 0 and k not in DCONV_DIRECT_ONLY:
             raise AssertionError(f"the main paths launched no {k} kernel")
     csrc = "fbk_fairseq_st_tpu_torch/ops/kernels/csrc/"
     pallas = "fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py:"
@@ -1950,12 +2024,22 @@ def main() -> int:
         if kind:
             entry["worst_bf16_err_over_max_plain"] = worst_ratio.get(kind)
     dconv_at = ("train_k31_centred", "bfloat16")
-    conv_src, conv_tpu = csrc + "dynamic_conv.cu", "fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py:24"
-    kernels += [
-        kernel_entry("dynamic_conv_fwd", "dynamic_conv_fwd", conv_src, conv_tpu, launches["dconv_fwd"], dconv_rows,
+    conv_tpu = "fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py:24"
+    conv_tc, conv_cc = csrc + "dynamic_conv_tc.cu", csrc + "dynamic_conv.cu"
+    old_conv = [
+        kernel_entry("dynamic_conv_fwd", "dynamic_conv_fwd", conv_cc, conv_tpu, launches["dconv_fwd"], dconv_rows,
                      dconv_worst[("fwd", f32)], dconv_worst[("fwd", b16)], dconv_at),
-        kernel_entry("dynamic_conv_bwd", "dynamic_conv_bwd", conv_src, conv_tpu, launches["dconv_bwd"], dconv_rows,
+        kernel_entry("dynamic_conv_bwd", "dynamic_conv_bwd", conv_cc, conv_tpu, launches["dconv_bwd"], dconv_rows,
                      dconv_worst[("bwd", f32)], dconv_worst[("bwd", b16)], dconv_at),
+    ]
+    for entry in old_conv:
+        entry["reached_by"] = "direct call only (route='cuda_core'), for the comparison"
+    kernels += [
+        kernel_entry("dynamic_conv_fwd_tc", "dynamic_conv_fwd_tc", conv_tc, conv_tpu, launches["dconv_fwd_tc"],
+                     dconv_rows, dconv_worst[("fwd_tc", f32)], dconv_worst[("fwd_tc", b16)], dconv_at),
+        kernel_entry("dynamic_conv_bwd_tc", "dynamic_conv_bwd_tc", conv_tc, conv_tpu, launches["dconv_bwd_tc"],
+                     dconv_rows, dconv_worst[("bwd_tc", f32)], dconv_worst[("bwd_tc", b16)], dconv_at),
+        *old_conv,
         kernel_entry("flash_fwd_single", "flash_fwd_single", csrc + "flash_fwd_single.cu",
                      "fbk_fairseq_st_tpu/scripts/bench_flash_sweep.py:28", launches["flash_fwd_single"],
                      single_rows, single_worst[f32], single_worst[b16], SINGLE_TIMED_AT),

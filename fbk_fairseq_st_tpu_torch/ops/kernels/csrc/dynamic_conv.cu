@@ -1,6 +1,6 @@
 // Dynamic convolution forward and backward for Hopper (sm_90a), plain CUDA C++.
 //
-// Replaces fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py::_dynamic_conv_kernel
+// The first port of fbk_fairseq_st_tpu/ops/pallas/conv_kernels.py::_dynamic_conv_kernel
 // (launched by _dynamic_conv_fwd_impl through pl.pallas_call), and writes the
 // backward that the JAX package leaves to XLA (jax.vjp of _xla_reference):
 //
@@ -40,11 +40,16 @@
 // T 56, C 1024, H 16, K 31, bf16) the forward moves x, w and out, 18.2 MB:
 // 5.4 us at 3.35 TB/s, while its 0.23 GFLOP of fp32 FMAs take 3.4 us at
 // 67 TFLOP/s; the backward moves x, w, g, dx and dw, 29 MB (8.7 us) for
-// 0.46 GFLOP. Both are bound by bytes, there is nothing for the tensor
-// cores, and the design keeps every input element's global read to once a
-// block (the halo rows are read again by the neighbouring tile, K-1 of 16+K-1
-// rows). This first version is simple and correct: no vector loads, no
-// cp.async or TMA pipeline, and shared memory sized for the worst slab.
+// 0.46 GFLOP. Both are bound by bytes, and the design keeps every input
+// element's global read to once a block (the halo rows are read again by the
+// neighbouring tile, K-1 of 16+K-1 rows). This first version is simple and
+// correct: no vector loads, no cp.async or TMA pipeline, and shared memory
+// sized for the worst slab; it issues two shared-memory loads a multiply-add,
+// which bound it at 9-13x its byte bound on an H100. The tensor cores do have
+// work here: per head the convolution is a product with a banded left
+// factor, which csrc/dynamic_conv_tc.cu runs as mma.sync tiles. Every model
+// path takes that kernel; this one is reached only by a direct call
+// (dynamic_conv.py, route="cuda_core"), to compare the two.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -4,7 +4,9 @@
 // (32 bf16: head dim 32) whose 16-byte pieces are XOR-swizzled, and a ring
 // of shared-memory slots filled by cp.async. Every tile helper takes the
 // row width RB in bytes as a template argument, 128 by default; fp32 tiles
-// have 256-byte (head dim 64) or 128-byte (head dim 32) rows.
+// have 256-byte (head dim 64) or 128-byte (head dim 32) rows. Tiles of
+// padded rows (an odd count of 16-byte pieces, no swizzle) take any width:
+// the *_frag_addr_pad helpers.
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + t, g in 0..7, t in 0..3):
 //   A (16 x 16, row major), 4 registers of 2 bf16:
@@ -69,11 +71,17 @@ __device__ __forceinline__ uint32_t swz(int row, int piece) {
   else return row * RB + ((piece ^ ((row >> 1) & 3)) << 4);
 }
 
+// The first n of 16 bytes (0 <= n <= 16) from global to shared memory
+// without passing through registers, the rest zeroed (the bytes past n are
+// not read).
+__device__ __forceinline__ void cp_async16_first(uint32_t dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(n) : "memory");
+}
 // 16 bytes from global to shared memory without passing through registers;
 // when !valid nothing is read and the 16 bytes are zeroed.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+  cp_async16_first(dst, src, valid ? 16 : 0);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -169,6 +177,21 @@ __device__ __forceinline__ uint32_t b_frag_addr(uint32_t tile, int n0, int kk, i
 template <int RB = kRowBytes>
 __device__ __forceinline__ uint32_t bt_frag_addr(uint32_t tile, int kk, int np, int lane) {
   return tile + swz<RB>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * np + (lane >> 4));
+}
+
+// The same three lane addresses in a padded tile: rows of `stride` bytes, a
+// multiple of 16 with an odd count of 16-byte pieces, so the 8 rows one
+// ldmatrix matrix reads land on 8 different groups of 4 banks without a
+// swizzle, at any row width (the dynamic convolution's window, g and band
+// tiles, bf16 or fp32, dynamic_conv_tc.cu). Any first row r0, n0 or k0.
+__device__ __forceinline__ uint32_t a_frag_addr_pad(uint32_t tile, int stride, int r0, int kk, int lane) {
+  return tile + (r0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * stride + ((2 * kk + (lane >> 4)) << 4);
+}
+__device__ __forceinline__ uint32_t b_frag_addr_pad(uint32_t tile, int stride, int n0, int kk, int lane) {
+  return tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * stride + ((2 * kk + ((lane >> 3) & 1)) << 4);
+}
+__device__ __forceinline__ uint32_t bt_frag_addr_pad(uint32_t tile, int stride, int k0, int np, int lane) {
+  return tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * stride + ((2 * np + (lane >> 4)) << 4);
 }
 
 // Products over tiles of 64 rows of D bf16 (rows of 2 D bytes), for the

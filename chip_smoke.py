@@ -12,8 +12,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      flash_fwd_tf32x3, flash_bwd, flash_bwd_tc, flash_bwd_tf32x3,
      dynamic_conv, dynamic_conv_tc, flash_fwd_single) and reports the
      seconds and the ptxas registers and spills of each;
-  3. kernels at the serving shapes: the flash forward against its plain
-     PyTorch version in fp32 (TF32 off: the tf32x3 kernel, which serving
+  3. kernels at the serving shapes (those of the one-phase requests, and
+     the two-phase request's auxiliary pass: bh 640, T 101, causal
+     self-attention and cross-attention over 128 keys): the flash forward
+     against its plain PyTorch version in fp32 (TF32 off: the tf32x3 kernel, which serving
      runs, and the CUDA-core kernel launched directly) and bf16 (the
      tensor-core kernel at kernel D 32 and 64), with kernel, plain and
      library (scaled_dot_product_attention, a yardstick the port never
@@ -22,6 +24,7 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      per call (CUDA events), the kernel's own device time (torch.profiler),
      and the card's bound for the same work;
   4. kernels at the training shapes (the train step's four attention
+     calls at batch 128, the dual-decoder step's two auxiliary-decoder
      calls at batch 128, the lightconv decoder's encoder attention at
      batch 64 with keys padded on the left, the long-context step's two at
      S 2048, a ragged call and a causal one with T > S), in fp32 and bf16,
@@ -146,7 +149,42 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      launches and 20 + 20 tensor-core dq + dkv a step, the loss finite, one
      profiled step; then flash against dense route in fp32 at the same
      shapes (the dense route's (8, 4, 2048, 2048) scores fit the card);
- 17. the ``kernels`` line (the CUDA-core dynamic-conv kernels with 0 main-path
+ 17. serve (main path 8), ``bench.py``'s ``decode_rtf_twophase``:
+     ``conv_transformer_dualdecoder`` at full width (256/768/4, 6+6 layers
+     and a 6-layer auxiliary decoder, 80 mels, source and target
+     dictionaries of 8,000 symbols, random weights from a seed) serves a
+     request of 32 x 409-512 frames and one of 1 x 512 through
+     ``TwoPhaseSequenceGenerator`` (beam 5, ``max_len_b`` 100): decode
+     seconds, RTF, the idle share of one profiled request; every
+     hypothesis ends in eos and carries its transcript, the scores sorted;
+     exactly 20 tf32x3 forwards a request (the encoder's 8 and the 12 of
+     phase 2's teacher-forced ``aux_features`` pass: 6 causal self- and 6
+     cross-attentions; the decode steps attend their caches on the dense
+     path) and no other kernel; then the flash route against the dense
+     route (identical top hypotheses and transcripts, the ``aux_features``
+     of the top transcripts within 1e-3) and the card against the plain
+     CPU path on 2 utterances (the same, and the teacher-forced target and
+     auxiliary logits within 1e-3);
+ 18. serve, ``conv_transformer_triangle`` and ``conv_transformer_2stage``
+     at the same width, one request of 8 x 409-512 frames each, with the
+     checks of phase 17: their phase-2 caches over the transcripts' states
+     (the triangle's ``aux``, the 2-stage decoder's ``cross``) follow the
+     beams;
+ 19. train (main path 9): ``conv_transformer_dualdecoder`` with
+     ``cross_entropy_dualdecoder`` (weights 0.5 / 0.5, label smoothing
+     0.1) through ``SpeechTranslationDualDecodingTask.build_model`` ->
+     ``Trainer.train_step``, the arguments of phase 7 and ``--bf16``, on
+     128 utterances of 409-512 frames with 48 target and 64 transcript
+     tokens: step ms, frames/s, MFU (``train_flops`` plus the auxiliary
+     decoder), peak memory, one profiled step; exactly 32 tensor-core
+     flash forwards and 32 + 32 tensor-core dq + dkv a step (the base
+     step's 20 and the auxiliary decoder's 6 causal self- and 6
+     cross-attentions); the loss and the logged ``auxiliary_nll_loss``
+     finite and falling; then in fp32 (TF32 off) flash against dense route
+     (32 tf32x3 forwards and 32 + 32 tf32x3 dq + dkv; none) at batch 32
+     and the card against the CPU on 2 utterances, at phase 8's
+     tolerances;
+ 20. the ``kernels`` line (the CUDA-core dynamic-conv kernels with 0 main-path
      launches, marked as reached by a direct call only), the card line, and
      the final ``ok`` line.
 
@@ -180,7 +218,9 @@ Tolerances (stated here, checked below):
     2^-8) of max|dw|;
   * the serving models, flash vs dense, kernel vs plain route and card vs
     CPU: atol 1e-3 in fp32 (8 attention or 13 conv layers summed in
-    another order);
+    another order; two-phase: the auxiliary decoder's states and the
+    teacher-forced logits after 6 more layers), and the top hypotheses
+    (two-phase: and their transcripts) identical;
   * train-step cross-checks: the loss rtol 1e-5 (the same forward in fp32);
     gnorm and the gradients' global relative difference 5e-3 where the two
     sides compute the forward differently (flash vs dense, conv kernel vs
@@ -263,20 +303,25 @@ TIMED_STEPS = 20
 REPEATS = 3
 SPLIT_STEPS = 5  # the short runs with each backward forced
 
-# (name, bh, T, S, D, causal, padded keys): the flash calls of the serving path
+# (name, bh, T, S, D, causal, padded keys): the flash calls of the serving
+# paths; the last two are phase 2's teacher-forced auxiliary pass of a
+# two-phase request (32 x beam 5 transcripts of up to 101 tokens, 4 heads)
 KERNEL_SHAPES = [
     ("encoder_self_attention", 128, 128, 128, 64, False, True),
     ("time_attention", 128, 128, 128, 20, False, True),
     ("decoder_causal_self_attention", 32, 100, 100, 64, True, True),
     ("cross_attention", 32, 37, 128, 64, False, True),
     ("long_encoder_self_attention", 32, 750, 750, 64, False, True),
+    ("twophase_aux_causal_self_attention", 640, 101, 101, 64, True, True),
+    ("twophase_aux_cross_attention", 640, 101, 128, 64, False, True),
 ]
 
 # (name, bh, T, S, D, causal, dropout rate, keys padded on the left,
 # types): the flash calls of the train steps (the sweep's
-# TRAIN_BACKWARD_SHAPES: the conv_transformer step at batch 128, the
-# lightconv decoder's encoder attention at batch 64, the long-context step
-# at T' = 2048; all with padded keys) in fp32 and bf16, a ragged call and a
+# TRAIN_BACKWARD_SHAPES: the conv_transformer step at batch 128 and the
+# dual-decoder step's auxiliary decoder beside it, the lightconv decoder's
+# encoder attention at batch 64, the long-context step at T' = 2048; all
+# with padded keys) in fp32 and bf16, a ragged call and a
 # causal one with T > S, unaligned, and one bf16 call at D 16, where the
 # forward and the split pair run on the CUDA cores (no model reaches it)
 TRAIN_KERNEL_SHAPES = [(*shape, (torch.float32, torch.bfloat16)) for shape in TRAIN_BACKWARD_SHAPES] + [
@@ -308,6 +353,18 @@ BF16_BACKWARD = "split_tc"
 FP32_BACKWARD = "split_tf32x3"
 BACKWARD_KERNELS = {"fused": ("flash_bwd_fused",), "split_tc": ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
                     "split_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")}
+
+# the multi-decoder paths (models/multi_task.py): two-phase serving
+# (bench.py::_measure_decode with twophase=True) and the dual-decoder step
+TWOPHASE_ARCHS = ("conv_transformer_dualdecoder", "conv_transformer_triangle", "conv_transformer_2stage")
+# a two-phase request: the encoder's 8, and phase 2's teacher-forced
+# aux_features pass, 6 causal self- and 6 cross-attentions; the decode
+# steps of both phases attend their caches on the dense path
+TWOPHASE_LAUNCHES_PER_REQUEST = 8 + 12
+DUAL_ARCH = "conv_transformer_dualdecoder"
+DUAL_FLASH_CALLS_PER_STEP = CT_FLASH_CALLS_PER_STEP + 12  # the auxiliary decoder's self- and cross-attentions
+DUAL_TR_LEN = 64
+DUAL_TIMED_STEPS = 10
 
 # the lightconv paths (dynamicconv_wmt_en_de_big, models/lightconv.py)
 LC_ARCH = "dynamicconv_wmt_en_de_big"
@@ -763,8 +820,10 @@ def check_hypotheses(hypos, eos, n):
                 raise AssertionError("non-finite positional scores")
 
 
-def teacher_forced_tokens(hypos, pad, eos):
-    tops = [sent[0]["tokens"] for sent in hypos]
+def teacher_forced_tokens(hypos, pad, eos, key="tokens"):
+    """The top hypotheses' ``key`` (tokens, or the two-phase
+    ``transcript_tokens``) shifted right after eos, pads at the tails."""
+    tops = [sent[0][key] for sent in hypos]
     width = max(len(t) for t in tops)
     prev = np.full((len(tops), width), pad, np.int64)
     for i, t in enumerate(tops):
@@ -951,11 +1010,16 @@ def train_flops(enc, dec, batch, frames, tgt_len):
     e = enc.embed_dim
     fwd += 2.0 * b * t * (c_in * f) * e
     fwd += enc.layers * (8.0 * b * t * e * e + 4.0 * b * t * e * enc.ffn_dim + 4.0 * b * t * t * e)
-    ed, l = dec.embed_dim, tgt_len
-    fwd += dec.layers * (8.0 * b * l * ed * ed + 4.0 * b * l * ed * ed + 4.0 * b * t * ed * ed
-                         + 4.0 * b * l * ed * dec.ffn_dim + 4.0 * b * ed * (l * (l + 1) / 2 + l * t))
-    fwd += 2.0 * b * l * ed * dec.vocab_size
-    return 3.0 * fwd
+    return 3.0 * (fwd + decoder_flops(dec, b, t, tgt_len))
+
+
+def decoder_flops(dec, b, t, l):
+    """The forward FLOPs of a teacher-forced decoder of ``l`` positions
+    over ``t`` encoder rows (``train_flops``' decoder terms)."""
+    ed = dec.embed_dim
+    fwd = dec.layers * (8.0 * b * l * ed * ed + 4.0 * b * l * ed * ed + 4.0 * b * t * ed * ed
+                        + 4.0 * b * l * ed * dec.ffn_dim + 4.0 * b * ed * (l * (l + 1) / 2 + l * t))
+    return fwd + 2.0 * b * l * ed * dec.vocab_size
 
 
 def train(card, d, fa, dconv, single, modules):
@@ -1117,11 +1181,12 @@ def compare_steps(label, a, b, forward, lr=0.002):
         raise AssertionError(f"train-step check {label} failed: {row}")
 
 
-def counted_step(fa, want, *args, **kwargs):
-    """``one_step(*args)`` with the flash launches of its step held to
-    ``want`` ({kernel: launches}, every other flash kernel 0)."""
+def counted_step(fa, want, *args, step_fn=None, **kwargs):
+    """``step_fn(*args)`` (``one_step`` by default) with the flash launches
+    of its step held to ``want`` ({kernel: launches}, every other flash
+    kernel 0)."""
     fa.reset_launches()
-    step = one_step(*args, **kwargs)
+    step = (step_fn or one_step)(*args, **kwargs)
     got = {"flash_" + name.removeprefix("launches_"): getattr(fa, name) for name in fa._COUNTERS}
     if got != {k: want.get(k, 0) for k in got}:
         raise AssertionError(f"an fp32 cross-check step launched {got}, expected {want}")
@@ -1662,7 +1727,8 @@ def ctc_sample(d, rng, batch=TRAIN_BATCH):
     return sample
 
 
-def staged_ctc(sample, dtype, device="cuda"):
+def staged_transcripts(sample, dtype, device="cuda"):
+    """``staged`` with the transcripts' fields."""
     out = staged(sample, dtype, device)
     for key in ("transcript_target", "transcript_target_lengths"):
         out[key] = torch.as_tensor(sample[key]).to(device)
@@ -1689,7 +1755,7 @@ def train_ctc(card, dicts, fa, dconv, single, modules):
     task = Task(args, *dicts)
     model = task.build_model(args)
     trainer = Trainer(args, task, model, task.build_criterion(args))
-    sample = staged_ctc(ctc_sample(dicts[0], np.random.RandomState(0)), torch.bfloat16)
+    sample = staged_transcripts(ctc_sample(dicts[0], np.random.RandomState(0)), torch.bfloat16)
     frames_per_batch = int(sample["net_input"]["src_lengths"].sum())
     enc = model.encoder_cfg
     t_out = enc.frontend.out_length(TRAIN_FRAMES)
@@ -1768,7 +1834,7 @@ def one_ctc_step(dicts, modules, device, sample, deterministic=False):
 
 
 def check_ctc_steps(dicts, modules, attention):
-    sample = staged_ctc(ctc_sample(dicts[0], np.random.RandomState(9), batch=32), torch.float32)
+    sample = staged_transcripts(ctc_sample(dicts[0], np.random.RandomState(9), batch=32), torch.float32)
     attention.set_flash_attention(None)
     flash, len_flash = one_ctc_step(dicts, modules, "cuda", sample)
     attention.set_flash_attention(False)
@@ -1778,8 +1844,9 @@ def check_ctc_steps(dicts, modules, attention):
     compare_steps("ctc_flash_vs_dense", flash, dense, "other_forward")
     del flash, dense
     small = ctc_sample(dicts[0], np.random.RandomState(10), batch=2)
-    cpu, len_cpu = one_ctc_step(dicts, modules, "cpu", staged_ctc(small, torch.float32, "cpu"), deterministic=True)
-    card, len_card = one_ctc_step(dicts, modules, "cuda", staged_ctc(small, torch.float32), deterministic=True)
+    cpu, len_cpu = one_ctc_step(dicts, modules, "cpu", staged_transcripts(small, torch.float32, "cpu"),
+                                deterministic=True)
+    card, len_card = one_ctc_step(dicts, modules, "cuda", staged_transcripts(small, torch.float32), deterministic=True)
     check_lengths("ctc_card_vs_cpu", len_card, len_cpu)
     compare_steps("ctc_card_vs_cpu", card, cpu, "other_forward")
 
@@ -1850,6 +1917,237 @@ def check_long_steps(d, modules, attention):
 
 
 # ---------------------------------------------------------------------------
+# 17.-18. two-phase serving
+# ---------------------------------------------------------------------------
+
+def build_twophase_model(modules, arch, d, device=None):
+    """``arch`` at full width, the source and the target dictionary both
+    ``d`` (bench.py's two-phase configuration)."""
+    return modules["build_model"](arch, d, d, device=device, seed=0, input_feat_per_channel=N_MELS,
+                                  max_source_positions=2048, max_target_positions=512)
+
+
+def check_transcripts(hypos, eos):
+    for sent in hypos:
+        for h in sent:
+            t = h.get("transcript_tokens")
+            if t is None or len(t) == 0 or int(t[-1]) != eos or not np.isfinite(h["transcript_score"]):
+                raise AssertionError(f"a two-phase hypothesis without a finished transcript: {t}")
+
+
+def same_tops(a, b):
+    """How many sentences have the same top hypothesis and transcript."""
+    return sum(list(x[0]["tokens"]) == list(y[0]["tokens"])
+               and list(x[0]["transcript_tokens"]) == list(y[0]["transcript_tokens"]) for x, y in zip(a, b))
+
+
+def twophase_batch(sample, hypos, d, device):
+    """The request with its top hypotheses and transcripts as the
+    teacher-forced inputs of both decoders."""
+    put = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    net = sample["net_input"]
+    return {"src_tokens": put(net["src_tokens"]), "src_lengths": put(net["src_lengths"]),
+            "prev_output_tokens": put(teacher_forced_tokens(hypos, d.pad(), d.eos())),
+            "transcript_prev_output_tokens": put(teacher_forced_tokens(hypos, d.pad(), d.eos(), "transcript_tokens"))}
+
+
+def twophase_outputs(model, batch):
+    """Phase 2's preparation on the top transcripts (``aux_features`` over
+    the encoder output) and the teacher-forced target and auxiliary
+    logits."""
+    with torch.no_grad():
+        enc = model.encode(batch["src_tokens"], batch["src_lengths"])
+        feats = model.aux_features(batch["transcript_prev_output_tokens"], enc)
+        (logits, _), (aux_logits, _) = model(batch)
+    return feats, logits, aux_logits
+
+
+def max_errs(a, b):
+    return [(x.float().cpu() - y.float().cpu()).abs().max().item() for x, y in zip(a, b)]
+
+
+def serve_twophase(card, d, fa, dconv, single, attention, modules, arch, requests):
+    """Serve ``requests`` two-phase with ``arch``; returns the launches of
+    the served requests, then holds the flash route against the dense one
+    on the first request and the card against the CPU on 2 utterances."""
+    model = build_twophase_model(modules, arch, d)
+    gen = modules["TwoPhaseSequenceGenerator"](d, d, beam_size=BEAM, max_len_b=MAX_LEN_B)
+    attention.set_flash_attention(None)
+    gen.generate([model], requests[-1][1])  # warm-up (cuDNN plans, allocator)
+
+    reset_counts(fa, dconv, single)
+    served = []
+    for name, sample in requests:
+        before = launch_counts(fa, dconv, single)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hypos = gen.generate([model], sample)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        n = len(sample["net_input"]["src_lengths"])
+        check_hypotheses(hypos, d.eos(), n)
+        check_transcripts(hypos, d.eos())
+        grew = {k: c - before[k] for k, c in launch_counts(fa, dconv, single).items()}
+        want = {k: TWOPHASE_LAUNCHES_PER_REQUEST if k == FP32_FORWARD else 0 for k in grew}
+        if grew != want:
+            raise AssertionError(f"{arch} {name}: launches grew by {grew}, expected {TWOPHASE_LAUNCHES_PER_REQUEST} "
+                                 f"{FP32_FORWARD} and nothing else")
+        audio_s = float(sample["net_input"]["src_lengths"].sum()) * FRAME_SECONDS
+        served.append((name, sample, hypos))
+        emit({"phase": "serve_twophase", "arch": arch, "request": name, "utterances": n, "decode_s": decode_s,
+              "audio_s": audio_s, "rtf": decode_s / audio_s, "flash_launches": grew[FP32_FORWARD],
+              "forward": FP32_FORWARD, "mean_hyp_len": float(np.mean([len(s[0]["tokens"]) for s in hypos])),
+              "mean_transcript_len": float(np.mean([len(s[0]["transcript_tokens"]) for s in hypos])),
+              "card": card})
+    launches = launch_counts(fa, dconv, single)
+
+    name, sample, hypos = served[0]
+    wall_s, busy_s, top, classes = profile_window(lambda: gen.generate([model], sample))
+    emit({"phase": "profile_twophase", "arch": arch, "request": name, "decode_s_profiled": wall_s,
+          "device_busy_s": busy_s, "device_idle_share_profiled": 1.0 - busy_s / wall_s,
+          "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
+
+    # the flash route against the dense route on the first request
+    batch = twophase_batch(sample, hypos, d, "cuda")
+    flash = twophase_outputs(model, batch)
+    attention.set_flash_attention(False)
+    dense = twophase_outputs(model, batch)
+    hypos_dense = gen.generate([model], sample)
+    attention.set_flash_attention(None)
+    same = same_tops(hypos, hypos_dense)
+    errs = max_errs(flash, dense)
+    emit({"phase": "twophase_flash_vs_dense", "arch": arch, "request": name, "aux_features_max_abs_err": errs[0],
+          "logits_max_abs_err": errs[1], "aux_logits_max_abs_err": errs[2], "atol": ATOL_MODEL,
+          "identical_top_hypotheses_and_transcripts": f"{same}/{len(hypos)}"})
+    if max(errs) > ATOL_MODEL or same != len(hypos):
+        raise AssertionError(f"{arch}: the flash and dense routes disagree")
+
+    # the card against the plain CPU path on 2 utterances
+    small = make_request(np.random.RandomState(7), 2, 409, 512, 512)
+    cpu_model = build_twophase_model(modules, arch, d, device="cpu")
+    hypos_cpu = gen.generate([cpu_model], small)
+    hypos_card = gen.generate([model], small)
+    errs = max_errs(twophase_outputs(model, twophase_batch(small, hypos_card, d, "cuda")),
+                    twophase_outputs(cpu_model, twophase_batch(small, hypos_card, d, "cpu")))
+    same = same_tops(hypos_card, hypos_cpu)
+    emit({"phase": "twophase_card_vs_cpu", "arch": arch, "utterances": 2, "aux_features_max_abs_err": errs[0],
+          "logits_max_abs_err": errs[1], "aux_logits_max_abs_err": errs[2], "atol": ATOL_MODEL,
+          "identical_top_hypotheses_and_transcripts": f"{same}/2"})
+    if max(errs) > ATOL_MODEL or same != 2:
+        raise AssertionError(f"{arch}: the card and the plain CPU path disagree")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 19. the dual-decoder train step
+# ---------------------------------------------------------------------------
+
+def dual_args(**overrides):
+    """Phase 7's arguments for the dual decoder and its criterion."""
+    return train_args(arch=DUAL_ARCH, criterion="cross_entropy_dualdecoder", primary_loss_weight=0.5,
+                      auxiliary_loss_weight=0.5, **overrides)
+
+
+def dual_sample(d, rng, batch=TRAIN_BATCH):
+    """The train sample plus 64 transcript tokens a row, ending in eos as
+    the targets do."""
+    sample = train_sample(d, rng, batch=batch)
+    prev = rng.randint(4, VOCAB - 1, size=(batch, DUAL_TR_LEN)).astype(np.int64)
+    prev[:, 0] = d.eos()
+    sample["transcript_target"] = np.concatenate([prev[:, 1:], np.full((batch, 1), d.eos())], axis=1)
+    sample["transcript_target_lengths"] = np.full((batch,), DUAL_TR_LEN, np.int64)
+    sample["net_input"]["transcript_prev_output_tokens"] = prev
+    return sample
+
+
+def train_dual(card, d, fa, dconv, single, modules):
+    Trainer, Task = modules["Trainer"], modules["SpeechTranslationDualDecodingTask"]
+    args = dual_args()
+    task = Task(args, d, d)
+    model = task.build_model(args)
+    trainer = Trainer(args, task, model, task.build_criterion(args))
+    sample = staged_transcripts(dual_sample(d, np.random.RandomState(0)), torch.bfloat16)
+    frames_per_batch = int(sample["net_input"]["src_lengths"].sum())
+    enc = model.encoder_cfg
+    flops = (train_flops(enc, model.decoder_cfg, TRAIN_BATCH, TRAIN_FRAMES, TGT_LEN)
+             + 3 * decoder_flops(model.aux_decoder_cfg, TRAIN_BATCH, enc.frontend.out_length(TRAIN_FRAMES),
+                                 DUAL_TR_LEN))
+
+    outs = [trainer.train_step([sample]) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts(fa, dconv, single)
+    torch.cuda.reset_peak_memory_stats()
+    timed, step_ms = timed_steps(trainer, sample, DUAL_TIMED_STEPS)
+    outs += timed
+    launches = launch_counts(fa, dconv, single)
+    steps = REPEATS * DUAL_TIMED_STEPS
+    want = step_launches(launches, steps, DUAL_FLASH_CALLS_PER_STEP)
+    if launches != want:
+        raise AssertionError(f"dual-decoder launches {launches}, expected {want} over {steps} steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    per_token = [float(o["loss"]) / float(o["sample_size"]) for o in outs]
+    aux_nll = [float(o["auxiliary_nll_loss"]) / float(o["auxiliary_ntokens"]) for o in outs]
+    gnorms = [float(o["gnorm"]) for o in outs]
+    if not (np.isfinite(per_token).all() and np.isfinite(aux_nll).all() and np.isfinite(gnorms).all()):
+        raise AssertionError("non-finite loss, auxiliary_nll_loss or gnorm in the dual-decoder phase")
+    for label, series in (("loss", per_token), ("auxiliary_nll_loss", aux_nll)):
+        first, last = float(np.mean(series[1:6])), float(np.mean(series[-5:]))
+        if not last < first:
+            raise AssertionError(f"the dual-decoder {label} did not fall on a fixed batch: {first} -> {last}")
+    median = float(np.median(step_ms))
+    emit({"phase": "train_dualdecoder", "arch": DUAL_ARCH, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+          "tgt_len": TGT_LEN, "transcript_len": DUAL_TR_LEN, "dtype": "bfloat16",
+          "forward": BF16_FORWARD, "backward": BF16_BACKWARD, "step_ms_median": median,
+          "step_ms_repeats": step_ms, "step_ms_spread": max(step_ms) - min(step_ms),
+          "frames_per_s": frames_per_batch / (median / 1e3), "flops_per_step": flops,
+          "mfu": flops / (median / 1e3) / PEAK_BF16, "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "peak_memory_gb": peak_gb, "loss_per_token_first": per_token[0],
+          "loss_per_token_steps_1_5": float(np.mean(per_token[1:6])),
+          "loss_per_token_last5": float(np.mean(per_token[-5:])),
+          "auxiliary_nll_per_token_first": aux_nll[0], "auxiliary_nll_per_token_last5": float(np.mean(aux_nll[-5:])),
+          "metrics_last": modules["CrossEntropyDualDecoder"].reduce_metrics([outs[-1]]),
+          "gnorm_last": gnorms[-1], "lr_last": float(outs[-1]["lr"]), "card": card})
+    wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
+    emit({"phase": "train_dualdecoder_profile", "step_s": wall_s, "device_busy_s": busy_s,
+          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
+    return launches
+
+
+def one_dual_step(d, modules, device, sample, deterministic=False):
+    """A fresh full-width fp32 dual-decoder model (seed 1) after one train
+    step with lr 2e-3 from the first update; returns (model, step outputs)."""
+    Trainer, Task = modules["Trainer"], modules["SpeechTranslationDualDecodingTask"]
+    args = dual_args(bf16=False, dropout=0.0, attention_dropout=0.0, relu_dropout=0.0,
+                     warmup_updates=1, warmup_init_lr=0.002)
+    task = Task(args, d, d)
+    model = task.build_model(args, device=device)
+    criterion = task.build_criterion(args)
+    trainer = Trainer(args, task, model, _EvalCriterion(criterion) if deterministic else criterion)
+    return model, trainer.train_step([sample])
+
+
+def check_dual_steps(d, fa, attention, modules):
+    """fp32 steps (TF32 off): flash (32 tf32x3 forwards and 32 + 32 tf32x3
+    dq + dkv) against dense (none) at batch 32, and the card against the
+    CPU on 2 utterances."""
+    calls = DUAL_FLASH_CALLS_PER_STEP
+    tf32x3 = {FP32_FORWARD: calls, **{k: calls for k in BACKWARD_KERNELS[FP32_BACKWARD]}}
+    sample = staged_transcripts(dual_sample(d, np.random.RandomState(12), batch=32), torch.float32)
+    attention.set_flash_attention(None)
+    flash = counted_step(fa, tf32x3, d, modules, "cuda", sample, step_fn=one_dual_step)
+    attention.set_flash_attention(False)
+    dense = counted_step(fa, {}, d, modules, "cuda", sample, step_fn=one_dual_step)
+    attention.set_flash_attention(None)
+    compare_steps("dual_flash_vs_dense", flash, dense, "other_forward")
+    del flash, dense
+    small = dual_sample(d, np.random.RandomState(13), batch=2)
+    cpu = one_dual_step(d, modules, "cpu", staged_transcripts(small, torch.float32, "cpu"), deterministic=True)
+    card = one_dual_step(d, modules, "cuda", staged_transcripts(small, torch.float32), deterministic=True)
+    compare_steps("dual_card_vs_cpu", card, cpu, "other_forward")
+
+
+# ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
@@ -1897,9 +2195,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from fbk_fairseq_st_tpu_torch.criterions import CTCMultiLoss
+    from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
     from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset
-    from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator
+    from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator, TwoPhaseSequenceGenerator
     from fbk_fairseq_st_tpu_torch.models import build_model as build_any_model
     from fbk_fairseq_st_tpu_torch.models.conv_transformer import build_model
     from fbk_fairseq_st_tpu_torch.ops import attention
@@ -1911,14 +2209,18 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.ops.kernels import flash_fwd_single as single
     from fbk_fairseq_st_tpu_torch.ops.kernels import philox
     from fbk_fairseq_st_tpu_torch.scripts import bench_flash_sweep as sweep
-    from fbk_fairseq_st_tpu_torch.tasks import SpeechRecognitionTask, SpeechTranslationCTCTask, TranslationTask
+    from fbk_fairseq_st_tpu_torch.tasks import (SpeechRecognitionTask, SpeechTranslationCTCTask,
+                                                SpeechTranslationDualDecodingTask, TranslationTask)
     from fbk_fairseq_st_tpu_torch.train import Trainer
 
     modules = {"Trainer": Trainer, "SpeechRecognitionTask": SpeechRecognitionTask,
                "TranslationTask": TranslationTask, "LanguagePairDataset": LanguagePairDataset,
                "SequenceGenerator": SequenceGenerator, "build_model": build_any_model,
                "SpeechTranslationCTCTask": SpeechTranslationCTCTask, "CTCMultiLoss": CTCMultiLoss,
-               "ctc_greedy_decode": ctc_greedy_decode, "levenshtein": levenshtein}
+               "ctc_greedy_decode": ctc_greedy_decode, "levenshtein": levenshtein,
+               "TwoPhaseSequenceGenerator": TwoPhaseSequenceGenerator,
+               "SpeechTranslationDualDecodingTask": SpeechTranslationDualDecodingTask,
+               "CrossEntropyDualDecoder": CrossEntropyDualDecoder}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1975,8 +2277,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     drive("train_longcontext", train_long, card, d, fa, dconv, single, modules)
     check_long_steps(d, modules, attention)
+    torch.cuda.empty_cache()
+    # 17.-19. the multi-decoder family: two-phase serving, the dual-decoder step
+    rng = np.random.RandomState(3)
+    twophase_requests = {
+        TWOPHASE_ARCHS[0]: [("bench_decode_twophase_32x409-512", make_request(rng, 32, 409, 512, 512)),
+                            ("single_1x512", make_request(rng, 1, 512, 512, 512))],
+        **{arch: [("8x409-512", make_request(rng, 8, 409, 512, 512))] for arch in TWOPHASE_ARCHS[1:]},
+    }
+    for arch, requests in twophase_requests.items():
+        drive(f"serve_{arch}", serve_twophase, card, d, fa, dconv, single, attention, modules, arch, requests)
+    drive("train_dualdecoder", train_dual, card, d, fa, dconv, single, modules)
+    check_dual_steps(d, fa, attention, modules)
 
-    # 17. kernels line, card line, ok line
+    # 20. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

@@ -1,4 +1,5 @@
 from .base import Criterion
+from .cross_entropy_dualdecoder import CrossEntropyDualDecoder
 from .ctc import CTCCriterion, CTCMultiLoss
 from .label_smoothed_cross_entropy import (
     LabelSmoothedCrossEntropyCriterion,
@@ -10,10 +11,12 @@ CRITERIONS = {
     "label_smoothed_cross_entropy": LabelSmoothedCrossEntropyCriterion,
     "ctc_loss": CTCCriterion,
     "ctc_multi_loss": CTCMultiLoss,
+    "cross_entropy_dualdecoder": CrossEntropyDualDecoder,
 }
 
 __all__ = [
     "CRITERIONS",
+    "CrossEntropyDualDecoder",
     "CTCCriterion",
     "CTCMultiLoss",
     "Criterion",

@@ -13,7 +13,7 @@ tensors on the batch's device (no value is brought to the host here).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -33,3 +33,15 @@ class Criterion:
     def __call__(self, model, batch, generator=None, training: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
         raise NotImplementedError
+
+
+def sum_logs(logging_outputs: List[dict], key: str) -> float:
+    """``key`` summed over the logging outputs, on the host."""
+    return float(sum(float(log.get(key, 0)) for log in logging_outputs))
+
+
+def get_perplexity(loss_base2) -> float:
+    try:
+        return float(round(2 ** loss_base2, 2))
+    except OverflowError:
+        return float("inf")

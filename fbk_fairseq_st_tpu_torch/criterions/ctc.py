@@ -28,7 +28,7 @@ import torch
 
 from ..ops.ctc import ctc_greedy_decode, ctc_loss
 from ..ops.edit_distance import levenshtein
-from .base import Criterion
+from .base import Criterion, get_perplexity, sum_logs
 
 
 def _ctc_uer(ctc_logits, input_lengths, targets, target_lengths, blank_idx: int):
@@ -37,17 +37,6 @@ def _ctc_uer(ctc_logits, input_lengths, targets, target_lengths, blank_idx: int)
         pred, pred_counts = ctc_greedy_decode(ctc_logits, input_lengths, blank_idx)
         errors = levenshtein(pred, pred_counts, targets, target_lengths)
         return errors.sum(), target_lengths.sum()
-
-
-def _sum(logging_outputs: List[dict], key: str) -> float:
-    return float(sum(float(log.get(key, 0)) for log in logging_outputs))
-
-
-def get_perplexity(loss_base2) -> float:
-    try:
-        return float(round(2 ** loss_base2, 2))
-    except OverflowError:
-        return float("inf")
 
 
 class CTCCriterion(Criterion):
@@ -88,10 +77,10 @@ class CTCCriterion(Criterion):
 
     @staticmethod
     def reduce_metrics(logging_outputs: List[dict]) -> Dict[str, float]:
-        loss_sum = _sum(logging_outputs, "loss")
-        ntokens = _sum(logging_outputs, "ntokens")
-        sample_size = _sum(logging_outputs, "sample_size")
-        errors, total = _sum(logging_outputs, "errors"), _sum(logging_outputs, "total")
+        loss_sum = sum_logs(logging_outputs, "loss")
+        ntokens = sum_logs(logging_outputs, "ntokens")
+        sample_size = sum_logs(logging_outputs, "sample_size")
+        errors, total = sum_logs(logging_outputs, "errors"), sum_logs(logging_outputs, "total")
         out = {"loss": loss_sum / sample_size / math.log(2)}
         if total > 0:
             out["acc"] = 100.0 - min(errors * 100.0 / total, 100.0)
@@ -157,15 +146,15 @@ class CTCMultiLoss(Criterion):
 
     @staticmethod
     def reduce_metrics(logging_outputs: List[dict]) -> Dict[str, float]:
-        loss_sum = _sum(logging_outputs, "loss")
-        ctc_loss_sum = _sum(logging_outputs, "ctc_loss")
+        loss_sum = sum_logs(logging_outputs, "loss")
+        ctc_loss_sum = sum_logs(logging_outputs, "ctc_loss")
         if logging_outputs and "nll_loss" in logging_outputs[0]:
-            nll_loss_sum = _sum(logging_outputs, "nll_loss")
+            nll_loss_sum = sum_logs(logging_outputs, "nll_loss")
         else:
             nll_loss_sum = loss_sum - ctc_loss_sum
-        ntokens = _sum(logging_outputs, "ntokens")
-        sample_size = _sum(logging_outputs, "sample_size")
-        ctc_errors, ctc_total = _sum(logging_outputs, "ctc_errors"), _sum(logging_outputs, "ctc_total")
+        ntokens = sum_logs(logging_outputs, "ntokens")
+        sample_size = sum_logs(logging_outputs, "sample_size")
+        ctc_errors, ctc_total = sum_logs(logging_outputs, "ctc_errors"), sum_logs(logging_outputs, "ctc_total")
         out = {
             "loss": loss_sum / sample_size / math.log(2),
             "nll_loss": nll_loss_sum / ntokens / math.log(2),
@@ -174,5 +163,5 @@ class CTCMultiLoss(Criterion):
         out["ppl"] = get_perplexity(out["nll_loss"])
         if ctc_total > 0:
             out["ctc_acc"] = 100.0 - min(ctc_errors * 100.0 / ctc_total, 100.0)
-        out["nframes"] = _sum(logging_outputs, "nframes")
+        out["nframes"] = sum_logs(logging_outputs, "nframes")
         return out

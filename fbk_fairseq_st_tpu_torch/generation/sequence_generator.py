@@ -25,6 +25,15 @@ step. A model may leave caches that hold only encoder rows (the
 cross-attention K/V) as they are: the flat order only permutes rows within
 a sentence, whose encoder rows are identical, so the gather would return
 the same tensor.
+
+For the two-phase generator (``twophase_sequence_generator.py``), as JAX
+:222-246: ``generate(..., encoder_outs=)`` takes already beam-replicated
+encoder outputs and skips the encoder; ``_generate_impl(...,
+init_scores=)`` starts every beam active at step 0 with its (B, K) score,
+and ``beam_ctx``, a dict of (B*K, ...) tensors, follows the beams and goes
+to ``decode_step`` as keyword arguments. Each hypothesis carries the
+``origin``, the initial beam it descends from. ``temperature`` divides the
+logits; ``match_source_len`` sets max_len to the longest source.
 """
 
 from __future__ import annotations
@@ -65,12 +74,15 @@ class EnsembleModel:
         for m, cache in zip(self.models, caches):
             m.reorder_cache(cache, order)
 
-    def forward_decoder(self, tokens, encoder_outs, caches, step: int):
+    def forward_decoder(self, tokens, encoder_outs, caches, step: int, temperature: float = 1.0,
+                        **decode_kwargs):
         """tokens (BK, 1) -> averaged log-probs (BK, V); caches are written
         in place."""
         lprobs_all = []
         for m, enc, cache in zip(self.models, encoder_outs, caches):
-            logits = m.decode_step(tokens, cache, step, enc).float()
+            logits = m.decode_step(tokens, cache, step, enc, **decode_kwargs).float()
+            if temperature != 1.0:
+                logits = logits / temperature
             lprobs_all.append(torch.log_softmax(logits, dim=-1))
         if len(lprobs_all) == 1:
             return lprobs_all[0]
@@ -103,6 +115,8 @@ class SequenceGenerator:
         normalize_scores: bool = True,
         len_penalty: float = 1.0,
         unk_penalty: float = 0.0,
+        temperature: float = 1.0,
+        match_source_len: bool = False,
         no_repeat_ngram_size: int = 0,
     ):
         self.tgt_dict = tgt_dict
@@ -117,18 +131,22 @@ class SequenceGenerator:
         self.normalize_scores = normalize_scores
         self.len_penalty = len_penalty
         self.unk_penalty = unk_penalty
+        self.temperature = temperature
+        self.match_source_len = match_source_len
         self.no_repeat_ngram_size = no_repeat_ngram_size
         self.search = BeamSearch(tgt_dict)
 
     @torch.no_grad()
-    def generate(self, models, sample, prefix_tokens=None) -> List[List[dict]]:
+    def generate(self, models, sample, prefix_tokens=None, encoder_outs=None) -> List[List[dict]]:
         """models: a list of models (or an EnsembleModel), in eval mode, all
         on one device; sample: {"net_input": {"src_tokens", "src_lengths":
         (B,)}} as tensors or numpy arrays, src_tokens (B, T, F) fbank frames
-        or (B, T) token ids as the models take them.
+        or (B, T) token ids as the models take them. ``encoder_outs``: one
+        per model, already beam-replicated ([s0 x K, s1 x K, ...]); the
+        encoders are not run then.
 
         Returns, per sentence, up to ``beam`` hypo dicts sorted by score
-        descending: {tokens, score, positional_scores, alignment}."""
+        descending: {tokens, score, positional_scores, alignment, origin}."""
         ensemble = models if isinstance(models, EnsembleModel) else EnsembleModel(models)
         if any(m.training for m in ensemble.models):
             raise ValueError("SequenceGenerator needs models in eval mode (call model.eval())")
@@ -136,19 +154,25 @@ class SequenceGenerator:
         net_input = sample["net_input"]
         src_tokens = torch.as_tensor(net_input["src_tokens"], device=device)
         src_lengths = torch.as_tensor(net_input["src_lengths"], device=device)
-        bsz, src_len = src_tokens.shape[0], int(src_tokens.shape[1])
-        max_len = min(
-            int(self.max_len_a * src_len + self.max_len_b),
-            ensemble.max_decoder_positions() - 1,
-        )
-        max_len = max(max_len, self.min_len)
+        bsz = src_tokens.shape[0]
+        max_len = self.max_len(src_tokens, src_lengths, ensemble.max_decoder_positions())
         if prefix_tokens is not None:
             prefix_tokens = torch.as_tensor(prefix_tokens, device=device)
-        fin = self._generate_impl(ensemble, src_tokens, src_lengths, max_len, prefix_tokens)
+        fin = self._generate_impl(ensemble, src_tokens, src_lengths, max_len, prefix_tokens,
+                                  encoder_outs=encoder_outs)
         return collect_hypotheses(fin, bsz, self.beam_size)
 
-    def _generate_impl(self, ensemble, src_tokens, src_lengths, max_len: int,
-                       prefix_tokens) -> Dict[str, np.ndarray]:
+    def max_len(self, src_tokens, src_lengths, max_positions: int) -> int:
+        """The step limit: the longest source with ``match_source_len``,
+        else min(a * src_len + b, max_positions - 1); at least min_len."""
+        if self.match_source_len:
+            max_len = int(src_lengths.max())
+        else:
+            max_len = min(int(self.max_len_a * int(src_tokens.shape[1]) + self.max_len_b), max_positions - 1)
+        return max(max_len, self.min_len)
+
+    def _generate_impl(self, ensemble, src_tokens, src_lengths, max_len: int, prefix_tokens,
+                       encoder_outs=None, init_scores=None, beam_ctx=None) -> Dict[str, np.ndarray]:
         device = src_tokens.device
         bsz = src_tokens.shape[0]
         K = self.beam_size
@@ -156,10 +180,12 @@ class SequenceGenerator:
         V = self.vocab_size
         CAND = 2 * K
 
-        encoder_outs = ensemble.forward_encoder(src_tokens, src_lengths)
-        # replicate each sentence K times: order [s0 x K, s1 x K, ...]
-        new_order = torch.arange(bsz, device=device).repeat_interleave(K)
-        encoder_outs = [reorder_encoder_out(e, new_order) for e in encoder_outs]
+        if encoder_outs is None:
+            encoder_outs = ensemble.forward_encoder(src_tokens, src_lengths)
+            # replicate each sentence K times: order [s0 x K, s1 x K, ...]
+            new_order = torch.arange(bsz, device=device).repeat_interleave(K)
+            encoder_outs = [reorder_encoder_out(e, new_order) for e in encoder_outs]
+        beam_ctx = dict(beam_ctx or {})
         dtype = encoder_outs[0].encoder_out.dtype
         caches = ensemble.init_caches(encoder_outs, bsz * K, T, dtype)
 
@@ -189,7 +215,8 @@ class SequenceGenerator:
         step = 0
         while step <= max_len and not bool(finished.all()):
             cur = tokens.reshape(bsz * K, T)[:, step:step + 1]
-            lprobs = ensemble.forward_decoder(cur, encoder_outs, caches, step).reshape(bsz, K, V)
+            lprobs = ensemble.forward_decoder(cur, encoder_outs, caches, step, self.temperature,
+                                              **beam_ctx).reshape(bsz, K, V)
 
             # pad never generated; unk penalized
             lprobs = torch.where((vocab == self.pad)[None, None, :], NEG_INF, lprobs)
@@ -217,12 +244,16 @@ class SequenceGenerator:
 
             # blacklisted beams must not produce candidates
             lprobs = torch.where(blacklist[:, :, None], NEG_INF, lprobs)
-            if step == 0:
+            search_step = step
+            if step > 0:
+                prev_cum = scores[:, :, step - 1]
+            elif init_scores is None:
                 prev_cum = torch.zeros((bsz, K), dtype=torch.float32, device=device)
             else:
-                prev_cum = scores[:, :, step - 1]
+                # hierarchical step 0: every beam active, seeded with its score
+                prev_cum, search_step = init_scores, 1
 
-            cand_scores, cand_tokens, cand_beams = self.search.step(step, lprobs, prev_cum)
+            cand_scores, cand_tokens, cand_beams = self.search.step(search_step, lprobs, prev_cum)
 
             # ---- finalization ----
             eos_mask = (cand_tokens == self.eos) & (cand_scores > NEG_INF / 2)
@@ -284,6 +315,7 @@ class SequenceGenerator:
             flat_order = (flat_base + sel_beams).reshape(-1)
             flat_order = torch.where(finished.repeat_interleave(K), identity_order, flat_order)
             ensemble.reorder_caches(caches, flat_order)
+            beam_ctx = {k: v.index_select(0, flat_order) for k, v in beam_ctx.items()}
 
             finished = new_finished
             step += 1

@@ -9,18 +9,25 @@ family has raises ``NotImplementedError``.
 
 from typing import Any, Dict
 
-from . import conv_transformer, lightconv
+from . import conv_transformer, lightconv, multi_task
 from .base import EncoderOut, reorder_encoder_out
 from .conv_transformer import ConvolutionalTransformerModel
 from .lightconv import LightConvModel
+from .multi_task import (
+    ConvolutionalTransformer2Stage,
+    ConvolutionalTransformerDualDecoder,
+    ConvolutionalTransformerTriangle,
+    MultiTaskModel,
+)
 
-ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv) for arch in family.ARCHITECTURES}
+ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task)
+                 for arch in family.ARCHITECTURES}
 
 
 def _family(arch: str):
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
-            f"--arch {arch}: the port has the conv_transformer and lightconv families "
+            f"--arch {arch}: the port has the conv_transformer, lightconv and multi-decoder families "
             "(ROADMAP Queue A10)")
     return ARCHITECTURES[arch]
 
@@ -38,9 +45,13 @@ def build_model(arch: str, tgt_dict, src_dict=None, **kwargs):
 
 __all__ = [
     "ARCHITECTURES",
+    "ConvolutionalTransformer2Stage",
+    "ConvolutionalTransformerDualDecoder",
     "ConvolutionalTransformerModel",
+    "ConvolutionalTransformerTriangle",
     "EncoderOut",
     "LightConvModel",
+    "MultiTaskModel",
     "arch_defaults",
     "build_model",
     "reorder_encoder_out",

@@ -144,13 +144,15 @@ class ConvTransformerEncoder(ConvFrontend):
 
 
 class ConvolutionalTransformerModel(nn.Module):
+    decoder_class = TransformerDecoder
+
     def __init__(self, encoder_cfg: ConvTransformerEncoderConfig,
                  decoder_cfg: TransformerDecoderConfig):
         super().__init__()
         self.encoder_cfg = encoder_cfg
         self.decoder_cfg = decoder_cfg
         self.encoder = ConvTransformerEncoder(encoder_cfg)
-        self.decoder = TransformerDecoder(decoder_cfg)
+        self.decoder = self.decoder_class(decoder_cfg)
         self.max_source_positions = encoder_cfg.max_positions
         self.max_target_positions = decoder_cfg.max_positions
 
@@ -301,7 +303,12 @@ def configs(arch: str, tgt_dict, src_dict=None, **overrides
             ) -> Tuple[ConvTransformerEncoderConfig, TransformerDecoderConfig]:
     """Encoder and decoder configs of ``arch`` with ``overrides`` applied
     (the JAX ``configs_from_args`` mapping)."""
-    args = ARCHITECTURES[arch]()
+    return configs_from(ARCHITECTURES[arch](), tgt_dict, src_dict, **overrides)
+
+
+def configs_from(args: Dict[str, Any], tgt_dict, src_dict=None, **overrides
+                 ) -> Tuple[ConvTransformerEncoderConfig, TransformerDecoderConfig]:
+    """``configs`` from a preset's options ``args`` (which it updates)."""
     unknown = set(overrides) - set(args)
     if unknown:
         raise TypeError(f"unknown conv_transformer options: {sorted(unknown)}")

@@ -4,8 +4,11 @@ Counterpart of ``fbk_fairseq_st_tpu/models/transformer_decoder.py``: scaled
 token embedding + positional embedding -> dropout -> N decoder layers ->
 optional final LayerNorm -> output projection (tied to the input embedding
 or a separate ``output_projection``). Two modes: ``forward`` (teacher
-forcing with the ``"causal"`` sentinel and the self key-padding mask) and
-``step`` (one token against the per-layer caches).
+forcing with the ``"causal"`` sentinel and the self key-padding mask;
+``features_only`` stops before the output projection) and ``step`` (one
+token against the per-layer caches). ``TriangleTransformerDecoder`` (JAX
+:399-506) is the same decoder over triangle layers, which also attend the
+auxiliary decoder's states.
 
 The config holds the options ``conv_transformer`` sets. Those of other
 model families (adaptive input/softmax, the character embedder,
@@ -25,7 +28,9 @@ from ..ops.positional import PositionalEmbedding
 from ..ops.transformer_layer import (
     TransformerDecoderLayer,
     TransformerLayerConfig,
+    TriangleDecoderLayer,
     init_decoder_layer_cache,
+    init_triangle_decoder_layer_cache,
 )
 
 
@@ -63,6 +68,8 @@ class TransformerDecoderConfig(NamedTuple):
 
 
 class TransformerDecoder(nn.Module):
+    layer_class = TransformerDecoderLayer
+
     def __init__(self, cfg: TransformerDecoderConfig):
         super().__init__()
         self.cfg = cfg
@@ -72,7 +79,7 @@ class TransformerDecoder(nn.Module):
             None if cfg.no_token_positional_embeddings
             else PositionalEmbedding(cfg.max_positions, cfg.embed_dim, cfg.padding_idx, cfg.learned_pos)
         )
-        self.layers = nn.ModuleList(TransformerDecoderLayer(cfg.layer_cfg) for _ in range(cfg.layers))
+        self.layers = nn.ModuleList(self.layer_class(cfg.layer_cfg) for _ in range(cfg.layers))
         self.layer_norm = LayerNorm(cfg.embed_dim) if cfg.normalize_before else None
         self.layernorm_embedding = LayerNorm(cfg.embed_dim) if cfg.layernorm_embedding else None
         self.output_projection = (
@@ -106,9 +113,11 @@ class TransformerDecoder(nn.Module):
         return torch.matmul(x, w.t().to(x.dtype))
 
     def forward(self, prev_output_tokens, encoder_out, encoder_padding_mask=None,
-                generator: GeneratorLike = None):
-        """Teacher forcing: prev_output_tokens (B, T) -> (logits (B, T, V), {}).
-        Self-attention is causal with pad keys masked."""
+                generator: GeneratorLike = None, features_only: bool = False, **layer_kwargs):
+        """Teacher forcing: prev_output_tokens (B, T) -> (logits (B, T, V),
+        {}), or the final states (B, T, D) with ``features_only``.
+        Self-attention is causal with pad keys masked; ``layer_kwargs`` go
+        to every layer."""
         x = self._embed(prev_output_tokens, encoder_out.dtype, generator)
         self_kpm = prev_output_tokens == self.cfg.padding_idx
         for layer in self.layers:
@@ -119,10 +128,11 @@ class TransformerDecoder(nn.Module):
                 self_attn_mask="causal",
                 self_attn_padding_mask=self_kpm,
                 generator=generator,
+                **layer_kwargs,
             )
         if self.layer_norm is not None:
             x = self.layer_norm(x)
-        return self.output_layer(x), {}
+        return (x if features_only else self.output_layer(x)), {}
 
     def init_cache(self, batch: int, max_len: int, encoder_out,
                    dtype=torch.float32) -> List[Dict[str, Any]]:
@@ -131,20 +141,40 @@ class TransformerDecoder(nn.Module):
             for layer in self.layers
         ]
 
-    def reorder_cache(self, cache: List[Dict[str, Any]], order) -> None:
-        """Gather every layer's self-attention K/V by ``order`` (B*K rows).
-        The cross K/V stay: a beam reorder only permutes rows within a
-        sentence, whose encoder rows are identical."""
+    def reorder_cache(self, cache: List[Dict[str, Any]], order, slots=("self",)) -> None:
+        """Gather every layer's K/V of each of ``slots`` by ``order`` (B*K
+        rows). The cross K/V may stay when the memory is the encoder's: a
+        beam reorder only permutes rows within a sentence, whose encoder
+        rows are identical. Memory that differs from beam to beam (the
+        two-phase search's transcripts) is gathered with the beams."""
         for layer_cache in cache:
-            self_cache = layer_cache["self"]
-            self_cache["k"] = self_cache["k"].index_select(0, order)
-            self_cache["v"] = self_cache["v"].index_select(0, order)
+            for slot in slots:
+                kv = layer_cache[slot]
+                kv["k"] = kv["k"].index_select(0, order)
+                kv["v"] = kv["v"].index_select(0, order)
 
-    def step(self, tokens, cache, step_index: int, encoder_padding_mask=None):
+    def step(self, tokens, cache, step_index: int, encoder_padding_mask=None, **layer_kwargs):
         """tokens (B, 1) -> logits (B, V); the caches are written in place."""
         x = self._embed(tokens, cache[0]["self"]["k"].dtype, None, step=step_index)
         for layer, lc in zip(self.layers, cache):
-            x = layer(x, encoder_padding_mask=encoder_padding_mask, cache=lc, cache_index=step_index)
+            x = layer(x, encoder_padding_mask=encoder_padding_mask, cache=lc, cache_index=step_index,
+                      **layer_kwargs)
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return self.output_layer(x)[:, 0, :]
+
+
+class TriangleTransformerDecoder(TransformerDecoder):
+    """The decoder over ``TriangleDecoderLayer``s: ``forward`` takes
+    ``aux_decoder_out`` / ``aux_decoder_padding_mask``, ``step`` the
+    latter, and the caches hold the auxiliary states' K/V under ``aux``
+    (JAX ``TriangleTransformerDecoder``)."""
+
+    layer_class = TriangleDecoderLayer
+
+    def init_cache(self, batch: int, max_len: int, encoder_out, dtype=torch.float32,
+                   aux_out=None) -> List[Dict[str, Any]]:
+        return [
+            init_triangle_decoder_layer_cache(layer, batch, max_len, encoder_out, aux_out, dtype)
+            for layer in self.layers
+        ]

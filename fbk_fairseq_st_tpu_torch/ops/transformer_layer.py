@@ -2,11 +2,12 @@
 
 Counterpart of ``fbk_fairseq_st_tpu/ops/transformer_layer.py``
 (``encoder_layer`` :119, ``decoder_layer`` :351,
-``init_decoder_layer_cache`` :189): residual -> [LN] -> attention ->
-dropout -> add -> [LN], then the same around fc1/activation/fc2, with the
-LayerNorm placement set by ``normalize_before``. Decoder layers carry two
-caches: ``self`` (written in place each step) and ``cross`` (encoder K/V,
-precomputed once).
+``init_decoder_layer_cache`` :189, ``triangle_decoder_layer`` :249):
+residual -> [LN] -> attention -> dropout -> add -> [LN], then the same
+around fc1/activation/fc2, with the LayerNorm placement set by
+``normalize_before``. Decoder layers carry two caches: ``self`` (written in
+place each step) and ``cross`` (encoder K/V, precomputed once); the
+triangle layer a third, ``aux`` (the auxiliary decoder's K/V).
 """
 
 from __future__ import annotations
@@ -125,13 +126,25 @@ class TransformerDecoderLayer(_FFNMixin, nn.Module):
         """x: (B, T, D) -> (B, T, D). With ``cache`` ({"self", "cross"})
         the step attends over the caches, writing ``self`` in place."""
         cfg = self.cfg
+        x = self._self_block(x, self_attn_mask, self_attn_padding_mask, generator, cache, cache_index)
+        residual = x
+        if cfg.normalize_before:
+            x = self.encoder_attn_layer_norm(x)
+        x = self._cross(self.encoder_attn, x, encoder_out, encoder_padding_mask, generator, cache, "cross")
+        x = residual + x
+        if not cfg.normalize_before:
+            x = self.encoder_attn_layer_norm(x)
+        return self._ffn(x, generator)
+
+    def _self_block(self, x, attn_mask, padding_mask, generator, cache, cache_index):
+        cfg = self.cfg
         residual = x
         if cfg.normalize_before:
             x = self.self_attn_layer_norm(x)
         x, _, _ = self.self_attn(
             x,
-            key_padding_mask=self_attn_padding_mask,
-            attn_mask=self_attn_mask,
+            key_padding_mask=padding_mask,
+            attn_mask=attn_mask,
             generator=generator,
             cache=cache["self"] if cache is not None else None,
             cache_index=cache_index,
@@ -140,23 +153,58 @@ class TransformerDecoderLayer(_FFNMixin, nn.Module):
         x = residual + x
         if not cfg.normalize_before:
             x = self.self_attn_layer_norm(x)
+        return x
 
+    def _cross(self, attn, x, memory, padding_mask, generator, cache, slot: str):
+        """A cross-attention over ``memory`` (B, S, D), or over its K/V in
+        ``cache[slot]`` when stepping, then dropout."""
+        if cache is not None:
+            x, _, _ = attn(x, key_padding_mask=padding_mask, generator=generator, cache=cache[slot], static_kv=True)
+        else:
+            x, _, _ = attn(x, key=memory, key_padding_mask=padding_mask, generator=generator)
+        return dropout(x, self.cfg.dropout, generator, self.training)
+
+
+class TriangleDecoderLayer(TransformerDecoderLayer):
+    """``triangle_decoder_layer`` (reference modules/triangle_transformer_layer.py):
+    self-attention; then the encoder and the auxiliary-decoder
+    cross-attentions side by side, each with its own dropout, concatenated
+    and fused by ``fc_concat`` into one residual (pre-norm: the encoder's
+    LayerNorm before the pair; post-norm: ``aux_decoder_attn_layer_norm``
+    after the fused residual); then the FFN."""
+
+    def __init__(self, cfg: TransformerLayerConfig):
+        super().__init__(cfg)
+        self.aux_decoder_attn = MultiheadAttention(cfg.cross_attn_cfg)
+        self.aux_decoder_attn_layer_norm = LayerNorm(cfg.embed_dim)
+        self.fc_concat = Linear(2 * cfg.embed_dim, cfg.embed_dim)
+
+    def forward(
+        self,
+        x,
+        encoder_out=None,
+        encoder_padding_mask=None,
+        aux_decoder_out=None,
+        aux_decoder_padding_mask=None,
+        self_attn_mask=None,
+        self_attn_padding_mask=None,
+        generator: GeneratorLike = None,
+        cache: Optional[Dict[str, Any]] = None,
+        cache_index: Optional[int] = None,
+    ):
+        """As ``TransformerDecoderLayer.forward``, with the auxiliary
+        decoder's states ``aux_decoder_out`` (B, S_aux, D) and their pad
+        mask; a step's ``cache`` also holds ``aux``."""
+        cfg = self.cfg
+        x = self._self_block(x, self_attn_mask, self_attn_padding_mask, generator, cache, cache_index)
         residual = x
         if cfg.normalize_before:
             x = self.encoder_attn_layer_norm(x)
-        if cache is not None:
-            x, _, _ = self.encoder_attn(
-                x, key_padding_mask=encoder_padding_mask, generator=generator,
-                cache=cache["cross"], static_kv=True,
-            )
-        else:
-            x, _, _ = self.encoder_attn(
-                x, key=encoder_out, key_padding_mask=encoder_padding_mask, generator=generator,
-            )
-        x = dropout(x, cfg.dropout, generator, self.training)
-        x = residual + x
+        x1 = self._cross(self.encoder_attn, x, encoder_out, encoder_padding_mask, generator, cache, "cross")
+        x2 = self._cross(self.aux_decoder_attn, x, aux_decoder_out, aux_decoder_padding_mask, generator, cache, "aux")
+        x = residual + self.fc_concat(torch.cat([x1, x2], dim=-1))
         if not cfg.normalize_before:
-            x = self.encoder_attn_layer_norm(x)
+            x = self.aux_decoder_attn_layer_norm(x)
         return self._ffn(x, generator)
 
 
@@ -168,3 +216,12 @@ def init_decoder_layer_cache(layer: TransformerDecoderLayer, batch: int, max_len
         "self": init_cache(batch, max_len, layer.cfg.self_attn_cfg, dtype, encoder_out.device),
         "cross": layer.encoder_attn.precompute_cross_cache(encoder_out),
     }
+
+
+def init_triangle_decoder_layer_cache(layer: TriangleDecoderLayer, batch: int, max_len: int, encoder_out,
+                                      aux_out, dtype=torch.float32) -> Dict[str, Any]:
+    """``init_decoder_layer_cache`` plus the auxiliary decoder's states'
+    K/V under ``aux``, projected once."""
+    cache = init_decoder_layer_cache(layer, batch, max_len, encoder_out, dtype)
+    cache["aux"] = layer.aux_decoder_attn.precompute_cross_cache(aux_out)
+    return cache

@@ -93,15 +93,18 @@ KERNEL_SHAPES = ((32, 2048, False), (64, 2048, True))  # (bh, S, causal)
 # (name, bh, T, S, D, causal, dropout rate, keys padded on the left): the
 # flash calls of the train steps, each with keys padded as the batches pad
 # them: the conv_transformer step at batch 128 (4 heads, T' = 512 / 4
-# frames, 48 target tokens), the lightconv decoder's encoder attention at
-# batch 64 (16 heads, 56 tokens, sources padded on the left) and the
-# long-context step's encoder self-attention and time attention (batch 8,
-# T' = 2048)
+# frames, 48 target tokens), the dual-decoder step's auxiliary decoder at
+# the same batch (64 transcript tokens), the lightconv decoder's encoder
+# attention at batch 64 (16 heads, 56 tokens, sources padded on the left)
+# and the long-context step's encoder self-attention and time attention
+# (batch 8, T' = 2048)
 TRAIN_BACKWARD_SHAPES = [
     ("encoder_self_attention", 512, 128, 128, 64, False, 0.1, False),
     ("time_attention", 512, 128, 128, 20, False, 0.3, False),
     ("decoder_causal_self_attention", 512, 48, 48, 64, True, 0.1, False),
     ("cross_attention", 512, 48, 128, 64, False, 0.1, False),
+    ("aux_decoder_causal_self_attention", 512, 64, 64, 64, True, 0.1, False),
+    ("aux_decoder_cross_attention", 512, 64, 128, 64, False, 0.1, False),
     ("lightconv_cross_attention", 1024, 56, 56, 64, False, 0.1, True),
     ("long_encoder_self_attention", 32, 2048, 2048, 64, False, 0.1, False),
     ("long_time_attention", 32, 2048, 2048, 20, False, 0.3, False),

@@ -22,6 +22,13 @@ the export agree name for name and value for value. A dynamic conv's
 ``conv.weight_linear`` is a linear and is transposed. The exceptions are
 by name among 2-D leaves only: a 4-D leaf always takes the conv layout.
 
+The triangle layer's second cross-attention and its LayerNorm are named
+as the fork names every attention block and its LayerNorm:
+``aux_decoder_attn.{q,k,v,out}_proj`` and ``aux_decoder_attn_layer_norm``.
+``export_parameters`` knows neither block and writes
+``aux_decoder_attn.q.weight`` and ``aux_decoder_attn_ln.weight`` (ROADMAP
+Queue C); the values agree. ``fc_concat`` is a linear and agrees.
+
 The tree's leaves are numpy arrays (or anything ``np.asarray`` accepts).
 """
 
@@ -39,10 +46,11 @@ _COMPONENT_MAP = {
     "encoder_attn_ln": "encoder_attn_layer_norm",
     "aux_attn_ln": "aux_attn_layer_norm",
     "context_attn_ln": "context_attn_layer_norm",
+    "aux_decoder_attn_ln": "aux_decoder_attn_layer_norm",
 }
 _TRANSPARENT = {"frontend"}
 _ATTN_PROJ = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "out": "out_proj"}
-_ATTN_BLOCKS = {"self_attn", "encoder_attn", "aux_attn", "context_attn", "attn"}
+_ATTN_BLOCKS = {"self_attn", "encoder_attn", "aux_attn", "aux_decoder_attn", "context_attn", "attn"}
 _LEAF_NAMES = {
     "w": "weight",
     "b": "bias",

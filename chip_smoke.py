@@ -26,9 +26,12 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
   4. kernels at the training shapes (the train step's four attention
      calls at batch 128, the dual-decoder step's two auxiliary-decoder
      calls at batch 128, the lightconv decoder's encoder attention at
-     batch 64 with keys padded on the left, the long-context step's two at
-     S 2048, a ragged call and a causal one with T > S), in fp32 and bf16,
-     and one bf16 call at D 16: the forward's dropout keep mask against
+     batch 64 with keys padded on the left, the iwslt presets' at D 128
+     (bh 256, T = S = 56, keys padded on the left), the long-context
+     step's two at S 2048, a ragged call and a causal one with T > S), in
+     fp32 and bf16, one bf16 call at D 16 and one fp32 call at bh 70,000
+     (T 16, D 128: past the 65,535 of a grid's y dimension, which no
+     kernel caps bh at any more): the forward's dropout keep mask against
      ``philox.keep_mask`` (exactly: probed through the CUDA-core kernel in
      fp32, the tf32x3 kernel at D 64 and D 32, and the bf16 tensor-core
      kernel at D 64 and D 32, each launched directly), the forward at the
@@ -39,8 +42,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      launched directly, against the plain versions on the same inputs and
      seed, with the same times and bounds (the library time of a backward
      is SDPA's forward + backward at rate 0); then, at the long D 64 call in
-     each type, the tensor-core pair's dq, dk, dv again, bitwise equal to
-     the first (asserted), and the fused kernel's dQ spread;
+     each type, the tensor-core pair's dq, dk, dv again, and at the iwslt
+     D 128 call the CUDA-core pair's (the default backward there), bitwise
+     equal to the first (asserted), and the fused kernel's dQ spread;
   5. dynamic-conv kernels: the tensor-core ``dynamic_conv_fwd_tc`` and
      ``dynamic_conv_bwd_tc`` (every model path's) and the first, CUDA-core
      ``dynamic_conv_fwd`` and ``dynamic_conv_bwd`` (launched directly,
@@ -124,7 +128,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      the model path's backward calls, the CUDA-core pair's beside them, the
      CUDA-core and the tensor-core forward's at each of its attention
      calls, and whether the tensor-core kernels win there: they must win at
-     every call in both types, asserted);
+     every call they serve, in both types, asserted; the iwslt call at
+     D 128, which no tensor-core kernel takes, is reported on its own: the
+     CUDA-core forward, the fused kernel against the CUDA-core pair, and
+     SDPA's forward + backward);
  14. train (main path 6), the ``bench.py::_measure_ctc_flagship``
      configuration: ``conv_transformer_big`` with ``ctc_multi_loss`` over
      label-smoothed CE 0.1, CTC after encoder layer 4 with weight 0.5 and
@@ -184,7 +191,34 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      (32 tf32x3 forwards and 32 + 32 tf32x3 dq + dkv; none) at batch 32
      and the card against the CPU on 2 utterances, at phase 8's
      tolerances;
- 20. the ``kernels`` line (the CUDA-core dynamic-conv kernels with 0 main-path
+ 20. train (main path 10): ``dynamicconv_iwslt_de_en`` at full width
+     (512/1024/4, 7 + 6 layers, the dictionaries of phase 9) with phase
+     10's arguments and batch: head dim 128, so exactly 6 CUDA-core flash
+     forwards and 6 + 6 CUDA-core dq + dkv a step, 0 fused and 0 on the
+     tensor cores, and 13 + 13 tensor-core dynamic conv; step ms, busy ms
+     and idle share of one profiled step, the loss finite and falling;
+ 21. serve from files (main path 11), the README's quick start: a corpus
+     of 32 utterances of 409-512 frames x 80 mels with target and
+     transcript text over phase 6's dictionary, written with the port's
+     builders, the base conv_transformer's seeded weights saved with
+     ``save_model_checkpoint``, and ``cli/generate``'s ``cli_main`` (task
+     ``speech_translation_with_transcription``, beam 5, ``max_len_b``
+     100) decoding it on the card: 8 tf32x3 forwards a batch and nothing
+     else; its H- lines identical to the in-memory generator's top
+     hypotheses on the same batches, scores within 1e-4 (base 2); the
+     CLI's wall time, the in-memory decode's RTF and the BLEU line;
+ 22. serve (main path 12), the search strategies on phase 21's model: a
+     top-10 sampling request and a diverse-beam request (beam 4, 2
+     groups) on 8 utterances, and a top-1 sampling request on 4, whose
+     every hypothesis must be greedy search's; hypotheses' counts and
+     shapes checked, 8 tf32x3 forwards a request;
+ 23. train (main path 13), ``bench.py``'s ``realistic`` section: phase 7's
+     step with ``--specaugment --specaugment-rate 1.0``, then also with
+     ``--time-stretch``: step ms, busy ms and idle share of one profiled
+     step, the augmentation's own device ms, phase 7's launches a step,
+     the losses finite, and the share of elements one SpecAugment draw
+     zeroes within its expected range;
+ 24. the ``kernels`` line (the CUDA-core dynamic-conv kernels with 0 main-path
      launches, marked as reached by a direct call only), the card line, and
      the final ``ok`` line.
 
@@ -216,6 +250,9 @@ Tolerances (stated here, checked below):
     |out|, |dx| < 5: one bf16 rounding); dw, a sum of C/H = 64 products
     that reaches |dw| ~ 40, at 1e-5 (fp32) and 1e-2 (bf16, one rounding at
     2^-8) of max|dw|;
+  * ``cli/generate`` against the in-memory generator on the same batches
+    and weights: the same hypotheses, scores within 1e-4 (the same
+    kernels on the same inputs);
   * the serving models, flash vs dense, kernel vs plain route and card vs
     CPU: atol 1e-3 in fp32 (8 attention or 13 conv layers summed in
     another order; two-phase: the auxiliary decoder's states and the
@@ -320,14 +357,18 @@ KERNEL_SHAPES = [
 # types): the flash calls of the train steps (the sweep's
 # TRAIN_BACKWARD_SHAPES: the conv_transformer step at batch 128 and the
 # dual-decoder step's auxiliary decoder beside it, the lightconv decoder's
-# encoder attention at batch 64, the long-context step at T' = 2048; all
-# with padded keys) in fp32 and bf16, a ragged call and a
-# causal one with T > S, unaligned, and one bf16 call at D 16, where the
-# forward and the split pair run on the CUDA cores (no model reaches it)
+# encoder attention at batch 64, the iwslt lightconv presets' at D 128
+# (batch 64 x 4 heads), the long-context step at T' = 2048; all with
+# padded keys) in fp32 and bf16, a ragged call and a causal one with T > S,
+# unaligned, one bf16 call at D 16, and one at bh 70,000 (past the 65,535
+# of a grid's y dimension: every kernel puts bh on x); at D 16 and 128 the
+# forward and the split pair run on the CUDA cores, which the iwslt
+# presets' train step reaches at D 128
 TRAIN_KERNEL_SHAPES = [(*shape, (torch.float32, torch.bfloat16)) for shape in TRAIN_BACKWARD_SHAPES] + [
     ("ragged_bh3_T77_S333", 3, 77, 333, 64, False, 0.1, False, (torch.float32, torch.bfloat16)),
     ("causal_bh6_T130_S77", 6, 130, 77, 64, True, 0.1, False, (torch.float32, torch.bfloat16)),
     ("d16_bf16", 64, 100, 100, 16, False, 0.1, False, (torch.bfloat16,)),
+    ("bh70000_T16_D128", 70000, 16, 16, 128, False, 0.1, False, (torch.float32,)),
 ]
 # each forward route's row name and worst-error kind (flash_attention.fwd_route)
 FWD_ROWS = {"tc": "flash_attention_fwd_tc", "tf32x3": "flash_attention_fwd_tf32x3", "cuda_core": "flash_attention_fwd"}
@@ -335,7 +376,9 @@ FWD_KINDS = {"tc": "fwd_tc", "tf32x3": "fwd_tf32x3", "cuda_core": "fwd"}
 # each backward route's worst-error kind and row suffix
 BWD_KINDS = {"fused": "bwd_fused", "cuda_core": "bwd_cuda_core", "tc": "bwd_tc", "tf32x3": "bwd_tf32x3"}
 ROW_SUFFIX = {"cuda_core": "", "tc": "_tc", "tf32x3": "_tf32x3"}
-DETERMINISM_AT = "long_encoder_self_attention"  # each type's pair: its bits compared across launches
+# each type's pair, bits compared across launches: the tensor-core pair at
+# the long call, the CUDA-core pair (the D 128 default) at the iwslt call
+DETERMINISM_AT = ("long_encoder_self_attention", "lightconv_iwslt_cross_attention")
 
 # flash calls a conv_transformer train step makes: 2 time attention (F' =
 # 20 padded to 32), 6 encoder self-attention, 6 decoder causal
@@ -352,7 +395,13 @@ FP32_FORWARD = "flash_fwd_tf32x3"
 BF16_BACKWARD = "split_tc"
 FP32_BACKWARD = "split_tf32x3"
 BACKWARD_KERNELS = {"fused": ("flash_bwd_fused",), "split_tc": ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
-                    "split_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")}
+                    "split_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3"),
+                    "split_cuda_core": ("flash_bwd_dq", "flash_bwd_dkv")}
+# kernel head dim 128 (the iwslt presets' decoder cross-attention): no
+# tensor-core route; the CUDA-core forward and, bitwise repeatable, the
+# CUDA-core pair (flash_attention.use_fused_backward), in either type
+D128_FORWARD = "flash_fwd"
+D128_BACKWARD = "split_cuda_core"
 
 # the multi-decoder paths (models/multi_task.py): two-phase serving
 # (bench.py::_measure_decode with twophase=True) and the dual-decoder step
@@ -380,6 +429,30 @@ DCONV_LAUNCHES_PER_STEP = 13  # 7 encoder + 6 teacher-forced decoder layers
 DCONV_FORWARD, DCONV_BACKWARD = "dconv_fwd_tc", "dconv_bwd_tc"
 DCONV_DIRECT_ONLY = ("dconv_fwd", "dconv_bwd")
 LC_FLASH_LAUNCHES_PER_STEP = 6  # the decoder's encoder attention
+# dynamicconv_iwslt_de_en (512/1024/4, 7 + 6 layers; head dim 128), trained
+# on LC_TRAIN_BATCH pairs over the same dictionaries, in fewer timed steps
+IWSLT_ARCH = "dynamicconv_iwslt_de_en"
+IWSLT_TIMED_STEPS = 5
+
+# serving from files (cli/generate): phase 6's request sizes written as a
+# corpus, one batch of all of them
+FILES_UTTERANCES = 32
+FILES_TGT_LEN = (10, 40)
+FILES_SCORE_ATOL = 1e-4  # H- scores (base 2) against the in-memory generator's
+# the search strategies on the card (phase 6's model): a sampling request
+# and a diverse-beam one on 8 utterances, a top-k 1 request on 4 against
+# greedy search
+SEARCH_UTTERANCES = 8
+SAMPLING_TOPK = 10
+DIVERSE_BEAM, DIVERSE_GROUPS = 4, 2
+
+# the realistic train step (bench.py:164-171, :497): the base step with
+# SpecAugment at rate 1.0, then with TimeStretch too
+REALISTIC_TIMED_STEPS = 10
+# the share of nonzero input elements SpecAugment zeroes at its defaults:
+# two frequency masks of floor(U[0, 13)) of 80 mels (~0.145) and two time
+# masks of floor(U[1, 13)) of 512 frames (~0.025), ~0.167 together
+MASKED_SHARE_RANGE = (0.13, 0.21)
 
 # (name, B, T, C, H, K, padding_l): the dynamic conv's calls on the main
 # paths, every (K, padding_l) pair of the encoder (centred) and of the
@@ -770,27 +843,27 @@ def check_training_kernels(fa, philox):
             if not ok:
                 raise AssertionError(f"training-shape check failed at {name} {dtype}: forward {fwd_errs}, "
                                      f"{ {r: c[:3] for r, c in checks.items()} }")
-            if name == DETERMINISM_AT:
-                check_determinism(bwd_calls[route], bwd_calls["fused"], grads[route], grads["fused"], d, dtype)
+            if name in DETERMINISM_AT:
+                check_determinism(name, bwd_calls[route], bwd_calls["fused"], grads[route], grads["fused"], d, dtype)
             del q, k, v, bias, g, out_k, out_p, want_grads, grads
             torch.cuda.empty_cache()
     return rows, worst, worst_ratio
 
 
-def check_determinism(pair_call, fused_call, pair, fused, d, dtype):
-    """The tensor-core pair again on the same inputs: bitwise equal
-    (asserted); the fused kernel's dQ again: its spread reported (fp32
-    atomics)."""
+def check_determinism(name, pair_call, fused_call, pair, fused, d, dtype):
+    """The call's default pair (tensor cores at D 32/64, CUDA cores at
+    D 128) again on the same inputs: bitwise equal (asserted); the fused
+    kernel's dQ again: its spread reported (fp32 atomics)."""
     pair2 = [x[..., :d] for x in pair_call()]
     fused2 = [x[..., :d] for x in fused_call()]
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(pair, pair2)]
     spread = [(a.float() - b.float()).abs().max().item() for a, b in zip(fused, fused2)]
-    emit({"phase": "backward_determinism", "shape": DETERMINISM_AT, "dtype": str(dtype).replace("torch.", ""),
+    emit({"phase": "backward_determinism", "shape": name, "dtype": str(dtype).replace("torch.", ""),
           "pair_bitwise_equal_dq_dk_dv": same, "fused_max_abs_spread_dq_dk_dv": spread,
           "fused_dq_elements_that_differ": int((fused[0] != fused2[0]).sum()), "card": CARD[0]})
     if not all(same):
-        raise AssertionError(f"the {dtype} split pair is not deterministic at {DETERMINISM_AT}: {same}")
+        raise AssertionError(f"the {dtype} split pair is not deterministic at {name}: {same}")
 
 
 # ---------------------------------------------------------------------------
@@ -1518,13 +1591,17 @@ def staged_text(sample, device="cuda"):
             "net_input": {k: put(v) for k, v in sample["net_input"].items()}}
 
 
-def lc_train_args(**overrides):
-    return train_args(arch=LC_ARCH, max_source_positions=1024, max_target_positions=1024, **overrides)
+def lc_train_args(arch=LC_ARCH, **overrides):
+    return train_args(arch=arch, max_source_positions=1024, max_target_positions=1024, **overrides)
 
 
-def train_lightconv(card, dicts, fa, dconv, single, modules):
+def train_lightconv(card, dicts, fa, dconv, single, modules, arch=LC_ARCH, timed_steps=LC_TIMED_STEPS,
+                    forward=BF16_FORWARD, backward=BF16_BACKWARD, phase="train_lightconv"):
+    """The lightconv step at ``arch``: ``forward`` and ``backward`` are the
+    flash routes its decoder's encoder attention takes (the tensor cores at
+    head dim 64; the CUDA-core forward and pair at the iwslt presets' 128)."""
     Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
-    args = lc_train_args()
+    args = lc_train_args(arch)
     task = TranslationTask(args, *dicts)
     model = task.build_model(args)
     trainer = Trainer(args, task, model, task.build_criterion(args))
@@ -1541,16 +1618,16 @@ def train_lightconv(card, dicts, fa, dconv, single, modules):
     for _ in range(REPEATS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(LC_TIMED_STEPS):
+        for _ in range(timed_steps):
             outs.append(trainer.train_step([sample]))
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) / LC_TIMED_STEPS * 1e3)
+        step_ms.append((time.perf_counter() - t0) / timed_steps * 1e3)
     launches = launch_counts(fa, dconv, single)
-    steps = REPEATS * LC_TIMED_STEPS
-    want = step_launches(launches, steps, LC_FLASH_LAUNCHES_PER_STEP)
+    steps = REPEATS * timed_steps
+    want = step_launches(launches, steps, LC_FLASH_LAUNCHES_PER_STEP, backward, forward)
     want.update({DCONV_FORWARD: DCONV_LAUNCHES_PER_STEP * steps, DCONV_BACKWARD: DCONV_LAUNCHES_PER_STEP * steps})
     if launches != want:
-        raise AssertionError(f"lightconv train launches {launches}, expected {want} over {steps} steps")
+        raise AssertionError(f"{arch} train launches {launches}, expected {want} over {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     per_token = [float(o["loss"]) / float(o["sample_size"]) for o in outs]
@@ -1562,9 +1639,11 @@ def train_lightconv(card, dicts, fa, dconv, single, modules):
         raise AssertionError(f"the lightconv loss did not fall on a fixed batch: {first} -> {last}")
     median = float(np.median(step_ms))
     tgt_tokens = int(sample["ntokens"])
-    emit({"phase": "train_lightconv", "arch": LC_ARCH, "batch": LC_TRAIN_BATCH, "src_len": src_len,
+    emit({"phase": phase, "arch": arch, "batch": LC_TRAIN_BATCH, "src_len": src_len,
           "tgt_len": tgt_len, "target_tokens": tgt_tokens, "dtype": "bfloat16",
-          "forward": BF16_FORWARD, "backward": BF16_BACKWARD,
+          "forward": forward, "backward": backward, "heads": model.cfg.decoder_layers[0].heads,
+          "embed_dim": model.cfg.embed_dim, "layers": [len(model.cfg.encoder_layers), len(model.cfg.decoder_layers)],
+          "params": sum(p.numel() for p in model.parameters()),
           "step_ms_median": median, "step_ms_repeats": step_ms, "step_ms_spread": max(step_ms) - min(step_ms),
           "target_tokens_per_s": tgt_tokens / (median / 1e3), "flops_per_step": flops,
           "mfu": flops / (median / 1e3) / PEAK_BF16, "launches_per_step": {k: v / steps for k, v in launches.items()},
@@ -1572,7 +1651,7 @@ def train_lightconv(card, dicts, fa, dconv, single, modules):
           "loss_per_token_last5": last, "gnorm_last": gnorms[-1], "lr_last": float(outs[-1]["lr"]), "card": card})
 
     wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
-    emit({"phase": "train_lightconv_profile", "step_s": wall_s, "device_busy_s": busy_s,
+    emit({"phase": phase + "_profile", "arch": arch, "step_s": wall_s, "device_busy_s": busy_s,
           "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
     return launches
 
@@ -2148,6 +2227,226 @@ def check_dual_steps(d, fa, attention, modules):
 
 
 # ---------------------------------------------------------------------------
+# 21.-23. serving from files, the search strategies, the realistic step
+# ---------------------------------------------------------------------------
+
+def write_corpus(modules, d, data_dir, rng):
+    """A speech-translation corpus in the fork's files, written with the
+    port's builders: ``test.npz`` (FILES_UTTERANCES utterances of 409-512
+    frames x 80 mels, phase 6's request sizes), targets ``test.de`` and
+    transcripts ``test.en`` of FILES_TGT_LEN tokens over ``d``, and the
+    dictionaries. Returns the frame counts."""
+    idx = modules["indexed_dataset"]
+    sample = make_request(rng, FILES_UTTERANCES, 409, 512, 512)["net_input"]
+    frames = idx.AudioIndexedDatasetBuilder(os.path.join(data_dir, "test.npz.bin"))
+    for feats, n in zip(sample["src_tokens"], sample["src_lengths"]):
+        frames.add_item(feats[:n])
+    frames.finalize(os.path.join(data_dir, "test.npz.idx"))
+    for lang in ("de", "en"):
+        d.save(os.path.join(data_dir, f"dict.{lang}.txt"))
+        text = idx.IndexedDatasetBuilder(os.path.join(data_dir, f"test.{lang}.bin"))
+        for _ in range(FILES_UTTERANCES):
+            text.add_item(np.append(rng.randint(4, len(d), size=rng.randint(*FILES_TGT_LEN) - 1), d.eos()))
+        text.finalize(os.path.join(data_dir, f"test.{lang}.idx"))
+    return sample["src_lengths"]
+
+
+def read_records(path):
+    """{id: (score, text)} of the H- lines and the BLEU line of a
+    ``generate-<subset>.txt``."""
+    hyps, bleu_line = {}, None
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            if line.startswith("H-"):
+                head, score, text = line.rstrip("\n").split("\t")
+                hyps[int(head[2:])] = (float(score), text)
+            elif "| Generate test with beam=" in line:
+                bleu_line = line.strip().split(": ", 1)[1]
+    return hyps, bleu_line
+
+
+def serve_from_files(card, d, fa, dconv, single, modules):
+    """Main path 11: the base conv_transformer's seeded weights saved with
+    ``save_model_checkpoint``, a corpus written with the port's builders,
+    and ``cli/generate``'s ``cli_main`` decoding it on the card (beam 5,
+    ``max_len_b`` 100) as a user runs it; held to the in-memory
+    ``SequenceGenerator`` on the same batches (identical tokens, scores
+    within FILES_SCORE_ATOL), with 8 tf32x3 forwards a batch and no other
+    kernel."""
+    import tempfile
+
+    build_model, SequenceGenerator = modules["build_model"], modules["SequenceGenerator"]
+    model = build_model("conv_transformer", d, seed=0, input_feat_per_channel=N_MELS, max_source_positions=2048,
+                        max_target_positions=512)
+    args = types.SimpleNamespace(arch="conv_transformer", task="speech_translation_with_transcription",
+                                 criterion="label_smoothed_cross_entropy", input_feat_per_channel=N_MELS,
+                                 max_source_positions=2048, max_target_positions=512, seed=0)
+    modules["registry"].apply_architecture(args)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, results = os.path.join(tmp, "data"), os.path.join(tmp, "results")
+        os.makedirs(data_dir)
+        lengths = write_corpus(modules, d, data_dir, np.random.RandomState(0))
+        ckpt = os.path.join(tmp, "checkpoint.pt")
+        modules["save_model_checkpoint"](ckpt, args, model)
+        argv = [data_dir, "--task", "speech_translation_with_transcription", "-s", "en", "-t", "de", "--path", ckpt,
+                "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset", "test",
+                "--max-sentences", str(FILES_UTTERANCES), "--max-tokens", str(FILES_UTTERANCES * 512),
+                "--results-path", results]
+        reset_counts(fa, dconv, single)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer = modules["generate_cli"].cli_main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = launch_counts(fa, dconv, single)
+        hyps, bleu_line = read_records(os.path.join(results, "generate-test.txt"))
+
+        # the same batches through the in-memory generator
+        options, registry = modules["options"], modules["registry"]
+        cli_args = options.parse_args_and_arch(options.get_generation_parser(), argv)
+        task = registry.TASKS[cli_args.task].setup_task(cli_args)
+        task.load_dataset("test")
+        batches = list(task.get_batch_iterator(
+            task.dataset("test"), max_tokens=cli_args.max_tokens, max_sentences=cli_args.max_sentences,
+            max_positions=task.max_positions(),
+            required_batch_size_multiple=cli_args.required_batch_size_multiple).next_epoch_itr(shuffle=False))
+    want = {k: (FLASH_LAUNCHES_PER_REQUEST * len(batches) if k == FP32_FORWARD else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"cli/generate launches {launches}, expected {want} over {len(batches)} batch(es)")
+    gen = SequenceGenerator(d, beam_size=BEAM, max_len_b=MAX_LEN_B)
+    decode_s, same, worst, n = 0.0, 0, 0.0, 0
+    for sample in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hypos = gen.generate([model], sample)
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+        check_hypotheses(hypos, d.eos(), len(sample["id"]))
+        for sid, sent in zip(sample["id"], hypos):
+            score, text = hyps[int(sid)]
+            same += text == d.string(sent[0]["tokens"])
+            worst = max(worst, abs(score - sent[0]["score"] / math.log(2)))
+            n += 1
+    audio_s = float(np.sum(lengths)) * FRAME_SECONDS
+    emit({"phase": "serve_from_files", "utterances": n, "batches": len(batches), "audio_s": audio_s,
+          "cli_wall_s": cli_s, "cli_rtf": cli_s / audio_s, "decode_s_in_memory": decode_s,
+          "rtf_in_memory": decode_s / audio_s, "launches": launches, "bleu": bleu_line,
+          "bleu_score": scorer.score(), "identical_top_hypotheses": f"{same}/{n}",
+          "max_abs_score_diff_base2": worst, "atol": FILES_SCORE_ATOL, "card": card})
+    if not (n == len(hyps) == FILES_UTTERANCES and same == n and worst <= FILES_SCORE_ATOL and bleu_line):
+        raise AssertionError(f"cli/generate disagrees with the in-memory generator: {same}/{n} identical, "
+                             f"scores {worst} apart, {len(hyps)} H- lines")
+    modules["served_model"] = model
+    return launches
+
+
+def serve_search(card, d, fa, dconv, single, modules):
+    """Main path 12: the search strategies on the card, on the model of
+    phase 21: a top-k sampling request (beam 5, every hypothesis a draw), a
+    diverse-beam request, and a top-k 1 sampling request, which must give
+    greedy search's hypothesis in every beam."""
+    SequenceGenerator, search = modules["SequenceGenerator"], modules["search"]
+    model = modules.pop("served_model")
+    rng = np.random.RandomState(5)
+    sample = make_request(rng, SEARCH_UTTERANCES, 409, 512, 512)
+    small = make_request(rng, 4, 409, 512, 512)
+    requests = [
+        ("sampling_top10", SequenceGenerator(d, beam_size=BEAM, max_len_b=MAX_LEN_B, seed=7,
+                                             search_strategy=search.Sampling(d, SAMPLING_TOPK)), sample, BEAM),
+        ("diverse_beam", SequenceGenerator(d, beam_size=DIVERSE_BEAM, max_len_b=MAX_LEN_B,
+                                           search_strategy=search.DiverseBeamSearch(d, DIVERSE_GROUPS, 0.5)),
+         sample, DIVERSE_BEAM),
+        ("sampling_top1", SequenceGenerator(d, beam_size=2, max_len_b=MAX_LEN_B,
+                                            search_strategy=search.Sampling(d, 1)), small, 2),
+    ]
+    reset_counts(fa, dconv, single)
+    out = {}
+    for name, gen, req, beam in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hypos = gen.generate([model], req)
+        torch.cuda.synchronize()
+        check_hypotheses(hypos, d.eos(), len(req["net_input"]["src_lengths"]))
+        if any(len(sent) != beam for sent in hypos):
+            raise AssertionError(f"{name}: {[len(sent) for sent in hypos]} hypotheses, expected {beam} each")
+        out[name] = hypos
+        emit({"phase": "serve_search", "request": name, "utterances": len(hypos), "beam": beam,
+              "decode_s": time.perf_counter() - t0,
+              "distinct_hypotheses_per_utterance": float(np.mean([len({tuple(h["tokens"]) for h in sent})
+                                                                  for sent in hypos])), "card": card})
+    launches = launch_counts(fa, dconv, single)
+    want = {k: (FLASH_LAUNCHES_PER_REQUEST * len(requests) if k == FP32_FORWARD else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"search requests' launches {launches}, expected {want}")
+    greedy = SequenceGenerator(d, beam_size=1, max_len_b=MAX_LEN_B).generate([model], small)
+    same = sum(all(list(h["tokens"]) == list(g[0]["tokens"]) for h in sent)
+               for sent, g in zip(out["sampling_top1"], greedy))
+    emit({"phase": "sampling_top1_vs_greedy", "identical": f"{same}/{len(greedy)}", "card": card})
+    if same != len(greedy):
+        raise AssertionError("top-k 1 sampling differs from greedy search on the card")
+    return launches
+
+
+def masked_share(specaugment, x, generator, cfg):
+    """The share of x's nonzero elements that one SpecAugment draw zeroes."""
+    nonzero = x != 0
+    return float(((specaugment(generator, x, cfg) == 0) & nonzero).sum()) / float(nonzero.sum())
+
+
+def train_realistic(card, d, fa, dconv, single, modules):
+    """Main path 13, ``bench.py``'s ``realistic`` section: the base step
+    (phase 7's arguments, bf16, 128 x 409-512 frames) with ``--specaugment
+    --specaugment-rate 1.0``, then with ``--time-stretch`` as well: step
+    ms, the device's busy ms and idle share of one profiled step, and the
+    augmentation's own device ms; the launches of phase 7 a step, and the
+    losses finite; the masked share of one draw within
+    MASKED_SHARE_RANGE."""
+    Trainer, SpeechRecognitionTask = modules["Trainer"], modules["SpeechRecognitionTask"]
+    sample = staged(train_sample(d, np.random.RandomState(0)), torch.bfloat16)
+    launches = None
+    for name, extra in (("specaugment", dict(specaugment=True, specaugment_rate=1.0)),
+                        ("specaugment_time_stretch", dict(specaugment=True, specaugment_rate=1.0,
+                                                          time_stretch=True))):
+        args = train_args(**extra)
+        task = SpeechRecognitionTask(args, d)
+        trainer = Trainer(args, task, task.build_model(args), task.build_criterion(args))
+        outs = [trainer.train_step([sample]) for _ in range(WARMUP_STEPS)]
+        torch.cuda.synchronize()
+        reset_counts(fa, dconv, single)
+        t0 = time.perf_counter()
+        for _ in range(REALISTIC_TIMED_STEPS):
+            outs.append(trainer.train_step([sample]))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / REALISTIC_TIMED_STEPS * 1e3
+        got = launch_counts(fa, dconv, single)
+        want = step_launches(got, REALISTIC_TIMED_STEPS, CT_FLASH_CALLS_PER_STEP)
+        if got != want:
+            raise AssertionError(f"realistic {name} step launches {got}, expected {want}")
+        launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+        losses = [float(o["loss"]) / float(o["sample_size"]) for o in outs]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"non-finite loss in the realistic {name} step: {losses}")
+        wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
+        batch = trainer._device_batch(sample)
+        gens = modules["make_generators"](1, "cuda")
+        aug_kernels, aug_ms = device_busy(lambda: task.augment_batch(batch, gens))
+        share = masked_share(modules["specaugment"], batch["src_tokens"], gens.device, task.specaugment_cfg)
+        emit({"phase": "train_realistic", "augment": name, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+              "step_ms": step_ms, "steps": REALISTIC_TIMED_STEPS, "step_s_profiled": wall_s,
+              "device_busy_ms": busy_s * 1e3, "device_idle_share": 1.0 - busy_s / wall_s,
+              "augment_device_ms": aug_ms, "augment_kernels": aug_kernels, "masked_share": share,
+              "masked_share_range": MASKED_SHARE_RANGE, "loss_per_token_first": losses[0],
+              "loss_per_token_last": losses[-1], "launches_per_step": {k: v / REALISTIC_TIMED_STEPS
+                                                                        for k, v in got.items()},
+              "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
+        if not MASKED_SHARE_RANGE[0] <= share <= MASKED_SHARE_RANGE[1]:
+            raise AssertionError(f"SpecAugment masked {share} of the elements, outside {MASKED_SHARE_RANGE}")
+        del trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
@@ -2157,7 +2456,8 @@ def find_row(rows, row_kernel, timed_at):
 def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32, worst_bf16, timed_at, also_at=None):
     """The ``kernels`` line's entry of ``name``, timed at its row of
     ``row_kernel`` at ``timed_at`` = (shape, dtype[, t_block]), with the
-    times of its row at ``also_at`` beside them when given. A kernel with
+    times of its rows at ``also_at`` (one such place, or a tuple of them)
+    beside them when given. A kernel with
     no fp32 form reports its bf16 error as ``max_abs_err``; one with no
     bf16 form has no ``max_abs_err_bf16``."""
     head = find_row(rows, row_kernel, timed_at)
@@ -2180,10 +2480,10 @@ def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32,
     for key in ("max_err_over_max_plain", "wrapper_device_ms", "split_route", "kernel_device_ms_cold"):
         if key in head:
             entry[key] = head[key]
-    if also_at is not None:
-        r = find_row(rows, row_kernel, also_at)
-        entry["at_" + also_at[0]] = {
-            "bh": r["bh"], "T": r["T"], "S": r["S"], "D": r["D"], "dtype": also_at[1],
+    for at in (() if also_at is None else (also_at,) if isinstance(also_at[0], str) else also_at):
+        r = find_row(rows, row_kernel, at)
+        entry["at_" + at[0]] = {
+            "bh": r["bh"], "T": r["T"], "S": r["S"], "D": r["D"], "dtype": at[1],
             **{k: r.get(k) for k in ("kernel_ms", "kernel_device_ms", "wrapper_device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms", "library_backend",
                                      "max_abs_err", "max_err_over_max_plain")}}
@@ -2195,9 +2495,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    from fbk_fairseq_st_tpu_torch import options, registry
+    from fbk_fairseq_st_tpu_torch.cli import generate as generate_cli
     from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
-    from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset
-    from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator, TwoPhaseSequenceGenerator
+    from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, indexed_dataset
+    from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator, TwoPhaseSequenceGenerator, search
+    from fbk_fairseq_st_tpu_torch.ops.core import make_generators
+    from fbk_fairseq_st_tpu_torch.ops.specaugment import specaugment
+    from fbk_fairseq_st_tpu_torch.train.checkpoint import save_model_checkpoint
     from fbk_fairseq_st_tpu_torch.models import build_model as build_any_model
     from fbk_fairseq_st_tpu_torch.models.conv_transformer import build_model
     from fbk_fairseq_st_tpu_torch.ops import attention
@@ -2220,7 +2525,10 @@ def main() -> int:
                "ctc_greedy_decode": ctc_greedy_decode, "levenshtein": levenshtein,
                "TwoPhaseSequenceGenerator": TwoPhaseSequenceGenerator,
                "SpeechTranslationDualDecodingTask": SpeechTranslationDualDecodingTask,
-               "CrossEntropyDualDecoder": CrossEntropyDualDecoder}
+               "CrossEntropyDualDecoder": CrossEntropyDualDecoder, "options": options, "registry": registry,
+               "generate_cli": generate_cli, "indexed_dataset": indexed_dataset, "search": search,
+               "make_generators": make_generators, "specaugment": specaugment,
+               "save_model_checkpoint": save_model_checkpoint}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2289,8 +2597,15 @@ def main() -> int:
         drive(f"serve_{arch}", serve_twophase, card, d, fa, dconv, single, attention, modules, arch, requests)
     drive("train_dualdecoder", train_dual, card, d, fa, dconv, single, modules)
     check_dual_steps(d, fa, attention, modules)
+    # 20. the iwslt lightconv step: head dim 128, the CUDA-core flash kernels
+    drive("train_iwslt", train_lightconv, card, lc_dicts, fa, dconv, single, modules, IWSLT_ARCH,
+          IWSLT_TIMED_STEPS, D128_FORWARD, D128_BACKWARD, "train_iwslt")
+    # 21.-23. serving from files, the search strategies, the realistic step
+    drive("serve_from_files", serve_from_files, card, d, fa, dconv, single, modules)
+    drive("serve_search", serve_search, card, d, fa, dconv, single, modules)
+    drive("train_realistic", train_realistic, card, d, fa, dconv, single, modules)
 
-    # 20. kernels line, card line, ok line
+    # 24. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():
@@ -2304,23 +2619,25 @@ def main() -> int:
     # launched directly there (no default route takes them at D 32 and 64)
     f32_at = ("encoder_self_attention", "float32")
     f32_long_at = ("long_encoder_self_attention", "float32")
+    iwslt_at = ("lightconv_iwslt_cross_attention", "bfloat16")  # the CUDA-core kernels' model call
     f32, b16 = torch.float32, torch.bfloat16
     kernels = [
         kernel_entry("flash_fwd", "flash_attention_fwd", csrc + "flash_fwd.cu", pallas + "117",
-                     launches["flash_fwd"], rows, worst[("fwd", f32)], worst[("fwd", b16)], f32_at, f32_long_at),
+                     launches["flash_fwd"], rows, worst[("fwd", f32)], worst[("fwd", b16)], f32_at,
+                     (f32_long_at, iwslt_at)),
         kernel_entry("flash_fwd_tc", "flash_attention_fwd_tc", csrc + "flash_fwd_tc.cu", pallas + "117",
                      launches["flash_fwd_tc"], rows, None, worst[("fwd_tc", b16)], timed_at, long_at),
         kernel_entry("flash_fwd_tf32x3", "flash_attention_fwd_tf32x3", csrc + "flash_fwd_tf32x3.cu", pallas + "117",
                      launches["flash_fwd_tf32x3"], rows, worst[("fwd_tf32x3", f32)], None, f32_at, f32_long_at),
         kernel_entry("flash_bwd_fused", "flash_attention_bwd_fused", csrc + "flash_bwd.cu", pallas + "277",
                      launches["flash_bwd_fused"], rows, worst[("bwd_fused", f32)], worst[("bwd_fused", b16)],
-                     f32_at, f32_long_at),
+                     f32_at, (f32_long_at, iwslt_at)),
         kernel_entry("flash_bwd_dq", "flash_attention_bwd_dq", csrc + "flash_bwd.cu", pallas + "218",
                      launches["flash_bwd_dq"], rows, worst[("bwd_cuda_core", f32)], worst[("bwd_cuda_core", b16)],
-                     f32_at),
+                     f32_at, (iwslt_at,)),
         kernel_entry("flash_bwd_dkv", "flash_attention_bwd_dkv", csrc + "flash_bwd.cu", pallas + "386",
                      launches["flash_bwd_dkv"], rows, worst[("bwd_cuda_core", f32)], worst[("bwd_cuda_core", b16)],
-                     f32_at),
+                     f32_at, (iwslt_at,)),
         kernel_entry("flash_bwd_dq_tc", "flash_attention_bwd_dq_tc", csrc + "flash_bwd_tc.cu", pallas + "218",
                      launches["flash_bwd_dq_tc"], rows, None, worst[("bwd_tc", b16)], timed_at, long_at),
         kernel_entry("flash_bwd_dkv_tc", "flash_attention_bwd_dkv_tc", csrc + "flash_bwd_tc.cu", pallas + "386",

@@ -15,7 +15,11 @@ ids in), every preset in ``models.ARCHITECTURES``::
     model = build_model("conv_transformer", tgt_dict, input_feat_per_channel=80)
     hypos = SequenceGenerator(tgt_dict, beam_size=5).generate([model], sample)
 
-and ``train.Trainer`` with a task from ``tasks`` for the train step.
+and ``train.Trainer`` with a task from ``tasks`` for the train step. A
+corpus and a checkpoint on disk decode through ``cli/generate``::
+
+    python -m fbk_fairseq_st_tpu_torch.cli.generate DATA --task speech_translation_with_transcription \
+        -s en -t de --path checkpoint.pt --beam 5
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """

@@ -1,22 +1,30 @@
-"""Token <-> id mapping with fairseq-compatible special symbols.
+"""Token <-> id mapping with fairseq-compatible special symbols and files.
 
-The port's own copy of ``fbk_fairseq_st_tpu/data/dictionary.py``, cut to
-what the serving path needs (reference fairseq/data/dictionary.py):
+The port's own copy of ``fbk_fairseq_st_tpu/data/dictionary.py`` (reference
+fairseq/data/dictionary.py):
 
   * construction order fixes the special ids: bos=0 '<s>', pad=1 '<pad>',
     eos=2 '</s>', unk=3 '<unk>';
   * ``finalize(threshold, nwords, padding_factor=8)`` sorts by (count desc,
     symbol) and pads the vocab to a multiple of ``padding_factor`` with
     ``madeupword{i}`` fillers;
+  * the file format, one "symbol count" line per non-special symbol
+    (``load``, ``save``);
+  * ``encode_line`` whitespace-tokenizes, maps OOV to unk and appends eos;
   * ``string`` strips pad/eos/bos and undoes BPE.
 """
 
 from __future__ import annotations
 
+import os
 from collections import Counter
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
+
+
+def tokenize_line(line: str) -> List[str]:
+    return line.split()
 
 
 class Dictionary:
@@ -41,6 +49,9 @@ class Dictionary:
         for s in extra_special_symbols or ():
             self.add_symbol(s)
         self.nspecial = len(self.symbols)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Dictionary) and self.indices == other.indices
 
     def __getitem__(self, idx: int) -> str:
         if idx < len(self.symbols):
@@ -109,6 +120,52 @@ class Dictionary:
             while len(self) % padding_factor != 0:
                 self.add_symbol("madeupword{:04d}".format(i), n=0)
                 i += 1
+
+    @classmethod
+    def load(cls, f) -> "Dictionary":
+        d = cls()
+        d.add_from_file(f)
+        return d
+
+    def add_from_file(self, f) -> None:
+        if isinstance(f, str):
+            with open(f, "r", encoding="utf-8") as fd:
+                self.add_from_file(fd)
+            return
+        for line in f.readlines():
+            line = line.rstrip()
+            idx = line.rfind(" ")
+            if idx == -1:
+                raise ValueError("Incorrect dictionary format, expected '<token> <cnt>'")
+            word = line[:idx]
+            self.indices[word] = len(self.symbols)
+            self.symbols.append(word)
+            self.count.append(int(line[idx + 1:]))
+
+    def save(self, f) -> None:
+        if isinstance(f, str):
+            os.makedirs(os.path.dirname(os.path.abspath(f)), exist_ok=True)
+            with open(f, "w", encoding="utf-8") as fd:
+                self.save(fd)
+            return
+        for symbol, count in zip(self.symbols[self.nspecial:], self.count[self.nspecial:]):
+            print("{} {}".format(symbol, count), file=f)
+
+    def encode_line(self, line: str, line_tokenizer: Callable[[str], List[str]] = tokenize_line,
+                    add_if_not_exist: bool = True, consumer=None, append_eos: bool = True,
+                    reverse_order: bool = False) -> np.ndarray:
+        words = line_tokenizer(line)
+        if reverse_order:
+            words = list(reversed(words))
+        ids = np.empty(len(words) + 1 if append_eos else len(words), dtype=np.int64)
+        for i, word in enumerate(words):
+            idx = self.add_symbol(word) if add_if_not_exist else self.index(word)
+            if consumer is not None:
+                consumer(word, idx)
+            ids[i] = idx
+        if append_eos:
+            ids[len(words)] = self.eos_index
+        return ids
 
     def string(
         self,

@@ -13,9 +13,12 @@ language_pair_dataset.py:17-110):
   * ``pad_to_src_len`` / ``pad_to_tgt_len`` / ``pad_to_bsz`` pad to fixed
     shapes (extra rows get id -1, pads and length 0).
 
-Alignments, size filtering, the batch order of an epoch and the options
-no port caller sets yet (``input_feeding``, ``append_eos_to_target``, an
-``eos`` other than </s>) come with the wiring (ROADMAP Queue A9).
+The size methods (``num_tokens``, ``num_tokens_vec``,
+``filter_indices_by_size``, ``size``, ``ordered_indices``: sorted by
+target, then source length, from a seeded permutation with ``shuffle``)
+feed the task's batch iterator. Alignments and the options no port caller
+sets (``input_feeding``, ``append_eos_to_target``, an ``eos`` other than
+</s>) are not ported (ROADMAP Queue A item 3).
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ class LanguagePairDataset:
     eos), with their sizes, as the JAX constructor takes them."""
 
     def __init__(self, src, src_sizes, src_dict, tgt=None, tgt_sizes=None, tgt_dict=None,
-                 left_pad_source: bool = True, left_pad_target: bool = False):
+                 left_pad_source: bool = True, left_pad_target: bool = False, shuffle: bool = True):
+        self.shuffle = shuffle
         self.src = src
         self.tgt = tgt
         self.src_sizes = np.array(src_sizes)
@@ -120,3 +124,36 @@ class LanguagePairDataset:
         if prev_output_tokens is not None:
             batch["net_input"]["prev_output_tokens"] = prev_output_tokens
         return batch
+
+    def num_tokens(self, index):
+        return max(self.src_sizes[index], self.tgt_sizes[index] if self.tgt_sizes is not None else 0)
+
+    def num_tokens_vec(self, indices):
+        toks = self.src_sizes[indices]
+        if self.tgt_sizes is not None:
+            toks = np.maximum(toks, self.tgt_sizes[indices])
+        return toks.astype(np.int64)
+
+    def filter_indices_by_size(self, indices, max_positions, raise_exception=False):
+        from .batching import filter_by_size_vec
+
+        return filter_by_size_vec(indices, self.src_sizes, self.tgt_sizes, max_positions,
+                                  raise_exception=raise_exception)
+
+    def size(self, index):
+        return (self.src_sizes[index], self.tgt_sizes[index] if self.tgt_sizes is not None else 0)
+
+    @property
+    def sizes(self):
+        return self.src_sizes
+
+    def ordered_indices(self):
+        """By target, then source length (stable), from a permutation of
+        numpy's global generator with ``shuffle`` (the task seeds it)."""
+        if self.shuffle:
+            indices = np.random.permutation(len(self)).astype(np.int64)
+        else:
+            indices = np.arange(len(self), dtype=np.int64)
+        if self.tgt_sizes is not None:
+            indices = indices[np.argsort(self.tgt_sizes[indices], kind="mergesort")]
+        return indices[np.argsort(self.src_sizes[indices], kind="mergesort")]

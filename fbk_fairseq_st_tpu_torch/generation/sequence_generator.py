@@ -34,12 +34,17 @@ and ``beam_ctx``, a dict of (B*K, ...) tensors, follows the beams and goes
 to ``decode_step`` as keyword arguments. Each hypothesis carries the
 ``origin``, the initial beam it descends from. ``temperature`` divides the
 logits; ``match_source_len`` sets max_len to the longest source.
+
+The options of JAX's generator (:100-102, :130): ``search_strategy`` (any
+of ``search.py``'s; ``Sampling`` draws from a ``torch.Generator`` on the
+device seeded from ``seed`` at each call), the ``eos`` override and
+``generate(bos_token=)``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -118,11 +123,17 @@ class SequenceGenerator:
         temperature: float = 1.0,
         match_source_len: bool = False,
         no_repeat_ngram_size: int = 0,
+        search_strategy=None,
+        seed: int = 1,
+        eos: Optional[int] = None,
     ):
         self.tgt_dict = tgt_dict
         self.pad = tgt_dict.pad()
         self.unk = tgt_dict.unk()
-        self.eos = tgt_dict.eos()
+        # the eos override: generation may end on another token than </s>
+        # (mBART-style language tokens, reference
+        # translation_from_pretrained_bart.py:92-104)
+        self.eos = eos if eos is not None else tgt_dict.eos()
         self.vocab_size = len(tgt_dict)
         self.beam_size = min(beam_size, self.vocab_size - 1)
         self.max_len_a = max_len_a
@@ -134,15 +145,18 @@ class SequenceGenerator:
         self.temperature = temperature
         self.match_source_len = match_source_len
         self.no_repeat_ngram_size = no_repeat_ngram_size
-        self.search = BeamSearch(tgt_dict)
+        self.search = search_strategy or BeamSearch(tgt_dict)
+        self.seed = seed
 
     @torch.no_grad()
-    def generate(self, models, sample, prefix_tokens=None, encoder_outs=None) -> List[List[dict]]:
+    def generate(self, models, sample, prefix_tokens=None, bos_token=None,
+                 encoder_outs=None) -> List[List[dict]]:
         """models: a list of models (or an EnsembleModel), in eval mode, all
         on one device; sample: {"net_input": {"src_tokens", "src_lengths":
         (B,)}} as tensors or numpy arrays, src_tokens (B, T, F) fbank frames
-        or (B, T) token ids as the models take them. ``encoder_outs``: one
-        per model, already beam-replicated ([s0 x K, s1 x K, ...]); the
+        or (B, T) token ids as the models take them. ``bos_token``: the
+        first decoder input instead of eos. ``encoder_outs``: one per
+        model, already beam-replicated ([s0 x K, s1 x K, ...]); the
         encoders are not run then.
 
         Returns, per sentence, up to ``beam`` hypo dicts sorted by score
@@ -159,7 +173,7 @@ class SequenceGenerator:
         if prefix_tokens is not None:
             prefix_tokens = torch.as_tensor(prefix_tokens, device=device)
         fin = self._generate_impl(ensemble, src_tokens, src_lengths, max_len, prefix_tokens,
-                                  encoder_outs=encoder_outs)
+                                  encoder_outs=encoder_outs, bos_token=bos_token)
         return collect_hypotheses(fin, bsz, self.beam_size)
 
     def max_len(self, src_tokens, src_lengths, max_positions: int) -> int:
@@ -172,8 +186,13 @@ class SequenceGenerator:
         return max(max_len, self.min_len)
 
     def _generate_impl(self, ensemble, src_tokens, src_lengths, max_len: int, prefix_tokens,
-                       encoder_outs=None, init_scores=None, beam_ctx=None) -> Dict[str, np.ndarray]:
+                       encoder_outs=None, init_scores=None, beam_ctx=None,
+                       bos_token=None) -> Dict[str, np.ndarray]:
         device = src_tokens.device
+        if hasattr(self.search, "src_lengths"):
+            self.search.src_lengths = src_lengths  # the length-constrained search's bounds
+        # Sampling's draws: one generator a call, seeded from ``seed``
+        rng = torch.Generator(device=device).manual_seed(self.seed) if self.search.needs_rng else None
         bsz = src_tokens.shape[0]
         K = self.beam_size
         T = max_len + 2
@@ -193,7 +212,7 @@ class SequenceGenerator:
             return torch.full(shape, value, dtype=dt, device=device)
 
         tokens = full((bsz, K, T), self.pad, torch.long)
-        tokens[:, :, 0] = self.eos
+        tokens[:, :, 0] = self.eos if bos_token is None else bos_token
         scores = full((bsz, K, T), 0.0, torch.float32)
         blacklist = full((bsz, K), False, torch.bool)
         fin_tokens = full((bsz, K, T), self.pad, torch.long)
@@ -253,7 +272,7 @@ class SequenceGenerator:
                 # hierarchical step 0: every beam active, seeded with its score
                 prev_cum, search_step = init_scores, 1
 
-            cand_scores, cand_tokens, cand_beams = self.search.step(search_step, lprobs, prev_cum)
+            cand_scores, cand_tokens, cand_beams = self.search.step(search_step, lprobs, prev_cum, rng)
 
             # ---- finalization ----
             eos_mask = (cand_tokens == self.eos) & (cand_scores > NEG_INF / 2)

@@ -110,6 +110,7 @@ class TwoPhaseSequenceGenerator(SequenceGenerator):
             temperature=self.temperature,
             match_source_len=self.match_source_len,
             no_repeat_ngram_size=self.no_repeat_ngram_size,
+            seed=self.seed,
         )
         if self.aux_gen.beam_size < self.beam_size:
             # the shared encoder output is replicated for the target beam;

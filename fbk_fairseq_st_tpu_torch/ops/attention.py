@@ -9,7 +9,8 @@ preallocated ``(B, H, T_max, Dh)`` self-attention cache written in place at
 head-averaged ``need_weights``. Activations are batch-first (B, T, D).
 
 Flash routing follows the JAX eligibility rules: no cache, mask ``None`` or
-causal, no penalty, no ``need_weights``. Calls with dropout active take the
+causal, no penalty, no ``need_weights``; head dims above 128 take the dense
+route (``flash_eligible``). Calls with dropout active take the
 flash route too, with the kernel's in-kernel dropout and one seed drawn per
 call from the run's CPU generator (JAX sent them there on the TPU only,
 whose hardware PRNG the CPU interpreter lacks); the dense path keeps the
@@ -35,7 +36,7 @@ import torch
 from torch import nn
 
 from .core import NEG_INF, GeneratorLike, Linear, draw_seed, dropout
-from .kernels.flash_attention import flash_attention
+from .kernels.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 
 class MHAConfig(NamedTuple):
@@ -62,6 +63,24 @@ def flash_enabled(x: torch.Tensor) -> bool:
     if _FLASH_ATTENTION is not None:
         return _FLASH_ATTENTION
     return x.is_cuda
+
+
+def flash_eligible(device_type: str, head_dim: int, mask: Optional[str] = None, cache: bool = False,
+                   penalty: bool = False, need_weights: bool = False,
+                   forced: Optional[bool] = None) -> bool:
+    """Whether a call takes the flash route; needs no tensor. ``mask`` is
+    None, ``"causal"`` or ``"additive"`` (any other ``attn_mask``);
+    ``forced`` is ``set_flash_attention``'s setting. The JAX eligibility
+    rules (no cache, mask None or causal, no penalty, no ``need_weights``),
+    and a head dim the kernels take (at most ``KERNEL_HEAD_DIMS[-1]``, 128):
+    above it the dense route runs, as JAX's non-TPU branch does at any head
+    dim (``--encoder-attention-heads 2`` at 512 dims). Then ``forced``, or
+    in auto mode the CUDA device."""
+    if cache or penalty or need_weights or mask not in (None, "causal"):
+        return False
+    if head_dim > KERNEL_HEAD_DIMS[-1]:
+        return False
+    return forced if forced is not None else device_type == "cuda"
 
 
 def key_bias(key_padding_mask, batch: int, src_len: int, heads: int, device):
@@ -182,13 +201,9 @@ class MultiheadAttention(nn.Module):
         dropout_active = self.training and cfg.dropout > 0.0 and generator is not None
         b, h, tq, hd = q.shape
         s = k.shape[2]
-        if (
-            flash_enabled(q)
-            and cache is None
-            and (attn_mask is None or causal)
-            and cfg.penalty is None
-            and not need_weights
-        ):
+        mask = None if attn_mask is None else ("causal" if causal else "additive")
+        if flash_eligible(q.device.type, hd, mask, cache is not None, cfg.penalty is not None, need_weights,
+                          _FLASH_ATTENTION):
             out = flash_attention(
                 q.reshape(b * h, tq, hd),
                 k.reshape(b * h, s, hd),

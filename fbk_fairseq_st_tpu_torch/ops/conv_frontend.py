@@ -44,7 +44,7 @@ from .core import (
     normal_,
     xavier_uniform_,
 )
-from .kernels.flash_attention import flash_attention
+from .kernels.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 
 class ConvFrontendConfig(NamedTuple):
@@ -136,9 +136,10 @@ class ConvAttention2D(nn.Module):
         v = F.relu(self.bn_v(v))
 
         # time attention: contract over frequency -> (B, H, T, T); F' acts as
-        # the head dim of the flash kernel (the wrapper pads it)
+        # the head dim of the flash kernel (the wrapper pads it; above 128 the
+        # dense route runs, as in multi-head attention)
         dropout_active = self.training and dropout_p > 0.0 and generator is not None
-        if flash_enabled(x):
+        if flash_enabled(x) and f <= KERNEL_HEAD_DIMS[-1]:
             attn_t = flash_attention(
                 q.reshape(b * h, t, f),
                 k.reshape(b * h, t, f),

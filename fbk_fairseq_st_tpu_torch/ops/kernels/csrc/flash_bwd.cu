@@ -219,8 +219,8 @@ flash_bwd_kv_kernel(Args a) {
   extern __shared__ float smem[];
   const Tiles<D> sm(smem);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int s0 = blockIdx.x * kBlockN;
-  const size_t bh = blockIdx.y;
+  const int s0 = blockIdx.y * kBlockN;
+  const size_t bh = blockIdx.x;
 
   load_kv_tile<T, D>(sm, a, bh, s0);
 
@@ -315,8 +315,8 @@ flash_bwd_q_kernel(Args a) {
   extern __shared__ float smem[];
   const Tiles<D> sm(smem);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kBlockM;
-  const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.y * kBlockM;
+  const size_t bh = blockIdx.x;
 
   load_q_tile<T, D>(sm, a, bh, q0);
 
@@ -363,8 +363,9 @@ enum Which { kFused = 0, kDq = 1, kDkv = 2 };
 template <typename T, int D>
 cudaError_t launch(Which which, const Args& a, int bh, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  const dim3 kv_grid((a.s_len + kBlockN - 1) / kBlockN, bh);
-  const dim3 q_grid((a.t_len + kBlockM - 1) / kBlockM, bh);
+  // bh on x (up to 2^31 - 1), the tiles on y (at most 65,535)
+  const dim3 kv_grid(bh, (a.s_len + kBlockN - 1) / kBlockN);
+  const dim3 q_grid(bh, (a.t_len + kBlockM - 1) / kBlockM);
   cudaError_t err;
   // above 48 KB of dynamic shared memory a kernel must opt in
   switch (which) {
@@ -407,7 +408,8 @@ int run(Which which, const void* q, const void* k, const void* v,
         void* dq, void* dk, void* dv, int bh, int t_len, int s_len,
         int head_dim, float scale, int causal, uint32_t drop_thresh,
         float keep_prob, uint64_t seed, int is_bf16, void* stream) {
-  if (bh <= 0 || bh > 65535 || t_len <= 0 || s_len <= 0)
+  if (bh <= 0 || t_len <= 0 || s_len <= 0 ||
+      (t_len + kBlockM - 1) / kBlockM > 65535 || (s_len + kBlockN - 1) / kBlockN > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout,
                static_cast<const float*>(bias), static_cast<const float*>(lse),

@@ -95,8 +95,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int q0 = blockIdx.x * kBlockM;
-  const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.y * kBlockM;
+  const size_t bh = blockIdx.x;
 
   const T* qb = q + bh * t_len * D;
   const T* kb = k + bh * s_len * D;
@@ -247,7 +247,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.t_len + kBlockM - 1) / kBlockM, a.bh);
+  // bh on x (up to 2^31 - 1), the q tiles on y (at most 65,535)
+  const dim3 grid(a.bh, (a.t_len + kBlockM - 1) / kBlockM);
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
@@ -278,7 +279,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int t_len, int s_len, int head_dim, float scale,
                          int causal, uint32_t drop_thresh, float keep_prob,
                          uint64_t seed, int is_bf16, void* stream) {
-  if (bh <= 0 || bh > 65535 || t_len <= 0 || s_len <= 0)
+  if (bh <= 0 || t_len <= 0 || s_len <= 0 || (t_len + kBlockM - 1) / kBlockM > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, bias, out, lse, bh, t_len, s_len,
                scale, causal, drop_thresh, keep_prob, seed};

@@ -53,8 +53,8 @@ TC_DTYPES = {"tc": torch.bfloat16, "tf32x3": torch.float32}
 
 # The backward of a CUDA call: the fused kernel (dQ, dK, dV in one launch,
 # dQ added with fp32 atomics, so its last bits vary from run to run) or the
-# split dq + dkv pair (deterministic). None: ``use_fused_backward``'s
-# measured rule; True / False force the fused kernel / the split pair.
+# split dq + dkv pair (deterministic). None: ``use_fused_backward``'s rule,
+# the pair everywhere; True / False force the fused kernel / the pair.
 FUSED_BWD: Optional[bool] = None
 
 # Kernel launches since the last reset (the plain versions do not count).
@@ -114,18 +114,14 @@ def fwd_route(dtype, d: int) -> str:
 
 def fwd_check_shape(route: str, bh: int, t: int, d: int) -> None:
     """Raise ValueError for a forward that the route's kernel does not
-    take; needs no card. "tc" and "tf32x3": bh is the grid's x dimension
-    and takes any batch, the 64-row q tiles its y dimension, at most
-    65,535; head dim 32 or 64. "cuda_core": bh is the grid's y dimension,
-    at most 65,535."""
-    if route in TC_KERNELS:
-        name = TC_KERNELS[route][0]
-        if d not in TC_HEAD_DIMS:
-            raise ValueError(f"{name}: head dim {d} not in {TC_HEAD_DIMS}")
-        if -(-t // TC_TILE) > 65535:
-            raise ValueError(f"{name}: T {t} over 65,535 tiles of {TC_TILE}")
-    elif bh > 65535:
-        raise ValueError(f"flash_fwd: bh {bh} > 65535")
+    take; needs no card. Every route puts bh on the grid's x dimension,
+    which takes any batch, and the 64-row q tiles on its y dimension, at
+    most 65,535. "tc" and "tf32x3" take head dim 32 or 64."""
+    name = TC_KERNELS[route][0] if route in TC_KERNELS else "flash_fwd"
+    if route in TC_KERNELS and d not in TC_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {TC_HEAD_DIMS}")
+    if -(-t // TC_TILE) > 65535:
+        raise ValueError(f"{name}: T {t} over 65,535 tiles of {TC_TILE}")
 
 
 def tc_fwd_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
@@ -144,8 +140,10 @@ def split_route(dtype, d: int) -> str:
     F' = 20 padded to 32) the tensor cores, "tc" (``csrc/flash_bwd_tc.cu``)
     in bf16 and "tf32x3" (``csrc/flash_bwd_tf32x3.cu``, three tf32 products
     a product, within the fp32 limits where one is not) in fp32;
-    "cuda_core" (``csrc/flash_bwd.cu``) at D 16 and 128, which no model
-    reaches."""
+    "cuda_core" (``csrc/flash_bwd.cu``) at D 16 and 128. A model reaches
+    D 128: the iwslt lightconv presets' 4 heads over 512 dims, whose decoder
+    cross-attention every train step of theirs runs (``TRAIN_BACKWARD_SHAPES``'
+    ``lightconv_iwslt_cross_attention``)."""
     if d in TC_HEAD_DIMS:
         for route, dt in TC_DTYPES.items():
             if dtype == dt:
@@ -155,14 +153,16 @@ def split_route(dtype, d: int) -> str:
 
 def use_fused_backward(dtype, d: int) -> bool:
     """Whether a CUDA call of ``dtype`` at kernel head dim ``d`` takes the
-    fused kernel: ``FUSED_BWD`` when set; else the fused kernel where the
-    split pair would run on the CUDA cores (1.5x slower than fused) and the
-    tensor-core pair everywhere it runs, since it beat the fused kernel at
-    every backward call of the train steps in its type (``pair_wins``,
-    PERF.md section 6)."""
+    fused kernel: ``FUSED_BWD`` when set; else never. Every default route is
+    a split pair and bitwise repeatable: at D 32 and 64 the tensor-core pair
+    of the call's type, which beat the fused kernel at every backward call
+    of the train steps in its type (``pair_wins``, PERF.md section 6); at
+    D 16 and 128 the CUDA-core pair, chosen by its repeatability and not by
+    its time (the fused kernel adds dQ with atomics in no fixed order and
+    may be faster there; the flash sweep times both at the iwslt call)."""
     if FUSED_BWD is not None:
         return FUSED_BWD
-    return split_route(dtype, d) == "cuda_core"
+    return False
 
 
 @contextlib.contextmanager
@@ -182,9 +182,10 @@ def pair_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
     """The backward decision's rule, per call: from {call: (fused ms, pair
     ms)} device times, whether the tensor-core pair of the call's type is
     at least as fast as the fused kernel there. ``use_fused_backward`` takes
-    the pair on every call because this held at each of the train steps'
-    backward calls in both types; a call where it fails is a crossover that
-    needs a key-count gate."""
+    the tensor-core pair on every call at D 32 and 64 because this held at
+    each of the train steps' backward calls there in both types; a call
+    where it fails is a crossover that needs a key-count gate. Calls at
+    D 16 and 128 have no tensor-core pair and are not ruled by it."""
     return {name: pair <= fused for name, (fused, pair) in times.items()}
 
 

@@ -1,0 +1,57 @@
+"""Name -> component registries over what the port has, and the arch
+presets' defaults on a parsed args namespace.
+
+Counterpart of ``fbk_fairseq_st_tpu/registry.py`` (reference
+fairseq/registry.py and fairseq/models/__init__.py:124-159): ``TASKS``,
+``CRITERIONS`` and the model ``ARCHITECTURES`` the port runs, each a
+``Registry`` whose entries may add their CLI flags (``add_args``);
+``apply_architecture`` fills every option of ``args.arch`` that the
+namespace lacks with the preset's value (the JAX presets'
+``args.x = getattr(args, "x", default)``), so a parsed or checkpointed
+namespace carries the whole configuration.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict
+
+from . import criterions, models, tasks
+
+
+class Registry:
+    """A named set of components; a class may define ``add_args(parser)``."""
+
+    def __init__(self, kind: str, entries: Dict[str, Any]):
+        self.kind = kind
+        self._entries = dict(entries)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
+    def __getitem__(self, name: str) -> Any:
+        if name not in self._entries:
+            raise KeyError(f"Unknown {self.kind}: {name!r}. Available: {sorted(self._entries)}")
+        return self._entries[name]
+
+    def add_args(self, name: str, parser) -> None:
+        cls = self[name]
+        if hasattr(cls, "add_args"):
+            cls.add_args(parser)
+
+
+TASKS = Registry("task", tasks.TASKS)
+CRITERIONS = Registry("criterion", criterions.CRITERIONS)
+ARCHITECTURES = Registry("architecture", models.ARCHITECTURES)
+
+
+def apply_architecture(args: argparse.Namespace) -> None:
+    """Back-fill the preset's options of ``args.arch`` onto ``args``; an
+    arch the port lacks raises ``NotImplementedError``."""
+    arch = getattr(args, "arch", None)
+    if arch is None:
+        return
+    for name, value in models.arch_defaults(arch).items():
+        if not hasattr(args, name):
+            setattr(args, name, value)
+

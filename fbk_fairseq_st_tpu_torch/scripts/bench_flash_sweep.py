@@ -95,9 +95,10 @@ KERNEL_SHAPES = ((32, 2048, False), (64, 2048, True))  # (bh, S, causal)
 # them: the conv_transformer step at batch 128 (4 heads, T' = 512 / 4
 # frames, 48 target tokens), the dual-decoder step's auxiliary decoder at
 # the same batch (64 transcript tokens), the lightconv decoder's encoder
-# attention at batch 64 (16 heads, 56 tokens, sources padded on the left)
-# and the long-context step's encoder self-attention and time attention
-# (batch 8, T' = 2048)
+# attention at batch 64 (16 heads, 56 tokens, sources padded on the left),
+# the iwslt lightconv presets' (4 heads over 512 dims: D 128, which the
+# tensor cores do not take; batch 64) and the long-context step's encoder
+# self-attention and time attention (batch 8, T' = 2048)
 TRAIN_BACKWARD_SHAPES = [
     ("encoder_self_attention", 512, 128, 128, 64, False, 0.1, False),
     ("time_attention", 512, 128, 128, 20, False, 0.3, False),
@@ -106,6 +107,7 @@ TRAIN_BACKWARD_SHAPES = [
     ("aux_decoder_causal_self_attention", 512, 64, 64, 64, True, 0.1, False),
     ("aux_decoder_cross_attention", 512, 64, 128, 64, False, 0.1, False),
     ("lightconv_cross_attention", 1024, 56, 56, 64, False, 0.1, True),
+    ("lightconv_iwslt_cross_attention", 256, 56, 56, 128, False, 0.1, True),
     ("long_encoder_self_attention", 32, 2048, 2048, 64, False, 0.1, False),
     ("long_time_attention", 32, 2048, 2048, 20, False, 0.3, False),
 ]
@@ -404,6 +406,12 @@ def measure_backward(name: str, bh: int, t: int, s: int, d: int, causal: bool, r
             raise RuntimeError(f"{name} {dtype}: no trace kept a launch of the {route} kernels")
         row[f"{route}_device_ms"] = sum(times)
         row[f"{route}_wall_ms"] = time_ms(run)
+    if row["pair_route"] == "cuda_core":
+        # no tensor-core pair here: SDPA's forward + backward beside the
+        # CUDA-core kernels, at rate 0 (no fused backend takes the kernels'
+        # Philox dropout), for the decision on a tensor-core kernel
+        q, k, v, bias, _, _, g, scale, causal = args[:9]
+        row["library_fwd_bwd_ms"], row["library_backend"] = time_library(q, k, v, bias, scale, causal, grad=g)
     return row
 
 
@@ -475,7 +483,16 @@ def gate_from(rows: List[Dict]) -> Dict:
     forward's ``fwd_route`` rows, CUDA-core against tensor-core
     (``fa.tc_fwd_wins``); both again for the fp32 rows under ``tf32x3_``
     names; and the device times of both backwards at S = 2048, not causal.
-    A row without a ``dtype`` is bf16."""
+    A row without a ``dtype`` is bf16.
+
+    The flags decide the tensor-core routes, so they are taken over the
+    calls that a tensor-core kernel serves (a row whose ``route`` /
+    ``pair_route`` is not "cuda_core"; a row without one is such a call),
+    and every such call stays in them. A call at a head dim the tensor
+    cores do not take (D 128, the iwslt presets') is routed to the
+    CUDA-core pair by its bitwise repeat, not by time: its forward, fused
+    and pair device times and SDPA's are reported on their own, under
+    ``{prefix}cuda_core_calls``."""
     gates = {}
     for kind in sorted({r["kind"] for r in rows if r["kind"].startswith("route_")}):
         ratios = sorted((r["S"], r["dense_over_flash"]) for r in rows if r["kind"] == kind)
@@ -489,9 +506,12 @@ def gate_from(rows: List[Dict]) -> Dict:
     for dtype, tc in TC_ROUTES.items():
         fwd_flag, bwd_flag, prefix = FLAG_NAMES[tc]
         of_type = [r for r in rows if r.get("dtype", "bfloat16") == dtype]
-        fwd_calls = [r for r in of_type if r["kind"] == "fwd_route"]
+        fwd_all = [r for r in of_type if r["kind"] == "fwd_route"]
+        fwd_calls = [r for r in fwd_all if r.get("route", tc) != "cuda_core"]
         fwd_wins = fa.tc_fwd_wins({r["shape"]: (r["cuda_core_device_ms"], r[f"{tc}_device_ms"]) for r in fwd_calls})
-        calls = [r for r in of_type if r["kind"] == "bwd_route"]
+        bwd_all = [r for r in of_type if r["kind"] == "bwd_route"]
+        calls = [r for r in bwd_all if r.get("pair_route", tc) != "cuda_core"]
+        fwd_cc = {r["shape"]: r["cuda_core_device_ms"] for r in fwd_all if r not in fwd_calls}
         wins = fa.pair_wins({r["shape"]: (r["fused_device_ms"], r["pair_device_ms"]) for r in calls})
         out.update({
             f"{fwd_flag}_by_call": fwd_wins, f"{fwd_flag}_everywhere": all(fwd_wins.values()),
@@ -502,6 +522,12 @@ def gate_from(rows: List[Dict]) -> Dict:
                 r["shape"]: {"S": r["S"], "fused": r["fused_device_ms"], "pair": r["pair_device_ms"],
                              **{k: r[k + "_device_ms"] for k in ("cuda_core_pair",) if k + "_device_ms" in r}}
                 for r in calls},
+            f"{prefix}cuda_core_calls": {
+                r["shape"]: {"S": r["S"], "D": r["D"], "fwd": fwd_cc.get(r["shape"]), "fused": r["fused_device_ms"],
+                             "pair": r["pair_device_ms"], "pair_over_fused": r["pair_device_ms"] / r["fused_device_ms"],
+                             "library_fwd_bwd_ms": r.get("library_fwd_bwd_ms"),
+                             "library_backend": r.get("library_backend")}
+                for r in bwd_all if r not in calls},
         })
     out["bwd_device_ms_at_2048_non_causal"] = {
         r["kind"]: r["bwd_device_ms"] for r in rows if r["kind"].startswith("flash_bwd") and r["S"] == 2048
@@ -525,7 +551,9 @@ def print_table(rows: List[Dict]) -> None:
             print(f"{r['shape']:<26} {r['dtype']:<8} backward device ms: fused {r['fused_device_ms']:8.3f}  "
                   f"pair ({r['pair_route']}) {r['pair_device_ms']:8.3f}  cuda_core pair "
                   f"{r['cuda_core_pair_device_ms']:8.3f}; wall ms: fused {r['fused_wall_ms']:8.3f}  "
-                  f"pair {r['pair_wall_ms']:8.3f}")
+                  f"pair {r['pair_wall_ms']:8.3f}"
+                  + (f"; SDPA fwd+bwd {r['library_fwd_bwd_ms']} ms ({r['library_backend']})"
+                     if "library_fwd_bwd_ms" in r else ""))
         elif r["kind"].startswith("route_"):
             print(f"{shape:<26} {r['kind']:<22} fwd+bwd device ms: dense {r['dense_device_ms']:8.3f}  "
                   f"flash {r['flash_device_ms']:8.3f}; wall ms: dense {r['dense_wall_ms']:8.3f}  "

@@ -1,29 +1,123 @@
 """translation task: source tokens -> target tokens.
 
 Counterpart of ``fbk_fairseq_st_tpu/tasks/translation.py``
-(``TranslationTask`` :170) as far as the train step and serving need it:
-the source and target dictionaries, ``build_model`` (:290),
-``build_criterion`` and ``max_positions`` (:285). Reading the binarized
-corpus, with ``--left-pad-source`` / ``--left-pad-target``, comes with the
-wiring (ROADMAP Queue A9); build a ``data.LanguagePairDataset`` from token
-arrays meanwhile (sources padded on the left by default, as there).
-``--eval-bleu`` raises: it needs scoring and the detokenizers (Queue A9).
+(``TranslationTask`` :170, ``load_langpair_dataset`` :27; reference
+fairseq/tasks/translation.py): ``setup_task`` loads ``dict.<src>.txt``
+and ``dict.<tgt>.txt`` (the pair inferred from the file names when not
+given), ``load_dataset`` the binarized pairs ``<split>.<src>-<tgt>.<lang>``
+(either direction's prefix; ``train``, ``train1``, ... with ``combine``)
+into a ``data.LanguagePairDataset`` with ``--left-pad-source`` /
+``--left-pad-target``; ``build_model`` (:290) and ``max_positions``
+(:285). ``--eval-bleu``, ``--load-alignments`` and ``--truncate-source``
+raise (ROADMAP Queue A item 3).
 """
 
 from __future__ import annotations
 
+import itertools
+import logging
+import os
+
+from ..data.datasets import ConcatDataset
+from ..data.dictionary import Dictionary
+from ..data.indexed_dataset import dataset_exists, infer_dataset_impl, load_indexed_dataset
+from ..data.language_pair_dataset import LanguagePairDataset
 from .base import Task
+
+logger = logging.getLogger(__name__)
+
+
+def infer_language_pair(path):
+    """(src, tgt) from file names like train.de-en.de.idx (reference
+    data_utils.infer_language_pair)."""
+    for filename in os.listdir(path):
+        parts = filename.split(".")
+        if len(parts) >= 3 and len(parts[1].split("-")) == 2:
+            return parts[1].split("-")
+    return None, None
+
+
+def load_langpair_dataset(data_path, split, src, src_dict, tgt, tgt_dict, combine, dataset_impl,
+                          left_pad_source, left_pad_target):
+    def split_exists(split_k, src_l, tgt_l, lang):
+        filename = os.path.join(data_path, f"{split_k}.{src_l}-{tgt_l}.{lang}")
+        if dataset_impl is not None:
+            return dataset_exists(filename, impl=dataset_impl)
+        return infer_dataset_impl(filename) is not None
+
+    src_datasets, tgt_datasets = [], []
+    for k in itertools.count():
+        split_k = split + (str(k) if k > 0 else "")
+        if split_exists(split_k, src, tgt, src):
+            prefix = os.path.join(data_path, f"{split_k}.{src}-{tgt}.")
+        elif split_exists(split_k, tgt, src, src):
+            prefix = os.path.join(data_path, f"{split_k}.{tgt}-{src}.")
+        elif k > 0:
+            break
+        else:
+            raise FileNotFoundError(f"Dataset not found: {split} ({data_path})")
+        src_datasets.append(load_indexed_dataset(prefix + src, src_dict, dataset_impl))
+        tgt_datasets.append(load_indexed_dataset(prefix + tgt, tgt_dict, dataset_impl))
+        logger.info("{} {} {}-{} {} examples".format(data_path, split_k, src, tgt, len(src_datasets[-1])))
+        if not combine:
+            break
+    if len(src_datasets) == 1:
+        src_dataset, tgt_dataset = src_datasets[0], tgt_datasets[0]
+    else:
+        src_dataset, tgt_dataset = ConcatDataset(src_datasets), ConcatDataset(tgt_datasets)
+    return LanguagePairDataset(src_dataset, src_dataset.sizes, src_dict, tgt_dataset, tgt_dataset.sizes, tgt_dict,
+                               left_pad_source=left_pad_source, left_pad_target=left_pad_target)
 
 
 class TranslationTask(Task):
+    @staticmethod
+    def add_args(parser):
+        parser.add_argument("data", help="binarized corpus director(ies), os.pathsep-joined")
+        parser.add_argument("-s", "--source-lang", default=None, metavar="SRC",
+                            help="language code of the input side (inferred from the file names when omitted)")
+        parser.add_argument("-t", "--target-lang", default=None, metavar="TARGET",
+                            help="language code of the output side (inferred from the file names when omitted)")
+        parser.add_argument("--left-pad-source", default="True", type=str, metavar="BOOL",
+                            help="put source padding before the tokens rather than after")
+        parser.add_argument("--left-pad-target", default="False", type=str, metavar="BOOL",
+                            help="put target padding before the tokens rather than after")
+        parser.add_argument("--max-source-positions", default=1024, type=int, metavar="N")
+        parser.add_argument("--max-target-positions", default=1024, type=int, metavar="N")
+        parser.add_argument("--upsample-primary", default=1, type=int)
+        parser.add_argument("--load-alignments", action="store_true")
+        parser.add_argument("--truncate-source", action="store_true", default=False)
+        parser.add_argument("--eval-bleu", action="store_true")
+
     def __init__(self, args, src_dict, tgt_dict):
         super().__init__(args)
-        if getattr(args, "eval_bleu", False):
-            raise NotImplementedError("--eval-bleu needs scoring and detokenizers (ROADMAP Queue A9)")
+        for flag in ("eval_bleu", "load_alignments", "truncate_source"):
+            if getattr(args, flag, False):
+                raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported (ROADMAP Queue A item 3)")
         if src_dict.pad() != tgt_dict.pad() or src_dict.eos() != tgt_dict.eos() or src_dict.unk() != tgt_dict.unk():
             raise ValueError("source and target dictionaries must share pad, eos and unk")
         self.src_dict = src_dict
         self.tgt_dict = tgt_dict
+        self.paths = getattr(args, "data", "").split(os.pathsep)
+
+    @classmethod
+    def setup_task(cls, args, **kwargs):
+        args.left_pad_source = str(args.left_pad_source).lower() == "true"
+        args.left_pad_target = str(args.left_pad_target).lower() == "true"
+        paths = args.data.split(os.pathsep)
+        if args.source_lang is None or args.target_lang is None:
+            args.source_lang, args.target_lang = infer_language_pair(paths[0])
+        if args.source_lang is None or args.target_lang is None:
+            raise ValueError("Could not infer language pair, please provide it explicitly")
+        src_dict = Dictionary.load(os.path.join(paths[0], f"dict.{args.source_lang}.txt"))
+        tgt_dict = Dictionary.load(os.path.join(paths[0], f"dict.{args.target_lang}.txt"))
+        return cls(args, src_dict, tgt_dict)
+
+    def load_dataset(self, split, combine=False, **kwargs):
+        self.datasets[split] = load_langpair_dataset(
+            self.paths[0], split, self.args.source_lang, self.src_dict, self.args.target_lang, self.tgt_dict,
+            combine=combine, dataset_impl=getattr(self.args, "dataset_impl", None),
+            left_pad_source=getattr(self.args, "left_pad_source", True),
+            left_pad_target=getattr(self.args, "left_pad_target", False))
 
     @property
     def source_dictionary(self):
@@ -32,7 +126,3 @@ class TranslationTask(Task):
     @property
     def target_dictionary(self):
         return self.tgt_dict
-
-    def max_positions(self):
-        return (getattr(self.args, "max_source_positions", 1024),
-                getattr(self.args, "max_target_positions", 1024))

@@ -127,15 +127,14 @@ def test_gate_from_takes_the_rule_on_device_times(case):
 @pytest.mark.parametrize("forced", [None, True, False], ids=["rule", "fused", "split"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_use_fused_backward(monkeypatch, dtype, forced):
-    """``FUSED_BWD`` forces a route when set; else the fused kernel takes
-    every call whose pair would run on the CUDA cores (either type at D 16
-    and 128) and the tensor-core pair of the call's type every other
-    call."""
+    """``FUSED_BWD`` forces a route when set; else no call takes the fused
+    kernel: the tensor-core pair of the call's type at D 32 and 64, the
+    CUDA-core pair at D 16 and 128 (the iwslt presets' D 128 included), so
+    every default route is bitwise repeatable."""
     monkeypatch.setattr(tflash, "FUSED_BWD", forced)
     for d in tflash.KERNEL_HEAD_DIMS:
-        rule = tflash.split_route(DTYPES[dtype], d) == "cuda_core"
-        assert rule == (d in (16, 128))
-        assert tflash.use_fused_backward(DTYPES[dtype], d) == (forced if forced is not None else rule)
+        assert (tflash.split_route(DTYPES[dtype], d) == "cuda_core") == (d in (16, 128))
+        assert tflash.use_fused_backward(DTYPES[dtype], d) == (forced if forced is not None else False)
 
 
 @pytest.mark.parametrize("found", [None, True, False], ids=["rule", "fused", "split"])

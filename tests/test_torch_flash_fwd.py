@@ -1,7 +1,7 @@
 """PyTorch port, the flash forward's routing on the CPU: which kernel a
 CUDA call would take (``fwd_route``), each route's shape limits
-(``fwd_check_shape``: the tensor-core kernels, bf16 and fp32, take any bh,
-the CUDA-core kernel at most 65,535), the route's rule on device times
+(``fwd_check_shape``: every kernel, bf16 and fp32, takes any bh and at
+most 65,535 q tiles), the route's rule on device times
 (``tc_fwd_wins``, which the flash sweep's ``gate_from`` also reads, in
 each type), and the CPU route, which runs the plain forward and launches
 nothing.
@@ -69,16 +69,16 @@ def test_tf32x3_forward_refuses_other_head_dims(d):
 @pytest.mark.parametrize("d", tflash.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_bh_cap_on_the_cuda_core_route_only(dtype, d):
-    """bh = 65,536 is refused where the call's route is the CUDA-core
-    kernel (bh on the grid's y dimension) and taken on the tensor cores;
-    65,535 is taken by both."""
+    """No route caps bh any more: the CUDA-core kernel, as the tensor-core
+    ones, puts bh on the grid's x dimension (70,000 is the chip check's
+    call), and every route refuses more than 65,535 q tiles of 64 rows
+    (the grid's y dimension)."""
     route = tflash.fwd_route(DTYPES[dtype], d)
-    tflash.fwd_check_shape(route, 65535, 128, d)
-    if route == "cuda_core":
-        with pytest.raises(ValueError):
-            tflash.fwd_check_shape(route, 65536, 128, d)
-    else:
-        tflash.fwd_check_shape(route, 65536, 128, d)
+    for bh in (65535, 65536, 70000, 10 ** 6):
+        tflash.fwd_check_shape(route, bh, 128, d)
+    tflash.fwd_check_shape(route, 3, 65535 * 64, d)
+    with pytest.raises(ValueError):
+        tflash.fwd_check_shape(route, 3, 65535 * 64 + 1, d)
 
 
 # {call: (CUDA-core ms, tensor-core ms)} device times, and whether the

@@ -208,3 +208,21 @@ def test_auto_mode_sends_every_cuda_call_to_flash():
         assert not tattn.flash_enabled(cuda)
     finally:
         tattn.set_flash_attention(None)
+
+
+@pytest.mark.parametrize("head_dim", [16, 64, 128, 129, 256, 512])
+def test_head_dims_above_128_take_the_dense_route(head_dim):
+    """``flash_eligible`` is a pure function of the call: on a CUDA device
+    head dims up to 128 take flash, above it the dense route (as JAX's
+    non-TPU branch at any head dim), whatever ``set_flash_attention``
+    forces; a cache, an additive mask, a penalty or need_weights take the
+    dense route anywhere; the CPU takes flash only when forced."""
+    fits = head_dim <= 128
+    assert tattn.flash_eligible("cuda", head_dim) == fits
+    assert tattn.flash_eligible("cuda", head_dim, "causal") == fits
+    assert tattn.flash_eligible("cuda", head_dim, forced=True) == fits
+    assert not tattn.flash_eligible("cpu", head_dim)
+    assert tattn.flash_eligible("cpu", head_dim, forced=True) == fits
+    assert not tattn.flash_eligible("cuda", head_dim, forced=False)
+    for kwargs in (dict(mask="additive"), dict(cache=True), dict(penalty=True), dict(need_weights=True)):
+        assert not tattn.flash_eligible("cuda", head_dim, **kwargs)

@@ -64,12 +64,13 @@ def torch_dictionary(n: int = VOCAB) -> TorchDictionary:
 
 def _build_pair(**over):
     jd = dummy_dictionary(VOCAB)
-    args = model_args("conv_transformer", **SMALL, **over)
+    options = {**SMALL, **over}
+    args = model_args("conv_transformer", **options)
     registry.apply_architecture(args)
     jmodel = registry.build_model(args, DummyTask(jd))
     variables = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
     td = torch_dictionary()
-    tmodel = tct.build_model("conv_transformer", td, device="cpu", seed=1, **SMALL, **over)
+    tmodel = tct.build_model("conv_transformer", td, device="cpu", seed=1, **options)
     tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
     return jd, jmodel, variables, td, tmodel
 
@@ -271,3 +272,27 @@ def test_dictionary_matches_jax():
     assert td.string(ids) == jd.string(ids)
     assert td.string(np.array([td.index("a"), td.index("b")]), bpe_symbol="a") == jd.string(
         np.array([jd.index("a"), jd.index("b")]), bpe_symbol="a")
+
+
+def test_wide_heads_take_the_dense_route_and_match_jax(monkeypatch, flash_routes):
+    """2 heads over 512 dims (head dim 256, past the kernels' 128): with
+    the flash route forced on, every multi-head attention call takes the
+    dense route (the flash entry raises if reached), and the encoder
+    output and teacher-forced logits match JAX's at atol 1e-4."""
+    wide = dict(encoder_embed_dim=512, decoder_embed_dim=512, encoder_layers=1, decoder_layers=1)
+    _, jmodel, variables, _, tmodel = _build_pair(**wide)
+    batch = _batch(seed=1)
+    flash_routes(False)
+    (jlogits, jextra), _ = jmodel.forward(variables, {k: jnp.asarray(v) for k, v in batch.items()}, training=False)
+    tattn.set_flash_attention(True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("head dim 256 reached the flash route")
+
+    monkeypatch.setattr(tattn, "flash_attention", refuse)
+    with torch.no_grad():
+        tlogits, textra = tmodel({k: torch.tensor(v).long() if v.dtype != np.float32 else torch.tensor(v)
+                                  for k, v in batch.items()})
+    np.testing.assert_allclose(textra["encoder_out"].encoder_out.numpy(),
+                               np.asarray(jextra["encoder_out"].encoder_out), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-4)

@@ -19,7 +19,7 @@ from fbk_fairseq_st_tpu.generation import SequenceGenerator as JaxSequenceGenera
 from fbk_fairseq_st_tpu.generation import twophase_sequence_generator as jtp
 from fbk_fairseq_st_tpu.generation.sequence_generator import EnsembleModel as JaxEnsembleModel
 from fbk_fairseq_st_tpu.models.base import reorder_encoder_out as jax_reorder_encoder_out
-from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator, TwoPhaseSequenceGenerator
+from fbk_fairseq_st_tpu_torch.generation import BeamSearch, SequenceGenerator, TwoPhaseSequenceGenerator
 from fbk_fairseq_st_tpu_torch.generation import twophase_sequence_generator as ttp
 from fbk_fairseq_st_tpu_torch.generation.sequence_generator import EnsembleModel
 from fbk_fairseq_st_tpu_torch.models import reorder_encoder_out
@@ -209,10 +209,24 @@ def test_task_builds_the_twophase_generator():
 @pytest.mark.parametrize("option", ["bos_token", "search_strategy", "seed"])
 def test_generator_options_not_ported_raise(option):
     """``bos_token`` (a ``generate`` argument), ``search_strategy`` and
-    ``seed`` are not ported yet (ROADMAP Queue A): passing one raises."""
+    ``seed`` are ported since PR 11 (their parity with JAX is
+    ``tests/test_torch_search.py``'s): each is taken, an explicit
+    ``BeamSearch`` and a seed give the default's hypotheses exactly, a bos
+    token of its own changes them; an option the generator lacks still
+    raises."""
     _, _, tmodel = built("conv_transformer_dualdecoder")
+    d = torch_dictionary(TGT_VOCAB)
+    plain = SequenceGenerator(d, beam_size=2).generate([tmodel], request())
+    if option == "bos_token":
+        got = SequenceGenerator(d, beam_size=2).generate([tmodel], request(), bos_token=5)
+        assert any(not np.array_equal(a[0]["tokens"], b[0]["tokens"]) for a, b in zip(got, plain))
+    else:
+        value = BeamSearch(d) if option == "search_strategy" else 7
+        got = SequenceGenerator(d, beam_size=2, **{option: value}).generate([tmodel], request())
+        for a, b in zip(got, plain):
+            np.testing.assert_array_equal(a[0]["tokens"], b[0]["tokens"])
+            assert a[0]["score"] == b[0]["score"]
     with pytest.raises(TypeError):
-        if option == "bos_token":
-            SequenceGenerator(torch_dictionary(TGT_VOCAB), beam_size=2).generate([tmodel], request(), bos_token=0)
-        else:
-            SequenceGenerator(torch_dictionary(TGT_VOCAB), beam_size=2, **{option: 1})
+        SequenceGenerator(d, beam_size=2, no_such_option=1)
+
+

@@ -41,7 +41,11 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      D 16), and in fp32 at D 32 and 64 the CUDA-core forward and pair
      launched directly, against the plain versions on the same inputs and
      seed, with the same times and bounds (the library time of a backward
-     is SDPA's forward + backward at rate 0); then, at the long D 64 call in
+     is SDPA's forward + backward at rate 0; at the iwslt call SDPA's device
+     time too, the forward and the backward apart, each call's kernels
+     summed in a trace, on the fused backend fastest by that time, since
+     its wall time there is host-bound); then, at
+     the long D 64 call in
      each type, the tensor-core pair's dq, dk, dv again, and at the iwslt
      D 128 call the CUDA-core pair's (the default backward there), bitwise
      equal to the first (asserted), and the fused kernel's dQ spread;
@@ -120,7 +124,13 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      padded), and in bf16 a long ragged row (bh 2, T 700, S 8192, padded)
      past the fp32 kernel's shared memory, with the wrapper's, the device,
      the plain, the SDPA and the bound times; then the refusals: D 32 in
-     both types, S 3308 at t_block 16 in fp32 and t_block 16 in bf16;
+     both types, S 3308 at t_block 16 in fp32 and t_block 16 in bf16; then
+     past the 65,535 of a grid's y dimension, which neither kernel caps its
+     rows at any more: the single pass at bh 70,000 x T 16 x S 128 (fp32 and
+     bf16, each t_block) and the CUDA-core dynamic conv at B 70,000 x T 16
+     x C 64 x H 4 x K 3 (forward and backward, fp32 and bf16), each against
+     its plain version at this phase's and phase 5's tolerances (the single
+     pass's bf16 out element by element within two bf16 ulps, not one);
  13. the flash sweep (main path 5, the one path that runs the single-pass
      kernel): ``scripts/bench_flash_sweep.run`` in full, its rows and the
      inputs of the gate, forward and backward decisions in bf16 and fp32
@@ -218,7 +228,29 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      step, the augmentation's own device ms, phase 7's launches a step,
      the losses finite, and the share of elements one SpecAugment draw
      zeroes within its expected range;
- 24. the ``kernels`` line (the CUDA-core dynamic-conv kernels with 0 main-path
+ 24. train from files (main path 14), the README's quick start on the card:
+     a corpus of 640 train and 64 valid utterances of 409-512 frames x 80
+     mels, target text of 20-48 and transcript text of 30-64 tokens over
+     phase 6's dictionary, written with the port's builders;
+     ``cli/train``'s ``cli_main`` with the quick start's arguments
+     (``conv_transformer``, ``ctc_multi_loss`` over label-smoothed CE 0.1,
+     CTC after encoder layer 4 with compression, Adam, lr 0.002
+     inverse_sqrt over 4000 warmup updates, clip-norm 10, --max-tokens
+     25000, --bf16) for 2 epochs, validating and saving at each epoch's end;
+     every update launches exactly phase 7's 20 tensor-core forwards and
+     20 + 20 tensor-core dq + dkv, every validation batch 20 forwards, and
+     nothing else; then a second save dir stopped at ``--max-update`` 5 and
+     resumed from its ``checkpoint_last.pt``: the resumed run's epoch,
+     update count, iterator position, lr and best equal the straight run's
+     and its losses after the stop are the straight run's within 1e-3
+     relative; the CLI's median update wall beside ``Trainer.train_step``'s
+     on the CLI's first batch, the busy ms and idle share of one profiled
+     update, validation and save seconds, checkpoint bytes; then
+     ``cli/generate`` decodes the valid split from the straight run's
+     ``checkpoint_best.pt``: 8 tf32x3 forwards a batch, its weights
+     bitwise the trainer's when it wrote the file, its H- lines those of
+     the in-memory generator on those weights (scores within 1e-4);
+ 25. the ``kernels`` line (the CUDA-core dynamic-conv kernels with 0 main-path
      launches, marked as reached by a direct call only), the card line, and
      the final ``ok`` line.
 
@@ -253,6 +285,11 @@ Tolerances (stated here, checked below):
   * ``cli/generate`` against the in-memory generator on the same batches
     and weights: the same hypotheses, scores within 1e-4 (the same
     kernels on the same inputs);
+  * ``cli/train`` resumed against the straight run: the losses after the
+    stop within 1e-3 relative (bf16 compute, and ``F.ctc_loss``'s CUDA
+    backward sums with atomics, so two runs of the same update may part in
+    their last bits), the best valid loss within the same, and the epoch,
+    update count, iterator position and lr equal;
   * the serving models, flash vs dense, kernel vs plain route and card vs
     CPU: atol 1e-3 in fp32 (8 attention or 13 conv layers summed in
     another order; two-phase: the auxiliary decoder's states and the
@@ -296,8 +333,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # the timers, the card line and the SDPA yardstick: the sweep module's
 from fbk_fairseq_st_tpu_torch.scripts.bench_flash_sweep import (  # noqa: E402
-    BWD_KERNEL_NAMES, FWD_KERNEL_NAMES, TRAIN_BACKWARD_SHAPES, card_line, device_busy, device_ms, time_library,
-    time_ms)
+    BWD_KERNEL_NAMES, FWD_KERNEL_NAMES, TRAIN_BACKWARD_SHAPES, card_line, device_busy, device_ms,
+    library_device_ms, time_library, time_ms)
 
 # H100 SXM data sheet (dense): memory 3.35 TB/s; bf16 tensor cores 989
 # TFLOP/s. fp32 products at fp32 accuracy: 165 TFLOP/s, the tensor cores'
@@ -379,6 +416,9 @@ ROW_SUFFIX = {"cuda_core": "", "tc": "_tc", "tf32x3": "_tf32x3"}
 # each type's pair, bits compared across launches: the tensor-core pair at
 # the long call, the CUDA-core pair (the D 128 default) at the iwslt call
 DETERMINISM_AT = ("long_encoder_self_attention", "lightconv_iwslt_cross_attention")
+# the calls whose SDPA yardstick is also taken as device time (a trace):
+# at the iwslt call the library's wall time is host-bound
+LIBRARY_DEVICE_AT = ("lightconv_iwslt_cross_attention",)
 
 # flash calls a conv_transformer train step makes: 2 time attention (F' =
 # 20 padded to 32), 6 encoder self-attention, 6 decoder causal
@@ -445,6 +485,29 @@ FILES_SCORE_ATOL = 1e-4  # H- scores (base 2) against the in-memory generator's
 SEARCH_UTTERANCES = 8
 SAMPLING_TOPK = 10
 DIVERSE_BEAM, DIVERSE_GROUPS = 4, 2
+
+# training from files (cli/train), the README's quick start at full width:
+# utterances of 409-512 frames x 80 mels a split, target and transcript
+# tokens over phase 6's dictionary; a second run stopped mid epoch 1 and
+# resumed; a bh/B past the 65,535 of a grid's y dimension for A3's checks
+FILES_TRAIN_SPLITS = {"train": 640, "valid": 64}
+FILES_TRAIN_TGT_LEN = (20, 48)
+FILES_TRAIN_TR_LEN = (30, 64)
+FILES_RESUME_AT = 5  # updates: mid epoch 1
+RTOL_RESUME_LOSS = 1e-3  # bf16 compute, and F.ctc_loss's CUDA backward sums with atomics
+QUICK_START = ["--task", "speech_translation_with_transcription", "-s", "en", "-t", "de",
+               "--arch", "conv_transformer", "--input-feat-per-channel", str(N_MELS), "--criterion", "ctc_multi_loss",
+               "--underlying-criterion", "label_smoothed_cross_entropy", "--label-smoothing", "0.1",
+               "--ctc-encoder-layer", "4", "--ctc-compress-out", "--optimizer", "adam", "--lr", "0.002",
+               "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4000", "--clip-norm", "10",
+               "--max-tokens", "25000", "--bf16", "--max-epoch", "2", "--log-format", "json", "--log-interval", "1"]
+CLI_TIMED_STEPS = 5  # Trainer.train_step on the CLI's first batch, beside the CLI's update wall
+GRID_CAP_ROWS = 70_000
+# the single pass's bf16 out at bh 70,000 element by element: two bf16 ulps
+# of |plain| (72 M outputs reach further into the tail of P's rounding than
+# phase 12's 4 M, whose SINGLE_BF16_LIMIT is one ulp); max|err| still within
+# ATOL_KERNEL, so a block that computes the wrong row misses by |out|
+GRID_CAP_BF16_LIMIT = (1e-3, 2.0 ** -6)
 
 # the realistic train step (bench.py:164-171, :497): the base step with
 # SpecAugment at rate 1.0, then with TimeStretch too
@@ -807,6 +870,16 @@ def check_training_kernels(fa, philox):
                     "dtype": str(dtype).replace("torch.", ""), "card": CARD[0]}
             bwd_common = dict(plain_ms=plain_bwd_ms, library_ms=library_bwd_ms, library_backend=library_bwd_backend,
                               library="sdpa forward+backward, rate 0")
+            fwd_library = {}
+            if name in LIBRARY_DEVICE_AT:
+                # SDPA's device time (its host-bound wall time is no yardstick
+                # here): the forward, and the backward apart, each on the
+                # fused backend fastest by device time
+                fwd_library["library_device_ms"], fwd_library["library_device_backend"] = library_device_ms(
+                    q, k, v, bias, scale, causal)
+                bwd_common["library_device_ms"], bwd_common["library_device_backend"] = library_device_ms(
+                    q, k, v, bias, scale, causal, grad=g)
+                bwd_common["library_device"] = "sdpa backward alone, rate 0"
 
             def grad_fields(r):
                 err, ratio, tops, _ = checks[r]
@@ -819,7 +892,7 @@ def check_training_kernels(fa, philox):
                 timings[FWD_ROWS[r]] = dict(
                     kernel_ms=time_ms(call), kernel_device_ms=device_ms(call, FWD_KERNEL_NAMES[r]), route=r,
                     launch="flash_attention" if r == route else "direct", plain_ms=plain_fwd_ms,
-                    library_ms=library_ms, library_backend=library_backend, max_abs_err=fwd_errs[r][0],
+                    library_ms=library_ms, library_backend=library_backend, **fwd_library, max_abs_err=fwd_errs[r][0],
                     lse_max_abs_err=fwd_errs[r][1], atol=ATOL_KERNEL[dtype],
                     bound=attention_bound_ms(bh, t, s, d, causal, dtype))
             fused = bwd_calls["fused"]
@@ -2446,6 +2519,339 @@ def train_realistic(card, d, fa, dconv, single, modules):
     return launches
 
 
+def check_past_grid_cap(single, dconv):
+    """bh (the single pass) and B (the CUDA-core dynamic conv) past the
+    65,535 of a grid's y dimension, each on gridDim.x: the single pass at bh
+    70,000 x T 16 x S 128 (D 64, keys padded) at each t_block, fp32 and
+    bf16, and the dynamic conv at B 70,000 x T 16 x C 64 x H 4 x K 3,
+    forward and backward in fp32 and bf16, each against its plain version
+    at phase 12's and phase 5's tolerances."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = random_attention_inputs(gen, GRID_CAP_ROWS, 128, 128, 64, dtype)
+        q = q[:, :16].contiguous()
+        out_p, lse_p = single.flash_fwd_single_reference(q, k, v, bias, 0.125)
+        for tb in single.T_BLOCKS[dtype]:
+            out_k, lse_k = single.flash_fwd_single(q, k, v, bias, 0.125, t_block=tb)
+            torch.cuda.synchronize()
+            diff = (out_k.float() - out_p.float()).abs()
+            atol, rtol = GRID_CAP_BF16_LIMIT if dtype == torch.bfloat16 else (ATOL_KERNEL[dtype], 0.0)
+            ratio = (diff / (atol + rtol * out_p.float().abs())).max().item()
+            err, lse_err = diff.max().item(), (lse_k - lse_p).abs().max().item()
+            row = {"phase": "grid_cap_check", "kernel": "flash_fwd_single", "bh": GRID_CAP_ROWS, "T": 16, "S": 128,
+                   "D": 64, "t_block": tb, "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                   "lse_max_abs_err": lse_err, "max_err_over_elementwise_limit": ratio, "card": CARD[0]}
+            emit(row)
+            if not (err <= ATOL_KERNEL[dtype] and ratio <= 1.0 and lse_err <= ATOL_LSE):
+                raise AssertionError(f"flash_fwd_single at bh {GRID_CAP_ROWS}: {row}")
+            out[f"single_{row['dtype']}_t{tb}"] = err
+        del q, k, v, bias, out_p, lse_p
+        x = torch.randn((GRID_CAP_ROWS, 16, 64), generator=gen, device="cuda").to(dtype)
+        w = torch.softmax(torch.randn((GRID_CAP_ROWS, 16, 4, 3), generator=gen, device="cuda"), dim=-1).to(dtype)
+        g = torch.randn((GRID_CAP_ROWS, 16, 64), generator=gen, device="cuda").to(dtype)
+        out_k = dconv.dynamic_conv_forward(x, w, 1, route="cuda_core")
+        dx_k, dw_k = dconv.dynamic_conv_backward(x, w, g, 1, route="cuda_core")
+        out_p = dconv.dynamic_conv_reference(x, w, 1)
+        dx_p, dw_p = dconv.dynamic_conv_backward_reference(x, w, g, 1)
+        torch.cuda.synchronize()
+        errs = {name: (a.float() - b.float()).abs().max().item()
+                for name, a, b in (("out", out_k, out_p), ("dx", dx_k, dx_p), ("dw", dw_k, dw_p))}
+        limits = {"out": ATOL_KERNEL[dtype], "dx": ATOL_GRAD[dtype],
+                  "dw": RTOL_DW[dtype] * dw_p.float().abs().max().item()}
+        row = {"phase": "grid_cap_check", "kernel": "dynamic_conv_fwd/bwd (cuda_core)", "B": GRID_CAP_ROWS, "T": 16,
+               "C": 64, "H": 4, "K": 3, "dtype": str(dtype).replace("torch.", ""), "max_abs_err": errs,
+               "limits": limits, "card": CARD[0]}
+        emit(row)
+        if any(errs[key] > limits[key] for key in errs):
+            raise AssertionError(f"the CUDA-core dynamic conv at B {GRID_CAP_ROWS}: {row}")
+        out[f"dconv_{row['dtype']}"] = errs
+        del x, w, g, out_k, dx_k, dw_k, out_p, dx_p, dw_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def write_split(modules, d, data_dir, split, n, tgt_len, tr_len, rng):
+    """One split of a speech-translation corpus in the fork's files,
+    written with the port's builders: ``{split}.npz`` (n utterances of
+    409-512 frames x 80 mels), targets ``{split}.de`` of ``tgt_len`` tokens
+    and transcripts ``{split}.en`` of ``tr_len`` tokens over ``d``. Returns
+    the frame counts."""
+    idx = modules["indexed_dataset"]
+    sample = make_request(rng, n, 409, 512, 512)["net_input"]
+    frames = idx.AudioIndexedDatasetBuilder(os.path.join(data_dir, f"{split}.npz.bin"))
+    for feats, length in zip(sample["src_tokens"], sample["src_lengths"]):
+        frames.add_item(feats[:length])
+    frames.finalize(os.path.join(data_dir, f"{split}.npz.idx"))
+    for lang, lens in (("de", tgt_len), ("en", tr_len)):
+        d.save(os.path.join(data_dir, f"dict.{lang}.txt"))
+        text = idx.IndexedDatasetBuilder(os.path.join(data_dir, f"{split}.{lang}.bin"))
+        for _ in range(n):
+            text.add_item(np.append(rng.randint(4, len(d), size=rng.randint(lens[0], lens[1] + 1) - 1), d.eos()))
+        text.finalize(os.path.join(data_dir, f"{split}.{lang}.idx"))
+    return sample["src_lengths"]
+
+
+class _TrainRecorder:
+    """Counts around the port's Trainer while ``cli/train`` drives it: the
+    kernel launches and the start time of each update and of each
+    validation batch, the values each hands the metrics stack, and the
+    seconds of each validation and each checkpoint save."""
+
+    KEYS = ("loss", "nll_loss", "ctc_loss", "gnorm", "lr")
+
+    def __init__(self, modules, fa, dconv, single):
+        self.modules, self.counters = modules, (fa, dconv, single)
+        self.updates, self.valid_batches, self.logged = [], [], []
+        self.update_starts, self.validate_s, self.save_s = [], [], []
+        self.best_weights = None  # the model's weights when checkpoint_best was last written
+        self._saved = []
+        self._in_valid = False
+
+    def _wrap(self, owner, name, wrapper):
+        original = getattr(owner, name)
+        self._saved.append((owner, name, original))
+        setattr(owner, name, wrapper(original))
+
+    def __enter__(self):
+        rec = self
+
+        def counted(into, stamp=None):
+            def wrap(original):
+                def call(*args, **kwargs):
+                    if stamp is not None:
+                        stamp.append(time.perf_counter())
+                    before = launch_counts(*rec.counters)
+                    out = original(*args, **kwargs)
+                    after = launch_counts(*rec.counters)
+                    into.append({k: after[k] - before[k] for k in after})
+                    return out
+                return call
+            return wrap
+
+        def timed(into):
+            def wrap(original):
+                def call(*args, **kwargs):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = original(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    into.append(time.perf_counter() - t0)
+                    return out
+                return call
+            return wrap
+
+        def logged(original):
+            def call(key, value, *args, **kwargs):
+                if key in rec.KEYS:
+                    rec.logged.append(("valid" if rec._in_valid else "train", key, float(value)))
+                return original(key, value, *args, **kwargs)
+            return call
+
+        def validating(original):
+            def call(*args, **kwargs):
+                rec._in_valid = True
+                try:
+                    return original(*args, **kwargs)
+                finally:
+                    rec._in_valid = False
+            return call
+
+        ckpt = self.modules["checkpoint"]
+
+        def snapshot_best(original):
+            def call(args, trainer, epoch_itr, val_loss):
+                out = original(args, trainer, epoch_itr, val_loss)
+                if val_loss is not None and val_loss == ckpt._manager.best:
+                    rec.best_weights = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+                return out
+            return call
+
+        trainer_cls, cli = self.modules["Trainer"], self.modules["train_cli"]
+        self._wrap(trainer_cls, "train_step", counted(self.updates, self.update_starts))
+        self._wrap(trainer_cls, "valid_step", counted(self.valid_batches))
+        self._wrap(trainer_cls, "valid_step", validating)
+        self._wrap(cli, "validate", timed(self.validate_s))
+        self._wrap(ckpt, "save_checkpoint", timed(self.save_s))
+        self._wrap(ckpt, "save_checkpoint", snapshot_best)
+        self._wrap(self.modules["metrics"], "log_scalar", logged)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+        return False
+
+    def losses(self, tag):
+        """The loss each update ("train") or validation batch ("valid") logged."""
+        return [value for t, key, value in self.logged if t == tag and key == "loss"]
+
+
+def train_from_files(card, d, fa, dconv, single, modules):
+    """Main path 14, the README's quick start on the card: a corpus written
+    with the port's builders (FILES_TRAIN_SPLITS), ``cli/train``'s
+    ``cli_main`` with the QUICK_START arguments at full width for 2 epochs
+    (validating and saving at each epoch's end), then a second save dir
+    stopped at ``--max-update`` FILES_RESUME_AT and resumed to the end of
+    epoch 2. Each update launches exactly phase 7's tensor-core flash
+    kernels and each validation batch its forwards; the resumed run ends
+    where the straight one does and logs its losses within
+    RTOL_RESUME_LOSS. Then ``cli/generate`` decodes the valid split from the
+    straight run's ``checkpoint_best.pt`` (its weights bitwise the
+    trainer's), held to the in-memory generator on the same batches."""
+    import logging
+    import tempfile
+
+    phase_t0 = time.perf_counter()
+    train_cli, options, registry = modules["train_cli"], modules["options"], modules["registry"]
+    root = logging.getLogger()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the CLI's log lines go to a file here, not to this script's output
+        handler = logging.FileHandler(os.path.join(tmp, "train.log"))
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        rng = np.random.RandomState(7)
+        t0 = time.perf_counter()
+        frames = {split: write_split(modules, d, data_dir, split, n, FILES_TRAIN_TGT_LEN, FILES_TRAIN_TR_LEN, rng)
+                  for split, n in FILES_TRAIN_SPLITS.items()}
+        corpus_s = time.perf_counter() - t0
+        dir_a, dir_b = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
+
+        def run(save_dir, *extra):
+            with _TrainRecorder(modules, fa, dconv, single) as rec:
+                t0 = time.perf_counter()
+                trainer, itr = train_cli.cli_main([data_dir, *QUICK_START, "--save-dir", save_dir, *extra])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            return rec, trainer, itr, wall, modules["checkpoint"]._manager.best
+
+        reset_counts(fa, dconv, single)
+        straight = run(dir_a)
+        part1 = run(dir_b, "--max-update", str(FILES_RESUME_AT))
+        part2 = run(dir_b)
+        launches = launch_counts(fa, dconv, single)
+
+        want_update = step_launches(launches, 1, CT_FLASH_CALLS_PER_STEP)
+        want_valid = {k: (CT_FLASH_CALLS_PER_STEP if k == BF16_FORWARD else 0) for k in launches}
+        recs = [straight[0], part1[0], part2[0]]
+        bad = [u for r in recs for u in r.updates if u != want_update] + \
+              [v for r in recs for v in r.valid_batches if v != want_valid]
+        n_updates = sum(len(r.updates) for r in recs)
+        n_valid = sum(len(r.valid_batches) for r in recs)
+        want_total = {k: n_updates * want_update[k] + n_valid * want_valid[k] for k in launches}
+        if bad or launches != want_total:
+            raise AssertionError(f"cli/train launches: {bad[:2]} off the expected {want_update} an update / "
+                                 f"{want_valid} a validation batch; total {launches} for {want_total}")
+        rec_a, trainer_a, itr_a, wall_a, best_a = straight
+        rec_b, trainer_b, itr_b, _, best_b = part2
+        losses_a, losses_b = rec_a.losses("train"), rec_b.losses("train")
+        valid_a = rec_a.losses("valid")
+        if not (losses_a and np.isfinite(losses_a).all() and np.isfinite(losses_b).all()):
+            raise AssertionError(f"non-finite cli/train losses: {losses_a} {losses_b}")
+        tail = losses_a[FILES_RESUME_AT:]
+        resume_rel = max(abs(b - a) / abs(a) for a, b in zip(tail, losses_b)) if tail else float("inf")
+        state_a = (itr_a.epoch, trainer_a.get_num_updates(), itr_a.iterations_in_epoch, trainer_a.get_lr())
+        state_b = (itr_b.epoch, trainer_b.get_num_updates(), itr_b.iterations_in_epoch, trainer_b.get_lr())
+        final = {k: v.detach().clone() for k, v in trainer_a.model.state_dict().items()}
+        params_b = trainer_b.model.state_dict()
+        max_param_diff = max((final[k].float() - params_b[k].float()).abs().max().item() for k in final)
+        ckpt_bytes = os.path.getsize(os.path.join(dir_a, "checkpoint_last.pt"))
+        files_a = sorted(os.listdir(dir_a))
+
+        # the in-memory step on the CLI's first batch, beside the CLI's update wall
+        task = trainer_a.task
+        first = next(iter(modules["checkpoint"].get_train_iterator(trainer_a.args, trainer_a, task,
+                                                                     epoch=0).next_epoch_itr(shuffle=True)))
+        staged = trainer_a.stage_sample(first)
+        step_s = []
+        for _ in range(CLI_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer_a.train_step([staged])
+            trainer_a.flush_logs()
+            step_s.append(time.perf_counter() - t0)
+        wall_s, busy_s, top, classes = profile_window(lambda: (trainer_a.train_step([staged]),
+                                                               trainer_a.flush_logs()))
+        gaps = [b - a for a, b in zip(rec_a.update_starts, rec_a.update_starts[1:])]
+        per_epoch = len(rec_a.updates) // 2
+        cli_update_ms = float(np.median([g for i, g in enumerate(gaps) if (i + 1) % per_epoch]) * 1e3)
+
+        # decode the valid split from the straight run's checkpoint_best.pt,
+        # beside the trainer's weights when it wrote that file
+        best_path = os.path.join(dir_a, "checkpoint_best.pt")
+        best_state = modules["checkpoint"].load_checkpoint_to_cpu(best_path)
+        best_is_final = all(torch.equal(rec_a.best_weights[k], final[k].cpu()) for k in final)
+        trainer_a.model.load_state_dict(rec_a.best_weights)
+        same_weights = sorted(best_state["model"]) == sorted(rec_a.best_weights) and all(
+            torch.equal(best_state["model"][k], v) for k, v in rec_a.best_weights.items())
+        results = os.path.join(tmp, "results")
+        argv = [data_dir, "--task", "speech_translation_with_transcription", "-s", "en", "-t", "de", "--path",
+                best_path, "--criterion", "ctc_multi_loss", "--underlying-criterion", "label_smoothed_cross_entropy",
+                "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset", "valid",
+                "--max-tokens", "25000", "--results-path", results]
+        reset_counts(fa, dconv, single)
+        modules["generate_cli"].cli_main(argv)
+        gen_launches = launch_counts(fa, dconv, single)
+        hyps, _ = read_records(os.path.join(results, "generate-valid.txt"))
+        cli_args = options.parse_args_and_arch(options.get_generation_parser(), argv)
+        gtask = registry.TASKS[cli_args.task].setup_task(cli_args)
+        gtask.load_dataset("valid")
+        batches = list(gtask.get_batch_iterator(
+            gtask.dataset("valid"), max_tokens=cli_args.max_tokens, max_sentences=cli_args.max_sentences,
+            max_positions=gtask.max_positions(),
+            required_batch_size_multiple=cli_args.required_batch_size_multiple).next_epoch_itr(shuffle=False))
+        root.removeHandler(handler)
+        handler.close()
+    want_gen = {k: (FLASH_LAUNCHES_PER_REQUEST * len(batches) if k == FP32_FORWARD else 0) for k in gen_launches}
+    model = trainer_a.model.eval()
+    tgt = gtask.target_dictionary
+    gen = modules["SequenceGenerator"](tgt, beam_size=BEAM, max_len_b=MAX_LEN_B)
+    same, worst, n = 0, 0.0, 0
+    with torch.no_grad():
+        for sample in batches:
+            hypos = gen.generate([model], sample)
+            check_hypotheses(hypos, tgt.eos(), len(sample["id"]))
+            for sid, sent in zip(sample["id"], hypos):
+                score, text = hyps[int(sid)]
+                same += text == tgt.string(sent[0]["tokens"])
+                worst = max(worst, abs(score - sent[0]["score"] / math.log(2)))
+                n += 1
+    n_frames = {k: int(np.sum(v)) for k, v in frames.items()}
+    emit({"phase": "train_from_files", "utterances": FILES_TRAIN_SPLITS, "frames": n_frames, "corpus_write_s": corpus_s,
+          "updates": len(rec_a.updates), "valid_batches": len(rec_a.valid_batches), "cli_wall_s": wall_a,
+          "cli_update_ms_median": cli_update_ms, "train_step_ms_median_first_batch": float(np.median(step_s[1:])) * 1e3,
+          "first_batch_utterances": int(first["nsentences"]), "first_batch_shape": list(first["net_input"]["src_tokens"].shape),
+          "profiled_update_s": wall_s, "device_busy_ms": busy_s * 1e3, "device_idle_share": 1.0 - busy_s / wall_s,
+          "top_kernels_s": top, "busy_by_class_s": classes, "validate_s": rec_a.validate_s, "save_s": rec_a.save_s,
+          "checkpoint_bytes": ckpt_bytes, "checkpoint_files": files_a, "losses_first_last": [losses_a[0], losses_a[-1]],
+          "valid_losses": valid_a, "best": best_a, "launches_per_update": want_update,
+          "launches_per_valid_batch": want_valid, "launches": launches, "card": card})
+    emit({"phase": "train_from_files_resume", "stopped_at": FILES_RESUME_AT, "straight": state_a, "resumed": state_b,
+          "best": [best_a, best_b], "max_rel_loss_diff_after_resume": resume_rel, "rtol": RTOL_RESUME_LOSS,
+          "max_abs_param_diff": max_param_diff, "card": card})
+    emit({"phase": "train_from_files_decode", "phase_s": time.perf_counter() - phase_t0, "utterances": n,
+          "batches": len(batches), "launches": gen_launches,
+          "identical_top_hypotheses": f"{same}/{n}", "max_abs_score_diff_base2": worst, "atol": FILES_SCORE_ATOL,
+          "weights_loaded_equal_the_trainers": same_weights, "checkpoint_best_holds_the_final_weights": best_is_final,
+          "card": card})
+    if state_a[:3] != state_b[:3] or state_a[3] != state_b[3] or state_a[:3] != (2, len(rec_a.updates),
+                                                                                     len(rec_a.updates) // 2):
+        raise AssertionError(f"resumed run ends at {state_b}, the straight run at {state_a}")
+    if not (best_a is not None and abs(best_b - best_a) <= RTOL_RESUME_LOSS * abs(best_a)):
+        raise AssertionError(f"best {best_b} after the resume, {best_a} straight")
+    if not (len(losses_b) == len(tail) and resume_rel <= RTOL_RESUME_LOSS):
+        raise AssertionError(f"resumed losses {losses_b} against {tail}: {resume_rel} apart")
+    if gen_launches != want_gen:
+        raise AssertionError(f"cli/generate launches {gen_launches}, expected {want_gen}")
+    if not (same_weights and n == len(hyps) == FILES_TRAIN_SPLITS["valid"] and same == n
+            and worst <= FILES_SCORE_ATOL):
+        raise AssertionError(f"checkpoint_best decodes apart from the trainer: weights equal {same_weights}, "
+                             f"{same}/{n} identical, scores {worst} apart")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
@@ -2485,7 +2891,8 @@ def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32,
         entry["at_" + at[0]] = {
             "bh": r["bh"], "T": r["T"], "S": r["S"], "D": r["D"], "dtype": at[1],
             **{k: r.get(k) for k in ("kernel_ms", "kernel_device_ms", "wrapper_device_ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms", "library_backend",
+                                     "bound_ms", "bound_by", "library_ms", "library_backend", "library_device_ms",
+                                     "library_device_backend",
                                      "max_abs_err", "max_err_over_max_plain")}}
     return entry
 
@@ -2497,6 +2904,7 @@ def main() -> int:
     t_start = time.perf_counter()
     from fbk_fairseq_st_tpu_torch import options, registry
     from fbk_fairseq_st_tpu_torch.cli import generate as generate_cli
+    from fbk_fairseq_st_tpu_torch.cli import train as train_cli
     from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
     from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, indexed_dataset
     from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator, TwoPhaseSequenceGenerator, search
@@ -2517,6 +2925,7 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.tasks import (SpeechRecognitionTask, SpeechTranslationCTCTask,
                                                 SpeechTranslationDualDecodingTask, TranslationTask)
     from fbk_fairseq_st_tpu_torch.train import Trainer
+    from fbk_fairseq_st_tpu_torch.train import checkpoint, metrics
 
     modules = {"Trainer": Trainer, "SpeechRecognitionTask": SpeechRecognitionTask,
                "TranslationTask": TranslationTask, "LanguagePairDataset": LanguagePairDataset,
@@ -2528,7 +2937,8 @@ def main() -> int:
                "CrossEntropyDualDecoder": CrossEntropyDualDecoder, "options": options, "registry": registry,
                "generate_cli": generate_cli, "indexed_dataset": indexed_dataset, "search": search,
                "make_generators": make_generators, "specaugment": specaugment,
-               "save_model_checkpoint": save_model_checkpoint}
+               "save_model_checkpoint": save_model_checkpoint, "train_cli": train_cli, "checkpoint": checkpoint,
+               "metrics": metrics}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2554,6 +2964,7 @@ def main() -> int:
         worst[key] = max(worst[key], err)
     dconv_rows, dconv_worst = check_dconv_kernels(dconv)
     single_rows, single_worst = check_single_kernel(single)
+    check_past_grid_cap(single, dconv)
 
     # the main paths, each with every count set to 0 just before it
     paths = {}
@@ -2604,8 +3015,10 @@ def main() -> int:
     drive("serve_from_files", serve_from_files, card, d, fa, dconv, single, modules)
     drive("serve_search", serve_search, card, d, fa, dconv, single, modules)
     drive("train_realistic", train_realistic, card, d, fa, dconv, single, modules)
+    # 24. training from files: the quick start through cli/train, resumed, decoded
+    drive("train_from_files", train_from_files, card, d, fa, dconv, single, modules)
 
-    # 24. kernels line, card line, ok line
+    # 25. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

@@ -16,7 +16,7 @@ from typing import Dict, List
 
 import torch
 
-from .base import Criterion, get_perplexity, sum_logs
+from .base import Criterion, get_perplexity, log_scalars, sum_logs
 from .label_smoothed_cross_entropy import label_smoothed_nll_from_logits
 
 
@@ -42,6 +42,15 @@ class CrossEntropyDualDecoder(Criterion):
         return loss, {"primary_loss": primary_loss, "primary_nll_loss": primary_nll,
                       "auxiliary_loss": aux_loss, "auxiliary_nll_loss": aux_nll}
 
+    @classmethod
+    def add_args(cls, parser):
+        parser.add_argument("--primary-loss-weight", default=0.5, type=float, metavar="W",
+                            help="The weight to apply to the primary loss function when summing losses")
+        parser.add_argument("--auxiliary-loss-weight", default=0.5, type=float, metavar="W",
+                            help="The weight to apply to the auxiliary loss function when summing losses")
+        parser.add_argument("--label-smoothing", default=0.0, type=float, metavar="D",
+                            help="epsilon for label smoothing, 0 means no label smoothing")
+
     def __call__(self, model, batch, generator=None, training: bool = False):
         model.train(training)
         net_output = model(batch, generator)
@@ -61,17 +70,26 @@ class CrossEntropyDualDecoder(Criterion):
         return loss, sample_size, logging_output
 
     @staticmethod
-    def reduce_metrics(logging_outputs: List[dict]) -> Dict[str, float]:
-        """The values the JAX ``reduce_metrics`` logs (base 2, unrounded),
-        with the perplexities of the two nll losses."""
+    def reduce_metrics(logging_outputs: List[dict], metrics=None) -> Dict[str, float]:
+        """The values the JAX ``reduce_metrics`` logs (base 2), with the
+        perplexities of the two nll losses; logged as JAX logs them when
+        ``metrics`` is given."""
         total = {k: sum_logs(logging_outputs, k) for k in (
             "loss", "primary_loss", "auxiliary_loss", "primary_nll_loss", "auxiliary_nll_loss", "ntokens",
             "auxiliary_ntokens", "sample_size")}
         sample_size, ln2 = total["sample_size"], math.log(2)
         out = {k: total[k] / sample_size / ln2 for k in ("loss", "primary_loss", "auxiliary_loss")}
         out["primary_nll_loss"] = total["primary_nll_loss"] / total["ntokens"] / ln2
+        entries = [(k, out[k], sample_size, 3) for k in ("loss", "primary_loss", "auxiliary_loss")]
+        entries.append(("primary_nll_loss", out["primary_nll_loss"], total["ntokens"], 3))
         out["primary_ppl"] = get_perplexity(out["primary_nll_loss"])
         if total["auxiliary_ntokens"] > 0:
             out["auxiliary_nll_loss"] = total["auxiliary_nll_loss"] / total["auxiliary_ntokens"] / ln2
             out["auxiliary_ppl"] = get_perplexity(out["auxiliary_nll_loss"])
+            entries.append(("auxiliary_nll_loss", out["auxiliary_nll_loss"], total["auxiliary_ntokens"], 3))
+        log_scalars(metrics, entries)
+        if metrics is not None:
+            metrics.log_derived("primary_ppl", lambda meters: get_perplexity(meters["primary_nll_loss"].avg))
+            metrics.log_derived("auxiliary_ppl", lambda meters: get_perplexity(
+                meters["auxiliary_nll_loss"].avg if "auxiliary_nll_loss" in meters else None))
         return out

@@ -28,7 +28,7 @@ import torch
 
 from ..ops.ctc import ctc_greedy_decode, ctc_loss
 from ..ops.edit_distance import levenshtein
-from .base import Criterion, get_perplexity, sum_logs
+from .base import Criterion, get_perplexity, log_scalars, sum_logs
 
 
 def _ctc_uer(ctc_logits, input_lengths, targets, target_lengths, blank_idx: int):
@@ -47,6 +47,12 @@ class CTCCriterion(Criterion):
         super().__init__(task, args)
         self.blank_idx = task.target_dictionary.index("<ctc_blank>")
         self.use_source_side_sample_size = getattr(args, "use_source_side_sample_size", False)
+
+    @classmethod
+    def add_args(cls, parser):
+        parser.add_argument("--use-source-side-sample-size", action="store_true", default=False,
+                            help="when compute average loss, using number of source tokens as denominator. "
+                            "This argument will be no-op if sentence-avg is used.")
 
     def __call__(self, model, batch, generator=None, training: bool = False):
         model.train(training)
@@ -76,16 +82,20 @@ class CTCCriterion(Criterion):
         return loss, sample_size, logging_output
 
     @staticmethod
-    def reduce_metrics(logging_outputs: List[dict]) -> Dict[str, float]:
+    def reduce_metrics(logging_outputs: List[dict], metrics=None) -> Dict[str, float]:
         loss_sum = sum_logs(logging_outputs, "loss")
         ntokens = sum_logs(logging_outputs, "ntokens")
         sample_size = sum_logs(logging_outputs, "sample_size")
         errors, total = sum_logs(logging_outputs, "errors"), sum_logs(logging_outputs, "total")
         out = {"loss": loss_sum / sample_size / math.log(2)}
+        entries = [("loss", out["loss"], sample_size, 3)]
         if total > 0:
             out["acc"] = 100.0 - min(errors * 100.0 / total, 100.0)
+            entries.append(("acc", out["acc"], 1, 3))
         if sample_size != ntokens:
             out["nll_loss"] = loss_sum / ntokens / math.log(2)
+            entries.append(("nll_loss", out["nll_loss"], ntokens, 3))
+        log_scalars(metrics, entries)
         return out
 
 
@@ -104,13 +114,23 @@ class CTCMultiLoss(Criterion):
         self.ctc_weight = getattr(args, "ctc_weight", 1.0)
         self.real_criterion = self.build_real_criterion(args, task)
 
+    @classmethod
+    def add_args(cls, parser):
+        CTCCriterion.add_args(parser)
+        parser.add_argument("--ctc-encoder-layer", default=6, type=int, metavar="LAYER_NUM",
+                            help="The encoder layer whose feature are used to compute the CTC loss")
+        parser.add_argument("--ctc-weight", default=1.0, type=float, metavar="W",
+                            help="The relative weight to assign to the CTC loss")
+        parser.add_argument("--underlying-criterion", type=str, metavar="VAL", required=True,
+                            help="underlying criterion to use for the model output loss")
+
     @staticmethod
     def build_real_criterion(args, task):
         from . import CRITERIONS
 
         name = args.underlying_criterion
         if name not in CRITERIONS or name in ("ctc_multi_loss", "ctc_loss"):
-            raise NotImplementedError(f"--underlying-criterion {name} is not ported (ROADMAP Queue A10)")
+            raise NotImplementedError(f"--underlying-criterion {name} is not ported (ROADMAP Queue A item 4)")
         return CRITERIONS[name].build_criterion(args, task)
 
     def __call__(self, model, batch, generator=None, training: bool = False):
@@ -145,7 +165,7 @@ class CTCMultiLoss(Criterion):
         return loss, transcript_lengths.sum(), logging_output
 
     @staticmethod
-    def reduce_metrics(logging_outputs: List[dict]) -> Dict[str, float]:
+    def reduce_metrics(logging_outputs: List[dict], metrics=None) -> Dict[str, float]:
         loss_sum = sum_logs(logging_outputs, "loss")
         ctc_loss_sum = sum_logs(logging_outputs, "ctc_loss")
         if logging_outputs and "nll_loss" in logging_outputs[0]:
@@ -161,7 +181,15 @@ class CTCMultiLoss(Criterion):
             "ctc_loss": ctc_loss_sum / sample_size / math.log(2),
         }
         out["ppl"] = get_perplexity(out["nll_loss"])
+        entries = [("loss", out["loss"], sample_size, 3), ("nll_loss", out["nll_loss"], ntokens, 3)]
+        log_scalars(metrics, entries)
+        if metrics is not None:
+            metrics.log_derived("ppl", lambda meters: get_perplexity(meters["nll_loss"].avg))
+        entries = [("ctc_loss", out["ctc_loss"], sample_size, 3)]
         if ctc_total > 0:
             out["ctc_acc"] = 100.0 - min(ctc_errors * 100.0 / ctc_total, 100.0)
+            entries.append(("ctc_acc", out["ctc_acc"], 1, None))
         out["nframes"] = sum_logs(logging_outputs, "nframes")
+        entries.append(("nframes", out["nframes"], 1, None))
+        log_scalars(metrics, entries)
         return out

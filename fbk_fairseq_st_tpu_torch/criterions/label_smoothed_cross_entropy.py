@@ -11,9 +11,12 @@ log-softmax form, kept as its plain twin.
 
 from __future__ import annotations
 
+import math
+from typing import Dict, List
+
 import torch
 
-from .base import Criterion
+from .base import Criterion, get_perplexity, log_scalars, sum_logs
 
 
 def label_smoothed_nll_loss(lprobs, target, epsilon: float, ignore_index=None):
@@ -54,6 +57,11 @@ class LabelSmoothedCrossEntropyCriterion(Criterion):
         super().__init__(task, args)
         self.eps = getattr(args, "label_smoothing", 0.0)
 
+    @classmethod
+    def add_args(cls, parser):
+        parser.add_argument("--label-smoothing", default=0.0, type=float, metavar="D",
+                            help="epsilon for label smoothing, 0 means no label smoothing")
+
     def __call__(self, model, batch, generator=None, training: bool = False):
         """Sets the model's train/eval mode from ``training`` (the JAX
         ``training`` flag), runs it teacher-forced and returns the summed
@@ -79,3 +87,15 @@ class LabelSmoothedCrossEntropyCriterion(Criterion):
         (JAX ``compute_loss``; also the underlying loss of
         ``ctc_multi_loss``)."""
         return label_smoothed_nll_from_logits(net_output[0], batch["target"], self.eps, self.padding_idx)
+
+    @staticmethod
+    def reduce_metrics(logging_outputs: List[dict], metrics=None) -> Dict[str, float]:
+        """loss per sample-size unit and nll_loss per token, base 2 (JAX :115-128)."""
+        loss_sum, nll_loss_sum = sum_logs(logging_outputs, "loss"), sum_logs(logging_outputs, "nll_loss")
+        ntokens, sample_size = sum_logs(logging_outputs, "ntokens"), sum_logs(logging_outputs, "sample_size")
+        out = {"loss": loss_sum / sample_size / math.log(2), "nll_loss": nll_loss_sum / ntokens / math.log(2)}
+        log_scalars(metrics, [("loss", out["loss"], sample_size, 3), ("nll_loss", out["nll_loss"], ntokens, 3)])
+        if metrics is not None:
+            metrics.log_derived("ppl", lambda meters: get_perplexity(meters["nll_loss"].avg))
+        out["ppl"] = get_perplexity(out["nll_loss"])
+        return out

@@ -12,6 +12,7 @@ otherwise; the two give the same batches, and so does this copy.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -112,3 +113,27 @@ def filter_by_size(indices: np.ndarray, size_fn: Callable[[int], object], max_po
     if ignored and raise_exception:
         _raise_invalid_size(ignored[0], size_fn(ignored[0]), max_positions)
     return np.array(keep, dtype=np.int64), ignored
+
+
+class ShapeBucketer:
+    """Lengths rounded up to a closed geometric grid of pad targets
+    (``fbk_fairseq_st_tpu/data/batching.py::ShapeBucketer`` :211): the
+    sizes ``min_size * growth^k`` below ``max_size``, then ``max_size``.
+    The JAX package pads every training and validation batch to these
+    buckets; the port's ``cli/train`` does the same, so its batches are the
+    JAX trainer's."""
+
+    def __init__(self, min_size: int = 8, max_size: int = 4096, growth: float = 2 ** 0.5):
+        sizes = []
+        s = float(min_size)
+        while s < max_size:
+            sizes.append(int(math.ceil(s)))
+            s *= growth
+        sizes.append(int(max_size))
+        self.sizes = sorted(set(sizes))
+
+    def bucket(self, n: int) -> int:
+        for s in self.sizes:
+            if n <= s:
+                return s
+        return self.sizes[-1]

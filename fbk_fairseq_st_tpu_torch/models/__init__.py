@@ -28,7 +28,7 @@ def _family(arch: str):
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
             f"--arch {arch}: the port has the conv_transformer, lightconv and multi-decoder families "
-            "(ROADMAP Queue A10)")
+            "(ROADMAP Queue A items 4, 5 and 9)")
     return ARCHITECTURES[arch]
 
 

@@ -34,7 +34,9 @@
 // floats, so the taps of a warp fall on distinct banks) and keeps up to 4 of
 // the 16 x K outputs a thread in registers. The backward is ONE launch: its
 // grid holds the dx blocks first and the dw blocks after them, so the two
-// halves share the card instead of running one after the other.
+// halves share the card instead of running one after the other. The batch
+// is the grid's x dimension (any size), a batch row's blocks its y (at most
+// 65,535).
 //
 // What bounds it. At the training shape of dynamicconv_wmt_en_de_big (B 64,
 // T 56, C 1024, H 16, K 31, bf16) the forward moves x, w and out, 18.2 MB:
@@ -218,8 +220,8 @@ __global__ void __launch_bounds__(kThreads)
 dynamic_conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         T* __restrict__ out, Shape s, int tt, int n_t) {
   extern __shared__ float smem[];
-  band_block<T, false>(x, w, out, s, blockIdx.y, (blockIdx.x % n_t) * tt,
-                       (blockIdx.x / n_t) * kSlab, tt, smem);
+  band_block<T, false>(x, w, out, s, blockIdx.x, (blockIdx.y % n_t) * tt,
+                       (blockIdx.y / n_t) * kSlab, tt, smem);
 }
 
 // Blocks [0, n_dx_t * n_slabs) compute dx, the rest dw.
@@ -231,13 +233,13 @@ dynamic_conv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         int n_slabs, int tt_dw, int n_dw_t) {
   extern __shared__ float smem[];
   const int n_dx = n_dx_t * n_slabs;
-  const int i = blockIdx.x;
+  const int i = blockIdx.y;
   if (i < n_dx) {
-    band_block<T, true>(g, w, dx, s, blockIdx.y, (i % n_dx_t) * tt_dx,
+    band_block<T, true>(g, w, dx, s, blockIdx.x, (i % n_dx_t) * tt_dx,
                         (i / n_dx_t) * kSlab, tt_dx, smem);
   } else {
     const int j = i - n_dx;
-    dw_block<T>(x, g, dw, s, blockIdx.y, (j % n_dw_t) * tt_dw, j / n_dw_t,
+    dw_block<T>(x, g, dw, s, blockIdx.x, (j % n_dw_t) * tt_dw, j / n_dw_t,
                 tt_dw, smem);
   }
 }
@@ -288,7 +290,8 @@ cudaError_t launch_fwd(const void* x, const void* w, void* out, const Shape& s,
   const size_t bytes = band_bytes(s, tt, false);
   cudaError_t err = set_smem(dynamic_conv_fwd_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  dynamic_conv_fwd_kernel<T><<<dim3(n_t * n_slabs, s.b), kThreads, bytes, stream>>>(
+  if (n_t * n_slabs > 65535) return cudaErrorInvalidValue;
+  dynamic_conv_fwd_kernel<T><<<dim3(s.b, n_t * n_slabs), kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), s,
       tt, n_t);
   return cudaGetLastError();
@@ -308,7 +311,9 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* g, void* dx,
                            : dw_bytes(s, tt_dw);
   cudaError_t err = set_smem(dynamic_conv_bwd_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_dx_t * n_slabs + n_dw_t * s.h, s.b);
+  const int n_blocks = n_dx_t * n_slabs + n_dw_t * s.h;
+  if (n_blocks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(s.b, n_blocks);
   dynamic_conv_bwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(g),
       static_cast<T*>(dx), static_cast<T*>(dw), s, tt_dx, n_dx_t, n_slabs, tt_dw,
@@ -317,7 +322,7 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* g, void* dx,
 }
 
 bool make_shape(int b, int t, int c, int h, int k, int pad_l, Shape* s) {
-  if (b <= 0 || b > 65535 || t <= 0 || c <= 0 || h <= 0 || k <= 0 || pad_l < 0 ||
+  if (b <= 0 || t <= 0 || c <= 0 || h <= 0 || k <= 0 || pad_l < 0 ||
       c % h != 0)
     return false;
   *s = Shape{b, t, c, h, k, pad_l, c / h};

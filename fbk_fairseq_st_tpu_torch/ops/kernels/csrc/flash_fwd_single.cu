@@ -93,8 +93,8 @@ flash_fwd_single_kernel_tc(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * TB;
-  const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.y * TB;
+  const size_t bh = blockIdx.x;
   const __nv_bfloat16* kb = k + bh * s_len * kHeadDim;
   const __nv_bfloat16* vb = v + bh * s_len * kHeadDim;
   const float* biasb = bias + bh * s_len;
@@ -247,8 +247,8 @@ flash_fwd_single_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int q0 = blockIdx.x * TB;
-  const size_t bh = blockIdx.y;
+  const int q0 = blockIdx.y * TB;
+  const size_t bh = blockIdx.x;
   const T* qb = q + bh * t_len * D;
   const T* kb = k + bh * s_len * D;
   const T* vb = v + bh * s_len * D;
@@ -366,7 +366,7 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_single_kernel_tc<TB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.t_len + TB - 1) / TB, a.bh);
+  const dim3 grid(a.bh, (a.t_len + TB - 1) / TB);
   flash_fwd_single_kernel_tc<TB><<<grid, TB * 2, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const float*>(a.bias),
@@ -382,7 +382,7 @@ cudaError_t launch_fp32(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_single_kernel<float, kHeadDim, TB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.t_len + TB - 1) / TB, a.bh);
+  const dim3 grid(a.bh, (a.t_len + TB - 1) / TB);
   flash_fwd_single_kernel<float, kHeadDim, TB><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.bias),
@@ -405,8 +405,9 @@ extern "C" int flash_fwd_single(const void* q, const void* k, const void* v,
                                 int bh, int t_len, int s_len, int head_dim,
                                 int t_block, float scale, int causal,
                                 int is_bf16, void* stream) {
-  if (bh <= 0 || bh > 65535 || t_len <= 0 || s_len <= 0 ||
-      head_dim != kHeadDim)
+  // bh on gridDim.x (any size), the q tiles on gridDim.y (at most 65,535)
+  if (bh <= 0 || t_len <= 0 || s_len <= 0 || head_dim != kHeadDim ||
+      t_block <= 0 || (t_len + t_block - 1) / t_block > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, bias, out, lse, bh, t_len, s_len, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -14,7 +14,9 @@ on a model path calls it. The kernels are ``csrc/flash_fwd_single.cu``.
 the kernel or raises (``check_shape``): both are built for D = 64 only;
 bf16 runs on the tensor cores at ``t_block`` 64 and 128 and any S; fp32
 on the CUDA cores at ``t_block`` 8 and 16, where the rows' scores over S
-must fit the block's shared memory (``smem_bytes`` <= ``SMEM_LIMIT``). On
+must fit the block's shared memory (``smem_bytes`` <= ``SMEM_LIMIT``). The
+grid puts bh on its x dimension (any size) and the q tiles on its y (at
+most 65,535 of them). On
 a CPU tensor it runs ``flash_fwd_single_reference``, at any shape.
 """
 
@@ -52,7 +54,7 @@ def smem_bytes(t_block: int, s: int, dtype=torch.float32) -> int:
     return 4 * (t_block * s + (t_block + _CHUNK) * (HEAD_DIM + 1))
 
 
-def check_shape(dtype, d: int, s: int, t_block: int, bh: int = 1) -> None:
+def check_shape(dtype, d: int, s: int, t_block: int, t: int = 1) -> None:
     """Raise ValueError for a shape the kernel of ``dtype`` is not built
     for; needs no card."""
     if d != HEAD_DIM or t_block not in T_BLOCKS[dtype]:
@@ -61,8 +63,9 @@ def check_shape(dtype, d: int, s: int, t_block: int, bh: int = 1) -> None:
     if smem_bytes(t_block, s, dtype) > SMEM_LIMIT:
         raise ValueError(f"flash_fwd_single: t_block {t_block} x S {s} needs {smem_bytes(t_block, s, dtype)} "
                          f"bytes of shared memory, over the {SMEM_LIMIT} a block can have")
-    if bh > 65535:
-        raise ValueError(f"flash_fwd_single: bh {bh} > 65535")
+    if -(-t // t_block) > 65535:
+        raise ValueError(f"flash_fwd_single: T {t} is {-(-t // t_block)} q tiles of {t_block}, over the 65,535 "
+                         "of the grid's y dimension (bh is its x, any size)")
 
 
 def flash_fwd_single_reference(q, k, v, mask_bias, scale: float, causal: bool = False
@@ -102,7 +105,7 @@ def flash_fwd_single(q, k, v, mask_bias, scale: float, causal: bool = False, t_b
     if q.dtype not in T_BLOCKS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_fwd_single: q/k/v must share fp32 or bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
     t_block = DEFAULT_T_BLOCK[q.dtype] if t_block is None else t_block
-    check_shape(q.dtype, d, s, t_block, bh)
+    check_shape(q.dtype, d, s, t_block, q.shape[1])
     return _forward_cuda(q, k, v, mask_bias.to(torch.float32), float(scale), bool(causal), t_block)
 
 

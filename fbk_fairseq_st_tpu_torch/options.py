@@ -1,24 +1,40 @@
-"""The argument groups that ``cli/generate`` reads, and the two-pass parse.
+"""The argument groups of ``cli/train``, ``cli/validate`` and
+``cli/generate``, and the two-pass parse.
 
-Counterpart of ``fbk_fairseq_st_tpu/options.py`` (``get_generation_parser``
-:35, ``get_parser`` :77, ``add_dataset_args`` :220,
-``add_common_eval_args`` :456, ``add_generation_args`` :490,
-``parse_args_and_arch`` :593), under the same flag names and defaults.
-``parse_args_and_arch`` parses once to learn ``--task`` and
-``--criterion``, adds their flags, parses again and fills in the arch
-preset's defaults.
+Counterpart of ``fbk_fairseq_st_tpu/options.py`` (``get_training_parser``
+:25, ``get_generation_parser`` :35, ``get_validation_parser`` :56,
+``get_parser`` :77, ``add_dataset_args`` :220,
+``add_distributed_training_args`` :258, ``add_optimization_args`` :376,
+``add_checkpoint_args`` :399, ``add_common_eval_args`` :456,
+``add_generation_args`` :490, ``parse_args_and_arch`` :593), under the same
+flag names and defaults. ``parse_args_and_arch`` parses once to learn
+``--arch``, ``--task``, ``--criterion``, ``--optimizer`` and
+``--lr-scheduler``, adds their flags (the arch's as a group without
+defaults, so the preset fills what is not given; the underlying
+criterion's of ``ctc_multi_loss`` too), parses again and fills in the arch
+preset's defaults. The model flags are the options each preset of the port
+reads (``models.arch_defaults``), with JAX's explicit parser defaults
+where it has them: as in JAX, the ``dynamicconv*`` presets then build
+lightweight convolutions unless ``--encoder-conv-type`` /
+``--decoder-conv-type dynamic`` is given (ROADMAP Queue C).
 
 An option whose feature the port lacks raises ``NotImplementedError``
 naming its ROADMAP item when it is set (``NOT_PORTED``); flags of the JAX
-parser that only steer XLA or the TPU have no counterpart here.
+parser that only steer XLA or the TPU have no counterpart here, and its
+parity flags of the reference's fp16 and DDP machinery are accepted and
+change nothing, as in JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
+import re
 from typing import List, Optional
 
 from . import registry
+from .models import ARCHITECTURES, arch_defaults
+from .optim import LR_SCHEDULERS, OPTIMIZERS
 
 # option -> (its value when off, what it needs): set to anything else, it raises
 NOT_PORTED = {
@@ -31,7 +47,63 @@ NOT_PORTED = {
     "num_shards": (1, "sharded generation (ROADMAP Queue A item 3)"),
     "score_reference": (False, "the sequence scorer (ROADMAP Queue A item 3)"),
     "user_dir": (None, "user extension modules (ROADMAP Queue A item 3)"),
+    "eval_bleu": (False, "validation BLEU: sacrebleu and the detokenizers (ROADMAP Queue A item 3)"),
+    "dataset_from_json": (False, "the JSON audio route (ROADMAP Queue A item 3)"),
+    "distributed_world_size": (None, "multi-GPU training (ROADMAP Queue A item 6)"),
+    "fsdp": (False, "FSDP (ROADMAP Queue A item 6)"),
+    "sequence_parallel": (False, "sequence parallelism (ROADMAP Queue A item 6)"),
+    "ring_attention": (False, "ring attention (ROADMAP Queue A item 6)"),
+    "use_bmuf": (False, "BMUF (ROADMAP Queue A item 6)"),
+    "steps_per_execution": (1, "several updates a dispatch (ROADMAP Queue A item 8)"),
+    "quantization_config_path": (None, "in-training quantisation (ROADMAP Queue A item 9)"),
 }
+# values of an option in NOT_PORTED that mean "off" besides its default
+_ALSO_OFF = {"distributed_world_size": (1,)}
+# the JAX model parsers' explicit defaults, which win over a preset's
+_MODEL_PARSER_DEFAULTS = {
+    "conv_transformer": {"no_attn_2d": False, "distance_penalty": False, "init_variance": 1.0,
+                         "ctc_compress_out": False, "ctc_compress_strategy": "avg"},
+    "lightconv": {"encoder_glu": None, "decoder_glu": None, "encoder_conv_type": "lightweight",
+                  "decoder_conv_type": "lightweight", "weight_softmax": True},
+}
+_EVAL_BOOL = ("encoder_glu", "decoder_glu", "weight_softmax")
+
+
+def get_training_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
+    parser = get_parser("Trainer", default_task)
+    add_dataset_args(parser, train=True)
+    add_distributed_training_args(parser)
+    add_model_args(parser)
+    add_optimization_args(parser)
+    add_checkpoint_args(parser)
+    return parser
+
+
+def get_validation_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
+    parser = get_parser("Validation", default_task)
+    add_dataset_args(parser, train=True)
+    group = parser.add_argument_group("Evaluation")
+    add_common_eval_args(group)
+    return parser
+
+
+def eval_str_list(x, type=float):
+    if x is None:
+        return None
+    if isinstance(x, str):
+        x = ast.literal_eval(x)
+    try:
+        return list(map(type, x))
+    except TypeError:
+        return [type(x)]
+
+
+def eval_bool(x) -> bool:
+    return str(x).lower() == "true"
+
+
+def _number(x: str):
+    return int(x) if re.fullmatch(r"[+-]?\d+", x.strip()) else float(x)
 
 
 def get_generation_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
@@ -47,8 +119,32 @@ def get_parser(desc: str, default_task: str = "speech_recognition") -> argparse.
     parser.add_argument("--log-interval", type=int, default=100, metavar="N",
                         help="log progress every N batches")
     parser.add_argument("--log-format", default=None, choices=["json", "none", "simple", "tqdm"])
+    parser.add_argument("--profile", action="store_true", default=False,
+                        help="record a torch.profiler trace of the run to <save-dir>/profile")
+    parser.add_argument("--device-prefetch", type=int, default=2, metavar="N",
+                        help="stage N collated batches on the card ahead of the step (0 disables)")
+    parser.add_argument("--log-sync-interval", type=int, default=1, metavar="N",
+                        help="parity flag: the trainer brings its outputs to the host at --log-interval, "
+                             "before validating and before saving")
+    parser.add_argument("--steps-per-execution", type=int, default=1, metavar="K",
+                        help="several updates a dispatch (not ported)")
+    parser.add_argument("--tensorboard-logdir", metavar="DIR", default="",
+                        help="path to save logs for tensorboard")
     parser.add_argument("--seed", default=1, type=int, metavar="N", help="pseudo random number generator seed")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU instead of the CUDA card")
+    parser.add_argument("--fp16", action="store_true", help="use mixed precision (bfloat16 here)")
+    parser.add_argument("--bf16", action="store_true", help="use bfloat16 compute (params stay fp32)")
+    parser.add_argument("--memory-efficient-fp16", action="store_true", help="parity flag; same as --fp16 here")
+    parser.add_argument("--fp16-no-flatten-grads", action="store_true", help="parity flag")
+    for flag in ("--fp16-init-scale", "--fp16-scale-tolerance", "--min-loss-scale", "--threshold-loss-scale"):
+        parser.add_argument(flag, type=float, default=None, help="parity flag; no loss scaler under bf16")
+    parser.add_argument("--fp16-scale-window", type=int, default=None, help="parity flag; no loss scaler under bf16")
+    parser.add_argument("--empty-cache-freq", default=0, type=int, help="parity flag")
+    parser.add_argument("--all-gather-list-size", default=16384, type=int, help="parity flag")
+    parser.add_argument("--model-parallel-size", type=int, metavar="N", default=1,
+                        help="tensor parallelism (not ported above 1)")
+    parser.add_argument("--checkpoint-suffix", default="", help="suffix to add to the checkpoint file name before .pt")
+    parser.add_argument("--quantization-config-path", default=None, help="in-training quantisation (not ported)")
     parser.add_argument("--user-dir", default=None,
                         help="path to a python module containing custom extensions (tasks and/or architectures)")
     parser.add_argument("--tokenizer", default=None, help="tokenizer applied to raw text before BPE")
@@ -74,12 +170,141 @@ def add_dataset_args(parser, train: bool = False, gen: bool = False):
     group.add_argument("--dataset-impl", metavar="FORMAT", choices=["raw", "lazy", "cached", "mmap"],
                        help="output dataset implementation")
     group.add_argument("--data-buffer-size", default=2, type=int, help="number of batches to preload")
+    if train:
+        group.add_argument("--train-subset", default="train", metavar="SPLIT",
+                           help="data subset to use for training")
+        group.add_argument("--valid-subset", default="valid", metavar="SPLIT",
+                           help="comma separated list of data subsets to use for validation")
+        group.add_argument("--validate-interval", type=int, default=1, metavar="N", help="validate every N epochs")
+        group.add_argument("--fixed-validation-seed", default=None, type=int, metavar="N")
+        group.add_argument("--disable-validation", action="store_true")
+        group.add_argument("--max-tokens-valid", type=int, metavar="N")
+        group.add_argument("--max-sentences-valid", type=int, metavar="N")
+        group.add_argument("--curriculum", default=0, type=int, metavar="N")
     if gen:
         group.add_argument("--gen-subset", default="test", metavar="SPLIT",
                            help="data subset to generate (train, valid, test)")
         group.add_argument("--num-shards", default=1, type=int, metavar="N")
         group.add_argument("--shard-id", default=0, type=int, metavar="ID")
     return group
+
+
+def add_distributed_training_args(parser):
+    """One device: the JAX group's flags, each a parity flag here or, set
+    to more than one device or a sharded layout, an error (``NOT_PORTED``)."""
+    group = parser.add_argument_group("Distributed training")
+    group.add_argument("--distributed-world-size", type=int, metavar="N", default=None,
+                       help="number of devices (one here)")
+    group.add_argument("--distributed-rank", default=0, type=int)
+    group.add_argument("--dcn-data-parallel", type=int, default=1, metavar="N")
+    group.add_argument("--fsdp", default=False, action="store_true")
+    group.add_argument("--fsdp-min-shard-size", type=int, default=None, metavar="N")
+    group.add_argument("--sequence-parallel", default=False, action="store_true")
+    group.add_argument("--ring-attention", default=False, action="store_true")
+    group.add_argument("--ddp-backend", default="pjit", help="parity flag")
+    group.add_argument("--distributed-backend", default="pjit", metavar="BACKEND", help="parity flag")
+    group.add_argument("--distributed-init-method", default=None, help="parity flag")
+    group.add_argument("--distributed-port", default=-1, type=int, help="parity flag")
+    group.add_argument("--device-id", "--local_rank", default=0, type=int, help="parity flag")
+    group.add_argument("--distributed-no-spawn", action="store_true", help="parity flag")
+    group.add_argument("--nprocs-per-node", type=int, default=None, help="parity flag")
+    group.add_argument("--fix-batches-to-gpus", action="store_true", help="parity flag")
+    group.add_argument("--bucket-cap-mb", default=25, type=int, metavar="MB", help="parity flag")
+    group.add_argument("--broadcast-buffers", action="store_true", help="parity flag")
+    group.add_argument("--find-unused-parameters", action="store_true", help="parity flag")
+    group.add_argument("--fast-stat-sync", action="store_true", help="parity flag")
+    group.add_argument("--distributed-wrapper", default="DDP", choices=["DDP", "SlowMo"], help="parity flag")
+    group.add_argument("--slowmo-momentum", default=None, type=float, help="parity flag")
+    group.add_argument("--slowmo-algorithm", default="LocalSGD", choices=["LocalSGD", "SGP"], help="parity flag")
+    group.add_argument("--localsgd-frequency", default=3, type=int, help="parity flag")
+    return group
+
+
+def add_optimization_args(parser):
+    group = parser.add_argument_group("Optimization")
+    group.add_argument("--max-epoch", "--me", default=0, type=int, metavar="N",
+                       help="force stop training at specified epoch")
+    group.add_argument("--max-update", "--mu", default=0, type=int, metavar="N",
+                       help="force stop training at specified update")
+    group.add_argument("--clip-norm", default=25, type=float, metavar="NORM", help="clip threshold of gradients")
+    group.add_argument("--sentence-avg", action="store_true",
+                       help="normalize gradients by the number of sentences in a batch"
+                       " (default is to normalize by number of tokens)")
+    group.add_argument("--update-freq", default="1", metavar="N1,N2,...,N_K",
+                       type=lambda uf: eval_str_list(uf, type=int),
+                       help="update parameters every N_i batches, when in epoch i")
+    group.add_argument("--lr", "--learning-rate", default="0.25", metavar="LR_1,LR_2,...,LR_N",
+                       type=lambda lr: eval_str_list(lr, type=float),
+                       help="learning rate for the first N epochs")
+    group.add_argument("--min-lr", default=-1, type=float, metavar="LR",
+                       help="stop training when the learning rate reaches this minimum")
+    group.add_argument("--use-bmuf", default=False, action="store_true", help="BMUF (not ported)")
+    return group
+
+
+def add_checkpoint_args(parser):
+    group = parser.add_argument_group("Checkpointing")
+    group.add_argument("--save-dir", metavar="DIR", default="checkpoints", help="path to save checkpoints")
+    group.add_argument("--restore-file", default="checkpoint_last.pt", help="filename from which to load checkpoint")
+    group.add_argument("--reset-dataloader", action="store_true")
+    group.add_argument("--reset-lr-scheduler", action="store_true")
+    group.add_argument("--reset-meters", action="store_true")
+    group.add_argument("--reset-optimizer", action="store_true")
+    group.add_argument("--optimizer-overrides", default="{}", type=str, metavar="DICT")
+    group.add_argument("--save-interval", type=int, default=1, metavar="N", help="save a checkpoint every N epochs")
+    group.add_argument("--save-interval-updates", type=int, default=0, metavar="N",
+                       help="save a checkpoint (and validate) every N updates")
+    group.add_argument("--keep-interval-updates", type=int, default=-1, metavar="N")
+    group.add_argument("--keep-last-epochs", type=int, default=-1, metavar="N")
+    group.add_argument("--keep-best-checkpoints", type=int, default=-1, metavar="N")
+    group.add_argument("--no-save", action="store_true")
+    group.add_argument("--no-epoch-checkpoints", action="store_true")
+    group.add_argument("--no-last-checkpoints", action="store_true")
+    group.add_argument("--save-on-interrupt", dest="save_on_interrupt", action="store_true", default=True,
+                       help="on SIGTERM/SIGINT, finish the update in flight, write checkpoint_last and exit")
+    group.add_argument("--no-save-on-interrupt", dest="save_on_interrupt", action="store_false")
+    group.add_argument("--no-save-optimizer-state", action="store_true")
+    group.add_argument("--best-checkpoint-metric", type=str, default="loss")
+    group.add_argument("--maximize-best-checkpoint-metric", action="store_true")
+    group.add_argument("--patience", type=int, default=-1, metavar="N",
+                       help="early stop training if valid performance doesn't improve for N consecutive "
+                       "validation runs")
+    group.add_argument("--checkpoint-format", choices=["pickle", "sharded"], default="pickle",
+                       help="pickle: one file (the fork's torch.save layout here); sharded: not ported")
+    group.add_argument("--async-checkpoint", action="store_true", help="background checkpoint writes (not ported)")
+    return group
+
+
+def add_model_args(parser):
+    group = parser.add_argument_group("Model configuration")
+    group.add_argument("--arch", "-a", default="fconv", metavar="ARCH", help="model architecture")
+    return group
+
+
+def _add_arch_args(parser, arch: str) -> None:
+    """The options the preset ``arch`` reads, as flags without defaults
+    (the preset fills what is not given), but for the JAX parser's explicit
+    defaults; flags the parser already has (the task's
+    ``--max-source-positions``, the criterion's ``--ctc-encoder-layer``)
+    keep their definition."""
+    group = parser.add_argument_group("Model-specific configuration", argument_default=argparse.SUPPRESS)
+    family = ARCHITECTURES[arch].__name__.rsplit(".", 1)[-1]
+    explicit = _MODEL_PARSER_DEFAULTS.get("lightconv" if family == "lightconv" else "conv_transformer", {})
+    for name, value in arch_defaults(arch).items():
+        flag = "--" + name.replace("_", "-")
+        if name == "criterion" or flag in parser._option_string_actions:
+            continue
+        kwargs = {"default": explicit[name]} if name in explicit else {}
+        if name in _EVAL_BOOL:
+            group.add_argument(flag, type=eval_bool, **kwargs)
+        elif isinstance(value, bool):
+            group.add_argument(flag, action="store_true", **kwargs)
+        elif isinstance(value, list):
+            group.add_argument(flag, type=lambda x: eval_str_list(x, int), **kwargs)
+        elif isinstance(value, (int, float)):
+            group.add_argument(flag, type=_number, **kwargs)
+        else:
+            group.add_argument(flag, type=str, **kwargs)
 
 
 def add_common_eval_args(group) -> None:
@@ -131,20 +356,33 @@ def add_generation_args(parser):
 def check_ported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` for a set option the port lacks."""
     for name, (off, what) in NOT_PORTED.items():
-        if getattr(args, name, off) != off:
+        value = getattr(args, name, off)
+        if value != off and value not in _ALSO_OFF.get(name, ()):
             raise NotImplementedError(f"--{name.replace('_', '-')}: {what} is not ported")
 
 
 def parse_args_and_arch(parser: argparse.ArgumentParser, input_args: Optional[List[str]] = None,
                         parse_known: bool = False):
-    """The two-pass parse (reference options.py:81-196): the task's and
-    the criterion's flags join the parser, then the arch preset's defaults
-    the namespace (``registry.apply_architecture``)."""
+    """The two-pass parse (reference options.py:81-196): the arch's, the
+    task's, the criterion's (and its underlying criterion's), the
+    optimiser's and the scheduler's flags join the parser, then the arch
+    preset's defaults the namespace (``registry.apply_architecture``)."""
     args, _ = parser.parse_known_args(input_args)
-    for reg, attr in ((registry.TASKS, "task"), (registry.CRITERIONS, "criterion")):
+    tolerant = _TolerantParser(parser)
+    for reg, attr in ((registry.TASKS, "task"), (registry.CRITERIONS, "criterion"), (OPTIMIZERS, "optimizer"),
+                      (LR_SCHEDULERS, "lr_scheduler")):
         name = getattr(args, attr, None)
         if name is not None and name in reg:
-            reg.add_args(name, parser)
+            cls = reg[name]
+            if hasattr(cls, "add_args"):
+                cls.add_args(tolerant)
+    args2, _ = parser.parse_known_args(input_args)
+    underlying = getattr(args2, "underlying_criterion", None)
+    if underlying and underlying in registry.CRITERIONS:
+        registry.CRITERIONS.add_args(underlying, _TolerantParser(
+            parser.add_argument_group("Underlying criterion configuration", argument_default=argparse.SUPPRESS)))
+    if getattr(args, "arch", None) in ARCHITECTURES:
+        _add_arch_args(parser, args.arch)
     if parse_known:
         args, extra = parser.parse_known_args(input_args)
     else:
@@ -153,3 +391,21 @@ def parse_args_and_arch(parser: argparse.ArgumentParser, input_args: Optional[Li
     if getattr(args, "arch", None) is not None:
         registry.apply_architecture(args)
     return (args, extra) if parse_known else args
+
+
+class _TolerantParser:
+    """Adds arguments, skipping a flag the parser already has (a model's
+    and a criterion's ``--ctc-encoder-layer``, the optimisers'
+    ``--weight-decay``)."""
+
+    def __init__(self, parser):
+        self._parser = parser
+
+    def add_argument(self, *a, **k):
+        try:
+            return self._parser.add_argument(*a, **k)
+        except argparse.ArgumentError:
+            return None
+
+    def __getattr__(self, name):
+        return getattr(self._parser, name)

@@ -51,7 +51,13 @@ def apply_architecture(args: argparse.Namespace) -> None:
     arch = getattr(args, "arch", None)
     if arch is None:
         return
-    for name, value in models.arch_defaults(arch).items():
+    defaults = models.arch_defaults(arch)
+    for name, value in defaults.items():
         if not hasattr(args, name):
             setattr(args, name, value)
+    # JAX's lightconv base_architecture (models/lightconv.py:527-530): a GLU
+    # left at its parser default (None) is on
+    for name in ("encoder_glu", "decoder_glu"):
+        if name in defaults and getattr(args, name) is None:
+            setattr(args, name, True)
 

@@ -152,15 +152,17 @@ def device_busy(fn: Callable, iters: int = 10) -> Tuple[float, float]:
     return len(events) / iters, sum(e.device_time_total for e in events) / 1e3 / iters
 
 
-def device_ms(fn: Callable, match, iters: int = 20, tries: int = 3) -> Optional[float]:
+def device_ms(fn: Callable, match, iters: int = 20, tries: int = 5) -> Optional[float]:
     """Device time of the one kernel launch of a call of ``fn`` whose name
     ``match`` accepts (a substring or a predicate): the median duration of
     the matching events of a torch.profiler (CUPTI) trace over ``iters``
     calls. A trace may miss some of its kernel records (chip runs saw one
     of a wrapper's 20 launches at a fifth of its CUDA-event time, a trace
-    with none, and traces that kept 2 of 10 launches of a forward kernel),
-    so the median and not the sum is taken, and a trace that caught none
-    is taken again; None if every try was empty."""
+    with none, and traces that kept 2 of 10 launches of a forward kernel;
+    a full run saw three empty traces in a row for the CUDA-core pair at
+    the iwslt call), so the median and not the sum is taken, and a trace
+    that caught none is taken again, up to ``tries`` times; None if every
+    try was empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,6 +260,34 @@ def time_library(q, k, v, bias, scale: float, causal: bool, grad=None, iters: in
         except RuntimeError:
             continue
         ms = time_ms(call, iters)
+        if best[0] is None or ms < best[0]:
+            best = (ms, name)
+    return best
+
+
+def library_device_ms(q, k, v, bias, scale: float, causal: bool, grad=None, iters: int = 20):
+    """SDPA's device time on these inputs: for each fused backend alone,
+    the kernels one call launches, summed, per call over ``iters`` calls in
+    a trace (``device_busy``); the forward alone, or with ``grad`` the
+    backward alone (``autograd.grad`` of a forward made before the trace).
+    Returns (ms, backend) of the fastest, or (None, None) when every
+    backend refuses the shape."""
+    mask = library_mask(bias, q.shape[1], causal, q.dtype)
+    if grad is not None:
+        q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    best = (None, None)
+    for name in LIBRARY_BACKENDS:
+        try:
+            with warnings.catch_warnings():  # a refusing backend warns why, then raises
+                warnings.simplefilter("ignore")
+                out = library_attention(q, k, v, mask, scale, causal, name)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        if grad is None:
+            ms = device_busy(lambda name=name: library_attention(q, k, v, mask, scale, causal, name), iters)[1]
+        else:
+            ms = device_busy(lambda out=out: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True), iters)[1]
         if best[0] is None or ms < best[0]:
             best = (ms, name)
     return best

@@ -9,19 +9,22 @@ over them); ``build_model`` (any family of ``models.ARCHITECTURES``),
 name, as JAX ``generation/__init__.py::build_generator``),
 ``inference_step`` and the ``augment_batch`` hook (identity here).
 
-Batches are padded to their own longest item: the JAX iterator's shape
-buckets (``bucket_shapes``) bound XLA's compiles and have no use here, and
-``cli/generate`` turns them off in JAX too.
+Batches are padded to their own longest item unless ``bucket_shapes`` is
+set: the JAX iterator's shape buckets bound XLA's compiles, and the JAX
+trainer pads to them (``cli/train`` and ``cli/validate`` ask for them, so
+their batches are JAX's), while ``cli/generate`` turns them off in JAX too.
+``prepare_sample``, ``valid_step_extra`` and ``reduce_metrics`` are the
+trainer's hooks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..criterions import CRITERIONS
-from ..data.batching import batch_by_size, filter_by_size
+from ..data.batching import ShapeBucketer, batch_by_size, filter_by_size
 from ..data.iterators import EpochBatchIterator
 from ..device import DeviceLike
 from ..generation import (BeamSearch, DiverseBeamSearch, DiverseSiblingsSearch, LengthConstrainedBeamSearch,
@@ -53,27 +56,51 @@ class Task:
     def get_batch_iterator(self, dataset, max_tokens: Optional[int] = None, max_sentences: Optional[int] = None,
                            max_positions=None, ignore_invalid_inputs: bool = False,
                            required_batch_size_multiple: int = 1, seed: int = 1, num_shards: int = 1,
-                           shard_id: int = 0, epoch: int = 0) -> EpochBatchIterator:
-        """Reference fairseq_task.py:107-167."""
+                           shard_id: int = 0, epoch: int = 0, bucket_shapes: bool = False) -> EpochBatchIterator:
+        """Reference fairseq_task.py:107-167. With ``bucket_shapes`` each
+        batch is padded to the JAX iterator's shape buckets (source and
+        target lengths on a sqrt(2) grid, the batch size on a grid of
+        powers of 2, ``ShapeBucketer``), as the JAX trainer pads its
+        training and validation batches; without it, to its longest item,
+        as JAX's ``cli/generate`` does. ``args.data_buffer_size`` batches
+        are collated ahead on a background thread."""
         state = np.random.get_state()
         np.random.seed(seed)
         try:
             indices = dataset.ordered_indices()
         finally:
             np.random.set_state(state)
+        size_fn = getattr(dataset, "max_component_size", dataset.size)
         if max_positions is not None:
             vec_filter = getattr(dataset, "filter_indices_by_size", None)
             if vec_filter is not None:
                 indices, _ = vec_filter(indices, max_positions, raise_exception=not ignore_invalid_inputs)
             else:
-                indices, _ = filter_by_size(indices, dataset.size, max_positions,
+                indices, _ = filter_by_size(indices, size_fn, max_positions,
                                             raise_exception=not ignore_invalid_inputs)
         num_tokens = getattr(dataset, "num_tokens_vec", None)
         batch_sampler = batch_by_size(indices, num_tokens(indices) if num_tokens is not None else dataset.num_tokens,
                                       max_tokens=max_tokens, max_sentences=max_sentences,
                                       required_batch_size_multiple=required_batch_size_multiple)
+        collate_pad_fn = None
+        if bucket_shapes:
+            src_bucketer = ShapeBucketer(min_size=8, max_size=self.max_positions()[0])
+            tgt_bucketer = ShapeBucketer(min_size=8, max_size=self.max_positions()[1])
+            bsz_bucketer = ShapeBucketer(min_size=8, max_size=4096, growth=2.0)
+
+            def collate_pad_fn(batch_indices: List[int]) -> dict:
+                sizes = [size_fn(i) for i in batch_indices]
+                if isinstance(sizes[0], tuple):
+                    src_max, tgt_max = max(s[0] for s in sizes), max(s[1] for s in sizes)
+                else:
+                    src_max, tgt_max = max(sizes), 0
+                return {"pad_to_src_len": src_bucketer.bucket(int(src_max)),
+                        "pad_to_tgt_len": tgt_bucketer.bucket(int(tgt_max) + 1),  # + the appended eos
+                        "pad_to_bsz": bsz_bucketer.bucket(len(batch_indices))}
+
         return EpochBatchIterator(dataset, batch_sampler, seed=seed, num_shards=num_shards, shard_id=shard_id,
-                                  epoch=epoch)
+                                  buffer_size=getattr(self.args, "data_buffer_size", 2), epoch=epoch,
+                                  collate_pad_fn=collate_pad_fn)
 
     def build_model(self, args, device: DeviceLike = None):
         """The model of ``args.arch`` (any preset of ``models.ARCHITECTURES``)
@@ -144,6 +171,23 @@ class Task:
     def augment_batch(self, batch, generator):
         """Training-time augmentation of the device batch (identity)."""
         return batch
+
+    def prepare_sample(self, sample, num_updates: int, training: bool = True):
+        """Host-side hook on a collated sample before the trainer moves it to
+        the device (JAX ``prepare_sample``; identity here)."""
+        return sample
+
+    def valid_step_extra(self, sample, trainer) -> dict:
+        """Extra logging entries of a validation batch, computed on the host
+        from the collated sample (JAX ``valid_step_extra``; none here: the
+        validation BLEU of ``--eval-bleu`` is ROADMAP Queue A item 3)."""
+        return {}
+
+    def reduce_metrics(self, logging_outputs, criterion, metrics) -> None:
+        """Log the summed outputs into the metrics stack through the
+        criterion's ``reduce_metrics`` (reference fairseq_task.py:372-402)."""
+        if hasattr(criterion, "reduce_metrics"):
+            criterion.reduce_metrics(logging_outputs, metrics)
 
     @property
     def source_dictionary(self):

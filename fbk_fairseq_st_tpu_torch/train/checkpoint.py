@@ -1,8 +1,10 @@
-"""Checkpoints: reading a model ensemble, and a model-only writer.
+"""Checkpoints: reading a model ensemble, and saving and resuming training.
 
 Counterpart of ``fbk_fairseq_st_tpu/train/checkpoint.py``
-(``load_checkpoint_to_cpu`` :53, ``load_model_ensemble_and_task``
-:458-495) for two formats:
+(``save_checkpoint`` :86, ``checkpoint_paths`` :261, ``load_checkpoint``
+:313, ``get_train_iterator`` :402, ``verify_checkpoint_directory`` :417,
+``load_checkpoint_to_cpu`` :53, ``load_model_ensemble_and_task``
+:458-495). It reads two formats:
 
   (a) a fork-layout ``.pt`` (``torch.save`` of {args, model, ...},
       reference checkpoint_utils.py:166-214): the model's ``state_dict``
@@ -15,24 +17,45 @@ Counterpart of ``fbk_fairseq_st_tpu/train/checkpoint.py``
       through ``utils.weights.state_dict_from_jax``. Its ``opt_state``
       pickles optax classes by reference, so it is read with an
       unpickler that lets numpy, builtins, ``collections``, ``copyreg``
-      and ``argparse`` through and turns every other class into an inert
-      stub: reading it imports neither ``jax`` nor ``optax``.
+      and ``argparse`` through and turns every other class into a stub
+      that keeps the values it was built with: reading it imports neither
+      ``jax`` nor ``optax``, and ``utils.weights.optimizer_state_from_jax``
+      turns the stubs into the port optimiser's state.
 
-JAX's sharded checkpoint (a directory) raises ``NotImplementedError``.
-``save_model_checkpoint`` writes format (a) with the model alone; the
-training state's saving comes with ``cli/train`` (ROADMAP Queue A item 3).
+It writes format (a), the fork's layout, so that ``cli/generate``, this
+reader and JAX's ``cli/import_fairseq_checkpoint`` all read it: ``args``
+(the namespace), ``model`` (the state dict on the CPU),
+``optimizer_history`` (the fork's list of {criterion_name, optimizer_name,
+lr_scheduler_state, num_updates}), ``last_optimizer_state`` (the torch
+optimiser's state dict), ``last_optimizer_param_names`` (the parameters in
+the optimiser's order) and ``extra_state`` (the iterator position, the
+val loss, the metrics and ``best``), under JAX's file names and retention
+rules. ``load_checkpoint`` resumes from each kind of file: the port's own,
+a JAX pickle (with its optimiser state), and a fork ``.pt`` (model only:
+its optimiser state raises unless ``--reset-optimizer``, since the port
+cannot show that its parameter order is the fork's). JAX's sharded
+checkpoint (a directory) and ``--async-checkpoint`` raise
+``NotImplementedError`` (ROADMAP Queue A item 3).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import logging
 import os
 import pickle
+import re
+import shutil
+import tempfile
 from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..utils.weights import state_dict_from_jax
+from ..utils.weights import optimizer_state_from_jax, state_dict_from_jax
+from . import metrics
+
+logger = logging.getLogger(__name__)
 
 _SAFE_MODULES = ("numpy", "builtins", "collections", "copyreg", "argparse", "_codecs")
 # entries of a fork state dict that no module of the port holds
@@ -40,16 +63,22 @@ _FORK_BOOKKEEPING = (".version", "._float_tensor", ".num_batches_tracked")
 
 
 class _Stub:
-    """A class the reader does not import: takes any arguments and state."""
+    """A class the reader does not import. It keeps what it was built with:
+    the positional arguments (a NamedTuple such as optax's
+    ``ScaleByAdamState(count, mu, nu)`` pickles its fields as the arguments
+    of ``copyreg.__newobj__``) in ``args``, the keyword ones in ``kwargs``,
+    and the state a plain class pickles (``__setstate__``) in ``state``."""
 
     def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
+        obj = object.__new__(cls)
+        obj.__dict__.update(args=args, kwargs=kwargs, state=None)
+        return obj
 
     def __init__(self, *args, **kwargs):
         pass
 
     def __setstate__(self, state):
-        self.__dict__["_state"] = state
+        self.__dict__["state"] = state
 
 
 class _SafeUnpickler(pickle.Unpickler):
@@ -73,12 +102,15 @@ def load_checkpoint_to_cpu(path: str) -> Dict[str, Any]:
         raise NotImplementedError(f"{path}: the sharded checkpoint format is not ported (ROADMAP Queue A item 3)")
     if _is_torch_file(path):
         state = torch.load(path, map_location="cpu", weights_only=False)
+        state["format"] = "port" if "last_optimizer_param_names" in state else "fork"
         return upgrade_fork_state(state)
     with open(path, "rb") as f:
         state = _SafeUnpickler(f).load()
     args = state.get("args") or {}
     state["args"] = argparse.Namespace(**args) if isinstance(args, dict) else args
+    state["params_tree"] = state["model"]
     state["model"] = state_dict_from_jax({"params": state["model"], "state": state.get("model_state") or {}})
+    state["format"] = "jax"
     return state
 
 
@@ -143,8 +175,219 @@ def load_model_ensemble(filenames: List[str], arg_overrides=None, task=None, dev
 def save_model_checkpoint(path: str, args: argparse.Namespace, model: torch.nn.Module) -> None:
     """A fork-layout ``.pt`` of the model alone: {args, model (its state
     dict on the CPU), optimizer_history [], extra_state {}}."""
-    state = {"args": args, "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-             "optimizer_history": [], "extra_state": {}}
+    _save(path, {"args": args, "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                 "optimizer_history": [], "extra_state": {}})
+
+
+# ---------------------------------------------------------------------------
+# saving and resuming training
+# ---------------------------------------------------------------------------
+
+class CheckpointManager:
+    """The best validation metric so far (reference ``save_checkpoint.best``)."""
+
+    def __init__(self):
+        self.best: Optional[float] = None
+
+
+_manager = CheckpointManager()
+
+
+def check_format(args) -> None:
+    if getattr(args, "checkpoint_format", "pickle") == "sharded":
+        raise NotImplementedError("--checkpoint-format sharded: the sharded checkpoint is not ported "
+                                  "(ROADMAP Queue A item 3)")
+    if getattr(args, "async_checkpoint", False):
+        raise NotImplementedError("--async-checkpoint: asynchronous checkpoint writes are not ported "
+                                  "(ROADMAP Queue A item 3)")
+
+
+def _save(path: str, state: Dict[str, Any]) -> None:
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint(args, trainer, epoch_itr, val_loss) -> None:
+    """Write the checkpoints JAX :86-258 writes, under its names: ``checkpoint{epoch}.pt``
+    at the end of an epoch (every ``--save-interval``), ``checkpoint_{epoch}_{updates}.pt``
+    inside one (every ``--save-interval-updates``), ``checkpoint_best.pt`` and
+    ``checkpoint.best_{metric}_{val:.2f}.pt`` (``--keep-best-checkpoints``) when the val
+    loss is the best so far, and ``checkpoint_last.pt``, each with ``--checkpoint-suffix``
+    before ``.pt``; then drop the oldest past ``--keep-interval-updates`` /
+    ``--keep-last-epochs`` / ``--keep-best-checkpoints``."""
+    check_format(args)
+    if getattr(args, "no_save", False):
+        return
+    best_function = max if getattr(args, "maximize_best_checkpoint_metric", False) else min
+    prev_best = _manager.best if _manager.best is not None else val_loss
+    if val_loss is not None:
+        _manager.best = best_function(val_loss, prev_best)
+
+    save_dir = args.save_dir
+    os.makedirs(save_dir, exist_ok=True)
+    end_of_epoch = epoch_itr.end_of_epoch()
+    epoch = epoch_itr.epoch
+    updates = trainer.get_num_updates()
+    save_interval_updates = getattr(args, "save_interval_updates", 0)
+    conds = collections.OrderedDict()
+    conds[f"checkpoint{epoch}.pt"] = (end_of_epoch and not getattr(args, "no_epoch_checkpoints", False)
+                                      and epoch % getattr(args, "save_interval", 1) == 0)
+    conds[f"checkpoint_{epoch}_{updates}.pt"] = (not end_of_epoch and save_interval_updates > 0
+                                                 and updates % save_interval_updates == 0)
+    conds["checkpoint_best.pt"] = val_loss is not None and (_manager.best is None or val_loss == _manager.best)
+    if val_loss is not None and getattr(args, "keep_best_checkpoints", -1) > 0:
+        name = "checkpoint.best_{}_{:.2f}.pt".format(getattr(args, "best_checkpoint_metric", "loss"), val_loss)
+        conds[name] = _manager.best is None or val_loss == _manager.best
+    conds["checkpoint_last.pt"] = not getattr(args, "no_last_checkpoints", False)
+    suffix = getattr(args, "checkpoint_suffix", "") or ""
+    if suffix:
+        conds = collections.OrderedDict((fn[: -len(".pt")] + suffix + ".pt", c) for fn, c in conds.items())
+
+    extra_state = {"train_iterator": epoch_itr.state_dict(), "val_loss": val_loss, "metrics": metrics.state_dict()}
+    if _manager.best is not None:
+        extra_state["best"] = _manager.best
+    checkpoints = [os.path.join(save_dir, fn) for fn, cond in conds.items() if cond]
+    if checkpoints:
+        fetched = trainer.state_for_checkpoint()
+        names = {id(p): n for n, p in trainer.model.named_parameters()}
+        state = {
+            "args": args,
+            "model": fetched["model"],
+            "optimizer_history": [{
+                "criterion_name": type(trainer.criterion).__name__,
+                "optimizer_name": type(trainer.optimizer).__name__,
+                "lr_scheduler_state": fetched["lr_scheduler"],
+                "num_updates": fetched["num_updates"],
+            }],
+            "last_optimizer_state": fetched["optimizer"],
+            "last_optimizer_param_names": [names[id(p)] for g in trainer.optimizer.param_groups for p in g["params"]],
+            "extra_state": extra_state,
+        }
+        _save(checkpoints[0], state)
+        for cp in checkpoints[1:]:
+            shutil.copyfile(checkpoints[0], cp + ".tmp")
+            os.replace(cp + ".tmp", cp)
+        logger.info("saved checkpoint {} (epoch {} @ {} updates)".format(checkpoints[0], epoch, updates))
+    _collect_garbage(args, save_dir)
+
+
+def _collect_garbage(args, save_dir: str) -> None:
+    sfx = re.escape(getattr(args, "checkpoint_suffix", "") or "")
+    keep = getattr(args, "keep_interval_updates", -1)
+    if keep > 0:
+        for old in checkpoint_paths(save_dir, pattern=r"checkpoint_\d+_(\d+)" + sfx + r"\.pt")[keep:]:
+            os.remove(old)
+    keep = getattr(args, "keep_last_epochs", -1)
+    if keep > 0:
+        for old in checkpoint_paths(save_dir, pattern=r"checkpoint(\d+)" + sfx + r"\.pt")[keep:]:
+            os.remove(old)
+    keep = getattr(args, "keep_best_checkpoints", -1)
+    if keep > 0:
+        found = checkpoint_paths(save_dir, pattern=r"checkpoint\.best_{}_(\d+\.?\d*){}\.pt".format(
+            getattr(args, "best_checkpoint_metric", "loss"), sfx))
+        if not getattr(args, "maximize_best_checkpoint_metric", False):
+            found = found[::-1]
+        for old in found[keep:]:
+            os.remove(old)
+
+
+def checkpoint_paths(path: str, pattern: str = r"checkpoint(\d+)\.pt") -> List[str]:
+    """The files of ``path`` matching ``pattern``, by its first group,
+    largest first (reference checkpoint_utils.py checkpoint_paths)."""
+    pt_regexp = re.compile(pattern)
+    entries = []
+    for f in os.listdir(path):
+        m = pt_regexp.fullmatch(f)
+        if m is not None:
+            idx = float(m.group(1)) if len(m.groups()) > 0 else 0
+            entries.append((idx, m.group(0)))
+    return [os.path.join(path, x[1]) for x in sorted(entries, reverse=True)]
+
+
+def training_state(state: Dict[str, Any], trainer, reset_optimizer: bool) -> Dict[str, Any]:
+    """What ``Trainer.load_trainer_state`` restores, from a checkpoint of
+    any of the three kinds ``load_checkpoint_to_cpu`` reads."""
+    kind = state.get("format")
+    if kind == "jax":
+        optimizer = None
+        if not reset_optimizer and state.get("opt_state") is not None:
+            optimizer = optimizer_state_from_jax(state["opt_state"], state["params_tree"], trainer.model,
+                                                 trainer.optimizer)
+        return {"model": state["model"], "optimizer": optimizer, "lr_scheduler": state.get("lr_scheduler"),
+                "num_updates": 0 if reset_optimizer else state.get("num_updates", 0)}
+    history = (state.get("optimizer_history") or [{}])[-1]
+    optimizer = None
+    if not reset_optimizer and state.get("last_optimizer_state") is not None:
+        if kind != "port":
+            raise NotImplementedError(
+                "restoring the optimiser state of a fork checkpoint: the port cannot show that its parameter "
+                "order is the fork's; pass --reset-optimizer to restore the model alone")
+        names = {id(p): n for n, p in trainer.model.named_parameters()}
+        ours = [names[id(p)] for g in trainer.optimizer.param_groups for p in g["params"]]
+        if ours != state["last_optimizer_param_names"]:
+            raise ValueError("the checkpoint's optimiser holds other parameters than this model's; "
+                             "pass --reset-optimizer to restore the model alone")
+        optimizer = state["last_optimizer_state"]
+    return {"model": state["model"], "optimizer": optimizer, "lr_scheduler": history.get("lr_scheduler_state"),
+            "num_updates": 0 if reset_optimizer else history.get("num_updates", 0)}
+
+
+def load_checkpoint(args, trainer, task):
+    """Load ``checkpoint_last`` (or ``--restore-file``) into the trainer and
+    build the train iterator at its position: JAX :313-399 with the four
+    ``--reset-*`` flags. Returns (extra_state, epoch_itr)."""
+    check_format(args)
+    reset_optimizer = getattr(args, "reset_optimizer", False)
+    reset_lr_scheduler = getattr(args, "reset_lr_scheduler", False)
+    reset_meters = getattr(args, "reset_meters", False)
+    reset_dataloader = getattr(args, "reset_dataloader", False)
+    restore_file = getattr(args, "restore_file", "checkpoint_last.pt")
+    suffix = getattr(args, "checkpoint_suffix", "") or ""
+    if suffix and restore_file == "checkpoint_last.pt":
+        restore_file = "checkpoint_last" + suffix + ".pt"
+    path = restore_file if os.path.isabs(restore_file) else os.path.join(args.save_dir, restore_file)
+
+    extra_state = None
+    if os.path.exists(path):
+        state = load_checkpoint_to_cpu(path)
+        trainer.load_trainer_state(training_state(state, trainer, reset_optimizer),
+                                   reset_optimizer=reset_optimizer, reset_lr_scheduler=reset_lr_scheduler)
+        extra_state = state.get("extra_state")
+        if extra_state is not None and not reset_meters:
+            if "best" in extra_state:
+                _manager.best = extra_state["best"]
+            if extra_state.get("metrics"):
+                metrics.load_state_dict(extra_state["metrics"])
+        logger.info("loaded checkpoint {} ({} updates)".format(path, trainer.get_num_updates()))
+    else:
+        logger.info("no existing checkpoint found {}".format(path))
+
+    epoch = 0
+    if extra_state is not None and not reset_dataloader and "train_iterator" in extra_state:
+        epoch = extra_state["train_iterator"]["epoch"]
+    epoch_itr = get_train_iterator(args, trainer, task, epoch=epoch)
+    if extra_state is not None and not reset_dataloader and "train_iterator" in extra_state:
+        epoch_itr.load_state_dict(extra_state["train_iterator"])
+    return extra_state, epoch_itr
+
+
+def get_train_iterator(args, trainer, task, epoch: int = 0):
+    """The training split's epoch iterator, batches padded to the shape
+    buckets as JAX's are."""
+    return task.get_batch_iterator(
+        dataset=task.dataset(getattr(args, "train_subset", "train")), max_tokens=getattr(args, "max_tokens", None),
+        max_sentences=getattr(args, "max_sentences", None), max_positions=task.max_positions(),
+        ignore_invalid_inputs=True, required_batch_size_multiple=getattr(args, "required_batch_size_multiple", 8),
+        seed=getattr(args, "seed", 1), num_shards=1, shard_id=0, epoch=epoch, bucket_shapes=True)
+
+
+def verify_checkpoint_directory(save_dir: str) -> None:
+    """Write-probe the save directory (reference checkpoint_utils.py:488-499)."""
+    os.makedirs(save_dir, exist_ok=True)
+    try:
+        with tempfile.NamedTemporaryFile(dir=save_dir, prefix="dummy", delete=True):
+            pass
+    except OSError as e:
+        logger.error(f"Unable to access checkpoint save directory: {save_dir}")
+        raise e

@@ -34,10 +34,12 @@ The tree's leaves are numpy arrays (or anything ``np.asarray`` accepts).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..optim.optimizers import factored_dims
 
 _COMPONENT_MAP = {
     "convs": "convolutions",
@@ -96,13 +98,19 @@ def fork_name(parts: List[str]) -> str:
     return ".".join(out)
 
 
+def fork_axes(name: str, ndim: int) -> Tuple[int, ...]:
+    """The permutation ``fork_layout`` applies: axis i of the fork's array
+    is axis ``fork_axes(name, ndim)[i]`` of the JAX array."""
+    if ndim == 2 and name.endswith("weight") and not name.endswith(_NO_TRANSPOSE_SUFFIX):
+        return (1, 0)  # (in, out) -> nn.Linear (out, in)
+    if ndim == 4:
+        return (3, 2, 0, 1)  # HWIO -> OIHW
+    return tuple(range(ndim))
+
+
 def fork_layout(name: str, arr: np.ndarray) -> np.ndarray:
     """JAX array layout -> the fork's."""
-    if arr.ndim == 2 and name.endswith("weight") and not name.endswith(_NO_TRANSPOSE_SUFFIX):
-        return arr.T  # (in, out) -> nn.Linear (out, in)
-    if arr.ndim == 4:
-        return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-    return arr
+    return arr.transpose(fork_axes(name, arr.ndim))
 
 
 def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -125,3 +133,123 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             arr = np.asarray(leaf)
             out[name] = torch.tensor(np.ascontiguousarray(fork_layout(name, arr)))
     return out
+
+
+# optax's state classes and their fields, in the order they pickle: the
+# checkpoint reader rebuilds them as stubs that keep only the values
+_OPTAX_FIELDS = {
+    "ScaleByAdamState": ("count", "mu", "nu"),
+    "ScaleByAdaDeltaState": ("e_g", "e_x"),
+    "ScaleByRssState": ("sum_of_squares",),
+    "FactoredState": ("count", "v_row", "v_col", "v"),
+    "TraceState": ("trace",),
+}
+# port optimiser -> {its state key: optax field}
+_STATE_FIELDS = {
+    "Adam": {"step": "count", "exp_avg": "mu", "exp_avg_sq": "nu"},
+    "Lamb": {"step": "count", "exp_avg": "mu", "exp_avg_sq": "nu"},
+    "Adamax": {"step": "count", "exp_avg": "mu", "exp_inf": "nu"},
+    "Adadelta": {"square_avg": "e_g", "acc_delta": "e_x"},
+    "Adagrad": {"sum": "sum_of_squares"},
+    "Adafactor": {"step": "count", "v_row": "v_row", "v_col": "v_col", "v": "v", "momentum_buffer": "trace"},
+    "SGD": {"momentum_buffer": "trace"},
+}
+
+
+def _state_fields(node: Any, out: Dict[str, Any]) -> Dict[str, Any]:
+    """optax's field name -> value over a (chained) optimiser state: a
+    NamedTuple of optax, or the reader's stub of one (its class name and
+    the values it was built with); a tuple is a chain."""
+    if hasattr(node, "_fields"):
+        items = zip(node._fields, node)
+    elif hasattr(node, "args") and type(node).__name__ in _OPTAX_FIELDS:
+        items = zip(_OPTAX_FIELDS[type(node).__name__], node.args)
+    elif isinstance(node, (tuple, list)):
+        for sub in node:
+            _state_fields(sub, out)
+        return out
+    else:
+        return out  # EmptyState and the like: no per-parameter state
+    for field, value in items:
+        out.setdefault(field, value)
+    return out
+
+
+def _factored_stat(stat: np.ndarray, jax_removed: int, perm: Tuple[int, ...]) -> np.ndarray:
+    """A statistic reduced over JAX axis ``jax_removed``, its remaining
+    axes put in the fork's order."""
+    jax_axes = [a for a in range(len(perm)) if a != jax_removed]
+    port_axes = [q for q in range(len(perm)) if perm[q] != jax_removed]
+    return stat.transpose([jax_axes.index(perm[q]) for q in port_axes])
+
+
+def optimizer_state_from_jax(opt_state: Any, params_tree: Any, model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """The JAX package's optax state -> ``optimizer.state_dict()`` of the
+    port's optimiser over ``model``'s parameters, with the leaf names and
+    layouts of ``state_dict_from_jax``: Adam's ``count`` / ``mu`` / ``nu``
+    become ``step`` / ``exp_avg`` / ``exp_avg_sq``, and each other
+    optimiser's fields its own (``_STATE_FIELDS``). ``params_tree`` is the
+    JAX params tree, whose shapes decide Adafactor's factored axes: a
+    factored statistic is reduced over the same logical axis on both sides,
+    so ``v_row`` and ``v_col`` trade places where a transpose makes the
+    other axis the larger one (a square weight). A state the optimiser does
+    not hold (the coupled decay's ``EmptyState``) is skipped; Adadelta,
+    which counts no steps in optax, restarts torch's ``step`` at 0."""
+    kind = type(optimizer).__name__
+    if kind not in _STATE_FIELDS:
+        raise NotImplementedError(f"no optax state mapping for {kind}")
+    fields = _state_fields(opt_state, {})
+    wanted = {key: field for key, field in _STATE_FIELDS[kind].items() if field in fields}
+    jax_shapes = {fork_name(list(path)): np.shape(leaf) for path, leaf in _leaves(params_tree)}
+    index = {id(p): i for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"])}
+    names = {name: p for name, p in model.named_parameters() if id(p) in index}
+    per_field = {field: dict((fork_name(list(path)), np.asarray(leaf)) for path, leaf in _leaves(fields[field]))
+                 for field in wanted.values() if field != "count"}
+    count = np.asarray(fields["count"]) if "count" in fields else np.zeros(())
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    for name, param in names.items():
+        if name not in jax_shapes:
+            raise KeyError(f"{name}: no such leaf in the JAX params tree")
+        perm = fork_axes(name, len(jax_shapes[name]))
+        entry: Dict[str, torch.Tensor] = {}
+        factored = _factored_axes(kind, jax_shapes[name])
+        for key, field in wanted.items():
+            if field == "count":
+                dtype = torch.int32 if kind == "Adafactor" else torch.float32
+                entry[key] = torch.tensor(count, dtype=dtype)
+                continue
+            arr = per_field[field].get(name)
+            if arr is None:
+                continue
+            if field in ("v_row", "v_col"):
+                if factored is None:
+                    continue
+                entry[key] = torch.tensor(np.ascontiguousarray(
+                    _factored_port_stat(key, per_field, name, jax_shapes[name], factored, perm)))
+            elif field == "v" and factored is not None:
+                continue
+            else:
+                entry[key] = torch.tensor(np.ascontiguousarray(arr.transpose(perm)))
+        if kind == "Adadelta":
+            entry["step"] = torch.tensor(0.0)
+        state[index[id(param)]] = entry
+    groups = optimizer.state_dict()["param_groups"]
+    return {"state": state, "param_groups": groups}
+
+
+def _factored_axes(kind: str, shape) -> Optional[Tuple[int, int]]:
+    return factored_dims(tuple(shape)) if kind == "Adafactor" else None
+
+
+def _factored_port_stat(key, per_field, name, jax_shape, jax_dims, perm) -> np.ndarray:
+    """The port's ``v_row`` (mean over its largest axis) or ``v_col`` (over
+    its second largest) from JAX's pair, by the logical axis each reduces."""
+    jd1, jd0 = jax_dims
+    pd1, pd0 = factored_dims(tuple(jax_shape[a] for a in perm))
+    logical = perm[pd0] if key == "v_row" else perm[pd1]
+    if logical == jd0:
+        return _factored_stat(per_field["v_row"][name], jd0, perm)
+    if logical == jd1:
+        return _factored_stat(per_field["v_col"][name], jd1, perm)
+    raise ValueError(f"{name}: the factored axes of {jax_shape} differ between the layouts")

@@ -117,8 +117,12 @@ def test_shared_memory_limit(dtype):
     for d, s, tb in refused:
         with pytest.raises(ValueError):
             single.check_shape(dtype, d, s, tb)
+    # bh is the grid's x dimension and takes any size; the q tiles, its y,
+    # at most 65,535
+    tb = single.T_BLOCKS[dtype][0]
+    single.check_shape(dtype, 64, 256, tb, t=65535 * tb)
     with pytest.raises(ValueError):
-        single.check_shape(dtype, 64, 256, single.T_BLOCKS[dtype][0], bh=65536)
+        single.check_shape(dtype, 64, 256, tb, t=65535 * tb + 1)
 
 
 @pytest.mark.parametrize("padded", [False, True], ids=["unpadded", "padded"])

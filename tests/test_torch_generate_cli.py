@@ -197,3 +197,34 @@ def test_apply_architecture_matches_jax(arch):
     assert len(shared) > 15
     for k in shared:
         assert getattr(targs, k) == getattr(jargs, k), k
+
+
+def test_jax_optimizer_state_reads_whole(tmp_path):
+    """A JAX pickle's optax Adam state after two updates reads back with
+    its count, mu and nu equal to the saved arrays (the stub keeps the
+    NamedTuple's fields), still without importing jax or optax: checked in
+    a fresh interpreter against the arrays saved beside it."""
+    rng = np.random.RandomState(2)
+    params = {"layer": {"w": rng.randn(3, 4).astype(np.float32), "b": rng.randn(4).astype(np.float32)}}
+    tx = optax.adam(1e-3)
+    state = tx.init(params)
+    for _ in range(2):
+        grads = jax.tree_util.tree_map(lambda p: rng.randn(*p.shape).astype(np.float32), params)
+        _, state = tx.update(grads, state, params)
+    state = jax.tree_util.tree_map(np.asarray, state)
+    path = str(tmp_path / "ckpt.pt")
+    save_state(path, {"args": {"arch": "conv_transformer"}, "model": params, "opt_state": state})
+    adam = state[0]
+    np.savez(str(tmp_path / "want.npz"), count=adam.count, mu_w=adam.mu["layer"]["w"], mu_b=adam.mu["layer"]["b"],
+             nu_w=adam.nu["layer"]["w"], nu_b=adam.nu["layer"]["b"])
+    code = ("import sys, numpy as np; from fbk_fairseq_st_tpu_torch.train.checkpoint import load_checkpoint_to_cpu; "
+            f"s = load_checkpoint_to_cpu({path!r}); w = np.load({str(tmp_path / 'want.npz')!r}); "
+            "adam = s['opt_state'][0]; assert type(adam).__name__ == 'ScaleByAdamState', type(adam); "
+            "count, mu, nu = adam.args; assert int(count) == int(w['count']) == 2; "
+            "ok = all(np.array_equal(t['layer'][k], w[n + '_' + k]) for n, t in (('mu', mu), ('nu', nu)) "
+            "for k in ('w', 'b')); assert ok; "
+            "bad = [m for m in ('jax', 'jaxlib', 'optax', 'flax', 'fbk_fairseq_st_tpu') if m in sys.modules]; "
+            "assert not bad, bad; print('read')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "read"

@@ -398,10 +398,13 @@ def test_off_path_training_options_raise():
         task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "cross_entropy"}))
     model = tct.build_model("conv_transformer", torch_dictionary(), device="cpu", **SMALL)
     crit = task.build_criterion(args)
-    for option in (dict(fsdp=True), dict(steps_per_execution=4), dict(optimizer="sgd"),
-                   dict(lr_scheduler="fixed")):
+    for option in (dict(fsdp=True), dict(steps_per_execution=4), dict(use_bmuf=True),
+                   dict(quant_noise_scalar=0.1)):
         with pytest.raises(NotImplementedError):
             Trainer(argparse.Namespace(**{**vars(args), **option}), task, model, crit)
+    # every optimiser and scheduler of the JAX package is ported
+    Trainer(argparse.Namespace(**{**vars(args), "optimizer": "sgd", "momentum": 0.0, "lr_scheduler": "fixed",
+                                  "force_anneal": None, "lr_shrink": 0.1}), task, model, crit)
     model.frozen_param_filter = lambda name: True
     with pytest.raises(NotImplementedError):
         Trainer(args, task, model, crit)

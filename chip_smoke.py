@@ -9,9 +9,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      CUDA;
   2. build: compiles every kernel from the sources in this checkout (one
      nvcc per source, all started together, sm_90a: flash_fwd, flash_fwd_tc,
-     flash_fwd_tf32x3, flash_bwd, flash_bwd_tc, flash_bwd_tf32x3,
-     dynamic_conv, dynamic_conv_tc, flash_fwd_single) and reports the
-     seconds and the ptxas registers and spills of each;
+     flash_fwd_tf32x3, flash_bwd, flash_bwd_tc, flash_bwd_tc128,
+     flash_bwd_tf32x3, dynamic_conv, dynamic_conv_tc, flash_fwd_single) and
+     reports the seconds and the ptxas registers and spills of each; the
+     D 128 pair (flash_bwd_tc128) must spill nothing (asserted);
   3. kernels at the serving shapes (those of the one-phase requests, and
      the two-phase request's auxiliary pass: bh 640, T 101, causal
      self-attention and cross-attention over 128 keys): the flash forward
@@ -29,26 +30,34 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      batch 64 with keys padded on the left, the iwslt presets' at D 128
      (bh 256, T = S = 56, keys padded on the left), the long-context
      step's two at S 2048, a ragged call and a causal one with T > S), in
-     fp32 and bf16, one bf16 call at D 16 and one fp32 call at bh 70,000
-     (T 16, D 128: past the 65,535 of a grid's y dimension, which no
-     kernel caps bh at any more): the forward's dropout keep mask against
+     fp32 and bf16, one bf16 call at D 16, one call at bh 70,000 (T 16,
+     D 128, both types: past the 65,535 of a grid's y dimension, which no
+     kernel caps bh at any more), and in bf16 the iwslt call at rate 0 and
+     a long D 128 call (``d128_long``: bh 32, T = S = 2048, padded keys,
+     rate 0.1): the forward's dropout keep mask (at a rate above 0) against
      ``philox.keep_mask`` (exactly: probed through the CUDA-core kernel in
      fp32, the tf32x3 kernel at D 64 and D 32, and the bf16 tensor-core
      kernel at D 64 and D 32, each launched directly), the forward at the
      training dropout rate (on the tensor cores at D 32 and 64: "tc" in
      bf16, "tf32x3" in fp32), and the fused backward and the split pair of
-     the call's route (the same tensor-core routes; the CUDA cores at
-     D 16), and in fp32 at D 32 and 64 the CUDA-core forward and pair
-     launched directly, against the plain versions on the same inputs and
+     the call's route (the same tensor-core routes, and in bf16 at D 128
+     the D 128 tensor-core pair; the CUDA cores at D 16 and for fp32 at
+     D 128), and in fp32 at D 32 and 64 the CUDA-core forward and pair, in
+     bf16 at D 128 the CUDA-core pair, launched directly, against the plain
+     versions on the same inputs and
      seed, with the same times and bounds (the library time of a backward
-     is SDPA's forward + backward at rate 0; at the iwslt call SDPA's device
-     time too, the forward and the backward apart, each call's kernels
-     summed in a trace, on the fused backend fastest by that time, since
-     its wall time there is host-bound); then, at
-     the long D 64 call in
-     each type, the tensor-core pair's dq, dk, dv again, and at the iwslt
-     D 128 call the CUDA-core pair's (the default backward there), bitwise
-     equal to the first (asserted), and the fused kernel's dQ spread;
+     is SDPA's forward + backward at rate 0; at the iwslt call and
+     ``d128_long`` SDPA's device time too, the forward and the backward
+     apart, each call's kernels summed in a trace, on the fused backend
+     fastest by that time, since its wall time at the iwslt call is
+     host-bound); then, at the long D 64 call in each type, the tensor-core
+     pair's dq, dk, dv again, and at the iwslt D 128 call (rates 0.1 and
+     0) the default pair's (the D 128 tensor-core pair in bf16, the
+     CUDA-core pair in fp32), bitwise equal to the first (asserted), and
+     the fused kernel's dQ spread; at every bf16 call at D 128 the D 128
+     tensor-core pair at most the CUDA-core pair's device time, the sum of
+     dq's and dkv's median launches (``d128_pair_wins``, asserted), beside
+     the fused kernel's, SDPA's backward, the plain time and the bound;
   5. dynamic-conv kernels: the tensor-core ``dynamic_conv_fwd_tc`` and
      ``dynamic_conv_bwd_tc`` (every model path's) and the first, CUDA-core
      ``dynamic_conv_fwd`` and ``dynamic_conv_bwd`` (launched directly,
@@ -138,10 +147,12 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      the model path's backward calls, the CUDA-core pair's beside them, the
      CUDA-core and the tensor-core forward's at each of its attention
      calls, and whether the tensor-core kernels win there: they must win at
-     every call they serve, in both types, asserted; the iwslt call at
-     D 128, which no tensor-core kernel takes, is reported on its own: the
-     CUDA-core forward, the fused kernel against the CUDA-core pair, and
-     SDPA's forward + backward);
+     every call they serve, in both types, asserted; at the iwslt call
+     (D 128) the bf16 tensor-core pair against the fused kernel and the
+     CUDA-core pair, and it must beat both, asserted (``pair_wins``,
+     ``d128_pair_wins``), beside the CUDA-core forward and SDPA's
+     forward + backward; the fp32 call there, on the CUDA-core pair, is
+     reported on its own);
  14. train (main path 6), the ``bench.py::_measure_ctc_flagship``
      configuration: ``conv_transformer_big`` with ``ctc_multi_loss`` over
      label-smoothed CE 0.1, CTC after encoder layer 4 with weight 0.5 and
@@ -204,9 +215,11 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
  20. train (main path 10): ``dynamicconv_iwslt_de_en`` at full width
      (512/1024/4, 7 + 6 layers, the dictionaries of phase 9) with phase
      10's arguments and batch: head dim 128, so exactly 6 CUDA-core flash
-     forwards and 6 + 6 CUDA-core dq + dkv a step, 0 fused and 0 on the
-     tensor cores, and 13 + 13 tensor-core dynamic conv; step ms, busy ms
-     and idle share of one profiled step, the loss finite and falling;
+     forwards and 6 + 6 D 128 tensor-core dq + dkv
+     (``csrc/flash_bwd_tc128.cu``) a step, 0 CUDA-core dq/dkv, 0 fused and
+     0 other tensor-core flash kernels, and 13 + 13 tensor-core dynamic
+     conv; step ms, busy ms and idle share of one profiled step, the loss
+     finite and falling;
  21. serve from files (main path 11), the README's quick start: a corpus
      of 32 utterances of 409-512 frames x 80 mels with target and
      transcript text over phase 6's dictionary, written with the port's
@@ -250,9 +263,10 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      ``checkpoint_best.pt``: 8 tf32x3 forwards a batch, its weights
      bitwise the trainer's when it wrote the file, its H- lines those of
      the in-memory generator on those weights (scores within 1e-4);
- 25. the ``kernels`` line (the CUDA-core dynamic-conv kernels with 0 main-path
-     launches, marked as reached by a direct call only), the card line, and
-     the final ``ok`` line.
+ 25. the ``kernels`` line (the D 128 tensor-core pair timed at the iwslt
+     call and at ``d128_long``; the CUDA-core dynamic-conv kernels with 0
+     main-path launches, marked as reached by a direct call only), the card
+     line, and the final ``ok`` line.
 
 Tolerances (stated here, checked below):
   * kernels against their plain versions: atol 1e-4 in fp32 (the same
@@ -399,26 +413,34 @@ KERNEL_SHAPES = [
 # padded keys) in fp32 and bf16, a ragged call and a causal one with T > S,
 # unaligned, one bf16 call at D 16, and one at bh 70,000 (past the 65,535
 # of a grid's y dimension: every kernel puts bh on x); at D 16 and 128 the
-# forward and the split pair run on the CUDA cores, which the iwslt
-# presets' train step reaches at D 128
+# forward runs on the CUDA cores, and so does the split pair but in bf16 at
+# D 128 (csrc/flash_bwd_tc128.cu), which the iwslt presets' train step
+# reaches
 TRAIN_KERNEL_SHAPES = [(*shape, (torch.float32, torch.bfloat16)) for shape in TRAIN_BACKWARD_SHAPES] + [
     ("ragged_bh3_T77_S333", 3, 77, 333, 64, False, 0.1, False, (torch.float32, torch.bfloat16)),
     ("causal_bh6_T130_S77", 6, 130, 77, 64, True, 0.1, False, (torch.float32, torch.bfloat16)),
     ("d16_bf16", 64, 100, 100, 16, False, 0.1, False, (torch.bfloat16,)),
-    ("bh70000_T16_D128", 70000, 16, 16, 128, False, 0.1, False, (torch.float32,)),
+    ("bh70000_T16_D128", 70000, 16, 16, 128, False, 0.1, False, (torch.float32, torch.bfloat16)),
+    # the iwslt call at rate 0, and a long D 128 call whose products bound
+    # the tensor-core pair (dq 0.104 ms, dkv 0.139 ms at 989 TFLOP/s)
+    ("lightconv_iwslt_cross_attention_rate0", 256, 56, 56, 128, False, 0.0, True, (torch.bfloat16,)),
+    ("d128_long", 32, 2048, 2048, 128, False, 0.1, False, (torch.bfloat16,)),
 ]
 # each forward route's row name and worst-error kind (flash_attention.fwd_route)
 FWD_ROWS = {"tc": "flash_attention_fwd_tc", "tf32x3": "flash_attention_fwd_tf32x3", "cuda_core": "flash_attention_fwd"}
 FWD_KINDS = {"tc": "fwd_tc", "tf32x3": "fwd_tf32x3", "cuda_core": "fwd"}
-# each backward route's worst-error kind and row suffix
-BWD_KINDS = {"fused": "bwd_fused", "cuda_core": "bwd_cuda_core", "tc": "bwd_tc", "tf32x3": "bwd_tf32x3"}
-ROW_SUFFIX = {"cuda_core": "", "tc": "_tc", "tf32x3": "_tf32x3"}
-# each type's pair, bits compared across launches: the tensor-core pair at
-# the long call, the CUDA-core pair (the D 128 default) at the iwslt call
-DETERMINISM_AT = ("long_encoder_self_attention", "lightconv_iwslt_cross_attention")
+# each backward pair's worst-error kind and row suffix, by ``pair_name``
+BWD_KINDS = {"fused": "bwd_fused", "cuda_core": "bwd_cuda_core", "tc": "bwd_tc", "tc128": "bwd_tc128",
+             "tf32x3": "bwd_tf32x3"}
+ROW_SUFFIX = {"cuda_core": "", "tc": "_tc", "tc128": "_tc128", "tf32x3": "_tf32x3"}
+# each type's default pair, bits compared across launches: the tensor-core
+# pair at D 64 at the long call; at the iwslt call (rates 0.1 and 0) the
+# D 128 tensor-core pair in bf16, the CUDA-core pair in fp32
+DETERMINISM_AT = ("long_encoder_self_attention", "lightconv_iwslt_cross_attention",
+                  "lightconv_iwslt_cross_attention_rate0")
 # the calls whose SDPA yardstick is also taken as device time (a trace):
 # at the iwslt call the library's wall time is host-bound
-LIBRARY_DEVICE_AT = ("lightconv_iwslt_cross_attention",)
+LIBRARY_DEVICE_AT = ("lightconv_iwslt_cross_attention", "d128_long")
 
 # flash calls a conv_transformer train step makes: 2 time attention (F' =
 # 20 padded to 32), 6 encoder self-attention, 6 decoder causal
@@ -435,13 +457,14 @@ FP32_FORWARD = "flash_fwd_tf32x3"
 BF16_BACKWARD = "split_tc"
 FP32_BACKWARD = "split_tf32x3"
 BACKWARD_KERNELS = {"fused": ("flash_bwd_fused",), "split_tc": ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
+                    "split_tc128": ("flash_bwd_dq_tc128", "flash_bwd_dkv_tc128"),
                     "split_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3"),
                     "split_cuda_core": ("flash_bwd_dq", "flash_bwd_dkv")}
-# kernel head dim 128 (the iwslt presets' decoder cross-attention): no
-# tensor-core route; the CUDA-core forward and, bitwise repeatable, the
-# CUDA-core pair (flash_attention.use_fused_backward), in either type
+# kernel head dim 128 (the iwslt presets' decoder cross-attention) in bf16:
+# the CUDA-core forward (no tensor-core forward takes D 128) and the D 128
+# tensor-core pair (csrc/flash_bwd_tc128.cu), bitwise repeatable
 D128_FORWARD = "flash_fwd"
-D128_BACKWARD = "split_cuda_core"
+D128_BACKWARD = "split_tc128"
 
 # the multi-decoder paths (models/multi_task.py): two-phase serving
 # (bench.py::_measure_decode with twophase=True) and the dual-decoder step
@@ -570,8 +593,10 @@ LONG_BATCH = 8
 LONG_FRAMES = 8192
 LONG_TIMED_STEPS = 5
 
-KERNEL_SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_fwd_tf32x3", "flash_bwd", "flash_bwd_tc", "flash_bwd_tf32x3",
-                  "dynamic_conv", "dynamic_conv_tc", "flash_fwd_single")
+KERNEL_SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_fwd_tf32x3", "flash_bwd", "flash_bwd_tc", "flash_bwd_tc128",
+                  "flash_bwd_tf32x3", "dynamic_conv", "dynamic_conv_tc", "flash_fwd_single")
+# sources whose every kernel must report 0 bytes of spill stores
+NO_SPILL_SOURCES = ("flash_bwd_tc128",)
 
 
 def emit(obj) -> None:
@@ -681,6 +706,9 @@ def build_kernels(kernel_build):
         ptxas = [line.strip() for line in path.with_suffix(".log").read_text().splitlines()
                  if "registers" in line or "spill" in line or "Compiling entry" in line]
         emit({"phase": "build", "kernel": name, "seconds": seconds, "ptxas": ptxas})
+        spills = [line for line in ptxas if "spill stores" in line]
+        if name in NO_SPILL_SOURCES and (not spills or any("0 bytes spill stores" not in line for line in spills)):
+            raise AssertionError(f"{name}.cu spills registers (or ptxas reported nothing): {spills}")
     emit({"phase": "build", "all_seconds": total_s})
 
 
@@ -787,14 +815,25 @@ def grad_errors(got, want, dtype):
     return max(errs), ratio, tops, ok
 
 
+def pair_name(route, d_kernel):
+    """The name of the split pair ``route`` runs at kernel head dim
+    ``d_kernel``: "tc128" for the bf16 pair at D 128, its own source."""
+    return "tc128" if (route, d_kernel) == ("tc", 128) else route
+
+
 def check_training_kernels(fa, philox):
     """Each training-shape call in its types: the keep mask through every
-    forward kernel that draws it; the forward and the split pair of the
+    forward kernel that draws it (at a rate above 0); the forward of the
     call's route (on the tensor cores at D 32 and 64: "tc" in bf16, "tf32x3"
-    in fp32; on the CUDA cores otherwise) and the fused backward, and in
-    fp32 at D 32 and 64 also the CUDA-core forward and pair, which no
-    default route takes there, launched directly, all against the plain
-    versions; the tensor-core pairs' determinism; times and bounds."""
+    in fp32; on the CUDA cores otherwise), the split pair of the call's
+    route (the same, and in bf16 at D 128 the tensor cores too,
+    ``csrc/flash_bwd_tc128.cu``) and the fused backward, and in fp32 at
+    D 32 and 64 also the CUDA-core forward and pair, and in bf16 at D 128
+    the CUDA-core pair, which no default route takes there, launched
+    directly, all against the plain versions; the tensor-core pairs'
+    determinism; times and bounds. At every bf16 call at D 128 the
+    tensor-core pair must beat the CUDA-core pair by the sum of its median
+    device launches (asserted)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     worst = {(kind, dtype): 0.0 for kind in (*FWD_KINDS.values(), *BWD_KINDS.values())
@@ -803,7 +842,7 @@ def check_training_kernels(fa, philox):
     for name, bh, t, s, d, causal, rate, left, dtypes in TRAIN_KERNEL_SHAPES:
         seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=torch.Generator().manual_seed(len(rows))))
         want = philox.keep_mask(seed, bh, t, s, rate, device="cuda")
-        for probe_route, probe_d in KEEP_PROBES:
+        for probe_route, probe_d in KEEP_PROBES if rate > 0 else ():
             probe_d = probe_d or fa.kernel_head_dim(min(s, fa.KERNEL_HEAD_DIMS[-1]))
             got, valid = kernel_keep_mask(fa, bh, t, s, causal, rate, seed, probe_route, probe_d)
             mismatches = int((got != want)[valid].sum())
@@ -825,10 +864,13 @@ def check_training_kernels(fa, philox):
             scale = d ** -0.5
             drop = dict(dropout_rate=rate, dropout_seed=seed)
             dk = fa.kernel_head_dim(d)
-            route = fa.fwd_route(dtype, dk)  # the split pair's too
-            # the CUDA-core kernels at the tensor-core routes' head dims in
-            # fp32, which no default route takes, launched directly
+            route, pair_route = fa.fwd_route(dtype, dk), fa.split_route(dtype, dk)
+            # the CUDA-core kernels at the tensor-core routes' head dims (in
+            # fp32 the forward and the pair, in bf16 at D 128 the pair),
+            # which no default route takes, launched directly
             routes = [route] + (["cuda_core"] if route == "tf32x3" else [])
+            direct_pair = pair_route != "cuda_core" and (route == "tf32x3" or dk == 128)
+            pair_routes = [pair_route] + (["cuda_core"] if direct_pair else [])
             qp, kp, vp, gp = (_pad_d(x, dk) for x in (q, k, v, g))
             fwd_calls = {route: lambda: fa.flash_attention(q, k, v, bias, scale, causal=causal, return_lse=True,
                                                            **drop)}
@@ -846,7 +888,7 @@ def check_training_kernels(fa, philox):
             want_grads = fa.flash_attention_backward_reference(q, k, v, bias, out_k, lse_k, g, scale,
                                                                causal, rate, seed)
             bwd_calls = {"fused": lambda: fa.backward_fused(*bwd_args)}
-            for r in routes:
+            for r in pair_routes:
                 bwd_calls[r] = lambda r=r: fa.backward_pair(r, *bwd_args)
             grads = {r: [x[..., :d] for x in call()] for r, call in bwd_calls.items()}
             torch.cuda.synchronize()
@@ -854,9 +896,10 @@ def check_training_kernels(fa, philox):
             for r, (out_err, _) in fwd_errs.items():
                 worst[(FWD_KINDS[r], dtype)] = max(worst[(FWD_KINDS[r], dtype)], out_err)
             for r, (err, ratio, _, _) in checks.items():
-                worst[(BWD_KINDS[r], dtype)] = max(worst[(BWD_KINDS[r], dtype)], err)
+                kind = BWD_KINDS["fused" if r == "fused" else pair_name(r, dk)]
+                worst[(kind, dtype)] = max(worst.get((kind, dtype), 0.0), err)
                 if dtype == torch.bfloat16:
-                    worst_ratio[BWD_KINDS[r]] = max(worst_ratio.get(BWD_KINDS[r], 0.0), ratio)
+                    worst_ratio[kind] = max(worst_ratio.get(kind, 0.0), ratio)
             ok = (all(e <= ATOL_KERNEL[dtype] and le <= ATOL_LSE for e, le in fwd_errs.values())
                   and all(c[3] for c in checks.values()))
 
@@ -900,14 +943,17 @@ def check_training_kernels(fa, philox):
                 kernel_ms=time_ms(fused), kernel_device_ms=device_ms(fused, BWD_KERNEL_NAMES["fused"][0]),
                 wrapper_device_ms=device_busy(fused)[1], bound=backward_bound_ms("fused", bh, t, s, d, causal, dtype),
                 **grad_fields("fused"), **bwd_common)
-            for r in routes:
+            pair_device = {}
+            for r in pair_routes:
                 pair = bwd_calls[r]
                 pair_ms, pair_device_ms = time_ms(pair), device_busy(pair)[1]
                 for kind, match in zip(("dq", "dkv"), BWD_KERNEL_NAMES[r]):
-                    timings[f"flash_attention_bwd_{kind}{ROW_SUFFIX[r]}"] = dict(
+                    timings[f"flash_attention_bwd_{kind}{ROW_SUFFIX[pair_name(r, dk)]}"] = dict(
                         kernel_ms=pair_ms, wrapper_device_ms=pair_device_ms, split_route=r,
                         kernel_device_ms=device_ms(pair, match),
                         bound=backward_bound_ms(kind, bh, t, s, d, causal, dtype), **grad_fields(r), **bwd_common)
+                pair_device[r] = sum(timings[f"flash_attention_bwd_{kind}{ROW_SUFFIX[pair_name(r, dk)]}"]
+                                     ["kernel_device_ms"] or math.inf for kind in ("dq", "dkv"))
             for kernel, tm in timings.items():
                 tm["bound_ms"], tm["bound_by"] = tm.pop("bound")
                 row = {**base, "kernel": kernel, **tm}
@@ -917,16 +963,32 @@ def check_training_kernels(fa, philox):
                 raise AssertionError(f"training-shape check failed at {name} {dtype}: forward {fwd_errs}, "
                                      f"{ {r: c[:3] for r, c in checks.items()} }")
             if name in DETERMINISM_AT:
-                check_determinism(name, bwd_calls[route], bwd_calls["fused"], grads[route], grads["fused"], d, dtype)
+                check_determinism(name, bwd_calls[pair_route], bwd_calls["fused"], grads[pair_route], grads["fused"],
+                                  d, dtype)
+            if pair_name(pair_route, dk) == "tc128":
+                wins = pair_device["tc"] <= pair_device["cuda_core"]
+                emit({"phase": "d128_pair_wins", "shape": name, "bh": bh, "T": t, "S": s, "rate": rate,
+                      "dtype": str(dtype).replace("torch.", ""), "tc128_pair_device_ms": pair_device["tc"],
+                      "cuda_core_pair_device_ms": pair_device["cuda_core"],
+                      "fused_device_ms": timings["flash_attention_bwd_fused"]["kernel_device_ms"],
+                      "sdpa_backward_device_ms": bwd_common.get("library_device_ms"),
+                      "sdpa_backward_backend": bwd_common.get("library_device_backend"),
+                      "bound_ms_dq_dkv": [timings[f"flash_attention_bwd_{k}_tc128"]["bound_ms"] for k in ("dq", "dkv")],
+                      "bound_by": [timings[f"flash_attention_bwd_{k}_tc128"]["bound_by"] for k in ("dq", "dkv")],
+                      "plain_ms": plain_bwd_ms, "tc128_pair_wins": wins, "card": CARD[0]})
+                if not wins:
+                    raise AssertionError(f"the CUDA-core pair beat the D 128 tensor-core pair at {name}: "
+                                         f"{pair_device}")
             del q, k, v, bias, g, out_k, out_p, want_grads, grads
             torch.cuda.empty_cache()
     return rows, worst, worst_ratio
 
 
 def check_determinism(name, pair_call, fused_call, pair, fused, d, dtype):
-    """The call's default pair (tensor cores at D 32/64, CUDA cores at
-    D 128) again on the same inputs: bitwise equal (asserted); the fused
-    kernel's dQ again: its spread reported (fp32 atomics)."""
+    """The call's default pair (tensor cores at D 32/64 and in bf16 at
+    D 128, CUDA cores in fp32 at D 128) again on the same inputs: bitwise
+    equal (asserted); the fused kernel's dQ again: its spread reported
+    (fp32 atomics)."""
     pair2 = [x[..., :d] for x in pair_call()]
     fused2 = [x[..., :d] for x in fused_call()]
     torch.cuda.synchronize()
@@ -1672,7 +1734,8 @@ def train_lightconv(card, dicts, fa, dconv, single, modules, arch=LC_ARCH, timed
                     forward=BF16_FORWARD, backward=BF16_BACKWARD, phase="train_lightconv"):
     """The lightconv step at ``arch``: ``forward`` and ``backward`` are the
     flash routes its decoder's encoder attention takes (the tensor cores at
-    head dim 64; the CUDA-core forward and pair at the iwslt presets' 128)."""
+    head dim 64; at the iwslt presets' 128 the CUDA-core forward and the
+    D 128 tensor-core pair)."""
     Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
     args = lc_train_args(arch)
     task = TranslationTask(args, *dicts)
@@ -1843,6 +1906,9 @@ def flash_sweep(card, sweep, fa, dconv, single):
     if not decision["tf32x3_bwd_wins_everywhere"]:
         raise AssertionError(f"the fused backward beat the tf32x3 pair at a train step's fp32 call, so the "
                              f"committed route {FP32_BACKWARD} needs a gate: {decision['tf32x3_bwd_wins_by_call']}")
+    if not (decision["d128_pair_wins_by_call"] and decision["d128_pair_wins_everywhere"]):
+        raise AssertionError(f"the CUDA-core pair beat the D 128 tensor-core pair at a bf16 call, so the committed "
+                             f"route {D128_BACKWARD} needs a gate: {decision['d128_pair_wins_by_call']}")
     return launches
 
 
@@ -2883,7 +2949,8 @@ def kernel_entry(name, row_kernel, source, replaces, launches, rows, worst_fp32,
         entry["max_abs_err"] = worst_bf16
     if worst_bf16 is None:
         del entry["max_abs_err_bf16"]
-    for key in ("max_err_over_max_plain", "wrapper_device_ms", "split_route", "kernel_device_ms_cold"):
+    for key in ("max_err_over_max_plain", "wrapper_device_ms", "split_route", "kernel_device_ms_cold",
+                "library_device_ms", "library_device_backend"):
         if key in head:
             entry[key] = head[key]
     for at in (() if also_at is None else (also_at,) if isinstance(also_at[0], str) else also_at):
@@ -3008,7 +3075,8 @@ def main() -> int:
         drive(f"serve_{arch}", serve_twophase, card, d, fa, dconv, single, attention, modules, arch, requests)
     drive("train_dualdecoder", train_dual, card, d, fa, dconv, single, modules)
     check_dual_steps(d, fa, attention, modules)
-    # 20. the iwslt lightconv step: head dim 128, the CUDA-core flash kernels
+    # 20. the iwslt lightconv step: head dim 128, the CUDA-core flash forward
+    # and the D 128 tensor-core pair
     drive("train_iwslt", train_lightconv, card, lc_dicts, fa, dconv, single, modules, IWSLT_ARCH,
           IWSLT_TIMED_STEPS, D128_FORWARD, D128_BACKWARD, "train_iwslt")
     # 21.-23. serving from files, the search strategies, the realistic step
@@ -3032,7 +3100,8 @@ def main() -> int:
     # launched directly there (no default route takes them at D 32 and 64)
     f32_at = ("encoder_self_attention", "float32")
     f32_long_at = ("long_encoder_self_attention", "float32")
-    iwslt_at = ("lightconv_iwslt_cross_attention", "bfloat16")  # the CUDA-core kernels' model call
+    iwslt_at = ("lightconv_iwslt_cross_attention", "bfloat16")  # the D 128 kernels' model call
+    d128_long_at = ("d128_long", "bfloat16")
     f32, b16 = torch.float32, torch.bfloat16
     kernels = [
         kernel_entry("flash_fwd", "flash_attention_fwd", csrc + "flash_fwd.cu", pallas + "117",
@@ -3055,6 +3124,11 @@ def main() -> int:
                      launches["flash_bwd_dq_tc"], rows, None, worst[("bwd_tc", b16)], timed_at, long_at),
         kernel_entry("flash_bwd_dkv_tc", "flash_attention_bwd_dkv_tc", csrc + "flash_bwd_tc.cu", pallas + "386",
                      launches["flash_bwd_dkv_tc"], rows, None, worst[("bwd_tc", b16)], timed_at, long_at),
+        kernel_entry("flash_bwd_dq_tc128", "flash_attention_bwd_dq_tc128", csrc + "flash_bwd_tc128.cu", pallas + "218",
+                     launches["flash_bwd_dq_tc128"], rows, None, worst[("bwd_tc128", b16)], iwslt_at, d128_long_at),
+        kernel_entry("flash_bwd_dkv_tc128", "flash_attention_bwd_dkv_tc128", csrc + "flash_bwd_tc128.cu",
+                     pallas + "386", launches["flash_bwd_dkv_tc128"], rows, None, worst[("bwd_tc128", b16)], iwslt_at,
+                     d128_long_at),
         kernel_entry("flash_bwd_dq_tf32x3", "flash_attention_bwd_dq_tf32x3", csrc + "flash_bwd_tf32x3.cu",
                      pallas + "218", launches["flash_bwd_dq_tf32x3"], rows, worst[("bwd_tf32x3", f32)], None,
                      f32_at, f32_long_at),
@@ -3064,7 +3138,8 @@ def main() -> int:
     ]
     for entry in kernels:
         kind = {"flash_bwd_fused": "bwd_fused", "flash_bwd_dq": "bwd_cuda_core", "flash_bwd_dkv": "bwd_cuda_core",
-                "flash_bwd_dq_tc": "bwd_tc", "flash_bwd_dkv_tc": "bwd_tc"}.get(entry["name"])
+                "flash_bwd_dq_tc": "bwd_tc", "flash_bwd_dkv_tc": "bwd_tc", "flash_bwd_dq_tc128": "bwd_tc128",
+                "flash_bwd_dkv_tc128": "bwd_tc128"}.get(entry["name"])
         if kind:
             entry["worst_bf16_err_over_max_plain"] = worst_ratio.get(kind)
     dconv_at = ("train_k31_centred", "bfloat16")

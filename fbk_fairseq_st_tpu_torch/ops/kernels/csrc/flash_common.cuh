@@ -1,7 +1,7 @@
 // Shared by the flash kernels (flash_fwd.cu, flash_bwd.cu, flash_fwd_tc.cu,
-// flash_bwd_tc.cu, flash_fwd_tf32x3.cu, flash_bwd_tf32x3.cu,
-// flash_fwd_single.cu): tile sizes, type conversions, and the
-// attention-dropout bits.
+// flash_bwd_tc.cu, flash_bwd_tc128.cu, flash_fwd_tf32x3.cu,
+// flash_bwd_tf32x3.cu, flash_fwd_single.cu): tile sizes, type conversions,
+// and the attention-dropout bits.
 //
 // Dropout bits are Philox4x32-10 (Random123 / cuRAND philox4x32_10, written
 // out here), keyed per element so that every kernel and the plain PyTorch
@@ -81,7 +81,7 @@ __device__ __forceinline__ uint32_t keep_bits(uint64_t seed, uint32_t drop_thres
 // t in 0..3) its groups: kbits[h] holds at bit 2 (t & 1) + cc the flag of
 // row r0 + g + 8 h, key c0 + 2 t + cc. The tensor-core forward
 // (flash_fwd_tc.cu, flash_fwd_tf32x3.cu) and dq (flash_bwd_tc.cu,
-// flash_bwd_tf32x3.cu) all draw through this, so the backward re-draws
+// flash_bwd_tc128.cu, flash_bwd_tf32x3.cu) all draw through this, so the backward re-draws
 // exactly the forward's bits. The C fragment of mma.sync.m16n8k8 is that of
 // m16n8k16, so the bf16 and the fp32 kernels share it. Called by the whole
 // warp.
@@ -95,8 +95,8 @@ __device__ __forceinline__ void row_frame_keep_bits(uint32_t (&kbits)[2], uint64
 }
 
 // The keep flags of one m16n8 C tile in the transposed keys-by-rows frame of
-// the dkv kernels (flash_bwd_tc.cu, flash_bwd_tf32x3.cu): keys k0..k0+15
-// (k0 a multiple of 4), rows r0..r0+7. Lane L makes the one Philox call of
+// the dkv kernels (flash_bwd_tc.cu, flash_bwd_tc128.cu, flash_bwd_tf32x3.cu):
+// keys k0..k0+15 (k0 a multiple of 4), rows r0..r0+7. Lane L makes the one Philox call of
 // row r0 + (L & 7), keys k0 + 4 (L >> 3)..+3, and four __shfl_sync hand each
 // lane (lane = 4 g + t) its groups: bit g & 3 of kbits[h][cc] is the flag
 // of key k0 + g + 8 h, row r0 + 2 t + cc. Called by the whole warp.

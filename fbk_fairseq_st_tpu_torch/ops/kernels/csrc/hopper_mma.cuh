@@ -1,10 +1,11 @@
 // Tensor-core building blocks for the port's attention kernels (sm_90a):
 // the warp-level bf16 product mma.sync.m16n8k16 and its fragments, ldmatrix
-// loads from tiles of 128-byte rows (64 bf16: head dim 64) or 64-byte rows
-// (32 bf16: head dim 32) whose 16-byte pieces are XOR-swizzled, and a ring
-// of shared-memory slots filled by cp.async. Every tile helper takes the
-// row width RB in bytes as a template argument, 128 by default; fp32 tiles
-// have 256-byte (head dim 64) or 128-byte (head dim 32) rows. Tiles of
+// loads from tiles of 256-byte rows (128 bf16: head dim 128), 128-byte rows
+// (64 bf16: head dim 64) or 64-byte rows (32 bf16: head dim 32) whose
+// 16-byte pieces are XOR-swizzled, and a ring of shared-memory slots
+// filled by cp.async. Every tile helper takes the row width RB in bytes as
+// a template argument, 128 by default; fp32 tiles have 256-byte (head dim
+// 64) or 128-byte (head dim 32) rows. Tiles of
 // padded rows (an odd count of 16-byte pieces, no swizzle) take any width:
 // the *_frag_addr_pad helpers.
 //
@@ -195,7 +196,8 @@ __device__ __forceinline__ uint32_t bt_frag_addr_pad(uint32_t tile, int stride, 
 }
 
 // Products over tiles of 64 rows of D bf16 (rows of 2 D bytes), for the
-// attention kernels (flash_fwd_tc.cu, flash_bwd_tc.cu, flash_fwd_single.cu).
+// attention kernels (flash_fwd_tc.cu, flash_bwd_tc.cu, flash_bwd_tc128.cu,
+// flash_fwd_single.cu).
 //
 // c[n] = A . B^T for the warp's 16 rows of A (fragments af over the head
 // dim) against the 64 rows of the row-major tile `t` (64 x D): C tile n
@@ -218,6 +220,34 @@ __device__ __forceinline__ void product_nt(float (&c)[8][4], const uint32_t (&af
     }
 }
 
+// The same product with the warp's A rows read from shared memory at each
+// k-step (ldmatrix, rows a0..a0+15 of the row-major tile `at` of D bf16
+// columns) instead of held in registers, against the NT * 8 rows of the
+// row-major tile `t`: C tile n holds rows 8 n..8 n+7 of `t`. It frees the
+// D / 4 registers a lane would hold A in, which the head-dim-128 kernels
+// need (flash_bwd_tc128.cu).
+template <int D, int NT>
+__device__ __forceinline__ void product_nt_smem(float (&c)[NT][4], uint32_t at, int a0, uint32_t t,
+                                                int lane) {
+  static_assert(NT % 2 == 0, "B fragments come in pairs of 8-row tiles");
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a_frag_addr<2 * D>(at, a0, kk, lane));
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_frag_addr<2 * D>(t, 16 * np, kk, lane));
+      mma_16816(c[2 * np], af, b[0], b[1]);
+      mma_16816(c[2 * np + 1], af, b[2], b[3]);
+    }
+  }
+}
+
 // acc[2 np + e] += A . (B fragments of columns 16 np.., through ldmatrix
 // .trans of the row-major tile `bt` (64 x D), k rows 16 kk..16 kk+15).
 template <int D>
@@ -233,8 +263,9 @@ __device__ __forceinline__ void product_t(float (&acc)[D / 8][4], const uint32_t
 }
 
 // The A fragment of k-step kk from the C fragments of tiles 2 kk and
-// 2 kk + 1, rounded to bf16.
-__device__ __forceinline__ void a_from_c(uint32_t (&af)[4], const float (&c)[8][4], int kk) {
+// 2 kk + 1 (of NT), rounded to bf16.
+template <int NT>
+__device__ __forceinline__ void a_from_c(uint32_t (&af)[4], const float (&c)[NT][4], int kk) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = 2 * kk + (i >> 1), h = i & 1;

@@ -8,8 +8,9 @@ CUDA cores), ``csrc/flash_fwd_tc.cu`` (``_fwd_kernel`` on the tensor cores,
 bf16), ``csrc/flash_fwd_tf32x3.cu`` (``_fwd_kernel`` on the tensor cores,
 fp32 in 3xTF32 products), ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``, and
 ``_dq_kernel`` / ``_dkv_kernel`` on the CUDA cores), ``csrc/flash_bwd_tc.cu``
-(``_dq_kernel`` / ``_dkv_kernel`` on the tensor cores, bf16) and
-``csrc/flash_bwd_tf32x3.cu`` (the same pair, fp32 in 3xTF32 products);
+(``_dq_kernel`` / ``_dkv_kernel`` on the tensor cores, bf16 at head dim 32
+and 64), ``csrc/flash_bwd_tc128.cu`` (the same pair, bf16 at head dim 128)
+and ``csrc/flash_bwd_tf32x3.cu`` (the same pair, fp32 in 3xTF32 products);
 their source notes say what bounds them.
 
 ``flash_attention`` keeps the JAX contract: q (BH, T, D), k/v (BH, S, D),
@@ -44,7 +45,9 @@ from . import philox
 from .build import bind, raise_on
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-TC_HEAD_DIMS = (32, 64)  # the tensor-core kernels' head dims, bf16 and fp32
+TC_HEAD_DIMS = (32, 64)  # the tensor-core forwards' head dims, bf16 and fp32
+# the tensor-core pairs' head dims: bf16 also at 128 (csrc/flash_bwd_tc128.cu)
+PAIR_HEAD_DIMS = {"tc": (32, 64, 128), "tf32x3": (32, 64)}
 TC_TILE = 64  # q rows or keys a block of the tensor-core kernels
 # the kernels of each tensor-core route: the forward, dq and dkv
 TC_KERNELS = {"tc": ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
@@ -64,13 +67,15 @@ launches_fwd_tf32x3 = 0  # the forward on the tensor cores, fp32
 launches_bwd_fused = 0
 launches_bwd_dq = 0  # the split pair on the CUDA cores
 launches_bwd_dkv = 0
-launches_bwd_dq_tc = 0  # the split pair on the tensor cores, bf16
+launches_bwd_dq_tc = 0  # the split pair on the tensor cores, bf16 at D 32/64
 launches_bwd_dkv_tc = 0
+launches_bwd_dq_tc128 = 0  # the same at D 128
+launches_bwd_dkv_tc128 = 0
 launches_bwd_dq_tf32x3 = 0  # the split pair on the tensor cores, fp32
 launches_bwd_dkv_tf32x3 = 0
 _COUNTERS = ("launches_fwd", "launches_fwd_tc", "launches_fwd_tf32x3", "launches_bwd_fused", "launches_bwd_dq",
-             "launches_bwd_dkv", "launches_bwd_dq_tc", "launches_bwd_dkv_tc", "launches_bwd_dq_tf32x3",
-             "launches_bwd_dkv_tf32x3")
+             "launches_bwd_dkv", "launches_bwd_dq_tc", "launches_bwd_dkv_tc", "launches_bwd_dq_tc128",
+             "launches_bwd_dkv_tc128", "launches_bwd_dq_tf32x3", "launches_bwd_dkv_tf32x3")
 
 
 def __getattr__(name: str):
@@ -102,14 +107,24 @@ def kernel_head_dim(d: int) -> int:
 # The routes (pure: they need no card)
 # ---------------------------------------------------------------------------
 
+def _tc_route(dtype, d: int, head_dims) -> str:
+    """The tensor-core route of ``dtype`` ("tc" in bf16, "tf32x3" in fp32)
+    when ``head_dims`` ({route: head dims}) lets it take ``d``; else
+    "cuda_core"."""
+    for route, dt in TC_DTYPES.items():
+        if dtype == dt and d in head_dims[route]:
+            return route
+    return "cuda_core"
+
+
 def fwd_route(dtype, d: int) -> str:
     """The forward kernel of a CUDA call of ``dtype`` at kernel head dim
-    ``d``: the tensor cores wherever the split pair runs on them, for the
-    same reasons (``split_route``): "tc" (``csrc/flash_fwd_tc.cu``) in bf16,
-    "tf32x3" (``csrc/flash_fwd_tf32x3.cu``) in fp32; else "cuda_core"
-    (``csrc/flash_fwd.cu``). Each tensor-core kernel is held to beat the
-    CUDA-core one at every train-step call of its type (``tc_fwd_wins``)."""
-    return split_route(dtype, d)
+    ``d``: at D 32 and 64 the tensor cores, "tc" (``csrc/flash_fwd_tc.cu``)
+    in bf16, "tf32x3" (``csrc/flash_fwd_tf32x3.cu``) in fp32; else
+    "cuda_core" (``csrc/flash_fwd.cu``), the iwslt presets' D 128 in both
+    types included. Each tensor-core kernel is held to beat the CUDA-core
+    one at every train-step call of its type (``tc_fwd_wins``)."""
+    return _tc_route(dtype, d, {route: TC_HEAD_DIMS for route in TC_DTYPES})
 
 
 def fwd_check_shape(route: str, bh: int, t: int, d: int) -> None:
@@ -136,19 +151,27 @@ def tc_fwd_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
 
 def split_route(dtype, d: int) -> str:
     """The split pair's kernels for a call of ``dtype`` at kernel head dim
-    ``d``: at D 32 and 64 (every model's heads, and the time attention's
-    F' = 20 padded to 32) the tensor cores, "tc" (``csrc/flash_bwd_tc.cu``)
-    in bf16 and "tf32x3" (``csrc/flash_bwd_tf32x3.cu``, three tf32 products
-    a product, within the fp32 limits where one is not) in fp32;
-    "cuda_core" (``csrc/flash_bwd.cu``) at D 16 and 128. A model reaches
-    D 128: the iwslt lightconv presets' 4 heads over 512 dims, whose decoder
-    cross-attention every train step of theirs runs (``TRAIN_BACKWARD_SHAPES``'
-    ``lightconv_iwslt_cross_attention``)."""
-    if d in TC_HEAD_DIMS:
-        for route, dt in TC_DTYPES.items():
-            if dtype == dt:
-                return route
-    return "cuda_core"
+    ``d`` (``PAIR_HEAD_DIMS``): on the tensor cores "tc" in bf16 at D 32
+    and 64 (every model's heads, and the time attention's F' = 20 padded to
+    32; ``csrc/flash_bwd_tc.cu``) and 128 (``csrc/flash_bwd_tc128.cu``),
+    "tf32x3" in fp32 at D 32 and 64 (``csrc/flash_bwd_tf32x3.cu``, three
+    tf32 products a product, within the fp32 limits where one is not);
+    "cuda_core" (``csrc/flash_bwd.cu``) at D 16 and for fp32 at D 128. A
+    model reaches D 128: the iwslt lightconv presets' 4 heads over 512 dims,
+    whose decoder cross-attention every train step of theirs runs
+    (``TRAIN_BACKWARD_SHAPES``' ``lightconv_iwslt_cross_attention``)."""
+    return _tc_route(dtype, d, PAIR_HEAD_DIMS)
+
+
+def pair_kernels(route: str, d: int) -> Tuple[str, str, str]:
+    """(library, dq function, dkv function) of the split pair of ``route``
+    at kernel head dim ``d``; a kernel's name in a trace is its function's
+    with ``_kernel`` after it (the CUDA-core pair's excepted)."""
+    if route not in TC_KERNELS:
+        return "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"
+    if route == "tc" and d == 128:
+        return "flash_bwd_tc128", "flash_bwd_dq_tc128", "flash_bwd_dkv_tc128"
+    return "flash_bwd_" + route, *TC_KERNELS[route][1:]
 
 
 def use_fused_backward(dtype, d: int) -> bool:
@@ -156,10 +179,11 @@ def use_fused_backward(dtype, d: int) -> bool:
     fused kernel: ``FUSED_BWD`` when set; else never. Every default route is
     a split pair and bitwise repeatable: at D 32 and 64 the tensor-core pair
     of the call's type, which beat the fused kernel at every backward call
-    of the train steps in its type (``pair_wins``, PERF.md section 6); at
-    D 16 and 128 the CUDA-core pair, chosen by its repeatability and not by
-    its time (the fused kernel adds dQ with atomics in no fixed order and
-    may be faster there; the flash sweep times both at the iwslt call)."""
+    of the train steps in its type (``pair_wins``, PERF.md section 6), and
+    in bf16 at D 128 too; at D 16 and for fp32 at D 128 the CUDA-core pair,
+    chosen by its repeatability and not by its time (the fused kernel adds
+    dQ with atomics in no fixed order; the flash sweep times both at the
+    iwslt call)."""
     if FUSED_BWD is not None:
         return FUSED_BWD
     return False
@@ -185,19 +209,21 @@ def pair_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
     the tensor-core pair on every call at D 32 and 64 because this held at
     each of the train steps' backward calls there in both types; a call
     where it fails is a crossover that needs a key-count gate. Calls at
-    D 16 and 128 have no tensor-core pair and are not ruled by it."""
+    D 16, and fp32 calls at D 128, have no tensor-core pair and are not
+    ruled by it."""
     return {name: pair <= fused for name, (fused, pair) in times.items()}
 
 
 def tc_check_shape(d: int, t: int, s: int, route: str = "tc") -> None:
     """Raise ValueError for a shape the tensor-core pair of ``route`` ("tc"
-    or "tf32x3") does not take; needs no card. bh is the grid's x dimension
-    and takes any batch; the 64-row and 64-key tiles are its y dimension,
-    at most 65,535. Its shared memory does not depend on T or S
-    (``csrc/flash_bwd_tc.cu``, ``csrc/flash_bwd_tf32x3.cu``)."""
+    or "tf32x3") does not take; needs no card. Its head dims are
+    ``PAIR_HEAD_DIMS[route]``. bh is the grid's x dimension and takes any
+    batch; the 64-row and 64-key tiles are its y dimension, at most 65,535.
+    Its shared memory does not depend on T or S (``csrc/flash_bwd_tc.cu``,
+    ``csrc/flash_bwd_tc128.cu``, ``csrc/flash_bwd_tf32x3.cu``)."""
     name = "flash_bwd_" + route
-    if d not in TC_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {TC_HEAD_DIMS}")
+    if d not in PAIR_HEAD_DIMS[route]:
+        raise ValueError(f"{name}: head dim {d} not in {PAIR_HEAD_DIMS[route]}")
     if max(-(-t // TC_TILE), -(-s // TC_TILE)) > 65535:
         raise ValueError(f"{name}: T {t} or S {s} over 65,535 tiles of {TC_TILE}")
 
@@ -489,19 +515,19 @@ def backward_fused(q, k, v, bias, out, lse, grad, scale: float, causal: bool = F
 def backward_pair(route: str, q, k, v, bias, out, lse, grad, scale: float, causal: bool = False,
                   rate: float = 0.0, seed: int = 0):
     """One launch each of the dq and the dkv kernel of the split pair of
-    ``route`` on CUDA tensors: "tc" (``csrc/flash_bwd_tc.cu``, bf16),
-    "tf32x3" (``csrc/flash_bwd_tf32x3.cu``, fp32) or "cuda_core"
+    ``route`` on CUDA tensors: "tc" (bf16; ``csrc/flash_bwd_tc.cu`` at head
+    dim 32 and 64, ``csrc/flash_bwd_tc128.cu`` at 128), "tf32x3"
+    (``csrc/flash_bwd_tf32x3.cu``, fp32) or "cuda_core"
     (``csrc/flash_bwd.cu``, either type, any kernel head dim); returns
-    (dq, dk, dv), each written once (deterministic)."""
+    (dq, dk, dv), each written once (deterministic). A kernel that fails
+    to build or launch raises: no other route stands in."""
     bh, t, d = q.shape
     s = k.shape[1]
     if route in TC_KERNELS:
         tc_check_shape(d, t, s, route)
         if q.dtype != TC_DTYPES[route]:
             raise TypeError(f"flash_bwd_{route}: {TC_DTYPES[route]} only, got {q.dtype}")
-        lib_name, dq_name, dkv_name = "flash_bwd_" + route, *TC_KERNELS[route][1:]
-    else:
-        lib_name, dq_name, dkv_name = "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"
+    lib_name, dq_name, dkv_name = pair_kernels(route, d)
     kept, common, tail = _backward_args(q, k, v, bias, out, lse, grad, scale, causal, rate, seed)
     if route not in TC_KERNELS:
         tail = tail + (int(q.dtype == torch.bfloat16),)
@@ -540,6 +566,10 @@ _SIGNATURES = {
     "flash_bwd_tc": {
         "flash_bwd_dq_tc": [_P] * 8 + [_I] * 4 + _TC_TAIL,
         "flash_bwd_dkv_tc": [_P] * 9 + [_I] * 4 + _TC_TAIL,
+    },
+    "flash_bwd_tc128": {
+        "flash_bwd_dq_tc128": [_P] * 8 + [_I] * 4 + _TC_TAIL,
+        "flash_bwd_dkv_tc128": [_P] * 9 + [_I] * 4 + _TC_TAIL,
     },
     "flash_bwd_tf32x3": {
         "flash_bwd_dq_tf32x3": [_P] * 8 + [_I] * 4 + _TC_TAIL,

@@ -27,9 +27,10 @@ chosen from:
     kernel; delta's reduction, which both pay, and the fused kernel's dQ
     buffer are left out), from which ``gate_from`` reports, call by call and
     type by type, whether the pair wins (``flash_attention.pair_wins``);
-    beside them, for the record, the CUDA-core pair's
+    beside them the CUDA-core pair's
     (``flash_attention.backward_pair("cuda_core", ...)``), which no default
-    route takes at these head dims;
+    route takes at these head dims but fp32 at D 128, and which the bf16
+    pair at D 128 must beat (``d128_pair_wins``);
   * ``scaled_dot_product_attention`` with the same mask, forward and
     forward + backward, as a yardstick (the port never calls it): each of
     its fused backends (flash, memory-efficient, cuDNN) alone, through
@@ -82,11 +83,13 @@ from ..ops.kernels import flash_fwd_single as single
 D = 64
 FWD_KERNEL_NAMES = {"tc": "flash_fwd_tc_kernel", "tf32x3": "flash_fwd_tf32x3_kernel",
                     "cuda_core": "flash_fwd_kernel"}  # by fwd_route
-# each backward route's kernels in a trace (the fused kernel; dq, dkv)
+# each backward route's kernels in a trace (the fused kernel; dq, dkv); the
+# "tc" names match the pair at D 32/64 (flash_bwd_dq_tc_kernel) and at D 128
+# (flash_bwd_dq_tc128_kernel) alike, one call launching one of them
 BWD_KERNEL_NAMES = {
     "fused": (lambda n: "flash_bwd_kv_kernel" in n and "true>" in n,),
     "cuda_core": ("flash_bwd_q_kernel", lambda n: "flash_bwd_kv_kernel" in n and "false>" in n),
-    "tc": ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"),
+    "tc": ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
     "tf32x3": ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel"),
 }
 KERNEL_SHAPES = ((32, 2048, False), (64, 2048, True))  # (bh, S, causal)
@@ -281,6 +284,8 @@ def library_device_ms(q, k, v, bias, scale: float, causal: bool, grad=None, iter
             with warnings.catch_warnings():  # a refusing backend warns why, then raises
                 warnings.simplefilter("ignore")
                 out = library_attention(q, k, v, mask, scale, causal, name)
+                if grad is not None:  # cuDNN's backward refuses some shapes its forward takes (bh 70,000)
+                    torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
                 torch.cuda.synchronize()
         except RuntimeError:
             continue
@@ -406,7 +411,8 @@ def measure_backward(name: str, bh: int, t: int, s: int, d: int, causal: bool, r
     one backward call of the model path: the device time of each route's
     kernels (the median launch of each, ``device_ms``, summed over dq and
     dkv), which the decision reads, and the wall time of a wrapper call,
-    with the CUDA-core pair's beside them. Medians, not a trace's sum:
+    with the CUDA-core pair's beside them (which the bf16 pair at D 128 is
+    held to beat, ``gate_from``'s ``d128_pair_wins``). Medians, not a trace's sum:
     traces lose records (fp32 calls kept 2.9-3.2 of their 4 kernels a call
     in ``device_busy``), and a lost record reads as speed. The pair's
     gradients are first checked against the fused kernel's (within
@@ -436,9 +442,9 @@ def measure_backward(name: str, bh: int, t: int, s: int, d: int, causal: bool, r
             raise RuntimeError(f"{name} {dtype}: no trace kept a launch of the {route} kernels")
         row[f"{route}_device_ms"] = sum(times)
         row[f"{route}_wall_ms"] = time_ms(run)
-    if row["pair_route"] == "cuda_core":
-        # no tensor-core pair here: SDPA's forward + backward beside the
-        # CUDA-core kernels, at rate 0 (no fused backend takes the kernels'
+    if fa.fwd_route(dtype, row["kernel_D"]) == "cuda_core":
+        # no tensor-core forward here (D 128): SDPA's forward + backward
+        # beside the kernels, at rate 0 (no fused backend takes the kernels'
         # Philox dropout), for the decision on a tensor-core kernel
         q, k, v, bias, _, _, g, scale, causal = args[:9]
         row["library_fwd_bwd_ms"], row["library_backend"] = time_library(q, k, v, bias, scale, causal, grad=g)
@@ -518,10 +524,13 @@ def gate_from(rows: List[Dict]) -> Dict:
     The flags decide the tensor-core routes, so they are taken over the
     calls that a tensor-core kernel serves (a row whose ``route`` /
     ``pair_route`` is not "cuda_core"; a row without one is such a call),
-    and every such call stays in them. A call at a head dim the tensor
-    cores do not take (D 128, the iwslt presets') is routed to the
-    CUDA-core pair by its bitwise repeat, not by time: its forward, fused
-    and pair device times and SDPA's are reported on their own, under
+    and every such call stays in them. At kernel head dim 128 (the iwslt
+    presets') the bf16 pair runs on the tensor cores (``d128_pair_wins``:
+    whether it is at least as fast as the CUDA-core pair, call by call)
+    while the forward stays on the CUDA cores; a call whose pair no tensor
+    core takes (fp32 at D 128) is routed to the CUDA-core pair by its
+    bitwise repeat, not by time: its forward, fused and pair device times
+    and SDPA's are reported on their own, under
     ``{prefix}cuda_core_calls``."""
     gates = {}
     for kind in sorted({r["kind"] for r in rows if r["kind"].startswith("route_")}):
@@ -543,11 +552,20 @@ def gate_from(rows: List[Dict]) -> Dict:
         calls = [r for r in bwd_all if r.get("pair_route", tc) != "cuda_core"]
         fwd_cc = {r["shape"]: r["cuda_core_device_ms"] for r in fwd_all if r not in fwd_calls}
         wins = fa.pair_wins({r["shape"]: (r["fused_device_ms"], r["pair_device_ms"]) for r in calls})
+        d128_wins = {r["shape"]: r["pair_device_ms"] <= r["cuda_core_pair_device_ms"] for r in calls
+                     if r.get("kernel_D") == 128}
         out.update({
             f"{fwd_flag}_by_call": fwd_wins, f"{fwd_flag}_everywhere": all(fwd_wins.values()),
             f"{prefix}fwd_device_ms_by_call": {r["shape"]: {"S": r["S"], "cuda_core": r["cuda_core_device_ms"],
                                                             tc: r[f"{tc}_device_ms"]} for r in fwd_calls},
             f"{bwd_flag}_by_call": wins, f"{bwd_flag}_everywhere": all(wins.values()),
+            f"{prefix}d128_pair_wins_by_call": d128_wins, f"{prefix}d128_pair_wins_everywhere": all(d128_wins.values()),
+            f"{prefix}d128_calls": {
+                r["shape"]: {"S": r["S"], "D": r["D"], "fwd": fwd_cc.get(r["shape"]), "fused": r["fused_device_ms"],
+                             "pair": r["pair_device_ms"], "cuda_core_pair": r["cuda_core_pair_device_ms"],
+                             "library_fwd_bwd_ms": r.get("library_fwd_bwd_ms"),
+                             "library_backend": r.get("library_backend")}
+                for r in calls if r.get("kernel_D") == 128},
             f"{prefix}bwd_device_ms_by_call": {
                 r["shape"]: {"S": r["S"], "fused": r["fused_device_ms"], "pair": r["pair_device_ms"],
                              **{k: r[k + "_device_ms"] for k in ("cuda_core_pair",) if k + "_device_ms" in r}}

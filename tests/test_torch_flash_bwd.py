@@ -25,12 +25,15 @@ def test_split_route(dtype, d):
     """The tensor cores take both types at kernel head dims 32 and 64
     (every model's heads and the time attention's padded F' = 20): bf16 as
     "tc", fp32 as "tf32x3" (three tf32 products a product, within the fp32
-    limits where one is not); 16 and 128 stay on the CUDA cores."""
-    want = ({"bfloat16": "tc", "float32": "tf32x3"}[dtype] if d in (32, 64) else "cuda_core")
+    limits where one is not); bf16 also at 128 (the iwslt presets' heads,
+    ``csrc/flash_bwd_tc128.cu``); 16, and fp32 at 128, stay on the CUDA
+    cores."""
+    tc_dims = {"bfloat16": (32, 64, 128), "float32": (32, 64)}[dtype]
+    want = ({"bfloat16": "tc", "float32": "tf32x3"}[dtype] if d in tc_dims else "cuda_core")
     assert tflash.split_route(DTYPES[dtype], d) == want
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_tensor_core_pair_shapes(d):
     """The 64-row and 64-key tiles must fit the grid's y dimension
     (65,535); bh takes any size (the grid's x), and T and S set no shared
@@ -42,7 +45,7 @@ def test_tensor_core_pair_shapes(d):
             tflash.tc_check_shape(d, t, s)
 
 
-@pytest.mark.parametrize("d", [16, 20, 128])
+@pytest.mark.parametrize("d", [16, 20, 96])
 def test_tensor_core_pair_refuses_other_head_dims(d):
     with pytest.raises(ValueError):
         tflash.tc_check_shape(d, 128, 128)
@@ -128,12 +131,13 @@ def test_gate_from_takes_the_rule_on_device_times(case):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_use_fused_backward(monkeypatch, dtype, forced):
     """``FUSED_BWD`` forces a route when set; else no call takes the fused
-    kernel: the tensor-core pair of the call's type at D 32 and 64, the
-    CUDA-core pair at D 16 and 128 (the iwslt presets' D 128 included), so
-    every default route is bitwise repeatable."""
+    kernel: the tensor-core pair of the call's type at D 32 and 64 and in
+    bf16 at 128 (the iwslt presets' heads), the CUDA-core pair at D 16 and
+    in fp32 at 128, so every default route is bitwise repeatable."""
     monkeypatch.setattr(tflash, "FUSED_BWD", forced)
+    cuda_core_dims = {"bfloat16": (16,), "float32": (16, 128)}[dtype]
     for d in tflash.KERNEL_HEAD_DIMS:
-        assert (tflash.split_route(DTYPES[dtype], d) == "cuda_core") == (d in (16, 128))
+        assert (tflash.split_route(DTYPES[dtype], d) == "cuda_core") == (d in cuda_core_dims)
         assert tflash.use_fused_backward(DTYPES[dtype], d) == (forced if forced is not None else False)
 
 
@@ -175,7 +179,7 @@ def test_cpu_backward_is_the_plain_version_whatever_the_decision(monkeypatch, dt
         torch.testing.assert_close(leaf.grad, w, rtol=0, atol=0)
         torch.testing.assert_close(dr, w, rtol=0, atol=0)
     counts = [getattr(tflash, name) for name in tflash._COUNTERS]
-    assert counts == [0] * 10
+    assert counts == [0] * len(tflash._COUNTERS)
 
 
 # (bh, T, S, D before padding, causal, rate): fp32 backward calls of the

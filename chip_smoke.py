@@ -12,7 +12,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      flash_fwd_tf32x3, flash_bwd, flash_bwd_tc, flash_bwd_tc128,
      flash_bwd_tf32x3, dynamic_conv, dynamic_conv_tc, flash_fwd_single) and
      reports the seconds and the ptxas registers and spills of each; the
-     D 128 pair (flash_bwd_tc128) must spill nothing (asserted);
+     sources of the D 128 tensor-core kernels (flash_fwd_tc, the bf16
+     forward; flash_bwd_tc128, the bf16 pair; flash_bwd_tf32x3, the fp32
+     pair) must spill nothing in any kernel (asserted);
   3. kernels at the serving shapes (those of the one-phase requests, and
      the two-phase request's auxiliary pass: bh 640, T 101, causal
      self-attention and cross-attention over 128 keys): the flash forward
@@ -32,18 +34,21 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      step's two at S 2048, a ragged call and a causal one with T > S), in
      fp32 and bf16, one bf16 call at D 16, one call at bh 70,000 (T 16,
      D 128, both types: past the 65,535 of a grid's y dimension, which no
-     kernel caps bh at any more), and in bf16 the iwslt call at rate 0 and
-     a long D 128 call (``d128_long``: bh 32, T = S = 2048, padded keys,
-     rate 0.1): the forward's dropout keep mask (at a rate above 0) against
-     ``philox.keep_mask`` (exactly: probed through the CUDA-core kernel in
-     fp32, the tf32x3 kernel at D 64 and D 32, and the bf16 tensor-core
-     kernel at D 64 and D 32, each launched directly), the forward at the
-     training dropout rate (on the tensor cores at D 32 and 64: "tc" in
-     bf16, "tf32x3" in fp32), and the fused backward and the split pair of
-     the call's route (the same tensor-core routes, and in bf16 at D 128
-     the D 128 tensor-core pair; the CUDA cores at D 16 and for fp32 at
-     D 128), and in fp32 at D 32 and 64 the CUDA-core forward and pair, in
-     bf16 at D 128 the CUDA-core pair, launched directly, against the plain
+     kernel caps bh at any more), and in both types the iwslt call at rate
+     0 and a long D 128 call (``d128_long``: bh 32, T = S = 2048, padded
+     keys, rate 0.1): the forward's dropout keep mask (at a rate above 0)
+     against ``philox.keep_mask`` (exactly: probed through the CUDA-core
+     kernel in fp32, the tf32x3 kernel at D 64 and D 32, and the bf16
+     tensor-core kernel at D 128, 64 and 32, each launched directly), the
+     forward at the training dropout rate (on the tensor cores at D 32 and
+     64: "tc" in bf16, "tf32x3" in fp32, and "tc" in bf16 at D 128, its
+     launches counted as ``flash_fwd_tc128``; on the CUDA cores at D 16 and for fp32 at D 128),
+     and the fused backward and the split pair of the call's route (the
+     same tensor-core routes, and at D 128 the D 128 tensor-core pair of
+     the type: ``flash_bwd_tc128.cu`` in bf16, ``flash_bwd_tf32x3.cu`` in
+     fp32, counted as ``*_tf32x3_128``; the CUDA cores at D 16), and in fp32 at D 32 and 64
+     the CUDA-core forward and pair, at D 128 the CUDA-core pair and in
+     bf16 the CUDA-core forward, launched directly, against the plain
      versions on the same inputs and
      seed, with the same times and bounds (the library time of a backward
      is SDPA's forward + backward at rate 0; at the iwslt call and
@@ -52,12 +57,15 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      fastest by that time, since its wall time at the iwslt call is
      host-bound); then, at the long D 64 call in each type, the tensor-core
      pair's dq, dk, dv again, and at the iwslt D 128 call (rates 0.1 and
-     0) the default pair's (the D 128 tensor-core pair in bf16, the
-     CUDA-core pair in fp32), bitwise equal to the first (asserted), and
-     the fused kernel's dQ spread; at every bf16 call at D 128 the D 128
-     tensor-core pair at most the CUDA-core pair's device time, the sum of
-     dq's and dkv's median launches (``d128_pair_wins``, asserted), beside
-     the fused kernel's, SDPA's backward, the plain time and the bound;
+     0) the default pair's (the D 128 tensor-core pair of each type),
+     bitwise equal to the first (asserted), and the fused kernel's dQ
+     spread; at every D 128 call of each type the D 128 tensor-core pair at
+     most the CUDA-core pair's device time, the sum of dq's and dkv's median
+     launches (``d128_pair_wins``: ``tc128_pair_wins`` in bf16,
+     ``tf32x3_128_pair_wins`` in fp32, asserted), and at every bf16 one the
+     D 128 tensor-core forward's median launch at most the CUDA-core
+     forward's (``d128_fwd_wins``: ``tc128_fwd_wins``, asserted), beside
+     the fused kernel's, SDPA's, the plain time and the bound;
   5. dynamic-conv kernels: the tensor-core ``dynamic_conv_fwd_tc`` and
      ``dynamic_conv_bwd_tc`` (every model path's) and the first, CUDA-core
      ``dynamic_conv_fwd`` and ``dynamic_conv_bwd`` (launched directly,
@@ -148,11 +156,11 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      CUDA-core and the tensor-core forward's at each of its attention
      calls, and whether the tensor-core kernels win there: they must win at
      every call they serve, in both types, asserted; at the iwslt call
-     (D 128) the bf16 tensor-core pair against the fused kernel and the
-     CUDA-core pair, and it must beat both, asserted (``pair_wins``,
-     ``d128_pair_wins``), beside the CUDA-core forward and SDPA's
-     forward + backward; the fp32 call there, on the CUDA-core pair, is
-     reported on its own);
+     (D 128) the tensor-core pair of each type against the fused kernel
+     and the CUDA-core pair, and it must beat both, asserted
+     (``pair_wins``, ``tf32x3_bwd_wins``, ``d128_pair_wins`` in each type),
+     the bf16 tensor-core forward against the CUDA-core one
+     (``tc_fwd_wins``), beside SDPA's forward + backward);
  14. train (main path 6), the ``bench.py::_measure_ctc_flagship``
      configuration: ``conv_transformer_big`` with ``ctc_multi_loss`` over
      label-smoothed CE 0.1, CTC after encoder layer 4 with weight 0.5 and
@@ -214,12 +222,20 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      tolerances;
  20. train (main path 10): ``dynamicconv_iwslt_de_en`` at full width
      (512/1024/4, 7 + 6 layers, the dictionaries of phase 9) with phase
-     10's arguments and batch: head dim 128, so exactly 6 CUDA-core flash
-     forwards and 6 + 6 D 128 tensor-core dq + dkv
-     (``csrc/flash_bwd_tc128.cu``) a step, 0 CUDA-core dq/dkv, 0 fused and
-     0 other tensor-core flash kernels, and 13 + 13 tensor-core dynamic
-     conv; step ms, busy ms and idle share of one profiled step, the loss
-     finite and falling;
+     10's arguments and batch: head dim 128, so exactly 6 D 128
+     tensor-core flash forwards (counted as ``flash_fwd_tc128``) and 6 + 6 D 128
+     tensor-core dq + dkv (``csrc/flash_bwd_tc128.cu``) a step, 0
+     CUDA-core forwards or dq/dkv, 0 fused and 0 other tensor-core flash
+     kernels, and 13 + 13 tensor-core dynamic conv; step ms, busy ms and
+     idle share of one profiled step, the loss finite and falling;
+ 20b. train (main path 10b): the same preset and batch in fp32 (TF32 off),
+     as a user trains it without ``--bf16``: exactly 6 CUDA-core flash
+     forwards and 6 + 6 D 128 tf32x3 dq + dkv
+     (``flash_bwd_tf32x3.cu``, counted as ``*_tf32x3_128``) a step and no other flash
+     kernel, 13 + 13 tensor-core dynamic conv; step ms, busy ms and idle
+     share of one profiled step, the loss finite; then, at phase 8's
+     tolerances, the flash route against the dense route (one step of a
+     fresh model each, dropout rates 0, the flash step's launches exact);
  21. serve from files (main path 11), the README's quick start: a corpus
      of 32 utterances of 409-512 frames x 80 mels with target and
      transcript text over phase 6's dictionary, written with the port's
@@ -263,8 +279,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      ``checkpoint_best.pt``: 8 tf32x3 forwards a batch, its weights
      bitwise the trainer's when it wrote the file, its H- lines those of
      the in-memory generator on those weights (scores within 1e-4);
- 25. the ``kernels`` line (the D 128 tensor-core pair timed at the iwslt
-     call and at ``d128_long``; the CUDA-core dynamic-conv kernels with 0
+ 25. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+     iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
 
@@ -367,7 +383,7 @@ ATOL_LSE = 1e-4
 KEEP_PROBE_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -8}
 # the keep-mask probes: (forward route, kernel head dim; None: the CUDA-core
 # kernel at kernel_head_dim(min(S, 128))), each route's type
-KEEP_PROBES = (("cuda_core", None), ("tf32x3", 64), ("tf32x3", 32), ("tc", 64), ("tc", 32))
+KEEP_PROBES = (("cuda_core", None), ("tf32x3", 64), ("tf32x3", 32), ("tc", 128), ("tc", 64), ("tc", 32))
 KEEP_PROBE_DTYPES = {"cuda_core": torch.float32, "tf32x3": torch.float32, "tc": torch.bfloat16}
 SINGLE_BF16_LIMIT = (1e-3, 8e-3)  # (atol, rtol of |plain|), element by element
 RTOL_DW = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -412,30 +428,31 @@ KERNEL_SHAPES = [
 # (batch 64 x 4 heads), the long-context step at T' = 2048; all with
 # padded keys) in fp32 and bf16, a ragged call and a causal one with T > S,
 # unaligned, one bf16 call at D 16, and one at bh 70,000 (past the 65,535
-# of a grid's y dimension: every kernel puts bh on x); at D 16 and 128 the
-# forward runs on the CUDA cores, and so does the split pair but in bf16 at
-# D 128 (csrc/flash_bwd_tc128.cu), which the iwslt presets' train step
-# reaches
+# of a grid's y dimension: every kernel puts bh on x); at D 16 the forward
+# and the pair run on the CUDA cores, and so does the fp32 forward at D 128,
+# which the iwslt presets' train steps reach
 TRAIN_KERNEL_SHAPES = [(*shape, (torch.float32, torch.bfloat16)) for shape in TRAIN_BACKWARD_SHAPES] + [
     ("ragged_bh3_T77_S333", 3, 77, 333, 64, False, 0.1, False, (torch.float32, torch.bfloat16)),
     ("causal_bh6_T130_S77", 6, 130, 77, 64, True, 0.1, False, (torch.float32, torch.bfloat16)),
     ("d16_bf16", 64, 100, 100, 16, False, 0.1, False, (torch.bfloat16,)),
     ("bh70000_T16_D128", 70000, 16, 16, 128, False, 0.1, False, (torch.float32, torch.bfloat16)),
     # the iwslt call at rate 0, and a long D 128 call whose products bound
-    # the tensor-core pair (dq 0.104 ms, dkv 0.139 ms at 989 TFLOP/s)
-    ("lightconv_iwslt_cross_attention_rate0", 256, 56, 56, 128, False, 0.0, True, (torch.bfloat16,)),
-    ("d128_long", 32, 2048, 2048, 128, False, 0.1, False, (torch.bfloat16,)),
+    # the tensor-core kernels (bf16: forward 0.069 ms, dq 0.104, dkv 0.139
+    # at 989 TFLOP/s; fp32: dq 0.62, dkv 0.83 at 165)
+    ("lightconv_iwslt_cross_attention_rate0", 256, 56, 56, 128, False, 0.0, True, (torch.float32, torch.bfloat16)),
+    ("d128_long", 32, 2048, 2048, 128, False, 0.1, False, (torch.float32, torch.bfloat16)),
 ]
-# each forward route's row name and worst-error kind (flash_attention.fwd_route)
-FWD_ROWS = {"tc": "flash_attention_fwd_tc", "tf32x3": "flash_attention_fwd_tf32x3", "cuda_core": "flash_attention_fwd"}
-FWD_KINDS = {"tc": "fwd_tc", "tf32x3": "fwd_tf32x3", "cuda_core": "fwd"}
+# each forward kernel's row name and worst-error kind, by ``fwd_name``
+FWD_ROWS = {"tc": "flash_attention_fwd_tc", "tc128": "flash_attention_fwd_tc128",
+            "tf32x3": "flash_attention_fwd_tf32x3", "cuda_core": "flash_attention_fwd"}
+FWD_KINDS = {"tc": "fwd_tc", "tc128": "fwd_tc128", "tf32x3": "fwd_tf32x3", "cuda_core": "fwd"}
 # each backward pair's worst-error kind and row suffix, by ``pair_name``
 BWD_KINDS = {"fused": "bwd_fused", "cuda_core": "bwd_cuda_core", "tc": "bwd_tc", "tc128": "bwd_tc128",
-             "tf32x3": "bwd_tf32x3"}
-ROW_SUFFIX = {"cuda_core": "", "tc": "_tc", "tc128": "_tc128", "tf32x3": "_tf32x3"}
+             "tf32x3": "bwd_tf32x3", "tf32x3_128": "bwd_tf32x3_128"}
+ROW_SUFFIX = {"cuda_core": "", "tc": "_tc", "tc128": "_tc128", "tf32x3": "_tf32x3", "tf32x3_128": "_tf32x3_128"}
 # each type's default pair, bits compared across launches: the tensor-core
 # pair at D 64 at the long call; at the iwslt call (rates 0.1 and 0) the
-# D 128 tensor-core pair in bf16, the CUDA-core pair in fp32
+# D 128 tensor-core pair of each type
 DETERMINISM_AT = ("long_encoder_self_attention", "lightconv_iwslt_cross_attention",
                   "lightconv_iwslt_cross_attention_rate0")
 # the calls whose SDPA yardstick is also taken as device time (a trace):
@@ -459,12 +476,17 @@ FP32_BACKWARD = "split_tf32x3"
 BACKWARD_KERNELS = {"fused": ("flash_bwd_fused",), "split_tc": ("flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
                     "split_tc128": ("flash_bwd_dq_tc128", "flash_bwd_dkv_tc128"),
                     "split_tf32x3": ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3"),
+                    "split_tf32x3_128": ("flash_bwd_dq_tf32x3_128", "flash_bwd_dkv_tf32x3_128"),
                     "split_cuda_core": ("flash_bwd_dq", "flash_bwd_dkv")}
-# kernel head dim 128 (the iwslt presets' decoder cross-attention) in bf16:
-# the CUDA-core forward (no tensor-core forward takes D 128) and the D 128
-# tensor-core pair (csrc/flash_bwd_tc128.cu), bitwise repeatable
-D128_FORWARD = "flash_fwd"
+# kernel head dim 128 (the iwslt presets' decoder cross-attention), by
+# launch counter: in bf16 the D 128 tensor-core forward (csrc/flash_fwd_tc.cu)
+# and pair (csrc/flash_bwd_tc128.cu); in fp32 the CUDA-core forward (no
+# tensor-core forward takes fp32 at D 128) and the D 128 tf32x3 pair
+# (csrc/flash_bwd_tf32x3.cu); both pairs bitwise repeatable
+D128_FORWARD = "flash_fwd_tc128"
 D128_BACKWARD = "split_tc128"
+FP32_D128_FORWARD = "flash_fwd"
+FP32_D128_BACKWARD = "split_tf32x3_128"
 
 # the multi-decoder paths (models/multi_task.py): two-phase serving
 # (bench.py::_measure_decode with twophase=True) and the dual-decoder step
@@ -496,6 +518,7 @@ LC_FLASH_LAUNCHES_PER_STEP = 6  # the decoder's encoder attention
 # on LC_TRAIN_BATCH pairs over the same dictionaries, in fewer timed steps
 IWSLT_ARCH = "dynamicconv_iwslt_de_en"
 IWSLT_TIMED_STEPS = 5
+IWSLT_FP32_STEPS = 3  # phase 20b's timed fp32 steps
 
 # serving from files (cli/generate): phase 6's request sizes written as a
 # corpus, one batch of all of them
@@ -595,8 +618,9 @@ LONG_TIMED_STEPS = 5
 
 KERNEL_SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_fwd_tf32x3", "flash_bwd", "flash_bwd_tc", "flash_bwd_tc128",
                   "flash_bwd_tf32x3", "dynamic_conv", "dynamic_conv_tc", "flash_fwd_single")
-# sources whose every kernel must report 0 bytes of spill stores
-NO_SPILL_SOURCES = ("flash_bwd_tc128",)
+# sources whose every kernel must report 0 bytes of spill stores: those of
+# the D 128 tensor-core kernels
+NO_SPILL_SOURCES = ("flash_fwd_tc", "flash_bwd_tc128", "flash_bwd_tf32x3")
 
 
 def emit(obj) -> None:
@@ -817,7 +841,17 @@ def grad_errors(got, want, dtype):
 
 def pair_name(route, d_kernel):
     """The name of the split pair ``route`` runs at kernel head dim
-    ``d_kernel``: "tc128" for the bf16 pair at D 128, its own source."""
+    ``d_kernel``: "tc128" for the bf16 pair at D 128 (its own source),
+    "tf32x3_128" for the fp32 one (its own launch counters)."""
+    if d_kernel == 128 and route != "cuda_core":
+        return {"tc": "tc128", "tf32x3": "tf32x3_128"}[route]
+    return route
+
+
+def fwd_name(route, d_kernel):
+    """The name of the forward ``route`` runs at kernel head dim
+    ``d_kernel``: "tc128" for the bf16 forward at D 128 (its own launch
+    counter)."""
     return "tc128" if (route, d_kernel) == ("tc", 128) else route
 
 
@@ -825,15 +859,16 @@ def check_training_kernels(fa, philox):
     """Each training-shape call in its types: the keep mask through every
     forward kernel that draws it (at a rate above 0); the forward of the
     call's route (on the tensor cores at D 32 and 64: "tc" in bf16, "tf32x3"
-    in fp32; on the CUDA cores otherwise), the split pair of the call's
-    route (the same, and in bf16 at D 128 the tensor cores too,
-    ``csrc/flash_bwd_tc128.cu``) and the fused backward, and in fp32 at
-    D 32 and 64 also the CUDA-core forward and pair, and in bf16 at D 128
-    the CUDA-core pair, which no default route takes there, launched
+    in fp32, and "tc" at D 128; on the CUDA cores otherwise), the split
+    pair of the call's route (the same, and at D 128 the tensor cores in
+    both types: ``csrc/flash_bwd_tc128.cu``, ``flash_bwd_tf32x3.cu``) and
+    the fused backward, and in fp32 at D 32 and 64 also the
+    CUDA-core forward and pair, at D 128 the CUDA-core pair and in bf16 the
+    CUDA-core forward, which no default route takes there, launched
     directly, all against the plain versions; the tensor-core pairs'
-    determinism; times and bounds. At every bf16 call at D 128 the
-    tensor-core pair must beat the CUDA-core pair by the sum of its median
-    device launches (asserted)."""
+    determinism; times and bounds. At every D 128 call the tensor-core
+    kernels must beat their CUDA-core counterparts (``check_d128_wins``,
+    asserted)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     worst = {(kind, dtype): 0.0 for kind in (*FWD_KINDS.values(), *BWD_KINDS.values())
@@ -847,7 +882,7 @@ def check_training_kernels(fa, philox):
             got, valid = kernel_keep_mask(fa, bh, t, s, causal, rate, seed, probe_route, probe_d)
             mismatches = int((got != want)[valid].sum())
             keep_frac = float(want[valid].float().mean())
-            probe_kernel = FWD_KERNEL_NAMES[probe_route]
+            probe_kernel = "flash_" + FWD_KINDS[fwd_name(probe_route, probe_d)]
             emit({"phase": "keep_mask_check", "shape": name, "bh": bh, "T": t, "S": s, "rate": rate,
                   "dtype": str(KEEP_PROBE_DTYPES[probe_route]).replace("torch.", ""), "D": probe_d,
                   "kernel": probe_kernel, "elements": int(valid.sum()), "mismatches": mismatches,
@@ -866,9 +901,9 @@ def check_training_kernels(fa, philox):
             dk = fa.kernel_head_dim(d)
             route, pair_route = fa.fwd_route(dtype, dk), fa.split_route(dtype, dk)
             # the CUDA-core kernels at the tensor-core routes' head dims (in
-            # fp32 the forward and the pair, in bf16 at D 128 the pair),
-            # which no default route takes, launched directly
-            routes = [route] + (["cuda_core"] if route == "tf32x3" else [])
+            # fp32 the forward and the pair, at D 128 the pair and in bf16
+            # the forward), which no default route takes, launched directly
+            routes = [route] + (["cuda_core"] if route == "tf32x3" or (route == "tc" and dk == 128) else [])
             direct_pair = pair_route != "cuda_core" and (route == "tf32x3" or dk == 128)
             pair_routes = [pair_route] + (["cuda_core"] if direct_pair else [])
             qp, kp, vp, gp = (_pad_d(x, dk) for x in (q, k, v, g))
@@ -894,7 +929,8 @@ def check_training_kernels(fa, philox):
             torch.cuda.synchronize()
             checks = {r: grad_errors(gr, want_grads, dtype) for r, gr in grads.items()}
             for r, (out_err, _) in fwd_errs.items():
-                worst[(FWD_KINDS[r], dtype)] = max(worst[(FWD_KINDS[r], dtype)], out_err)
+                kind = FWD_KINDS[fwd_name(r, dk)]
+                worst[(kind, dtype)] = max(worst[(kind, dtype)], out_err)
             for r, (err, ratio, _, _) in checks.items():
                 kind = BWD_KINDS["fused" if r == "fused" else pair_name(r, dk)]
                 worst[(kind, dtype)] = max(worst.get((kind, dtype), 0.0), err)
@@ -932,7 +968,7 @@ def check_training_kernels(fa, philox):
 
             timings = {}
             for r, call in fwd_calls.items():
-                timings[FWD_ROWS[r]] = dict(
+                timings[FWD_ROWS[fwd_name(r, dk)]] = dict(
                     kernel_ms=time_ms(call), kernel_device_ms=device_ms(call, FWD_KERNEL_NAMES[r]), route=r,
                     launch="flash_attention" if r == route else "direct", plain_ms=plain_fwd_ms,
                     library_ms=library_ms, library_backend=library_backend, **fwd_library, max_abs_err=fwd_errs[r][0],
@@ -965,30 +1001,61 @@ def check_training_kernels(fa, philox):
             if name in DETERMINISM_AT:
                 check_determinism(name, bwd_calls[pair_route], bwd_calls["fused"], grads[pair_route], grads["fused"],
                                   d, dtype)
-            if pair_name(pair_route, dk) == "tc128":
-                wins = pair_device["tc"] <= pair_device["cuda_core"]
-                emit({"phase": "d128_pair_wins", "shape": name, "bh": bh, "T": t, "S": s, "rate": rate,
-                      "dtype": str(dtype).replace("torch.", ""), "tc128_pair_device_ms": pair_device["tc"],
-                      "cuda_core_pair_device_ms": pair_device["cuda_core"],
-                      "fused_device_ms": timings["flash_attention_bwd_fused"]["kernel_device_ms"],
-                      "sdpa_backward_device_ms": bwd_common.get("library_device_ms"),
-                      "sdpa_backward_backend": bwd_common.get("library_device_backend"),
-                      "bound_ms_dq_dkv": [timings[f"flash_attention_bwd_{k}_tc128"]["bound_ms"] for k in ("dq", "dkv")],
-                      "bound_by": [timings[f"flash_attention_bwd_{k}_tc128"]["bound_by"] for k in ("dq", "dkv")],
-                      "plain_ms": plain_bwd_ms, "tc128_pair_wins": wins, "card": CARD[0]})
-                if not wins:
-                    raise AssertionError(f"the CUDA-core pair beat the D 128 tensor-core pair at {name}: "
-                                         f"{pair_device}")
+            if dk == 128:
+                check_d128_wins(name, bh, t, s, rate, dtype, route, pair_route, timings, pair_device,
+                                fwd_library, bwd_common, plain_fwd_ms, plain_bwd_ms)
             del q, k, v, bias, g, out_k, out_p, want_grads, grads
             torch.cuda.empty_cache()
     return rows, worst, worst_ratio
 
 
+def check_d128_wins(name, bh, t, s, rate, dtype, route, pair_route, timings, pair_device, fwd_library,
+                    bwd_common, plain_fwd_ms, plain_bwd_ms):
+    """At a D 128 call: the tensor-core pair of the type at most the
+    CUDA-core pair's device time, the sum of dq's and dkv's median launches
+    (``tc128_pair_wins`` in bf16, ``tf32x3_128_pair_wins`` in fp32), and in
+    bf16 the tensor-core forward's median launch at most the CUDA-core
+    forward's (``tc128_fwd_wins``); each asserted, beside the fused
+    kernel's and SDPA's device times, the plain times and the bounds. A
+    kernel whose launches no trace kept raises: no flag stands on a time
+    not measured."""
+    pair = pair_name(pair_route, 128)
+    compared = [f"flash_attention_bwd_{k}{ROW_SUFFIX[pair_name(r, 128)]}" for r in (pair_route, "cuda_core")
+                for k in ("dq", "dkv")] + ([FWD_ROWS["tc128"], FWD_ROWS["cuda_core"]] if route == "tc" else [])
+    unmeasured = [row for row in compared if timings[row]["kernel_device_ms"] is None]
+    if unmeasured:
+        raise RuntimeError(f"{name} {dtype}: no trace kept a launch of {unmeasured}")
+    base = {"shape": name, "bh": bh, "T": t, "S": s, "rate": rate, "dtype": str(dtype).replace("torch.", ""),
+            "card": CARD[0]}
+    wins = pair_device[pair_route] <= pair_device["cuda_core"]
+    rows = [timings[f"flash_attention_bwd_{k}{ROW_SUFFIX[pair]}"] for k in ("dq", "dkv")]
+    emit({"phase": "d128_pair_wins", **base, f"{pair}_pair_device_ms": pair_device[pair_route],
+          "cuda_core_pair_device_ms": pair_device["cuda_core"],
+          "fused_device_ms": timings["flash_attention_bwd_fused"]["kernel_device_ms"],
+          "sdpa_backward_device_ms": bwd_common.get("library_device_ms"),
+          "sdpa_backward_backend": bwd_common.get("library_device_backend"),
+          "bound_ms_dq_dkv": [r["bound_ms"] for r in rows], "bound_by": [r["bound_by"] for r in rows],
+          "plain_ms": plain_bwd_ms, f"{pair}_pair_wins": wins})
+    if not wins:
+        raise AssertionError(f"the CUDA-core pair beat the D 128 tensor-core pair at {name} {dtype}: {pair_device}")
+    if route != "tc":
+        return
+    tc, cc = timings[FWD_ROWS["tc128"]], timings[FWD_ROWS["cuda_core"]]
+    wins = tc["kernel_device_ms"] <= cc["kernel_device_ms"]
+    emit({"phase": "d128_fwd_wins", **base, "tc128_fwd_device_ms": tc["kernel_device_ms"],
+          "cuda_core_fwd_device_ms": cc["kernel_device_ms"],
+          "sdpa_forward_device_ms": fwd_library.get("library_device_ms"),
+          "sdpa_forward_backend": fwd_library.get("library_device_backend"),
+          "bound_ms": tc["bound_ms"], "bound_by": tc["bound_by"], "plain_ms": plain_fwd_ms, "tc128_fwd_wins": wins})
+    if not wins:
+        raise AssertionError(f"the CUDA-core forward beat the D 128 tensor-core forward at {name}: "
+                             f"{tc['kernel_device_ms']} against {cc['kernel_device_ms']}")
+
+
 def check_determinism(name, pair_call, fused_call, pair, fused, d, dtype):
-    """The call's default pair (tensor cores at D 32/64 and in bf16 at
-    D 128, CUDA cores in fp32 at D 128) again on the same inputs: bitwise
-    equal (asserted); the fused kernel's dQ again: its spread reported
-    (fp32 atomics)."""
+    """The call's default pair (tensor cores at D 32, 64 and 128) again on
+    the same inputs: bitwise equal (asserted); the fused kernel's dQ again:
+    its spread reported (fp32 atomics)."""
     pair2 = [x[..., :d] for x in pair_call()]
     fused2 = [x[..., :d] for x in fused_call()]
     torch.cuda.synchronize()
@@ -1734,8 +1801,8 @@ def train_lightconv(card, dicts, fa, dconv, single, modules, arch=LC_ARCH, timed
                     forward=BF16_FORWARD, backward=BF16_BACKWARD, phase="train_lightconv"):
     """The lightconv step at ``arch``: ``forward`` and ``backward`` are the
     flash routes its decoder's encoder attention takes (the tensor cores at
-    head dim 64; at the iwslt presets' 128 the CUDA-core forward and the
-    D 128 tensor-core pair)."""
+    head dim 64, and at the iwslt presets' 128 the D 128 tensor-core
+    forward and pair)."""
     Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
     args = lc_train_args(arch)
     task = TranslationTask(args, *dicts)
@@ -1792,11 +1859,12 @@ def train_lightconv(card, dicts, fa, dconv, single, modules, arch=LC_ARCH, timed
     return launches
 
 
-def one_lc_step(dicts, modules, device, sample, use_kernel, deterministic=False):
-    """A fresh full-width fp32 lightconv (seed 1) after one train step with
-    lr 2e-3 from the first update; returns (model, step outputs)."""
+def one_lc_step(dicts, modules, device, sample, use_kernel, deterministic=False, arch=LC_ARCH):
+    """A fresh full-width fp32 lightconv of ``arch`` (seed 1) after one
+    train step with lr 2e-3 from the first update; returns (model, step
+    outputs)."""
     Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
-    args = lc_train_args(bf16=False, dropout=0.0, attention_dropout=0.0, relu_dropout=0.0,
+    args = lc_train_args(arch, bf16=False, dropout=0.0, attention_dropout=0.0, relu_dropout=0.0,
                          weight_dropout=0.0, input_dropout=0.0, warmup_updates=1, warmup_init_lr=0.002)
     task = TranslationTask(args, *dicts)
     model = task.build_model(args, device=device)
@@ -1816,6 +1884,57 @@ def check_lightconv_steps(dicts, modules):
     cpu = one_lc_step(dicts, modules, "cpu", staged_text(small, "cpu"), use_kernel=False, deterministic=True)
     card = one_lc_step(dicts, modules, "cuda", staged_text(small), use_kernel=True, deterministic=True)
     compare_steps("lightconv_card_vs_cpu", card, cpu, "other_forward")
+
+
+def train_iwslt_fp32(card, dicts, fa, dconv, single, modules, attention):
+    """20b. ``dynamicconv_iwslt_de_en`` in fp32 (TF32 off) at phase 10's
+    batch, as a user trains it without ``--bf16``: the flash calls take the
+    CUDA-core forward and the D 128 tf32x3 pair, exactly 6 + 6 + 6 a step
+    and no other flash kernel, with 13 + 13 tensor-core dynamic conv; step
+    ms, the loss finite, one profiled step. Returns the timed steps'
+    launches. Then the flash route against the dense route, one step of a
+    fresh model each with dropout 0, at phase 8's tolerances."""
+    Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
+    args = lc_train_args(IWSLT_ARCH, bf16=False)
+    task = TranslationTask(args, *dicts)
+    trainer = Trainer(args, task, task.build_model(args), task.build_criterion(args))
+    sample = staged_text(lc_train_sample(modules, dicts, np.random.RandomState(5), LC_TRAIN_BATCH))
+    trainer.train_step([sample])
+    torch.cuda.synchronize()
+    reset_counts(fa, dconv, single)
+    t0 = time.perf_counter()
+    outs = [trainer.train_step([sample]) for _ in range(IWSLT_FP32_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / IWSLT_FP32_STEPS * 1e3
+    launches = launch_counts(fa, dconv, single)
+    want = step_launches(launches, IWSLT_FP32_STEPS, LC_FLASH_LAUNCHES_PER_STEP, FP32_D128_BACKWARD, FP32_D128_FORWARD)
+    want.update({DCONV_FORWARD: DCONV_LAUNCHES_PER_STEP * IWSLT_FP32_STEPS,
+                 DCONV_BACKWARD: DCONV_LAUNCHES_PER_STEP * IWSLT_FP32_STEPS})
+    if launches != want:
+        raise AssertionError(f"{IWSLT_ARCH} fp32 train launches {launches}, expected {want}")
+    losses = [float(o["loss"]) / float(o["sample_size"]) for o in outs]
+    if not (np.isfinite(losses).all() and all(np.isfinite(float(o["gnorm"])) for o in outs)):
+        raise AssertionError("non-finite loss or gnorm in the fp32 iwslt step")
+    emit({"phase": "train_iwslt_fp32", "arch": IWSLT_ARCH, "batch": LC_TRAIN_BATCH, "dtype": "float32",
+          "forward": FP32_D128_FORWARD, "backward": FP32_D128_BACKWARD, "steps": IWSLT_FP32_STEPS, "step_ms": step_ms,
+          "launches_per_step": {k: v / IWSLT_FP32_STEPS for k, v in launches.items()},
+          "loss_per_token": losses, "card": card})
+    wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
+    emit({"phase": "train_iwslt_fp32_profile", "arch": IWSLT_ARCH, "step_s": wall_s, "device_busy_s": busy_s,
+          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
+    del trainer
+    torch.cuda.empty_cache()
+
+    calls = LC_FLASH_LAUNCHES_PER_STEP
+    d128 = {FP32_D128_FORWARD: calls, **{k: calls for k in BACKWARD_KERNELS[FP32_D128_BACKWARD]}}
+    step = lambda: one_lc_step(dicts, modules, "cuda", sample, use_kernel=True, arch=IWSLT_ARCH)  # noqa: E731
+    attention.set_flash_attention(None)
+    flash = counted_step(fa, d128, step_fn=step)
+    attention.set_flash_attention(False)
+    dense = counted_step(fa, {}, step_fn=step)
+    attention.set_flash_attention(None)
+    compare_steps("iwslt_fp32_flash_vs_dense", flash, dense, "other_forward")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1906,9 +2025,11 @@ def flash_sweep(card, sweep, fa, dconv, single):
     if not decision["tf32x3_bwd_wins_everywhere"]:
         raise AssertionError(f"the fused backward beat the tf32x3 pair at a train step's fp32 call, so the "
                              f"committed route {FP32_BACKWARD} needs a gate: {decision['tf32x3_bwd_wins_by_call']}")
-    if not (decision["d128_pair_wins_by_call"] and decision["d128_pair_wins_everywhere"]):
-        raise AssertionError(f"the CUDA-core pair beat the D 128 tensor-core pair at a bf16 call, so the committed "
-                             f"route {D128_BACKWARD} needs a gate: {decision['d128_pair_wins_by_call']}")
+    for prefix, route in (("", D128_BACKWARD), ("tf32x3_", FP32_D128_BACKWARD)):
+        wins = decision[f"{prefix}d128_pair_wins_by_call"]
+        if not (wins and decision[f"{prefix}d128_pair_wins_everywhere"]):
+            raise AssertionError(f"the CUDA-core pair beat the D 128 tensor-core pair at a call, so the committed "
+                                 f"route {route} needs a gate: {wins}")
     return launches
 
 
@@ -3075,10 +3196,12 @@ def main() -> int:
         drive(f"serve_{arch}", serve_twophase, card, d, fa, dconv, single, attention, modules, arch, requests)
     drive("train_dualdecoder", train_dual, card, d, fa, dconv, single, modules)
     check_dual_steps(d, fa, attention, modules)
-    # 20. the iwslt lightconv step: head dim 128, the CUDA-core flash forward
-    # and the D 128 tensor-core pair
+    # 20. the iwslt lightconv step: head dim 128, the D 128 tensor-core flash
+    # forward and pair; 20b. the same step in fp32: the CUDA-core forward and
+    # the D 128 tf32x3 pair
     drive("train_iwslt", train_lightconv, card, lc_dicts, fa, dconv, single, modules, IWSLT_ARCH,
           IWSLT_TIMED_STEPS, D128_FORWARD, D128_BACKWARD, "train_iwslt")
+    drive("train_iwslt_fp32", train_iwslt_fp32, card, lc_dicts, fa, dconv, single, modules, attention)
     # 21.-23. serving from files, the search strategies, the realistic step
     drive("serve_from_files", serve_from_files, card, d, fa, dconv, single, modules)
     drive("serve_search", serve_search, card, d, fa, dconv, single, modules)
@@ -3102,13 +3225,17 @@ def main() -> int:
     f32_long_at = ("long_encoder_self_attention", "float32")
     iwslt_at = ("lightconv_iwslt_cross_attention", "bfloat16")  # the D 128 kernels' model call
     d128_long_at = ("d128_long", "bfloat16")
+    f32_iwslt_at = ("lightconv_iwslt_cross_attention", "float32")
+    f32_d128_long_at = ("d128_long", "float32")
     f32, b16 = torch.float32, torch.bfloat16
     kernels = [
         kernel_entry("flash_fwd", "flash_attention_fwd", csrc + "flash_fwd.cu", pallas + "117",
                      launches["flash_fwd"], rows, worst[("fwd", f32)], worst[("fwd", b16)], f32_at,
-                     (f32_long_at, iwslt_at)),
+                     (f32_long_at, f32_iwslt_at, iwslt_at)),
         kernel_entry("flash_fwd_tc", "flash_attention_fwd_tc", csrc + "flash_fwd_tc.cu", pallas + "117",
                      launches["flash_fwd_tc"], rows, None, worst[("fwd_tc", b16)], timed_at, long_at),
+        kernel_entry("flash_fwd_tc128", "flash_attention_fwd_tc128", csrc + "flash_fwd_tc.cu", pallas + "117",
+                     launches["flash_fwd_tc128"], rows, None, worst[("fwd_tc128", b16)], iwslt_at, d128_long_at),
         kernel_entry("flash_fwd_tf32x3", "flash_attention_fwd_tf32x3", csrc + "flash_fwd_tf32x3.cu", pallas + "117",
                      launches["flash_fwd_tf32x3"], rows, worst[("fwd_tf32x3", f32)], None, f32_at, f32_long_at),
         kernel_entry("flash_bwd_fused", "flash_attention_bwd_fused", csrc + "flash_bwd.cu", pallas + "277",
@@ -3116,10 +3243,10 @@ def main() -> int:
                      f32_at, (f32_long_at, iwslt_at)),
         kernel_entry("flash_bwd_dq", "flash_attention_bwd_dq", csrc + "flash_bwd.cu", pallas + "218",
                      launches["flash_bwd_dq"], rows, worst[("bwd_cuda_core", f32)], worst[("bwd_cuda_core", b16)],
-                     f32_at, (iwslt_at,)),
+                     f32_at, (f32_iwslt_at, iwslt_at)),
         kernel_entry("flash_bwd_dkv", "flash_attention_bwd_dkv", csrc + "flash_bwd.cu", pallas + "386",
                      launches["flash_bwd_dkv"], rows, worst[("bwd_cuda_core", f32)], worst[("bwd_cuda_core", b16)],
-                     f32_at, (iwslt_at,)),
+                     f32_at, (f32_iwslt_at, iwslt_at)),
         kernel_entry("flash_bwd_dq_tc", "flash_attention_bwd_dq_tc", csrc + "flash_bwd_tc.cu", pallas + "218",
                      launches["flash_bwd_dq_tc"], rows, None, worst[("bwd_tc", b16)], timed_at, long_at),
         kernel_entry("flash_bwd_dkv_tc", "flash_attention_bwd_dkv_tc", csrc + "flash_bwd_tc.cu", pallas + "386",
@@ -3135,6 +3262,12 @@ def main() -> int:
         kernel_entry("flash_bwd_dkv_tf32x3", "flash_attention_bwd_dkv_tf32x3", csrc + "flash_bwd_tf32x3.cu",
                      pallas + "386", launches["flash_bwd_dkv_tf32x3"], rows, worst[("bwd_tf32x3", f32)], None,
                      f32_at, f32_long_at),
+        kernel_entry("flash_bwd_dq_tf32x3_128", "flash_attention_bwd_dq_tf32x3_128", csrc + "flash_bwd_tf32x3.cu",
+                     pallas + "218", launches["flash_bwd_dq_tf32x3_128"], rows, worst[("bwd_tf32x3_128", f32)], None,
+                     f32_iwslt_at, f32_d128_long_at),
+        kernel_entry("flash_bwd_dkv_tf32x3_128", "flash_attention_bwd_dkv_tf32x3_128", csrc + "flash_bwd_tf32x3.cu",
+                     pallas + "386", launches["flash_bwd_dkv_tf32x3_128"], rows, worst[("bwd_tf32x3_128", f32)], None,
+                     f32_iwslt_at, f32_d128_long_at),
     ]
     for entry in kernels:
         kind = {"flash_bwd_fused": "bwd_fused", "flash_bwd_dq": "bwd_cuda_core", "flash_bwd_dkv": "bwd_cuda_core",

@@ -1,7 +1,9 @@
 // Split flash-attention backward for fp32 on Hopper's tensor cores (sm_90a),
-// plain CUDA C++: 3xTF32 products at head dim 32 or 64. Two kernels, each a
-// port of a Pallas kernel of fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py
-// for fp32 calls at kernel head dims 32 and 64:
+// plain CUDA C++: 3xTF32 products at head dim 32, 64 or 128. Two kernels,
+// each a port of a Pallas kernel of
+// fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py for fp32 calls at kernel
+// head dims 32, 64 and 128 (the iwslt lightconv presets' 4 heads over 512
+// dims):
 //
 //   flash_bwd_dq_tf32x3   replaces _dq_kernel:  dQ, q-outer;
 //   flash_bwd_dkv_tf32x3  replaces _dkv_kernel: dK and dV, kv-outer;
@@ -29,12 +31,23 @@
 // (which no real batch has) loses those keys' share, as the chunks past a
 // causal tile's diagonal already drop theirs.
 //
-// Design: flash_bwd_tc.cu's split on fp32 tiles (256-byte rows at D 64,
-// 128-byte at D 32, XOR-swizzled), 4 warps a block, bh on gridDim.x, and a
-// 2-slot cp.async ring of 32-key (dq) or 32-row (dkv) chunks: 64 KB of
-// shared memory a block at D 64 and at most 170 registers a thread, so 3
-// blocks share an SM; 64-key chunks in 2 slots (96 KB, 2 blocks an SM) ran
-// slower in development runs on an H100, most at the short causal calls.
+// Design: flash_bwd_tc.cu's split on fp32 tiles (512-byte rows at D 128,
+// 256-byte at D 64, 128-byte at D 32, XOR-swizzled), 4 warps a block, bh on
+// gridDim.x, and a cp.async ring of chunks of keys (dq) or rows (dkv), the
+// plan of each head dim (Plan<D>). At D 32 and 64: 2 slots of 32-key or
+// 32-row chunks, 64 KB of shared memory a block at D 64 and at most 170
+// registers a thread, so 3 blocks share an SM; 64-key chunks in 2 slots
+// (96 KB, 2 blocks an SM) ran slower in development runs on an H100, most
+// at the short causal calls. At D 128 a 64-row Q or dO tile (dq), or K or
+// V tile (dkv), is 32 KB: the two take 64 KB, and two slots of 32-key
+// chunks 64 KB more, so a block of 128 KB would have an SM to itself (the
+// iwslt call's 256 blocks in two waves). Chunks of 16 keys or rows halve
+// the ring: 96 KB, two blocks an SM, one wave. The dkv lane holds dK and dV
+// (128 fp32 accumulators) beside S^T and dP^T, 8 + 8 at 16 rows. So D 128
+// takes chunks of 16 in 2 slots: 3 slots read within 2 % on an H100 for
+// 16 KB more, and chunks of 32 (dkv at 255 registers, one block an SM)
+// were 1.46x slower at the iwslt call and 1.23x at bh 32, T = S = 2048
+// (PERF.md section 6 gives the times). ptxas: dq 167, dkv 237 registers, no spill.
 //   * dq: one block per (bh, 64-row q tile), a warp per 16 rows. Q and dO
 //     stay in shared memory, their A fragments read by ldmatrix and split
 //     where used (held in registers they spilled: 255 registers); K and V
@@ -57,7 +70,9 @@
 // D 64) dq does 3 products of 2 T S D a head (51.5 GFLOP) and dkv 4 (68.7
 // GFLOP): 0.31 / 0.42 ms at the 165 TFLOP/s of fp32-faithful products
 // (495 TF32 / 3), against 34-67 MB of traffic (10-20 us at 3.35 TB/s), so
-// operations bound both. Each warp splits every K, V (dq) or Q, dO (dkv)
+// operations bound both; at D 128 twice that, 0.62 / 0.83 ms. At the iwslt
+// call (bh 256, T = S = 56, D 128) bytes bound them: 36.9 + 44.2 MB, 0.0110
+// + 0.0132 ms, against 0.0023 + 0.0031 ms of products. Each warp splits every K, V (dq) or Q, dO (dkv)
 // element it multiplies, and the A fragments once a chunk, with two integer
 // operations and a subtraction (split_tf32): about two such instructions
 // for each mma.sync issued.
@@ -73,10 +88,18 @@ namespace {
 using namespace flash;
 
 constexpr int kTile = 64;     // q rows a dq block, keys a dkv block
-constexpr int kChunk = 32;    // keys (dq) or rows (dkv) a ring slot
 constexpr int kThreadsTc = 128;
-constexpr int kStages = 2;    // ring slots
-constexpr int kBlocksPerSm = 3;  // 64 KB of shared memory and <= 170 registers a thread
+
+// Each head dim's chunk (keys or rows a ring slot), ring slots, and the
+// blocks an SM its registers are bounded for.
+template <int D> struct Plan {
+  static constexpr int kChunk = 32, kStages = 2;
+  static constexpr int kBlocksPerSm = 3;  // 64 KB of shared memory and <= 170 registers a thread
+};
+template <> struct Plan<128> {
+  static constexpr int kChunk = 16, kStages = 2;  // 96 KB: two blocks share an SM
+  static constexpr int kBlocksPerSm = 1;  // registers bounded only by the 255 a thread may hold
+};
 
 struct Args {
   const float *q, *k, *v, *dout;
@@ -91,13 +114,15 @@ struct Args {
 };
 
 template <int D> __host__ __device__ constexpr int tile_bytes() { return kTile * 4 * D; }
-template <int D> __host__ __device__ constexpr int chunk_bytes() { return kChunk * 4 * D; }
+template <int D> __host__ __device__ constexpr int chunk_bytes() { return Plan<D>::kChunk * 4 * D; }
 template <int D> __host__ __device__ constexpr int dq_smem_bytes() {
-  return 2 * tile_bytes<D>() + kStages * 2 * chunk_bytes<D>();
+  return 2 * tile_bytes<D>() + Plan<D>::kStages * 2 * chunk_bytes<D>();
 }
-template <int D> __host__ __device__ constexpr int dkv_slot_bytes() { return 2 * chunk_bytes<D>() + 2 * kChunk * 4; }
+template <int D> __host__ __device__ constexpr int dkv_slot_bytes() {
+  return 2 * chunk_bytes<D>() + 2 * Plan<D>::kChunk * 4;
+}
 template <int D> __host__ __device__ constexpr int dkv_smem_bytes() {
-  return 2 * tile_bytes<D>() + kStages * dkv_slot_bytes<D>();
+  return 2 * tile_bytes<D>() + Plan<D>::kStages * dkv_slot_bytes<D>();
 }
 
 // ---------------------------------------------------------------------------
@@ -105,10 +130,11 @@ template <int D> __host__ __device__ constexpr int dkv_smem_bytes() {
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsTc, kBlocksPerSm)
+__global__ void __launch_bounds__(kThreadsTc, Plan<D>::kBlocksPerSm)
 flash_bwd_dq_tf32x3_kernel(Args a) {
   constexpr int RB = 4 * D;
   constexpr int TILE = tile_bytes<D>(), CH = chunk_bytes<D>();
+  constexpr int kChunk = Plan<D>::kChunk, kStages = Plan<D>::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t qs = hmma::smem_u32(smem), dos = qs + TILE;
   const hmma::CpAsyncRing<kStages, 2 * CH> ring{dos + TILE};
@@ -168,12 +194,13 @@ flash_bwd_dq_tf32x3_kernel(Args a) {
     // warp's rows, or a warp whose rows lie past T, adds nothing
     const int key0 = c * kChunk;
     if (w0 >= a.t_len || key0 >= a.s_len || (a.causal && key0 > w0 + 15)) continue;
-    float sc[4][4], dp[4][4];  // rows x keys: tile n holds keys key0 + 8 n..
-    hmma::product_nt_3x<D, 4>(sc, qs, warp * 16, kt, 0, lane);
-    hmma::product_nt_3x<D, 4>(dp, dos, warp * 16, vt, 0, lane);
+    constexpr int NT = kChunk / 8;  // 8-key tiles a chunk
+    float sc[NT][4], dp[NT][4];  // rows x keys: tile n holds keys key0 + 8 n..
+    hmma::product_nt_3x<D, NT>(sc, qs, warp * 16, kt, 0, lane);
+    hmma::product_nt_3x<D, NT>(dp, dos, warp * 16, vt, 0, lane);
     hmma::dq_ds_step(sc, dp, a, biasb, key0, rows, row_ok, lse, delta, w0, (uint32_t)bh, lane);
-    // dQ += ds K over the chunk's 4 k-steps of 8 keys
-    hmma::product_t_3x<D, 4>(acc, sc, smem + (kt - qs), 0, lane);
+    // dQ += ds K over the chunk's k-steps of 8 keys
+    hmma::product_t_3x<D, NT>(acc, sc, smem + (kt - qs), 0, lane);
   }
   hmma::cp_async_wait<0>();
 
@@ -192,11 +219,13 @@ flash_bwd_dq_tf32x3_kernel(Args a) {
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsTc, kBlocksPerSm)
+__global__ void __launch_bounds__(kThreadsTc, Plan<D>::kBlocksPerSm)
 flash_bwd_dkv_tf32x3_kernel(Args a) {
   constexpr int RB = 4 * D;
   constexpr int TILE = tile_bytes<D>(), CH = chunk_bytes<D>();
+  constexpr int kChunk = Plan<D>::kChunk, kStages = Plan<D>::kStages;
   constexpr int SLOT = dkv_slot_bytes<D>();  // Q, dO, then lse and delta (kChunk floats each)
+  static_assert(SLOT % 128 == 0, "ring slots keep the swizzle's 128-byte alignment");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t ks = hmma::smem_u32(smem), vs = ks + TILE;
   const hmma::CpAsyncRing<kStages, SLOT> ring{vs + TILE};
@@ -266,13 +295,14 @@ flash_bwd_dkv_tf32x3_kernel(Args a) {
     // a chunk whose rows lie past T, or below the diagonal of all the
     // warp's keys, or a warp whose keys lie past S, adds nothing
     if (k0 >= a.s_len || r0 >= a.t_len || (a.causal && r0 + kChunk - 1 < k0)) continue;
-    float st[4][4], dpt[4][4];  // keys x rows: tile n holds rows r0 + 8 n..
-    hmma::product_nt_3x<D, 4>(st, ks, warp * 16, qt, 0, lane);
-    hmma::product_nt_3x<D, 4>(dpt, vs, warp * 16, dot, 0, lane);
+    constexpr int NT = kChunk / 8;  // 8-row tiles a chunk
+    float st[NT][4], dpt[NT][4];  // keys x rows: tile n holds rows r0 + 8 n..
+    hmma::product_nt_3x<D, NT>(st, ks, warp * 16, qt, 0, lane);
+    hmma::product_nt_3x<D, NT>(dpt, vs, warp * 16, dot, 0, lane);
     hmma::dkv_wv_ds_step(st, dpt, a, lses, deltas, r0, keys, key_ok, bk, k0, (uint32_t)bh, lane);
-    // dV += w_v^T dO and dK += ds^T Q over the chunk's 4 k-steps of 8 rows
-    hmma::product_t_3x<D, 4>(dv, st, dop, 0, lane);
-    hmma::product_t_3x<D, 4>(dk, dpt, qp, 0, lane);
+    // dV += w_v^T dO and dK += ds^T Q over the chunk's k-steps of 8 rows
+    hmma::product_t_3x<D, NT>(dv, st, dop, 0, lane);
+    hmma::product_t_3x<D, NT>(dk, dpt, qp, 0, lane);
   }
   hmma::cp_async_wait<0>();
 
@@ -327,6 +357,7 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* bias,
   switch (head_dim) {
     case 32: return (int)launch<32>(dq, a, bh, s);
     case 64: return (int)launch<64>(dq, a, bh, s);
+    case 128: return (int)launch<128>(dq, a, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -334,8 +365,8 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* bias,
 }  // namespace
 
 // Common arguments: q, dout: (bh, t_len, head_dim); k, v: (bh, s_len,
-// head_dim); fp32, contiguous, 16-byte aligned; head_dim 32 or 64; bias:
-// (bh, s_len) fp32; lse, delta: (bh, t_len) fp32; drop_thresh = 0 turns
+// head_dim); fp32, contiguous, 16-byte aligned; head_dim 32, 64 or 128;
+// bias: (bh, s_len) fp32; lse, delta: (bh, t_len) fp32; drop_thresh = 0 turns
 // dropout off, keep_prob is 1 - rate, seed the forward's. Each launches on
 // `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for what it
 // does not take).

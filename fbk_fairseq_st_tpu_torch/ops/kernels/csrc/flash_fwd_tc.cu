@@ -1,11 +1,12 @@
 // Online flash-attention forward on Hopper's tensor cores (sm_90a), plain
-// CUDA C++: bf16 at head dim 32 or 64.
+// CUDA C++: bf16 at head dim 32, 64 or 128.
 //
 // Replaces fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py::_fwd_kernel
 // (launched by _fwd_impl through pl.pallas_call), dropout included, for bf16
-// calls at kernel head dims 32 and 64: every model's heads, and the time
-// attention's F' = 20 padded to 32. flash_fwd.cu keeps fp32 (TF32 would not
-// be exact against the fp32 plain version) and bf16 at D 16 and 128. The
+// calls at kernel head dims 32, 64 and 128: every model's heads, the time
+// attention's F' = 20 padded to 32, and the iwslt lightconv presets' 4 heads
+// over 512 dims. flash_fwd_tf32x3.cu takes fp32 at D 32 and 64, and
+// flash_fwd.cu keeps bf16 at D 16 and fp32 at D 16 and 128. The
 // function is flash_fwd.cu's (its note, :6-16), in one pass over S with an
 // online softmax:
 //
@@ -48,6 +49,22 @@
 // past T run on zero q and are not written. Shared memory is the Q tile and
 // the ring, 56 KB at D 64 and 28 KB at D 32, whatever T and S are.
 //
+// Head dim 128, the same template with two compile-time changes. Q's A
+// fragments would hold 32 registers a lane beside O's 64 and the chunk's 32
+// scores, so Q stays in its swizzled tile of 256-byte rows and its fragments
+// are read by ldmatrix at each k-step (hopper_mma.cuh::product_nt_smem,
+// flash_bwd_tc128.cu's helper). The Q tile is 16 KB and a K + V chunk 32
+// KB: the ring of 3 slots, as at D 32/64, takes 112 KB with the Q tile and
+// still lets two blocks share an SM, so the iwslt call's 256 blocks (bh
+// 256, T 56: one q tile each) run in one wave on 132 SMs. A ring of 2
+// slots (80 KB) read within 3 % of it on an H100: slower at the iwslt
+// call, which has one chunk a block, and faster at bh 32, T = S = 2048
+// (PERF.md section 6 gives both times).
+// ptxas gives 142 registers and no spill. The softmax step and the keep
+// bits are D 64's (online_softmax_step, row_frame_keep_bits work on the
+// m16n8 tile, which does not depend on D), so flash_bwd_dq_tc128 draws
+// these bits again.
+//
 // What bounds it. At the long-context encoder call (bh 32, T = S = 2048,
 // D 64) the function needs 4 bh T S D = 34.4 GFLOP (35 us at 989 TFLOP/s)
 // and moves 33.6 MB (10 us at 3.35 TB/s): operations bound it. At the base
@@ -58,7 +75,10 @@
 // one ex2 a score, and at rate > 0 a Philox call (about 60 integer
 // operations) a 4-key group, which cost about as much issue time as the
 // products (as in flash_bwd_tc.cu's dq kernel). At D 32 the time attention's
-// F' = 20 wastes 37 % of the products on zero columns.
+// F' = 20 wastes 37 % of the products on zero columns. At D 128 the iwslt
+// call (bh 256, T = S = 56) moves 14.7 MB (4.4 us) for 0.41 GFLOP (0.4 us):
+// bytes bound it, and with one chunk a block the load latency is exposed;
+// at bh 32, T = S = 2048 its 68.7 GFLOP (69 us) bound it.
 
 #include <math.h>
 #include <stddef.h>
@@ -98,6 +118,7 @@ __global__ void __launch_bounds__(kThreadsTc)
 flash_fwd_tc_kernel(Args a) {
   constexpr int RB = 2 * D;
   constexpr int TILE = tile_bytes<D>();
+  constexpr bool kQInSmem = D == 128;  // Q's A fragments read at each k-step, not held
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t qs = hmma::smem_u32(smem);
   const hmma::CpAsyncRing<kStages, 2 * TILE> ring{qs + TILE};
@@ -143,16 +164,21 @@ flash_fwd_tc_kernel(Args a) {
     hmma::CpAsyncRing<kStages, 2 * TILE>::wait();
     __syncthreads();  // this chunk is visible; the slot read last step is free
     fill(c + kStages - 1);
-    if (c == 0) {
+    if constexpr (!kQInSmem) {
+      if (c == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hmma::ldmatrix_x4(qf[kk], hmma::a_frag_addr<RB>(qs, warp * 16, kk, lane));
+        for (int kk = 0; kk < D / 16; ++kk)
+          hmma::ldmatrix_x4(qf[kk], hmma::a_frag_addr<RB>(qs, warp * 16, kk, lane));
+      }
     }
     const int s0 = c * kTile;
     const uint32_t kt = ring.slot(c), vt = kt + TILE;
 
     float sc[8][4];  // rows x keys: tile n holds keys s0 + 8 n..
-    hmma::product_nt<D>(sc, qf, kt, lane);
+    if constexpr (kQInSmem)
+      hmma::product_nt_smem<D, 8>(sc, qs, warp * 16, kt, lane);
+    else
+      hmma::product_nt<D>(sc, qf, kt, lane);
 
     hmma::online_softmax_step(sc, m, l, acc, a, biasb, s0, rows, w0, (uint32_t)bh, lane);
     // O += P V: P of keys 16 kk..16 kk+15 is the A fragment of k-step kk
@@ -196,8 +222,8 @@ cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
 }  // namespace
 
 // q: (bh, t_len, head_dim); k, v: (bh, s_len, head_dim); bf16, contiguous,
-// 16-byte aligned; head_dim 32 or 64; bias: (bh, s_len) fp32; out like q;
-// lse: (bh, t_len) fp32. drop_thresh = 0 turns dropout off; keep_prob is
+// 16-byte aligned; head_dim 32, 64 or 128; bias: (bh, s_len) fp32; out like
+// q; lse: (bh, t_len) fp32. drop_thresh = 0 turns dropout off; keep_prob is
 // 1 - rate. Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for what it does not take).
 extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, const void* bias,
@@ -215,6 +241,7 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, const v
   switch (head_dim) {
     case 32: return (int)launch<32>(a, bh, s);
     case 64: return (int)launch<64>(a, bh, s);
+    case 128: return (int)launch<128>(a, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

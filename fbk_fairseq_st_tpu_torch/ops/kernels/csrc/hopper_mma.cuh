@@ -4,8 +4,8 @@
 // (64 bf16: head dim 64) or 64-byte rows (32 bf16: head dim 32) whose
 // 16-byte pieces are XOR-swizzled, and a ring of shared-memory slots
 // filled by cp.async. Every tile helper takes the row width RB in bytes as
-// a template argument, 128 by default; fp32 tiles have 256-byte (head dim
-// 64) or 128-byte (head dim 32) rows. Tiles of
+// a template argument, 128 by default; fp32 tiles have 512-byte (head dim
+// 128), 256-byte (head dim 64) or 128-byte (head dim 32) rows. Tiles of
 // padded rows (an odd count of 16-byte pieces, no swizzle) take any width:
 // the *_frag_addr_pad helpers.
 //
@@ -62,12 +62,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // Byte offset of 16-byte piece `piece` of tile row `row`, in a tile of RB-byte
 // rows. One ldmatrix matrix reads 8 consecutive rows (the first a multiple of
 // 8) at one piece column; the XOR puts those 8 pieces in 8 different groups
-// of 4 banks. RB 128 or 256 (8 or 16 pieces a row, each 128 bytes of a row
-// on all 32 banks): piece ^ (row & 7). RB 64 (4 pieces, two rows share the
-// 32 banks, rows r and r + 1 on different halves): piece ^ ((row >> 1) & 3).
+// of 4 banks. RB 128, 256 or 512 (8, 16 or 32 pieces a row, each 128 bytes
+// of a row on all 32 banks; the XOR moves a piece within its 128 bytes):
+// piece ^ (row & 7). RB 64 (4 pieces, two rows share the 32 banks, rows r
+// and r + 1 on different halves): piece ^ ((row >> 1) & 3).
 template <int RB = kRowBytes>
 __device__ __forceinline__ uint32_t swz(int row, int piece) {
-  static_assert(RB == 256 || RB == 128 || RB == 64, "tile rows are 64, 128 or 256 bytes");
+  static_assert(RB == 512 || RB == 256 || RB == 128 || RB == 64, "tile rows are 64, 128, 256 or 512 bytes");
   if constexpr (RB >= 128) return row * RB + ((piece ^ (row & 7)) << 4);
   else return row * RB + ((piece ^ ((row >> 1) & 3)) << 4);
 }
@@ -104,7 +105,7 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool va
 // `valid_rows` are zeroed.
 template <int ROWS, int NT, int RB = kRowBytes, typename T = __nv_bfloat16>
 __device__ __forceinline__ void load_tile(uint32_t dst, const T* src, int valid_rows, int tid) {
-  constexpr int kLogPieces = RB == 256 ? 4 : RB == 128 ? 3 : 2;  // 16-byte pieces a row: 16, 8 or 4
+  constexpr int kLogPieces = RB == 512 ? 5 : RB == 256 ? 4 : RB == 128 ? 3 : 2;  // 16-byte pieces a row: 32..4
   constexpr int kRow = RB / static_cast<int>(sizeof(T));  // elements a row
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a piece
 #pragma unroll
@@ -225,7 +226,7 @@ __device__ __forceinline__ void product_nt(float (&c)[8][4], const uint32_t (&af
 // columns) instead of held in registers, against the NT * 8 rows of the
 // row-major tile `t`: C tile n holds rows 8 n..8 n+7 of `t`. It frees the
 // D / 4 registers a lane would hold A in, which the head-dim-128 kernels
-// need (flash_bwd_tc128.cu).
+// need (flash_bwd_tc128.cu, and flash_fwd_tc.cu at D 128).
 template <int D, int NT>
 __device__ __forceinline__ void product_nt_smem(float (&c)[NT][4], uint32_t at, int a0, uint32_t t,
                                                 int lane) {
@@ -345,7 +346,8 @@ __device__ __forceinline__ void product_nt_3x(float (&c)[NT][4], uint32_t at, in
 // same order: b[0] = bt[r0 + 8 kk + 2t][8 n + g], b[1] = bt[.. + 1][8 n + g].
 // Those two ld.shared of a warp hit 32 different banks: with r0 a multiple
 // of 8, row r0 + 8 kk + 2t XORs the pieces with 2t and the two pieces of the
-// 8 columns land in 8 different 16-byte groups of a 128-byte line.
+// 8 columns land in 8 different 16-byte groups of a 128-byte line (at every
+// row width: the XOR stays within the 128 bytes).
 template <int D, int KS>
 __device__ __forceinline__ void product_t_3x(float (&acc)[D / 8][4], const float (&c)[KS][4],
                                              const unsigned char* bt, int r0, int lane) {

@@ -5,13 +5,14 @@ Counterpart of ``fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py``
 (public ``flash_attention`` :554, the ``_flash`` custom_vjp :504-551). The
 kernels are ``csrc/flash_fwd.cu`` (``_fwd_kernel``, dropout included, on the
 CUDA cores), ``csrc/flash_fwd_tc.cu`` (``_fwd_kernel`` on the tensor cores,
-bf16), ``csrc/flash_fwd_tf32x3.cu`` (``_fwd_kernel`` on the tensor cores,
-fp32 in 3xTF32 products), ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``, and
-``_dq_kernel`` / ``_dkv_kernel`` on the CUDA cores), ``csrc/flash_bwd_tc.cu``
-(``_dq_kernel`` / ``_dkv_kernel`` on the tensor cores, bf16 at head dim 32
-and 64), ``csrc/flash_bwd_tc128.cu`` (the same pair, bf16 at head dim 128)
-and ``csrc/flash_bwd_tf32x3.cu`` (the same pair, fp32 in 3xTF32 products);
-their source notes say what bounds them.
+bf16 at head dim 32, 64 and 128), ``csrc/flash_fwd_tf32x3.cu``
+(``_fwd_kernel`` on the tensor cores, fp32 in 3xTF32 products at 32 and
+64), ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``, and ``_dq_kernel`` /
+``_dkv_kernel`` on the CUDA cores), ``csrc/flash_bwd_tc.cu`` (``_dq_kernel``
+/ ``_dkv_kernel`` on the tensor cores, bf16 at head dim 32 and 64),
+``csrc/flash_bwd_tc128.cu`` (the same pair, bf16 at head dim 128) and
+``csrc/flash_bwd_tf32x3.cu`` (the same pair, fp32 in 3xTF32 products at 32,
+64 and 128); their source notes say what bounds them.
 
 ``flash_attention`` keeps the JAX contract: q (BH, T, D), k/v (BH, S, D),
 ``mask_bias`` (BH, S) additive key bias (0, or NEG_INF at pads), ``scale``
@@ -45,11 +46,13 @@ from . import philox
 from .build import bind, raise_on
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-TC_HEAD_DIMS = (32, 64)  # the tensor-core forwards' head dims, bf16 and fp32
-# the tensor-core pairs' head dims: bf16 also at 128 (csrc/flash_bwd_tc128.cu)
-PAIR_HEAD_DIMS = {"tc": (32, 64, 128), "tf32x3": (32, 64)}
+# the head dims of each tensor-core route's forward (bf16 also at 128) and
+# split pair (both types also at 128; bf16 there csrc/flash_bwd_tc128.cu)
+FWD_HEAD_DIMS = {"tc": (32, 64, 128), "tf32x3": (32, 64)}
+PAIR_HEAD_DIMS = {"tc": (32, 64, 128), "tf32x3": (32, 64, 128)}
 TC_TILE = 64  # q rows or keys a block of the tensor-core kernels
-# the kernels of each tensor-core route: the forward, dq and dkv
+# the kernels of each tensor-core route: the forward, dq and dkv (the bf16
+# pair at D 128: pair_kernels)
 TC_KERNELS = {"tc": ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
               "tf32x3": ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")}
 TC_DTYPES = {"tc": torch.bfloat16, "tf32x3": torch.float32}
@@ -62,7 +65,8 @@ FUSED_BWD: Optional[bool] = None
 
 # Kernel launches since the last reset (the plain versions do not count).
 launches_fwd = 0  # the forward on the CUDA cores
-launches_fwd_tc = 0  # the forward on the tensor cores, bf16
+launches_fwd_tc = 0  # the forward on the tensor cores, bf16 at D 32/64
+launches_fwd_tc128 = 0  # the same at D 128 (D128_COUNTERS)
 launches_fwd_tf32x3 = 0  # the forward on the tensor cores, fp32
 launches_bwd_fused = 0
 launches_bwd_dq = 0  # the split pair on the CUDA cores
@@ -71,18 +75,21 @@ launches_bwd_dq_tc = 0  # the split pair on the tensor cores, bf16 at D 32/64
 launches_bwd_dkv_tc = 0
 launches_bwd_dq_tc128 = 0  # the same at D 128
 launches_bwd_dkv_tc128 = 0
-launches_bwd_dq_tf32x3 = 0  # the split pair on the tensor cores, fp32
+launches_bwd_dq_tf32x3 = 0  # the split pair on the tensor cores, fp32 at D 32/64
 launches_bwd_dkv_tf32x3 = 0
-_COUNTERS = ("launches_fwd", "launches_fwd_tc", "launches_fwd_tf32x3", "launches_bwd_fused", "launches_bwd_dq",
-             "launches_bwd_dkv", "launches_bwd_dq_tc", "launches_bwd_dkv_tc", "launches_bwd_dq_tc128",
-             "launches_bwd_dkv_tc128", "launches_bwd_dq_tf32x3", "launches_bwd_dkv_tf32x3")
+launches_bwd_dq_tf32x3_128 = 0  # the same at D 128 (D128_COUNTERS)
+launches_bwd_dkv_tf32x3_128 = 0
+_COUNTERS = ("launches_fwd", "launches_fwd_tc", "launches_fwd_tc128", "launches_fwd_tf32x3", "launches_bwd_fused",
+             "launches_bwd_dq", "launches_bwd_dkv", "launches_bwd_dq_tc", "launches_bwd_dkv_tc",
+             "launches_bwd_dq_tc128", "launches_bwd_dkv_tc128", "launches_bwd_dq_tf32x3", "launches_bwd_dkv_tf32x3",
+             "launches_bwd_dq_tf32x3_128", "launches_bwd_dkv_tf32x3_128")
 
 
 def __getattr__(name: str):
     # ``launches``: the forward count of every route, the name the serving
     # path reads
     if name == "launches":
-        return launches_fwd + launches_fwd_tc + launches_fwd_tf32x3
+        return launches_fwd + launches_fwd_tc + launches_fwd_tc128 + launches_fwd_tf32x3
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -91,8 +98,17 @@ def reset_launches() -> None:
         globals()[name] = 0
 
 
-def _count(kernel: str) -> None:
-    """One launch of ``kernel`` (a library function's name)."""
+# the library functions whose launches at kernel head dim 128 are counted
+# apart, under these names (the bf16 pair at D 128 has functions of its own)
+D128_COUNTERS = {"flash_fwd_tc": "flash_fwd_tc128", "flash_bwd_dq_tf32x3": "flash_bwd_dq_tf32x3_128",
+                 "flash_bwd_dkv_tf32x3": "flash_bwd_dkv_tf32x3_128"}
+
+
+def _count(kernel: str, d: int) -> None:
+    """One launch of ``kernel`` (a library function's name) at kernel head
+    dim ``d``."""
+    if d == 128:
+        kernel = D128_COUNTERS.get(kernel, kernel)
     globals()["launches_" + kernel.removeprefix("flash_")] += 1
 
 
@@ -119,22 +135,24 @@ def _tc_route(dtype, d: int, head_dims) -> str:
 
 def fwd_route(dtype, d: int) -> str:
     """The forward kernel of a CUDA call of ``dtype`` at kernel head dim
-    ``d``: at D 32 and 64 the tensor cores, "tc" (``csrc/flash_fwd_tc.cu``)
-    in bf16, "tf32x3" (``csrc/flash_fwd_tf32x3.cu``) in fp32; else
-    "cuda_core" (``csrc/flash_fwd.cu``), the iwslt presets' D 128 in both
-    types included. Each tensor-core kernel is held to beat the CUDA-core
-    one at every train-step call of its type (``tc_fwd_wins``)."""
-    return _tc_route(dtype, d, {route: TC_HEAD_DIMS for route in TC_DTYPES})
+    ``d`` (``FWD_HEAD_DIMS``): on the tensor cores "tc" in bf16 at D 32, 64
+    and 128 (``csrc/flash_fwd_tc.cu``; 128 is the iwslt presets' decoder
+    cross-attention), "tf32x3" in fp32 at D 32 and 64
+    (``csrc/flash_fwd_tf32x3.cu``); else "cuda_core" (``csrc/flash_fwd.cu``):
+    D 16, and fp32 at D 128. Each tensor-core kernel is held to beat the
+    CUDA-core one at every train-step call of its type (``tc_fwd_wins``)."""
+    return _tc_route(dtype, d, FWD_HEAD_DIMS)
 
 
 def fwd_check_shape(route: str, bh: int, t: int, d: int) -> None:
     """Raise ValueError for a forward that the route's kernel does not
     take; needs no card. Every route puts bh on the grid's x dimension,
     which takes any batch, and the 64-row q tiles on its y dimension, at
-    most 65,535. "tc" and "tf32x3" take head dim 32 or 64."""
+    most 65,535. "tc" and "tf32x3" take the head dims of
+    ``FWD_HEAD_DIMS``."""
     name = TC_KERNELS[route][0] if route in TC_KERNELS else "flash_fwd"
-    if route in TC_KERNELS and d not in TC_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {TC_HEAD_DIMS}")
+    if route in TC_KERNELS and d not in FWD_HEAD_DIMS[route]:
+        raise ValueError(f"{name}: head dim {d} not in {FWD_HEAD_DIMS[route]}")
     if -(-t // TC_TILE) > 65535:
         raise ValueError(f"{name}: T {t} over 65,535 tiles of {TC_TILE}")
 
@@ -144,8 +162,8 @@ def tc_fwd_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
     tensor-core ms)} device times, whether the tensor-core kernel of the
     call's type ("tc" in bf16, "tf32x3" in fp32) is at least as fast as the
     CUDA-core one there. ``fwd_route`` takes the tensor cores at every call
-    at D 32 and 64 because this held at each of the train steps' calls in
-    both types; a call where it fails needs a gate."""
+    at D 32 and 64, and in bf16 at 128, because this held at each of the
+    train steps' calls there; a call where it fails needs a gate."""
     return {name: tc <= cuda_core for name, (cuda_core, tc) in times.items()}
 
 
@@ -154,10 +172,10 @@ def split_route(dtype, d: int) -> str:
     ``d`` (``PAIR_HEAD_DIMS``): on the tensor cores "tc" in bf16 at D 32
     and 64 (every model's heads, and the time attention's F' = 20 padded to
     32; ``csrc/flash_bwd_tc.cu``) and 128 (``csrc/flash_bwd_tc128.cu``),
-    "tf32x3" in fp32 at D 32 and 64 (``csrc/flash_bwd_tf32x3.cu``, three
-    tf32 products a product, within the fp32 limits where one is not);
-    "cuda_core" (``csrc/flash_bwd.cu``) at D 16 and for fp32 at D 128. A
-    model reaches D 128: the iwslt lightconv presets' 4 heads over 512 dims,
+    "tf32x3" in fp32 at D 32, 64 and 128 (``csrc/flash_bwd_tf32x3.cu``,
+    three tf32 products a product, within the fp32 limits where one is
+    not); "cuda_core" (``csrc/flash_bwd.cu``) at D 16. A model reaches
+    D 128: the iwslt lightconv presets' 4 heads over 512 dims,
     whose decoder cross-attention every train step of theirs runs
     (``TRAIN_BACKWARD_SHAPES``' ``lightconv_iwslt_cross_attention``)."""
     return _tc_route(dtype, d, PAIR_HEAD_DIMS)
@@ -177,13 +195,11 @@ def pair_kernels(route: str, d: int) -> Tuple[str, str, str]:
 def use_fused_backward(dtype, d: int) -> bool:
     """Whether a CUDA call of ``dtype`` at kernel head dim ``d`` takes the
     fused kernel: ``FUSED_BWD`` when set; else never. Every default route is
-    a split pair and bitwise repeatable: at D 32 and 64 the tensor-core pair
-    of the call's type, which beat the fused kernel at every backward call
-    of the train steps in its type (``pair_wins``, PERF.md section 6), and
-    in bf16 at D 128 too; at D 16 and for fp32 at D 128 the CUDA-core pair,
-    chosen by its repeatability and not by its time (the fused kernel adds
-    dQ with atomics in no fixed order; the flash sweep times both at the
-    iwslt call)."""
+    a split pair and bitwise repeatable: at D 32, 64 and 128 the tensor-core
+    pair of the call's type, which beat the fused kernel at every backward
+    call of the train steps in its type (``pair_wins``, PERF.md section 6);
+    at D 16 the CUDA-core pair, chosen by its repeatability and not by its
+    time (the fused kernel adds dQ with atomics in no fixed order)."""
     if FUSED_BWD is not None:
         return FUSED_BWD
     return False
@@ -207,10 +223,9 @@ def pair_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
     ms)} device times, whether the tensor-core pair of the call's type is
     at least as fast as the fused kernel there. ``use_fused_backward`` takes
     the tensor-core pair on every call at D 32 and 64 because this held at
-    each of the train steps' backward calls there in both types; a call
-    where it fails is a crossover that needs a key-count gate. Calls at
-    D 16, and fp32 calls at D 128, have no tensor-core pair and are not
-    ruled by it."""
+    each of the train steps' backward calls there in both types (and at
+    D 128); a call where it fails is a crossover that needs a key-count
+    gate. Calls at D 16 have no tensor-core pair and are not ruled by it."""
     return {name: pair <= fused for name, (fused, pair) in times.items()}
 
 
@@ -425,7 +440,7 @@ def forward_cuda_core(q, k, v, bias, scale: float, causal: bool, rate: float, se
 
 def forward_tc(q, k, v, bias, scale: float, causal: bool, rate: float, seed: int):
     """One launch of ``csrc/flash_fwd_tc.cu`` (bf16 at kernel head dim 32 or
-    64) on CUDA tensors; returns (out, lse)."""
+    64 or 128) on CUDA tensors; returns (out, lse)."""
     return _forward_tensor_cores("tc", q, k, v, bias, scale, causal, rate, seed)
 
 
@@ -436,6 +451,7 @@ def forward_tf32x3(q, k, v, bias, scale: float, causal: bool, rate: float, seed:
 
 
 def _forward_tensor_cores(route, q, k, v, bias, scale, causal, rate, seed):
+    """A failing build or launch raises: no other route stands in."""
     name = TC_KERNELS[route][0]
     q, k, v, bias = _aligned(q), _aligned(k), _aligned(v), bias.contiguous()
     bh, t, d = q.shape
@@ -447,7 +463,7 @@ def _forward_tensor_cores(route, q, k, v, bias, scale, causal, rate, seed):
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(*args, torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(lib, name, err)
-    _count(name)
+    _count(name, d)
     return out, lse
 
 
@@ -537,10 +553,10 @@ def backward_pair(route: str, q, k, v, bias, out, lse, grad, scale: float, causa
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, dq_name)(*common, dq.data_ptr(), bh, t, s, d, *tail, stream)
         raise_on(lib, dq_name, err)
-        _count(dq_name)
+        _count(dq_name, d)
         err = getattr(lib, dkv_name)(*common, dk.data_ptr(), dv.data_ptr(), bh, t, s, d, *tail, stream)
         raise_on(lib, dkv_name, err)
-        _count(dkv_name)
+        _count(dkv_name, d)
     return dq, dk, dv
 
 

@@ -29,8 +29,8 @@ chosen from:
     type by type, whether the pair wins (``flash_attention.pair_wins``);
     beside them the CUDA-core pair's
     (``flash_attention.backward_pair("cuda_core", ...)``), which no default
-    route takes at these head dims but fp32 at D 128, and which the bf16
-    pair at D 128 must beat (``d128_pair_wins``);
+    route takes at these head dims, and which the tensor-core pairs at
+    D 128 must beat (``d128_pair_wins``, in each type);
   * ``scaled_dot_product_attention`` with the same mask, forward and
     forward + backward, as a yardstick (the port never calls it): each of
     its fused backends (flash, memory-efficient, cuDNN) alone, through
@@ -99,9 +99,9 @@ KERNEL_SHAPES = ((32, 2048, False), (64, 2048, True))  # (bh, S, causal)
 # frames, 48 target tokens), the dual-decoder step's auxiliary decoder at
 # the same batch (64 transcript tokens), the lightconv decoder's encoder
 # attention at batch 64 (16 heads, 56 tokens, sources padded on the left),
-# the iwslt lightconv presets' (4 heads over 512 dims: D 128, which the
-# tensor cores do not take; batch 64) and the long-context step's encoder
-# self-attention and time attention (batch 8, T' = 2048)
+# the iwslt lightconv presets' (4 heads over 512 dims: D 128, whose fp32
+# forward alone stays on the CUDA cores; batch 64) and the long-context
+# step's encoder self-attention and time attention (batch 8, T' = 2048)
 TRAIN_BACKWARD_SHAPES = [
     ("encoder_self_attention", 512, 128, 128, 64, False, 0.1, False),
     ("time_attention", 512, 128, 128, 20, False, 0.3, False),
@@ -411,7 +411,7 @@ def measure_backward(name: str, bh: int, t: int, s: int, d: int, causal: bool, r
     one backward call of the model path: the device time of each route's
     kernels (the median launch of each, ``device_ms``, summed over dq and
     dkv), which the decision reads, and the wall time of a wrapper call,
-    with the CUDA-core pair's beside them (which the bf16 pair at D 128 is
+    with the CUDA-core pair's beside them (which the pairs at D 128 are
     held to beat, ``gate_from``'s ``d128_pair_wins``). Medians, not a trace's sum:
     traces lose records (fp32 calls kept 2.9-3.2 of their 4 kernels a call
     in ``device_busy``), and a lost record reads as speed. The pair's
@@ -442,10 +442,10 @@ def measure_backward(name: str, bh: int, t: int, s: int, d: int, causal: bool, r
             raise RuntimeError(f"{name} {dtype}: no trace kept a launch of the {route} kernels")
         row[f"{route}_device_ms"] = sum(times)
         row[f"{route}_wall_ms"] = time_ms(run)
-    if fa.fwd_route(dtype, row["kernel_D"]) == "cuda_core":
-        # no tensor-core forward here (D 128): SDPA's forward + backward
-        # beside the kernels, at rate 0 (no fused backend takes the kernels'
-        # Philox dropout), for the decision on a tensor-core kernel
+    if row["kernel_D"] == 128:
+        # the iwslt call: SDPA's forward + backward beside the kernels, at
+        # rate 0 (no fused backend takes the kernels' Philox dropout), the
+        # yardstick of the D 128 kernels
         q, k, v, bias, _, _, g, scale, causal = args[:9]
         row["library_fwd_bwd_ms"], row["library_backend"] = time_library(q, k, v, bias, scale, causal, grad=g)
     return row
@@ -525,13 +525,14 @@ def gate_from(rows: List[Dict]) -> Dict:
     calls that a tensor-core kernel serves (a row whose ``route`` /
     ``pair_route`` is not "cuda_core"; a row without one is such a call),
     and every such call stays in them. At kernel head dim 128 (the iwslt
-    presets') the bf16 pair runs on the tensor cores (``d128_pair_wins``:
-    whether it is at least as fast as the CUDA-core pair, call by call)
-    while the forward stays on the CUDA cores; a call whose pair no tensor
-    core takes (fp32 at D 128) is routed to the CUDA-core pair by its
-    bitwise repeat, not by time: its forward, fused and pair device times
-    and SDPA's are reported on their own, under
-    ``{prefix}cuda_core_calls``."""
+    presets') both pairs run on the tensor cores (``d128_pair_wins``:
+    whether the pair of the type is at least as fast as the CUDA-core pair,
+    call by call), and so does the bf16 forward (under ``tc_fwd_wins``);
+    ``{prefix}d128_calls`` gives each such call's default forward ("fwd",
+    the CUDA-core one in fp32), fused, pair and CUDA-core pair device times
+    and SDPA's. A call whose pair no tensor core takes (D 16) is routed to
+    the CUDA-core pair by its bitwise repeat, not by time: its times are
+    reported on their own, under ``{prefix}cuda_core_calls``."""
     gates = {}
     for kind in sorted({r["kind"] for r in rows if r["kind"].startswith("route_")}):
         ratios = sorted((r["S"], r["dense_over_flash"]) for r in rows if r["kind"] == kind)
@@ -551,6 +552,7 @@ def gate_from(rows: List[Dict]) -> Dict:
         bwd_all = [r for r in of_type if r["kind"] == "bwd_route"]
         calls = [r for r in bwd_all if r.get("pair_route", tc) != "cuda_core"]
         fwd_cc = {r["shape"]: r["cuda_core_device_ms"] for r in fwd_all if r not in fwd_calls}
+        fwd_default = {r["shape"]: r[f"{r.get('route', tc)}_device_ms"] for r in fwd_all}
         wins = fa.pair_wins({r["shape"]: (r["fused_device_ms"], r["pair_device_ms"]) for r in calls})
         d128_wins = {r["shape"]: r["pair_device_ms"] <= r["cuda_core_pair_device_ms"] for r in calls
                      if r.get("kernel_D") == 128}
@@ -561,7 +563,7 @@ def gate_from(rows: List[Dict]) -> Dict:
             f"{bwd_flag}_by_call": wins, f"{bwd_flag}_everywhere": all(wins.values()),
             f"{prefix}d128_pair_wins_by_call": d128_wins, f"{prefix}d128_pair_wins_everywhere": all(d128_wins.values()),
             f"{prefix}d128_calls": {
-                r["shape"]: {"S": r["S"], "D": r["D"], "fwd": fwd_cc.get(r["shape"]), "fused": r["fused_device_ms"],
+                r["shape"]: {"S": r["S"], "D": r["D"], "fwd": fwd_default.get(r["shape"]), "fused": r["fused_device_ms"],
                              "pair": r["pair_device_ms"], "cuda_core_pair": r["cuda_core_pair_device_ms"],
                              "library_fwd_bwd_ms": r.get("library_fwd_bwd_ms"),
                              "library_backend": r.get("library_backend")}

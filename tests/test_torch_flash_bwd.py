@@ -25,10 +25,10 @@ def test_split_route(dtype, d):
     """The tensor cores take both types at kernel head dims 32 and 64
     (every model's heads and the time attention's padded F' = 20): bf16 as
     "tc", fp32 as "tf32x3" (three tf32 products a product, within the fp32
-    limits where one is not); bf16 also at 128 (the iwslt presets' heads,
-    ``csrc/flash_bwd_tc128.cu``); 16, and fp32 at 128, stay on the CUDA
-    cores."""
-    tc_dims = {"bfloat16": (32, 64, 128), "float32": (32, 64)}[dtype]
+    limits where one is not); both also at 128 (the iwslt presets' heads,
+    ``csrc/flash_bwd_tc128.cu`` and ``csrc/flash_bwd_tf32x3.cu``); 16
+    stays on the CUDA cores."""
+    tc_dims = {"bfloat16": (32, 64, 128), "float32": (32, 64, 128)}[dtype]
     want = ({"bfloat16": "tc", "float32": "tf32x3"}[dtype] if d in tc_dims else "cuda_core")
     assert tflash.split_route(DTYPES[dtype], d) == want
 
@@ -51,7 +51,7 @@ def test_tensor_core_pair_refuses_other_head_dims(d):
         tflash.tc_check_shape(d, 128, 128)
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_tf32x3_pair_shapes(d):
     """The fp32 pair's grids are the bf16 pair's: any bh, at most 65,535
     tiles of 64 rows or keys; its error names its kernels."""
@@ -62,7 +62,7 @@ def test_tf32x3_pair_shapes(d):
             tflash.tc_check_shape(d, t, s, "tf32x3")
 
 
-@pytest.mark.parametrize("d", [16, 20, 128])
+@pytest.mark.parametrize("d", [16, 20, 48])
 def test_tf32x3_pair_refuses_other_head_dims(d):
     with pytest.raises(ValueError, match="flash_bwd_tf32x3"):
         tflash.tc_check_shape(d, 128, 128, "tf32x3")
@@ -131,11 +131,11 @@ def test_gate_from_takes_the_rule_on_device_times(case):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_use_fused_backward(monkeypatch, dtype, forced):
     """``FUSED_BWD`` forces a route when set; else no call takes the fused
-    kernel: the tensor-core pair of the call's type at D 32 and 64 and in
-    bf16 at 128 (the iwslt presets' heads), the CUDA-core pair at D 16 and
-    in fp32 at 128, so every default route is bitwise repeatable."""
+    kernel: the tensor-core pair of the call's type at D 32, 64 and 128
+    (the iwslt presets' heads), the CUDA-core pair at D 16, so every
+    default route is bitwise repeatable."""
     monkeypatch.setattr(tflash, "FUSED_BWD", forced)
-    cuda_core_dims = {"bfloat16": (16,), "float32": (16, 128)}[dtype]
+    cuda_core_dims = (16,)
     for d in tflash.KERNEL_HEAD_DIMS:
         assert (tflash.split_route(DTYPES[dtype], d) == "cuda_core") == (d in cuda_core_dims)
         assert tflash.use_fused_backward(DTYPES[dtype], d) == (forced if forced is not None else False)

@@ -1,8 +1,9 @@
 """PyTorch port, the bf16 flash backward at kernel head dim 128 (the iwslt
 lightconv presets' 4 heads over 512 dims) on the CPU: the routes (the bf16
 pair on the tensor cores, ``csrc/flash_bwd_tc128.cu``; the bf16 forward and
-fp32 in both directions on the CUDA cores), the library and counters the
-pair takes, that a failing kernel raises and nothing stands in, and the
+the fp32 pair there too, ``tests/test_torch_flash_fwd_d128.py`` and
+``tests/test_torch_flash_bwd_tf32x3_d128.py``; the fp32 forward on the CUDA
+cores), the library and counters the pair takes, that a failing kernel raises and nothing stands in, and the
 plain bf16 backward at D 128 against the JAX package's ``_bwd_impl``
 (Pallas in interpret mode).
 
@@ -20,29 +21,29 @@ from fbk_fairseq_st_tpu_torch.ops.kernels import flash_attention as tflash
 
 
 def test_d128_routes():
-    """bf16 at D 128: the backward on the tensor cores ("tc"), the forward
-    on the CUDA cores; fp32 at D 128 on the CUDA cores both ways."""
+    """bf16 at D 128: the backward and the forward on the tensor cores
+    ("tc"); fp32 at D 128: the pair on the tensor cores ("tf32x3"), the
+    forward on the CUDA cores."""
     assert tflash.split_route(torch.bfloat16, 128) == "tc"
-    assert tflash.split_route(torch.float32, 128) == "cuda_core"
-    assert tflash.fwd_route(torch.bfloat16, 128) == "cuda_core"
+    assert tflash.split_route(torch.float32, 128) == "tf32x3"
+    assert tflash.fwd_route(torch.bfloat16, 128) == "tc"
     assert tflash.fwd_route(torch.float32, 128) == "cuda_core"
     assert not tflash.use_fused_backward(torch.bfloat16, 128)
 
 
 def test_d128_pair_shapes():
-    """The bf16 pair takes D 128 with the grids of D 32/64 (any bh, at most
-    65,535 tiles of 64 rows or keys); the fp32 pair refuses D 128, and so
-    does either forward on the tensor cores."""
-    for t, s in [(1, 1), (56, 56), (2048, 2048), (65535 * 64, 7), (3, 65535 * 64)]:
-        tflash.tc_check_shape(128, t, s, "tc")
-    for t, s in [(65535 * 64 + 1, 64), (64, 65535 * 64 + 1)]:
-        with pytest.raises(ValueError, match="flash_bwd_tc"):
-            tflash.tc_check_shape(128, t, s, "tc")
-    with pytest.raises(ValueError, match="flash_bwd_tf32x3"):
-        tflash.tc_check_shape(128, 56, 56, "tf32x3")
+    """Both pairs take D 128 with the grids of D 32/64 (any bh, at most
+    65,535 tiles of 64 rows or keys); so does the bf16 forward on the
+    tensor cores, and the fp32 one refuses D 128."""
     for route in ("tc", "tf32x3"):
-        with pytest.raises(ValueError):
-            tflash.fwd_check_shape(route, 256, 56, 128)
+        for t, s in [(1, 1), (56, 56), (2048, 2048), (65535 * 64, 7), (3, 65535 * 64)]:
+            tflash.tc_check_shape(128, t, s, route)
+        for t, s in [(65535 * 64 + 1, 64), (64, 65535 * 64 + 1)]:
+            with pytest.raises(ValueError, match="flash_bwd_" + route):
+                tflash.tc_check_shape(128, t, s, route)
+    tflash.fwd_check_shape("tc", 256, 56, 128)
+    with pytest.raises(ValueError, match="flash_fwd_tf32x3"):
+        tflash.fwd_check_shape("tf32x3", 256, 56, 128)
 
 
 @pytest.mark.parametrize("route,d,want", [
@@ -50,12 +51,14 @@ def test_d128_pair_shapes():
     ("tc", 64, ("flash_bwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")),
     ("tc", 32, ("flash_bwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")),
     ("tf32x3", 64, ("flash_bwd_tf32x3", "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")),
+    ("tf32x3", 128, ("flash_bwd_tf32x3", "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")),
     ("cuda_core", 128, ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")),
     ("cuda_core", 16, ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")),
 ])
 def test_pair_kernels(route, d, want):
     """Each pair's library and functions: the bf16 pair at D 128 its own
-    source, with its own launch counters beside those of D 32/64."""
+    source, with its own launch counters beside those of D 32/64 (the fp32
+    pair's D 128 launches count apart by ``D128_COUNTERS``)."""
     assert tflash.pair_kernels(route, d) == want
     for fn in want[1:]:
         assert "launches_" + fn.removeprefix("flash_") in tflash._COUNTERS
@@ -220,8 +223,9 @@ def test_tc128_pair_matches_the_plain_backward_on_the_card(case):
 @pytest.mark.cuda
 def test_tc128_pair_through_autograd_at_head_dim_96_on_the_card():
     """A head dim of 96 pads to the kernels' 128 outside the autograd
-    Function; its bf16 gradients come from the D 128 tensor-core pair
-    (one launch each) within 1e-2 of max|plain| of the plain backward on
+    Function; its bf16 forward is the D 128 tensor-core forward and its
+    gradients come from the D 128 tensor-core pair (one launch each, no
+    CUDA-core forward) within 1e-2 of max|plain| of the plain backward on
     the unpadded inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
@@ -235,7 +239,8 @@ def test_tc128_pair_through_autograd_at_head_dim_96_on_the_card():
     out, lse = tflash.flash_attention(*leaves, bias, 0.1, dropout_rate=0.1, dropout_seed=4, return_lse=True)
     out.backward(g)
     torch.cuda.synchronize()
-    assert (tflash.launches_bwd_dq_tc128, tflash.launches_bwd_dkv_tc128, tflash.launches_fwd) == (1, 1, 1)
+    assert (tflash.launches_bwd_dq_tc128, tflash.launches_bwd_dkv_tc128, tflash.launches_fwd_tc128,
+            tflash.launches_fwd) == (1, 1, 1, 0)
     want = tflash.flash_attention_backward_reference(q, k, v, bias, out.detach(), lse, g, 0.1, False, 0.1, 4)
     for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
         top = w.float().abs().max().item()

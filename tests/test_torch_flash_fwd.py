@@ -28,16 +28,16 @@ def test_fwd_route(dtype, d):
     """The tensor cores take both types at kernel head dims 32 and 64
     (every model's heads and the time attention's padded F' = 20), as the
     split backward: bf16 as "tc", fp32 as "tf32x3" (three tf32 products a
-    product); 16 and 128 stay on the CUDA cores, where the split backward
-    takes the tensor cores in bf16 at 128 (``csrc/flash_bwd_tc128.cu``) and
-    no forward kernel of theirs does."""
-    want = ({"bfloat16": "tc", "float32": "tf32x3"}[dtype] if d in (32, 64) else "cuda_core")
+    product); at 128 (the iwslt presets' heads) the bf16 forward too
+    (``csrc/flash_fwd_tc.cu``) and both pairs, the fp32 forward on the CUDA
+    cores; 16 stays on the CUDA cores."""
+    tc = {"bfloat16": "tc", "float32": "tf32x3"}[dtype]
+    want = tc if d in (32, 64) or (dtype, d) == ("bfloat16", 128) else "cuda_core"
     assert tflash.fwd_route(DTYPES[dtype], d) == want
-    split = "tc" if (dtype, d) == ("bfloat16", 128) else want
-    assert tflash.split_route(DTYPES[dtype], d) == split
+    assert tflash.split_route(DTYPES[dtype], d) == (tc if d != 16 else "cuda_core")
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_tensor_core_forward_shapes(d):
     """bh is the grid's x dimension and takes any batch; the 64-row q tiles
     are its y dimension, at most 65,535; S is a loop and sets no limit."""
@@ -47,7 +47,7 @@ def test_tensor_core_forward_shapes(d):
         tflash.fwd_check_shape("tc", 1, 65535 * 64 + 1, d)
 
 
-@pytest.mark.parametrize("d", [16, 20, 128])
+@pytest.mark.parametrize("d", [16, 20, 48])
 def test_tensor_core_forward_refuses_other_head_dims(d):
     with pytest.raises(ValueError):
         tflash.fwd_check_shape("tc", 8, 128, d)

@@ -13,7 +13,9 @@ are the TPU's) within ``chip_smoke.py``'s fp32 limits (out, lse and every
 gradient 1e-4), and the same formulas with one tf32 product each must miss
 those limits at the same inputs: the limit binds, and the three products
 are what meets it. T' 128-class shapes, where the gap is clearest: ragged T
-and S, causal with T > S, padded keys, head dims 64 and 32."""
+and S, causal with T > S, padded keys, head dims 64 and 32, and 128 (the
+iwslt presets' heads, which the fp32 pair takes with fp32 rows of 512
+bytes: the emulation does not see the layout, only the products)."""
 
 import functools
 import importlib.util
@@ -42,6 +44,8 @@ CASES = {
     "causal_t130_s77_d32": (2, 130, 77, 32, True, False),
     "causal_padded_t100": (4, 100, 100, 64, True, True),
     "cross_t48_s128": (2, 48, 128, 64, False, True),
+    "iwslt_t56_d128": (4, 56, 56, 128, False, True),
+    "causal_t130_s77_d128": (2, 130, 77, 128, True, False),
 }
 
 

@@ -13,8 +13,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      flash_bwd_tf32x3, dynamic_conv, dynamic_conv_tc, flash_fwd_single) and
      reports the seconds and the ptxas registers and spills of each; the
      sources of the D 128 tensor-core kernels (flash_fwd_tc, the bf16
-     forward; flash_bwd_tc128, the bf16 pair; flash_bwd_tf32x3, the fp32
-     pair) must spill nothing in any kernel (asserted);
+     forward; flash_fwd_tf32x3, the fp32 forward; flash_bwd_tc128, the bf16
+     pair; flash_bwd_tf32x3, the fp32 pair) must spill nothing in any
+     kernel (asserted);
   3. kernels at the serving shapes (those of the one-phase requests, and
      the two-phase request's auxiliary pass: bh 640, T 101, causal
      self-attention and cross-attention over 128 keys): the flash forward
@@ -38,17 +39,18 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      0 and a long D 128 call (``d128_long``: bh 32, T = S = 2048, padded
      keys, rate 0.1): the forward's dropout keep mask (at a rate above 0)
      against ``philox.keep_mask`` (exactly: probed through the CUDA-core
-     kernel in fp32, the tf32x3 kernel at D 64 and D 32, and the bf16
+     kernel in fp32, the tf32x3 kernel at D 128, 64 and 32, and the bf16
      tensor-core kernel at D 128, 64 and 32, each launched directly), the
-     forward at the training dropout rate (on the tensor cores at D 32 and
-     64: "tc" in bf16, "tf32x3" in fp32, and "tc" in bf16 at D 128, its
-     launches counted as ``flash_fwd_tc128``; on the CUDA cores at D 16 and for fp32 at D 128),
+     forward at the training dropout rate (on the tensor cores at D 32, 64
+     and 128: "tc" in bf16, "tf32x3" in fp32, their D 128 launches counted
+     as ``flash_fwd_tc128`` and ``flash_fwd_tf32x3_128``; on the CUDA cores
+     at D 16),
      and the fused backward and the split pair of the call's route (the
      same tensor-core routes, and at D 128 the D 128 tensor-core pair of
      the type: ``flash_bwd_tc128.cu`` in bf16, ``flash_bwd_tf32x3.cu`` in
      fp32, counted as ``*_tf32x3_128``; the CUDA cores at D 16), and in fp32 at D 32 and 64
-     the CUDA-core forward and pair, at D 128 the CUDA-core pair and in
-     bf16 the CUDA-core forward, launched directly, against the plain
+     the CUDA-core forward and pair, at D 128 the CUDA-core pair and
+     forward, launched directly, against the plain
      versions on the same inputs and
      seed, with the same times and bounds (the library time of a backward
      is SDPA's forward + backward at rate 0; at the iwslt call and
@@ -62,10 +64,11 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      spread; at every D 128 call of each type the D 128 tensor-core pair at
      most the CUDA-core pair's device time, the sum of dq's and dkv's median
      launches (``d128_pair_wins``: ``tc128_pair_wins`` in bf16,
-     ``tf32x3_128_pair_wins`` in fp32, asserted), and at every bf16 one the
-     D 128 tensor-core forward's median launch at most the CUDA-core
-     forward's (``d128_fwd_wins``: ``tc128_fwd_wins``, asserted), beside
-     the fused kernel's, SDPA's, the plain time and the bound;
+     ``tf32x3_128_pair_wins`` in fp32, asserted), and the D 128
+     tensor-core forward's median launch at most the CUDA-core forward's
+     (``d128_fwd_wins``: ``tc128_fwd_wins`` in bf16, ``tf32x3_fwd_wins``
+     in fp32, asserted), beside the fused kernel's, SDPA's, the plain time
+     and the bound;
   5. dynamic-conv kernels: the tensor-core ``dynamic_conv_fwd_tc`` and
      ``dynamic_conv_bwd_tc`` (every model path's) and the first, CUDA-core
      ``dynamic_conv_fwd`` and ``dynamic_conv_bwd`` (launched directly,
@@ -159,8 +162,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      (D 128) the tensor-core pair of each type against the fused kernel
      and the CUDA-core pair, and it must beat both, asserted
      (``pair_wins``, ``tf32x3_bwd_wins``, ``d128_pair_wins`` in each type),
-     the bf16 tensor-core forward against the CUDA-core one
-     (``tc_fwd_wins``), beside SDPA's forward + backward);
+     the tensor-core forward of each type against the CUDA-core one
+     (``tc_fwd_wins``, ``tf32x3_fwd_wins``), beside SDPA's forward +
+     backward);
  14. train (main path 6), the ``bench.py::_measure_ctc_flagship``
      configuration: ``conv_transformer_big`` with ``ctc_multi_loss`` over
      label-smoothed CE 0.1, CTC after encoder layer 4 with weight 0.5 and
@@ -229,11 +233,14 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      kernels, and 13 + 13 tensor-core dynamic conv; step ms, busy ms and
      idle share of one profiled step, the loss finite and falling;
  20b. train (main path 10b): the same preset and batch in fp32 (TF32 off),
-     as a user trains it without ``--bf16``: exactly 6 CUDA-core flash
-     forwards and 6 + 6 D 128 tf32x3 dq + dkv
-     (``flash_bwd_tf32x3.cu``, counted as ``*_tf32x3_128``) a step and no other flash
-     kernel, 13 + 13 tensor-core dynamic conv; step ms, busy ms and idle
-     share of one profiled step, the loss finite; then, at phase 8's
+     as a user trains it without ``--bf16``: exactly 6 D 128 tf32x3 flash
+     forwards (``flash_fwd_tf32x3.cu``, counted as
+     ``flash_fwd_tf32x3_128``) and 6 + 6 D 128 tf32x3 dq + dkv
+     (``flash_bwd_tf32x3.cu``, counted as ``*_tf32x3_128``) a step, no
+     CUDA-core forward and no other flash kernel, 13 + 13 tensor-core
+     dynamic conv; step ms, busy ms and idle share of one profiled step
+     (beside the busy ms of the step with the CUDA-core forward, 38.47 ms
+     on an H100 at 700 W), the loss finite; then, at phase 8's
      tolerances, the flash route against the dense route (one step of a
      fresh model each, dropout rates 0, the flash step's launches exact);
  21. serve from files (main path 11), the README's quick start: a corpus
@@ -279,7 +286,34 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      ``checkpoint_best.pt``: 8 tf32x3 forwards a batch, its weights
      bitwise the trainer's when it wrote the file, its H- lines those of
      the in-memory generator on those weights (scores within 1e-4);
- 25. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+ 25. train and serve the multitask classifier from files (main path 15),
+     on phase 24's corpus: a 2-class ``gender`` label an utterance beside
+     it (the port's builder); ``cli/train`` trains
+     ``multitask_conv_transformer`` at full width (256/768/4, 6 + 6 layers,
+     80 mels) with ``speech_translation_multitask`` and
+     ``cross_entropy_multi_task`` (label smoothing 0.1, auxiliary weight
+     0.5, class weights 1 2) and the quick start's optimisation in bf16
+     for 3 updates: each launches exactly 20 + 20 + 20 tensor-core flash
+     kernels, each validation batch 20 forwards, the loss and
+     ``auxiliary_loss`` finite; then ``cli/generate_multitask_classifier``
+     classifies the valid split from ``checkpoint_last.pt`` in fp32: 8
+     tf32x3 forwards a batch and nothing else, one CLASS- line an
+     utterance, every row of probabilities summing to 1 within 1e-4, and
+     the card's probabilities within 1e-3 of the plain CPU path's on 2
+     utterances;
+ 26. knowledge distillation from files (main path 16), phase 24's
+     ``checkpoint_best.pt`` as the teacher: ``cli/generate_topk
+     --distill-topk 8`` on the train and valid splits in fp32, 20 tf32x3
+     forwards a batch and nothing else, the files read back with one
+     (T, 8) item an utterance; the card's top-8 against the plain CPU
+     path's on 2 utterances (logits within 1e-3, the same index at every
+     rank more than max(1e-4, twice the logits' difference) above the next);
+     then ``cli/train`` trains the student (``conv_transformer``,
+     ``speech_translation_with_transcription_kd``,
+     ``knowledge_distillation`` at lambda 0.5 and temperature 2) in bf16
+     for 3 updates, each launching 20 + 20 + 20 tensor-core kernels, the
+     loss finite;
+ 27. the ``kernels`` line (the D 128 tensor-core kernels timed at the
      iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
@@ -352,6 +386,7 @@ import json
 import math
 import os
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -383,7 +418,8 @@ ATOL_LSE = 1e-4
 KEEP_PROBE_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -8}
 # the keep-mask probes: (forward route, kernel head dim; None: the CUDA-core
 # kernel at kernel_head_dim(min(S, 128))), each route's type
-KEEP_PROBES = (("cuda_core", None), ("tf32x3", 64), ("tf32x3", 32), ("tc", 128), ("tc", 64), ("tc", 32))
+KEEP_PROBES = (("cuda_core", None), ("tf32x3", 128), ("tf32x3", 64), ("tf32x3", 32), ("tc", 128), ("tc", 64),
+               ("tc", 32))
 KEEP_PROBE_DTYPES = {"cuda_core": torch.float32, "tf32x3": torch.float32, "tc": torch.bfloat16}
 SINGLE_BF16_LIMIT = (1e-3, 8e-3)  # (atol, rtol of |plain|), element by element
 RTOL_DW = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -429,8 +465,7 @@ KERNEL_SHAPES = [
 # padded keys) in fp32 and bf16, a ragged call and a causal one with T > S,
 # unaligned, one bf16 call at D 16, and one at bh 70,000 (past the 65,535
 # of a grid's y dimension: every kernel puts bh on x); at D 16 the forward
-# and the pair run on the CUDA cores, and so does the fp32 forward at D 128,
-# which the iwslt presets' train steps reach
+# and the pair run on the CUDA cores
 TRAIN_KERNEL_SHAPES = [(*shape, (torch.float32, torch.bfloat16)) for shape in TRAIN_BACKWARD_SHAPES] + [
     ("ragged_bh3_T77_S333", 3, 77, 333, 64, False, 0.1, False, (torch.float32, torch.bfloat16)),
     ("causal_bh6_T130_S77", 6, 130, 77, 64, True, 0.1, False, (torch.float32, torch.bfloat16)),
@@ -438,14 +473,16 @@ TRAIN_KERNEL_SHAPES = [(*shape, (torch.float32, torch.bfloat16)) for shape in TR
     ("bh70000_T16_D128", 70000, 16, 16, 128, False, 0.1, False, (torch.float32, torch.bfloat16)),
     # the iwslt call at rate 0, and a long D 128 call whose products bound
     # the tensor-core kernels (bf16: forward 0.069 ms, dq 0.104, dkv 0.139
-    # at 989 TFLOP/s; fp32: dq 0.62, dkv 0.83 at 165)
+    # at 989 TFLOP/s; fp32: forward 0.416, dq 0.62, dkv 0.83 at 165)
     ("lightconv_iwslt_cross_attention_rate0", 256, 56, 56, 128, False, 0.0, True, (torch.float32, torch.bfloat16)),
     ("d128_long", 32, 2048, 2048, 128, False, 0.1, False, (torch.float32, torch.bfloat16)),
 ]
 # each forward kernel's row name and worst-error kind, by ``fwd_name``
 FWD_ROWS = {"tc": "flash_attention_fwd_tc", "tc128": "flash_attention_fwd_tc128",
-            "tf32x3": "flash_attention_fwd_tf32x3", "cuda_core": "flash_attention_fwd"}
-FWD_KINDS = {"tc": "fwd_tc", "tc128": "fwd_tc128", "tf32x3": "fwd_tf32x3", "cuda_core": "fwd"}
+            "tf32x3": "flash_attention_fwd_tf32x3", "tf32x3_128": "flash_attention_fwd_tf32x3_128",
+            "cuda_core": "flash_attention_fwd"}
+FWD_KINDS = {"tc": "fwd_tc", "tc128": "fwd_tc128", "tf32x3": "fwd_tf32x3", "tf32x3_128": "fwd_tf32x3_128",
+             "cuda_core": "fwd"}
 # each backward pair's worst-error kind and row suffix, by ``pair_name``
 BWD_KINDS = {"fused": "bwd_fused", "cuda_core": "bwd_cuda_core", "tc": "bwd_tc", "tc128": "bwd_tc128",
              "tf32x3": "bwd_tf32x3", "tf32x3_128": "bwd_tf32x3_128"}
@@ -480,12 +517,16 @@ BACKWARD_KERNELS = {"fused": ("flash_bwd_fused",), "split_tc": ("flash_bwd_dq_tc
                     "split_cuda_core": ("flash_bwd_dq", "flash_bwd_dkv")}
 # kernel head dim 128 (the iwslt presets' decoder cross-attention), by
 # launch counter: in bf16 the D 128 tensor-core forward (csrc/flash_fwd_tc.cu)
-# and pair (csrc/flash_bwd_tc128.cu); in fp32 the CUDA-core forward (no
-# tensor-core forward takes fp32 at D 128) and the D 128 tf32x3 pair
-# (csrc/flash_bwd_tf32x3.cu); both pairs bitwise repeatable
+# and pair (csrc/flash_bwd_tc128.cu); in fp32 the D 128 tf32x3 forward
+# (csrc/flash_fwd_tf32x3.cu) and pair (csrc/flash_bwd_tf32x3.cu); both
+# pairs bitwise repeatable
 D128_FORWARD = "flash_fwd_tc128"
 D128_BACKWARD = "split_tc128"
-FP32_D128_FORWARD = "flash_fwd"
+FP32_D128_FORWARD = "flash_fwd_tf32x3_128"
+# the fp32 step's busy ms when its D 128 forward ran on the CUDA cores
+# (this script's phase 20b on an NVIDIA H100 80GB HBM3 at 700 W), printed
+# beside phase 20b's
+FP32_D128_CUDA_CORE_BUSY_MS = 38.47
 FP32_D128_BACKWARD = "split_tf32x3_128"
 
 # the multi-decoder paths (models/multi_task.py): two-phase serving
@@ -548,6 +589,14 @@ QUICK_START = ["--task", "speech_translation_with_transcription", "-s", "en", "-
                "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4000", "--clip-norm", "10",
                "--max-tokens", "25000", "--bf16", "--max-epoch", "2", "--log-format", "json", "--log-interval", "1"]
 CLI_TIMED_STEPS = 5  # Trainer.train_step on the CLI's first batch, beside the CLI's update wall
+# phases 25-26 (on phase 24's corpus): the quick start's optimisation, bf16
+OPTIM_ARGS = ["--optimizer", "adam", "--lr", "0.002", "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4000",
+              "--clip-norm", "10", "--max-tokens", "25000", "--bf16", "--log-format", "json", "--log-interval", "1"]
+MT_UPDATES = 3  # the multitask model's updates through cli/train
+MT_CLASSIFY_LAUNCHES = FLASH_LAUNCHES_PER_REQUEST  # the encoder's: 2 time attention + 6 self-attention
+KD_TOPK = 8
+KD_TOPK_LAUNCHES = CT_FLASH_CALLS_PER_STEP  # the teacher-forced forward: encoder 8, decoder 6 + 6
+KD_UPDATES = 3  # the student's updates through cli/train
 GRID_CAP_ROWS = 70_000
 # the single pass's bf16 out at bh 70,000 element by element: two bf16 ulps
 # of |plain| (72 M outputs reach further into the tail of P's rounding than
@@ -620,7 +669,7 @@ KERNEL_SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_fwd_tf32x3", "flash_bwd", 
                   "flash_bwd_tf32x3", "dynamic_conv", "dynamic_conv_tc", "flash_fwd_single")
 # sources whose every kernel must report 0 bytes of spill stores: those of
 # the D 128 tensor-core kernels
-NO_SPILL_SOURCES = ("flash_fwd_tc", "flash_bwd_tc128", "flash_bwd_tf32x3")
+NO_SPILL_SOURCES = ("flash_fwd_tc", "flash_fwd_tf32x3", "flash_bwd_tc128", "flash_bwd_tf32x3")
 
 
 def emit(obj) -> None:
@@ -850,21 +899,21 @@ def pair_name(route, d_kernel):
 
 def fwd_name(route, d_kernel):
     """The name of the forward ``route`` runs at kernel head dim
-    ``d_kernel``: "tc128" for the bf16 forward at D 128 (its own launch
-    counter)."""
-    return "tc128" if (route, d_kernel) == ("tc", 128) else route
+    ``d_kernel``: "tc128" and "tf32x3_128" for the forwards at D 128 (their
+    own launch counters)."""
+    return {"tc": "tc128", "tf32x3": "tf32x3_128"}[route] if d_kernel == 128 and route != "cuda_core" else route
 
 
 def check_training_kernels(fa, philox):
     """Each training-shape call in its types: the keep mask through every
     forward kernel that draws it (at a rate above 0); the forward of the
-    call's route (on the tensor cores at D 32 and 64: "tc" in bf16, "tf32x3"
-    in fp32, and "tc" at D 128; on the CUDA cores otherwise), the split
+    call's route (on the tensor cores at D 32, 64 and 128: "tc" in bf16,
+    "tf32x3" in fp32; on the CUDA cores otherwise), the split
     pair of the call's route (the same, and at D 128 the tensor cores in
     both types: ``csrc/flash_bwd_tc128.cu``, ``flash_bwd_tf32x3.cu``) and
     the fused backward, and in fp32 at D 32 and 64 also the
-    CUDA-core forward and pair, at D 128 the CUDA-core pair and in bf16 the
-    CUDA-core forward, which no default route takes there, launched
+    CUDA-core forward and pair, at D 128 the CUDA-core pair and forward,
+    which no default route takes there, launched
     directly, all against the plain versions; the tensor-core pairs'
     determinism; times and bounds. At every D 128 call the tensor-core
     kernels must beat their CUDA-core counterparts (``check_d128_wins``,
@@ -901,8 +950,8 @@ def check_training_kernels(fa, philox):
             dk = fa.kernel_head_dim(d)
             route, pair_route = fa.fwd_route(dtype, dk), fa.split_route(dtype, dk)
             # the CUDA-core kernels at the tensor-core routes' head dims (in
-            # fp32 the forward and the pair, at D 128 the pair and in bf16
-            # the forward), which no default route takes, launched directly
+            # fp32 the forward and the pair, at D 128 both in both types),
+            # which no default route takes, launched directly
             routes = [route] + (["cuda_core"] if route == "tf32x3" or (route == "tc" and dk == 128) else [])
             direct_pair = pair_route != "cuda_core" and (route == "tf32x3" or dk == 128)
             pair_routes = [pair_route] + (["cuda_core"] if direct_pair else [])
@@ -1013,15 +1062,17 @@ def check_d128_wins(name, bh, t, s, rate, dtype, route, pair_route, timings, pai
                     bwd_common, plain_fwd_ms, plain_bwd_ms):
     """At a D 128 call: the tensor-core pair of the type at most the
     CUDA-core pair's device time, the sum of dq's and dkv's median launches
-    (``tc128_pair_wins`` in bf16, ``tf32x3_128_pair_wins`` in fp32), and in
-    bf16 the tensor-core forward's median launch at most the CUDA-core
-    forward's (``tc128_fwd_wins``); each asserted, beside the fused
+    (``tc128_pair_wins`` in bf16, ``tf32x3_128_pair_wins`` in fp32), and
+    the tensor-core forward's median launch at most the CUDA-core forward's
+    (``tc128_fwd_wins`` in bf16, ``tf32x3_fwd_wins`` in fp32); each
+    asserted, beside the fused
     kernel's and SDPA's device times, the plain times and the bounds. A
     kernel whose launches no trace kept raises: no flag stands on a time
     not measured."""
     pair = pair_name(pair_route, 128)
+    fwd = fwd_name(route, 128)
     compared = [f"flash_attention_bwd_{k}{ROW_SUFFIX[pair_name(r, 128)]}" for r in (pair_route, "cuda_core")
-                for k in ("dq", "dkv")] + ([FWD_ROWS["tc128"], FWD_ROWS["cuda_core"]] if route == "tc" else [])
+                for k in ("dq", "dkv")] + [FWD_ROWS[fwd], FWD_ROWS["cuda_core"]]
     unmeasured = [row for row in compared if timings[row]["kernel_device_ms"] is None]
     if unmeasured:
         raise RuntimeError(f"{name} {dtype}: no trace kept a launch of {unmeasured}")
@@ -1038,17 +1089,16 @@ def check_d128_wins(name, bh, t, s, rate, dtype, route, pair_route, timings, pai
           "plain_ms": plain_bwd_ms, f"{pair}_pair_wins": wins})
     if not wins:
         raise AssertionError(f"the CUDA-core pair beat the D 128 tensor-core pair at {name} {dtype}: {pair_device}")
-    if route != "tc":
-        return
-    tc, cc = timings[FWD_ROWS["tc128"]], timings[FWD_ROWS["cuda_core"]]
+    tc, cc = timings[FWD_ROWS[fwd]], timings[FWD_ROWS["cuda_core"]]
     wins = tc["kernel_device_ms"] <= cc["kernel_device_ms"]
-    emit({"phase": "d128_fwd_wins", **base, "tc128_fwd_device_ms": tc["kernel_device_ms"],
+    flag = {"tc": "tc128_fwd_wins", "tf32x3": "tf32x3_fwd_wins"}[route]
+    emit({"phase": "d128_fwd_wins", **base, f"{fwd}_fwd_device_ms": tc["kernel_device_ms"],
           "cuda_core_fwd_device_ms": cc["kernel_device_ms"],
           "sdpa_forward_device_ms": fwd_library.get("library_device_ms"),
           "sdpa_forward_backend": fwd_library.get("library_device_backend"),
-          "bound_ms": tc["bound_ms"], "bound_by": tc["bound_by"], "plain_ms": plain_fwd_ms, "tc128_fwd_wins": wins})
+          "bound_ms": tc["bound_ms"], "bound_by": tc["bound_by"], "plain_ms": plain_fwd_ms, flag: wins})
     if not wins:
-        raise AssertionError(f"the CUDA-core forward beat the D 128 tensor-core forward at {name}: "
+        raise AssertionError(f"the CUDA-core forward beat the D 128 tensor-core forward at {name} {dtype}: "
                              f"{tc['kernel_device_ms']} against {cc['kernel_device_ms']}")
 
 
@@ -1889,7 +1939,7 @@ def check_lightconv_steps(dicts, modules):
 def train_iwslt_fp32(card, dicts, fa, dconv, single, modules, attention):
     """20b. ``dynamicconv_iwslt_de_en`` in fp32 (TF32 off) at phase 10's
     batch, as a user trains it without ``--bf16``: the flash calls take the
-    CUDA-core forward and the D 128 tf32x3 pair, exactly 6 + 6 + 6 a step
+    D 128 tf32x3 forward and pair, exactly 6 + 6 + 6 a step
     and no other flash kernel, with 13 + 13 tensor-core dynamic conv; step
     ms, the loss finite, one profiled step. Returns the timed steps'
     launches. Then the flash route against the dense route, one step of a
@@ -1921,7 +1971,8 @@ def train_iwslt_fp32(card, dicts, fa, dconv, single, modules, attention):
           "loss_per_token": losses, "card": card})
     wall_s, busy_s, top, classes = profile_window(lambda: trainer.train_step([sample]))
     emit({"phase": "train_iwslt_fp32_profile", "arch": IWSLT_ARCH, "step_s": wall_s, "device_busy_s": busy_s,
-          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes, "card": card})
+          "device_idle_share": 1.0 - busy_s / wall_s, "top_kernels_s": top, "busy_by_class_s": classes,
+          "device_busy_ms_with_the_cuda_core_forward": FP32_D128_CUDA_CORE_BUSY_MS, "card": card})
     del trainer
     torch.cuda.empty_cache()
 
@@ -2779,13 +2830,21 @@ def write_split(modules, d, data_dir, split, n, tgt_len, tr_len, rng):
     return sample["src_lengths"]
 
 
+def cli_train_launches(counts):
+    """The launches of one ``cli/train`` update of a conv_transformer-family
+    model in bf16 (phase 7's 20 + 20 + 20 tensor-core kernels) and of one of
+    its validation batches (20 forwards), as ``counts``' keys."""
+    return (step_launches(counts, 1, CT_FLASH_CALLS_PER_STEP),
+            {k: (CT_FLASH_CALLS_PER_STEP if k == BF16_FORWARD else 0) for k in counts})
+
+
 class _TrainRecorder:
     """Counts around the port's Trainer while ``cli/train`` drives it: the
     kernel launches and the start time of each update and of each
     validation batch, the values each hands the metrics stack, and the
     seconds of each validation and each checkpoint save."""
 
-    KEYS = ("loss", "nll_loss", "ctc_loss", "gnorm", "lr")
+    KEYS = ("loss", "nll_loss", "ctc_loss", "auxiliary_loss", "gnorm", "lr")
 
     def __init__(self, modules, fa, dconv, single):
         self.modules, self.counters = modules, (fa, dconv, single)
@@ -2874,7 +2933,7 @@ class _TrainRecorder:
         return [value for t, key, value in self.logged if t == tag and key == "loss"]
 
 
-def train_from_files(card, d, fa, dconv, single, modules):
+def train_from_files(card, d, fa, dconv, single, modules, tmp):
     """Main path 14, the README's quick start on the card: a corpus written
     with the port's builders (FILES_TRAIN_SPLITS), ``cli/train``'s
     ``cli_main`` with the QUICK_START arguments at full width for 2 epochs
@@ -2887,110 +2946,107 @@ def train_from_files(card, d, fa, dconv, single, modules):
     straight run's ``checkpoint_best.pt`` (its weights bitwise the
     trainer's), held to the in-memory generator on the same batches."""
     import logging
-    import tempfile
 
     phase_t0 = time.perf_counter()
     train_cli, options, registry = modules["train_cli"], modules["options"], modules["registry"]
     root = logging.getLogger()
-    with tempfile.TemporaryDirectory() as tmp:
-        # the CLI's log lines go to a file here, not to this script's output
-        handler = logging.FileHandler(os.path.join(tmp, "train.log"))
-        root.addHandler(handler)
-        root.setLevel(logging.INFO)
-        data_dir = os.path.join(tmp, "data")
-        os.makedirs(data_dir)
-        rng = np.random.RandomState(7)
-        t0 = time.perf_counter()
-        frames = {split: write_split(modules, d, data_dir, split, n, FILES_TRAIN_TGT_LEN, FILES_TRAIN_TR_LEN, rng)
-                  for split, n in FILES_TRAIN_SPLITS.items()}
-        corpus_s = time.perf_counter() - t0
-        dir_a, dir_b = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
+    # the CLI's log lines go to a file here, not to this script's output
+    handler = logging.FileHandler(os.path.join(tmp, "train.log"))
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    data_dir = os.path.join(tmp, "data")
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(7)
+    t0 = time.perf_counter()
+    frames = {split: write_split(modules, d, data_dir, split, n, FILES_TRAIN_TGT_LEN, FILES_TRAIN_TR_LEN, rng)
+              for split, n in FILES_TRAIN_SPLITS.items()}
+    corpus_s = time.perf_counter() - t0
+    dir_a, dir_b = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
 
-        def run(save_dir, *extra):
-            with _TrainRecorder(modules, fa, dconv, single) as rec:
-                t0 = time.perf_counter()
-                trainer, itr = train_cli.cli_main([data_dir, *QUICK_START, "--save-dir", save_dir, *extra])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            return rec, trainer, itr, wall, modules["checkpoint"]._manager.best
-
-        reset_counts(fa, dconv, single)
-        straight = run(dir_a)
-        part1 = run(dir_b, "--max-update", str(FILES_RESUME_AT))
-        part2 = run(dir_b)
-        launches = launch_counts(fa, dconv, single)
-
-        want_update = step_launches(launches, 1, CT_FLASH_CALLS_PER_STEP)
-        want_valid = {k: (CT_FLASH_CALLS_PER_STEP if k == BF16_FORWARD else 0) for k in launches}
-        recs = [straight[0], part1[0], part2[0]]
-        bad = [u for r in recs for u in r.updates if u != want_update] + \
-              [v for r in recs for v in r.valid_batches if v != want_valid]
-        n_updates = sum(len(r.updates) for r in recs)
-        n_valid = sum(len(r.valid_batches) for r in recs)
-        want_total = {k: n_updates * want_update[k] + n_valid * want_valid[k] for k in launches}
-        if bad or launches != want_total:
-            raise AssertionError(f"cli/train launches: {bad[:2]} off the expected {want_update} an update / "
-                                 f"{want_valid} a validation batch; total {launches} for {want_total}")
-        rec_a, trainer_a, itr_a, wall_a, best_a = straight
-        rec_b, trainer_b, itr_b, _, best_b = part2
-        losses_a, losses_b = rec_a.losses("train"), rec_b.losses("train")
-        valid_a = rec_a.losses("valid")
-        if not (losses_a and np.isfinite(losses_a).all() and np.isfinite(losses_b).all()):
-            raise AssertionError(f"non-finite cli/train losses: {losses_a} {losses_b}")
-        tail = losses_a[FILES_RESUME_AT:]
-        resume_rel = max(abs(b - a) / abs(a) for a, b in zip(tail, losses_b)) if tail else float("inf")
-        state_a = (itr_a.epoch, trainer_a.get_num_updates(), itr_a.iterations_in_epoch, trainer_a.get_lr())
-        state_b = (itr_b.epoch, trainer_b.get_num_updates(), itr_b.iterations_in_epoch, trainer_b.get_lr())
-        final = {k: v.detach().clone() for k, v in trainer_a.model.state_dict().items()}
-        params_b = trainer_b.model.state_dict()
-        max_param_diff = max((final[k].float() - params_b[k].float()).abs().max().item() for k in final)
-        ckpt_bytes = os.path.getsize(os.path.join(dir_a, "checkpoint_last.pt"))
-        files_a = sorted(os.listdir(dir_a))
-
-        # the in-memory step on the CLI's first batch, beside the CLI's update wall
-        task = trainer_a.task
-        first = next(iter(modules["checkpoint"].get_train_iterator(trainer_a.args, trainer_a, task,
-                                                                     epoch=0).next_epoch_itr(shuffle=True)))
-        staged = trainer_a.stage_sample(first)
-        step_s = []
-        for _ in range(CLI_TIMED_STEPS + 1):
-            torch.cuda.synchronize()
+    def run(save_dir, *extra):
+        with _TrainRecorder(modules, fa, dconv, single) as rec:
             t0 = time.perf_counter()
-            trainer_a.train_step([staged])
-            trainer_a.flush_logs()
-            step_s.append(time.perf_counter() - t0)
-        wall_s, busy_s, top, classes = profile_window(lambda: (trainer_a.train_step([staged]),
-                                                               trainer_a.flush_logs()))
-        gaps = [b - a for a, b in zip(rec_a.update_starts, rec_a.update_starts[1:])]
-        per_epoch = len(rec_a.updates) // 2
-        cli_update_ms = float(np.median([g for i, g in enumerate(gaps) if (i + 1) % per_epoch]) * 1e3)
+            trainer, itr = train_cli.cli_main([data_dir, *QUICK_START, "--save-dir", save_dir, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return rec, trainer, itr, wall, modules["checkpoint"]._manager.best
 
-        # decode the valid split from the straight run's checkpoint_best.pt,
-        # beside the trainer's weights when it wrote that file
-        best_path = os.path.join(dir_a, "checkpoint_best.pt")
-        best_state = modules["checkpoint"].load_checkpoint_to_cpu(best_path)
-        best_is_final = all(torch.equal(rec_a.best_weights[k], final[k].cpu()) for k in final)
-        trainer_a.model.load_state_dict(rec_a.best_weights)
-        same_weights = sorted(best_state["model"]) == sorted(rec_a.best_weights) and all(
-            torch.equal(best_state["model"][k], v) for k, v in rec_a.best_weights.items())
-        results = os.path.join(tmp, "results")
-        argv = [data_dir, "--task", "speech_translation_with_transcription", "-s", "en", "-t", "de", "--path",
-                best_path, "--criterion", "ctc_multi_loss", "--underlying-criterion", "label_smoothed_cross_entropy",
-                "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset", "valid",
-                "--max-tokens", "25000", "--results-path", results]
-        reset_counts(fa, dconv, single)
-        modules["generate_cli"].cli_main(argv)
-        gen_launches = launch_counts(fa, dconv, single)
-        hyps, _ = read_records(os.path.join(results, "generate-valid.txt"))
-        cli_args = options.parse_args_and_arch(options.get_generation_parser(), argv)
-        gtask = registry.TASKS[cli_args.task].setup_task(cli_args)
-        gtask.load_dataset("valid")
-        batches = list(gtask.get_batch_iterator(
-            gtask.dataset("valid"), max_tokens=cli_args.max_tokens, max_sentences=cli_args.max_sentences,
-            max_positions=gtask.max_positions(),
-            required_batch_size_multiple=cli_args.required_batch_size_multiple).next_epoch_itr(shuffle=False))
-        root.removeHandler(handler)
-        handler.close()
+    reset_counts(fa, dconv, single)
+    straight = run(dir_a)
+    part1 = run(dir_b, "--max-update", str(FILES_RESUME_AT))
+    part2 = run(dir_b)
+    launches = launch_counts(fa, dconv, single)
+
+    want_update, want_valid = cli_train_launches(launches)
+    recs = [straight[0], part1[0], part2[0]]
+    bad = [u for r in recs for u in r.updates if u != want_update] + \
+          [v for r in recs for v in r.valid_batches if v != want_valid]
+    n_updates = sum(len(r.updates) for r in recs)
+    n_valid = sum(len(r.valid_batches) for r in recs)
+    want_total = {k: n_updates * want_update[k] + n_valid * want_valid[k] for k in launches}
+    if bad or launches != want_total:
+        raise AssertionError(f"cli/train launches: {bad[:2]} off the expected {want_update} an update / "
+                             f"{want_valid} a validation batch; total {launches} for {want_total}")
+    rec_a, trainer_a, itr_a, wall_a, best_a = straight
+    rec_b, trainer_b, itr_b, _, best_b = part2
+    losses_a, losses_b = rec_a.losses("train"), rec_b.losses("train")
+    valid_a = rec_a.losses("valid")
+    if not (losses_a and np.isfinite(losses_a).all() and np.isfinite(losses_b).all()):
+        raise AssertionError(f"non-finite cli/train losses: {losses_a} {losses_b}")
+    tail = losses_a[FILES_RESUME_AT:]
+    resume_rel = max(abs(b - a) / abs(a) for a, b in zip(tail, losses_b)) if tail else float("inf")
+    state_a = (itr_a.epoch, trainer_a.get_num_updates(), itr_a.iterations_in_epoch, trainer_a.get_lr())
+    state_b = (itr_b.epoch, trainer_b.get_num_updates(), itr_b.iterations_in_epoch, trainer_b.get_lr())
+    final = {k: v.detach().clone() for k, v in trainer_a.model.state_dict().items()}
+    params_b = trainer_b.model.state_dict()
+    max_param_diff = max((final[k].float() - params_b[k].float()).abs().max().item() for k in final)
+    ckpt_bytes = os.path.getsize(os.path.join(dir_a, "checkpoint_last.pt"))
+    files_a = sorted(os.listdir(dir_a))
+
+    # the in-memory step on the CLI's first batch, beside the CLI's update wall
+    task = trainer_a.task
+    first = next(iter(modules["checkpoint"].get_train_iterator(trainer_a.args, trainer_a, task,
+                                                                 epoch=0).next_epoch_itr(shuffle=True)))
+    staged = trainer_a.stage_sample(first)
+    step_s = []
+    for _ in range(CLI_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer_a.train_step([staged])
+        trainer_a.flush_logs()
+        step_s.append(time.perf_counter() - t0)
+    wall_s, busy_s, top, classes = profile_window(lambda: (trainer_a.train_step([staged]),
+                                                           trainer_a.flush_logs()))
+    gaps = [b - a for a, b in zip(rec_a.update_starts, rec_a.update_starts[1:])]
+    per_epoch = len(rec_a.updates) // 2
+    cli_update_ms = float(np.median([g for i, g in enumerate(gaps) if (i + 1) % per_epoch]) * 1e3)
+
+    # decode the valid split from the straight run's checkpoint_best.pt,
+    # beside the trainer's weights when it wrote that file
+    best_path = os.path.join(dir_a, "checkpoint_best.pt")
+    best_state = modules["checkpoint"].load_checkpoint_to_cpu(best_path)
+    best_is_final = all(torch.equal(rec_a.best_weights[k], final[k].cpu()) for k in final)
+    trainer_a.model.load_state_dict(rec_a.best_weights)
+    same_weights = sorted(best_state["model"]) == sorted(rec_a.best_weights) and all(
+        torch.equal(best_state["model"][k], v) for k, v in rec_a.best_weights.items())
+    results = os.path.join(tmp, "results")
+    argv = [data_dir, "--task", "speech_translation_with_transcription", "-s", "en", "-t", "de", "--path",
+            best_path, "--criterion", "ctc_multi_loss", "--underlying-criterion", "label_smoothed_cross_entropy",
+            "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset", "valid",
+            "--max-tokens", "25000", "--results-path", results]
+    reset_counts(fa, dconv, single)
+    modules["generate_cli"].cli_main(argv)
+    gen_launches = launch_counts(fa, dconv, single)
+    hyps, _ = read_records(os.path.join(results, "generate-valid.txt"))
+    cli_args = options.parse_args_and_arch(options.get_generation_parser(), argv)
+    gtask = registry.TASKS[cli_args.task].setup_task(cli_args)
+    gtask.load_dataset("valid")
+    batches = list(gtask.get_batch_iterator(
+        gtask.dataset("valid"), max_tokens=cli_args.max_tokens, max_sentences=cli_args.max_sentences,
+        max_positions=gtask.max_positions(),
+        required_batch_size_multiple=cli_args.required_batch_size_multiple).next_epoch_itr(shuffle=False))
+    root.removeHandler(handler)
+    handler.close()
     want_gen = {k: (FLASH_LAUNCHES_PER_REQUEST * len(batches) if k == FP32_FORWARD else 0) for k in gen_launches}
     model = trainer_a.model.eval()
     tgt = gtask.target_dictionary
@@ -3036,6 +3092,240 @@ def train_from_files(card, d, fa, dconv, single, modules):
             and worst <= FILES_SCORE_ATOL):
         raise AssertionError(f"checkpoint_best decodes apart from the trainer: weights equal {same_weights}, "
                              f"{same}/{n} identical, scores {worst} apart")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 25.-26. the multitask classifier and knowledge distillation from files
+# ---------------------------------------------------------------------------
+
+def cli_batches(modules, parser, argv, split):
+    """The task a CLI sets up from ``argv`` and the batches it walks over
+    ``split``: padded to their longest utterance, 8-row multiples, as
+    ``cli/generate_multitask_classifier`` and ``cli/generate_topk`` batch."""
+    options, registry = modules["options"], modules["registry"]
+    args = options.parse_args_and_arch(parser, argv)
+    task = registry.TASKS[args.task].setup_task(args)
+    task.load_dataset(split)
+    itr = task.get_batch_iterator(task.dataset(split), max_tokens=args.max_tokens, max_sentences=args.max_sentences,
+                                  max_positions=task.max_positions(), required_batch_size_multiple=8)
+    return task, list(itr.next_epoch_itr(shuffle=False))
+
+
+def two_utterances(task, split, batch):
+    """The first two utterances of ``batch`` collated on their own (the
+    conv front end sees the same padding on the card and on the CPU)."""
+    ds = task.dataset(split)
+    return ds.collater([ds[int(i)] for i in batch["id"][:2]])
+
+
+def train_cli_run(modules, fa, dconv, single, argv):
+    """``cli/train``'s ``cli_main`` on ``argv`` under a ``_TrainRecorder``;
+    the launches of each update and validation batch, held to phase 7's 20
+    + 20 + 20 tensor-core kernels an update and 20 forwards a validation
+    batch; the losses it logged finite. Returns the recorder and the
+    trainer."""
+    with _TrainRecorder(modules, fa, dconv, single) as rec:
+        trainer, _ = modules["train_cli"].cli_main(argv)
+        torch.cuda.synchronize()
+    want_update, want_valid = cli_train_launches(launch_counts(fa, dconv, single))
+    bad = [u for u in rec.updates if u != want_update] + [v for v in rec.valid_batches if v != want_valid]
+    if bad or not rec.updates or not rec.valid_batches:
+        raise AssertionError(f"cli/train {argv[1:6]}: launches {bad[:2]} off {want_update} an update / {want_valid} "
+                             f"a validation batch ({len(rec.updates)} updates, {len(rec.valid_batches)} batches)")
+    logged = [value for _, key, value in rec.logged if key in ("loss", "auxiliary_loss")]
+    if not (logged and np.isfinite(logged).all()):
+        raise AssertionError(f"cli/train {argv[1:6]}: non-finite losses {rec.logged}")
+    return rec, trainer
+
+
+def multitask_from_files(card, d, fa, dconv, single, modules, tmp):
+    """25. Main path 15: the multitask classifier from phase 24's corpus on
+    the card. A 2-class ``gender`` label an utterance
+    (``<split>.de.gender``, the port's builder); ``cli/train`` trains
+    ``multitask_conv_transformer`` at full width with
+    ``speech_translation_multitask`` and ``cross_entropy_multi_task``
+    (label smoothing 0.1, auxiliary weight 0.5, class weights 1 2) in bf16
+    for MT_UPDATES updates, each launching 20 + 20 + 20 tensor-core
+    kernels, its loss and ``auxiliary_loss`` finite; then
+    ``cli/generate_multitask_classifier`` classifies the valid split from
+    ``checkpoint_last.pt`` in fp32, MT_CLASSIFY_LAUNCHES tf32x3 forwards a
+    batch and nothing else, every row of probabilities summing to 1 within
+    1e-4, one CLASS- line an utterance; the card's probabilities against
+    the plain CPU path's on 2 utterances at phase 8's tolerance. Returns
+    the launches of training and classifying."""
+    import contextlib
+    import io
+    import logging
+
+    phase_t0 = time.perf_counter()
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "multitask.log"))
+    root.addHandler(handler)
+    data_dir, save_dir = os.path.join(tmp, "data"), os.path.join(tmp, "multitask")
+    idx = modules["indexed_dataset"]
+    rng = np.random.RandomState(11)
+    labels = {}
+    for split, n in FILES_TRAIN_SPLITS.items():
+        labels[split] = rng.randint(2, size=n)
+        builder = idx.IndexedDatasetBuilder(os.path.join(data_dir, f"{split}.de.gender.bin"))
+        for y in labels[split]:
+            builder.add_item(np.array([y], dtype=np.int64))
+        builder.finalize(os.path.join(data_dir, f"{split}.de.gender.idx"))
+    reset_counts(fa, dconv, single)
+    t0 = time.perf_counter()
+    rec, trainer = train_cli_run(modules, fa, dconv, single, [
+        data_dir, "--task", "speech_translation_multitask", "--auxiliary-suffix", "gender", "-t", "de",
+        "--arch", "multitask_conv_transformer", "--input-feat-per-channel", str(N_MELS),
+        "--additional-output-size", "2", "--criterion", "cross_entropy_multi_task", "--label-smoothing", "0.1",
+        "--auxiliary-loss-weight", "0.5", "--auxiliary-loss-class-weights", "1", "2", *OPTIM_ARGS,
+        "--max-update", str(MT_UPDATES), "--save-dir", save_dir])
+    train_s = time.perf_counter() - t0
+    aux_losses = [value for tag, key, value in rec.logged if tag == "train" and key == "auxiliary_loss"]
+    params = sum(p.numel() for p in trainer.model.parameters())
+    del trainer
+    torch.cuda.empty_cache()
+
+    train_launches = launch_counts(fa, dconv, single)
+    last = os.path.join(save_dir, "checkpoint_last.pt")
+    argv = [data_dir, "--task", "speech_recognition", "-t", "de", "--path", last, "--gen-subset", "valid",
+            "--max-tokens", "25000"]
+    task, batches = cli_batches(modules, modules["options"].get_generation_parser(default_task="speech_recognition"),
+                                argv, "valid")
+    reset_counts(fa, dconv, single)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = modules["classifier_cli"].cli_main(argv)
+    classify_s = time.perf_counter() - t0
+    classify_launches = launch_counts(fa, dconv, single)
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("CLASS-")]
+    sums = np.array([float(np.sum(p)) for p in results.values()])
+    # the card against the CPU on two utterances
+    ckpt = modules["checkpoint"]
+    small = two_utterances(task, "valid", batches[0])
+    net = small["net_input"]
+    probs = []
+    for device in ("cuda", "cpu"):
+        model = ckpt.load_model_ensemble([last], task=task, device=device)[0][0]
+        with torch.no_grad():
+            probs.append(model.classify(torch.as_tensor(net["src_tokens"]).to(device),
+                                        torch.as_tensor(net["src_lengths"]).to(device)).cpu())
+        del model
+    card_cpu_err = (probs[0] - probs[1]).abs().max().item()
+    root.removeHandler(handler)
+    handler.close()
+    want = step_launches(classify_launches, 0, 0)
+    want[FP32_FORWARD] = MT_CLASSIFY_LAUNCHES * len(batches)
+    emit({"phase": "multitask_from_files", "arch": "multitask_conv_transformer", "params": params,
+          "classes": 2, "label_share_of_class_1": float(labels["train"].mean()), "updates": len(rec.updates),
+          "valid_batches": len(rec.valid_batches), "train_cli_s": train_s, "losses": rec.losses("train"),
+          "auxiliary_losses": aux_losses, "valid_losses": rec.losses("valid"),
+          "launches_per_update": {k: v for k, v in rec.updates[0].items() if v}, "classify_batches": len(batches),
+          "classify_cli_s": classify_s, "classify_launches": {k: v for k, v in classify_launches.items() if v},
+          "class_lines": len(lines), "max_abs_prob_sum_err":
+          float(np.abs(sums - 1.0).max()), "card_vs_cpu_max_abs_prob_err": card_cpu_err, "atol": ATOL_MODEL,
+          "phase_s": time.perf_counter() - phase_t0, "card": card})
+    if classify_launches != want:
+        raise AssertionError(f"cli/generate_multitask_classifier launches {classify_launches}, expected {want}")
+    if not (sorted(results) == list(range(FILES_TRAIN_SPLITS["valid"])) and len(lines) == len(results)
+            and all(p.shape == (2,) for p in results.values()) and np.abs(sums - 1.0).max() <= 1e-4):
+        raise AssertionError(f"the classifier CLI gave {len(results)} results, {len(lines)} lines, sums {sums}")
+    if not (aux_losses and np.isfinite(aux_losses).all() and card_cpu_err <= ATOL_MODEL):
+        raise AssertionError(f"auxiliary losses {aux_losses}; card against CPU {card_cpu_err}")
+    return {k: train_launches[k] + classify_launches[k] for k in train_launches}
+
+
+def kd_from_files(card, d, fa, dconv, single, modules, tmp):
+    """26. Main path 16: knowledge distillation from phase 24's corpus on
+    the card, phase 24's ``checkpoint_best.pt`` (the quick start's CTC
+    model) as the teacher. ``cli/generate_topk --distill-topk`` KD_TOPK on
+    the train and valid splits in fp32: KD_TOPK_LAUNCHES tf32x3 forwards a
+    batch and nothing else, the files read back with one (T, KD_TOPK) item
+    an utterance, T its target's length; the card's top-k against the plain
+    CPU path's on 2 utterances (logits within phase 8's tolerance, the same
+    index at every rank more than max(1e-4, twice the logits' largest
+    difference) above the next). Then ``cli/train`` trains the student
+    (``conv_transformer``, ``speech_translation_with_transcription_kd``,
+    ``knowledge_distillation`` at lambda 0.5 and temperature 2) in bf16 for
+    KD_UPDATES updates, each launching 20 + 20 + 20 tensor-core kernels,
+    its loss finite. Returns the launches."""
+    import logging
+
+    phase_t0 = time.perf_counter()
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "kd.log"))
+    root.addHandler(handler)
+    data_dir, teacher = os.path.join(tmp, "data"), os.path.join(tmp, "straight", "checkpoint_best.pt")
+    topk_cli, ckpt, idx = modules["topk_cli"], modules["checkpoint"], modules["indexed_dataset"]
+    reset_counts(fa, dconv, single)
+    want = step_launches(launch_counts(fa, dconv, single), 0, 0)
+    gen = {}
+    for split in FILES_TRAIN_SPLITS:
+        argv = [data_dir, "--task", "speech_translation_with_transcription", "-s", "en", "-t", "de", "--path", teacher,
+                "--criterion", "ctc_multi_loss", "--underlying-criterion", "label_smoothed_cross_entropy",
+                "--gen-subset", split, "--max-tokens", "25000"]
+        parser = modules["options"].get_generation_parser()
+        parser.add_argument("--distill-topk", default=8, type=int)
+        task, batches = cli_batches(modules, parser, argv, split)
+        before = launch_counts(fa, dconv, single)
+        t0 = time.perf_counter()
+        topk_cli.cli_main(argv + ["--distill-topk", str(KD_TOPK)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = launch_counts(fa, dconv, single)
+        got = {k: after[k] - before[k] for k in after}
+        want_split = dict(want, **{FP32_FORWARD: KD_TOPK_LAUNCHES * len(batches)})
+        if got != want_split:
+            raise AssertionError(f"cli/generate_topk on {split}: launches {got}, expected {want_split}")
+        prefix = os.path.join(data_dir, f"{split}.de.top{KD_TOPK}")
+        items = [idx.IndexedDataset(prefix + s) for s in ("_idx", "_out")]
+        targets = task.dataset(split)
+        shapes_ok = all(len(ds) == len(targets) for ds in items) and all(
+            tuple(items[0].sizes[2 * i:2 * i + 2]) == (len(targets[i]["target"]), KD_TOPK) == tuple(
+                items[1].sizes[2 * i:2 * i + 2]) for i in range(len(targets)))
+        if not shapes_ok:
+            raise AssertionError(f"{prefix}: items not one (T, {KD_TOPK}) an utterance")
+        gen[split] = {"batches": len(batches), "cli_s": seconds, "utterances": len(targets)}
+    student_dir = os.path.join(tmp, "student")
+    t0 = time.perf_counter()
+    rec, trainer = train_cli_run(modules, fa, dconv, single, [
+        data_dir, "--task", "speech_translation_with_transcription_kd", "-s", "en", "-t", "de",
+        "--distill-topk", str(KD_TOPK), "--arch", "conv_transformer", "--input-feat-per-channel", str(N_MELS),
+        "--criterion", "knowledge_distillation", "--kd-lambda", "0.5", "--kd-temperature", "2", *OPTIM_ARGS,
+        "--max-update", str(KD_UPDATES), "--save-dir", student_dir])
+    train_s = time.perf_counter() - t0
+    del trainer
+    torch.cuda.empty_cache()
+    launches = launch_counts(fa, dconv, single)
+    # the card against the CPU on two utterances of the valid split
+    small = two_utterances(task, "valid", batches[0])
+    top = []
+    for device in ("cuda", "cpu"):
+        model = ckpt.load_model_ensemble([teacher], task=task, device=device)[0][0]
+        batch = {k: torch.as_tensor(small["net_input"][k]).to(device)
+                 for k in ("src_tokens", "src_lengths", "prev_output_tokens")}
+        with torch.no_grad():
+            top.append([x.cpu() for x in torch.topk(model(batch)[0].float(), KD_TOPK + 1, dim=-1)])
+        del model
+    keep = torch.as_tensor(small["target"] != task.target_dictionary.pad())
+    (card_out, card_idx), (cpu_out, cpu_idx) = top
+    logit_err = (card_out - cpu_out)[keep].abs().max().item()
+    gap = max(1e-4, 2 * logit_err)
+    apart = (cpu_out[..., :-1] - cpu_out[..., 1:] > gap) & keep[..., None]
+    idx_same = bool(torch.equal(card_idx[..., :-1][apart], cpu_idx[..., :-1][apart]))
+    root.removeHandler(handler)
+    handler.close()
+    emit({"phase": "kd_from_files", "teacher": "phase 24's checkpoint_best.pt", "topk": KD_TOPK,
+          "generate_topk": gen, "card_vs_cpu_max_abs_logit_err": logit_err, "atol": ATOL_MODEL,
+          "index_gap": gap, "ranks_compared": int(apart.sum()), "ranks": int(keep.sum()) * KD_TOPK,
+          "same_indices": idx_same, "student_updates": len(rec.updates), "student_losses": rec.losses("train"),
+          "student_valid_losses": rec.losses("valid"), "student_cli_s": train_s,
+          "launches_per_update": {k: v for k, v in rec.updates[0].items() if v},
+          "phase_s": time.perf_counter() - phase_t0, "card": card})
+    if not (logit_err <= ATOL_MODEL and idx_same and apart.float().mean().item() > 0.5 * keep.float().mean().item()):
+        raise AssertionError(f"the card's top-{KD_TOPK} differs from the CPU's: logits {logit_err} apart, "
+                             f"indices equal {idx_same} at {int(apart.sum())} ranks")
     return launches
 
 
@@ -3092,6 +3382,8 @@ def main() -> int:
     t_start = time.perf_counter()
     from fbk_fairseq_st_tpu_torch import options, registry
     from fbk_fairseq_st_tpu_torch.cli import generate as generate_cli
+    from fbk_fairseq_st_tpu_torch.cli import generate_multitask_classifier as classifier_cli
+    from fbk_fairseq_st_tpu_torch.cli import generate_topk as topk_cli
     from fbk_fairseq_st_tpu_torch.cli import train as train_cli
     from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
     from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, indexed_dataset
@@ -3126,7 +3418,7 @@ def main() -> int:
                "generate_cli": generate_cli, "indexed_dataset": indexed_dataset, "search": search,
                "make_generators": make_generators, "specaugment": specaugment,
                "save_model_checkpoint": save_model_checkpoint, "train_cli": train_cli, "checkpoint": checkpoint,
-               "metrics": metrics}
+               "metrics": metrics, "classifier_cli": classifier_cli, "topk_cli": topk_cli}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3197,8 +3489,8 @@ def main() -> int:
     drive("train_dualdecoder", train_dual, card, d, fa, dconv, single, modules)
     check_dual_steps(d, fa, attention, modules)
     # 20. the iwslt lightconv step: head dim 128, the D 128 tensor-core flash
-    # forward and pair; 20b. the same step in fp32: the CUDA-core forward and
-    # the D 128 tf32x3 pair
+    # forward and pair; 20b. the same step in fp32: the D 128 tf32x3 forward
+    # and pair
     drive("train_iwslt", train_lightconv, card, lc_dicts, fa, dconv, single, modules, IWSLT_ARCH,
           IWSLT_TIMED_STEPS, D128_FORWARD, D128_BACKWARD, "train_iwslt")
     drive("train_iwslt_fp32", train_iwslt_fp32, card, lc_dicts, fa, dconv, single, modules, attention)
@@ -3206,10 +3498,15 @@ def main() -> int:
     drive("serve_from_files", serve_from_files, card, d, fa, dconv, single, modules)
     drive("serve_search", serve_search, card, d, fa, dconv, single, modules)
     drive("train_realistic", train_realistic, card, d, fa, dconv, single, modules)
-    # 24. training from files: the quick start through cli/train, resumed, decoded
-    drive("train_from_files", train_from_files, card, d, fa, dconv, single, modules)
+    # 24.-26. training from files: the quick start through cli/train, resumed,
+    # decoded; then, on its corpus, the multitask classifier trained and
+    # served, and knowledge distillation from its checkpoint_best.pt
+    with tempfile.TemporaryDirectory() as files_tmp:
+        drive("train_from_files", train_from_files, card, d, fa, dconv, single, modules, files_tmp)
+        drive("multitask_from_files", multitask_from_files, card, d, fa, dconv, single, modules, files_tmp)
+        drive("kd_from_files", kd_from_files, card, d, fa, dconv, single, modules, files_tmp)
 
-    # 25. kernels line, card line, ok line
+    # 27. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():
@@ -3238,6 +3535,9 @@ def main() -> int:
                      launches["flash_fwd_tc128"], rows, None, worst[("fwd_tc128", b16)], iwslt_at, d128_long_at),
         kernel_entry("flash_fwd_tf32x3", "flash_attention_fwd_tf32x3", csrc + "flash_fwd_tf32x3.cu", pallas + "117",
                      launches["flash_fwd_tf32x3"], rows, worst[("fwd_tf32x3", f32)], None, f32_at, f32_long_at),
+        kernel_entry("flash_fwd_tf32x3_128", "flash_attention_fwd_tf32x3_128", csrc + "flash_fwd_tf32x3.cu",
+                     pallas + "117", launches["flash_fwd_tf32x3_128"], rows, worst[("fwd_tf32x3_128", f32)], None,
+                     f32_iwslt_at, f32_d128_long_at),
         kernel_entry("flash_bwd_fused", "flash_attention_bwd_fused", csrc + "flash_bwd.cu", pallas + "277",
                      launches["flash_bwd_fused"], rows, worst[("bwd_fused", f32)], worst[("bwd_fused", b16)],
                      f32_at, (f32_long_at, iwslt_at)),

@@ -1,6 +1,8 @@
 from .base import Criterion
 from .cross_entropy_dualdecoder import CrossEntropyDualDecoder
+from .cross_entropy_multi_task import CrossEntropyMultitask
 from .ctc import CTCCriterion, CTCMultiLoss
+from .knowledge_distillation import CrossEntropyKnowledgeDistillationCriterion
 from .label_smoothed_cross_entropy import (
     LabelSmoothedCrossEntropyCriterion,
     label_smoothed_nll_from_logits,
@@ -12,11 +14,15 @@ CRITERIONS = {
     "ctc_loss": CTCCriterion,
     "ctc_multi_loss": CTCMultiLoss,
     "cross_entropy_dualdecoder": CrossEntropyDualDecoder,
+    "cross_entropy_multi_task": CrossEntropyMultitask,
+    "knowledge_distillation": CrossEntropyKnowledgeDistillationCriterion,
 }
 
 __all__ = [
     "CRITERIONS",
     "CrossEntropyDualDecoder",
+    "CrossEntropyKnowledgeDistillationCriterion",
+    "CrossEntropyMultitask",
     "CTCCriterion",
     "CTCMultiLoss",
     "Criterion",

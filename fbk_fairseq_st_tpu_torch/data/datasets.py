@@ -3,7 +3,8 @@
 The port's own copy of ``fbk_fairseq_st_tpu/data/datasets.py``
 (``collate_frames`` :104, ``apply_mv_norm`` :118, ``Seq2SeqCollater``
 :131, ``FilterBankToTextDataset`` :223, ``TranscriptionWrapperDataset``
-:279, ``ConcatDataset`` :589; ``collate_tokens`` :71 is
+:279, ``MultiTaskDataset`` :428, ``ConcatDataset`` :589;
+``collate_tokens`` :71 is
 ``language_pair_dataset.collate_tokens``), the reference contracts:
 
   * per-utterance CMVN (examples/speech_recognition/data/data_utils.py:
@@ -210,6 +211,51 @@ class TranscriptionWrapperDataset(Dataset):
 
     def ordered_indices(self):
         return self.tgt_dataset.ordered_indices()
+
+
+class MultiTaskDataset(Dataset):
+    """Adds a per-utterance auxiliary classification target to each batch
+    (reference examples/speech_recognition/data/multitask_dataset.py):
+    ``auxiliary_target`` (B, ...) in the row order of the wrapped collater,
+    zeros on a fixed-shape batch's padding rows."""
+
+    def __init__(self, base_dataset, auxiliary_targets):
+        self.base_dataset = base_dataset
+        self.auxiliary_targets = auxiliary_targets
+
+    def __getitem__(self, index):
+        item = self.base_dataset[index]
+        item["auxiliary_target"] = np.asarray(self.auxiliary_targets[index])
+        return item
+
+    def __len__(self):
+        return len(self.base_dataset)
+
+    def collater(self, samples, **pad_kwargs):
+        batch = self.base_dataset.collater(samples, **pad_kwargs)
+        if not batch:
+            return {}
+        id_to_pos = {s["id"]: i for i, s in enumerate(samples)}
+        order = [id_to_pos[int(i)] for i in batch["id"] if int(i) in id_to_pos]
+        aux = np.stack([samples[i]["auxiliary_target"] for i in order])
+        n_rows = batch["net_input"]["src_tokens"].shape[0]
+        if n_rows > len(order):
+            aux = np.concatenate([aux, np.zeros((n_rows - len(order),) + aux.shape[1:], aux.dtype)])
+        batch["auxiliary_target"] = aux
+        return batch
+
+    def num_tokens(self, index):
+        return self.base_dataset.num_tokens(index)
+
+    def size(self, index):
+        return self.base_dataset.size(index)
+
+    @property
+    def sizes(self):
+        return self.base_dataset.sizes
+
+    def ordered_indices(self):
+        return self.base_dataset.ordered_indices()
 
 
 class ConcatDataset(Dataset):

@@ -9,7 +9,7 @@ family has raises ``NotImplementedError``.
 
 from typing import Any, Dict
 
-from . import conv_transformer, lightconv, multi_task
+from . import conv_transformer, lightconv, multi_task, multitask_conv_transformer
 from .base import EncoderOut, reorder_encoder_out
 from .conv_transformer import ConvolutionalTransformerModel
 from .lightconv import LightConvModel
@@ -19,16 +19,17 @@ from .multi_task import (
     ConvolutionalTransformerTriangle,
     MultiTaskModel,
 )
+from .multitask_conv_transformer import MultitaskConvolutionalTransformer
 
-ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task)
+ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task, multitask_conv_transformer)
                  for arch in family.ARCHITECTURES}
 
 
 def _family(arch: str):
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
-            f"--arch {arch}: the port has the conv_transformer, lightconv and multi-decoder families "
-            "(ROADMAP Queue A items 4, 5 and 9)")
+            f"--arch {arch}: the port has the conv_transformer, lightconv, multi-decoder and multitask "
+            "classifier families (ROADMAP Queue A items 4, 5 and 9)")
     return ARCHITECTURES[arch]
 
 
@@ -52,6 +53,7 @@ __all__ = [
     "EncoderOut",
     "LightConvModel",
     "MultiTaskModel",
+    "MultitaskConvolutionalTransformer",
     "arch_defaults",
     "build_model",
     "reorder_encoder_out",

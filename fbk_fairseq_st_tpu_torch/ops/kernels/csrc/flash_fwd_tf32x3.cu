@@ -1,17 +1,18 @@
 // Online flash-attention forward for fp32 on Hopper's tensor cores (sm_90a),
-// plain CUDA C++: 3xTF32 products at head dim 32 or 64.
+// plain CUDA C++: 3xTF32 products at head dim 32, 64 or 128.
 //
 // Replaces fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py::_fwd_kernel
 // (launched by _fwd_impl through pl.pallas_call), dropout included, for fp32
-// calls at kernel head dims 32 and 64: serving (fp32, as JAX serves) and
-// every fp32 train step. JAX's _dot asks for Precision.HIGHEST on fp32
-// operands, which the TPU's MXU ran as several bf16 passes; the counterpart
-// here is three tf32 products a product (hopper_mma.cuh, 3xTF32), whose
-// error of about 2^-21 of |a||b| keeps the kernel within 1e-4 of the fp32
-// plain version where one tf32 product (2^-11) is not. flash_fwd.cu keeps
-// fp32 and bf16 at head dims 16 and 128; flash_fwd_tc.cu bf16 at 32 and 64.
-// The function is flash_fwd_tc.cu's (its note), with no rounding of p (the
-// identity in fp32) and out in fp32:
+// calls at kernel head dims 32, 64 and 128: serving (fp32, as JAX serves),
+// every fp32 train step, and at 128 the iwslt lightconv presets' decoder
+// cross-attention (4 heads over 512 dims) in their fp32 steps. JAX's _dot
+// asks for Precision.HIGHEST on fp32 operands, which the TPU's MXU ran as
+// several bf16 passes; the counterpart here is three tf32 products a product
+// (hopper_mma.cuh, 3xTF32), whose error of about 2^-21 of |a||b| keeps the
+// kernel within 1e-4 of the fp32 plain version where one tf32 product
+// (2^-11) is not. flash_fwd.cu keeps fp32 and bf16 at head dim 16;
+// flash_fwd_tc.cu bf16 at 32, 64 and 128. The function is flash_fwd_tc.cu's
+// (its note), with no rounding of p (the identity in fp32) and out in fp32:
 //
 //   s    = scale * q.k + bias[key]   (NEG_INF = -1e9 above the diagonal when
 //                                     causal, top-left aligned; -inf for
@@ -25,12 +26,12 @@
 // Design: flash_fwd_tc.cu's plan on fp32 tiles. One block of 4 warps per
 // (bh, 64-row q tile): bh on gridDim.x (no 65,535 cap), the q tiles on
 // gridDim.y; a warp owns 16 rows. The Q tile arrives by cp.async into an
-// XOR-swizzled tile of 256-byte (D 64) or 128-byte (D 32) rows and stays
-// there: its A fragments are read by ldmatrix and split into tf32 pieces
-// where used, 4 values a k-step, so that Q holds no registers beside O and
-// the chunk's scores (as pre-split fragments it would hold 64 at D 64). K
-// and V come in 64-key chunks through a 3-slot cp.async ring, two chunks
-// ahead of the products. Per chunk:
+// XOR-swizzled tile of 512-byte (D 128), 256-byte (D 64) or 128-byte (D 32)
+// rows and stays there: its A fragments are read by ldmatrix and split into
+// tf32 pieces where used, 4 values a k-step, so that Q holds no registers
+// beside O and the chunk's scores (as pre-split fragments it would hold 64
+// at D 64, 128 at D 128). K and V come in chunks of keys through a cp.async
+// ring, the plan of each head dim (Plan<D>). Per chunk:
 //   * S = Q K^T on mma.sync.m16n8k8.tf32, three products each: K's B
 //     fragments by ldmatrix (an 8 x 4 fp32 tile reads as an 8 x 8 b16 one),
 //     split into big and small pieces in each warp (split_tf32: the
@@ -47,19 +48,28 @@
 //     read as A's k t and t + 4, and V's B fragment loaded in that order
 //     by ld.shared from the swizzled tile (conflict-free; no 32-bit
 //     ldmatrix.trans exists): P never goes through shared memory.
-// Shared memory is the Q tile and the ring: 112 KB at D 64 (2 blocks an SM)
-// and 56 KB at D 32, whatever T and S are.
+// The plans (shared memory is the Q tile and the ring, whatever T and S
+// are): at D 32 and 64 64-key chunks in 3 slots, 112 KB at D 64 (2 blocks
+// an SM) and 56 KB at D 32. At D 128 the Q tile alone is 32 KB and a 64-key
+// K + V chunk 64 KB, so the D 64 plan would take 224 KB, one block an SM,
+// and the iwslt call's 256 blocks would run in two waves on 132 SMs. D 128
+// takes 32-key chunks in 2 slots: 96 KB, two blocks an SM, that call in one
+// wave; 64-key chunks in 2 slots (160 KB, one block an SM) were timed beside
+// it on an H100 (PERF.md section 6). A lane holds O (64 fp32 at D 128) and
+// the chunk's scores (16 at 32 keys).
 //
 // What bounds it. At the long-context encoder call (bh 32, T = S = 2048,
 // D 64) the function needs 4 bh T S D = 34.4 GFLOP: 0.208 ms at the 165
 // TFLOP/s of fp32-faithful products the tensor cores give (495 TF32 / 3),
-// against 67 MB of traffic (0.020 ms at 3.35 TB/s), so operations bound it.
-// The kernel issues three m16n8k8 products for each of the function's
-// (six times the bf16 kernel's mma.sync issue for the same work), and per
-// element of K and V each warp spends two integer operations and a
-// subtraction on the split (each of the 4 warps splits the whole chunk: the
-// price of keeping no split planes in shared memory); at rate > 0 the
-// Philox rounds of flash_fwd_tc.cu are added unchanged.
+// against 67 MB of traffic (0.020 ms at 3.35 TB/s), so operations bound it;
+// at D 128 (d128_long) twice that, 0.416 ms. At the iwslt call (bh 256,
+// T = S = 56, D 128, fp32) bytes bound it: 29.5 MB, 0.0088 ms, against
+// 0.0025 ms of products. The kernel issues three m16n8k8 products for each
+// of the function's (six times the bf16 kernel's mma.sync issue for the
+// same work), and per element of K and V each warp spends two integer
+// operations and a subtraction on the split (each of the 4 warps splits the
+// whole chunk: the price of keeping no split planes in shared memory); at
+// rate > 0 the Philox rounds of flash_fwd_tc.cu are added unchanged.
 
 #include <math.h>
 #include <stddef.h>
@@ -71,10 +81,17 @@ namespace {
 
 using namespace flash;
 
-constexpr int kTile = 64;        // q rows a block, keys a chunk
+constexpr int kTile = 64;        // q rows a block
 constexpr int kThreadsTc = 128;  // a warp per 16 rows
-constexpr int kStages = 3;       // ring slots
 constexpr unsigned kFull = 0xffffffffu;
+
+// Each head dim's chunk (keys a ring slot) and ring slots.
+template <int D> struct Plan {
+  static constexpr int kChunk = 64, kStages = 3;  // 112 KB at D 64: two blocks share an SM
+};
+template <> struct Plan<128> {
+  static constexpr int kChunk = 32, kStages = 2;  // 96 KB: two blocks share an SM
+};
 
 struct Args {
   const float *q, *k, *v;
@@ -90,18 +107,21 @@ struct Args {
 };
 
 template <int D> __host__ __device__ constexpr int tile_bytes() { return kTile * 4 * D; }
+template <int D> __host__ __device__ constexpr int chunk_bytes() { return Plan<D>::kChunk * 4 * D; }
 template <int D> __host__ __device__ constexpr int smem_bytes() {
-  return tile_bytes<D>() + kStages * 2 * tile_bytes<D>();  // Q, then the ring of K and V chunks
+  return tile_bytes<D>() + Plan<D>::kStages * 2 * chunk_bytes<D>();  // Q, then the ring of K and V chunks
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreadsTc, 2)
 flash_fwd_tf32x3_kernel(Args a) {
   constexpr int RB = 4 * D;
-  constexpr int TILE = tile_bytes<D>();
+  constexpr int TILE = tile_bytes<D>(), CH = chunk_bytes<D>();
+  constexpr int kChunk = Plan<D>::kChunk, kStages = Plan<D>::kStages;
+  constexpr int NT = kChunk / 8;  // 8-key tiles a chunk
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t qs = hmma::smem_u32(smem);
-  const hmma::CpAsyncRing<kStages, 2 * TILE> ring{qs + TILE};
+  const hmma::CpAsyncRing<kStages, 2 * CH> ring{qs + TILE};
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -115,13 +135,13 @@ flash_fwd_tf32x3_kernel(Args a) {
 
   // causal: chunks that start past the tile's last row add nothing
   const int s_end = a.causal ? min(a.s_len, q0 + kTile) : a.s_len;
-  const int n_chunks = (s_end + kTile - 1) / kTile;
+  const int n_chunks = (s_end + kChunk - 1) / kChunk;
   auto fill = [&](int c) {
     if (c < n_chunks) {
-      const int s0 = c * kTile;
+      const int s0 = c * kChunk;
       const uint32_t slot = ring.slot(c);
-      hmma::load_tile<kTile, kThreadsTc, RB>(slot, kb + (size_t)s0 * D, a.s_len - s0, tid);
-      hmma::load_tile<kTile, kThreadsTc, RB>(slot + TILE, vb + (size_t)s0 * D, a.s_len - s0, tid);
+      hmma::load_tile<kChunk, kThreadsTc, RB>(slot, kb + (size_t)s0 * D, a.s_len - s0, tid);
+      hmma::load_tile<kChunk, kThreadsTc, RB>(slot + CH, vb + (size_t)s0 * D, a.s_len - s0, tid);
     }
     hmma::cp_async_commit();  // an empty group past the end keeps the count
   };
@@ -140,18 +160,18 @@ flash_fwd_tf32x3_kernel(Args a) {
 
 #pragma unroll 1
   for (int c = 0; c < n_chunks; ++c) {
-    hmma::CpAsyncRing<kStages, 2 * TILE>::wait();
+    hmma::CpAsyncRing<kStages, 2 * CH>::wait();
     __syncthreads();  // this chunk is visible; the slot read last step is free
     fill(c + kStages - 1);
-    const int s0 = c * kTile;
-    const uint32_t kt = ring.slot(c), vt = kt + TILE;
+    const int s0 = c * kChunk;
+    const uint32_t kt = ring.slot(c), vt = kt + CH;
 
-    float sc[8][4];  // rows x keys: tile n holds keys s0 + 8 n..
-    hmma::product_nt_3x<D, 8>(sc, qs, warp * 16, kt, 0, lane);
+    float sc[NT][4];  // rows x keys: tile n holds keys s0 + 8 n..
+    hmma::product_nt_3x<D, NT>(sc, qs, warp * 16, kt, 0, lane);
 
     hmma::online_softmax_step(sc, m, l, acc, a, biasb, s0, rows, w0, (uint32_t)bh, lane);
-    // O += P V over the chunk's 8 k-steps of 8 keys
-    hmma::product_t_3x<D, 8>(acc, sc, smem + (vt - qs), 0, lane);
+    // O += P V over the chunk's NT k-steps of 8 keys
+    hmma::product_t_3x<D, NT>(acc, sc, smem + (vt - qs), 0, lane);
   }
   hmma::cp_async_wait<0>();
 
@@ -186,7 +206,7 @@ cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
 }  // namespace
 
 // q: (bh, t_len, head_dim); k, v: (bh, s_len, head_dim); fp32, contiguous,
-// 16-byte aligned; head_dim 32 or 64; bias: (bh, s_len) fp32; out like q;
+// 16-byte aligned; head_dim 32, 64 or 128; bias: (bh, s_len) fp32; out like q;
 // lse: (bh, t_len) fp32. drop_thresh = 0 turns dropout off; keep_prob is
 // 1 - rate. Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for what it does not take).
@@ -204,6 +224,7 @@ extern "C" int flash_fwd_tf32x3(const void* q, const void* k, const void* v, con
   switch (head_dim) {
     case 32: return (int)launch<32>(a, bh, s);
     case 64: return (int)launch<64>(a, bh, s);
+    case 128: return (int)launch<128>(a, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,8 +6,8 @@ Counterpart of ``fbk_fairseq_st_tpu/ops/pallas/attention_kernel.py``
 kernels are ``csrc/flash_fwd.cu`` (``_fwd_kernel``, dropout included, on the
 CUDA cores), ``csrc/flash_fwd_tc.cu`` (``_fwd_kernel`` on the tensor cores,
 bf16 at head dim 32, 64 and 128), ``csrc/flash_fwd_tf32x3.cu``
-(``_fwd_kernel`` on the tensor cores, fp32 in 3xTF32 products at 32 and
-64), ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``, and ``_dq_kernel`` /
+(``_fwd_kernel`` on the tensor cores, fp32 in 3xTF32 products at 32, 64
+and 128), ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``, and ``_dq_kernel`` /
 ``_dkv_kernel`` on the CUDA cores), ``csrc/flash_bwd_tc.cu`` (``_dq_kernel``
 / ``_dkv_kernel`` on the tensor cores, bf16 at head dim 32 and 64),
 ``csrc/flash_bwd_tc128.cu`` (the same pair, bf16 at head dim 128) and
@@ -46,9 +46,9 @@ from . import philox
 from .build import bind, raise_on
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-# the head dims of each tensor-core route's forward (bf16 also at 128) and
-# split pair (both types also at 128; bf16 there csrc/flash_bwd_tc128.cu)
-FWD_HEAD_DIMS = {"tc": (32, 64, 128), "tf32x3": (32, 64)}
+# the head dims of each tensor-core route's forward and split pair (the
+# bf16 pair at 128 in csrc/flash_bwd_tc128.cu)
+FWD_HEAD_DIMS = {"tc": (32, 64, 128), "tf32x3": (32, 64, 128)}
 PAIR_HEAD_DIMS = {"tc": (32, 64, 128), "tf32x3": (32, 64, 128)}
 TC_TILE = 64  # q rows or keys a block of the tensor-core kernels
 # the kernels of each tensor-core route: the forward, dq and dkv (the bf16
@@ -67,7 +67,8 @@ FUSED_BWD: Optional[bool] = None
 launches_fwd = 0  # the forward on the CUDA cores
 launches_fwd_tc = 0  # the forward on the tensor cores, bf16 at D 32/64
 launches_fwd_tc128 = 0  # the same at D 128 (D128_COUNTERS)
-launches_fwd_tf32x3 = 0  # the forward on the tensor cores, fp32
+launches_fwd_tf32x3 = 0  # the forward on the tensor cores, fp32 at D 32/64
+launches_fwd_tf32x3_128 = 0  # the same at D 128 (D128_COUNTERS)
 launches_bwd_fused = 0
 launches_bwd_dq = 0  # the split pair on the CUDA cores
 launches_bwd_dkv = 0
@@ -79,7 +80,8 @@ launches_bwd_dq_tf32x3 = 0  # the split pair on the tensor cores, fp32 at D 32/6
 launches_bwd_dkv_tf32x3 = 0
 launches_bwd_dq_tf32x3_128 = 0  # the same at D 128 (D128_COUNTERS)
 launches_bwd_dkv_tf32x3_128 = 0
-_COUNTERS = ("launches_fwd", "launches_fwd_tc", "launches_fwd_tc128", "launches_fwd_tf32x3", "launches_bwd_fused",
+_COUNTERS = ("launches_fwd", "launches_fwd_tc", "launches_fwd_tc128", "launches_fwd_tf32x3",
+             "launches_fwd_tf32x3_128", "launches_bwd_fused",
              "launches_bwd_dq", "launches_bwd_dkv", "launches_bwd_dq_tc", "launches_bwd_dkv_tc",
              "launches_bwd_dq_tc128", "launches_bwd_dkv_tc128", "launches_bwd_dq_tf32x3", "launches_bwd_dkv_tf32x3",
              "launches_bwd_dq_tf32x3_128", "launches_bwd_dkv_tf32x3_128")
@@ -89,7 +91,7 @@ def __getattr__(name: str):
     # ``launches``: the forward count of every route, the name the serving
     # path reads
     if name == "launches":
-        return launches_fwd + launches_fwd_tc + launches_fwd_tc128 + launches_fwd_tf32x3
+        return launches_fwd + launches_fwd_tc + launches_fwd_tc128 + launches_fwd_tf32x3 + launches_fwd_tf32x3_128
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -100,8 +102,8 @@ def reset_launches() -> None:
 
 # the library functions whose launches at kernel head dim 128 are counted
 # apart, under these names (the bf16 pair at D 128 has functions of its own)
-D128_COUNTERS = {"flash_fwd_tc": "flash_fwd_tc128", "flash_bwd_dq_tf32x3": "flash_bwd_dq_tf32x3_128",
-                 "flash_bwd_dkv_tf32x3": "flash_bwd_dkv_tf32x3_128"}
+D128_COUNTERS = {"flash_fwd_tc": "flash_fwd_tc128", "flash_fwd_tf32x3": "flash_fwd_tf32x3_128",
+                 "flash_bwd_dq_tf32x3": "flash_bwd_dq_tf32x3_128", "flash_bwd_dkv_tf32x3": "flash_bwd_dkv_tf32x3_128"}
 
 
 def _count(kernel: str, d: int) -> None:
@@ -135,12 +137,12 @@ def _tc_route(dtype, d: int, head_dims) -> str:
 
 def fwd_route(dtype, d: int) -> str:
     """The forward kernel of a CUDA call of ``dtype`` at kernel head dim
-    ``d`` (``FWD_HEAD_DIMS``): on the tensor cores "tc" in bf16 at D 32, 64
-    and 128 (``csrc/flash_fwd_tc.cu``; 128 is the iwslt presets' decoder
-    cross-attention), "tf32x3" in fp32 at D 32 and 64
-    (``csrc/flash_fwd_tf32x3.cu``); else "cuda_core" (``csrc/flash_fwd.cu``):
-    D 16, and fp32 at D 128. Each tensor-core kernel is held to beat the
-    CUDA-core one at every train-step call of its type (``tc_fwd_wins``)."""
+    ``d`` (``FWD_HEAD_DIMS``): on the tensor cores "tc" in bf16 and
+    "tf32x3" in fp32 at D 32, 64 and 128 (``csrc/flash_fwd_tc.cu``,
+    ``csrc/flash_fwd_tf32x3.cu``; 128 is the iwslt presets' decoder
+    cross-attention); else "cuda_core" (``csrc/flash_fwd.cu``): D 16. Each
+    tensor-core kernel is held to beat the CUDA-core one at every
+    train-step call of its type (``tc_fwd_wins``)."""
     return _tc_route(dtype, d, FWD_HEAD_DIMS)
 
 
@@ -162,8 +164,8 @@ def tc_fwd_wins(times: Dict[str, Tuple[float, float]]) -> Dict[str, bool]:
     tensor-core ms)} device times, whether the tensor-core kernel of the
     call's type ("tc" in bf16, "tf32x3" in fp32) is at least as fast as the
     CUDA-core one there. ``fwd_route`` takes the tensor cores at every call
-    at D 32 and 64, and in bf16 at 128, because this held at each of the
-    train steps' calls there; a call where it fails needs a gate."""
+    at D 32, 64 and 128 because this held at each of the train steps' calls
+    there; a call where it fails needs a gate."""
     return {name: tc <= cuda_core for name, (cuda_core, tc) in times.items()}
 
 
@@ -446,7 +448,7 @@ def forward_tc(q, k, v, bias, scale: float, causal: bool, rate: float, seed: int
 
 def forward_tf32x3(q, k, v, bias, scale: float, causal: bool, rate: float, seed: int):
     """One launch of ``csrc/flash_fwd_tf32x3.cu`` (fp32 at kernel head dim
-    32 or 64, 3xTF32 products) on CUDA tensors; returns (out, lse)."""
+    32, 64 or 128, 3xTF32 products) on CUDA tensors; returns (out, lse)."""
     return _forward_tensor_cores("tf32x3", q, k, v, bias, scale, causal, rate, seed)
 
 

@@ -99,9 +99,9 @@ KERNEL_SHAPES = ((32, 2048, False), (64, 2048, True))  # (bh, S, causal)
 # frames, 48 target tokens), the dual-decoder step's auxiliary decoder at
 # the same batch (64 transcript tokens), the lightconv decoder's encoder
 # attention at batch 64 (16 heads, 56 tokens, sources padded on the left),
-# the iwslt lightconv presets' (4 heads over 512 dims: D 128, whose fp32
-# forward alone stays on the CUDA cores; batch 64) and the long-context
-# step's encoder self-attention and time attention (batch 8, T' = 2048)
+# the iwslt lightconv presets' (4 heads over 512 dims: D 128; batch 64)
+# and the long-context step's encoder self-attention and time attention
+# (batch 8, T' = 2048)
 TRAIN_BACKWARD_SHAPES = [
     ("encoder_self_attention", 512, 128, 128, 64, False, 0.1, False),
     ("time_attention", 512, 128, 128, 20, False, 0.3, False),
@@ -527,9 +527,9 @@ def gate_from(rows: List[Dict]) -> Dict:
     and every such call stays in them. At kernel head dim 128 (the iwslt
     presets') both pairs run on the tensor cores (``d128_pair_wins``:
     whether the pair of the type is at least as fast as the CUDA-core pair,
-    call by call), and so does the bf16 forward (under ``tc_fwd_wins``);
-    ``{prefix}d128_calls`` gives each such call's default forward ("fwd",
-    the CUDA-core one in fp32), fused, pair and CUDA-core pair device times
+    call by call), and so does the forward of each type (under
+    ``tc_fwd_wins`` / ``tf32x3_fwd_wins``); ``{prefix}d128_calls`` gives
+    each such call's default forward ("fwd"), fused, pair and CUDA-core pair device times
     and SDPA's. A call whose pair no tensor core takes (D 16) is routed to
     the CUDA-core pair by its bitwise repeat, not by time: its times are
     reported on their own, under ``{prefix}cuda_core_calls``."""

@@ -1,6 +1,8 @@
 from .base import Task
+from .multitask_speech_translation import SpeechTranslationMultiTask
 from .speech_recognition import SpeechRecognitionTask
 from .speech_translation_ctc import SpeechTranslationCTCTask
+from .speech_translation_ctc_kd import SpeechTranslationCTCWithKDTask
 from .speech_translation_dualdecoding import SpeechTranslationDualDecodingTask
 from .translation import TranslationTask
 
@@ -8,8 +10,10 @@ TASKS = {
     "speech_recognition": SpeechRecognitionTask,
     "speech_translation_with_transcription": SpeechTranslationCTCTask,
     "speech_translation_dualdecoding": SpeechTranslationDualDecodingTask,
+    "speech_translation_multitask": SpeechTranslationMultiTask,
+    "speech_translation_with_transcription_kd": SpeechTranslationCTCWithKDTask,
     "translation": TranslationTask,
 }
 
-__all__ = ["TASKS", "SpeechRecognitionTask", "SpeechTranslationCTCTask", "SpeechTranslationDualDecodingTask",
-           "Task", "TranslationTask"]
+__all__ = ["TASKS", "SpeechRecognitionTask", "SpeechTranslationCTCTask", "SpeechTranslationCTCWithKDTask",
+           "SpeechTranslationDualDecodingTask", "SpeechTranslationMultiTask", "Task", "TranslationTask"]

@@ -2,8 +2,8 @@
 lightconv presets' 4 heads over 512 dims) on the CPU: the routes (the bf16
 pair on the tensor cores, ``csrc/flash_bwd_tc128.cu``; the bf16 forward and
 the fp32 pair there too, ``tests/test_torch_flash_fwd_d128.py`` and
-``tests/test_torch_flash_bwd_tf32x3_d128.py``; the fp32 forward on the CUDA
-cores), the library and counters the pair takes, that a failing kernel raises and nothing stands in, and the
+``tests/test_torch_flash_bwd_tf32x3_d128.py``; the fp32 forward too,
+``tests/test_torch_flash_fwd_tf32x3_d128.py``), the library and counters the pair takes, that a failing kernel raises and nothing stands in, and the
 plain bf16 backward at D 128 against the JAX package's ``_bwd_impl``
 (Pallas in interpret mode).
 
@@ -22,28 +22,29 @@ from fbk_fairseq_st_tpu_torch.ops.kernels import flash_attention as tflash
 
 def test_d128_routes():
     """bf16 at D 128: the backward and the forward on the tensor cores
-    ("tc"); fp32 at D 128: the pair on the tensor cores ("tf32x3"), the
-    forward on the CUDA cores."""
+    ("tc"); fp32 at D 128: the pair and the forward on the tensor cores
+    ("tf32x3")."""
     assert tflash.split_route(torch.bfloat16, 128) == "tc"
     assert tflash.split_route(torch.float32, 128) == "tf32x3"
     assert tflash.fwd_route(torch.bfloat16, 128) == "tc"
-    assert tflash.fwd_route(torch.float32, 128) == "cuda_core"
+    assert tflash.fwd_route(torch.float32, 128) == "tf32x3"
     assert not tflash.use_fused_backward(torch.bfloat16, 128)
 
 
 def test_d128_pair_shapes():
     """Both pairs take D 128 with the grids of D 32/64 (any bh, at most
-    65,535 tiles of 64 rows or keys); so does the bf16 forward on the
-    tensor cores, and the fp32 one refuses D 128."""
+    65,535 tiles of 64 rows or keys); so do the forwards of both types on
+    the tensor cores."""
     for route in ("tc", "tf32x3"):
         for t, s in [(1, 1), (56, 56), (2048, 2048), (65535 * 64, 7), (3, 65535 * 64)]:
             tflash.tc_check_shape(128, t, s, route)
         for t, s in [(65535 * 64 + 1, 64), (64, 65535 * 64 + 1)]:
             with pytest.raises(ValueError, match="flash_bwd_" + route):
                 tflash.tc_check_shape(128, t, s, route)
-    tflash.fwd_check_shape("tc", 256, 56, 128)
-    with pytest.raises(ValueError, match="flash_fwd_tf32x3"):
-        tflash.fwd_check_shape("tf32x3", 256, 56, 128)
+    for route in ("tc", "tf32x3"):
+        tflash.fwd_check_shape(route, 256, 56, 128)
+        with pytest.raises(ValueError, match=tflash.TC_KERNELS[route][0]):
+            tflash.fwd_check_shape(route, 1, 65535 * 64 + 1, 128)
 
 
 @pytest.mark.parametrize("route,d,want", [

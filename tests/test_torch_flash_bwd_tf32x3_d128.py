@@ -171,8 +171,8 @@ def test_tf32x3_128_pair_matches_the_plain_backward_on_the_card(case):
     """fp32 at D 128 on the card, TF32 off on the plain side:
     ``flash_attention_backward`` launches the D 128 tf32x3 pair once each
     and nothing else; dq, dk and dv within 1e-4 of
-    ``flash_attention_backward_reference`` on the CUDA-core forward's out and
-    lse (3xTF32 products, the same keep bits), and bitwise equal across two
+    ``flash_attention_backward_reference`` on the D 128 tf32x3 forward's out
+    and lse (3xTF32 products, the same keep bits), and bitwise equal across two
     calls (each output written once)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")

@@ -28,11 +28,11 @@ def test_fwd_route(dtype, d):
     """The tensor cores take both types at kernel head dims 32 and 64
     (every model's heads and the time attention's padded F' = 20), as the
     split backward: bf16 as "tc", fp32 as "tf32x3" (three tf32 products a
-    product); at 128 (the iwslt presets' heads) the bf16 forward too
-    (``csrc/flash_fwd_tc.cu``) and both pairs, the fp32 forward on the CUDA
-    cores; 16 stays on the CUDA cores."""
+    product); at 128 (the iwslt presets' heads) both forwards too
+    (``csrc/flash_fwd_tc.cu``, ``csrc/flash_fwd_tf32x3.cu``) and both
+    pairs; 16 stays on the CUDA cores."""
     tc = {"bfloat16": "tc", "float32": "tf32x3"}[dtype]
-    want = tc if d in (32, 64) or (dtype, d) == ("bfloat16", 128) else "cuda_core"
+    want = tc if d != 16 else "cuda_core"
     assert tflash.fwd_route(DTYPES[dtype], d) == want
     assert tflash.split_route(DTYPES[dtype], d) == (tc if d != 16 else "cuda_core")
 
@@ -53,7 +53,7 @@ def test_tensor_core_forward_refuses_other_head_dims(d):
         tflash.fwd_check_shape("tc", 8, 128, d)
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_tf32x3_forward_shapes(d):
     """The fp32 tensor-core forward's grid is the bf16 one's: any bh, at
     most 65,535 q tiles of 64 rows."""
@@ -63,7 +63,7 @@ def test_tf32x3_forward_shapes(d):
         tflash.fwd_check_shape("tf32x3", 1, 65535 * 64 + 1, d)
 
 
-@pytest.mark.parametrize("d", [16, 20, 128])
+@pytest.mark.parametrize("d", [16, 20, 48])
 def test_tf32x3_forward_refuses_other_head_dims(d):
     with pytest.raises(ValueError, match="flash_fwd_tf32x3"):
         tflash.fwd_check_shape("tf32x3", 8, 128, d)

@@ -26,9 +26,10 @@ from fbk_fairseq_st_tpu_torch.scripts import bench_flash_sweep as tsweep
 def test_d128_forward_route_and_kernel():
     """bf16 at kernel head dim 128 takes the tensor-core forward, the D 32/64
     library's ``flash_fwd_tc``, whose launches at 128 count apart
-    (``launches_fwd_tc128``); fp32 at 128 stays on the CUDA cores."""
+    (``launches_fwd_tc128``); fp32 at 128 takes the tf32x3 forward
+    (``tests/test_torch_flash_fwd_tf32x3_d128.py``)."""
     assert tflash.fwd_route(torch.bfloat16, 128) == "tc"
-    assert tflash.fwd_route(torch.float32, 128) == "cuda_core"
+    assert tflash.fwd_route(torch.float32, 128) == "tf32x3"
     assert tflash.FORWARDS["tc"] is tflash.forward_tc
     assert list(tflash._SIGNATURES["flash_fwd_tc"]) == ["flash_fwd_tc"]
     tflash.reset_launches()

@@ -313,7 +313,26 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      ``knowledge_distillation`` at lambda 0.5 and temperature 2) in bf16
      for 3 updates, each launching 20 + 20 + 20 tensor-core kernels, the
      loss finite;
- 27. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+ 27. multilingual ST from files (main path 17), on phase 24's corpus with
+     a second target language (``nl``): ``cli/train`` trains
+     ``multilingual_conv_transformer`` at full width on ``en-de`` and
+     ``en-nl`` over one shared encoder (the target's language vector
+     prepended as a frame, its token as bos), bf16, 3 updates under
+     ``concat`` and 1 under ``sum``, each update launching 40 + 40 + 40
+     tensor-core kernels (each pair's 20) and each validation batch 40
+     forwards, each pair's loss logged; then ``cli/generate -s en -t de``
+     and ``-t nl`` on the ``concat`` run's checkpoint in fp32, 8 tf32x3
+     forwards a batch and nothing else, the H- lines equal to the
+     in-memory generator's through the pair view, and the card's logits
+     within 1e-3 of the plain CPU path's on 2 utterances;
+ 28. ``cli/generate_dualdecoder`` from files (main path 18): ``cli/train``
+     trains ``conv_transformer_dualdecoder`` at full width on phase 24's
+     corpus (``cross_entropy_dualdecoder`` 0.5 / 0.5), bf16, 2 updates of
+     32 + 32 + 32 tensor-core kernels; ``cli/generate_dualdecoder``
+     decodes the valid split in fp32 in batches of 32, 20 tf32x3 forwards
+     a batch and nothing else, an AUX- and an AUXD- line for every H- line,
+     the H- and AUX- lines equal to the in-memory two-phase generator's;
+ 29. the ``kernels`` line (the D 128 tensor-core kernels timed at the
      iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
@@ -597,6 +616,20 @@ MT_CLASSIFY_LAUNCHES = FLASH_LAUNCHES_PER_REQUEST  # the encoder's: 2 time atten
 KD_TOPK = 8
 KD_TOPK_LAUNCHES = CT_FLASH_CALLS_PER_STEP  # the teacher-forced forward: encoder 8, decoder 6 + 6
 KD_UPDATES = 3  # the student's updates through cli/train
+# phase 27 (on phase 24's corpus plus nl targets): multilingual ST, two
+# pairs over one shared encoder; each pair's passes are a conv_transformer
+# step's 20 flash calls
+ML_PAIRS = ("en-de", "en-nl")
+ML_FLASH_CALLS_PER_UPDATE = len(ML_PAIRS) * CT_FLASH_CALLS_PER_STEP
+ML_UPDATES = {"concat": 3, "sum": 1}  # cli/train's updates under each merge strategy
+ML_ARGS = ["--task", "multilingual_speech_translation", "--lang-pairs", ",".join(ML_PAIRS), "--share-encoders",
+           "--encoder-langtok", "tgt", "--decoder-langtok", "--arch", "multilingual_conv_transformer",
+           "--input-feat-per-channel", str(N_MELS), "--criterion", "label_smoothed_cross_entropy",
+           "--label-smoothing", "0.1"]
+# phase 28: the dual decoder trained through cli/train, then served by
+# cli/generate_dualdecoder in batches of 32 (phase 17's request size)
+DUAL_CLI_UPDATES = 2
+DUAL_CLI_BATCH = 32
 GRID_CAP_ROWS = 70_000
 # the single pass's bf16 out at bh 70,000 element by element: two bf16 ulps
 # of |plain| (72 M outputs reach further into the tail of P's rounding than
@@ -2822,20 +2855,27 @@ def write_split(modules, d, data_dir, split, n, tgt_len, tr_len, rng):
         frames.add_item(feats[:length])
     frames.finalize(os.path.join(data_dir, f"{split}.npz.idx"))
     for lang, lens in (("de", tgt_len), ("en", tr_len)):
-        d.save(os.path.join(data_dir, f"dict.{lang}.txt"))
-        text = idx.IndexedDatasetBuilder(os.path.join(data_dir, f"{split}.{lang}.bin"))
-        for _ in range(n):
-            text.add_item(np.append(rng.randint(4, len(d), size=rng.randint(lens[0], lens[1] + 1) - 1), d.eos()))
-        text.finalize(os.path.join(data_dir, f"{split}.{lang}.idx"))
+        write_text(modules, d, data_dir, split, lang, n, lens, rng)
     return sample["src_lengths"]
 
 
-def cli_train_launches(counts):
+def write_text(modules, d, data_dir, split, lang, n, lens, rng):
+    """``dict.{lang}.txt`` (``d``) and ``{split}.{lang}``: n token lines of
+    ``lens`` tokens over ``d``, each ending in eos, with ``IndexedDatasetBuilder``."""
+    d.save(os.path.join(data_dir, f"dict.{lang}.txt"))
+    text = modules["indexed_dataset"].IndexedDatasetBuilder(os.path.join(data_dir, f"{split}.{lang}.bin"))
+    for _ in range(n):
+        text.add_item(np.append(rng.randint(4, len(d), size=rng.randint(lens[0], lens[1] + 1) - 1), d.eos()))
+    text.finalize(os.path.join(data_dir, f"{split}.{lang}.idx"))
+
+
+def cli_train_launches(counts, calls=None):
     """The launches of one ``cli/train`` update of a conv_transformer-family
-    model in bf16 (phase 7's 20 + 20 + 20 tensor-core kernels) and of one of
-    its validation batches (20 forwards), as ``counts``' keys."""
-    return (step_launches(counts, 1, CT_FLASH_CALLS_PER_STEP),
-            {k: (CT_FLASH_CALLS_PER_STEP if k == BF16_FORWARD else 0) for k in counts})
+    model in bf16 (phase 7's 20 + 20 + 20 tensor-core kernels, or ``calls``
+    of each) and of one of its validation batches (``calls`` forwards), as
+    ``counts``' keys."""
+    calls = CT_FLASH_CALLS_PER_STEP if calls is None else calls
+    return (step_launches(counts, 1, calls), {k: (calls if k == BF16_FORWARD else 0) for k in counts})
 
 
 class _TrainRecorder:
@@ -2849,6 +2889,7 @@ class _TrainRecorder:
     def __init__(self, modules, fa, dconv, single):
         self.modules, self.counters = modules, (fa, dconv, single)
         self.updates, self.valid_batches, self.logged = [], [], []
+        self.update_keys = []  # the keys of each update's logging outputs
         self.update_starts, self.validate_s, self.save_s = [], [], []
         self.best_weights = None  # the model's weights when checkpoint_best was last written
         self._saved = []
@@ -2913,8 +2954,16 @@ class _TrainRecorder:
                 return out
             return call
 
+        def keyed(original):
+            def call(*args, **kwargs):
+                out = original(*args, **kwargs)
+                rec.update_keys.append(sorted(out or ()))
+                return out
+            return call
+
         trainer_cls, cli = self.modules["Trainer"], self.modules["train_cli"]
         self._wrap(trainer_cls, "train_step", counted(self.updates, self.update_starts))
+        self._wrap(trainer_cls, "train_step", keyed)
         self._wrap(trainer_cls, "valid_step", counted(self.valid_batches))
         self._wrap(trainer_cls, "valid_step", validating)
         self._wrap(cli, "validate", timed(self.validate_s))
@@ -2931,6 +2980,22 @@ class _TrainRecorder:
     def losses(self, tag):
         """The loss each update ("train") or validation batch ("valid") logged."""
         return [value for t, key, value in self.logged if t == tag and key == "loss"]
+
+
+def in_memory_update(trainer, sample):
+    """The in-memory update's median seconds over CLI_TIMED_STEPS (after one
+    warm-up) on ``sample``, staged once, and one profiled update's wall,
+    device busy time, top kernels and kernel classes."""
+    staged = trainer.stage_sample(sample)
+    step_s = []
+    for _ in range(CLI_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step([staged])
+        trainer.flush_logs()
+        step_s.append(time.perf_counter() - t0)
+    wall_s, busy_s, top, classes = profile_window(lambda: (trainer.train_step([staged]), trainer.flush_logs()))
+    return float(np.median(step_s[1:])), wall_s, busy_s, top, classes
 
 
 def train_from_files(card, d, fa, dconv, single, modules, tmp):
@@ -3007,16 +3072,7 @@ def train_from_files(card, d, fa, dconv, single, modules, tmp):
     task = trainer_a.task
     first = next(iter(modules["checkpoint"].get_train_iterator(trainer_a.args, trainer_a, task,
                                                                  epoch=0).next_epoch_itr(shuffle=True)))
-    staged = trainer_a.stage_sample(first)
-    step_s = []
-    for _ in range(CLI_TIMED_STEPS + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer_a.train_step([staged])
-        trainer_a.flush_logs()
-        step_s.append(time.perf_counter() - t0)
-    wall_s, busy_s, top, classes = profile_window(lambda: (trainer_a.train_step([staged]),
-                                                           trainer_a.flush_logs()))
+    step_s, wall_s, busy_s, top, classes = in_memory_update(trainer_a, first)
     gaps = [b - a for a, b in zip(rec_a.update_starts, rec_a.update_starts[1:])]
     per_epoch = len(rec_a.updates) // 2
     cli_update_ms = float(np.median([g for i, g in enumerate(gaps) if (i + 1) % per_epoch]) * 1e3)
@@ -3064,7 +3120,7 @@ def train_from_files(card, d, fa, dconv, single, modules, tmp):
     n_frames = {k: int(np.sum(v)) for k, v in frames.items()}
     emit({"phase": "train_from_files", "utterances": FILES_TRAIN_SPLITS, "frames": n_frames, "corpus_write_s": corpus_s,
           "updates": len(rec_a.updates), "valid_batches": len(rec_a.valid_batches), "cli_wall_s": wall_a,
-          "cli_update_ms_median": cli_update_ms, "train_step_ms_median_first_batch": float(np.median(step_s[1:])) * 1e3,
+          "cli_update_ms_median": cli_update_ms, "train_step_ms_median_first_batch": step_s * 1e3,
           "first_batch_utterances": int(first["nsentences"]), "first_batch_shape": list(first["net_input"]["src_tokens"].shape),
           "profiled_update_s": wall_s, "device_busy_ms": busy_s * 1e3, "device_idle_share": 1.0 - busy_s / wall_s,
           "top_kernels_s": top, "busy_by_class_s": classes, "validate_s": rec_a.validate_s, "save_s": rec_a.save_s,
@@ -3119,16 +3175,16 @@ def two_utterances(task, split, batch):
     return ds.collater([ds[int(i)] for i in batch["id"][:2]])
 
 
-def train_cli_run(modules, fa, dconv, single, argv):
+def train_cli_run(modules, fa, dconv, single, argv, calls=None):
     """``cli/train``'s ``cli_main`` on ``argv`` under a ``_TrainRecorder``;
     the launches of each update and validation batch, held to phase 7's 20
     + 20 + 20 tensor-core kernels an update and 20 forwards a validation
-    batch; the losses it logged finite. Returns the recorder and the
-    trainer."""
+    batch (or ``calls`` of each); the losses it logged finite. Returns the
+    recorder and the trainer."""
     with _TrainRecorder(modules, fa, dconv, single) as rec:
         trainer, _ = modules["train_cli"].cli_main(argv)
         torch.cuda.synchronize()
-    want_update, want_valid = cli_train_launches(launch_counts(fa, dconv, single))
+    want_update, want_valid = cli_train_launches(launch_counts(fa, dconv, single), calls)
     bad = [u for u in rec.updates if u != want_update] + [v for v in rec.valid_batches if v != want_valid]
     if bad or not rec.updates or not rec.valid_batches:
         raise AssertionError(f"cli/train {argv[1:6]}: launches {bad[:2]} off {want_update} an update / {want_valid} "
@@ -3330,6 +3386,250 @@ def kd_from_files(card, d, fa, dconv, single, modules, tmp):
 
 
 # ---------------------------------------------------------------------------
+# 27.-28. multilingual ST and cli/generate_dualdecoder from files
+# ---------------------------------------------------------------------------
+
+def multilingual_from_files(card, d, fa, dconv, single, modules, tmp):
+    """27. Main path 17: multilingual ST (COLING 2020) from phase 24's
+    corpus on the card. A second target language, ``nl`` (``{train,
+    valid}.nl`` over the same audio, ``dict.nl.txt`` of ``dict.de.txt``'s
+    size, the script's writer); ``cli/train`` trains
+    ``multilingual_conv_transformer`` at full width (256/768/4, 6 + 6, 80
+    mels) on ``en-de`` and ``en-nl`` with one shared encoder, the target's
+    language vector and bos token (ML_ARGS), label smoothing 0.1, the quick
+    start's optimisation in bf16: ML_UPDATES["concat"] updates under
+    ``concat`` and ML_UPDATES["sum"] under ``sum``, each update launching
+    40 + 40 + 40 tensor-core kernels (each pair's 20) and each validation
+    batch 40 forwards, every update logging a finite loss and each pair's
+    ``<pair>:loss``. Then ``cli/generate -s en -t de`` and ``-t nl`` on the
+    ``concat`` run's ``checkpoint_last.pt`` in fp32: 8 tf32x3 forwards a
+    batch and nothing else, H- lines equal to the in-memory generator's
+    through the pair view with the ``__de__`` / ``__nl__`` bos (tokens
+    identical, scores within FILES_SCORE_ATOL); the card's pair-view logits
+    on 2 utterances against the plain CPU path's at phase 8's tolerance.
+    Returns the launches of training and serving."""
+    import logging
+
+    phase_t0 = time.perf_counter()
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "multilingual.log"))
+    root.addHandler(handler)
+    data_dir = os.path.join(tmp, "data")
+    rng = np.random.RandomState(13)
+    for split, n in FILES_TRAIN_SPLITS.items():
+        write_text(modules, d, data_dir, split, "nl", n, FILES_TRAIN_TGT_LEN, rng)
+    ckpt = modules["checkpoint"]
+    reset_counts(fa, dconv, single)
+    runs, timing = {}, None
+    for merge, updates in ML_UPDATES.items():
+        t0 = time.perf_counter()
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            data_dir, *ML_ARGS, "--langtok-merge-strategy", merge, *OPTIM_ARGS, "--max-update", str(updates),
+            "--save-dir", os.path.join(tmp, f"multilingual_{merge}")], calls=ML_FLASH_CALLS_PER_UPDATE)
+        seconds = time.perf_counter() - t0
+        missing = [k for keys in rec.update_keys for k in ("loss", *(f"{p}:loss" for p in ML_PAIRS))
+                   if k not in keys]
+        if len(rec.updates) != updates or missing:
+            raise AssertionError(f"cli/train {merge}: {len(rec.updates)} updates, logging outputs without {missing}")
+        gaps = [b - a for a, b in zip(rec.update_starts, rec.update_starts[1:])]
+        runs[merge] = {"updates": len(rec.updates), "valid_batches": len(rec.valid_batches), "cli_s": seconds,
+                       "losses": rec.losses("train"), "valid_losses": rec.losses("valid"),
+                       "cli_update_ms_median": float(np.median(gaps)) * 1e3 if gaps else None,
+                       "launches_per_update": {k: v for k, v in rec.updates[0].items() if v}}
+        if timing is None:
+            timing = trainer
+        else:
+            del trainer
+    train_launches = launch_counts(fa, dconv, single)
+    # the in-memory update on the concat run's first batch, beside the CLI's
+    first = next(iter(ckpt.get_train_iterator(timing.args, timing, timing.task, epoch=0).next_epoch_itr(
+        shuffle=True)))
+    step_s, wall_s, busy_s, _, classes = in_memory_update(timing, first)
+    params = sum(p.numel() for p in timing.model.parameters())
+    del timing
+    torch.cuda.empty_cache()
+
+    last = os.path.join(tmp, "multilingual_concat", "checkpoint_last.pt")
+    options = modules["options"]
+    serve_launches = {k: 0 for k in train_launches}
+    served = {}
+    for pair in ML_PAIRS:
+        src, tgt = pair.split("-")
+        results = os.path.join(tmp, f"multilingual_results_{tgt}")
+        argv = [data_dir, "--task", "multilingual_speech_translation", "--lang-pairs", ",".join(ML_PAIRS),
+                "-s", src, "-t", tgt, "--encoder-langtok", "tgt", "--decoder-langtok", "--langtok-merge-strategy",
+                "concat", "--path", last, "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset",
+                "valid", "--max-tokens", "25000", "--results-path", results]
+        task, batches = cli_batches(modules, options.get_generation_parser(), argv, "valid")
+        before = launch_counts(fa, dconv, single)
+        t0 = time.perf_counter()
+        modules["generate_cli"].cli_main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = launch_counts(fa, dconv, single)
+        got = {k: after[k] - before[k] for k in after}
+        want = dict(step_launches(got, 0, 0), **{FP32_FORWARD: FLASH_LAUNCHES_PER_REQUEST * len(batches)})
+        if got != want:
+            raise AssertionError(f"cli/generate {pair}: launches {got}, expected {want}")
+        for k in got:
+            serve_launches[k] += got[k]
+        hyps, _ = read_records(os.path.join(results, "generate-valid.txt"))
+        tgt_dict = task.target_dictionary
+        bos = tgt_dict.index(f"__{tgt}__")
+        model = ckpt.load_model_ensemble([last], task=task)[0][0]
+        view = model.pair_view(pair)
+        gen = modules["SequenceGenerator"](tgt_dict, beam_size=BEAM, max_len_b=MAX_LEN_B)
+        same, worst, n = 0, 0.0, 0
+        with torch.no_grad():
+            for sample in batches:
+                hypos = gen.generate([view], sample, bos_token=bos)
+                check_hypotheses(hypos, tgt_dict.eos(), len(sample["id"]))
+                for sid, sent in zip(sample["id"], hypos):
+                    score, text = hyps[int(sid)]
+                    same += text == tgt_dict.string(sent[0]["tokens"])
+                    worst = max(worst, abs(score - sent[0]["score"] / math.log(2)))
+                    n += 1
+        # the card against the CPU on two utterances, teacher-forced
+        small = two_utterances(task, "valid", batches[0])
+        logits = []
+        for device in ("cuda", "cpu"):
+            m = model if device == "cuda" else ckpt.load_model_ensemble([last], task=task, device=device)[0][0]
+            batch = {k: torch.as_tensor(small["net_input"][k]).to(device)
+                     for k in ("src_tokens", "src_lengths", "prev_output_tokens")}
+            with torch.no_grad():
+                logits.append(m.pair_view(pair)(batch)[0].float().cpu())
+            del m
+        del model, view
+        card_cpu_err = (logits[0] - logits[1]).abs().max().item()
+        served[pair] = {"batches": len(batches), "utterances": n, "cli_s": seconds,
+                        "identical_top_hypotheses": f"{same}/{n}", "max_abs_score_diff_base2": worst,
+                        "card_vs_cpu_max_abs_logit_err": card_cpu_err, "bos": f"__{tgt}__"}
+        if not (n == len(hyps) == FILES_TRAIN_SPLITS["valid"] and same == n and worst <= FILES_SCORE_ATOL
+                and card_cpu_err <= ATOL_MODEL):
+            raise AssertionError(f"cli/generate {pair}: {same}/{n} identical, scores {worst} apart, card against "
+                                 f"CPU {card_cpu_err}")
+    root.removeHandler(handler)
+    handler.close()
+    emit({"phase": "multilingual_from_files", "arch": "multilingual_conv_transformer", "pairs": list(ML_PAIRS),
+          "params": params, "runs": runs, "train_step_ms_median_first_batch": step_s * 1e3,
+          "first_batch_pairs": {p: list(first[p]["net_input"]["src_tokens"].shape) for p in first},
+          "profiled_update_s": wall_s, "device_busy_ms": busy_s * 1e3, "device_idle_share": 1.0 - busy_s / wall_s,
+          "busy_by_class_s": classes, "serve": served, "atol": ATOL_MODEL, "score_atol": FILES_SCORE_ATOL,
+          "train_launches": {k: v for k, v in train_launches.items() if v},
+          "serve_launches": {k: v for k, v in serve_launches.items() if v},
+          "phase_s": time.perf_counter() - phase_t0, "card": card})
+    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+
+
+def read_dual_records(path):
+    """{kind: {id: (score, text)}} of the H-, AUX- and AUXD- lines of a
+    ``cli/generate_dualdecoder`` output file."""
+    out = {"H": {}, "AUX": {}, "AUXD": {}}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            head, _, rest = line.rstrip("\n").partition("\t")
+            kind, _, sid = head.partition("-")
+            if kind in out and sid.isdigit():
+                score, _, text = rest.partition("\t")
+                out[kind][int(sid)] = (float(score), text)
+    return out
+
+
+def dualdecoder_from_files(card, d, fa, dconv, single, modules, tmp):
+    """28. Main path 18: the dual decoder from phase 24's corpus on the
+    card. ``cli/train`` trains ``conv_transformer_dualdecoder`` at full
+    width with ``speech_translation_dualdecoding`` and
+    ``cross_entropy_dualdecoder`` (0.5 / 0.5, label smoothing 0.1) in bf16
+    for DUAL_CLI_UPDATES updates, each launching phase 19's 32 + 32 + 32
+    tensor-core kernels and each validation batch 32 forwards; then
+    ``cli/generate_dualdecoder`` decodes the valid split from
+    ``checkpoint_last.pt`` in fp32, beam 5, ``max_len_b`` 100, in batches of
+    DUAL_CLI_BATCH: 20 tf32x3 forwards a batch (phase 17's two-phase
+    request) and nothing else, an AUX- and an AUXD- line under every H-
+    line's score, the H- and AUX- lines equal to the in-memory
+    ``TwoPhaseSequenceGenerator``'s on those weights (tokens identical,
+    scores within FILES_SCORE_ATOL); one in-memory batch profiled. Returns
+    the launches."""
+    import logging
+
+    phase_t0 = time.perf_counter()
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "dualdecoder.log"))
+    root.addHandler(handler)
+    data_dir, save_dir = os.path.join(tmp, "data"), os.path.join(tmp, "dualdecoder")
+    reset_counts(fa, dconv, single)
+    t0 = time.perf_counter()
+    rec, trainer = train_cli_run(modules, fa, dconv, single, [
+        data_dir, "--task", "speech_translation_dualdecoding", "-s", "en", "-t", "de", "--arch", DUAL_ARCH,
+        "--input-feat-per-channel", str(N_MELS), "--criterion", "cross_entropy_dualdecoder",
+        "--primary-loss-weight", "0.5", "--auxiliary-loss-weight", "0.5", "--label-smoothing", "0.1", *OPTIM_ARGS,
+        "--max-update", str(DUAL_CLI_UPDATES), "--save-dir", save_dir], calls=DUAL_FLASH_CALLS_PER_STEP)
+    train_s = time.perf_counter() - t0
+    del trainer
+    torch.cuda.empty_cache()
+    train_launches = launch_counts(fa, dconv, single)
+
+    last = os.path.join(save_dir, "checkpoint_last.pt")
+    results = os.path.join(tmp, "dualdecoder_results")
+    argv = [data_dir, "--task", "speech_translation_dualdecoding", "-s", "en", "-t", "de", "--path", last,
+            "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset", "valid",
+            "--max-sentences", str(DUAL_CLI_BATCH), "--results-path", results]
+    task, batches = cli_batches(modules, modules["options"].get_generation_parser(
+        default_task="speech_translation_dualdecoding"), argv, "valid")
+    reset_counts(fa, dconv, single)
+    t0 = time.perf_counter()
+    modules["dual_cli"].cli_main(argv)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    serve_launches = launch_counts(fa, dconv, single)
+    want = dict(step_launches(serve_launches, 0, 0),
+                **{FP32_FORWARD: TWOPHASE_LAUNCHES_PER_REQUEST * len(batches)})
+    if serve_launches != want:
+        raise AssertionError(f"cli/generate_dualdecoder launches {serve_launches}, expected {want}")
+    records = read_dual_records(os.path.join(results, "generate-valid.txt"))
+    model = modules["checkpoint"].load_model_ensemble([last], task=task)[0][0]
+    src_dict, tgt_dict = task.source_dictionary, task.target_dictionary
+    gen = modules["TwoPhaseSequenceGenerator"](src_dict, tgt_dict, beam_size=BEAM, max_len_b=MAX_LEN_B)
+    same, worst, n, decode_s = 0, 0.0, 0, []
+    with torch.no_grad():
+        for sample in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hypos = gen.generate([model], sample)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+            check_hypotheses(hypos, tgt_dict.eos(), len(sample["id"]))
+            check_transcripts(hypos, src_dict.eos())
+            for sid, sent in zip(sample["id"], hypos):
+                score, text = records["H"][int(sid)]
+                aux_score, aux_text = records["AUX"][int(sid)]
+                same += (text == tgt_dict.string(sent[0]["tokens"])
+                         and aux_text == src_dict.string(sent[0]["transcript_tokens"])
+                         and records["AUXD"][int(sid)] == (aux_score, aux_text) and aux_score == score)
+                worst = max(worst, abs(score - sent[0]["score"] / math.log(2)))
+                n += 1
+        wall_s, busy_s, _, classes = profile_window(lambda: gen.generate([model], batches[0]))
+    del model
+    root.removeHandler(handler)
+    handler.close()
+    emit({"phase": "dualdecoder_from_files", "arch": DUAL_ARCH, "updates": len(rec.updates),
+          "valid_batches": len(rec.valid_batches), "train_cli_s": train_s, "losses": rec.losses("train"),
+          "launches_per_update": {k: v for k, v in rec.updates[0].items() if v},
+          "generate_batches": len(batches), "generate_cli_s": generate_s, "in_memory_decode_s": decode_s,
+          "profiled_batch_utterances": len(batches[0]["id"]), "profiled_decode_s": wall_s,
+          "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall_s, "busy_by_class_s": classes,
+          "generate_launches": {k: v for k, v in serve_launches.items() if v},
+          "h_aux_auxd_lines": [len(records[k]) for k in ("H", "AUX", "AUXD")],
+          "identical_hypotheses_and_transcripts": f"{same}/{n}", "max_abs_score_diff_base2": worst,
+          "score_atol": FILES_SCORE_ATOL, "phase_s": time.perf_counter() - phase_t0, "card": card})
+    if not (n == FILES_TRAIN_SPLITS["valid"] and all(len(records[k]) == n for k in records) and same == n
+            and worst <= FILES_SCORE_ATOL):
+        raise AssertionError(f"cli/generate_dualdecoder: {same}/{n} identical, {[len(v) for v in records.values()]} "
+                             f"H/AUX/AUXD lines, scores {worst} apart")
+    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+
+
+# ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
@@ -3382,6 +3682,7 @@ def main() -> int:
     t_start = time.perf_counter()
     from fbk_fairseq_st_tpu_torch import options, registry
     from fbk_fairseq_st_tpu_torch.cli import generate as generate_cli
+    from fbk_fairseq_st_tpu_torch.cli import generate_dualdecoder as dual_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_multitask_classifier as classifier_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_topk as topk_cli
     from fbk_fairseq_st_tpu_torch.cli import train as train_cli
@@ -3418,7 +3719,7 @@ def main() -> int:
                "generate_cli": generate_cli, "indexed_dataset": indexed_dataset, "search": search,
                "make_generators": make_generators, "specaugment": specaugment,
                "save_model_checkpoint": save_model_checkpoint, "train_cli": train_cli, "checkpoint": checkpoint,
-               "metrics": metrics, "classifier_cli": classifier_cli, "topk_cli": topk_cli}
+               "metrics": metrics, "classifier_cli": classifier_cli, "topk_cli": topk_cli, "dual_cli": dual_cli}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3505,8 +3806,12 @@ def main() -> int:
         drive("train_from_files", train_from_files, card, d, fa, dconv, single, modules, files_tmp)
         drive("multitask_from_files", multitask_from_files, card, d, fa, dconv, single, modules, files_tmp)
         drive("kd_from_files", kd_from_files, card, d, fa, dconv, single, modules, files_tmp)
+        # 27.-28. on the same corpus: multilingual ST trained and served,
+        # then the dual decoder trained and served by cli/generate_dualdecoder
+        drive("multilingual_from_files", multilingual_from_files, card, d, fa, dconv, single, modules, files_tmp)
+        drive("dualdecoder_from_files", dualdecoder_from_files, card, d, fa, dconv, single, modules, files_tmp)
 
-    # 27. kernels line, card line, ok line
+    # 29. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

@@ -4,12 +4,14 @@ from .cross_entropy_multi_task import CrossEntropyMultitask
 from .ctc import CTCCriterion, CTCMultiLoss
 from .knowledge_distillation import CrossEntropyKnowledgeDistillationCriterion
 from .label_smoothed_cross_entropy import (
+    CrossEntropyCriterion,
     LabelSmoothedCrossEntropyCriterion,
     label_smoothed_nll_from_logits,
     label_smoothed_nll_loss,
 )
 
 CRITERIONS = {
+    "cross_entropy": CrossEntropyCriterion,
     "label_smoothed_cross_entropy": LabelSmoothedCrossEntropyCriterion,
     "ctc_loss": CTCCriterion,
     "ctc_multi_loss": CTCMultiLoss,
@@ -20,6 +22,7 @@ CRITERIONS = {
 
 __all__ = [
     "CRITERIONS",
+    "CrossEntropyCriterion",
     "CrossEntropyDualDecoder",
     "CrossEntropyKnowledgeDistillationCriterion",
     "CrossEntropyMultitask",

@@ -7,6 +7,12 @@ sample_size = ntokens (nsentences with ``sentence_avg``). The criterion
 computes it from the logits with per-row reductions only
 (``label_smoothed_nll_from_logits``); ``label_smoothed_nll_loss`` is the
 log-softmax form, kept as its plain twin.
+
+``cross_entropy`` (JAX ``CrossEntropyCriterion`` :131-176, the parser's
+default criterion) is the plain NLL over the non-pad targets, from the
+logits in the same way; its ``reduce_metrics`` logs ``nll_loss`` only when
+the sample size is not the token count, and ``ppl`` from whichever of the
+two is per token.
 """
 
 from __future__ import annotations
@@ -98,4 +104,45 @@ class LabelSmoothedCrossEntropyCriterion(Criterion):
         if metrics is not None:
             metrics.log_derived("ppl", lambda meters: get_perplexity(meters["nll_loss"].avg))
         out["ppl"] = get_perplexity(out["nll_loss"])
+        return out
+
+
+class CrossEntropyCriterion(Criterion):
+    """Plain NLL (JAX :131-176; fairseq/criterions/cross_entropy.py)."""
+
+    def __call__(self, model, batch, generator=None, training: bool = False):
+        model.train(training)
+        net_output = model(batch, generator)
+        loss, _ = self.compute_loss(model, net_output, batch)
+        target = batch["target"]
+        ntokens = (target != self.padding_idx).sum()
+        nsentences = torch.full((), target.shape[0], dtype=torch.int64, device=target.device)
+        sample_size = nsentences if self.sentence_avg else ntokens
+        logging_output = {"loss": loss.detach(), "ntokens": ntokens, "nsentences": nsentences,
+                          "sample_size": sample_size}
+        return loss, sample_size, logging_output
+
+    def compute_loss(self, model, net_output, batch):
+        """(loss, loss): the summed NLL of ``net_output = (logits, extra)``
+        (the underlying loss of ``ctc_multi_loss`` too)."""
+        _, loss = label_smoothed_nll_from_logits(net_output[0], batch["target"], 0.0, self.padding_idx)
+        return loss, loss
+
+    @staticmethod
+    def reduce_metrics(logging_outputs: List[dict], metrics=None) -> Dict[str, float]:
+        """loss per sample-size unit in base 2; nll_loss per token when the
+        sample size counts sentences (JAX :158-176)."""
+        loss_sum, ntokens = sum_logs(logging_outputs, "loss"), sum_logs(logging_outputs, "ntokens")
+        sample_size = sum_logs(logging_outputs, "sample_size")
+        out = {"loss": loss_sum / sample_size / math.log(2)}
+        entries = [("loss", out["loss"], sample_size, 3)]
+        per_token = "loss"
+        if sample_size != ntokens:
+            out["nll_loss"] = loss_sum / ntokens / math.log(2)
+            entries.append(("nll_loss", out["nll_loss"], ntokens, 3))
+            per_token = "nll_loss"
+        log_scalars(metrics, entries)
+        if metrics is not None:
+            metrics.log_derived("ppl", lambda meters: get_perplexity(meters[per_token].avg))
+        out["ppl"] = get_perplexity(out[per_token])
         return out

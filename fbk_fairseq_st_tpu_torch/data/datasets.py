@@ -3,7 +3,8 @@
 The port's own copy of ``fbk_fairseq_st_tpu/data/datasets.py``
 (``collate_frames`` :104, ``apply_mv_norm`` :118, ``Seq2SeqCollater``
 :131, ``FilterBankToTextDataset`` :223, ``TranscriptionWrapperDataset``
-:279, ``MultiTaskDataset`` :428, ``ConcatDataset`` :589;
+:279, ``MultiTaskDataset`` :428, ``LangtokFilterBanksToTextDataset`` :473,
+``RoundRobinZipDatasets`` :520, ``ConcatDataset`` :589;
 ``collate_tokens`` :71 is
 ``language_pair_dataset.collate_tokens``), the reference contracts:
 
@@ -256,6 +257,96 @@ class MultiTaskDataset(Dataset):
 
     def ordered_indices(self):
         return self.base_dataset.ordered_indices()
+
+
+class LangtokFilterBanksToTextDataset(Dataset):
+    """The language-token wrapper of multilingual ST (reference
+    examples/speech_recognition/data/langtok_fbank_dataset.py): tags each
+    batch with the encoder's language (``net_input["langtok"]``, a name,
+    which the device batch drops) and rewrites the first previous-output
+    token of each real row from ``tgt_bos`` to ``tgt_langtok``. A
+    fixed-shape batch's padding rows keep the pad there."""
+
+    def __init__(self, wrapped_ds, lang_for_token=None, tgt_bos=None, tgt_langtok=None):
+        self.wrapped_ds = wrapped_ds
+        self.lang_for_token = lang_for_token
+        self.tgt_bos = tgt_bos
+        self.tgt_langtok = tgt_langtok
+
+    def __getitem__(self, index):
+        return self.wrapped_ds[index]
+
+    def __len__(self):
+        return len(self.wrapped_ds)
+
+    def collater(self, samples, **pad_kwargs):
+        batch = self.wrapped_ds.collater(samples, **pad_kwargs)
+        if not batch:
+            return {}
+        batch["net_input"]["langtok"] = self.lang_for_token
+        prev = batch["net_input"].get("prev_output_tokens")
+        if self.tgt_langtok is not None and prev is not None:
+            is_real = prev[:, 0] == self.tgt_bos
+            if not (is_real | (prev[:, 0] == 1)).all():  # 1: the pad of the padding rows
+                raise ValueError(f"a first previous-output token is neither bos {self.tgt_bos} nor pad")
+            prev[is_real, 0] = self.tgt_langtok
+        return batch
+
+    def num_tokens(self, index):
+        return self.wrapped_ds.num_tokens(index)
+
+    def size(self, index):
+        return self.wrapped_ds.size(index)
+
+    @property
+    def sizes(self):
+        return self.wrapped_ds.sizes
+
+    def ordered_indices(self):
+        return self.wrapped_ds.ordered_indices()
+
+
+class RoundRobinZipDatasets(Dataset):
+    """Zips datasets, going round over the shorter ones (reference
+    fairseq/data/round_robin_zip_datasets.py): item i is {key:
+    datasets[key][i % len(datasets[key])]} and the collater gives a dict of
+    per-key batches (each padded with the same keywords); an item's token
+    count is the largest of its parts', ``max_component_size`` the largest
+    of each size field, and the order the item order."""
+
+    def __init__(self, datasets):
+        if not isinstance(datasets, dict) or not datasets:
+            raise ValueError("RoundRobinZipDatasets needs a non-empty dict of datasets")
+        self.datasets = datasets
+
+    def _map_index(self, key, index):
+        return index % len(self.datasets[key])
+
+    def __getitem__(self, index):
+        return {key: ds[self._map_index(key, index)] for key, ds in self.datasets.items()}
+
+    def __len__(self):
+        return max(len(ds) for ds in self.datasets.values())
+
+    def collater(self, samples, **pad_kwargs):
+        if not samples:
+            return {}
+        return {key: ds.collater([s[key] for s in samples], **pad_kwargs) for key, ds in self.datasets.items()}
+
+    def num_tokens(self, index):
+        return max(ds.num_tokens(self._map_index(key, index)) for key, ds in self.datasets.items())
+
+    def size(self, index):
+        return {key: ds.size(self._map_index(key, index)) for key, ds in self.datasets.items()}
+
+    def max_component_size(self, index):
+        sizes = [ds.size(self._map_index(key, index)) for key, ds in self.datasets.items()]
+        if isinstance(sizes[0], tuple):
+            return tuple(max(s[i] for s in sizes) for i in range(len(sizes[0])))
+        return max(sizes)
+
+    def ordered_indices(self):
+        return np.arange(len(self), dtype=np.int64)
 
 
 class ConcatDataset(Dataset):

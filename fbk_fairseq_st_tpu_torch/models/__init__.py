@@ -2,14 +2,16 @@
 
 ``ARCHITECTURES`` maps each preset the port runs to its family's module,
 which has ``defaults(arch)`` and ``build_model(arch, tgt_dict,
-src_dict=None, device=None, seed=0, train=False, **overrides)``;
+src_dict=None, device=None, seed=0, train=False, **overrides)`` (the
+multilingual family takes the task's {language: Dictionary} in place of
+``tgt_dict``);
 ``build_model`` and ``arch_defaults`` dispatch on it, and an arch that no
 family has raises ``NotImplementedError``.
 """
 
 from typing import Any, Dict
 
-from . import conv_transformer, lightconv, multi_task, multitask_conv_transformer
+from . import conv_transformer, lightconv, multi_task, multilingual_conv_transformer, multitask_conv_transformer
 from .base import EncoderOut, reorder_encoder_out
 from .conv_transformer import ConvolutionalTransformerModel
 from .lightconv import LightConvModel
@@ -19,17 +21,19 @@ from .multi_task import (
     ConvolutionalTransformerTriangle,
     MultiTaskModel,
 )
+from .multilingual_conv_transformer import MultilingualConvolutionalTransformerModel
 from .multitask_conv_transformer import MultitaskConvolutionalTransformer
 
-ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task, multitask_conv_transformer)
+ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task, multitask_conv_transformer,
+                                             multilingual_conv_transformer)
                  for arch in family.ARCHITECTURES}
 
 
 def _family(arch: str):
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
-            f"--arch {arch}: the port has the conv_transformer, lightconv, multi-decoder and multitask "
-            "classifier families (ROADMAP Queue A items 4, 5 and 9)")
+            f"--arch {arch}: the port has the conv_transformer, lightconv, multi-decoder, multitask "
+            "classifier and multilingual families (ROADMAP Queue A items 4, 5 and 9)")
     return ARCHITECTURES[arch]
 
 
@@ -53,6 +57,7 @@ __all__ = [
     "EncoderOut",
     "LightConvModel",
     "MultiTaskModel",
+    "MultilingualConvolutionalTransformerModel",
     "MultitaskConvolutionalTransformer",
     "arch_defaults",
     "build_model",

@@ -429,6 +429,13 @@ def defaults(arch: str) -> Dict[str, Any]:
     return {**vars(args), **_POSITIONS}
 
 
+def apply_preset(arch: str, args) -> None:
+    """``arch``'s preset on a parsed namespace, as JAX's registry applies it:
+    the options it derives from others (the conv dims from the embedding
+    dims, the decoder's widths from the encoder's) follow the given ones."""
+    ARCHITECTURES[arch](args)
+
+
 def _kernel_sizes(value, default, layers: int) -> List[int]:
     sizes = default if value is None else (
         list(ast.literal_eval(value)) if isinstance(value, str) else list(value))

@@ -18,11 +18,17 @@ where it has them: as in JAX, the ``dynamicconv*`` presets then build
 lightweight convolutions unless ``--encoder-conv-type`` /
 ``--decoder-conv-type dynamic`` is given (ROADMAP Queue C).
 
-An option whose feature the port lacks raises ``NotImplementedError``
-naming its ROADMAP item when it is set (``NOT_PORTED``); flags of the JAX
-parser that only steer XLA or the TPU have no counterpart here, and its
-parity flags of the reference's fp16 and DDP machinery are accepted and
-change nothing, as in JAX.
+The port's parser takes every flag JAX's parser takes for the ported
+archs and tasks. An option whose feature the port lacks raises
+``NotImplementedError`` naming its ROADMAP item when it is set
+(``NOT_PORTED``). JAX's flags that steer only XLA or the TPU
+(``--prng-impl``, ``--jax-cache-dir``), its parity flags of the
+reference's fp16 and DDP machinery and the fork's model flags that JAX
+parses and never reads (``_FORK_MODEL_FLAGS``) are accepted and change
+nothing, as in JAX; ``--activation-dropout`` is JAX's alias of
+``--relu-dropout``; ``--use-pallas-attention`` / ``--no-pallas-attention``
+force the flash / the dense attention route, as JAX forces its Pallas
+kernels' route.
 """
 
 from __future__ import annotations
@@ -56,9 +62,28 @@ NOT_PORTED = {
     "use_bmuf": (False, "BMUF (ROADMAP Queue A item 6)"),
     "steps_per_execution": (1, "several updates a dispatch (ROADMAP Queue A item 8)"),
     "quantization_config_path": (None, "in-training quantisation (ROADMAP Queue A item 9)"),
+    "distributed_coordinator": (None, "multi-host training (ROADMAP Queue A item 6)"),
+    "distributed_num_processes": (None, "multi-host training (ROADMAP Queue A item 6)"),
+    "distributed_process_id": (None, "multi-host training (ROADMAP Queue A item 6)"),
+    "distributed_local_device_ids": (None, "multi-host training (ROADMAP Queue A item 6)"),
+    "block_lr": (1.0, "BMUF (ROADMAP Queue A item 6)"),
+    "block_momentum": (0.875, "BMUF (ROADMAP Queue A item 6)"),
+    "global_sync_iter": (50, "BMUF (ROADMAP Queue A item 6)"),
+    "warmup_iterations": (500, "BMUF (ROADMAP Queue A item 6)"),
+    "use_nbm": (False, "BMUF (ROADMAP Queue A item 6)"),
+    "average_sync": (False, "BMUF (ROADMAP Queue A item 6)"),
+    "allow_partial_restore": (False, "partial checkpoint restores (ROADMAP Queue A item 3)"),
+    "encoder_layers_to_keep": (None, "layer pruning at load (ROADMAP Queue A item 3)"),
+    "decoder_layers_to_keep": (None, "layer pruning at load (ROADMAP Queue A item 3)"),
+    "adaptive_softmax_dropout": (None, "the adaptive softmax (ROADMAP Queue A item 5)"),
+    "quant_noise_pq": (0, "quant-noise training (ROADMAP Queue A item 9)"),
+    "quant_noise_pq_block_size": (8, "quant-noise training (ROADMAP Queue A item 9)"),
+    "quant_noise_scalar": (0, "quant-noise training (ROADMAP Queue A item 9)"),
 }
 # values of an option in NOT_PORTED that mean "off" besides its default
-_ALSO_OFF = {"distributed_world_size": (1,)}
+_ALSO_OFF = {"distributed_world_size": (1,), "adaptive_softmax_dropout": (0,)}
+# options of NOT_PORTED that the archs of a family read
+_READ_BY = {"allow_partial_restore": "multilingual_conv_transformer"}
 # the JAX model parsers' explicit defaults, which win over a preset's
 _MODEL_PARSER_DEFAULTS = {
     "conv_transformer": {"no_attn_2d": False, "distance_penalty": False, "init_variance": 1.0,
@@ -67,6 +92,40 @@ _MODEL_PARSER_DEFAULTS = {
                   "decoder_conv_type": "lightweight", "weight_softmax": True},
 }
 _EVAL_BOOL = ("encoder_glu", "decoder_glu", "weight_softmax")
+# the JAX model parsers' flags that no preset of the port reads (flag ->
+# JAX's argparse keywords), by family: parsed and never read, as in JAX,
+# or a feature of another item (NOT_PORTED). Both families take JAX's
+# ``add_transformer_args``; a flag a preset reads keeps the preset's.
+_TRANSFORMER_FLAGS = {
+    "--activation-fn": dict(choices=["gelu", "gelu_accurate", "linear", "relu", "tanh"]),
+    "--encoder-embed-path": dict(type=str),
+    "--decoder-embed-path": dict(type=str),
+    "--decoder-output-dim": dict(type=int),
+    "--share-all-embeddings": dict(action="store_true"),
+    "--layernorm-embedding": dict(action="store_true"),
+    "--no-scale-embedding": dict(action="store_true"),
+    "--encoder-layerdrop": dict(type=float, default=0),
+    "--decoder-layerdrop": dict(type=float, default=0),
+    "--no-cross-attention": dict(action="store_true", default=False),
+    "--cross-self-attention": dict(action="store_true", default=False),
+    "--encoder-layers-to-keep": dict(default=None),
+    "--decoder-layers-to-keep": dict(default=None),
+    "--adaptive-softmax-dropout": dict(type=float),
+    "--quant-noise-pq": dict(type=float, default=0),
+    "--quant-noise-pq-block-size": dict(type=int, default=8),
+    "--quant-noise-scalar": dict(type=float, default=0),
+}
+_FORK_MODEL_FLAGS = {
+    "conv_transformer": {**_TRANSFORMER_FLAGS, "--normalization-constant": dict(type=float, default=1.0),
+                         "--freeze-pretrained": dict(action="store_true")},
+    "lightconv": _TRANSFORMER_FLAGS,
+}
+# a preset option's other flags (JAX's aliases)
+_ALIASES = {"relu_dropout": ("--activation-dropout",)}
+# preset options whose flag JAX's parser defines otherwise than the
+# preset's value type says (a kernel list stays the string JAX keeps)
+_FLAG_KWARGS = {"distance_penalty": dict(type=str, choices=["log", "gauss"]),
+                "encoder_kernel_size_list": dict(type=str), "decoder_kernel_size_list": dict(type=str)}
 
 
 def get_training_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
@@ -121,6 +180,12 @@ def get_parser(desc: str, default_task: str = "speech_recognition") -> argparse.
     parser.add_argument("--log-format", default=None, choices=["json", "none", "simple", "tqdm"])
     parser.add_argument("--profile", action="store_true", default=False,
                         help="record a torch.profiler trace of the run to <save-dir>/profile")
+    parser.add_argument("--use-pallas-attention", action="store_true", default=False,
+                        help="force the flash attention route (JAX: its Pallas kernels) everywhere")
+    parser.add_argument("--no-pallas-attention", action="store_true", default=False,
+                        help="take the dense attention route everywhere")
+    parser.add_argument("--prng-impl", default="rbg", choices=["rbg", "threefry2x32"],
+                        help="parity flag: JAX's dropout PRNG (the port draws from torch generators and Philox)")
     parser.add_argument("--device-prefetch", type=int, default=2, metavar="N",
                         help="stage N collated batches on the card ahead of the step (0 disables)")
     parser.add_argument("--log-sync-interval", type=int, default=1, metavar="N",
@@ -132,6 +197,7 @@ def get_parser(desc: str, default_task: str = "speech_recognition") -> argparse.
                         help="path to save logs for tensorboard")
     parser.add_argument("--seed", default=1, type=int, metavar="N", help="pseudo random number generator seed")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU instead of the CUDA card")
+    parser.add_argument("--jax-cache-dir", metavar="DIR", default=None, help="parity flag: XLA's compilation cache")
     parser.add_argument("--fp16", action="store_true", help="use mixed precision (bfloat16 here)")
     parser.add_argument("--bf16", action="store_true", help="use bfloat16 compute (params stay fp32)")
     parser.add_argument("--memory-efficient-fp16", action="store_true", help="parity flag; same as --fp16 here")
@@ -217,6 +283,14 @@ def add_distributed_training_args(parser):
     group.add_argument("--slowmo-momentum", default=None, type=float, help="parity flag")
     group.add_argument("--slowmo-algorithm", default="LocalSGD", choices=["LocalSGD", "SGP"], help="parity flag")
     group.add_argument("--localsgd-frequency", default=3, type=int, help="parity flag")
+    group.add_argument("--distributed-coordinator", default=None, metavar="HOST:PORT",
+                       help="multi-host training (not ported)")
+    group.add_argument("--distributed-num-processes", type=int, default=None, metavar="N",
+                       help="multi-host training (not ported)")
+    group.add_argument("--distributed-process-id", type=int, default=None, metavar="I",
+                       help="multi-host training (not ported)")
+    group.add_argument("--distributed-local-device-ids", default=None, metavar="IDS",
+                       help="multi-host training (not ported)")
     return group
 
 
@@ -239,6 +313,12 @@ def add_optimization_args(parser):
     group.add_argument("--min-lr", default=-1, type=float, metavar="LR",
                        help="stop training when the learning rate reaches this minimum")
     group.add_argument("--use-bmuf", default=False, action="store_true", help="BMUF (not ported)")
+    group.add_argument("--block-lr", default=1.0, type=float, help="BMUF (not ported)")
+    group.add_argument("--block-momentum", default=0.875, type=float, help="BMUF (not ported)")
+    group.add_argument("--global-sync-iter", default=50, type=int, help="BMUF (not ported)")
+    group.add_argument("--warmup-iterations", default=500, type=int, help="BMUF (not ported)")
+    group.add_argument("--use-nbm", action="store_true", default=False, help="BMUF (not ported)")
+    group.add_argument("--average-sync", action="store_true", default=False, help="BMUF (not ported)")
     return group
 
 
@@ -248,6 +328,8 @@ def add_checkpoint_args(parser):
     group.add_argument("--restore-file", default="checkpoint_last.pt", help="filename from which to load checkpoint")
     group.add_argument("--reset-dataloader", action="store_true")
     group.add_argument("--reset-lr-scheduler", action="store_true")
+    group.add_argument("--allow-partial-restore", action="store_true",
+                       help="warm-start a multilingual model from a checkpoint holding keys it lacks")
     group.add_argument("--reset-meters", action="store_true")
     group.add_argument("--reset-optimizer", action="store_true")
     group.add_argument("--optimizer-overrides", default="{}", type=str, metavar="DICT")
@@ -286,25 +368,37 @@ def _add_arch_args(parser, arch: str) -> None:
     (the preset fills what is not given), but for the JAX parser's explicit
     defaults; flags the parser already has (the task's
     ``--max-source-positions``, the criterion's ``--ctc-encoder-layer``)
-    keep their definition."""
+    keep their definition. Then the family's flags of JAX's model parser
+    that no preset reads (``_FORK_MODEL_FLAGS``)."""
     group = parser.add_argument_group("Model-specific configuration", argument_default=argparse.SUPPRESS)
-    family = ARCHITECTURES[arch].__name__.rsplit(".", 1)[-1]
-    explicit = _MODEL_PARSER_DEFAULTS.get("lightconv" if family == "lightconv" else "conv_transformer", {})
+    family = "lightconv" if _family_name(arch) == "lightconv" else "conv_transformer"
+    explicit = _MODEL_PARSER_DEFAULTS.get(family, {})
     for name, value in arch_defaults(arch).items():
         flag = "--" + name.replace("_", "-")
         if name == "criterion" or flag in parser._option_string_actions:
             continue
         kwargs = {"default": explicit[name]} if name in explicit else {}
-        if name in _EVAL_BOOL:
-            group.add_argument(flag, type=eval_bool, **kwargs)
+        flags = (flag, *_ALIASES.get(name, ()))
+        if name in _FLAG_KWARGS:
+            group.add_argument(*flags, dest=name, **_FLAG_KWARGS[name], **kwargs)
+        elif name in _EVAL_BOOL:
+            group.add_argument(*flags, dest=name, type=eval_bool, **kwargs)
         elif isinstance(value, bool):
-            group.add_argument(flag, action="store_true", **kwargs)
+            group.add_argument(*flags, dest=name, action="store_true", **kwargs)
         elif isinstance(value, list):
-            group.add_argument(flag, type=lambda x: eval_str_list(x, int), **kwargs)
+            group.add_argument(*flags, dest=name, type=lambda x: eval_str_list(x, int), **kwargs)
         elif isinstance(value, (int, float)):
-            group.add_argument(flag, type=_number, **kwargs)
+            group.add_argument(*flags, dest=name, type=_number, **kwargs)
         else:
-            group.add_argument(flag, type=str, **kwargs)
+            group.add_argument(*flags, dest=name, type=str, **kwargs)
+    for flag, kwargs in _FORK_MODEL_FLAGS[family].items():
+        if flag not in parser._option_string_actions:
+            group.add_argument(flag, **kwargs)
+
+
+def _family_name(arch) -> Optional[str]:
+    """The port's model family (its module's name) of ``arch``, None for an arch it lacks."""
+    return ARCHITECTURES[arch].__name__.rsplit(".", 1)[-1] if arch in ARCHITECTURES else None
 
 
 def add_common_eval_args(group) -> None:
@@ -354,8 +448,11 @@ def add_generation_args(parser):
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a set option the port lacks."""
+    """Raise ``NotImplementedError`` for a set option the port lacks (but
+    where the arch reads it, ``_READ_BY``)."""
     for name, (off, what) in NOT_PORTED.items():
+        if name in _READ_BY and _family_name(getattr(args, "arch", None)) == _READ_BY[name]:
+            continue
         value = getattr(args, name, off)
         if value != off and value not in _ALSO_OFF.get(name, ()):
             raise NotImplementedError(f"--{name.replace('_', '-')}: {what} is not ported")
@@ -390,6 +487,10 @@ def parse_args_and_arch(parser: argparse.ArgumentParser, input_args: Optional[Li
     check_ported(args)
     if getattr(args, "arch", None) is not None:
         registry.apply_architecture(args)
+    if getattr(args, "no_pallas_attention", False) or getattr(args, "use_pallas_attention", False):
+        from .ops.attention import set_flash_attention
+
+        set_flash_attention(not getattr(args, "no_pallas_attention", False))
     return (args, extra) if parse_known else args
 
 

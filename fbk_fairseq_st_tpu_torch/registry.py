@@ -7,8 +7,9 @@ fairseq/registry.py and fairseq/models/__init__.py:124-159): ``TASKS``,
 ``Registry`` whose entries may add their CLI flags (``add_args``);
 ``apply_architecture`` fills every option of ``args.arch`` that the
 namespace lacks with the preset's value (the JAX presets'
-``args.x = getattr(args, "x", default)``), so a parsed or checkpointed
-namespace carries the whole configuration.
+``args.x = getattr(args, "x", default)``; a lightconv preset runs on the
+namespace itself, so the options it derives follow the given ones), so a
+parsed or checkpointed namespace carries the whole configuration.
 """
 
 from __future__ import annotations
@@ -52,6 +53,9 @@ def apply_architecture(args: argparse.Namespace) -> None:
     if arch is None:
         return
     defaults = models.arch_defaults(arch)
+    family = models.ARCHITECTURES[arch]
+    if hasattr(family, "apply_preset"):  # a preset whose defaults derive from given options
+        family.apply_preset(arch, args)
     for name, value in defaults.items():
         if not hasattr(args, name):
             setattr(args, name, value)

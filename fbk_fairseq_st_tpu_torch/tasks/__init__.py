@@ -1,4 +1,7 @@
 from .base import Task
+from .multilingual_speech_translation import (MultilingualSpeechTranslationTask,
+                                              MultilingualSpeechTranslationWithTranscriptionTask)
+from .multilingual_speech_translation_kd import MultilingualSpeechTranslationWithTranscriptionKDTask
 from .multitask_speech_translation import SpeechTranslationMultiTask
 from .speech_recognition import SpeechRecognitionTask
 from .speech_translation_ctc import SpeechTranslationCTCTask
@@ -13,7 +16,12 @@ TASKS = {
     "speech_translation_multitask": SpeechTranslationMultiTask,
     "speech_translation_with_transcription_kd": SpeechTranslationCTCWithKDTask,
     "translation": TranslationTask,
+    "multilingual_speech_translation": MultilingualSpeechTranslationTask,
+    "multilingual_speech_translation_with_transcr": MultilingualSpeechTranslationWithTranscriptionTask,
+    "multilingual_speech_translation_with_transcr_kd": MultilingualSpeechTranslationWithTranscriptionKDTask,
 }
 
-__all__ = ["TASKS", "SpeechRecognitionTask", "SpeechTranslationCTCTask", "SpeechTranslationCTCWithKDTask",
-           "SpeechTranslationDualDecodingTask", "SpeechTranslationMultiTask", "Task", "TranslationTask"]
+__all__ = ["TASKS", "MultilingualSpeechTranslationTask", "MultilingualSpeechTranslationWithTranscriptionKDTask",
+           "MultilingualSpeechTranslationWithTranscriptionTask", "SpeechRecognitionTask", "SpeechTranslationCTCTask",
+           "SpeechTranslationCTCWithKDTask", "SpeechTranslationDualDecodingTask", "SpeechTranslationMultiTask", "Task",
+           "TranslationTask"]

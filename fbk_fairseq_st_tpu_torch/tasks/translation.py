@@ -87,6 +87,13 @@ class TranslationTask(Task):
         parser.add_argument("--load-alignments", action="store_true")
         parser.add_argument("--truncate-source", action="store_true", default=False)
         parser.add_argument("--eval-bleu", action="store_true")
+        # read only under --eval-bleu (which raises), as in JAX
+        parser.add_argument("--eval-bleu-detok", type=str, default="space")
+        parser.add_argument("--eval-bleu-detok-args", type=str, metavar="JSON")
+        parser.add_argument("--eval-tokenized-bleu", action="store_true", default=False)
+        parser.add_argument("--eval-bleu-remove-bpe", nargs="?", const="@@ ", default=None)
+        parser.add_argument("--eval-bleu-args", type=str, metavar="JSON")
+        parser.add_argument("--eval-bleu-print-samples", action="store_true")
 
     def __init__(self, args, src_dict, tgt_dict):
         super().__init__(args)

@@ -62,8 +62,11 @@ def analyze_failing_step(trainer, batch) -> List[str]:
         model.eval()
         with torch.no_grad():
             net_output = model(batch)
-        logits = net_output[0] if isinstance(net_output, tuple) else net_output
-        findings.extend(check_named([("logits", logits)], "forward"))
+        # a multilingual model gives {pair: (logits, extra)}
+        outputs = net_output.items() if isinstance(net_output, dict) else [("logits", net_output)]
+        for name, out in outputs:
+            logits = out[0] if isinstance(out, tuple) else out
+            findings.extend(check_named([(name, logits)], "forward"))
     except Exception as e:  # a diagnostic path: report, never mask the first error
         findings.append(f"forward itself failed: {e}")
     finally:

@@ -42,7 +42,12 @@ Counterpart of ``fbk_fairseq_st_tpu/train/trainer.py`` (``train_step``
     before saving (the counterpart of JAX's ``log_sync_interval``);
   * ``stage_sample`` copies a collated batch to the card ahead of its step
     (pinned memory, ``non_blocking`` on a side stream); the step waits on
-    the copy's event.
+    the copy's event;
+  * a multilingual batch is a dict of per-pair sub-batches (JAX :281-292,
+    :456-480, :565-580): each is staged and moved as a flat batch, the
+    ``ntokens`` and ``nsentences`` logged are their sums, and the
+    criterion sums its loss over the pairs, so an update is one loss and
+    one backward, the gradients of JAX's single step over all pairs.
 
 The mesh features of the JAX trainer (TP, FSDP, sequence parallelism,
 ring attention, BMUF) raise here (ROADMAP Queue A item 6),
@@ -73,6 +78,12 @@ _NOT_YET = {
     "quant_noise_scalar": (0, "scalar quant-noise (ROADMAP Queue A item 9)"),
 }
 _META = ("net_input", "id", "ntokens", "nsentences", "_staged")
+
+
+def is_nested(sample) -> bool:
+    """A multilingual sample, collated or on the device: a dict of per-pair
+    sub-batches."""
+    return bool(sample) and "net_input" not in sample and all(isinstance(v, dict) for v in sample.values())
 
 
 def update_seed(seed: int, num_updates: int) -> int:
@@ -125,6 +136,8 @@ class Trainer:
         is given back as it is."""
         if not sample or self.device is None or self.device.type != "cuda":
             return sample
+        if is_nested(sample):
+            return {pair: self.stage_sample(sub) for pair, sub in sample.items()}
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
 
@@ -155,9 +168,13 @@ class Trainer:
         JAX ``_device_batch`` (:456) keeps them. Integer arrays become int64
         and the float features take the compute type, which
         ``compute_dtype`` names for a model that has no float input. A
-        staged sample's copies are waited for on the current stream."""
+        staged sample's copies are waited for on the current stream. A
+        nested sample gives a dict of such batches, one a pair with data."""
         if not sample:
             return None
+        if is_nested(sample):
+            nested = {pair: self._device_batch(sub) for pair, sub in sample.items()}
+            return {pair: b for pair, b in nested.items() if b is not None} or None
         event = sample.get("_staged")
         if event is not None:
             torch.cuda.current_stream(self.device).wait_event(event)
@@ -180,7 +197,8 @@ class Trainer:
 
     @staticmethod
     def _sample_meta(sample) -> Dict[str, int]:
-        return {"ntokens": int(sample.get("ntokens", 0) or 0), "nsentences": int(sample.get("nsentences", 0) or 0)}
+        subs = sample.values() if is_nested(sample) else (sample,)
+        return {key: sum(int(sub.get(key, 0) or 0) for sub in subs) for key in ("ntokens", "nsentences")}
 
     # ------------------------------------------------------------------
     # the update

@@ -217,7 +217,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "optim/lr_schedulers.py", "models/multitask_conv_transformer.py", "criterions/cross_entropy_multi_task.py",
             "criterions/knowledge_distillation.py", "tasks/multitask_speech_translation.py",
             "tasks/speech_translation_ctc_kd.py", "data/knowledge_distillation.py",
-            "cli/generate_multitask_classifier.py", "cli/generate_topk.py"} <= covered
+            "cli/generate_multitask_classifier.py", "cli/generate_topk.py", "models/multilingual_conv_transformer.py",
+            "tasks/multilingual_speech_translation.py", "tasks/multilingual_speech_translation_kd.py",
+            "cli/generate_dualdecoder.py"} <= covered
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "flax", "optax", "fbk_fairseq_st_tpu"}, (path, roots)

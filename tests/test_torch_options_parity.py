@@ -1,0 +1,150 @@
+"""PyTorch port, the training parser against JAX's: every option string
+that JAX's ``parse_args_and_arch`` takes for a ported arch and its task is
+either accepted by the port's, with the same value wherever both set the
+dest, or refused with ``NotImplementedError`` naming its ROADMAP item.
+
+Each flag is parsed alone on top of the arch's and task's base command
+line, with a value that differs from its default where it takes one.
+Component selectors (``--arch``, ``--task``, ``--criterion``, ...) and the
+positional data directory are part of the base. JAX's ``--user-dir``
+imports a module at the parse, so only the port's parser takes it (and
+refuses it). The attention-route flags set a process-wide route in both
+packages; each parse is followed by a reset."""
+
+import argparse
+
+import numpy as np
+import pytest
+
+import fbk_fairseq_st_tpu.models.multilingual_conv_transformer  # noqa: F401  (registers the JAX model)
+import fbk_fairseq_st_tpu.tasks.multilingual_speech_translation  # noqa: F401  (registers the JAX task)
+from fbk_fairseq_st_tpu import options as joptions
+from fbk_fairseq_st_tpu.ops import attention as jattention
+from fbk_fairseq_st_tpu_torch import options as toptions
+from fbk_fairseq_st_tpu_torch.ops import attention as tattention
+
+CASES = {
+    "conv_transformer": ["--task", "speech_translation_with_transcription", "-s", "en", "-t", "de"],
+    "conv_transformer_dualdecoder": ["--task", "speech_translation_dualdecoding", "-s", "en", "-t", "de"],
+    "multitask_conv_transformer": ["--task", "speech_translation_multitask", "-t", "de"],
+    "multilingual_conv_transformer": ["--task", "multilingual_speech_translation", "--lang-pairs", "en-de,en-nl"],
+    "dynamicconv_iwslt_de_en": ["--task", "translation", "-s", "de", "-t", "en"],
+}
+SELECTORS = {"--arch", "-a", "--task", "--criterion", "--optimizer", "--lr-scheduler", "--tokenizer", "--bpe",
+             "-h", "--help"}
+# values in the formats the flags parse (lists, tuples, expressions, choices)
+VALUES = {
+    "--encoder-convolutions": "[(4, 3, 3)] * 2", "--encoder-kernel-size-list": "[3, 5]",
+    "--decoder-kernel-size-list": "[3, 5]", "--lr": "0.5", "--update-freq": "2", "--adam-betas": "(0.8, 0.9)",
+    "--lang-pairs": "en-de,en-fr", "--optimizer-overrides": "{'lr': 0.1}", "--jax-cache-dir": "none",
+    "--max-tokens": "400", "--eval-bleu-args": "{}", "--eval-bleu-detok-args": "{}", "--encoder-glu": "False",
+    "--decoder-glu": "False", "--weight-softmax": "False", "--left-pad-source": "False",
+    "--left-pad-target": "True", "--adaptive-softmax-cutoff": "1000,4000",
+}
+
+
+def _base(arch):
+    return ["/nonexistent", "--arch", arch, "--criterion", "label_smoothed_cross_entropy", *CASES[arch]]
+
+
+def _reset_routes():
+    jattention.set_flash_attention(None)
+    tattention.set_flash_attention(None)
+
+
+def _jax_parser(arch):
+    parser = joptions.get_training_parser()
+    joptions.parse_args_and_arch(parser, _base(arch), parse_known=True)
+    _reset_routes()
+    return parser
+
+
+def _value(flag, action):
+    """The command-line words that set ``action`` to other than its default."""
+    if action.nargs == 0:
+        return [flag]
+    if flag in VALUES:
+        return [flag, VALUES[flag]]
+    if action.choices:
+        return [flag, str(next(c for c in action.choices if c != action.default))]
+    for candidate in ("3", "5", "0.375", "True", "x"):
+        try:
+            if action.type is None or action.type(candidate) != action.default:
+                return [flag, candidate]
+        except (TypeError, ValueError, SyntaxError):
+            continue
+    raise AssertionError(f"no value for {flag}")
+
+
+def _parse(parse, argv):
+    try:
+        return parse(argv)
+    finally:
+        _reset_routes()
+
+
+@pytest.mark.parametrize("arch", sorted(CASES))
+def test_port_parser_takes_or_refuses_every_jax_flag(arch):
+    """For every option string of JAX's training parser: the port's parser
+    accepts it and sets each dest that JAX's sets to the same value, or
+    raises NotImplementedError naming a ROADMAP Queue A item. The refused
+    flags are the multi-host, BMUF, pruning, quant-noise, adaptive-softmax,
+    JSON-audio and user-module ones."""
+    jparser = _jax_parser(arch)
+    refused, accepted = [], []
+    for flag, action in sorted(jparser._option_string_actions.items()):
+        if flag in SELECTORS or not flag.startswith("-"):
+            continue
+        argv = _base(arch) + _value(flag, action)
+        try:
+            targs = _parse(lambda a: toptions.parse_args_and_arch(toptions.get_training_parser(), a), argv)
+        except NotImplementedError as e:
+            assert "ROADMAP Queue A item" in str(e), (flag, str(e))
+            refused.append(flag)
+            continue
+        except SystemExit:
+            raise AssertionError(f"the port's parser refuses {argv[-2:]}")
+        accepted.append(flag)
+        if flag == "--user-dir":
+            raise AssertionError("--user-dir is accepted")
+        jargs = _parse(lambda a: joptions.parse_args_and_arch(joptions.get_training_parser(), a), argv)
+        for dest in sorted(set(vars(jargs)) & set(vars(targs))):
+            want, got = getattr(jargs, dest), getattr(targs, dest)
+            assert got == want or (isinstance(want, float) and np.isclose(got, want)), (flag, dest, got, want)
+    assert len(accepted) > 100
+    assert {"--use-bmuf", "--block-lr", "--distributed-coordinator", "--encoder-layers-to-keep",
+            "--quant-noise-pq", "--user-dir"} <= set(refused)
+    assert "--allow-partial-restore" in (accepted if arch.startswith("multilingual") else refused)
+
+
+@pytest.mark.parametrize("arch", sorted(CASES))
+def test_activation_dropout_is_relu_dropout(arch):
+    """``--activation-dropout 0.3`` sets ``relu_dropout`` to 0.3 in both
+    parsers (JAX's alias, ``models/transformer_args.py:19-21``), and
+    ``--relu-dropout`` still does."""
+    for flag in ("--activation-dropout", "--relu-dropout"):
+        argv = _base(arch) + [flag, "0.3"]
+        jargs = _parse(lambda a: joptions.parse_args_and_arch(joptions.get_training_parser(), a), argv)
+        targs = _parse(lambda a: toptions.parse_args_and_arch(toptions.get_training_parser(), a), argv)
+        assert targs.relu_dropout == jargs.relu_dropout == 0.3
+        assert not hasattr(targs, "activation_dropout")
+
+
+def test_attention_route_flags_set_the_route():
+    """``--no-pallas-attention`` takes the dense route everywhere and
+    ``--use-pallas-attention`` the flash route, as JAX's flags pick its
+    XLA or its Pallas route."""
+    import torch
+
+    x = torch.zeros(1)
+    base = _base("conv_transformer")
+    try:
+        toptions.parse_args_and_arch(toptions.get_training_parser(), base + ["--use-pallas-attention"])
+        assert tattention.flash_enabled(x)
+        toptions.parse_args_and_arch(toptions.get_training_parser(), base + ["--no-pallas-attention"])
+        assert not tattention.flash_enabled(x)
+    finally:
+        _reset_routes()
+    args = toptions.parse_args_and_arch(toptions.get_training_parser(), _base("conv_transformer") + [
+        "--prng-impl", "threefry2x32", "--jax-cache-dir", "none", "--freeze-pretrained", "--encoder-layerdrop", "0.2"])
+    assert isinstance(args, argparse.Namespace) and args.encoder_layerdrop == 0.2 and args.freeze_pretrained

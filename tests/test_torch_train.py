@@ -395,7 +395,7 @@ def test_off_path_training_options_raise():
                               torch_dictionary()).load_dataset("train")
     task = SpeechRecognitionTask(args, torch_dictionary())
     with pytest.raises(NotImplementedError):
-        task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "cross_entropy"}))
+        task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "cross_entropy_acc"}))
     model = tct.build_model("conv_transformer", torch_dictionary(), device="cpu", **SMALL)
     crit = task.build_criterion(args)
     for option in (dict(fsdp=True), dict(steps_per_execution=4), dict(use_bmuf=True),

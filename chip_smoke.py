@@ -332,7 +332,30 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      decodes the valid split in fp32 in batches of 32, 20 tf32x3 forwards
      a batch and nothing else, an AUX- and an AUXD- line for every H- line,
      the H- and AUX- lines equal to the in-memory two-phase generator's;
- 29. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+ 29. context-aware ST from files (main path 19), on phase 24's corpus
+     with its context files (``{split}.context.de``: line i the target of
+     line i-1, line 0 ``</s>``; ``{split}.context.npz``: utterance i-1's
+     frames, utterance 0 zeros of its own length; the port's builders):
+     ``cli/train`` trains ``conv_transformer_context`` at full width
+     (256/768/4, 6 + 6 layers, 80 mels, one context layer) from phase 24's
+     ``checkpoint_best.pt`` (``--pretrained-model``, ``--freeze-pretrained
+     encoder``, weight decay 0.01, ``label_smoothed_cross_entropy_ctxreg``
+     alpha 0.3), bf16: ``tgt`` context with parallel gating for 3
+     updates of 33 tensor-core forwards and 30 pairs each, ``src`` with
+     sequential gating for 2 updates of 41 forwards and 30 pairs; every
+     frozen parameter bitwise the checkpoint's after them, every trainable
+     one moved, the encoder's BatchNorm statistics moved, the gate penalty
+     above 0; then ``cli/generate`` in fp32, beam 5: the ``tgt`` model
+     over 8 single-utterance requests chained in corpus order (15 tf32x3
+     forwards each, each context the previous best hypothesis, the H-
+     lines the in-memory chained generator's), the ``src`` model over the
+     valid split in batches of 32 (23 forwards each); the card's logits
+     within 1e-3 of the CPU's on 2 utterances for each; the update's and
+     request's times, busy time and idle share; first, the flash route on
+     rows with every key masked (a shape bucket's padding rows, which the
+     ctxreg penalty sends a gradient) against its plain version in both
+     types, every value finite;
+ 30. the ``kernels`` line (the D 128 tensor-core kernels timed at the
      iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
@@ -630,6 +653,32 @@ ML_ARGS = ["--task", "multilingual_speech_translation", "--lang-pairs", ",".join
 # cli/generate_dualdecoder in batches of 32 (phase 17's request size)
 DUAL_CLI_UPDATES = 2
 DUAL_CLI_BATCH = 32
+# phase 29: context-aware ST (conv_transformer_context) on phase 24's
+# corpus, its context files beside it; the pretrained model phase 24's
+# checkpoint_best.pt with --freeze-pretrained encoder. The launches an
+# update, from the code (written down before the first run): tgt, 33
+# forwards (phase 7's 20, the text context encoder's 1, the encoder's 6 and
+# the decoder's 6 context attentions) and 30 pairs (the frozen front end's
+# 2 time attentions and encoder layer 0's self-attention have no input that
+# needs a gradient); src, 41 forwards (the frozen audio context encoder's
+# 8 more, in eval mode, and its context layer's 1 in place of the text
+# encoder's) and 30 pairs; a validation batch the forwards. A request
+# (cli/generate, fp32): the encoder's 8, the context encoder's 1 and the
+# encoder's 6 context attentions, 15 tf32x3 forwards, and the audio
+# encoder's 8 more for src; the decoder's context attention reads its
+# precomputed K/V (the dense route)
+CTX_ARCH = "conv_transformer_context"
+CTX_UPDATES = {"tgt": 3, "src": 2}
+CTX_FORWARDS = {"tgt": 33, "src": 41}
+CTX_BACKWARDS = {"tgt": 30, "src": 30}
+CTX_REQUEST_LAUNCHES = {"tgt": 15, "src": 23}
+CTX_ATTENTION = {"tgt": "parallel", "src": "sequential"}
+CTX_SERVE_UTTERANCES = 8  # chained single-utterance requests (tgt), --max-sentences 1
+CTX_SRC_BATCH = 32
+CTX_ARGS = ["--task", "speech_recognition_context", "-t", "de", "--arch", CTX_ARCH, "--input-feat-per-channel",
+            str(N_MELS), "--context-encoder-layers", "1", "--criterion", "label_smoothed_cross_entropy_ctxreg",
+            "--label-smoothing", "0.1", "--ctx-reg-alpha", "0.3", "--freeze-pretrained", "encoder",
+            "--weight-decay", "0.01"]
 GRID_CAP_ROWS = 70_000
 # the single pass's bf16 out at bh 70,000 element by element: two bf16 ulps
 # of |plain| (72 M outputs reach further into the tail of P's rounding than
@@ -2869,13 +2918,16 @@ def write_text(modules, d, data_dir, split, lang, n, lens, rng):
     text.finalize(os.path.join(data_dir, f"{split}.{lang}.idx"))
 
 
-def cli_train_launches(counts, calls=None):
+def cli_train_launches(counts, calls=None, backward_calls=None):
     """The launches of one ``cli/train`` update of a conv_transformer-family
     model in bf16 (phase 7's 20 + 20 + 20 tensor-core kernels, or ``calls``
-    of each) and of one of its validation batches (``calls`` forwards), as
-    ``counts``' keys."""
+    forwards and ``backward_calls`` pairs, ``calls`` when None) and of one
+    of its validation batches (``calls`` forwards), as ``counts``' keys."""
     calls = CT_FLASH_CALLS_PER_STEP if calls is None else calls
-    return (step_launches(counts, 1, calls), {k: (calls if k == BF16_FORWARD else 0) for k in counts})
+    update = step_launches(counts, 1, calls)
+    if backward_calls is not None:
+        update.update({k: backward_calls for k in BACKWARD_KERNELS[BF16_BACKWARD]})
+    return update, {k: (calls if k == BF16_FORWARD else 0) for k in counts}
 
 
 class _TrainRecorder:
@@ -3175,16 +3227,16 @@ def two_utterances(task, split, batch):
     return ds.collater([ds[int(i)] for i in batch["id"][:2]])
 
 
-def train_cli_run(modules, fa, dconv, single, argv, calls=None):
+def train_cli_run(modules, fa, dconv, single, argv, calls=None, backward_calls=None):
     """``cli/train``'s ``cli_main`` on ``argv`` under a ``_TrainRecorder``;
     the launches of each update and validation batch, held to phase 7's 20
     + 20 + 20 tensor-core kernels an update and 20 forwards a validation
-    batch (or ``calls`` of each); the losses it logged finite. Returns the
-    recorder and the trainer."""
+    batch (or ``calls`` forwards and ``backward_calls`` pairs); the losses
+    it logged finite. Returns the recorder and the trainer."""
     with _TrainRecorder(modules, fa, dconv, single) as rec:
         trainer, _ = modules["train_cli"].cli_main(argv)
         torch.cuda.synchronize()
-    want_update, want_valid = cli_train_launches(launch_counts(fa, dconv, single), calls)
+    want_update, want_valid = cli_train_launches(launch_counts(fa, dconv, single), calls, backward_calls)
     bad = [u for u in rec.updates if u != want_update] + [v for v in rec.valid_batches if v != want_valid]
     if bad or not rec.updates or not rec.valid_batches:
         raise AssertionError(f"cli/train {argv[1:6]}: launches {bad[:2]} off {want_update} an update / {want_valid} "
@@ -3629,6 +3681,296 @@ def dualdecoder_from_files(card, d, fa, dconv, single, modules, tmp):
     return {k: train_launches[k] + serve_launches[k] for k in train_launches}
 
 
+def copy_items(dataset, builder, items, index_path):
+    """Write ``items`` (each an item of ``dataset``, or an array) with
+    ``builder`` and finalize it at ``index_path``."""
+    for item in items:
+        builder.add_item(np.asarray(dataset[item]) if isinstance(item, (int, np.integer)) else item)
+    builder.finalize(index_path)
+
+
+def write_context_files(modules, d, data_dir, n_subset):
+    """Phase 24's corpus with its context beside each split, written with
+    the port's builders: ``{split}.context.de`` (line i the target of line
+    i-1, line 0 ``</s>``, as tests/test_context_model.py writes it) and
+    ``{split}.context.npz`` (utterance i-1's frames, utterance 0 zeros of
+    its own length, the audio generator's first buffer); and ``valid8``,
+    the first ``n_subset`` valid utterances, for the chained requests."""
+    idx = modules["indexed_dataset"]
+    for split in FILES_TRAIN_SPLITS:
+        prefix = os.path.join(data_dir, split)
+        text = idx.load_indexed_dataset(prefix + ".de", d)
+        frames = idx.FilterBanksDataset(prefix + ".npz")
+        eos = np.array([d.eos()], dtype=np.int64)
+        copy_items(text, idx.IndexedDatasetBuilder(prefix + ".context.de.bin"),
+                   [eos] + list(range(len(text) - 1)), prefix + ".context.de.idx")
+        copy_items(frames, idx.AudioIndexedDatasetBuilder(prefix + ".context.npz.bin"),
+                   [np.zeros_like(np.asarray(frames[0]))] + list(range(len(frames) - 1)),
+                   prefix + ".context.npz.idx")
+        if split == "valid":
+            sub = os.path.join(data_dir, "valid8")
+            copy_items(frames, idx.AudioIndexedDatasetBuilder(sub + ".npz.bin"), range(n_subset), sub + ".npz.idx")
+            copy_items(text, idx.IndexedDatasetBuilder(sub + ".de.bin"), range(n_subset), sub + ".de.idx")
+
+
+def check_dead_rows(fa):
+    """Rows with every key masked (a shape bucket's padding rows, which the
+    ctxreg penalty sends a gradient) through the card's flash route, at the
+    context attention's shape in both types, against the plain version on
+    the CPU: out within ATOL_KERNEL and dq, dk, dv within 1e-2 of their own
+    max|plain| in bf16 (ATOL_GRAD in fp32), every value finite, and each
+    masked row's out V's mean."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = random_attention_inputs(gen, 256, 54, 48, 64, dtype)
+        bias[::4] = -1e9  # every fourth row: no real key
+        grad = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        got, want = [], []
+        for side, device in ((got, "cuda"), (want, "cpu")):
+            x = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+            out = fa.flash_attention(*x, bias.to(device), 0.125)
+            out.backward(grad.to(device))
+            side.extend(t.detach().float().cpu() for t in (out, *(y.grad for y in x)))
+        out_err = (got[0] - want[0]).abs().max().item()
+        grad_errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item() if dtype == torch.bfloat16
+                     else (a - b).abs().max().item() for a, b in zip(got[1:], want[1:])]
+        mean_err = (got[0][::4] - v[::4].float().cpu().mean(1, keepdim=True)).abs().max().item()
+        finite = all(torch.isfinite(t).all().item() for t in got)
+        errs[str(dtype).replace("torch.", "")] = {"out": out_err, "dq_dk_dv": grad_errs, "masked_rows_vs_mean_v": mean_err,
+                                                  "finite": finite}
+        limit = 1e-2 if dtype == torch.bfloat16 else ATOL_GRAD[dtype]
+        if not (finite and out_err <= ATOL_KERNEL[dtype] and max(grad_errs) <= limit
+                and mean_err <= ATOL_KERNEL[dtype]):
+            raise AssertionError(f"flash on rows with every key masked, {dtype}: {errs}")
+    return errs
+
+
+class _ChainRecorder:
+    """Each ``generate`` call of the context generators while
+    ``cli/generate`` runs: the buffer it started from, its batch's ids and
+    its last row's best hypothesis."""
+
+    def __init__(self, cls):
+        self.cls, self.calls = cls, []
+
+    def __enter__(self):
+        rec, original = self, self.cls.generate
+        self.original = original
+
+        def generate(gen, models, sample, *args, **kwargs):
+            buffer = None if gen.buffer is None else np.array(gen.buffer, copy=True)
+            hypos = original(gen, models, sample, *args, **kwargs)
+            rec.calls.append((buffer, [int(i) for i in sample["id"]], np.asarray(hypos[-1][0]["tokens"])))
+            return hypos
+
+        self.cls.generate = generate
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.generate = self.original
+        return False
+
+
+def context_from_files(card, d, fa, dconv, single, modules, tmp):
+    """29. Main path 19: context-aware ST (INTERSPEECH 2020) from phase 24's
+    corpus on the card, its context files written beside it
+    (``write_context_files``). ``cli/train`` trains ``conv_transformer_context``
+    at full width (256/768/4, 6 + 6 layers, 80 mels, one context layer)
+    with ``speech_recognition_context``, ``--pretrained-model`` phase 24's
+    ``checkpoint_best.pt`` with ``--freeze-pretrained encoder``, weight
+    decay 0.01, ``label_smoothed_cross_entropy_ctxreg`` (0.1, alpha 0.3) and
+    the quick start's optimisation in bf16: ``--context-type tgt`` with
+    parallel gating for CTX_UPDATES["tgt"] updates, ``src`` with sequential
+    gating for CTX_UPDATES["src"]; each update launches exactly
+    CTX_FORWARDS forwards and CTX_BACKWARDS tensor-core pairs (the counts
+    read from the code before the first run), each validation batch the
+    forwards. Every frozen parameter is bitwise the checkpoint's after the
+    updates (with ``src`` the audio context encoder's BatchNorm statistics
+    too), every trainable one moved, the main encoder's BatchNorm
+    statistics moved; the losses are finite and the gate penalty (the
+    parallel gates' sum on two valid utterances) above 0. Then
+    ``cli/generate`` on the ``tgt`` run's ``checkpoint_last.pt`` in fp32,
+    beam 5, ``max_len_b`` 100, ``--max-sentences 1`` over the first
+    CTX_SERVE_UTTERANCES valid utterances: CTX_REQUEST_LAUNCHES tf32x3
+    forwards a request and nothing else, each request's context the
+    previous request's best hypothesis, the H- lines the in-memory chained
+    generator's (tokens identical, scores within FILES_SCORE_ATOL); and on
+    the ``src`` run's in batches of CTX_SRC_BATCH over the valid split. The
+    card's teacher-forced logits with context against the plain CPU
+    path's on 2 utterances at phase 8's tolerance, for each context type.
+    First, before the counts are set to 0, ``check_dead_rows``. Returns the
+    launches of training and serving."""
+    import logging
+
+    phase_t0 = time.perf_counter()
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "context.log"))
+    root.addHandler(handler)
+    data_dir = os.path.join(tmp, "data")
+    ckpt, options, registry = modules["checkpoint"], modules["options"], modules["registry"]
+    t0 = time.perf_counter()
+    write_context_files(modules, d, data_dir, CTX_SERVE_UTTERANCES)
+    corpus_s = time.perf_counter() - t0
+    pre_path = os.path.join(tmp, "straight", "checkpoint_best.pt")
+    pre = ckpt.load_checkpoint_to_cpu(pre_path)["model"]
+    dead_rows = check_dead_rows(fa)
+
+    reset_counts(fa, dconv, single)
+    runs, timed, lasts = {}, None, {}
+    for ctype, updates in CTX_UPDATES.items():
+        save_dir = os.path.join(tmp, f"context_{ctype}")
+        t0 = time.perf_counter()
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            data_dir, *CTX_ARGS, "--context-type", ctype, "--context-decoder-attention-type", CTX_ATTENTION[ctype],
+            "--pretrained-model", pre_path, *OPTIM_ARGS, "--max-update", str(updates), "--save-dir", save_dir],
+            calls=CTX_FORWARDS[ctype], backward_calls=CTX_BACKWARDS[ctype])
+        train_s = time.perf_counter() - t0
+        lasts[ctype] = os.path.join(save_dir, "checkpoint_last.pt")
+        model = trainer.model
+        start = trainer.task.build_model(trainer.args, device="cpu").state_dict()  # the run's seeded start
+        got = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        params = dict(model.named_parameters())
+        frozen = [n for n in params if model.frozen_param_filter(n)]
+        unfrozen_in_optimizer = [n for n in frozen if params[n].requires_grad]
+        not_pretrained = [n for n in frozen
+                          if not torch.equal(got[n], pre[n.replace("context_encoder.audio_encoder.", "encoder.")])]
+        trainable = [n for n, p in params.items() if p.requires_grad]
+        # every trainable parameter moves but those whose gradient is 0 by
+        # construction, 0 themselves, so weight decay leaves them: the key
+        # projections' biases (a softmax does not see a shift) and, in
+        # parallel mode, the decoder's unused context LayerNorm's biases
+        still = [n for n in trainable if torch.equal(got[n], start[n]) and not n.endswith("k_proj.bias")
+                 and not (CTX_ATTENTION[ctype] == "parallel" and n.endswith("context_attn_layer_norm.bias"))]
+        bn_moved = not torch.equal(got["encoder.bn.0.running_mean"], start["encoder.bn.0.running_mean"])
+        audio_buffers = [k for k in got if k.startswith("context_encoder.audio_encoder.") and k not in params]
+        audio_moved = [k for k in audio_buffers if not torch.equal(got[k], pre[k.replace(
+            "context_encoder.audio_encoder.", "encoder.")])]
+        losses = rec.losses("train")
+        runs[ctype] = {"updates": len(rec.updates), "valid_batches": len(rec.valid_batches), "train_cli_s": train_s,
+                       "losses": losses, "valid_losses": rec.losses("valid"),
+                       "launches_per_update": {k: v for k, v in rec.updates[0].items() if v},
+                       "launches_per_valid_batch": {k: v for k, v in rec.valid_batches[0].items() if v},
+                       "frozen_params": len(frozen), "trainable_params": len(trainable),
+                       "frozen_elements": sum(params[n].numel() for n in frozen),
+                       "trainable_elements": sum(params[n].numel() for n in trainable),
+                       "audio_encoder_buffers_checked": len(audio_buffers)}
+        gaps = [b - a for a, b in zip(rec.update_starts, rec.update_starts[1:])]
+        runs[ctype]["cli_update_ms_median"] = float(np.median(gaps)) * 1e3 if gaps else None
+        if (len(rec.updates) != updates or not frozen or unfrozen_in_optimizer or not_pretrained or still
+                or not bn_moved or audio_moved or (ctype == "src") != bool(audio_buffers)):
+            raise AssertionError(f"context {ctype}: {len(rec.updates)} updates; frozen {len(frozen)}, in the "
+                                 f"optimiser {unfrozen_in_optimizer[:3]}, apart from the checkpoint "
+                                 f"{not_pretrained[:3]}; trainable unmoved {still[:3]}; encoder BN moved {bn_moved}; "
+                                 f"audio encoder buffers moved {audio_moved[:3]}")
+        if ctype == "tgt":
+            timed = trainer
+        else:
+            del trainer, model
+    train_launches = launch_counts(fa, dconv, single)
+    # the in-memory update on the tgt run's first batch, beside the CLI's
+    first = next(iter(ckpt.get_train_iterator(timed.args, timed, timed.task, epoch=0).next_epoch_itr(shuffle=True)))
+    step_s, wall_s, busy_s, _, classes = in_memory_update(timed, first)
+    n_params = sum(p.numel() for p in timed.model.parameters())
+    del timed
+    torch.cuda.empty_cache()
+
+    # serving: tgt chained over single utterances, src in batches
+    serve, serve_launches = {}, {k: 0 for k in train_launches}
+    for ctype, subset, extra in (("tgt", "valid8", ["--max-sentences", "1"]),
+                                 ("src", "valid", ["--max-sentences", str(CTX_SRC_BATCH)])):
+        results = os.path.join(tmp, f"context_results_{ctype}")
+        argv = [data_dir, "--task", "speech_recognition_context", "--context-type", ctype, "-t", "de", "--path",
+                lasts[ctype], "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset", subset, *extra,
+                "--results-path", results]
+        task, batches = cli_batches(modules, options.get_generation_parser(), argv, subset)
+        before = launch_counts(fa, dconv, single)
+        with _ChainRecorder(modules["ContextAwareSequenceGenerator"]) as chain:
+            t0 = time.perf_counter()
+            modules["generate_cli"].cli_main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        after = launch_counts(fa, dconv, single)
+        got = {k: after[k] - before[k] for k in after}
+        want = dict(step_launches(got, 0, 0), **{FP32_FORWARD: CTX_REQUEST_LAUNCHES[ctype] * len(batches)})
+        if got != want:
+            raise AssertionError(f"cli/generate context {ctype}: launches {got}, expected {want}")
+        for k in got:
+            serve_launches[k] += got[k]
+        hyps, _ = read_records(os.path.join(results, f"generate-{subset}.txt"))
+        tgt_dict = task.target_dictionary
+        model = ckpt.load_model_ensemble([lasts[ctype]], task=task)[0][0]
+        gen = task.build_generator([model], options.parse_args_and_arch(options.get_generation_parser(), argv))
+        chained = ([np.array_equal(chain.calls[i][0][0], chain.calls[i - 1][2]) for i in range(1, len(chain.calls))]
+                   if ctype == "tgt" else None)
+        same, worst, n, request_s = 0, 0.0, 0, []
+        with torch.no_grad():
+            for sample in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hypos = gen.generate([model], sample)
+                torch.cuda.synchronize()
+                request_s.append(time.perf_counter() - t0)
+                check_hypotheses(hypos, tgt_dict.eos(), len(sample["id"]))
+                for sid, sent in zip(sample["id"], hypos):
+                    score, text = hyps[int(sid)]
+                    same += text == tgt_dict.string(sent[0]["tokens"])
+                    worst = max(worst, abs(score - sent[0]["score"] / math.log(2)))
+                    n += 1
+        # the card against the CPU on two utterances, teacher-forced with their context
+        targs = options.parse_args_and_arch(options.get_training_parser(), [
+            data_dir, "--task", "speech_recognition_context", "--context-type", ctype, "-t", "de", "--arch", CTX_ARCH])
+        ttask = registry.TASKS[targs.task].setup_task(targs)
+        ttask.load_dataset("valid")
+        ds = ttask.dataset("valid")
+        small = ds.collater([ds[0], ds[1]])["net_input"]
+        logits, penalty = [], None
+        for device in ("cuda", "cpu"):
+            m = model if device == "cuda" else ckpt.load_model_ensemble([lasts[ctype]], task=task, device=device)[0][0]
+            batch = {k: torch.as_tensor(v).to(device) for k, v in small.items()}
+            with torch.no_grad():
+                out, extra_out = m(batch)
+            logits.append(out.float().cpu())
+            if device == "cuda" and extra_out["ctx_gates"]:
+                penalty = float(sum(g.float().sum() for g in extra_out["ctx_gates"]))
+            del m
+        del model
+        card_cpu_err = (logits[0] - logits[1]).abs().max().item()
+        serve[ctype] = {"subset": subset, "batches": len(batches), "utterances": n, "generate_cli_s": seconds,
+                        "seconds_per_request": seconds / len(batches), "in_memory_request_s": request_s,
+                        "identical_top_hypotheses": f"{same}/{n}", "max_abs_score_diff_base2": worst,
+                        "chained_calls": len(chain.calls),
+                        "each_context_the_previous_best": None if chained is None else all(chained),
+                        "card_vs_cpu_max_abs_logit_err": card_cpu_err, "gate_penalty_two_utterances": penalty,
+                        "launches": {k: v for k, v in got.items() if v}}
+        ok = n == len(hyps) and same == n and worst <= FILES_SCORE_ATOL and card_cpu_err <= ATOL_MODEL
+        if ctype == "tgt":
+            ok = (ok and n == CTX_SERVE_UTTERANCES and len(chain.calls) == n and all(chained)
+                  and chain.calls[0][0].tolist() == [[tgt_dict.eos()]]
+                  and [c[1] for c in chain.calls] == [[i] for i in range(n)]
+                  and penalty is not None and np.isfinite(penalty) and penalty > 0)
+        if not ok:
+            raise AssertionError(f"cli/generate context {ctype}: {same}/{n} identical, scores {worst} apart, "
+                                 f"chained {chained}, card against CPU {card_cpu_err}, gate penalty {penalty}")
+    root.removeHandler(handler)
+    handler.close()
+    logged = [v for r in runs.values() for v in r["losses"] + r["valid_losses"]]
+    emit({"phase": "context_from_files", "arch": CTX_ARCH, "params": n_params, "corpus_write_s": corpus_s,
+          "pretrained": "phase 24's checkpoint_best.pt", "freeze_pretrained": "encoder", "runs": runs,
+          "train_step_ms_median_first_batch": step_s * 1e3,
+          "first_batch_shape": list(first["net_input"]["src_tokens"].shape),
+          "first_batch_context_shape": list(first["net_input"]["context_tokens"].shape),
+          "profiled_update_s": wall_s, "device_busy_ms": busy_s * 1e3, "device_idle_share": 1.0 - busy_s / wall_s,
+          "busy_by_class_s": classes, "serve": serve, "atol": ATOL_MODEL, "score_atol": FILES_SCORE_ATOL,
+          "flash_rows_with_every_key_masked": dead_rows,
+          "train_launches": {k: v for k, v in train_launches.items() if v},
+          "serve_launches": {k: v for k, v in serve_launches.items() if v},
+          "phase_s": time.perf_counter() - phase_t0, "card": card})
+    if not (logged and np.isfinite(logged).all()):
+        raise AssertionError(f"context losses {logged}")
+    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+
+
 # ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
@@ -3688,7 +4030,8 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.cli import train as train_cli
     from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
     from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, indexed_dataset
-    from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator, TwoPhaseSequenceGenerator, search
+    from fbk_fairseq_st_tpu_torch.generation import (ContextAwareSequenceGenerator, SequenceGenerator,
+                                                     TwoPhaseSequenceGenerator, search)
     from fbk_fairseq_st_tpu_torch.ops.core import make_generators
     from fbk_fairseq_st_tpu_torch.ops.specaugment import specaugment
     from fbk_fairseq_st_tpu_torch.train.checkpoint import save_model_checkpoint
@@ -3719,7 +4062,8 @@ def main() -> int:
                "generate_cli": generate_cli, "indexed_dataset": indexed_dataset, "search": search,
                "make_generators": make_generators, "specaugment": specaugment,
                "save_model_checkpoint": save_model_checkpoint, "train_cli": train_cli, "checkpoint": checkpoint,
-               "metrics": metrics, "classifier_cli": classifier_cli, "topk_cli": topk_cli, "dual_cli": dual_cli}
+               "metrics": metrics, "classifier_cli": classifier_cli, "topk_cli": topk_cli, "dual_cli": dual_cli,
+               "ContextAwareSequenceGenerator": ContextAwareSequenceGenerator}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3810,8 +4154,11 @@ def main() -> int:
         # then the dual decoder trained and served by cli/generate_dualdecoder
         drive("multilingual_from_files", multilingual_from_files, card, d, fa, dconv, single, modules, files_tmp)
         drive("dualdecoder_from_files", dualdecoder_from_files, card, d, fa, dconv, single, modules, files_tmp)
+        # 29. on the same corpus: context-aware ST trained from phase 24's
+        # checkpoint_best.pt, frozen, and served with chained context
+        drive("context_from_files", context_from_files, card, d, fa, dconv, single, modules, files_tmp)
 
-    # 29. kernels line, card line, ok line
+    # 30. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

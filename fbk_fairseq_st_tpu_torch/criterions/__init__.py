@@ -1,4 +1,5 @@
 from .base import Criterion
+from .cross_entropy_acc import CrossEntropyWithAccCriterion
 from .cross_entropy_dualdecoder import CrossEntropyDualDecoder
 from .cross_entropy_multi_task import CrossEntropyMultitask
 from .ctc import CTCCriterion, CTCMultiLoss
@@ -9,10 +10,13 @@ from .label_smoothed_cross_entropy import (
     label_smoothed_nll_from_logits,
     label_smoothed_nll_loss,
 )
+from .label_smoothed_cross_entropy_ctx_reg import LabelSmoothedCrossEntropyCtxRegCriterion
 
 CRITERIONS = {
     "cross_entropy": CrossEntropyCriterion,
+    "cross_entropy_acc": CrossEntropyWithAccCriterion,
     "label_smoothed_cross_entropy": LabelSmoothedCrossEntropyCriterion,
+    "label_smoothed_cross_entropy_ctxreg": LabelSmoothedCrossEntropyCtxRegCriterion,
     "ctc_loss": CTCCriterion,
     "ctc_multi_loss": CTCMultiLoss,
     "cross_entropy_dualdecoder": CrossEntropyDualDecoder,
@@ -26,10 +30,12 @@ __all__ = [
     "CrossEntropyDualDecoder",
     "CrossEntropyKnowledgeDistillationCriterion",
     "CrossEntropyMultitask",
+    "CrossEntropyWithAccCriterion",
     "CTCCriterion",
     "CTCMultiLoss",
     "Criterion",
     "LabelSmoothedCrossEntropyCriterion",
+    "LabelSmoothedCrossEntropyCtxRegCriterion",
     "label_smoothed_nll_from_logits",
     "label_smoothed_nll_loss",
 ]

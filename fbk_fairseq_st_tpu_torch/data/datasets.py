@@ -3,7 +3,7 @@
 The port's own copy of ``fbk_fairseq_st_tpu/data/datasets.py``
 (``collate_frames`` :104, ``apply_mv_norm`` :118, ``Seq2SeqCollater``
 :131, ``FilterBankToTextDataset`` :223, ``TranscriptionWrapperDataset``
-:279, ``MultiTaskDataset`` :428, ``LangtokFilterBanksToTextDataset`` :473,
+:279, ``ContextAwareDataset`` :357, ``MultiTaskDataset`` :428, ``LangtokFilterBanksToTextDataset`` :473,
 ``RoundRobinZipDatasets`` :520, ``ConcatDataset`` :589;
 ``collate_tokens`` :71 is
 ``language_pair_dataset.collate_tokens``), the reference contracts:
@@ -212,6 +212,67 @@ class TranscriptionWrapperDataset(Dataset):
 
     def ordered_indices(self):
         return self.tgt_dataset.ordered_indices()
+
+
+class ContextAwareDataset(Dataset):
+    """Adds each utterance's context, the previous audio or the previous
+    target text, to each batch (reference examples/speech_recognition/
+    data/context_dataset.py): ``net_input.context_tokens`` and
+    ``net_input.context_lengths`` in the row order of the wrapped
+    collater; audio collated as frames (zeros, ``pad_to_src_len``), text as
+    tokens (pad, ``pad_to_tgt_len``); a fixed-shape batch's padding rows
+    get a fill row and length 0."""
+
+    def __init__(self, dataset, context_dataset, context_dict, audio_context: bool):
+        self.dataset = dataset
+        self.context_dataset = context_dataset
+        self.context_dict = context_dict
+        self.audio_context = audio_context
+
+    def __getitem__(self, index):
+        item = self.dataset[index]
+        item["context"] = np.asarray(self.context_dataset[index])
+        return item
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def collater(self, samples, pad_to_src_len=None, pad_to_tgt_len=None, pad_to_bsz=None):
+        batch = self.dataset.collater(samples, pad_to_src_len=pad_to_src_len, pad_to_tgt_len=pad_to_tgt_len,
+                                      pad_to_bsz=pad_to_bsz)
+        if not batch:
+            return {}
+        id_to_pos = {s["id"]: i for i, s in enumerate(samples)}
+        order = [id_to_pos[int(i)] for i in batch["id"] if int(i) in id_to_pos]
+        contexts = [samples[i]["context"] for i in order]
+        lens = np.array([c.shape[0] for c in contexts], dtype=np.int64)
+        if self.audio_context:
+            context = collate_frames(contexts, pad_to_src_len)
+        else:
+            context = collate_tokens(contexts, self.context_dict.pad(), self.context_dict.eos(),
+                                     pad_to_length=pad_to_tgt_len)
+        n_rows = batch["net_input"]["src_tokens"].shape[0]
+        if n_rows > len(order):
+            extra = n_rows - len(order)
+            fill = 0.0 if self.audio_context else self.context_dict.pad()
+            context = np.concatenate([context, np.full((extra,) + context.shape[1:], fill, context.dtype)])
+            lens = np.concatenate([lens, np.zeros(extra, lens.dtype)])
+        batch["net_input"]["context_tokens"] = context
+        batch["net_input"]["context_lengths"] = lens
+        return batch
+
+    def num_tokens(self, index):
+        return self.dataset.num_tokens(index)
+
+    def size(self, index):
+        return self.dataset.size(index)
+
+    @property
+    def sizes(self):
+        return self.dataset.sizes
+
+    def ordered_indices(self):
+        return self.dataset.ordered_indices()
 
 
 class MultiTaskDataset(Dataset):

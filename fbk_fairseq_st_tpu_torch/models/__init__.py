@@ -11,9 +11,11 @@ family has raises ``NotImplementedError``.
 
 from typing import Any, Dict
 
-from . import conv_transformer, lightconv, multi_task, multilingual_conv_transformer, multitask_conv_transformer
+from . import (conv_transformer, conv_transformer_context, lightconv, multi_task, multilingual_conv_transformer,
+               multitask_conv_transformer)
 from .base import EncoderOut, reorder_encoder_out
 from .conv_transformer import ConvolutionalTransformerModel
+from .conv_transformer_context import ConvolutionalTransformerContextAwareModel
 from .lightconv import LightConvModel
 from .multi_task import (
     ConvolutionalTransformer2Stage,
@@ -25,7 +27,7 @@ from .multilingual_conv_transformer import MultilingualConvolutionalTransformerM
 from .multitask_conv_transformer import MultitaskConvolutionalTransformer
 
 ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task, multitask_conv_transformer,
-                                             multilingual_conv_transformer)
+                                             multilingual_conv_transformer, conv_transformer_context)
                  for arch in family.ARCHITECTURES}
 
 
@@ -33,7 +35,7 @@ def _family(arch: str):
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
             f"--arch {arch}: the port has the conv_transformer, lightconv, multi-decoder, multitask "
-            "classifier and multilingual families (ROADMAP Queue A items 4, 5 and 9)")
+            "classifier, multilingual and context-aware families (ROADMAP Queue A items 4, 5 and 9)")
     return ARCHITECTURES[arch]
 
 
@@ -51,6 +53,7 @@ def build_model(arch: str, tgt_dict, src_dict=None, **kwargs):
 __all__ = [
     "ARCHITECTURES",
     "ConvolutionalTransformer2Stage",
+    "ConvolutionalTransformerContextAwareModel",
     "ConvolutionalTransformerDualDecoder",
     "ConvolutionalTransformerModel",
     "ConvolutionalTransformerTriangle",

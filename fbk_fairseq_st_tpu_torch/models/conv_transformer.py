@@ -109,15 +109,7 @@ class ConvTransformerEncoder(ConvFrontend):
                 ) -> EncoderOut:
         """src_tokens: (B, T, F) fbank frames; src_lengths: (B,)."""
         cfg = self.cfg
-        x, lengths = conv_frontend(self, src_tokens, src_lengths, generator)
-        x = get_activation(cfg.activation)(self.fc3(x))
-        if self.embed_positions is not None:
-            x = x + self.embed_positions.from_lengths(lengths, x.shape[1], x.dtype)
-        if self.layernorm_embedding is not None:
-            x = self.layernorm_embedding(x)
-        x = dropout(x, cfg.dropout, generator, self.training)
-
-        padding_mask = lengths_to_padding_mask(lengths, x.shape[1])
+        x, lengths, padding_mask = self.embed(src_tokens, src_lengths, generator)
         ctc_out = ctc_padding_mask = ctc_lengths = None
         for i, layer in enumerate(self.layers):
             x = layer(x, key_padding_mask=padding_mask, generator=generator)
@@ -137,6 +129,20 @@ class ConvTransformerEncoder(ConvFrontend):
             ctc_padding_mask=ctc_padding_mask,
             ctc_lengths=ctc_lengths,
         )
+
+    def embed(self, src_tokens, src_lengths, generator: GeneratorLike = None):
+        """The layers' input: the conv front end, fc3 and its activation,
+        the audio positions and dropout. Returns (x (B, T', D), the
+        lengths, the key padding mask)."""
+        cfg = self.cfg
+        x, lengths = conv_frontend(self, src_tokens, src_lengths, generator)
+        x = get_activation(cfg.activation)(self.fc3(x))
+        if self.embed_positions is not None:
+            x = x + self.embed_positions.from_lengths(lengths, x.shape[1], x.dtype)
+        if self.layernorm_embedding is not None:
+            x = self.layernorm_embedding(x)
+        x = dropout(x, cfg.dropout, generator, self.training)
+        return x, lengths, lengths_to_padding_mask(lengths, x.shape[1])
 
     def ctc_features(self, encoder_states_at_layer):
         """CTC logits from layer-k states (JAX :192)."""

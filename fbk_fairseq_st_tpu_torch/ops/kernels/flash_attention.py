@@ -18,7 +18,14 @@ and 128), ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``, and ``_dq_kernel`` /
 ``mask_bias`` (BH, S) additive key bias (0, or NEG_INF at pads), ``scale``
 applied to q.k, optional top-left aligned causal mask, attention dropout at
 ``dropout_rate`` with the bits of ``philox.keep_mask(dropout_seed, ...)``.
-It is differentiable in q, k and v. Unlike the JAX entry it never pads the
+It is differentiable in q, k and v. A row whose every key is masked (a
+fixed-shape batch's padding row) gives the uniform average of V with no
+gradient to q or k, as the dense route does: its q and bias are zeroed
+before the kernels (``_uniform_dead_rows``), since at |bias| ~ 1e9 the
+kernels' s - lse carries the bias's rounding (ulp 64 in fp32) into exp and
+overflows the backward of such a row as soon as a gradient reaches it (the
+context-aware criterion's gate penalty counts padding rows). Unlike the
+JAX entry it never pads the
 sequence axes (the kernels mask ragged T and S themselves); on CUDA it
 zero-pads the head dim to the kernels' next size in {16, 32, 64, 128},
 outside the autograd Function, so that autograd slices the padded gradient
@@ -389,6 +396,7 @@ def flash_attention(q, k, v, mask_bias, scale: float, causal: bool = False,
         raise ValueError("flash_attention: dropout needs a dropout_seed")
     seed = int(dropout_seed or 0)
     d = q.shape[2]
+    q, mask_bias = _uniform_dead_rows(q, mask_bias)
     bias = mask_bias
     if q.is_cuda:
         if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -402,6 +410,14 @@ def flash_attention(q, k, v, mask_bias, scale: float, causal: bool = False,
     if out.shape[2] != d:
         out = out[..., :d]
     return (out, lse) if return_lse else out
+
+
+def _uniform_dead_rows(q, mask_bias):
+    """(q, mask_bias) with the rows whose every key is masked zeroed in
+    both: their scores are then all 0, so they average V uniformly, and q's
+    gradient there is 0."""
+    live = mask_bias.amax(dim=1, keepdim=True) > NEG_INF / 2
+    return q * live[..., None], mask_bias * live
 
 
 # ---------------------------------------------------------------------------

@@ -80,6 +80,9 @@ class TransformerEncoderLayer(_FFNMixin, nn.Module):
 
     def forward(self, x, key_padding_mask=None, attn_mask=None,
                 generator: GeneratorLike = None):
+        return self._ffn(self._self_block(x, key_padding_mask, attn_mask, generator), generator)
+
+    def _self_block(self, x, key_padding_mask, attn_mask, generator):
         cfg = self.cfg
         residual = x
         if cfg.normalize_before:
@@ -91,7 +94,7 @@ class TransformerEncoderLayer(_FFNMixin, nn.Module):
         x = residual + x
         if not cfg.normalize_before:
             x = self.self_attn_layer_norm(x)
-        return self._ffn(x, generator)
+        return x
 
 
 class TransformerDecoderLayer(_FFNMixin, nn.Module):

@@ -26,7 +26,9 @@ archs and tasks. An option whose feature the port lacks raises
 reference's fp16 and DDP machinery and the fork's model flags that JAX
 parses and never reads (``_FORK_MODEL_FLAGS``) are accepted and change
 nothing, as in JAX; ``--activation-dropout`` is JAX's alias of
-``--relu-dropout``; ``--use-pallas-attention`` / ``--no-pallas-attention``
+``--relu-dropout``; the context-aware presets define
+``--freeze-pretrained`` with JAX's string choices, where the
+conv_transformer family keeps JAX's inert store-true flag; ``--use-pallas-attention`` / ``--no-pallas-attention``
 force the flash / the dense attention route, as JAX forces its Pallas
 kernels' route.
 """
@@ -40,6 +42,7 @@ from typing import List, Optional
 
 from . import registry
 from .models import ARCHITECTURES, arch_defaults
+from .models.conv_transformer_context import CHOICES as CONTEXT_CHOICES
 from .optim import LR_SCHEDULERS, OPTIMIZERS
 
 # option -> (its value when off, what it needs): set to anything else, it raises
@@ -125,7 +128,11 @@ _ALIASES = {"relu_dropout": ("--activation-dropout",)}
 # preset options whose flag JAX's parser defines otherwise than the
 # preset's value type says (a kernel list stays the string JAX keeps)
 _FLAG_KWARGS = {"distance_penalty": dict(type=str, choices=["log", "gauss"]),
-                "encoder_kernel_size_list": dict(type=str), "decoder_kernel_size_list": dict(type=str)}
+                "encoder_kernel_size_list": dict(type=str), "decoder_kernel_size_list": dict(type=str),
+                **{name: dict(type=str, choices=list(choices)) for name, choices in CONTEXT_CHOICES.items()}}
+# preset options that another component's flag sets (the criterion's, the
+# context task's --context-type): no model flag
+_NOT_MODEL_FLAGS = ("criterion", "context_type")
 
 
 def get_training_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
@@ -375,7 +382,7 @@ def _add_arch_args(parser, arch: str) -> None:
     explicit = _MODEL_PARSER_DEFAULTS.get(family, {})
     for name, value in arch_defaults(arch).items():
         flag = "--" + name.replace("_", "-")
-        if name == "criterion" or flag in parser._option_string_actions:
+        if name in _NOT_MODEL_FLAGS or flag in parser._option_string_actions:
             continue
         kwargs = {"default": explicit[name]} if name in explicit else {}
         flags = (flag, *_ALIASES.get(name, ()))

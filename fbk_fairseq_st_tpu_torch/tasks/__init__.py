@@ -4,6 +4,7 @@ from .multilingual_speech_translation import (MultilingualSpeechTranslationTask,
 from .multilingual_speech_translation_kd import MultilingualSpeechTranslationWithTranscriptionKDTask
 from .multitask_speech_translation import SpeechTranslationMultiTask
 from .speech_recognition import SpeechRecognitionTask
+from .speech_recognition_context import ContextAwareSpeechRecognitionTask
 from .speech_translation_ctc import SpeechTranslationCTCTask
 from .speech_translation_ctc_kd import SpeechTranslationCTCWithKDTask
 from .speech_translation_dualdecoding import SpeechTranslationDualDecodingTask
@@ -11,6 +12,7 @@ from .translation import TranslationTask
 
 TASKS = {
     "speech_recognition": SpeechRecognitionTask,
+    "speech_recognition_context": ContextAwareSpeechRecognitionTask,
     "speech_translation_with_transcription": SpeechTranslationCTCTask,
     "speech_translation_dualdecoding": SpeechTranslationDualDecodingTask,
     "speech_translation_multitask": SpeechTranslationMultiTask,
@@ -21,7 +23,7 @@ TASKS = {
     "multilingual_speech_translation_with_transcr_kd": MultilingualSpeechTranslationWithTranscriptionKDTask,
 }
 
-__all__ = ["TASKS", "MultilingualSpeechTranslationTask", "MultilingualSpeechTranslationWithTranscriptionKDTask",
+__all__ = ["TASKS", "ContextAwareSpeechRecognitionTask", "MultilingualSpeechTranslationTask", "MultilingualSpeechTranslationWithTranscriptionKDTask",
            "MultilingualSpeechTranslationWithTranscriptionTask", "SpeechRecognitionTask", "SpeechTranslationCTCTask",
            "SpeechTranslationCTCWithKDTask", "SpeechTranslationDualDecodingTask", "SpeechTranslationMultiTask", "Task",
            "TranslationTask"]

@@ -43,6 +43,13 @@ Counterpart of ``fbk_fairseq_st_tpu/train/trainer.py`` (``train_step``
   * ``stage_sample`` copies a collated batch to the card ahead of its step
     (pinned memory, ``non_blocking`` on a side stream); the step waits on
     the copy's event;
+  * frozen parameters (a model's ``frozen_param_filter``, JAX :223-254,
+    :341-360): the parameters it names get ``requires_grad=False`` and stay
+    out of the optimiser, so they have no gradient in the norm and the
+    clip, and no update, weight decay included. A frozen module keeps its
+    mode: the frozen front end of the context-aware model still
+    normalises with batch statistics and updates its BatchNorm buffers in
+    a train step, as JAX's does;
   * a multilingual batch is a dict of per-pair sub-batches (JAX :281-292,
     :456-480, :565-580): each is staged and moved as a flat batch, the
     ``ntokens`` and ``nsentences`` logged are their sums, and the
@@ -51,8 +58,7 @@ Counterpart of ``fbk_fairseq_st_tpu/train/trainer.py`` (``train_step``
 
 The mesh features of the JAX trainer (TP, FSDP, sequence parallelism,
 ring attention, BMUF) raise here (ROADMAP Queue A item 6),
-``steps_per_execution`` > 1 too (item 8), scalar quant-noise (item 9) and
-models with frozen parameters (item 4).
+``steps_per_execution`` > 1 too (item 8) and scalar quant-noise (item 9).
 """
 
 from __future__ import annotations
@@ -99,8 +105,11 @@ class Trainer:
             value = getattr(args, name, None)
             if value is not None and value != off:
                 raise NotImplementedError(f"--{name.replace('_', '-')}: {what} is not ported")
-        if getattr(model, "frozen_param_filter", None) is not None:
-            raise NotImplementedError("models with frozen parameters are not ported (ROADMAP Queue A item 4)")
+        frozen = getattr(model, "frozen_param_filter", None)
+        if frozen is not None:
+            for name, p in model.named_parameters():
+                if frozen(name):
+                    p.requires_grad_(False)
         self.args = args
         self.task = task
         self.model = model

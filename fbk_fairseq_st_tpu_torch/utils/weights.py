@@ -29,6 +29,16 @@ as the fork names every attention block and its LayerNorm:
 ``aux_decoder_attn.q.weight`` and ``aux_decoder_attn_ln.weight`` (ROADMAP
 Queue C); the values agree. ``fc_concat`` is a linear and agrees.
 
+The context-aware model's context block is named as the fork names it:
+``context_attn.{q,k,v,out}_proj``, ``context_gating_wi``,
+``context_gating_ws``, and its LayerNorm ``context_ln`` becomes
+``context_layer_norm`` in an encoder layer and ``context_attn_layer_norm``
+in a decoder layer; ``export_parameters`` writes ``context_ln.*`` for both,
+and ``audio_encoder_state.*`` for the audio context encoder's BatchNorm
+statistics, which the bridge puts in that encoder as its buffers
+(``context_encoder.audio_encoder.bn.{i}.running_mean``; ROADMAP Queue C);
+the values agree.
+
 The tree's leaves are numpy arrays (or anything ``np.asarray`` accepts).
 """
 
@@ -84,7 +94,11 @@ def fork_name(parts: List[str]) -> str:
         prev = parts[i - 1] if i > 0 else ""
         if part in _TRANSPARENT:
             continue
-        if part in _COMPONENT_MAP:
+        if part == "context_ln":
+            out.append("context_attn_layer_norm" if parts[0] == "decoder" else "context_layer_norm")
+        elif part == "audio_encoder_state":  # the audio context encoder's BatchNorm statistics
+            out.append("audio_encoder")
+        elif part in _COMPONENT_MAP:
             out.append(_COMPONENT_MAP[part])
         elif part in _ATTN_PROJ and prev in _ATTN_BLOCKS:
             out.append(_ATTN_PROJ[part])

@@ -220,3 +220,33 @@ def test_tf32x3_pair_matches_the_plain_backward_on_the_card(case):
     for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
         assert torch.equal(a, b), name
         assert (a[..., :d] - w).abs().max().item() <= 1e-4, name
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rows_with_every_key_masked_average_uniformly(dtype):
+    """A row whose every key is masked (a fixed-shape batch's padding row)
+    gives the uniform average of V, with no gradient to its q or to k
+    through it, as the dense route does, and finite gradients when one
+    reaches it (without the guard the kernels' s - lse at |bias| ~ 1e9
+    overflowed the backward of such a row on the card); other rows are
+    untouched. fp32 within 1e-6, bf16 within one bf16 rounding (2^-7)."""
+    g = torch.Generator().manual_seed(0)
+    bh, t, s, d = 4, 5, 9, 16
+    q, k, v = (torch.randn((bh, n, d), generator=g).to(DTYPES[dtype]).requires_grad_() for n in (t, s, s))
+    bias = torch.zeros(bh, s)
+    bias[1] = tflash.NEG_INF
+    bias[2, 4:] = tflash.NEG_INF
+    out = tflash.flash_attention(q, k, v, bias, 0.25)
+    grad = torch.randn(out.shape, generator=g).to(out.dtype)
+    out.backward(grad)
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(out[1].float().detach().numpy(),
+                               v[1].float().mean(0, keepdim=True).expand(t, d).detach().numpy(), rtol=0, atol=tol)
+    assert float(q.grad[1].abs().max()) == 0.0
+    np.testing.assert_allclose(v.grad[1].float().numpy(),
+                               (grad[1].float().sum(0, keepdim=True) / s).expand(s, d).numpy(), rtol=0, atol=4 * tol)
+    for x in (q, k, v):
+        assert torch.isfinite(x.grad).all()
+    live = [0, 2, 3]
+    want, _ = tflash.flash_attention_reference(q[live].detach(), k[live].detach(), v[live].detach(), bias[live], 0.25)
+    np.testing.assert_array_equal(out[live].detach().float().numpy(), want.float().numpy())

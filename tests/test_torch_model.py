@@ -219,7 +219,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "tasks/speech_translation_ctc_kd.py", "data/knowledge_distillation.py",
             "cli/generate_multitask_classifier.py", "cli/generate_topk.py", "models/multilingual_conv_transformer.py",
             "tasks/multilingual_speech_translation.py", "tasks/multilingual_speech_translation_kd.py",
-            "cli/generate_dualdecoder.py"} <= covered
+            "cli/generate_dualdecoder.py", "models/conv_transformer_context.py", "ops/context_layer.py",
+            "generation/sequence_generator_with_context.py", "tasks/speech_recognition_context.py",
+            "criterions/label_smoothed_cross_entropy_ctx_reg.py", "criterions/cross_entropy_acc.py"} <= covered
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "flax", "optax", "fbk_fairseq_st_tpu"}, (path, roots)

@@ -16,6 +16,8 @@ import argparse
 import numpy as np
 import pytest
 
+import fbk_fairseq_st_tpu.criterions.label_smoothed_cross_entropy_ctx_reg  # noqa: F401  (registers it)
+import fbk_fairseq_st_tpu.models.conv_transformer_context  # noqa: F401  (registers the JAX model)
 import fbk_fairseq_st_tpu.models.multilingual_conv_transformer  # noqa: F401  (registers the JAX model)
 import fbk_fairseq_st_tpu.tasks.multilingual_speech_translation  # noqa: F401  (registers the JAX task)
 from fbk_fairseq_st_tpu import options as joptions
@@ -29,6 +31,8 @@ CASES = {
     "multitask_conv_transformer": ["--task", "speech_translation_multitask", "-t", "de"],
     "multilingual_conv_transformer": ["--task", "multilingual_speech_translation", "--lang-pairs", "en-de,en-nl"],
     "dynamicconv_iwslt_de_en": ["--task", "translation", "-s", "de", "-t", "en"],
+    "conv_transformer_context": ["--task", "speech_recognition_context", "-t", "de", "--criterion",
+                                 "label_smoothed_cross_entropy_ctxreg"],
 }
 SELECTORS = {"--arch", "-a", "--task", "--criterion", "--optimizer", "--lr-scheduler", "--tokenizer", "--bpe",
              "-h", "--help"}

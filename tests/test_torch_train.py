@@ -395,7 +395,7 @@ def test_off_path_training_options_raise():
                               torch_dictionary()).load_dataset("train")
     task = SpeechRecognitionTask(args, torch_dictionary())
     with pytest.raises(NotImplementedError):
-        task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "cross_entropy_acc"}))
+        task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "asg_loss"}))
     model = tct.build_model("conv_transformer", torch_dictionary(), device="cpu", **SMALL)
     crit = task.build_criterion(args)
     for option in (dict(fsdp=True), dict(steps_per_execution=4), dict(use_bmuf=True),
@@ -405,6 +405,9 @@ def test_off_path_training_options_raise():
     # every optimiser and scheduler of the JAX package is ported
     Trainer(argparse.Namespace(**{**vars(args), "optimizer": "sgd", "momentum": 0.0, "lr_scheduler": "fixed",
                                   "force_anneal": None, "lr_shrink": 0.1}), task, model, crit)
-    model.frozen_param_filter = lambda name: True
-    with pytest.raises(NotImplementedError):
-        Trainer(args, task, model, crit)
+    # a model's frozen parameters stay out of the update
+    model.frozen_param_filter = lambda name: name.startswith("encoder.")
+    trainer = Trainer(args, task, model, crit)
+    frozen = {id(p) for name, p in model.named_parameters() if name.startswith("encoder.")}
+    assert frozen and not frozen & {id(p) for p in trainer.params}
+    assert len(trainer.params) == sum(1 for _ in model.parameters()) - len(frozen)

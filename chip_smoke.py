@@ -85,7 +85,9 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      launches); the tensor-core backward bitwise equal across two launches
      (asserted); and ``dconv_tc_wins_everywhere``: the tensor-core forward's
      and backward's median launch each at most the CUDA-core one's at each
-     of the 13 main-path calls in both types (asserted);
+     of the 13 main-path calls in both types, the two routes' launches
+     interleaved in one trace, 60 of each, of which the trace must keep at
+     least half (asserted);
   6. serve (main path 1): the conv_transformer base preset at full width
      (256/768/4, 6+6 layers, 80 mels, vocabulary 8000, random weights from
      a seed) serves three requests with beam 5 through
@@ -355,7 +357,39 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      rows with every key masked (a shape bucket's padding rows, which the
      ctxreg penalty sends a gradient) against its plain version in both
      types, every value finite;
- 30. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+ 30. from raw files to the FBK papers' scores (main path 20), on phase
+     24's corpus and save dir and phase 9's model: phase 24's valid split
+     written out as a user's raw files (an npz stream of its filterbanks,
+     its target and transcript lines) and brought back by
+     ``cli/preprocess_audio`` and ``cli/preprocess`` (``--tgtdict`` phase
+     24's dictionary, ``--dataset-impl cached``): every file byte for byte
+     phase 24's and the task's items equal; ``scripts/resegment_data_mustc``
+     on a segmentation of 16 utterances each cut in two, read by ``yaml``
+     where it is installed and by the fallback parser: each pair of new
+     lines rejoins to its original, word for word, and the parsers agree;
+     ``cli/average_checkpoints
+     --num-epoch-checkpoints 2``: every float tensor bitwise the float64
+     mean of ``checkpoint1.pt`` and ``checkpoint2.pt``; ``cli/generate`` of
+     the average in fp32, beam 5: 8 tf32x3 forwards a batch and nothing
+     else; ``cli/generate --score-reference``: 20 tf32x3 forwards a batch
+     and nothing else, the P- and H- scores within 1e-4 of the in-memory
+     ``SequenceScorer`` on the card, within 1e-3 of the CPU's on 2
+     utterances, each H- score its P- scores' mean; ``cli/score`` on the D-
+     lines: ``cli/generate``'s BLEU line exactly, and 100 on the
+     references; the FBK evaluation scripts (MuST-SHE accuracy, the word
+     and agreement full tables with their aggregates under the bundled
+     configs, NE/terminology accuracy) on the D- lines (every table well
+     formed: one row a term, a group or a metric, the system's columns) and
+     on the references (every score 1.0), ``combine_ne_terms`` on two IOB
+     streams; then ``cli/interactive`` (``--buffer-size 8 --max-sentences
+     8``, beam 5) serving 32 lines of 10-60 tokens from phase 9's
+     ``dynamicconv_wmt_en_de_big`` saved by ``save_model_checkpoint``: 7
+     ``dynamic_conv_fwd_tc`` a batch and nothing else, one S- and one H-
+     line a line, the H- lines the in-memory generator's on the same
+     batches (scores within 1e-4); the CLIs' walls, the busy ms and idle
+     share of one scorer batch and one interactive batch, the phase's
+     seconds;
+ 31. the ``kernels`` line (the D 128 tensor-core kernels timed at the
      iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
@@ -388,9 +422,11 @@ Tolerances (stated here, checked below):
     |out|, |dx| < 5: one bf16 rounding); dw, a sum of C/H = 64 products
     that reaches |dw| ~ 40, at 1e-5 (fp32) and 1e-2 (bf16, one rounding at
     2^-8) of max|dw|;
-  * ``cli/generate`` against the in-memory generator on the same batches
-    and weights: the same hypotheses, scores within 1e-4 (the same
-    kernels on the same inputs);
+  * ``cli/generate`` and ``cli/interactive`` against the in-memory
+    generator, and ``cli/generate --score-reference`` against the in-memory
+    scorer, on the same batches and weights: the same hypotheses, scores
+    within 1e-4 (the same kernels on the same inputs; a P- value is printed
+    at 4 decimals, 5e-5 of rounding);
   * ``cli/train`` resumed against the straight run: the losses after the
     stop within 1e-3 relative (bf16 compute, and ``F.ctc_loss``'s CUDA
     backward sums with atomics, so two runs of the same update may part in
@@ -679,6 +715,12 @@ CTX_ARGS = ["--task", "speech_recognition_context", "-t", "de", "--arch", CTX_AR
             str(N_MELS), "--context-encoder-layers", "1", "--criterion", "label_smoothed_cross_entropy_ctxreg",
             "--label-smoothing", "0.1", "--ctx-reg-alpha", "0.3", "--freeze-pretrained", "encoder",
             "--weight-decay", "0.01"]
+# phase 30: from raw files to the papers' scores, on phase 24's corpus and save dir
+RESEG_SEGMENTS = 16  # MuST-C segments cut in two by the resegmentation
+SCORE_REF_LAUNCHES = CT_FLASH_CALLS_PER_STEP  # the teacher-forced fp32 forward: encoder 8, decoder 6 + 6
+SCORE_REF_ATOL = 1e-4  # --score-reference and cli/interactive against the in-memory scorer / generator
+INTERACTIVE_LINES = 32
+INTERACTIVE_BUFFER = 8  # --buffer-size and --max-sentences: one batch a buffer
 GRID_CAP_ROWS = 70_000
 # the single pass's bf16 out at bh 70,000 element by element: two bf16 ulps
 # of |plain| (72 M outputs reach further into the tail of P's rounding than
@@ -724,6 +766,7 @@ L2_FLUSH_BYTES = 128 << 20  # written between launches: over the H100's 50 MB L2
 # kernel "<row name>_kernel"
 DCONV_ROUTES = {"tc": ("dynamic_conv_fwd_tc", "dynamic_conv_bwd_tc"),
                 "cuda_core": ("dynamic_conv_fwd", "dynamic_conv_bwd")}
+DCONV_PAIRED_ROUNDS = 60  # launches of each route in the trace that compares them
 
 # the single-pass kernels' checks: (name, bh, T, S, causal, padded keys,
 # types), each at every t_block the type's kernel takes
@@ -1664,6 +1707,32 @@ def dconv_device_ms(fn, kernel, cold=None):
     return ms
 
 
+def dconv_paired_device_ms(calls, rounds=DCONV_PAIRED_ROUNDS, tries=6):
+    """The median device launch of each kernel of ``calls`` ({kernel: fn},
+    each fn launching that kernel once), the calls interleaved round by
+    round in one trace, so that every kernel sees the same clocks and the
+    same L2, and the number of launches the trace kept of each. A trace
+    that kept fewer than half the launches of some kernel (chip runs saw
+    traces keep 2 of 10) is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                for fn in calls.values():
+                    fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        times = {kernel: [e.device_time_total for e in events if kernel + "_kernel" in e.name]
+                 for kernel in calls}
+        if all(2 * len(t) >= rounds for t in times.values()):
+            return {kernel: (float(np.median(t)) / 1e3, len(t)) for kernel, t in times.items()}
+    raise AssertionError(f"no trace kept half of {rounds} launches of each of {sorted(calls)} in {tries} tries")
+
+
 def check_dconv_kernels(dconv):
     """Each dynamic-conv call in fp32 and bf16: the tensor-core forward and
     backward (every model path's) and the CUDA-core pair (a direct call)
@@ -1671,7 +1740,8 @@ def check_dconv_kernels(dconv):
     bitwise equal across two launches; times and bounds, the bf16
     ``DCONV_COLD_AT`` rows also with a cold L2; and whether the tensor-core
     kernels' median launch is at most the CUDA-core ones' at every main-path
-    call in both types (``dconv_tc_wins_everywhere``, asserted)."""
+    call in both types (``dconv_tc_wins_everywhere``, asserted), the two
+    routes' launches interleaved in one trace (``dconv_paired_device_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cold = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     rows = []
@@ -1692,7 +1762,7 @@ def check_dconv_kernels(dconv):
             plain = {"fwd": time_ms(lambda: dconv.dynamic_conv_reference(x, w, pad_l)),
                      "bwd": time_ms(lambda: dconv.dynamic_conv_backward_reference(x, w, g, pad_l))}
             bounds = {kind: dconv_bound_ms(kind, b, t, c, h, k, pad_l, dtype) for kind in ("fwd", "bwd")}
-            device = {}
+            calls = {}
             for route, (fwd_name, bwd_name) in DCONV_ROUTES.items():
                 out_k = dconv.dynamic_conv_forward(x, w, pad_l, route=route)
                 dx_k, dw_k = dconv.dynamic_conv_backward(x, w, g, pad_l, route=route)
@@ -1705,8 +1775,9 @@ def check_dconv_kernels(dconv):
                 if route == "tc":
                     dx_2, dw_2 = dconv.dynamic_conv_backward(x, w, g, pad_l, route=route)
                     repeat = bool(torch.equal(dx_2, dx_k) and torch.equal(dw_2, dw_k))
-                fwd = lambda: dconv.dynamic_conv_forward(x, w, pad_l, route=route)  # noqa: E731
-                bwd = lambda: dconv.dynamic_conv_backward(x, w, g, pad_l, route=route)  # noqa: E731
+                fwd = lambda route=route: dconv.dynamic_conv_forward(x, w, pad_l, route=route)  # noqa: E731
+                bwd = lambda route=route: dconv.dynamic_conv_backward(x, w, g, pad_l, route=route)  # noqa: E731
+                calls[fwd_name], calls[bwd_name] = fwd, bwd
                 timings = {
                     fwd_name: dict(kernel_ms=time_ms(fwd), kernel_device_ms=dconv_device_ms(fwd, fwd_name),
                                    plain_ms=plain["fwd"], max_abs_err=errs["fwd"], atol=ATOL_KERNEL[dtype],
@@ -1724,7 +1795,6 @@ def check_dconv_kernels(dconv):
                     row = {**base, "kernel": kernel, "route": route, **tm}
                     emit(row)
                     rows.append(row)
-                device[route] = (timings[fwd_name]["kernel_device_ms"], timings[bwd_name]["kernel_device_ms"])
                 ok = errs["fwd"] <= ATOL_KERNEL[dtype] and errs["dx"] <= ATOL_GRAD[dtype] and errs["dw"] <= dw_tol
                 if not ok:
                     raise AssertionError(f"dynamic conv ({route}) disagrees with its plain version at {name} "
@@ -1732,10 +1802,13 @@ def check_dconv_kernels(dconv):
                 if repeat is False:
                     raise AssertionError(f"dynamic_conv_bwd_tc is not bitwise repeatable at {name} {dtype}")
             if name in DCONV_MAIN_SHAPES:
-                wins[f"{name} {base['dtype']}"] = {
-                    "fwd": device["tc"][0] <= device["cuda_core"][0], "bwd": device["tc"][1] <= device["cuda_core"][1],
-                    "fwd_ms": [device["tc"][0], device["cuda_core"][0]],
-                    "bwd_ms": [device["tc"][1], device["cuda_core"][1]]}
+                call = wins[f"{name} {base['dtype']}"] = {}
+                for i, kind in enumerate(("fwd", "bwd")):
+                    tc, cc = DCONV_ROUTES["tc"][i], DCONV_ROUTES["cuda_core"][i]
+                    paired = dconv_paired_device_ms({tc: calls[tc], cc: calls[cc]})
+                    call[kind] = paired[tc][0] <= paired[cc][0]
+                    call[kind + "_ms"] = [paired[tc][0], paired[cc][0]]
+                    call[kind + "_launches_kept"] = [paired[tc][1], paired[cc][1]]
     everywhere = all(v["fwd"] and v["bwd"] for v in wins.values())
     emit({"phase": "dconv_tc_wins", "dconv_tc_wins_everywhere": everywhere, "calls": len(wins), "by_call": wins,
           "card": CARD[0]})
@@ -3972,6 +4045,531 @@ def context_from_files(card, d, fa, dconv, single, modules, tmp):
 
 
 # ---------------------------------------------------------------------------
+# 30. from raw files to the papers' scores
+# ---------------------------------------------------------------------------
+
+def counted_calls(owner, name, counters):
+    """Patch ``owner.name`` to record the launches of each call (a dict of
+    count deltas a call, appended to the returned list) until ``restore``."""
+    calls, original = [], getattr(owner, name)
+
+    def call(*args, **kwargs):
+        before = launch_counts(*counters)
+        out = original(*args, **kwargs)
+        after = launch_counts(*counters)
+        calls.append({k: after[k] - before[k] for k in after})
+        return out
+
+    setattr(owner, name, call)
+    return calls, lambda: setattr(owner, name, original)
+
+
+def read_generate(path):
+    """{kind: {id: fields}} of the T-/H-/D-/P- lines of a
+    ``generate-<subset>.txt`` and the BLEU result string."""
+    records, result = {}, None
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            head, _, rest = line.rstrip("\n").partition("\t")
+            if head[:2] in ("T-", "H-", "D-", "P-"):
+                records.setdefault(head[0], {})[int(head[2:])] = rest.split("\t")
+            elif "| Generate " in line:
+                result = line.strip().split(": ", 1)[1]
+    return records, result
+
+
+def captured(fn, *args):
+    """``fn(*args)``'s standard output, kept out of this script's."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args)
+    return out.getvalue()
+
+
+def files_equal(a_dir, b_dir, names):
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+    return {name: read(os.path.join(a_dir, name)) == read(os.path.join(b_dir, name)) for name in names}
+
+
+def raw_from_corpus(modules, d, data_dir, raw_dir, split):
+    """Phase 24's ``split`` as the raw files a user brings: its filterbanks
+    as an npz stream (a count, then one array an utterance) and its target
+    and transcript lines as text. Returns the utterance count."""
+    idx = modules["indexed_dataset"]
+    frames = idx.FilterBanksDataset(os.path.join(data_dir, f"{split}.npz"))
+    with open(os.path.join(raw_dir, f"{split}_fbank.npz"), "wb") as f:
+        np.save(f, np.array([len(frames)]))
+        for i in range(len(frames)):
+            np.save(f, frames[i])
+    for lang in ("de", "en"):
+        text = idx.IndexedDataset(os.path.join(data_dir, f"{split}.{lang}"), fix_lua_indexing=True)
+        with open(os.path.join(raw_dir, f"{split}.{lang}"), "w", encoding="utf-8") as f:
+            for i in range(len(text)):
+                f.write(" ".join(d[int(t)] for t in text[i][:-1]) + "\n")  # the eos is the writer's
+    return len(frames)
+
+
+def data_in(modules, d, data_dir, tmp, split):
+    """``cli/preprocess_audio`` and ``cli/preprocess`` (``--tgtdict``: phase
+    24's dictionary, ``--dataset-impl cached``: phase 24's builder) on the
+    raw files of ``split``: the files byte for byte phase 24's, and the
+    task's items on the written data-bin equal to phase 24's."""
+    raw_dir, bin_dir = os.path.join(tmp, "raw"), os.path.join(tmp, "data-bin")
+    os.makedirs(raw_dir)
+    n = raw_from_corpus(modules, d, data_dir, raw_dir, split)
+    t0 = time.perf_counter()
+    modules["preprocess_audio_cli"].cli_main(["--audio-features", os.path.join(raw_dir, f"{split}_fbank.npz"),
+                                              "--format", "npz", "--output", os.path.join(bin_dir, f"{split}.npz")])
+    for lang in ("de", "en"):
+        modules["preprocess_cli"].cli_main(["--target-lang", lang, "--tgtdict",
+                                            os.path.join(data_dir, f"dict.{lang}.txt"), f"--{split}pref",
+                                            os.path.join(raw_dir, split), "--destdir", bin_dir,
+                                            "--dataset-impl", "cached", "--workers", "2"])
+    cli_s = time.perf_counter() - t0
+    names = [f"{split}.{kind}.{ext}" for kind in ("npz", "de", "en") for ext in ("bin", "idx")] + \
+            ["dict.de.txt", "dict.en.txt"]
+    same_files = files_equal(data_dir, bin_dir, names)
+    tasks = []
+    for path in (data_dir, bin_dir):
+        argv = [path, "--task", "speech_translation_with_transcription", "-s", "en", "-t", "de", "--criterion",
+                "ctc_multi_loss", "--underlying-criterion", "label_smoothed_cross_entropy"]
+        args = modules["options"].parse_args_and_arch(modules["options"].get_generation_parser(), argv)
+        task = modules["registry"].TASKS[args.task].setup_task(args)
+        task.load_dataset(split)
+        tasks.append(task.dataset(split))
+    same_items = all(
+        sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in ((tasks[0][i], tasks[1][i]) for i in range(n))) and len(tasks[1]) == n
+    out = {"utterances": n, "cli_s": cli_s, "files_byte_equal": same_files, "items_equal": same_items}
+    if not (all(same_files.values()) and same_items):
+        raise AssertionError(f"the writers' files differ from phase 24's corpus: {out}")
+    return out, raw_dir
+
+
+def resegmentation(modules, data_dir, raw_dir, tmp, split, rng):
+    """``scripts/resegment_data_mustc`` on a MuST-C segmentation of the
+    first RESEG_SEGMENTS utterances of ``split`` (10 ms frames, 1 s apart on
+    one wav) cut in two at a random point each, read by ``yaml`` (where it
+    is installed) and by the fallback parser: each pair of new segments'
+    transcripts and targets joins to its original line, word for word, and
+    both parsers give the same lines."""
+    import importlib.util
+
+    frames = modules["indexed_dataset"].FilterBanksDataset(os.path.join(data_dir, f"{split}.npz"))
+    orig, new, offset = [], [], 0.0
+    for i in range(RESEG_SEGMENTS):
+        dur = round(frames.size(i) * FRAME_SECONDS, 2)
+        cut = round(dur * rng.uniform(0.3, 0.7), 2)
+        orig.append(f"- {{duration: {dur}, offset: {offset}, wav: ted_1.wav}}")
+        new.append(f"- {{duration: {cut}, offset: {offset}, wav: ted_1.wav}}")
+        new.append(f"- {{duration: {dur - cut}, offset: {offset + cut}, wav: ted_1.wav}}")
+        offset = round(offset + dur + 1.0, 2)
+    paths = {name: os.path.join(tmp, name) for name in ("orig.yaml", "new.yaml", "orig.en", "orig.de", "new.en",
+                                                          "new.de")}
+    for name, lines in (("orig.yaml", orig), ("new.yaml", new)):
+        with open(paths[name], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    originals = {}
+    for lang in ("en", "de"):
+        with open(os.path.join(raw_dir, f"{split}.{lang}"), encoding="utf-8") as f:
+            originals[lang] = [next(f).rstrip("\n") for _ in range(RESEG_SEGMENTS)]
+        with open(paths[f"orig.{lang}"], "w", encoding="utf-8") as f:
+            f.write("\n".join(originals[lang]) + "\n")
+    argv = ["--orig-yaml", paths["orig.yaml"], "--orig-text", paths["orig.en"], paths["orig.de"], "--new-yaml",
+            paths["new.yaml"], "--output", paths["new.en"], paths["new.de"]]
+    rejoined, outputs, seconds = {}, [], {}
+    # with yaml where it is installed, then with the fallback parser
+    for parser in ("yaml", "fallback") if importlib.util.find_spec("yaml") else ("fallback",):
+        saved = sys.modules.get("yaml")
+        if parser == "fallback":
+            sys.modules["yaml"] = None  # ``import yaml`` raises ImportError
+        try:
+            t0 = time.perf_counter()
+            modules["resegment"].cli_main(argv)
+            seconds[parser] = time.perf_counter() - t0
+        finally:
+            if parser == "fallback":
+                if saved is None:
+                    del sys.modules["yaml"]
+                else:
+                    sys.modules["yaml"] = saved
+        lines = {}
+        for lang in ("en", "de"):
+            with open(paths[f"new.{lang}"], encoding="utf-8") as f:
+                lines[lang] = f.read().splitlines()
+        rejoined[parser] = {lang: sum((pieces[2 * i] + " " + pieces[2 * i + 1]).split() == originals[lang][i].split()
+                                      for i in range(RESEG_SEGMENTS)) if len(pieces) == 2 * RESEG_SEGMENTS else 0
+                            for lang, pieces in lines.items()}
+        outputs.append(lines)
+    out = {"segments": RESEG_SEGMENTS, "new_segments": len(new), "seconds": seconds, "rejoined": rejoined,
+           "parsers_agree": all(o == outputs[0] for o in outputs)}
+    if not (out["parsers_agree"] and all(r == {"en": RESEG_SEGMENTS, "de": RESEG_SEGMENTS}
+                                         for r in rejoined.values())):
+        raise AssertionError(f"the resegmented lines do not rejoin to the originals: {out}")
+    return out
+
+
+def averaging(modules, save_dir, tmp):
+    """``cli/average_checkpoints --num-epoch-checkpoints 2`` on phase 24's
+    save dir: every float tensor bitwise the float64 mean of
+    checkpoint1.pt and checkpoint2.pt rounded to float32."""
+    out_path = os.path.join(tmp, "average.pt")
+    t0 = time.perf_counter()
+    modules["average_cli"].cli_main(["--inputs", save_dir, "--num-epoch-checkpoints", "2", "--output", out_path])
+    seconds = time.perf_counter() - t0
+    inputs = [torch.load(os.path.join(save_dir, f"checkpoint{e}.pt"), map_location="cpu", weights_only=False)["model"]
+              for e in (1, 2)]
+    got = torch.load(out_path, map_location="cpu", weights_only=False)["model"]
+    floats = [k for k, v in inputs[0].items() if v.is_floating_point()]
+    exact = sorted(got) == sorted(inputs[0]) and all(
+        torch.equal(got[k], ((inputs[0][k].double() + inputs[1][k].double()) / 2).float()) for k in floats)
+    moved = sum(not torch.equal(inputs[0][k], inputs[1][k]) for k in floats)
+    out = {"cli_s": seconds, "tensors": len(got), "float_tensors": len(floats), "differing_inputs": moved,
+           "bitwise_float64_mean": exact, "bytes": os.path.getsize(out_path)}
+    if not (exact and moved > 0):
+        raise AssertionError(f"the average is not the float64 mean of the inputs: {out}")
+    return out_path, out
+
+
+def mustshe_inputs(refs, tmp):
+    """The MuST-SHE-format definitions over the references ``refs`` (id ->
+    line): one term a line, its correct form the line's first word and a
+    fixed wrong form; POS and agreement definitions (two terms: the first
+    and the last word of the line when they differ); an NE/terminology IOB
+    reference (words 1-2 a PER entity, word 4 a TERM); and two IOB streams
+    over the references for ``combine_ne_terms``, the terminology stream
+    cutting word 3 of every other line in two."""
+    ids = sorted(refs)
+    words = {i: refs[i].split() for i in ids}
+    cats = ("1F", "1M", "2F", "2M")
+    rows = ["ID\tCATEGORY\tGENDER\tGENDERTERMS"] + [
+        f"s{i}\t{cats[i % 4]}\t{'She' if i % 2 else 'He'}\t{words[i][0]} wrongform{i}" for i in ids]
+    pos = ["ID\tPOS"] + [f"s{i}\t{('noun', 'adj', 'art/prep', 'verb')[i % 4]}" for i in ids]
+    agr = ["ID\tAGR_KIND\tAGR_TERMS\tAGR_IDS"] + [
+        f"s{i}\tchain\t{words[i][0]} wrongform{i};{words[i][-1]} otherform{i}\t0;1"
+        for i in ids if words[i][0] != words[i][-1]]
+    iob, ner, term = [], [], []
+    for n, i in enumerate(ids):
+        w = words[i]
+        tags = ["O"] * len(w)
+        tags[1], tags[2], tags[4] = "B-PER", "I-PER", "B-TERM"
+        iob.append("".join(f"{k + 1}\t{t}\t{g}\n" for k, (t, g) in enumerate(zip(w, tags))))
+        ner.append("".join(f"{k + 1}\t{t}\t{'O' if g == 'B-TERM' else g}\n" for k, (t, g) in enumerate(zip(w, tags))))
+        t_words, t_tags = list(w), ["B-TERM" if g == "B-TERM" else "O" for g in tags]
+        if n % 2:
+            t_words[3:4], t_tags[3:4] = [w[3][:2], w[3][2:]], ["O", "O"]
+        term.append("".join(f"{k + 1}\t{t}\t{g}\n" for k, (t, g) in enumerate(zip(t_words, t_tags))))
+    files = {"mustshe.tsv": rows, "pos.tsv": pos, "agr.tsv": agr}
+    for name, lines in files.items():
+        with open(os.path.join(tmp, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    for name, sentences in (("ne_ref.iob", iob), ("ner.iob", ner), ("term.iob", term)):
+        with open(os.path.join(tmp, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(sentences) + "\n")
+    return len(ids), len(agr) - 1
+
+
+def read_tsv(path):
+    import csv
+
+    with open(path, encoding="utf-8") as f:
+        return list(csv.DictReader(f, delimiter="\t"))
+
+
+def fbk_scores(modules, tmp, lines, name, n_terms, n_agrs):
+    """Every FBK evaluation script on ``lines`` (id -> line) as one system
+    ``name``: MuST-SHE accuracy (its printed table), the word-level and
+    agreement full tables and their aggregates under the bundled configs,
+    and NE/terminology accuracy. Returns the scores, each table held to
+    its shape: one row a term (a group, a metric), each system's columns."""
+    scripts = modules["fbk_scripts"]
+    config_dir = os.path.join(os.path.dirname(scripts["mustshe_acc"].__file__), "config_files")
+    sys_dir = os.path.join(tmp, "fbk_" + name)
+    os.makedirs(sys_dir)
+    hyp = os.path.join(sys_dir, "out.system")
+    with open(hyp, "w", encoding="utf-8") as f:
+        f.write("".join(lines[i] + "\n" for i in sorted(lines)))
+    t = lambda n: os.path.join(tmp, n)  # noqa: E731
+    o = lambda n: os.path.join(sys_dir, n)  # noqa: E731
+    t0 = time.perf_counter()
+    acc = captured(scripts["mustshe_acc"].cli_main, ["--input", hyp, "--tsv-definition", t("mustshe.tsv"),
+                                                      "--sentence-acc", o("sentence_acc.tsv")])
+    captured(scripts["mustshe_acc_fulltable"].cli_main, ["--input-prefix", os.path.join(sys_dir, "out."),
+                                                          "--tsv-definition", t("mustshe.tsv"),
+                                                          "--pos-definition", t("pos.tsv"), "--output", o("full.tsv")])
+    captured(scripts["accuracy_from_fulltable"].cli_main, ["--fulltable", o("full.tsv"), "--config",
+                                                            os.path.join(config_dir, "config.word-level.json"),
+                                                            "--output", o("word_metrics.tsv")])
+    captured(scripts["mustshe_agr_fulltable"].cli_main, ["--input-prefix", os.path.join(sys_dir, "out."),
+                                                          "--tsv-definition", t("mustshe.tsv"),
+                                                          "--agr-definition", t("agr.tsv"), "--output", o("agr.tsv")])
+    captured(scripts["agreement_from_fulltable"].cli_main, ["--fulltable", o("agr.tsv"), "--config",
+                                                             os.path.join(config_dir, "config.agr-level.json"),
+                                                             "--output", o("agr_metrics.tsv")])
+    ne = captured(scripts["ne_terms_accuracy"].cli_main, ["--input", hyp, "--ne-reference", t("ne_ref.iob")])
+    seconds = time.perf_counter() - t0
+
+    table = [line.split("\t") for line in acc.splitlines() if "\t" in line][1:]
+    full, agr = read_tsv(o("full.tsv")), read_tsv(o("agr.tsv"))
+    word_metrics, agr_metrics = read_tsv(o("word_metrics.tsv")), read_tsv(o("agr_metrics.tsv"))
+    ne_rows = [line.split("\t") for line in ne.splitlines() if line.count("\t") == 3 and not line.startswith("Type")]
+    col = "out.system_"
+    shaped = (sorted(r[0] for r in table) == ["1F", "1M", "2F", "2M", "Global"]
+              and len(full) == n_terms and f"{col}found_correct" in full[0]
+              and len(agr) == n_agrs and f"{col}agreement_correct" in agr[0]
+              and len(word_metrics) >= 4 and f"{col}gender_accuracy" in word_metrics[0]
+              and len(agr_metrics) == 3 and f"{col}agreement_correct_percent" in agr_metrics[0]
+              and sorted(r[0] for r in ne_rows) == ["PER", "PER", "TERM", "TERM"])
+    scores = {"mustshe_acc": {r[0]: [float(r[1]), float(r[2])] for r in table},
+              "word_metrics": {r["metric"]: [float(r[f"{col}term_coverage"]), float(r[f"{col}gender_accuracy"])]
+                               for r in word_metrics},
+              "agreement": {r["metric"]: [float(r[f"{col}agreement_correct_percent"]),
+                                          float(r[f"{col}in_coverage_percent"])] for r in agr_metrics},
+              "ne_terms": [[r[0], float(r[1]), float(r[2]), int(r[3])] for r in ne_rows],
+              "seconds": seconds, "well_formed": shaped}
+    if not shaped:
+        raise AssertionError(f"an FBK score table on {name} is malformed: {scores}")
+    return scores
+
+
+def all_ones(scores):
+    values = [v for row in scores["mustshe_acc"].values() for v in row]
+    values += [v for key in ("word_metrics", "agreement") for row in scores[key].values() for v in row]
+    values += [v for row in scores["ne_terms"] for v in row[1:3]]
+    return bool(values) and all(v == 1.0 for v in values)
+
+
+def combine_streams(modules, tmp, ids):
+    """``combine_ne_terms`` over the NER and terminology streams: one row a
+    NER token, the TERM and PER tags where the streams put them."""
+    out = captured(modules["fbk_scripts"]["combine_ne_terms"].cli_main,
+                   [os.path.join(tmp, "ner.iob"), os.path.join(tmp, "term.iob")])
+    sentences = [s for s in out.split("\n\n") if s.strip()]
+    with open(os.path.join(tmp, "ner.iob"), encoding="utf-8") as f:
+        ner = [s for s in f.read().split("\n\n") if s.strip()]
+    ok = len(sentences) == len(ids) and all(
+        len(s.splitlines()) == len(n.splitlines()) and [r.split("\t")[2] for r in s.splitlines()][1:3] == ["B-PER",
+                                                                                                          "I-PER"]
+        and s.splitlines()[4].split("\t")[2] == "B-TERM" for s, n in zip(sentences, ner))
+    if not ok:
+        raise AssertionError("combine_ne_terms merged the streams wrongly")
+    return {"sentences": len(sentences), "rows": sum(len(s.splitlines()) for s in sentences), "well_formed": ok}
+
+
+def raw_to_scores(card, d, fa, dconv, single, modules, tmp, lc_dicts):
+    """30. Main path 20, the fork's workflow from raw files to the FBK
+    papers' scores on the card, on phase 24's corpus and save dir: the data
+    writers (``cli/preprocess_audio`` and ``cli/preprocess`` on the valid
+    split written out as raw files: the files byte for byte phase 24's, the
+    items the task loads equal), the MuST-C resegmentation,
+    ``cli/average_checkpoints`` of the last two epochs (bitwise the float64
+    mean), ``cli/generate`` of the average (8 tf32x3 forwards a batch and
+    nothing else), ``cli/generate --score-reference`` (20 a batch and
+    nothing else; the P- scores within SCORE_REF_ATOL of the in-memory
+    ``SequenceScorer`` on the card, within ATOL_MODEL of the CPU's on 2
+    utterances; each H- score its P- scores' mean), ``cli/score`` on the D-
+    lines (``cli/generate``'s BLEU line exactly), every FBK evaluation
+    script on the D- lines (well-formed tables) and on the references (every
+    score 1.0), ``combine_ne_terms``; then ``cli/interactive`` serving
+    phase 9's ``dynamicconv_wmt_en_de_big`` from a ``save_model_checkpoint``
+    file (INTERACTIVE_LINES lines of 10-60 tokens, ``--buffer-size`` and
+    ``--max-sentences`` INTERACTIVE_BUFFER, beam 5): 7
+    ``dynamic_conv_fwd_tc`` a batch and nothing else, one S- and one H- line
+    an input line, the H- lines the in-memory generator's on the same
+    batches (scores within SCORE_REF_ATOL). Returns the launches."""
+    import logging
+
+    phase_t0 = time.perf_counter()
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "raw_to_scores.log"))
+    root.addHandler(handler)
+    work = os.path.join(tmp, "raw_to_scores")
+    os.makedirs(work)
+    data_dir, save_dir, split = os.path.join(tmp, "data"), os.path.join(tmp, "straight"), "valid"
+    rng = np.random.RandomState(30)
+    checkpoint, options, registry = modules["checkpoint"], modules["options"], modules["registry"]
+
+    written, raw_dir = data_in(modules, d, data_dir, work, split)
+    reseg = resegmentation(modules, data_dir, raw_dir, work, split, rng)
+    avg_path, avg = averaging(modules, save_dir, work)
+
+    # phase 9's model saved as a user's checkpoint, with its dictionaries
+    src_dict, tgt_dict = lc_dicts
+    lc_dir = os.path.join(work, "lc-bin")
+    os.makedirs(lc_dir)
+    src_dict.save(os.path.join(lc_dir, "dict.en.txt"))
+    tgt_dict.save(os.path.join(lc_dir, "dict.de.txt"))
+    lc_model = modules["build_model"](LC_ARCH, tgt_dict, src_dict, seed=0)
+    lc_args = types.SimpleNamespace(arch=LC_ARCH, task="translation", criterion="label_smoothed_cross_entropy",
+                                    seed=0)
+    registry.apply_architecture(lc_args)
+    lc_ckpt = os.path.join(work, "dynamicconv.pt")
+    modules["save_model_checkpoint"](lc_ckpt, lc_args, lc_model)
+    src, _ = text_pairs(rng, INTERACTIVE_LINES, 10, 60, LC_VOCAB)
+    lines = [" ".join(src_dict[int(t)] for t in s[:-1]) for s in src]
+    input_path = os.path.join(work, "input.txt")
+    with open(input_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+    speech = ["--task", "speech_translation_with_transcription", "-s", "en", "-t", "de", "--criterion",
+              "ctc_multi_loss", "--underlying-criterion", "label_smoothed_cross_entropy", "--gen-subset", split,
+              "--max-tokens", "25000"]
+    decode_argv = [data_dir, *speech, "--path", avg_path, "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B),
+                   "--results-path", os.path.join(work, "decode")]
+    score_argv = [data_dir, *speech, "--path", avg_path, "--score-reference",
+                  "--results-path", os.path.join(work, "score_reference")]
+    interactive_argv = [lc_dir, "--task", "translation", "-s", "en", "-t", "de", "--path", lc_ckpt, "--beam",
+                        str(BEAM), "--max-len-b", str(MAX_LEN_B), "--buffer-size", str(INTERACTIVE_BUFFER),
+                        "--max-sentences", str(INTERACTIVE_BUFFER), "--input", input_path]
+
+    # the main path: the three CLIs that reach the card, each batch counted
+    counters = (fa, dconv, single)
+    walls = {}
+    reset_counts(fa, dconv, single)
+    per_batch, restore = counted_calls(modules["Task"], "inference_step", counters)
+    try:
+        for name, fn, argv in (("decode", modules["generate_cli"].cli_main, decode_argv),
+                               ("score_reference", modules["generate_cli"].cli_main, score_argv),
+                               ("interactive", modules["interactive_cli"].cli_main, interactive_argv)):
+            start = len(per_batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = captured(fn, argv)
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t0, per_batch[start:], out)
+    finally:
+        restore()
+    launches = launch_counts(fa, dconv, single)
+    none = {k: 0 for k in launches}
+    want = {"decode": dict(none, **{FP32_FORWARD: FLASH_LAUNCHES_PER_REQUEST}),
+            "score_reference": dict(none, **{FP32_FORWARD: SCORE_REF_LAUNCHES}),
+            "interactive": dict(none, **{DCONV_FORWARD: DCONV_LAUNCHES_PER_REQUEST})}
+    for name, (_, batches, _) in walls.items():
+        bad = [b for b in batches if b != want[name]]
+        if bad or not batches:
+            raise AssertionError(f"{name}: launches {bad[:2]} a batch, expected {want[name]} "
+                                 f"({len(batches)} batches)")
+    total = {k: sum(len(walls[n][1]) * want[n][k] for n in want) for k in launches}
+    if launches != total:
+        raise AssertionError(f"phase 30 launched {launches}, its batches {total}")
+
+    # the decode of the average, and cli/score on its D- lines
+    decoded, result = read_generate(os.path.join(work, "decode", f"generate-{split}.txt"))
+    refs = {i: t[0] for i, t in decoded["T"].items()}
+    hyps = {i: h[1] for i, h in decoded["D"].items()}
+    scored = {}
+    for name, lines_of in (("decode", hyps), ("references", refs)):
+        path = os.path.join(work, f"{name}.txt")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("".join(lines_of[i] + "\n" for i in sorted(lines_of)))
+        scored[name] = path
+    score_lines = {name: captured(modules["score_cli"].cli_main, ["--sys", path, "--ref", scored["references"]]).strip()
+                   for name, path in scored.items()}
+
+    # --score-reference against the in-memory scorer on the card, and the CPU
+    sr, _ = read_generate(os.path.join(work, "score_reference", f"generate-{split}.txt"))
+    cli_args = options.parse_args_and_arch(options.get_generation_parser(), score_argv)
+    task = registry.TASKS[cli_args.task].setup_task(cli_args)
+    task.load_dataset(split)
+    batches = list(task.get_batch_iterator(
+        task.dataset(split), max_tokens=cli_args.max_tokens, max_sentences=cli_args.max_sentences,
+        max_positions=task.max_positions(),
+        required_batch_size_multiple=cli_args.required_batch_size_multiple).next_epoch_itr(shuffle=False))
+    model = checkpoint.load_model_ensemble([avg_path], task=task)[0][0]
+    scorer = modules["SequenceScorer"](task.target_dictionary)
+    ln2 = math.log(2)
+    worst_p, worst_h, worst_mean, n_scored = 0.0, 0.0, 0.0, 0
+    for sample in batches:
+        for sid, hypo in zip(sample["id"], scorer.generate([model], sample)):
+            h = hypo[0]
+            printed = np.array(sr["P"][int(sid)][0].split(), float)
+            worst_p = max(worst_p, float(np.abs(printed - h["positional_scores"] / ln2).max()))
+            worst_h = max(worst_h, abs(float(sr["H"][int(sid)][0]) - h["score"] / ln2))
+            worst_mean = max(worst_mean, abs(float(sr["H"][int(sid)][0]) - printed.mean()))
+            n_scored += sr["H"][int(sid)][1] == refs[int(sid)]
+    wall_s, busy_s, top, classes = profile_window(lambda: scorer.generate([model], batches[0]))
+    score_profile = {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3, "device_idle_share": 1 - busy_s / wall_s,
+                     "busy_by_class_s": classes, "utterances": len(batches[0]["id"])}
+    small = two_utterances(task, split, batches[0])
+    cpu_model = checkpoint.load_model_ensemble([avg_path], task=task, device="cpu")[0][0]
+    card_pos, cpu_pos = (np.concatenate([h[0]["positional_scores"] for h in scorer.generate([m], small)])
+                         for m in (model, cpu_model))
+    cpu_err = float(np.abs(card_pos - cpu_pos).max())
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # every FBK script on the D- lines and on the references
+    n_terms, n_agrs = mustshe_inputs(refs, work)
+    fbk = {"decode": fbk_scores(modules, work, hyps, "decode", n_terms, n_agrs),
+           "references": fbk_scores(modules, work, refs, "references", n_terms, n_agrs)}
+    combined = combine_streams(modules, work, sorted(refs))
+
+    # cli/interactive against the in-memory generator on the same batches
+    served = {}
+    for line in walls["interactive"][2].splitlines():
+        head, _, rest = line.partition("\t")
+        if head[:2] in ("S-", "H-"):
+            served.setdefault(head[0], {})[int(head[2:])] = rest.split("\t")
+    lc_task = types.SimpleNamespace(source_dictionary=src_dict, args=types.SimpleNamespace(left_pad_source=True))
+    gen = modules["SequenceGenerator"](tgt_dict, beam_size=BEAM, max_len_b=MAX_LEN_B)
+    same, worst_lc, start = 0, 0.0, 0
+    lc_batches = []
+    for buffer in modules["interactive_cli"].buffered_read(input_path, INTERACTIVE_BUFFER):
+        batch = next(modules["interactive_cli"].make_batches(buffer, lc_task))
+        sample = {"net_input": {"src_tokens": batch.src_tokens, "src_lengths": batch.src_lengths}}
+        lc_batches.append(sample)
+        for i, sent in enumerate(gen.generate([lc_model], sample)):
+            score, text = served["H"][start + i]
+            same += text == tgt_dict.string(sent[0]["tokens"])
+            worst_lc = max(worst_lc, abs(float(score) - sent[0]["score"]))
+        start += len(buffer)
+    wall_s, busy_s, _, lc_classes = profile_window(lambda: gen.generate([lc_model], lc_batches[0]))
+    decode_profile = {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3, "device_idle_share": 1 - busy_s / wall_s,
+                      "busy_by_class_s": lc_classes, "sentences": INTERACTIVE_BUFFER}
+    del lc_model
+    torch.cuda.empty_cache()
+    root.removeHandler(handler)
+    handler.close()
+
+    bleu_equal = score_lines["decode"] == result
+    emit({"phase": "raw_to_scores_data", "writers": written, "resegmentation": reseg, "average": avg,
+          "combine_ne_terms": combined, "card": card})
+    emit({"phase": "raw_to_scores_serve", "cli_wall_s": {k: v[0] for k, v in walls.items()},
+          "batches": {k: len(v[1]) for k, v in walls.items()}, "launches_per_batch": {
+              k: {n: c for n, c in want[k].items() if c} for k in want},
+          "bleu_generate": result, "bleu_score_cli": score_lines, "bleu_equal": bleu_equal,
+          "score_reference": {"utterances": n_scored, "max_abs_p_err_base2": worst_p, "max_abs_h_err_base2": worst_h,
+                              "max_abs_h_minus_mean_p": worst_mean, "atol": SCORE_REF_ATOL,
+                              "card_vs_cpu_max_abs_err": cpu_err, "cpu_atol": ATOL_MODEL},
+          "scorer_profile": score_profile, "interactive": {
+              "lines": INTERACTIVE_LINES, "s_lines": len(served.get("S", {})), "h_lines": len(served.get("H", {})),
+              "identical_to_in_memory": f"{same}/{INTERACTIVE_LINES}", "max_abs_score_diff": worst_lc},
+          "interactive_decode_profile": decode_profile, "card": card})
+    emit({"phase": "raw_to_scores_fbk", "terms": n_terms, "agreement_groups": n_agrs, **fbk,
+          "references_all_one": all_ones(fbk["references"]), "phase_s": time.perf_counter() - phase_t0,
+          "card": card})
+    n_valid = written["utterances"]
+    if not (n_scored == n_valid == len(sr["H"]) and worst_p <= SCORE_REF_ATOL and worst_h <= SCORE_REF_ATOL
+            and worst_mean <= SCORE_REF_ATOL and cpu_err <= ATOL_MODEL):
+        raise AssertionError(f"--score-reference: {n_scored}/{n_valid} references, P- {worst_p}, H- {worst_h}, "
+                             f"H- vs mean P- {worst_mean} apart; card vs CPU {cpu_err}")
+    if not (bleu_equal and result and score_lines["references"].startswith("BLEU4 = 100.00")):
+        raise AssertionError(f"cli/score {score_lines} against cli/generate's {result}")
+    if not all_ones(fbk["references"]):
+        raise AssertionError(f"the FBK scores of the references are not all 1.0: {fbk['references']}")
+    if not (len(served.get("S", {})) == len(served.get("H", {})) == INTERACTIVE_LINES and same == INTERACTIVE_LINES
+            and worst_lc <= SCORE_REF_ATOL):
+        raise AssertionError(f"cli/interactive: {same}/{INTERACTIVE_LINES} H- lines the in-memory generator's, "
+                             f"scores {worst_lc} apart")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
@@ -4026,12 +4624,17 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.cli import generate as generate_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_dualdecoder as dual_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_multitask_classifier as classifier_cli
+    from fbk_fairseq_st_tpu_torch.cli import average_checkpoints as average_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_topk as topk_cli
+    from fbk_fairseq_st_tpu_torch.cli import interactive as interactive_cli
+    from fbk_fairseq_st_tpu_torch.cli import preprocess as preprocess_cli
+    from fbk_fairseq_st_tpu_torch.cli import preprocess_audio as preprocess_audio_cli
+    from fbk_fairseq_st_tpu_torch.cli import score as score_cli
     from fbk_fairseq_st_tpu_torch.cli import train as train_cli
     from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
     from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, indexed_dataset
     from fbk_fairseq_st_tpu_torch.generation import (ContextAwareSequenceGenerator, SequenceGenerator,
-                                                     TwoPhaseSequenceGenerator, search)
+                                                     SequenceScorer, TwoPhaseSequenceGenerator, search)
     from fbk_fairseq_st_tpu_torch.ops.core import make_generators
     from fbk_fairseq_st_tpu_torch.ops.specaugment import specaugment
     from fbk_fairseq_st_tpu_torch.train.checkpoint import save_model_checkpoint
@@ -4046,8 +4649,13 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.ops.kernels import flash_fwd_single as single
     from fbk_fairseq_st_tpu_torch.ops.kernels import philox
     from fbk_fairseq_st_tpu_torch.scripts import bench_flash_sweep as sweep
+    from fbk_fairseq_st_tpu_torch.scripts import combine_ne_terms, resegment_data_mustc
+    from fbk_fairseq_st_tpu_torch.scripts.eval import (accuracy_from_fulltable, agreement_from_fulltable,
+                                                       mustshe_acc, mustshe_acc_fulltable, mustshe_agr_fulltable,
+                                                       ne_terms_accuracy)
     from fbk_fairseq_st_tpu_torch.tasks import (SpeechRecognitionTask, SpeechTranslationCTCTask,
                                                 SpeechTranslationDualDecodingTask, TranslationTask)
+    from fbk_fairseq_st_tpu_torch.tasks.base import Task
     from fbk_fairseq_st_tpu_torch.train import Trainer
     from fbk_fairseq_st_tpu_torch.train import checkpoint, metrics
 
@@ -4063,7 +4671,13 @@ def main() -> int:
                "make_generators": make_generators, "specaugment": specaugment,
                "save_model_checkpoint": save_model_checkpoint, "train_cli": train_cli, "checkpoint": checkpoint,
                "metrics": metrics, "classifier_cli": classifier_cli, "topk_cli": topk_cli, "dual_cli": dual_cli,
-               "ContextAwareSequenceGenerator": ContextAwareSequenceGenerator}
+               "ContextAwareSequenceGenerator": ContextAwareSequenceGenerator, "SequenceScorer": SequenceScorer,
+               "Task": Task, "preprocess_cli": preprocess_cli, "preprocess_audio_cli": preprocess_audio_cli,
+               "average_cli": average_cli, "score_cli": score_cli, "interactive_cli": interactive_cli,
+               "resegment": resegment_data_mustc,
+               "fbk_scripts": {m.__name__.rsplit(".", 1)[-1]: m for m in (
+                   mustshe_acc, mustshe_acc_fulltable, accuracy_from_fulltable, mustshe_agr_fulltable,
+                   agreement_from_fulltable, ne_terms_accuracy, combine_ne_terms)}}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4157,8 +4771,11 @@ def main() -> int:
         # 29. on the same corpus: context-aware ST trained from phase 24's
         # checkpoint_best.pt, frozen, and served with chained context
         drive("context_from_files", context_from_files, card, d, fa, dconv, single, modules, files_tmp)
+        # 30. on the same corpus and save dir, and phase 9's model: the
+        # fork's workflow from raw files to the FBK papers' scores
+        drive("raw_to_scores", raw_to_scores, card, d, fa, dconv, single, modules, files_tmp, lc_dicts)
 
-    # 30. kernels line, card line, ok line
+    # 31. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

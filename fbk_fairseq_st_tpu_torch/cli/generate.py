@@ -9,7 +9,10 @@ decodes the split in its fixed order with the task's generator and prints
 the fork's records in the same order: ``S-`` (a source with a dictionary;
 audio has none), ``T-``, and for each of the ``--nbest`` hypotheses
 ``H-``, ``D-`` and ``P-`` (scores in base 2), then the timing and the
-``Generate ... BLEU`` lines. Batches are padded to their longest item,
+``Generate ... BLEU`` lines. With ``--score-reference`` the task's
+generator is the ``SequenceScorer``: one teacher-forced forward a batch,
+and the H-/P- lines give the reference's tokens, their log-probabilities
+and their mean, as JAX's. Batches are padded to their longest item,
 as JAX's (``bucket_shapes=False``): the conv front end is
 padding-sensitive, so the batches match JAX's one for one.
 

@@ -4,7 +4,8 @@ The port's own copy of ``fbk_fairseq_st_tpu/data/indexed_dataset.py``
 (``load_indexed_dataset`` :133, ``IndexedDataset`` :176,
 ``FilterBanksDataset`` :254, ``IndexedDatasetBuilder`` :295,
 ``AudioIndexedDatasetBuilder`` :351, ``MMapIndexedDataset`` :361,
-``MMapIndexedDatasetBuilder`` :435; reference
+``MMapIndexedDatasetBuilder`` :435, ``best_fitting_dtype`` :76,
+``make_builder`` :109, both builders' ``merge_file_`` :324, :446; reference
 fairseq/data/indexed_dataset.py). Two on-disk formats of ``<prefix>.bin`` +
 ``<prefix>.idx``:
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import shutil
 import struct
 from functools import lru_cache
 from typing import Optional
@@ -50,6 +52,21 @@ def dtype_code(dtype) -> int:
         if v == dtype:
             return k
     raise ValueError(dtype)
+
+
+def best_fitting_dtype(vocab_size: Optional[int] = None):
+    """int32 at any vocabulary size, as JAX: the reference picks uint16 for
+    small vocabularies (indexed_dataset.py:17-21), a type without a code in
+    its own table, so such a file could not be read back."""
+    return np.int32
+
+
+def make_builder(out_file: str, impl: str, vocab_size: Optional[int] = None):
+    """The mmap builder for ``mmap``, the TNT token builder for every other
+    ``--dataset-impl`` (``raw``, ``lazy``, ``cached``), as JAX."""
+    if impl == "mmap":
+        return MMapIndexedDatasetBuilder(out_file, dtype=best_fitting_dtype(vocab_size))
+    return IndexedDatasetBuilder(out_file)
 
 
 def index_file_path(prefix_path: str) -> str:
@@ -222,6 +239,18 @@ class IndexedDatasetBuilder:
         self.sizes.extend(array.shape)
         self.dim_offsets.append(self.dim_offsets[-1] + array.ndim)
 
+    def merge_file_(self, another_file: str) -> None:
+        """Append the dataset at prefix ``another_file`` (of this dtype)."""
+        index = IndexedDataset(another_file)
+        assert index.dtype == self.dtype
+        begin = self.data_offsets[-1]
+        self.data_offsets.extend(begin + int(offset) for offset in index.data_offsets[1:])
+        self.sizes.extend(int(s) for s in index.sizes)
+        begin = self.dim_offsets[-1]
+        self.dim_offsets.extend(begin + int(offset) for offset in index.dim_offsets[1:])
+        with open(data_file_path(another_file), "rb") as f:
+            shutil.copyfileobj(f, self.out_file)
+
     def finalize(self, index_file: str) -> None:
         self.out_file.close()
         with open(index_file, "wb") as index:
@@ -307,6 +336,14 @@ class MMapIndexedDatasetBuilder:
         a = np.ascontiguousarray(np.asarray(array), dtype=self._dtype)
         self._data_file.write(a.tobytes(order="C"))
         self._sizes.append(a.size)
+
+    def merge_file_(self, another_file: str) -> None:
+        """Append the dataset at prefix ``another_file`` (of this dtype)."""
+        index = MMapIndexedDataset(another_file)
+        assert index.dtype == self._dtype
+        self._sizes.extend(int(s) for s in index.sizes)
+        with open(data_file_path(another_file), "rb") as f:
+            shutil.copyfileobj(f, self._data_file)
 
     def finalize(self, index_file: str) -> None:
         self._data_file.close()

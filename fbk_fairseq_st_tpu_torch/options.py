@@ -1,12 +1,16 @@
-"""The argument groups of ``cli/train``, ``cli/validate`` and
-``cli/generate``, and the two-pass parse.
+"""The argument groups of ``cli/train``, ``cli/validate``,
+``cli/generate``, ``cli/interactive`` and ``cli/preprocess``, and the
+two-pass parse.
 
-Counterpart of ``fbk_fairseq_st_tpu/options.py`` (``get_training_parser``
-:25, ``get_generation_parser`` :35, ``get_validation_parser`` :56,
-``get_parser`` :77, ``add_dataset_args`` :220,
+Counterpart of ``fbk_fairseq_st_tpu/options.py``
+(``get_preprocessing_parser`` :19, ``get_training_parser`` :25,
+``get_generation_parser`` :35, ``get_interactive_generation_parser`` :44,
+``get_validation_parser`` :56, ``get_parser`` :77, ``add_preprocess_args``
+:187, ``add_dataset_args`` :220,
 ``add_distributed_training_args`` :258, ``add_optimization_args`` :376,
 ``add_checkpoint_args`` :399, ``add_common_eval_args`` :456,
-``add_generation_args`` :490, ``parse_args_and_arch`` :593), under the same
+``add_generation_args`` :490, ``add_interactive_args`` :568,
+``parse_args_and_arch`` :593), under the same
 flag names and defaults. ``parse_args_and_arch`` parses once to learn
 ``--arch``, ``--task``, ``--criterion``, ``--optimizer`` and
 ``--lr-scheduler``, adds their flags (the arch's as a group without
@@ -54,7 +58,6 @@ NOT_PORTED = {
     "bpe": (None, "the BPE codecs (ROADMAP Queue A item 3)"),
     "tokenizer": (None, "the tokenizers (ROADMAP Queue A item 3)"),
     "num_shards": (1, "sharded generation (ROADMAP Queue A item 3)"),
-    "score_reference": (False, "the sequence scorer (ROADMAP Queue A item 3)"),
     "user_dir": (None, "user extension modules (ROADMAP Queue A item 3)"),
     "eval_bleu": (False, "validation BLEU: sacrebleu and the detokenizers (ROADMAP Queue A item 3)"),
     "dataset_from_json": (False, "the JSON audio route (ROADMAP Queue A item 3)"),
@@ -135,6 +138,12 @@ _FLAG_KWARGS = {"distance_penalty": dict(type=str, choices=["log", "gauss"]),
 _NOT_MODEL_FLAGS = ("criterion", "context_type")
 
 
+def get_preprocessing_parser(default_task: str = "translation") -> argparse.ArgumentParser:
+    parser = get_parser("Preprocessing", default_task)
+    add_preprocess_args(parser)
+    return parser
+
+
 def get_training_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
     parser = get_parser("Trainer", default_task)
     add_dataset_args(parser, train=True)
@@ -172,11 +181,18 @@ def _number(x: str):
     return int(x) if re.fullmatch(r"[+-]?\d+", x.strip()) else float(x)
 
 
-def get_generation_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
+def get_generation_parser(default_task: str = "speech_recognition", interactive: bool = False
+                          ) -> argparse.ArgumentParser:
     parser = get_parser("Generation", default_task)
     add_dataset_args(parser, gen=True)
     add_generation_args(parser)
+    if interactive:
+        add_interactive_args(parser)
     return parser
+
+
+def get_interactive_generation_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
+    return get_generation_parser(default_task, interactive=True)
 
 
 def get_parser(desc: str, default_task: str = "speech_recognition") -> argparse.ArgumentParser:
@@ -227,6 +243,35 @@ def get_parser(desc: str, default_task: str = "speech_recognition") -> argparse.
     parser.add_argument("--optimizer", default="nag", metavar="OPT")
     parser.add_argument("--lr-scheduler", default="fixed", metavar="SCHED")
     return parser
+
+
+def add_preprocess_args(parser):
+    group = parser.add_argument_group("Preprocessing")
+    group.add_argument("-s", "--source-lang", default=None, metavar="SRC")
+    group.add_argument("-t", "--target-lang", default=None, metavar="TARGET")
+    group.add_argument("--trainpref", metavar="FP", default=None)
+    group.add_argument("--validpref", metavar="FP", default=None)
+    group.add_argument("--testpref", metavar="FP", default=None)
+    group.add_argument("--destdir", metavar="DIR", default="data-bin")
+    group.add_argument("--thresholdtgt", metavar="N", default=0, type=int)
+    group.add_argument("--thresholdsrc", metavar="N", default=0, type=int)
+    group.add_argument("--tgtdict", metavar="FP", default=None)
+    group.add_argument("--srcdict", metavar="FP", default=None)
+    group.add_argument("--nwordstgt", metavar="N", default=-1, type=int)
+    group.add_argument("--nwordssrc", metavar="N", default=-1, type=int)
+    group.add_argument("--align-suffix", metavar="FP", default=None,
+                       help="binarize {train,valid,test}pref.SUFFIX (Pharaoh 'si-ti' pairs) into "
+                            "{split}.align.src-tgt datasets")
+    group.add_argument("--alignfile", metavar="ALIGN", default=None,
+                       help="train-split alignment file: write the alignment.src-tgt.txt dictionary "
+                            "(the most frequent target word of each source word)")
+    group.add_argument("--only-source", action="store_true")
+    group.add_argument("--padding-factor", metavar="N", default=8, type=int)
+    group.add_argument("--dataset-impl", metavar="FORMAT", default="mmap", choices=["raw", "lazy", "cached", "mmap"])
+    group.add_argument("--joined-dictionary", action="store_true")
+    group.add_argument("--workers", metavar="N", default=1, type=int,
+                       help="parity flag: the files are written by one process, as JAX writes them")
+    return group
 
 
 def add_dataset_args(parser, train: bool = False, gen: bool = False):
@@ -451,6 +496,14 @@ def add_generation_args(parser):
     group.add_argument("--diverse-beam-strength", default=0.5, type=float, metavar="N")
     group.add_argument("--diversity-rate", default=-1.0, type=float, metavar="N")
     group.add_argument("--print-alignment", action="store_true")
+    return group
+
+
+def add_interactive_args(parser):
+    group = parser.add_argument_group("Interactive")
+    group.add_argument("--buffer-size", default=0, type=int, metavar="N",
+                       help="read this many sentences into a buffer before processing them")
+    group.add_argument("--input", default="-", type=str, metavar="FILE", help="file to read from; - for stdin")
     return group
 
 

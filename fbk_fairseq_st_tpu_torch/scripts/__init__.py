@@ -1,1 +1,2 @@
-"""Measurement entry points of the port (run with ``python -m`` on the card)."""
+"""Scripts of the port, each run with ``python -m``: the flash sweep (on the
+card), and the FBK papers' data preparation and evaluation (on the host)."""

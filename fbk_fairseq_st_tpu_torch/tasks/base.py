@@ -6,7 +6,8 @@ fairseq/tasks/fairseq_task.py): ``setup_task``, ``load_dataset`` and
 ``max_positions``, packed by ``batch_by_size``, an ``EpochBatchIterator``
 over them); ``build_model`` (any family of ``models.ARCHITECTURES``),
 ``build_criterion``, ``build_generator`` (the search strategy the options
-name, as JAX ``generation/__init__.py::build_generator``),
+name, or the ``--score-reference`` scorer, as JAX
+``generation/__init__.py::build_generator``),
 ``inference_step`` and the ``augment_batch`` hook (identity here).
 
 Batches are padded to their own longest item unless ``bucket_shapes`` is
@@ -28,7 +29,7 @@ from ..data.batching import ShapeBucketer, batch_by_size, filter_by_size
 from ..data.iterators import EpochBatchIterator
 from ..device import DeviceLike
 from ..generation import (BeamSearch, DiverseBeamSearch, DiverseSiblingsSearch, LengthConstrainedBeamSearch,
-                          Sampling, SequenceGenerator)
+                          Sampling, SequenceGenerator, SequenceScorer)
 from ..models import arch_defaults, build_model
 
 
@@ -118,14 +119,14 @@ class Task:
             raise NotImplementedError(f"--criterion {name} is not ported (ROADMAP Queue A item 4)")
         return CRITERIONS[name].build_criterion(args, self)
 
-    def build_generator(self, models, args) -> SequenceGenerator:
+    def build_generator(self, models, args):
         """The generator of the options in ``args`` (reference
-        fairseq_task.py:230-313): --sampling (with --sampling-topk/-topp),
+        fairseq_task.py:230-313): ``SequenceScorer`` under
+        --score-reference; else --sampling (with --sampling-topk/-topp),
         --diverse-beam-groups, --match-source-len or --diversity-rate pick
         the search strategy, at most one of them."""
         if getattr(args, "score_reference", False):
-            raise NotImplementedError("--score-reference: the sequence scorer is not ported "
-                                      "(ROADMAP Queue A item 3)")
+            return SequenceScorer(self.target_dictionary)
         sampling = getattr(args, "sampling", False)
         sampling_topk = getattr(args, "sampling_topk", -1)
         sampling_topp = getattr(args, "sampling_topp", -1.0)

@@ -4,7 +4,7 @@ Counterpart of ``fbk_fairseq_st_tpu/train/checkpoint.py``
 (``save_checkpoint`` :86, ``checkpoint_paths`` :261, ``load_checkpoint``
 :313, ``get_train_iterator`` :402, ``verify_checkpoint_directory`` :417,
 ``load_checkpoint_to_cpu`` :53, ``load_model_ensemble_and_task``
-:458-495). It reads two formats:
+:458-495, ``average_checkpoints`` :497-518). It reads two formats:
 
   (a) a fork-layout ``.pt`` (``torch.save`` of {args, model, ...},
       reference checkpoint_utils.py:166-214): the model's ``state_dict``
@@ -175,8 +175,44 @@ def load_model_ensemble(filenames: List[str], arg_overrides=None, task=None, dev
 def save_model_checkpoint(path: str, args: argparse.Namespace, model: torch.nn.Module) -> None:
     """A fork-layout ``.pt`` of the model alone: {args, model (its state
     dict on the CPU), optimizer_history [], extra_state {}}."""
-    _save(path, {"args": args, "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                 "optimizer_history": [], "extra_state": {}})
+    save_state(path, {"args": args, "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                      "optimizer_history": [], "extra_state": {}})
+
+
+def average_checkpoints(inputs: List[str]) -> Dict[str, Any]:
+    """Offline checkpoint averaging (JAX :497-518, reference
+    scripts/average_checkpoints.py:15-64): the mean of every entry of the
+    model's state dict over ``inputs``, any files ``load_checkpoint_to_cpu``
+    reads (the port's, JAX pickles, fork ``.pt`` files; all with the same
+    entries). A float entry is summed in float64 and written in float32, as
+    JAX does. An integer entry is summed and floor-divided by the count, as
+    the reference divides ``num_batches_tracked``: JAX's tree has no such
+    leaf, and neither do the port's models, whose reader drops the fork's.
+    The BatchNorm running statistics are averaged as the reference averages
+    them; JAX averages its params tree only and keeps the last file's
+    ``model_state``. Every other entry is the last file's; from a JAX pickle
+    the result is the fork layout of the averaged model alone (its optax
+    state has no torch form)."""
+    sums, state = None, None
+    for path in inputs:
+        state = load_checkpoint_to_cpu(path)
+        model = state["model"]
+        if sums is None:
+            sums = {k: v.to(torch.float64 if v.is_floating_point() else torch.int64) for k, v in model.items()}
+            dtypes = {k: v.dtype for k, v in model.items()}
+        elif sorted(model) != sorted(sums):
+            raise KeyError(f"For checkpoint {path}, expected list of params: {sorted(sums)}, but found: "
+                           f"{sorted(model)}")
+        else:
+            for k, v in model.items():
+                sums[k] += v.to(sums[k].dtype)
+    n = len(inputs)
+    averaged = {k: (v / n).to(torch.float32) if v.is_floating_point() else (v // n).to(dtypes[k])
+                for k, v in sums.items()}
+    if state.pop("format") == "jax":
+        return {"args": state["args"], "model": averaged, "optimizer_history": [], "extra_state": {}}
+    state["model"] = averaged
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +238,8 @@ def check_format(args) -> None:
                                   "(ROADMAP Queue A item 3)")
 
 
-def _save(path: str, state: Dict[str, Any]) -> None:
+def save_state(path: str, state: Dict[str, Any]) -> None:
+    """``torch.save`` of ``state`` to ``path`` through a temporary file."""
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
@@ -264,7 +301,7 @@ def save_checkpoint(args, trainer, epoch_itr, val_loss) -> None:
             "last_optimizer_param_names": [names[id(p)] for g in trainer.optimizer.param_groups for p in g["params"]],
             "extra_state": extra_state,
         }
-        _save(checkpoints[0], state)
+        save_state(checkpoints[0], state)
         for cp in checkpoints[1:]:
             shutil.copyfile(checkpoints[0], cp + ".tmp")
             os.replace(cp + ".tmp", cp)

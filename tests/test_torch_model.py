@@ -221,18 +221,32 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "tasks/multilingual_speech_translation.py", "tasks/multilingual_speech_translation_kd.py",
             "cli/generate_dualdecoder.py", "models/conv_transformer_context.py", "ops/context_layer.py",
             "generation/sequence_generator_with_context.py", "tasks/speech_recognition_context.py",
-            "criterions/label_smoothed_cross_entropy_ctx_reg.py", "criterions/cross_entropy_acc.py"} <= covered
+            "criterions/label_smoothed_cross_entropy_ctx_reg.py", "criterions/cross_entropy_acc.py",
+            "cli/preprocess.py", "cli/preprocess_audio.py", "cli/average_checkpoints.py", "cli/score.py",
+            "cli/interactive.py", "generation/sequence_scorer.py", "scripts/resegment_data_mustc.py",
+            "scripts/combine_ne_terms.py", "scripts/eval/mustshe_acc.py", "scripts/eval/mustshe_acc_fulltable.py",
+            "scripts/eval/accuracy_from_fulltable.py", "scripts/eval/mustshe_agr_fulltable.py",
+            "scripts/eval/agreement_from_fulltable.py", "scripts/eval/ne_terms_accuracy.py"} <= covered
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "flax", "optax", "fbk_fairseq_st_tpu"}, (path, roots)
 
 
-def test_entry_points_need_a_device_without_cuda(monkeypatch):
+def test_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path):
+    from fbk_fairseq_st_tpu_torch.cli import generate as tgenerate
+    from fbk_fairseq_st_tpu_torch.cli import interactive as tinteractive
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tdevice.resolve_device(None)
     with pytest.raises(RuntimeError):
         tct.build_model("conv_transformer", torch_dictionary(), **SMALL)
+    # the CLIs raise before they read anything: the paths do not exist
+    missing = [str(tmp_path / "data"), "--path", str(tmp_path / "checkpoint.pt")]
+    with pytest.raises(RuntimeError):
+        tgenerate.cli_main([*missing, "--task", "speech_translation_with_transcription", "--score-reference"])
+    with pytest.raises(RuntimeError):
+        tinteractive.cli_main([*missing, "--task", "translation", "--input", str(tmp_path / "input.txt")])
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
 
 

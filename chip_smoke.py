@@ -59,9 +59,8 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      fastest by that time, since its wall time at the iwslt call is
      host-bound); then, at the long D 64 call in each type, the tensor-core
      pair's dq, dk, dv again, and at the iwslt D 128 call (rates 0.1 and
-     0) the default pair's (the D 128 tensor-core pair of each type),
-     bitwise equal to the first (asserted), and the fused kernel's dQ
-     spread; at every D 128 call of each type the D 128 tensor-core pair at
+     0) the default pair's (the D 128 tensor-core pair of each type)
+     and the fused kernel's, each bitwise equal to its first (asserted); at every D 128 call of each type the D 128 tensor-core pair at
      most the CUDA-core pair's device time, the sum of dq's and dkv's median
      launches (``d128_pair_wins``: ``tc128_pair_wins`` in bf16,
      ``tf32x3_128_pair_wins`` in fp32, asserted), and the D 128
@@ -565,9 +564,9 @@ FWD_KINDS = {"tc": "fwd_tc", "tc128": "fwd_tc128", "tf32x3": "fwd_tf32x3", "tf32
 BWD_KINDS = {"fused": "bwd_fused", "cuda_core": "bwd_cuda_core", "tc": "bwd_tc", "tc128": "bwd_tc128",
              "tf32x3": "bwd_tf32x3", "tf32x3_128": "bwd_tf32x3_128"}
 ROW_SUFFIX = {"cuda_core": "", "tc": "_tc", "tc128": "_tc128", "tf32x3": "_tf32x3", "tf32x3_128": "_tf32x3_128"}
-# each type's default pair, bits compared across launches: the tensor-core
-# pair at D 64 at the long call; at the iwslt call (rates 0.1 and 0) the
-# D 128 tensor-core pair of each type
+# each type's default pair and the fused kernel, bits compared across
+# launches: the tensor-core pair at D 64 at the long call; at the iwslt call
+# (rates 0.1 and 0) the D 128 tensor-core pair of each type
 DETERMINISM_AT = ("long_encoder_self_attention", "lightconv_iwslt_cross_attention",
                   "lightconv_iwslt_cross_attention_rate0")
 # the calls whose SDPA yardstick is also taken as device time (a trace):
@@ -721,6 +720,32 @@ SCORE_REF_LAUNCHES = CT_FLASH_CALLS_PER_STEP  # the teacher-forced fp32 forward:
 SCORE_REF_ATOL = 1e-4  # --score-reference and cli/interactive against the in-memory scorer / generator
 INTERACTIVE_LINES = 32
 INTERACTIVE_BUFFER = 8  # --buffer-size and --max-sentences: one batch a buffer
+# phase 31 (after phase 30, in its directory): the wiring from files. The
+# JSON route: seeded 16 kHz WAVs of 4.1-5.1 s (409-509 frames), the
+# quick start's conv_transformer with one target an utterance (label-smoothed
+# CE), bf16, sharded asynchronous checkpoints, stopped at update 2 and
+# resumed to 3 against a straight 3-update run
+JSON_SPLITS = {"train": 64, "valid": 16}
+JSON_SECONDS = (4.1, 5.1)
+JSON_RATE = 16000
+JSON_STOP, JSON_END = 2, 3
+JSON_ARGS = ["--task", "speech_recognition", "--dataset-from-json", "--arch", "conv_transformer",
+             "--input-feat-per-channel", str(N_MELS), "--criterion", "label_smoothed_cross_entropy",
+             "--label-smoothing", "0.1", *OPTIM_ARGS, "--checkpoint-format", "sharded", "--async-checkpoint"]
+# the alignments' teacher-forced fp32 forward: encoder 8, decoder 6 self +
+# 5 cross (the last layer's cross-attention takes the dense route for its
+# weights), beside the search's 8 a batch
+ALIGN_LAUNCHES = CT_FLASH_CALLS_PER_STEP - 1
+ALIGN_ATTN_ATOL = 1e-5  # the attention rows, card against CPU
+ALIGN_MARGIN = 1e-4  # A- pairs held equal where the top two weights differ by more
+PRUNE_KEEP = "0,2,4"
+GEN_MAX_TOKENS = 25000  # phase 24's decode batching: the valid split in 2 batches, one a shard
+PRUNED_LAUNCHES = 2 + 3  # the front end's 2 time attentions + the 3 kept encoder layers
+CODEC_LINES = 16
+USER_ARCH = "user_conv_transformer"
+# the codecs' libraries, each run where the card's machine has it
+CODEC_PACKAGES = ("sacremoses", "nltk", "sentencepiece", "subword_nmt", "transformers", "fastBPE", "tokenizers",
+                  "sacrebleu", "torchaudio")
 GRID_CAP_ROWS = 70_000
 # the single pass's bf16 out at bh 70,000 element by element: two bf16 ulps
 # of |plain| (72 M outputs reach further into the tail of P's rounding than
@@ -1228,19 +1253,23 @@ def check_d128_wins(name, bh, t, s, rate, dtype, route, pair_route, timings, pai
 
 
 def check_determinism(name, pair_call, fused_call, pair, fused, d, dtype):
-    """The call's default pair (tensor cores at D 32, 64 and 128) again on
-    the same inputs: bitwise equal (asserted); the fused kernel's dQ again:
-    its spread reported (fp32 atomics)."""
+    """The call's default pair (tensor cores at D 32, 64 and 128) and the
+    fused kernel (its dQ added in kv-tile order) again on the same inputs:
+    each bitwise equal to its first run, in dq, dk and dv (asserted)."""
     pair2 = [x[..., :d] for x in pair_call()]
     fused2 = [x[..., :d] for x in fused_call()]
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(pair, pair2)]
+    fused_same = [torch.equal(a, b) for a, b in zip(fused, fused2)]
     spread = [(a.float() - b.float()).abs().max().item() for a, b in zip(fused, fused2)]
     emit({"phase": "backward_determinism", "shape": name, "dtype": str(dtype).replace("torch.", ""),
-          "pair_bitwise_equal_dq_dk_dv": same, "fused_max_abs_spread_dq_dk_dv": spread,
-          "fused_dq_elements_that_differ": int((fused[0] != fused2[0]).sum()), "card": CARD[0]})
+          "pair_bitwise_equal_dq_dk_dv": same, "fused_bitwise_equal_dq_dk_dv": fused_same,
+          "fused_max_abs_spread_dq_dk_dv": spread, "card": CARD[0]})
     if not all(same):
         raise AssertionError(f"the {dtype} split pair is not deterministic at {name}: {same}")
+    if not all(fused_same):
+        raise AssertionError(f"the {dtype} fused backward is not deterministic at {name}: {fused_same}, "
+                             f"spread {spread}")
 
 
 # ---------------------------------------------------------------------------
@@ -4570,6 +4599,429 @@ def raw_to_scores(card, d, fa, dconv, single, modules, tmp, lc_dicts):
 
 
 # ---------------------------------------------------------------------------
+# 31. the wiring from files
+# ---------------------------------------------------------------------------
+
+def write_wav(path, samples):
+    """16-bit mono PCM of ``samples`` in [-1, 1] at JSON_RATE."""
+    import wave
+
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(JSON_RATE)
+        w.writeframes((np.clip(samples, -1.0, 1.0) * 32767).astype("<i2").tobytes())
+
+
+def write_json_corpus(modules, d, json_dir, rng):
+    """JSON_SPLITS utterances of seeded noise as WAVs, their labels (20-48
+    tokens of ``d``) and each split's JSON by ``scripts/asr_prep_json``;
+    ``dict.txt`` beside them. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    os.makedirs(json_dir)
+    d.save(os.path.join(json_dir, "dict.txt"))
+    for split, n in JSON_SPLITS.items():
+        wav_dir = os.path.join(json_dir, "wav", split)
+        os.makedirs(wav_dir)
+        labels = []
+        for i in range(n):
+            utt = f"spk{i % 4}-{split}-{i:04d}"
+            seconds = rng.uniform(*JSON_SECONDS)
+            write_wav(os.path.join(wav_dir, utt + ".wav"), 0.1 * rng.randn(int(seconds * JSON_RATE)))
+            words = [d[int(t)] for t in rng.randint(4, len(d), size=rng.randint(*FILES_TRAIN_TGT_LEN))]
+            labels.append(f"{utt} {' '.join(words)}")
+        label_path = os.path.join(json_dir, f"{split}.labels")
+        with open(label_path, "w", encoding="utf-8") as f:
+            f.write("\n".join(labels) + "\n")
+        modules["asr_prep_json"].cli_main(["--audio-dirs", wav_dir, "--labels", label_path, "--dictionary",
+                                           os.path.join(json_dir, "dict.txt"),
+                                           "--output", os.path.join(json_dir, f"{split}.json")])
+    return time.perf_counter() - t0
+
+
+def read_generate_all(path):
+    """{kind: {id: fields}} of a ``generate-<subset>.txt``'s record lines
+    (A- included)."""
+    records = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            head, _, rest = line.rstrip("\n").partition("\t")
+            if head[:2] in ("S-", "T-", "H-", "D-", "P-", "A-"):
+                records.setdefault(head[0], {})[int(head[2:])] = rest.split("\t")
+    return records
+
+
+def generate_counted(modules, counters, argv):
+    """``cli/generate``'s ``cli_main(argv)``: (its launches in all, the
+    launches of each ``inference_step``, the wall seconds)."""
+    fa, dconv, single = counters
+    reset_counts(fa, dconv, single)
+    per_batch, restore = counted_calls(modules["Task"], "inference_step", counters)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        modules["generate_cli"].cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    return launch_counts(fa, dconv, single), per_batch, wall
+
+
+def codec_runs(modules, work):
+    """Each codec whose library the machine has, on one sentence: its
+    encoding and decoding (``nltk`` without its data raises
+    ``LookupError``, as JAX's does); the SentencePiece codecs from a model
+    ``scripts/spm_tools`` trains here, whose ``spm_encode`` /
+    ``spm_decode`` give every line back; the codecs whose library is
+    absent raise ``ImportError`` naming it."""
+    import argparse
+    import importlib.util
+    import json as json_module
+
+    enc = modules["encoders"]
+    found = {p: importlib.util.find_spec(p) is not None for p in CODEC_PACKAGES}
+    text = "Hello,  world! It's a well-known test."
+    vocab = os.path.join(work, "vocab.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", ",", "!", "it", "'", "s", "a",
+                           "test", "well", "-", "known", "."]) + "\n")
+    # a byte-level vocabulary of GPT-2's layout: every byte's char, a few merges
+    byte_vocab = os.path.join(work, "encoder.json")
+    merges = os.path.join(work, "vocab.bpe")
+    printable = [*range(ord("!"), ord("~") + 1), *range(ord("\u00a1"), ord("\u00ac") + 1),
+                 *range(ord("\u00ae"), ord("\u00ff") + 1)]
+    # GPT-2's alphabet: the printable bytes as themselves, the others from U+0100 on
+    chars = sorted(chr(c) for c in printable + [256 + i for i in range(256 - len(printable))])
+    pairs = ["\u0120 t", "h e", "\u0120t he", "e l", "el l", "l o", "\u0120 w", "o r"]
+    vocab_ids = {c: i for i, c in enumerate(chars)}
+    for m in pairs:
+        vocab_ids.setdefault(m.replace(" ", ""), len(vocab_ids))
+    vocab_ids["<|endoftext|>"] = len(vocab_ids)
+    with open(byte_vocab, "w", encoding="utf-8") as f:
+        json_module.dump(vocab_ids, f)
+    with open(merges, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(pairs) + "\n")
+    # a SentencePiece model trained here by scripts/spm_tools, where the
+    # machine has sentencepiece: the two codecs and spm_encode / spm_decode
+    rng = np.random.RandomState(0)
+    spm_lines = [" ".join("".join(rng.choice(list("abcdefghij"), rng.randint(1, 6))) for _ in range(rng.randint(2, 9)))
+                 for _ in range(200)]
+    spm_text, spm_prefix = os.path.join(work, "spm_train.txt"), os.path.join(work, "spm")
+    with open(spm_text, "w", encoding="utf-8") as f:
+        f.write("\n".join(spm_lines) + "\n")
+    spm_model = spm_prefix + ".model"
+    spm_round_trip = None
+    if found["sentencepiece"]:
+        modules["spm_tools"].spm_train([f"--input={spm_text}", f"--model_prefix={spm_prefix}", "--vocab_size=40",
+                                        "--model_type=bpe", "--hard_vocab_limit=false"])
+        pieces = os.path.join(work, "spm_pieces.txt")
+        modules["spm_tools"].spm_encode(["--model", spm_model, "--inputs", spm_text, "--outputs", pieces])
+        decoded = captured(modules["spm_tools"].spm_decode, ["--model", spm_model, "--input", pieces]).splitlines()
+        spm_round_trip = sum(a == b for a, b in zip(decoded, spm_lines))
+    cases = {"space": ("tokenizer", {}, None), "moses": ("tokenizer", {}, "sacremoses"),
+             "nltk": ("tokenizer", {}, "nltk"), "bytes": ("bpe", {}, None), "characters": ("bpe", {}, None),
+             "sentencepiece": ("bpe", {"sentencepiece_vocab": spm_model}, "sentencepiece"),
+             "byte_bpe": ("bpe", {"sentencepiece_model_path": spm_model}, "sentencepiece"),
+             "subword_nmt": ("bpe", {"bpe_codes": merges}, "subword_nmt"),
+             "fastbpe": ("bpe", {"bpe_codes": merges}, "fastBPE"),
+             "gpt2": ("bpe", {"gpt2_encoder_json": byte_vocab, "gpt2_vocab_bpe": merges}, "transformers"),
+             "bert": ("bpe", {"bpe_vocab_file": vocab}, "transformers"),
+             "hf_byte_bpe": ("bpe", {"bpe_vocab": byte_vocab, "bpe_merges": merges}, "tokenizers")}
+    out = {}
+    for name, (kind, kw, package) in cases.items():
+        args = argparse.Namespace(**{kind: name}, **kw)
+        try:
+            codec = (enc.build_tokenizer if kind == "tokenizer" else enc.build_bpe)(args)
+            encoded = codec.encode(text)
+            out[name] = {"encoded": encoded, "decoded": codec.decode(encoded)}
+        except ImportError as e:
+            if package is None or found[package] or package not in str(e):
+                raise
+            out[name] = {"raises": "ImportError", "names": package}
+        except LookupError as e:  # nltk without its punkt data, as JAX's raises
+            if package != "nltk":
+                raise
+            out[name] = {"raises": type(e).__name__, "message": str(e)[:120]}
+    if spm_round_trip is not None:
+        out["spm_tools"] = {"lines": len(spm_lines), "round_trip_equal": spm_round_trip}
+        if spm_round_trip != len(spm_lines):
+            raise AssertionError(f"spm_encode + spm_decode: {spm_round_trip}/{len(spm_lines)} lines back")
+    return found, out
+
+
+def wiring_from_files(card, d, fa, dconv, single, modules, tmp, lc_dicts):
+    """31. Main path 21, the rest of the wiring from files on the card, in
+    phase 24's directory after phase 30 (its corpus, its save dir and phase
+    30's copy of phase 9's model):
+
+      * the JSON route: JSON_SPLITS utterances of seeded 16 kHz WAVs
+        (409-509 frames) and their JSON (``scripts/asr_prep_json``);
+        ``cli/train --task speech_recognition --dataset-from-json`` of the
+        quick start's conv_transformer with label-smoothed CE in bf16, its
+        checkpoints sharded and written asynchronously: JSON_STOP updates,
+        resumed to JSON_END, against a straight JSON_END-update run (the
+        weights and the optimiser state bitwise equal; phase 7's 20 + 20 +
+        20 tensor-core launches an update, 20 a validation batch); then
+        ``cli/generate --dataset-from-json`` of the sharded
+        ``checkpoint_last.pt`` (8 fp32 forwards a batch);
+      * ``cli/generate`` of phase 24's ``checkpoint_best.pt``:
+        ``--print-alignment --replace-unk`` (8 a batch for the search and
+        ALIGN_LAUNCHES for the alignments' forward: the last layer's
+        cross-attention alone off the flash route), its A- lines one pair a
+        hypothesis token, the attention rows of 2 utterances within
+        ALIGN_ATTN_ATOL of the CPU's and the pairs equal where the top two
+        weights differ by more than ALIGN_MARGIN; ``--num-shards 2`` with
+        shard ids 0 and 1, whose H- lines together are phase 24's
+        unsharded run's; ``--model-overrides`` keeping encoder layers
+        PRUNE_KEEP (PRUNED_LAUNCHES a batch);
+      * ``cli/export_fairseq_checkpoint`` then ``cli/import_fairseq_checkpoint``
+        of ``checkpoint_best.pt`` and of the sharded checkpoint: the state
+        dicts bitwise;
+      * the codecs: ``cli/interactive --tokenizer space --bpe characters``
+        on phase 9's model (DCONV_LAUNCHES_PER_REQUEST a batch), its D-
+        lines the CPU's decoding of its H- lines; each codec whose library
+        the machine has run on a sentence, the others raising by name;
+        ``--sacrebleu`` and ``--eval-bleu`` raising by name without
+        ``sacrebleu``;
+      * ``--user-dir``: a module in the work directory registers an arch
+        alias, and ``cli/train`` trains it for one update.
+
+    Returns the launches of all of it."""
+    import argparse
+    import logging
+
+    phase_t0 = time.perf_counter()
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "wiring_from_files.log"))
+    root.addHandler(handler)
+    work = os.path.join(tmp, "wiring")
+    os.makedirs(work)
+    rng = np.random.RandomState(31)
+    counters = (fa, dconv, single)
+    checkpoint, options, registry = modules["checkpoint"], modules["options"], modules["registry"]
+    data_dir, save_dir = os.path.join(tmp, "data"), os.path.join(tmp, "straight")
+    total = {k: 0 for k in launch_counts(fa, dconv, single)}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # the JSON route, trained with sharded asynchronous checkpoints
+    json_dir = os.path.join(work, "json")
+    corpus_s = write_json_corpus(modules, d, json_dir, rng)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # cuDNN's backward algorithms: bitwise repeatable ones
+    try:
+        for name, save, updates in (("stop", "json_resumed", JSON_STOP), ("resume", "json_resumed", JSON_END),
+                                    ("straight", "json_straight", JSON_END)):
+            reset_counts(fa, dconv, single)
+            t0 = time.perf_counter()
+            rec, trainer = train_cli_run(modules, fa, dconv, single, [
+                json_dir, *JSON_ARGS, "--max-update", str(updates), "--save-dir", os.path.join(work, save)])
+            runs[name] = (rec, trainer, time.perf_counter() - t0)
+            add(launch_counts(fa, dconv, single))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    resumed, straight = runs["resume"][1], runs["straight"][1]
+    weights_equal = all(torch.equal(v, straight.model.state_dict()[k]) for k, v in resumed.model.state_dict().items())
+    opt_a, opt_b = resumed.optimizer.state_dict()["state"], straight.optimizer.state_dict()["state"]
+    optimizer_equal = sorted(opt_a) == sorted(opt_b) and all(
+        torch.equal(v, opt_b[i][k]) for i, e in opt_a.items() for k, v in e.items())
+    json_ckpt = os.path.join(work, "json_straight", "checkpoint_last.pt")
+    sharded_files = sorted(os.listdir(os.path.join(work, "json_straight")))
+    del resumed, straight
+    runs = {name: (rec, None, wall) for name, (rec, _, wall) in runs.items()}  # the trainers freed
+    torch.cuda.empty_cache()
+    json_results = os.path.join(work, "json_generate")
+    json_gen_argv = [json_dir, "--task", "speech_recognition", "--dataset-from-json", "--path", json_ckpt,
+                     "--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset", "valid", "--max-tokens",
+                     "25000", "--results-path", json_results]
+    json_launches, json_batches, json_wall = generate_counted(modules, counters, json_gen_argv)
+    add(json_launches)
+    json_records = read_generate_all(os.path.join(json_results, "generate-valid.txt"))
+
+    # generation on phase 24's checkpoint_best.pt
+    best = os.path.join(save_dir, "checkpoint_best.pt")
+    speech = [data_dir, "--task", "speech_translation_with_transcription", "-s", "en", "-t", "de", "--criterion",
+              "ctc_multi_loss", "--underlying-criterion", "label_smoothed_cross_entropy", "--path", best, "--beam",
+              str(BEAM), "--max-len-b", str(MAX_LEN_B), "--gen-subset", "valid", "--max-tokens", str(GEN_MAX_TOKENS)]
+    gens = {}
+    for name, extra in (("align", ["--print-alignment", "--replace-unk"]),
+                        ("shard0", ["--num-shards", "2", "--shard-id", "0"]),
+                        ("shard1", ["--num-shards", "2", "--shard-id", "1"]),
+                        ("pruned", ["--model-overrides", repr({"encoder_layers_to_keep": PRUNE_KEEP})])):
+        results = os.path.join(work, f"generate_{name}")
+        launches, batches, wall = generate_counted(modules, counters, [*speech, *extra, "--results-path", results])
+        add(launches)
+        gens[name] = (launches, batches, wall, read_generate_all(os.path.join(results, "generate-valid.txt")))
+    unsharded, _ = read_generate(os.path.join(tmp, "results", "generate-valid.txt"))
+
+    # the alignments' attention, card against CPU, on 2 utterances
+    align_utils = modules["alignment_utils"]
+    cli_args = options.parse_args_and_arch(options.get_generation_parser(), speech)
+    task = registry.TASKS[cli_args.task].setup_task(cli_args)
+    task.load_dataset("valid")
+    batch = next(iter(task.get_batch_iterator(
+        task.dataset("valid"), max_tokens=cli_args.max_tokens, max_sentences=cli_args.max_sentences,
+        max_positions=task.max_positions(),
+        required_batch_size_multiple=cli_args.required_batch_size_multiple).next_epoch_itr(shuffle=False)))
+    small = two_utterances(task, "valid", batch)
+    card_model = checkpoint.load_model_ensemble([best], task=task)[0][0]
+    cpu_model = checkpoint.load_model_ensemble([best], task=task, device="cpu")[0][0]
+    gen = modules["SequenceGenerator"](task.target_dictionary, beam_size=BEAM, max_len_b=MAX_LEN_B)
+    with torch.no_grad():
+        hypos = gen.generate([card_model], small)
+    pad, eos = task.target_dictionary.pad(), task.target_dictionary.eos()
+    card_attn, card_valid, tgt_lens = align_utils.alignment_attention(card_model, small, hypos, pad, eos)
+    cpu_attn, cpu_valid, _ = align_utils.alignment_attention(cpu_model, small, hypos, pad, eos)
+    attn_err, pairs_held, pairs_equal = 0.0, 0, 0
+    for i in range(len(hypos)):
+        s_len, t_len = int(card_valid[i]), int(tgt_lens[i])
+        a, b = card_attn[i, :t_len, :s_len], cpu_attn[i, :t_len, :s_len]
+        attn_err = max(attn_err, float(np.abs(a - b).max()))
+        top2 = np.sort(b, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > ALIGN_MARGIN
+        pairs_held += int(clear.sum())
+        pairs_equal += int((np.argmax(a, 1) == np.argmax(b, 1))[clear].sum())
+    del card_model, cpu_model
+    torch.cuda.empty_cache()
+
+    # the fork-checkpoint CLIs, round trip
+    round_trips = {}
+    for name, path in (("checkpoint_best", best), ("json_sharded", json_ckpt)):
+        fork, back = os.path.join(work, f"{name}_fork.pt"), os.path.join(work, f"{name}_imported.pt")
+        captured(modules["export_cli"].cli_main, [path, fork])
+        captured(modules["import_cli"].cli_main, [fork, back])
+        a, b = checkpoint.load_checkpoint_to_cpu(path)["model"], checkpoint.load_checkpoint_to_cpu(back)["model"]
+        round_trips[name] = {"tensors": len(a), "bitwise": sorted(a) == sorted(b) and all(
+            torch.equal(v, b[k]) for k, v in a.items())}
+
+    # the codecs: cli/interactive on phase 9's model, and each library found
+    lc_dir = os.path.join(tmp, "raw_to_scores", "lc-bin")
+    lc_ckpt = os.path.join(tmp, "raw_to_scores", "dynamicconv.pt")
+    src_dict, tgt_dict = lc_dicts
+    src, _ = text_pairs(rng, CODEC_LINES, 5, 20, LC_VOCAB)
+    input_path = os.path.join(work, "codec_input.txt")
+    with open(input_path, "w", encoding="utf-8") as f:
+        f.write("".join(" ".join(src_dict[int(t)] for t in s[:-1]) + "\n" for s in src))
+    codec_argv = [lc_dir, "--task", "translation", "-s", "en", "-t", "de", "--path", lc_ckpt, "--beam", str(BEAM),
+                  "--max-len-b", "20", "--buffer-size", str(INTERACTIVE_BUFFER), "--max-sentences",
+                  str(INTERACTIVE_BUFFER), "--input", input_path, "--tokenizer", "space", "--bpe", "characters"]
+    reset_counts(fa, dconv, single)
+    per_batch, restore = counted_calls(modules["Task"], "inference_step", counters)
+    try:
+        out = captured(modules["interactive_cli"].cli_main, codec_argv)
+    finally:
+        restore()
+    codec_launches = launch_counts(fa, dconv, single)
+    add(codec_launches)
+    served = {}
+    for line in out.splitlines():
+        head, _, rest = line.partition("\t")
+        if head[:2] in ("S-", "H-", "D-"):
+            served.setdefault(head[0], {})[int(head[2:])] = rest.split("\t")
+    _, decode_fn = modules["encoders"].codec_chain(argparse.Namespace(tokenizer="space", bpe="characters"))
+    d_equal = sum(served["D"][i][1] == decode_fn(served["H"][i][1]) for i in served.get("H", {}))
+    found, codecs = codec_runs(modules, work)
+    sacrebleu_checks = {}
+    if not found["sacrebleu"]:
+        for flag, fn in (("--sacrebleu", lambda: modules["generate_cli"].cli_main(
+                [*speech, "--sacrebleu", "--results-path", os.path.join(work, "sacrebleu")])),
+                         ("--eval-bleu", lambda: modules["TranslationTask"](argparse.Namespace(
+                             eval_bleu=True, eval_bleu_detok="space"), src_dict, tgt_dict))):
+            try:
+                fn()
+                sacrebleu_checks[flag] = "ran"
+            except ImportError as e:
+                sacrebleu_checks[flag] = "raises ImportError naming sacrebleu" if "sacrebleu" in str(e) else str(e)
+
+    # --user-dir: an arch alias from a module in the work directory
+    user_dir = os.path.join(work, "fbk_port_user_module")
+    os.makedirs(user_dir)
+    with open(os.path.join(user_dir, "__init__.py"), "w") as f:
+        f.write("from fbk_fairseq_st_tpu_torch import registry\n\n"
+                f"registry.register_architecture({USER_ARCH!r}, 'conv_transformer')\n")
+    user_argv = [data_dir, *QUICK_START, "--max-update", "1", "--user-dir", user_dir, "--save-dir",
+                 os.path.join(work, "user_dir_run")]
+    user_argv[user_argv.index("conv_transformer")] = USER_ARCH
+    reset_counts(fa, dconv, single)
+    user_rec, user_trainer = train_cli_run(modules, fa, dconv, single, user_argv)
+    add(launch_counts(fa, dconv, single))
+    user_arch = (user_trainer.args.arch, user_trainer.get_num_updates())
+    del user_trainer
+    torch.cuda.empty_cache()
+    root.removeHandler(handler)
+    handler.close()
+
+    none = {k: 0 for k in total}
+    want = {"json_generate": dict(none, **{FP32_FORWARD: FLASH_LAUNCHES_PER_REQUEST}),
+            "align": dict(none, **{FP32_FORWARD: FLASH_LAUNCHES_PER_REQUEST + ALIGN_LAUNCHES}),
+            "shard0": dict(none, **{FP32_FORWARD: FLASH_LAUNCHES_PER_REQUEST}),
+            "shard1": dict(none, **{FP32_FORWARD: FLASH_LAUNCHES_PER_REQUEST}),
+            "pruned": dict(none, **{FP32_FORWARD: PRUNED_LAUNCHES}),
+            "interactive_codecs": dict(none, **{DCONV_FORWARD: DCONV_LAUNCHES_PER_REQUEST})}
+    got = {"json_generate": (json_launches, len(json_batches)),
+           **{name: (g[0], len(g[1])) for name, g in gens.items()},
+           "interactive_codecs": (codec_launches, len(per_batch))}
+    launch_bad = {name: counts for name, (counts, n) in got.items()
+                  if n == 0 or counts != {k: n * v for k, v in want[name].items()}}
+    shard_h = {**gens["shard0"][3].get("H", {}), **gens["shard1"][3].get("H", {})}
+    shards_equal = sorted(shard_h) == sorted(unsharded["H"]) and all(
+        shard_h[i][1] == unsharded["H"][i][1] for i in shard_h)
+    align_records = gens["align"][3]
+    a_lines_ok = sorted(align_records.get("A", {})) == sorted(align_records["H"]) and all(
+        len(align_records["A"][i][0].split()) == len(align_records["P"][i][0].split()) for i in align_records["H"])
+    pruned_h = gens["pruned"][3].get("H", {})
+    emit({"phase": "wiring_from_files_json", "utterances": JSON_SPLITS, "seconds": JSON_SECONDS,
+          "corpus_write_s": corpus_s, "cli_wall_s": {k: v[2] for k, v in runs.items()},
+          "updates": {k: len(v[0].updates) for k, v in runs.items()},
+          "valid_batches": {k: len(v[0].valid_batches) for k, v in runs.items()},
+          "resume_weights_bitwise": weights_equal, "resume_optimizer_bitwise": optimizer_equal,
+          "checkpoint_files": sharded_files, "generate_batches": len(json_batches), "generate_wall_s": json_wall,
+          "generate_h_lines": len(json_records.get("H", {})), "card": card})
+    emit({"phase": "wiring_from_files_generate", "batches": {k: len(g[1]) for k, g in gens.items()},
+          "wall_s": {k: g[2] for k, g in gens.items()}, "launches": {k: g[0] for k, g in gens.items()},
+          "a_lines": len(align_records.get("A", {})), "a_lines_one_pair_a_token": a_lines_ok,
+          "align_attn_card_vs_cpu_max_abs_err": attn_err, "atol": ALIGN_ATTN_ATOL,
+          "align_pairs_held": pairs_held, "align_pairs_equal": pairs_equal, "margin": ALIGN_MARGIN,
+          "shards_h_lines": [len(gens[k][3].get("H", {})) for k in ("shard0", "shard1")],
+          "shards_equal_unsharded": shards_equal, "pruned_h_lines": len(pruned_h), "pruned_keep": PRUNE_KEEP,
+          "card": card})
+    emit({"phase": "wiring_from_files_tools", "round_trips": round_trips, "packages_found": found,
+          "codecs": codecs, "sacrebleu_without_the_package": sacrebleu_checks,
+          "interactive_codecs": {"lines": CODEC_LINES, "batches": len(per_batch),
+                                 "h_lines": len(served.get("H", {})), "d_lines_the_cpu_decoding": d_equal},
+          "user_dir": {"arch": user_arch[0], "updates": user_arch[1]},
+          "phase_s": time.perf_counter() - phase_t0, "card": card})
+    if launch_bad:
+        raise AssertionError(f"phase 31 launches off the prediction: {launch_bad}, expected {want} a batch")
+    if not (weights_equal and optimizer_equal and all(len(runs[k][0].updates) == n for k, n in
+                                                      (("stop", JSON_STOP), ("resume", JSON_END - JSON_STOP),
+                                                       ("straight", JSON_END)))):
+        raise AssertionError("the JSON route's sharded asynchronous resume is not bitwise the straight run: "
+                             f"weights {weights_equal}, optimiser {optimizer_equal}")
+    if not (len(json_records.get("H", {})) == JSON_SPLITS["valid"] and "checkpoint_last.pt" in sharded_files):
+        raise AssertionError(f"cli/generate --dataset-from-json: {len(json_records.get('H', {}))} H- lines")
+    if not (a_lines_ok and len(align_records["H"]) == FILES_TRAIN_SPLITS["valid"] and attn_err <= ALIGN_ATTN_ATOL
+            and pairs_equal == pairs_held > 0):
+        raise AssertionError(f"alignments: A- lines {a_lines_ok}, attention {attn_err} apart, "
+                             f"{pairs_equal}/{pairs_held} pairs equal")
+    if not (shards_equal and len(pruned_h) == FILES_TRAIN_SPLITS["valid"]):
+        raise AssertionError(f"--num-shards: {shards_equal}; pruned: {len(pruned_h)} H- lines")
+    if not all(r["bitwise"] for r in round_trips.values()):
+        raise AssertionError(f"export + import round trips: {round_trips}")
+    if not (len(served.get("H", {})) == CODEC_LINES and d_equal == CODEC_LINES):
+        raise AssertionError(f"cli/interactive with codecs: {d_equal}/{CODEC_LINES} D- lines the CPU's decoding")
+    if any(v != "raises ImportError naming sacrebleu" for v in sacrebleu_checks.values()):
+        raise AssertionError(f"without sacrebleu: {sacrebleu_checks}")
+    if user_arch != (USER_ARCH, 1):
+        raise AssertionError(f"--user-dir: trained {user_arch}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
@@ -4625,6 +5077,8 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.cli import generate_dualdecoder as dual_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_multitask_classifier as classifier_cli
     from fbk_fairseq_st_tpu_torch.cli import average_checkpoints as average_cli
+    from fbk_fairseq_st_tpu_torch.cli import export_fairseq_checkpoint as export_cli
+    from fbk_fairseq_st_tpu_torch.cli import import_fairseq_checkpoint as import_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_topk as topk_cli
     from fbk_fairseq_st_tpu_torch.cli import interactive as interactive_cli
     from fbk_fairseq_st_tpu_torch.cli import preprocess as preprocess_cli
@@ -4632,9 +5086,10 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.cli import score as score_cli
     from fbk_fairseq_st_tpu_torch.cli import train as train_cli
     from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
-    from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, indexed_dataset
+    from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, encoders, indexed_dataset
     from fbk_fairseq_st_tpu_torch.generation import (ContextAwareSequenceGenerator, SequenceGenerator,
-                                                     SequenceScorer, TwoPhaseSequenceGenerator, search)
+                                                     SequenceScorer, TwoPhaseSequenceGenerator, alignment_utils,
+                                                     search)
     from fbk_fairseq_st_tpu_torch.ops.core import make_generators
     from fbk_fairseq_st_tpu_torch.ops.specaugment import specaugment
     from fbk_fairseq_st_tpu_torch.train.checkpoint import save_model_checkpoint
@@ -4649,7 +5104,7 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.ops.kernels import flash_fwd_single as single
     from fbk_fairseq_st_tpu_torch.ops.kernels import philox
     from fbk_fairseq_st_tpu_torch.scripts import bench_flash_sweep as sweep
-    from fbk_fairseq_st_tpu_torch.scripts import combine_ne_terms, resegment_data_mustc
+    from fbk_fairseq_st_tpu_torch.scripts import asr_prep_json, combine_ne_terms, resegment_data_mustc, spm_tools
     from fbk_fairseq_st_tpu_torch.scripts.eval import (accuracy_from_fulltable, agreement_from_fulltable,
                                                        mustshe_acc, mustshe_acc_fulltable, mustshe_agr_fulltable,
                                                        ne_terms_accuracy)
@@ -4674,7 +5129,9 @@ def main() -> int:
                "ContextAwareSequenceGenerator": ContextAwareSequenceGenerator, "SequenceScorer": SequenceScorer,
                "Task": Task, "preprocess_cli": preprocess_cli, "preprocess_audio_cli": preprocess_audio_cli,
                "average_cli": average_cli, "score_cli": score_cli, "interactive_cli": interactive_cli,
-               "resegment": resegment_data_mustc,
+               "resegment": resegment_data_mustc, "asr_prep_json": asr_prep_json, "encoders": encoders,
+               "alignment_utils": alignment_utils, "export_cli": export_cli, "import_cli": import_cli,
+               "spm_tools": spm_tools,
                "fbk_scripts": {m.__name__.rsplit(".", 1)[-1]: m for m in (
                    mustshe_acc, mustshe_acc_fulltable, accuracy_from_fulltable, mustshe_agr_fulltable,
                    agreement_from_fulltable, ne_terms_accuracy, combine_ne_terms)}}
@@ -4774,8 +5231,12 @@ def main() -> int:
         # 30. on the same corpus and save dir, and phase 9's model: the
         # fork's workflow from raw files to the FBK papers' scores
         drive("raw_to_scores", raw_to_scores, card, d, fa, dconv, single, modules, files_tmp, lc_dicts)
+        # 31. on the same corpus, save dir and files: the JSON route with
+        # sharded asynchronous checkpoints, alignments, sharded and pruned
+        # decoding, the fork-checkpoint CLIs, the codecs and --user-dir
+        drive("wiring_from_files", wiring_from_files, card, d, fa, dconv, single, modules, files_tmp, lc_dicts)
 
-    # 31. kernels line, card line, ok line
+    # 32. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

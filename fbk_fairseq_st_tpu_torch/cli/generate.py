@@ -8,8 +8,15 @@ loads the split and the model ensemble from the checkpoint(s) of
 decodes the split in its fixed order with the task's generator and prints
 the fork's records in the same order: ``S-`` (a source with a dictionary;
 audio has none), ``T-``, and for each of the ``--nbest`` hypotheses
-``H-``, ``D-`` and ``P-`` (scores in base 2), then the timing and the
-``Generate ... BLEU`` lines. With ``--score-reference`` the task's
+``H-``, ``D-`` (the hypothesis back through ``--bpe`` then
+``--tokenizer``), ``P-`` (scores in base 2) and, with ``--print-alignment``,
+``A-`` (``generation/alignment_utils.py``: one teacher-forced forward of
+the first model a batch); then the timing and the ``Generate ... BLEU``
+lines, over token ids or, with ``--sacrebleu``, over the detokenised
+strings. ``--replace-unk`` replaces each unknown word of a hypothesis by
+the source word it is aligned to (or that word's entry in the dictionary
+file it names; ``utils/align_utils.py``). ``--num-shards`` /
+``--shard-id`` decode every ``num_shards``-th batch of the split. With ``--score-reference`` the task's
 generator is the ``SequenceScorer``: one teacher-forced forward a batch,
 and the H-/P- lines give the reference's tokens, their log-probabilities
 and their mean, as JAX's. Batches are padded to their longest item,
@@ -36,9 +43,13 @@ import torch
 
 from .. import options
 from ..device import resolve_device
+from ..data.encoders import codec_chain
+from ..generation.alignment_utils import attach_alignments
 from ..registry import TASKS
 from ..scoring import bleu
 from ..train import checkpoint as checkpoint_utils
+from ..utils.align_utils import load_align_dict, post_process_prediction
+from ..utils.user_dir import import_user_module
 
 logger = logging.getLogger("fbk_fairseq_st_tpu_torch.cli.generate")
 
@@ -72,10 +83,13 @@ def _main(args, output_file):
 
 
 def _generate(args, output_file):
+    import_user_module(args)
     device = resolve_device("cpu" if args.cpu else None)
     if args.max_tokens is None and args.max_sentences is None:
         args.max_tokens = 12000
 
+    # --sacrebleu needs its package: without it, raise before loading anything
+    sacrebleu_scorer = bleu.SacrebleuScorer() if args.sacrebleu else None
     logger.info("loading model(s) from {}".format(args.path))
     task = TASKS[args.task].setup_task(args)
     task.load_dataset(args.gen_subset)
@@ -91,7 +105,9 @@ def _generate(args, output_file):
         required_batch_size_multiple=args.required_batch_size_multiple, num_shards=args.num_shards,
         shard_id=args.shard_id).next_epoch_itr(shuffle=False)
     generator = task.build_generator(models, args)
-    scorer = bleu.Scorer(tgt_dict.pad(), tgt_dict.eos(), tgt_dict.unk())
+    scorer = sacrebleu_scorer or bleu.Scorer(tgt_dict.pad(), tgt_dict.eos(), tgt_dict.unk())
+    align_dict = load_align_dict(args.replace_unk)
+    _, decode_fn = codec_chain(args)
 
     num_sentences = 0
     gen_seconds, gen_tokens = 0.0, 0
@@ -106,6 +122,8 @@ def _generate(args, output_file):
         gen_seconds += time.perf_counter() - t0
         num_generated_tokens = sum(len(h[0]["tokens"]) for h in hypos if h)
         gen_tokens += num_generated_tokens
+        if args.print_alignment or align_dict is not None:
+            hypos = attach_alignments(models[0], sample, hypos, tgt_dict.pad(), tgt_dict.eos())
 
         for i, sample_id in enumerate(np.asarray(sample["id"])):
             sample_id = int(sample_id)
@@ -129,22 +147,27 @@ def _generate(args, output_file):
                     print(f"T-{sample_id}\t{target_str}", file=output_file)
 
             for j, hypo in enumerate(hypos[i][: args.nbest]):
-                hypo_tokens = hypo["tokens"]
-                hypo_str = tgt_dict.string(hypo_tokens, args.remove_bpe)
-                if args.remove_bpe is not None:
-                    # score the post-processed words (reference utils.py:142-160)
-                    hypo_tokens = np.asarray(tgt_dict.encode_line(hypo_str, add_if_not_exist=True))
+                # the post-processed words are scored (reference utils.py:142-160)
+                hypo_tokens, hypo_str, alignment = post_process_prediction(
+                    hypo["tokens"], src_str, hypo.get("alignment"), align_dict, tgt_dict, args.remove_bpe)
+                detok_hypo_str = decode_fn(hypo_str)
                 if not args.quiet:
                     score = hypo["score"] / math.log(2)  # base 2
                     print(f"H-{sample_id}\t{score}\t{hypo_str}", file=output_file)
-                    print(f"D-{sample_id}\t{score}\t{hypo_str}", file=output_file)
+                    print(f"D-{sample_id}\t{score}\t{detok_hypo_str}", file=output_file)
                     print("P-{}\t{}".format(sample_id, " ".join(
                         f"{x:.4f}" for x in (hypo["positional_scores"] / math.log(2)).tolist())), file=output_file)
+                    if args.print_alignment and alignment is not None:
+                        print("A-{}\t{}".format(sample_id, " ".join(alignment)), file=output_file)
                 if has_target and j == 0:
                     score_target = target_tokens
-                    if args.remove_bpe is not None:
+                    if align_dict is not None or args.remove_bpe is not None:
                         score_target = np.asarray(tgt_dict.encode_line(target_str, add_if_not_exist=True))
-                    scorer.add(np.asarray(score_target).astype(np.int32), np.asarray(hypo_tokens).astype(np.int32))
+                    if args.sacrebleu:
+                        scorer.add_string(target_str, detok_hypo_str)
+                    else:
+                        scorer.add(np.asarray(score_target).astype(np.int32),
+                                   np.asarray(hypo_tokens).astype(np.int32))
             num_sentences += 1
 
     logger.info("NOTE: hypothesis and token scores are output in base 2")

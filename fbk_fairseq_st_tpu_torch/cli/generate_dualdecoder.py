@@ -37,6 +37,7 @@ from ..device import resolve_device
 from ..registry import TASKS
 from ..scoring import bleu
 from ..train import checkpoint as checkpoint_utils
+from ..utils.user_dir import import_user_module
 
 logger = logging.getLogger("fbk_fairseq_st_tpu_torch.cli.generate_dualdecoder")
 
@@ -66,6 +67,7 @@ def _main(args, output_file):
 
 
 def _generate(args, output_file):
+    import_user_module(args)
     device = resolve_device("cpu" if args.cpu else None)
     if args.max_tokens is None and args.max_sentences is None:
         args.max_tokens = 12000

@@ -32,6 +32,7 @@ from .. import options
 from ..device import resolve_device
 from ..registry import TASKS
 from ..train import checkpoint as checkpoint_utils
+from ..utils.user_dir import import_user_module
 
 logger = logging.getLogger("fbk_fairseq_st_tpu_torch.cli.generate_multitask_classifier")
 
@@ -39,6 +40,7 @@ logger = logging.getLogger("fbk_fairseq_st_tpu_torch.cli.generate_multitask_clas
 def main(args):
     if args.path is None:
         raise ValueError("--path required!")
+    import_user_module(args)
     device = resolve_device("cpu" if args.cpu else None)
     if args.max_tokens is None and args.max_sentences is None:
         args.max_tokens = 12000

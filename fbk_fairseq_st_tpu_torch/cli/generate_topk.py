@@ -32,6 +32,7 @@ from ..data.knowledge_distillation import TeacherOutputDataset
 from ..device import resolve_device
 from ..registry import TASKS
 from ..train import checkpoint as checkpoint_utils
+from ..utils.user_dir import import_user_module
 
 logger = logging.getLogger("fbk_fairseq_st_tpu_torch.cli.generate_topk")
 
@@ -76,6 +77,7 @@ def save_expert_outputs(args, expert_outputs) -> None:
 def main(args):
     if args.path is None:
         raise ValueError("--path required for generation!")
+    import_user_module(args)
     device = resolve_device("cpu" if args.cpu else None)
     if args.max_tokens is None and args.max_sentences is None:
         args.max_tokens = 12000

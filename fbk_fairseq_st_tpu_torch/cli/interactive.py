@@ -8,9 +8,11 @@ task's source dictionary into one batch (sources padded as the task pads
 them: on the left for ``translation``), decodes it with the task's
 generator and prints, in input order, ``S-`` and for each of the
 ``--nbest`` hypotheses ``H-`` (score in nats, as JAX's), ``D-`` and ``P-``.
-``--max-sentences`` may not exceed ``--buffer-size``, as in JAX. The
-``--tokenizer`` / ``--bpe`` codecs raise (ROADMAP Queue A item 3), so a
-line is taken as the tokens it holds.
+``--max-sentences`` may not exceed ``--buffer-size``, as in JAX. A line
+goes through ``--tokenizer`` then ``--bpe`` before the dictionary, and the
+D- line is the hypothesis back through the BPE then the tokenizer
+(``data/encoders.py::codec_chain``); without them a line is taken as the
+tokens it holds.
 
 It runs on the CUDA card, and on the CPU with ``--cpu`` only:
 
@@ -28,10 +30,12 @@ from collections import namedtuple
 import numpy as np
 
 from .. import options
+from ..data.encoders import codec_chain
 from ..data.language_pair_dataset import collate_tokens
 from ..device import resolve_device
 from ..registry import TASKS
 from ..train import checkpoint as checkpoint_utils
+from ..utils.user_dir import import_user_module
 
 logger = logging.getLogger("fbk_fairseq_st_tpu_torch.cli.interactive")
 
@@ -50,9 +54,12 @@ def buffered_read(input, buffer_size):
         yield buffer
 
 
-def make_batches(lines, task):
-    """One batch of the buffered ``lines``, each encoded with the source
-    dictionary (eos appended), padded as the task pads its sources."""
+def make_batches(lines, task, encode_fn=None):
+    """One batch of the buffered ``lines``, each through ``encode_fn`` and
+    then the source dictionary (eos appended), padded as the task pads its
+    sources."""
+    if encode_fn is not None:
+        lines = [encode_fn(line) for line in lines]
     src_dict = task.source_dictionary
     tokens = [np.asarray(src_dict.encode_line(line, add_if_not_exist=False)) for line in lines]
     lengths = np.array([t.shape[0] for t in tokens], np.int64)
@@ -62,6 +69,7 @@ def make_batches(lines, task):
 
 
 def main(args):
+    import_user_module(args)
     device = resolve_device("cpu" if args.cpu else None)
     if args.buffer_size < 1:
         args.buffer_size = 1
@@ -74,13 +82,14 @@ def main(args):
                                                      task=task, device=device)
     generator = task.build_generator(models, args)
     src_dict, tgt_dict = task.source_dictionary, task.target_dictionary
+    encode_fn, decode_fn = codec_chain(args)
 
     start_id = 0
     if args.input == "-":
         logger.info("Type the input sentence and press return:")
     for inputs in buffered_read(args.input, args.buffer_size):
         results = []
-        for batch in make_batches(inputs, task):
+        for batch in make_batches(inputs, task, encode_fn):
             sample = {"net_input": {"src_tokens": batch.src_tokens, "src_lengths": batch.src_lengths},
                       "target": None, "id": batch.ids}
             translations = task.inference_step(generator, models, sample)
@@ -92,7 +101,7 @@ def main(args):
             for hypo in hypos[: args.nbest]:
                 hypo_str = tgt_dict.string(hypo["tokens"], args.remove_bpe)
                 print(f"H-{id_}\t{hypo['score']}\t{hypo_str}")
-                print(f"D-{id_}\t{hypo['score']}\t{hypo_str}")
+                print(f"D-{id_}\t{hypo['score']}\t{decode_fn(hypo_str)}")
                 print("P-{}\t{}".format(id_, " ".join(f"{x:.4f}" for x in hypo["positional_scores"])))
         start_id += len(inputs)
 

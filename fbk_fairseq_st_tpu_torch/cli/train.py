@@ -43,6 +43,7 @@ from ..data.iterators import DevicePrefetchIterator, GroupedIterator
 from ..device import resolve_device
 from ..registry import TASKS
 from ..train import checkpoint as checkpoint_utils
+from ..utils.user_dir import import_user_module
 from ..train import metrics
 from ..train.progress import progress_bar
 from ..train.trainer import Trainer
@@ -81,8 +82,8 @@ def _restore_interrupt_handlers(previous) -> None:
 def main(args):
     if getattr(args, "max_tokens", None) is None and getattr(args, "max_sentences", None) is None:
         raise ValueError("Must specify batch size either with --max-tokens or --max-sentences")
+    import_user_module(args)
     device = resolve_device("cpu" if args.cpu else None)
-    checkpoint_utils.check_format(args)
     np.random.seed(args.seed)
     checkpoint_utils.verify_checkpoint_directory(args.save_dir)
 
@@ -144,6 +145,7 @@ def main(args):
             os.makedirs(profile_dir, exist_ok=True)
             profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
             logger.info("profiler trace written to {}".format(profile_dir))
+    checkpoint_utils.wait_for_async_writes()
     logger.info("done training")
     return trainer, epoch_itr
 

@@ -20,6 +20,7 @@ from .. import options
 from ..device import resolve_device
 from ..registry import TASKS
 from ..train import checkpoint as checkpoint_utils
+from ..utils.user_dir import import_user_module
 from ..train import metrics
 from ..train.progress import progress_bar
 from ..train.trainer import Trainer
@@ -31,6 +32,7 @@ def main(args):
     """Returns {subset: the aggregated stats}."""
     if args.path is None:
         raise ValueError("--path required for validation")
+    import_user_module(args)
     device = resolve_device("cpu" if args.cpu else None)
     state = checkpoint_utils.load_checkpoint_to_cpu(args.path)
     model_args = state["args"]

@@ -113,14 +113,19 @@ class TransformerDecoder(nn.Module):
         return torch.matmul(x, w.t().to(x.dtype))
 
     def forward(self, prev_output_tokens, encoder_out, encoder_padding_mask=None,
-                generator: GeneratorLike = None, features_only: bool = False, **layer_kwargs):
+                generator: GeneratorLike = None, features_only: bool = False, need_attn: bool = False,
+                **layer_kwargs):
         """Teacher forcing: prev_output_tokens (B, T) -> (logits (B, T, V),
-        {}), or the final states (B, T, D) with ``features_only``.
-        Self-attention is causal with pad keys masked; ``layer_kwargs`` go
-        to every layer."""
+        {"attn": None}), or the final states (B, T, D) with
+        ``features_only``. With ``need_attn`` ``attn`` is the last layer's
+        head-averaged cross-attention (B, T, S), which alone leaves the
+        flash route (JAX :293-326). Self-attention is causal with pad keys
+        masked; ``layer_kwargs`` go to every layer."""
         x = self._embed(prev_output_tokens, encoder_out.dtype, generator)
         self_kpm = prev_output_tokens == self.cfg.padding_idx
-        for layer in self.layers:
+        attn = None
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
             x = layer(
                 x,
                 encoder_out=encoder_out,
@@ -129,10 +134,13 @@ class TransformerDecoder(nn.Module):
                 self_attn_padding_mask=self_kpm,
                 generator=generator,
                 **layer_kwargs,
+                **({"need_attn": True} if need_attn and i == last else {}),
             )
+            if need_attn and i == last:
+                x, attn = x
         if self.layer_norm is not None:
             x = self.layer_norm(x)
-        return (x if features_only else self.output_layer(x)), {}
+        return (x if features_only else self.output_layer(x)), {"attn": attn}
 
     def init_cache(self, batch: int, max_len: int, encoder_out,
                    dtype=torch.float32) -> List[Dict[str, Any]]:

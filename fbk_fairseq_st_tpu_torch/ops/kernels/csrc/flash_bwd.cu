@@ -36,11 +36,18 @@
 //     tiles; deterministic.
 //   * flash_bwd_fused: the dkv kernel, which for each q tile also forms
 //     that tile's share of dQ (ds k) and adds it into an fp32 (BH, T, D)
-//     buffer with atomicAdd; the wrapper casts it to q's type. The JAX
-//     kernel instead wrote dK/dV partials per q block, an fp32
-//     (BH, n_i, S, D) buffer (about 2 GB at S = 8192), which this design
-//     does not need. Because atomics land in no fixed order, dQ's
-//     summation order, and so its last bits, vary from run to run.
+//     buffer; the wrapper casts it to q's type. The JAX kernel instead
+//     wrote dK/dV partials per q block, an fp32 (BH, n_i, S, D) buffer
+//     (about 2 GB at S = 8192), which this design does not need. The adds
+//     land in a fixed order, so dQ is bitwise repeatable (the ordered
+//     accumulation of FlashAttention-3's deterministic backward): an int32
+//     counter per (bh, q tile), zeroed by the wrapper before each launch,
+//     holds how many kv tiles have added into that q tile. The kv tiles
+//     that reach q tile i are a prefix 0..m of the kv tiles (all of them,
+//     or under causal masking those with s0 <= the tile's last row), so kv
+//     tile j's rank among them is j: it waits until the counter is j, does
+//     a plain load-add-store of its share through L2, fences, and one
+//     thread releases the counter to j + 1 (see ordered_add_dq).
 // Everything is fp32 in registers and shared memory whatever the input
 // type (fp32 or bf16), on the CUDA cores. D is a template over
 // {16, 32, 64, 128}; the wrapper zero-pads to it.
@@ -81,6 +88,7 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *bias, *lse, *delta;
   void *dq, *dk, *dv;  // dq is fp32 for the fused kernel
+  int* order;          // fused: one zeroed counter per (bh, q tile)
   int t_len, s_len;
   float scale;
   int causal;
@@ -209,8 +217,51 @@ __device__ void tile_w_ds(const Tiles<D>& sm, const Args& a, uint32_t bh, int q0
   __syncthreads();
 }
 
+// Adds kv tile `rank`'s share of dQ (rows ty + 16 i of the q tile at q0,
+// already summed over the tile's keys) into the fp32 dq buffer, after the
+// kv tiles of lower rank and before those of higher rank. Called by all
+// threads; leaves a barrier behind it.
+//
+// Why it cannot deadlock: the grid is (bh, kv tile) with blockIdx.x = bh
+// fastest, and blocks are dispatched in linear order, so block (bh, j)
+// starts only after every block of a lower linear index has started, the
+// block (bh, j - 1) it waits on included. The unfinished block of lowest
+// index waits on nothing unfinished (it waits only on (bh, j - 1), of
+// lower index, or on nothing at j = 0), so it runs to its end; by
+// induction every block does. Within a block the q tiles go in increasing
+// order, as in its predecessor, so a counter is never waited on out of turn.
+template <int D>
+__device__ void ordered_add_dq(const Args& a, const float (&dq)[RPT][D / 16], size_t bh, int q0,
+                               int rank) {
+  constexpr int DPT = D / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  int* counter = a.order + bh * ((a.t_len + kBlockM - 1) / kBlockM) + q0 / kBlockM;
+  if (threadIdx.x == 0) {
+    int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen != rank);
+  }
+  __syncthreads();
+  float* dqb = static_cast<float*>(a.dq) + bh * a.t_len * D;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.t_len) continue;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      float* p = dqb + (size_t)row * D + tx + 16 * j;
+      __stcg(p, __ldcg(p) + dq[i][j] * a.scale);  // through L2, never a stale L1 line
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;" : : "l"(counter) : "memory");
+}
+
 // dK/dV for one (bh, kv tile), looping over q tiles; with FUSED also the dQ
-// share of every q tile, added into the fp32 dq buffer with atomics.
+// share of every q tile, added into the fp32 dq buffer in kv-tile order.
 template <typename T, int D, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kv_kernel(Args a) {
@@ -280,15 +331,7 @@ flash_bwd_kv_kernel(Args a) {
 #pragma unroll
           for (int j = 0; j < DPT; ++j) dq[i][j] = fmaf(dsv[i], kv[j], dq[i][j]);
       }
-      float* dqb = static_cast<float*>(a.dq) + bh * a.t_len * D;
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = q0 + ty + 16 * i;
-        if (row >= a.t_len) continue;
-#pragma unroll
-        for (int j = 0; j < DPT; ++j)
-          atomicAdd(dqb + (size_t)row * D + tx + 16 * j, dq[i][j] * a.scale);
-      }
+      ordered_add_dq<D>(a, dq, bh, q0, s0 / kBlockN);
     }
   }
 
@@ -405,7 +448,7 @@ cudaError_t dispatch_d(Which which, const Args& a, int bh, int head_dim,
 
 int run(Which which, const void* q, const void* k, const void* v,
         const void* bias, const void* dout, const void* lse, const void* delta,
-        void* dq, void* dk, void* dv, int bh, int t_len, int s_len,
+        void* dq, void* dk, void* dv, void* order, int bh, int t_len, int s_len,
         int head_dim, float scale, int causal, uint32_t drop_thresh,
         float keep_prob, uint64_t seed, int is_bf16, void* stream) {
   if (bh <= 0 || t_len <= 0 || s_len <= 0 ||
@@ -413,7 +456,7 @@ int run(Which which, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout,
                static_cast<const float*>(bias), static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, dk, dv, t_len, s_len,
+               static_cast<const float*>(delta), dq, dk, dv, static_cast<int*>(order), t_len, s_len,
                scale, causal, drop_thresh, keep_prob, seed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? dispatch_d<__nv_bfloat16>(which, a, bh, head_dim, s)
@@ -428,16 +471,18 @@ int run(Which which, const void* q, const void* k, const void* v,
 // dropout off, keep_prob is 1 - rate, seed the forward's. dk, dv like k.
 // Each launches on `stream` and returns cudaGetLastError().
 
-// dq: (bh, t_len, head_dim) fp32, zeroed by the caller (atomics add into it).
+// dq: (bh, t_len, head_dim) fp32 and order: (bh, ceil(t_len / 64)) int32,
+// both zeroed by the caller before each launch (the kv tiles add into dq in
+// the order the counters in `order` keep).
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                const void* bias, const void* dout,
                                const void* lse, const void* delta, void* dq,
-                               void* dk, void* dv, int bh, int t_len,
+                               void* dk, void* dv, void* order, int bh, int t_len,
                                int s_len, int head_dim, float scale,
                                int causal, uint32_t drop_thresh,
                                float keep_prob, uint64_t seed, int is_bf16,
                                void* stream) {
-  return run(kFused, q, k, v, bias, dout, lse, delta, dq, dk, dv, bh, t_len,
+  return run(kFused, q, k, v, bias, dout, lse, delta, dq, dk, dv, order, bh, t_len,
              s_len, head_dim, scale, causal, drop_thresh, keep_prob, seed,
              is_bf16, stream);
 }
@@ -450,7 +495,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             float scale, int causal, uint32_t drop_thresh,
                             float keep_prob, uint64_t seed, int is_bf16,
                             void* stream) {
-  return run(kDq, q, k, v, bias, dout, lse, delta, dq, nullptr, nullptr, bh,
+  return run(kDq, q, k, v, bias, dout, lse, delta, dq, nullptr, nullptr, nullptr, bh,
              t_len, s_len, head_dim, scale, causal, drop_thresh, keep_prob,
              seed, is_bf16, stream);
 }
@@ -462,7 +507,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int head_dim, float scale, int causal,
                              uint32_t drop_thresh, float keep_prob,
                              uint64_t seed, int is_bf16, void* stream) {
-  return run(kDkv, q, k, v, bias, dout, lse, delta, nullptr, dk, dv, bh,
+  return run(kDkv, q, k, v, bias, dout, lse, delta, nullptr, dk, dv, nullptr, bh,
              t_len, s_len, head_dim, scale, causal, drop_thresh, keep_prob,
              seed, is_bf16, stream);
 }

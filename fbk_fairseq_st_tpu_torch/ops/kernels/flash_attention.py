@@ -207,8 +207,8 @@ def use_fused_backward(dtype, d: int) -> bool:
     a split pair and bitwise repeatable: at D 32, 64 and 128 the tensor-core
     pair of the call's type, which beat the fused kernel at every backward
     call of the train steps in its type (``pair_wins``, PERF.md section 6);
-    at D 16 the CUDA-core pair, chosen by its repeatability and not by its
-    time (the fused kernel adds dQ with atomics in no fixed order)."""
+    at D 16 the CUDA-core pair, chosen when the fused kernel's dQ was not
+    repeatable (it is now, in kv-tile order) and kept since."""
     if FUSED_BWD is not None:
         return FUSED_BWD
     return False
@@ -530,16 +530,19 @@ def _backward_args(q, k, v, bias, out, lse, grad, scale, causal, rate, seed):
 def backward_fused(q, k, v, bias, out, lse, grad, scale: float, causal: bool = False, rate: float = 0.0,
                    seed: int = 0):
     """One launch of ``csrc/flash_bwd.cu::flash_bwd_fused`` (fp32 or bf16,
-    any kernel head dim, dQ added with fp32 atomics into a zeroed buffer) on
-    CUDA tensors; returns (dq, dk, dv)."""
+    any kernel head dim; the kv tiles add dQ into a zeroed fp32 buffer in
+    kv-tile order, kept by one zeroed int32 counter per (bh, q tile), so dQ
+    is bitwise repeatable) on CUDA tensors; returns (dq, dk, dv)."""
     global launches_bwd_fused
     bh, t, d = q.shape
     kept, common, tail = _backward_args(q, k, v, bias, out, lse, grad, scale, causal, rate, seed)
     dk, dv = torch.empty_like(kept[1]), torch.empty_like(kept[2])
     dq32 = torch.zeros((bh, t, d), dtype=torch.float32, device=q.device)
+    order = torch.zeros((bh, -(-t // 64)), dtype=torch.int32, device=q.device)
     lib = _library("flash_bwd")
     with torch.cuda.device(q.device):
-        err = lib.flash_bwd_fused(*common, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, t, k.shape[1], d,
+        err = lib.flash_bwd_fused(*common, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), order.data_ptr(), bh, t,
+                                  k.shape[1], d,
                                   *tail, int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     raise_on(lib, "flash_bwd_fused", err)
     launches_bwd_fused += 1
@@ -593,7 +596,7 @@ _SIGNATURES = {
         "flash_fwd_tf32x3": [_P] * 6 + [_I] * 4 + _TC_TAIL,
     },
     "flash_bwd": {
-        "flash_bwd_fused": [_P] * 10 + [_I] * 4 + _TAIL,
+        "flash_bwd_fused": [_P] * 11 + [_I] * 4 + _TAIL,
         "flash_bwd_dq": [_P] * 8 + [_I] * 4 + _TAIL,
         "flash_bwd_dkv": [_P] * 9 + [_I] * 4 + _TAIL,
     },

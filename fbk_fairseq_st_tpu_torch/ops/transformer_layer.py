@@ -125,19 +125,27 @@ class TransformerDecoderLayer(_FFNMixin, nn.Module):
         generator: GeneratorLike = None,
         cache: Optional[Dict[str, Any]] = None,
         cache_index: Optional[int] = None,
+        need_attn: bool = False,
     ):
         """x: (B, T, D) -> (B, T, D). With ``cache`` ({"self", "cross"})
-        the step attends over the caches, writing ``self`` in place."""
+        the step attends over the caches, writing ``self`` in place. With
+        ``need_attn`` -> (x, the cross-attention's head-averaged weights
+        (B, T, S)): that attention takes the dense route (JAX
+        ``decoder_layer``'s ``need_attn``)."""
         cfg = self.cfg
         x = self._self_block(x, self_attn_mask, self_attn_padding_mask, generator, cache, cache_index)
         residual = x
         if cfg.normalize_before:
             x = self.encoder_attn_layer_norm(x)
-        x = self._cross(self.encoder_attn, x, encoder_out, encoder_padding_mask, generator, cache, "cross")
+        x = self._cross(self.encoder_attn, x, encoder_out, encoder_padding_mask, generator, cache, "cross",
+                        need_weights=need_attn)
+        if need_attn:
+            x, attn = x
         x = residual + x
         if not cfg.normalize_before:
             x = self.encoder_attn_layer_norm(x)
-        return self._ffn(x, generator)
+        x = self._ffn(x, generator)
+        return (x, attn) if need_attn else x
 
     def _self_block(self, x, attn_mask, padding_mask, generator, cache, cache_index):
         cfg = self.cfg
@@ -158,14 +166,18 @@ class TransformerDecoderLayer(_FFNMixin, nn.Module):
             x = self.self_attn_layer_norm(x)
         return x
 
-    def _cross(self, attn, x, memory, padding_mask, generator, cache, slot: str):
+    def _cross(self, attn, x, memory, padding_mask, generator, cache, slot: str, need_weights: bool = False):
         """A cross-attention over ``memory`` (B, S, D), or over its K/V in
-        ``cache[slot]`` when stepping, then dropout."""
+        ``cache[slot]`` when stepping, then dropout; with ``need_weights``
+        -> (x, the head-averaged weights)."""
         if cache is not None:
-            x, _, _ = attn(x, key_padding_mask=padding_mask, generator=generator, cache=cache[slot], static_kv=True)
+            x, weights, _ = attn(x, key_padding_mask=padding_mask, generator=generator, cache=cache[slot],
+                                 static_kv=True, need_weights=need_weights)
         else:
-            x, _, _ = attn(x, key=memory, key_padding_mask=padding_mask, generator=generator)
-        return dropout(x, self.cfg.dropout, generator, self.training)
+            x, weights, _ = attn(x, key=memory, key_padding_mask=padding_mask, generator=generator,
+                                 need_weights=need_weights)
+        x = dropout(x, self.cfg.dropout, generator, self.training)
+        return (x, weights) if need_weights else x
 
 
 class TriangleDecoderLayer(TransformerDecoderLayer):

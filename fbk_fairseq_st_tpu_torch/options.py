@@ -48,19 +48,11 @@ from . import registry
 from .models import ARCHITECTURES, arch_defaults
 from .models.conv_transformer_context import CHOICES as CONTEXT_CHOICES
 from .optim import LR_SCHEDULERS, OPTIMIZERS
+from .utils.user_dir import import_user_module
 
 # option -> (its value when off, what it needs): set to anything else, it raises
 NOT_PORTED = {
-    "sacrebleu": (False, "sacrebleu scoring: no sacrebleu on the card's machine (ROADMAP Queue A item 3)"),
-    "replace_unk": (None, "unk replacement needs the alignments (ROADMAP Queue A item 3)"),
-    "print_alignment": (False, "alignments (ROADMAP Queue A item 3)"),
     "quantize_weights": ("none", "weight-only quantisation (ROADMAP Queue A item 9)"),
-    "bpe": (None, "the BPE codecs (ROADMAP Queue A item 3)"),
-    "tokenizer": (None, "the tokenizers (ROADMAP Queue A item 3)"),
-    "num_shards": (1, "sharded generation (ROADMAP Queue A item 3)"),
-    "user_dir": (None, "user extension modules (ROADMAP Queue A item 3)"),
-    "eval_bleu": (False, "validation BLEU: sacrebleu and the detokenizers (ROADMAP Queue A item 3)"),
-    "dataset_from_json": (False, "the JSON audio route (ROADMAP Queue A item 3)"),
     "distributed_world_size": (None, "multi-GPU training (ROADMAP Queue A item 6)"),
     "fsdp": (False, "FSDP (ROADMAP Queue A item 6)"),
     "sequence_parallel": (False, "sequence parallelism (ROADMAP Queue A item 6)"),
@@ -78,9 +70,6 @@ NOT_PORTED = {
     "warmup_iterations": (500, "BMUF (ROADMAP Queue A item 6)"),
     "use_nbm": (False, "BMUF (ROADMAP Queue A item 6)"),
     "average_sync": (False, "BMUF (ROADMAP Queue A item 6)"),
-    "allow_partial_restore": (False, "partial checkpoint restores (ROADMAP Queue A item 3)"),
-    "encoder_layers_to_keep": (None, "layer pruning at load (ROADMAP Queue A item 3)"),
-    "decoder_layers_to_keep": (None, "layer pruning at load (ROADMAP Queue A item 3)"),
     "adaptive_softmax_dropout": (None, "the adaptive softmax (ROADMAP Queue A item 5)"),
     "quant_noise_pq": (0, "quant-noise training (ROADMAP Queue A item 9)"),
     "quant_noise_pq_block_size": (8, "quant-noise training (ROADMAP Queue A item 9)"),
@@ -88,8 +77,6 @@ NOT_PORTED = {
 }
 # values of an option in NOT_PORTED that mean "off" besides its default
 _ALSO_OFF = {"distributed_world_size": (1,), "adaptive_softmax_dropout": (0,)}
-# options of NOT_PORTED that the archs of a family read
-_READ_BY = {"allow_partial_restore": "multilingual_conv_transformer"}
 # the JAX model parsers' explicit defaults, which win over a preset's
 _MODEL_PARSER_DEFAULTS = {
     "conv_transformer": {"no_attn_2d": False, "distance_penalty": False, "init_variance": 1.0,
@@ -381,7 +368,8 @@ def add_checkpoint_args(parser):
     group.add_argument("--reset-dataloader", action="store_true")
     group.add_argument("--reset-lr-scheduler", action="store_true")
     group.add_argument("--allow-partial-restore", action="store_true",
-                       help="warm-start a multilingual model from a checkpoint holding keys it lacks")
+                       help="restore the parameters the checkpoint and the model share: the model's others keep "
+                            "their initialisation, the checkpoint's others are dropped")
     group.add_argument("--reset-meters", action="store_true")
     group.add_argument("--reset-optimizer", action="store_true")
     group.add_argument("--optimizer-overrides", default="{}", type=str, metavar="DICT")
@@ -404,8 +392,10 @@ def add_checkpoint_args(parser):
                        help="early stop training if valid performance doesn't improve for N consecutive "
                        "validation runs")
     group.add_argument("--checkpoint-format", choices=["pickle", "sharded"], default="pickle",
-                       help="pickle: one file (the fork's torch.save layout here); sharded: not ported")
-    group.add_argument("--async-checkpoint", action="store_true", help="background checkpoint writes (not ported)")
+                       help="pickle: one file (the fork's torch.save layout here); sharded: JAX's directory of "
+                            "meta.pkl and one .npy a leaf")
+    group.add_argument("--async-checkpoint", action="store_true",
+                       help="with --checkpoint-format sharded: write the files on a background thread")
     return group
 
 
@@ -508,11 +498,8 @@ def add_interactive_args(parser):
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a set option the port lacks (but
-    where the arch reads it, ``_READ_BY``)."""
+    """Raise ``NotImplementedError`` for a set option the port lacks."""
     for name, (off, what) in NOT_PORTED.items():
-        if name in _READ_BY and _family_name(getattr(args, "arch", None)) == _READ_BY[name]:
-            continue
         value = getattr(args, name, off)
         if value != off and value not in _ALSO_OFF.get(name, ()):
             raise NotImplementedError(f"--{name.replace('_', '-')}: {what} is not ported")
@@ -523,11 +510,16 @@ def parse_args_and_arch(parser: argparse.ArgumentParser, input_args: Optional[Li
     """The two-pass parse (reference options.py:81-196): the arch's, the
     task's, the criterion's (and its underlying criterion's), the
     optimiser's and the scheduler's flags join the parser, then the arch
-    preset's defaults the namespace (``registry.apply_architecture``)."""
+    preset's defaults the namespace (``registry.apply_architecture``).
+    ``--user-dir`` is imported first, so that what it registers is there;
+    the ``--tokenizer`` / ``--bpe`` codecs add their flags as in JAX."""
+    usr_parser = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    usr_parser.add_argument("--user-dir", default=None)
+    import_user_module(usr_parser.parse_known_args(input_args)[0])
     args, _ = parser.parse_known_args(input_args)
     tolerant = _TolerantParser(parser)
     for reg, attr in ((registry.TASKS, "task"), (registry.CRITERIONS, "criterion"), (OPTIMIZERS, "optimizer"),
-                      (LR_SCHEDULERS, "lr_scheduler")):
+                      (LR_SCHEDULERS, "lr_scheduler"), (registry.TOKENIZERS, "tokenizer"), (registry.BPES, "bpe")):
         name = getattr(args, attr, None)
         if name is not None and name in reg:
             cls = reg[name]

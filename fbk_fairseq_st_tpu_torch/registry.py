@@ -3,8 +3,11 @@ presets' defaults on a parsed args namespace.
 
 Counterpart of ``fbk_fairseq_st_tpu/registry.py`` (reference
 fairseq/registry.py and fairseq/models/__init__.py:124-159): ``TASKS``,
-``CRITERIONS`` and the model ``ARCHITECTURES`` the port runs, each a
-``Registry`` whose entries may add their CLI flags (``add_args``);
+``CRITERIONS``, the model ``ARCHITECTURES`` the port runs and the text
+codecs ``TOKENIZERS`` / ``BPES``, each a ``Registry`` over its package's
+table whose entries may add their CLI flags (``add_args``); a
+``--user-dir`` module adds entries through ``register`` (and an arch alias
+through ``register_architecture``);
 ``apply_architecture`` fills every option of ``args.arch`` that the
 namespace lacks with the preset's value (the JAX presets'
 ``args.x = getattr(args, "x", default)``; a lightconv preset runs on the
@@ -18,14 +21,17 @@ import argparse
 from typing import Any, Dict
 
 from . import criterions, models, tasks
+from .data import encoders
 
 
 class Registry:
-    """A named set of components; a class may define ``add_args(parser)``."""
+    """A named set of components over ``entries`` (the package's own table,
+    shared, so what ``register`` adds every user of that table sees); a
+    class may define ``add_args(parser)``."""
 
     def __init__(self, kind: str, entries: Dict[str, Any]):
         self.kind = kind
-        self._entries = dict(entries)
+        self._entries = entries
 
     def __contains__(self, name: str) -> bool:
         return name in self._entries
@@ -40,10 +46,33 @@ class Registry:
         if hasattr(cls, "add_args"):
             cls.add_args(parser)
 
+    def register(self, name: str):
+        """Decorator: ``name`` -> the class (a duplicate name raises)."""
+        def wrap(cls):
+            if name in self._entries:
+                raise ValueError(f"Cannot register duplicate {self.kind} ({name})")
+            self._entries[name] = cls
+            return cls
+
+        return wrap
+
 
 TASKS = Registry("task", tasks.TASKS)
 CRITERIONS = Registry("criterion", criterions.CRITERIONS)
 ARCHITECTURES = Registry("architecture", models.ARCHITECTURES)
+TOKENIZERS = Registry("tokenizer", encoders.TOKENIZERS)
+BPES = Registry("bpe", encoders.BPES)
+
+
+def register_architecture(name: str, like: str) -> None:
+    """A new arch ``name`` with the preset of the ported arch ``like``, in
+    its family (the JAX ``register_model_architecture`` of a preset that
+    calls another's); a taken name raises."""
+    if name in ARCHITECTURES:
+        raise ValueError(f"Cannot register duplicate architecture ({name})")
+    family = models._family(like)
+    family.ARCHITECTURES[name] = family.ARCHITECTURES[like]
+    ARCHITECTURES._entries[name] = family
 
 
 def apply_architecture(args: argparse.Namespace) -> None:

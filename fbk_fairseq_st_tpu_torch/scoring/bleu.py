@@ -15,8 +15,9 @@ The port's own copy of ``fbk_fairseq_st_tpu/scoring/bleu.py`` (``BleuStat``
     with 1 (sentence-level smoothing).
 
 Integer counting, so the statistics and the score equal JAX's whichever
-of its two cores ran. ``--sacrebleu`` has no counterpart here: the card's
-machine has no ``sacrebleu``.
+of its two cores ran. ``SacrebleuScorer`` (JAX :193, reference
+fairseq/bleu.py:36-59) scores strings through ``sacrebleu``, imported when
+it is built: without the package it raises ``ImportError`` naming it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from collections import Counter
 from typing import List, Sequence
 
 import numpy as np
+
+from ..data.encoders import require_package
 
 
 class BleuStat:
@@ -111,3 +114,30 @@ class Scorer:
         bleup = [p * 100 for p in self.precision()[:order]]
         return fmt.format(order, self.score(order=order), *bleup, self.brevity(),
                           self.stat.predlen / self.stat.reflen, self.stat.predlen, self.stat.reflen)
+
+
+class SacrebleuScorer:
+    """String-level corpus BLEU through ``sacrebleu.corpus_bleu``; its
+    ``result_string`` is sacrebleu's score object, as JAX's."""
+
+    def __init__(self):
+        self.sacrebleu = require_package("sacrebleu", "--sacrebleu")
+        self.reset()
+
+    def reset(self, one_init: bool = False):
+        if one_init:
+            raise NotImplementedError
+        self.ref = []
+        self.sys = []
+
+    def add_string(self, ref: str, pred: str):
+        self.ref.append(ref)
+        self.sys.append(pred)
+
+    def score(self, order: int = 4) -> float:
+        return self.result_string(order).score
+
+    def result_string(self, order: int = 4):
+        if order != 4:
+            raise NotImplementedError
+        return self.sacrebleu.corpus_bleu(self.sys, [self.ref])

@@ -9,8 +9,10 @@ indexed precomputed filterbanks (``<split>.npz.{bin,idx}`` and the
 ``os.pathsep``; per-utterance CMVN unless ``--skip-normalization``), and
 ``augment_batch``: TimeStretch, then SpecAugment, on the device batch
 (reference train_step :255-258), drawn from the trainer's device
-generator (``ops/specaugment.py``). The ``--dataset-from-json`` route
-raises (ROADMAP Queue A item 3).
+generator (``ops/specaugment.py``). With ``--dataset-from-json`` a split
+is ``<split>.json`` of ``scripts/asr_prep_json.py`` in each directory,
+its features made from the audio files as the batches are drawn
+(``data/asr_json.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import logging
 import os
 
+from ..data.asr_json import get_asr_dataset_from_json
 from ..data.datasets import ConcatDataset, FilterBankToTextDataset
 from ..data.dictionary import Dictionary
 from ..data.indexed_dataset import FilterBanksDataset, load_indexed_dataset
@@ -108,12 +111,17 @@ class SpeechRecognitionTask(Task):
         return cls(args, tgt_dict, **kwargs)
 
     def load_dataset(self, split, combine=False, **kwargs):
-        if getattr(self.args, "dataset_from_json", False):
-            raise NotImplementedError("--dataset-from-json: the JSON audio route is not ported "
-                                      "(ROADMAP Queue A item 3)")
         datasets = []
         for path in self.paths:
             try:
+                if getattr(self.args, "dataset_from_json", False):
+                    # the JSON route (JAX :151-163): <split>.json of
+                    # asr_prep_json, features made from the audio on the fly
+                    datasets.append(get_asr_dataset_from_json(
+                        os.path.join(path, "{}.json".format(split)), self.tgt_dict,
+                        getattr(self.args, "skip_normalization", False),
+                        num_mel_bins=getattr(self.args, "input_feat_per_channel", 80)))
+                    continue
                 datasets.append(get_datasets_from_indexed_filterbanks(
                     path, self.args.target_lang, self.tgt_dict, split, getattr(self.args, "dataset_impl", None),
                     getattr(self.args, "skip_normalization", False),

@@ -38,9 +38,8 @@ class ContextAwareSpeechRecognitionTask(SpeechRecognitionTask):
         self.training = not hasattr(args, "beam")
 
     def load_dataset(self, split, combine=False, **kwargs):
-        if getattr(self.args, "dataset_from_json", False):
-            raise NotImplementedError("--dataset-from-json: the JSON audio route is not ported "
-                                      "(ROADMAP Queue A item 3)")
+        # --dataset-from-json is not read here: JAX's context task takes
+        # the indexed filterbanks whatever it says
         audio_context = getattr(self.args, "context_type", "tgt") == "src"
         legacy = getattr(self.args, "legacy_audio_fix_lua_indexing", False)
         datasets = []

@@ -8,16 +8,29 @@ given), ``load_dataset`` the binarized pairs ``<split>.<src>-<tgt>.<lang>``
 (either direction's prefix; ``train``, ``train1``, ... with ``combine``)
 into a ``data.LanguagePairDataset`` with ``--left-pad-source`` /
 ``--left-pad-target``; ``build_model`` (:290) and ``max_positions``
-(:285). ``--eval-bleu``, ``--load-alignments`` and ``--truncate-source``
-raise (ROADMAP Queue A item 3).
+(:285). ``--eval-bleu`` (:292-403) decodes each validation batch with the
+model being trained (``--eval-bleu-args`` set the generator), detokenises
+hypotheses and references (``--eval-bleu-detok``, ``-detok-args``,
+``--eval-bleu-remove-bpe``) and scores them with ``sacrebleu``, whose
+sufficient statistics join the batch's logging outputs
+(``valid_step_extra``) and give the epoch's ``bleu``
+(``reduce_metrics``); without ``sacrebleu`` the task raises when it is
+set up. ``--load-alignments`` and ``--truncate-source`` raise (ROADMAP
+Queue A item 3).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import logging
 import os
+from argparse import Namespace
 
+import numpy as np
+
+from ..data import encoders
+from ..data.encoders import require_package
 from ..data.datasets import ConcatDataset
 from ..data.dictionary import Dictionary
 from ..data.indexed_dataset import dataset_exists, infer_dataset_impl, load_indexed_dataset
@@ -25,6 +38,7 @@ from ..data.language_pair_dataset import LanguagePairDataset
 from .base import Task
 
 logger = logging.getLogger(__name__)
+EVAL_BLEU_ORDER = 4
 
 
 def infer_language_pair(path):
@@ -86,8 +100,8 @@ class TranslationTask(Task):
         parser.add_argument("--upsample-primary", default=1, type=int)
         parser.add_argument("--load-alignments", action="store_true")
         parser.add_argument("--truncate-source", action="store_true", default=False)
-        parser.add_argument("--eval-bleu", action="store_true")
-        # read only under --eval-bleu (which raises), as in JAX
+        parser.add_argument("--eval-bleu", action="store_true",
+                            help="score each validation pass with BLEU (drives --best-checkpoint-metric bleu)")
         parser.add_argument("--eval-bleu-detok", type=str, default="space")
         parser.add_argument("--eval-bleu-detok-args", type=str, metavar="JSON")
         parser.add_argument("--eval-tokenized-bleu", action="store_true", default=False)
@@ -97,7 +111,7 @@ class TranslationTask(Task):
 
     def __init__(self, args, src_dict, tgt_dict):
         super().__init__(args)
-        for flag in ("eval_bleu", "load_alignments", "truncate_source"):
+        for flag in ("load_alignments", "truncate_source"):
             if getattr(args, flag, False):
                 raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported (ROADMAP Queue A item 3)")
         if src_dict.pad() != tgt_dict.pad() or src_dict.eos() != tgt_dict.eos() or src_dict.unk() != tgt_dict.unk():
@@ -105,6 +119,10 @@ class TranslationTask(Task):
         self.src_dict = src_dict
         self.tgt_dict = tgt_dict
         self.paths = getattr(args, "data", "").split(os.pathsep)
+        self.tokenizer = None
+        self._bleu_generator = None
+        # --eval-bleu needs sacrebleu: asked for without it, the task raises here
+        self._sacrebleu = require_package("sacrebleu", "--eval-bleu") if getattr(args, "eval_bleu", False) else None
 
     @classmethod
     def setup_task(cls, args, **kwargs):
@@ -133,3 +151,85 @@ class TranslationTask(Task):
     @property
     def target_dictionary(self):
         return self.tgt_dict
+
+    # validation BLEU (JAX :292-403, reference translation.py:264-381)
+
+    def build_model(self, args, device=None):
+        model = super().build_model(args, device=device)
+        if getattr(args, "eval_bleu", False):
+            detok = getattr(args, "eval_bleu_detok", None)
+            if detok is None:
+                raise ValueError("--eval-bleu-detok is required if using --eval-bleu; try --eval-bleu-detok=moses "
+                                 "(or --eval-bleu-detok=space to disable detokenization, e.g., when using "
+                                 "sentencepiece)")
+            detok_args = json.loads(getattr(args, "eval_bleu_detok_args", "{}") or "{}")
+            self.tokenizer = encoders.build_tokenizer(Namespace(tokenizer=detok, **detok_args))
+            gen_args = json.loads(getattr(args, "eval_bleu_args", "{}") or "{}")
+            self._bleu_generator = self.build_generator([model], Namespace(**gen_args))
+        return model
+
+    def valid_step_extra(self, sample, trainer) -> dict:
+        """sacrebleu's sufficient statistics of the batch decoded with the
+        trainer's current weights, as scalar entries that sum over batches."""
+        if not getattr(self.args, "eval_bleu", False):
+            return {}
+        model = trainer.model
+        was_training = model.training
+        model.eval()
+        try:
+            bleu = self._inference_with_bleu(self._bleu_generator, sample, [model])
+        finally:
+            model.train(was_training)
+        out = {"_bleu_sys_len": bleu.sys_len, "_bleu_ref_len": bleu.ref_len}
+        for i in range(EVAL_BLEU_ORDER):
+            out[f"_bleu_counts_{i}"] = bleu.counts[i]
+            out[f"_bleu_totals_{i}"] = bleu.totals[i]
+        return out
+
+    def reduce_metrics(self, logging_outputs, criterion, metrics) -> None:
+        super().reduce_metrics(logging_outputs, criterion, metrics)
+        if not getattr(self.args, "eval_bleu", False):
+            return
+
+        def sum_logs(key):
+            return sum(log.get(key, 0) for log in logging_outputs)
+
+        counts = [sum_logs(f"_bleu_counts_{i}") for i in range(EVAL_BLEU_ORDER)]
+        totals = [sum_logs(f"_bleu_totals_{i}") for i in range(EVAL_BLEU_ORDER)]
+        if max(totals) > 0:
+            metrics.log_scalar("_bleu_counts", np.array(counts))
+            metrics.log_scalar("_bleu_totals", np.array(totals))
+            metrics.log_scalar("_bleu_sys_len", sum_logs("_bleu_sys_len"))
+            metrics.log_scalar("_bleu_ref_len", sum_logs("_bleu_ref_len"))
+            sacrebleu = self._sacrebleu
+
+            def compute_bleu(meters):
+                bleu = sacrebleu.metrics.BLEU.compute_bleu(
+                    correct=[int(c) for c in np.asarray(meters["_bleu_counts"].sum)],
+                    total=[int(t) for t in np.asarray(meters["_bleu_totals"].sum)],
+                    sys_len=int(meters["_bleu_sys_len"].sum), ref_len=int(meters["_bleu_ref_len"].sum),
+                    smooth_method="exp")
+                return round(bleu.score, 2)
+
+            metrics.log_derived("bleu", compute_bleu)
+
+    def _inference_with_bleu(self, generator, sample, models):
+        def decode(toks, escape_unk=False):
+            # an <unk> would count as '< unk >' words: sentinels that cannot
+            # match each other (reference translation.py:351-361)
+            s = self.tgt_dict.string(np.asarray(toks), getattr(self.args, "eval_bleu_remove_bpe", None),
+                                     unk_string="UNKNOWNTOKENINREF" if escape_unk else "UNKNOWNTOKENINHYP")
+            return self.tokenizer.decode(s) if self.tokenizer else s
+
+        gen_out = self.inference_step(generator, models, sample, None)
+        hyps, refs = [], []
+        pad = self.tgt_dict.pad()
+        for i in range(len(gen_out)):
+            hyps.append(decode(gen_out[i][0]["tokens"]))
+            target = np.asarray(sample["target"][i])
+            refs.append(decode(target[target != pad], escape_unk=True))
+        if getattr(self.args, "eval_bleu_print_samples", False):
+            logger.info("example hypothesis: " + hyps[0])
+            logger.info("example reference: " + refs[0])
+        tokenize = "none" if getattr(self.args, "eval_tokenized_bleu", False) else self._sacrebleu.BLEU.TOKENIZER_DEFAULT
+        return self._sacrebleu.corpus_bleu(hyps, [refs], tokenize=tokenize)

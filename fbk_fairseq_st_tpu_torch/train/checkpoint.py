@@ -34,8 +34,16 @@ rules. ``load_checkpoint`` resumes from each kind of file: the port's own,
 a JAX pickle (with its optimiser state), and a fork ``.pt`` (model only:
 its optimiser state raises unless ``--reset-optimizer``, since the port
 cannot show that its parameter order is the fork's). JAX's sharded
-checkpoint (a directory) and ``--async-checkpoint`` raise
-``NotImplementedError`` (ROADMAP Queue A item 3).
+checkpoint (a directory, ``train/sharded_checkpoint.py``) reads as its
+pickle does, optimiser state included; ``--checkpoint-format sharded``
+writes the port's state in that layout, on a background thread with
+``--async-checkpoint`` (``wait_for_async_writes`` before the next save, a
+resume and the end of training, as JAX :73). ``load_checkpoint`` with
+``--allow-partial-restore`` restores what the checkpoint and the model
+share (``merge_partial_state``, JAX :274-311), and
+``load_model_ensemble_and_task`` keeps the layers of
+``--encoder-layers-to-keep`` / ``--decoder-layers-to-keep``
+(``prune_layers``, JAX :428-456).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import torch
 
 from ..utils.weights import optimizer_state_from_jax, state_dict_from_jax
 from . import metrics
+from . import sharded_checkpoint as sharded
 
 logger = logging.getLogger(__name__)
 
@@ -99,19 +108,58 @@ def load_checkpoint_to_cpu(path: str) -> Dict[str, Any]:
     state dict of CPU tensors under the port's (the fork's) names, from
     either format."""
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path}: the sharded checkpoint format is not ported (ROADMAP Queue A item 3)")
-    if _is_torch_file(path):
+        if not sharded.is_sharded_checkpoint(path):
+            raise FileNotFoundError(f"{path}: a directory without {sharded._MANIFEST}")
+        state = sharded.load_sharded(path, _SafeUnpickler)
+        if "last_optimizer_param_names" in state:
+            return _port_state_from_sharded(state)
+    elif _is_torch_file(path):
         state = torch.load(path, map_location="cpu", weights_only=False)
         state["format"] = "port" if "last_optimizer_param_names" in state else "fork"
         return upgrade_fork_state(state)
-    with open(path, "rb") as f:
-        state = _SafeUnpickler(f).load()
+    else:
+        with open(path, "rb") as f:
+            state = _SafeUnpickler(f).load()
     args = state.get("args") or {}
     state["args"] = argparse.Namespace(**args) if isinstance(args, dict) else args
     state["params_tree"] = state["model"]
     state["model"] = state_dict_from_jax({"params": state["model"], "state": state.get("model_state") or {}})
     state["format"] = "jax"
     return state
+
+
+def _port_state_from_sharded(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's own sharded state as its ``.pt`` holds it: the state
+    dict and the optimiser's state dict of tensors."""
+    state["model"] = {k: torch.from_numpy(v) for k, v in state["model"].items()}
+    per_param = (state.pop("opt_state") or {}).get("state") or []
+    rest = state.pop("optimizer_state_rest", {})
+    groups = state.pop("optimizer_param_groups", None)
+    if groups is not None:
+        tensors = {i: {k: torch.from_numpy(v) for k, v in entry.items()} for i, entry in enumerate(per_param)
+                   if entry is not None}
+        index = sorted(set(tensors) | set(rest))
+        state["last_optimizer_state"] = {"state": {i: {**rest.get(i, {}), **tensors.get(i, {})} for i in index},
+                                         "param_groups": groups}
+    state["format"] = "port"
+    return upgrade_fork_state(state)
+
+
+def _sharded_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's checkpoint dict as ``sharded_checkpoint.save_sharded``
+    takes it: the state dict as the ``model`` tree, the optimiser's
+    per-parameter tensors as ``opt_state`` and everything else as meta."""
+    out = {k: v for k, v in state.items() if k != "last_optimizer_state"}
+    opt = state.get("last_optimizer_state")
+    if opt is not None:
+        tensors, rest = {}, {}
+        for i, entry in opt["state"].items():
+            tensors[str(i)] = {k: v for k, v in entry.items() if isinstance(v, torch.Tensor)}
+            rest[i] = {k: v for k, v in entry.items() if not isinstance(v, torch.Tensor)}
+        out["opt_state"] = {"state": tensors}
+        out["optimizer_state_rest"] = rest
+        out["optimizer_param_groups"] = opt["param_groups"]
+    return out
 
 
 def upgrade_fork_state(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -159,12 +207,61 @@ def load_model_ensemble_and_task(filenames: List[str], arg_overrides: Optional[D
         args = state["args"]
         for k, v in (arg_overrides or {}).items():
             setattr(args, k, v)
+        model_sd = state["model"]
+        if getattr(args, "encoder_layers_to_keep", None) or getattr(args, "decoder_layers_to_keep", None):
+            model_sd = prune_layers(model_sd, args)
         if task is None:
             task = TASKS[args.task].setup_task(args)
         model = task.build_model(args, device=device)
-        model.load_state_dict(state["model"], strict=True)
+        model.load_state_dict(model_sd, strict=True)
         models.append(model.eval())
     return models, args, task
+
+
+def prune_layers(model_sd: Dict[str, torch.Tensor], args) -> Dict[str, torch.Tensor]:
+    """Keep the layers ``--encoder-layers-to-keep`` / ``--decoder-layers-to-keep``
+    list (comma-separated indices) of the state dict, renumbered from 0,
+    and set ``args.<side>_layers`` to their count (JAX's ``prune_layers``,
+    reference checkpoint_utils.prune_state_dict). The layers are the
+    entries ``<side>.layers.<i>.*``."""
+    for side in ("encoder", "decoder"):
+        spec = getattr(args, f"{side}_layers_to_keep", None)
+        if not spec:
+            continue
+        keep = sorted(int(x) for x in str(spec).split(","))
+        renumber = {old: new for new, old in enumerate(keep)}
+        layer = re.compile(re.escape(side) + r"\.layers\.(\d+)\.(.*)")
+        pruned = {}
+        for name, value in model_sd.items():
+            m = layer.fullmatch(name)
+            if m is None:
+                pruned[name] = value
+            elif int(m.group(1)) in renumber:
+                pruned[f"{side}.layers.{renumber[int(m.group(1))]}.{m.group(2)}"] = value
+        model_sd = pruned
+        setattr(args, f"{side}_layers", len(keep))
+        setattr(args, f"{side}_layers_to_keep", None)
+    return model_sd
+
+
+def merge_partial_state(model_sd: Dict[str, torch.Tensor], ckpt_sd: Dict[str, torch.Tensor]):
+    """``--allow-partial-restore`` (JAX :274-311, the fork's
+    checkpoint_utils.py:138): the checkpoint's entries the model has, the
+    model's own where the checkpoint lacks them; a shape that differs
+    raises. Returns (merged, missing names, unexpected names)."""
+    merged, missing = {}, []
+    for name, value in model_sd.items():
+        if name in ckpt_sd:
+            got, want = tuple(ckpt_sd[name].shape), tuple(value.shape)
+            if got != want:
+                raise ValueError(f"partial restore: param '{name}' has shape {got} in the checkpoint but {want} "
+                                 "in the model")
+            merged[name] = ckpt_sd[name]
+        else:
+            merged[name] = value
+            missing.append(name)
+    unexpected = [name for name in ckpt_sd if name not in model_sd]
+    return merged, missing, unexpected
 
 
 def load_model_ensemble(filenames: List[str], arg_overrides=None, task=None, device=None):
@@ -229,13 +326,13 @@ class CheckpointManager:
 _manager = CheckpointManager()
 
 
-def check_format(args) -> None:
-    if getattr(args, "checkpoint_format", "pickle") == "sharded":
-        raise NotImplementedError("--checkpoint-format sharded: the sharded checkpoint is not ported "
-                                  "(ROADMAP Queue A item 3)")
-    if getattr(args, "async_checkpoint", False):
-        raise NotImplementedError("--async-checkpoint: asynchronous checkpoint writes are not ported "
-                                  "(ROADMAP Queue A item 3)")
+_async_writer: Optional[sharded.AsyncCheckpointWriter] = None
+
+
+def wait_for_async_writes() -> None:
+    """Wait for the checkpoint write in flight, if any; its error raises here."""
+    if _async_writer is not None:
+        _async_writer.wait()
 
 
 def save_state(path: str, state: Dict[str, Any]) -> None:
@@ -252,8 +349,11 @@ def save_checkpoint(args, trainer, epoch_itr, val_loss) -> None:
     ``checkpoint.best_{metric}_{val:.2f}.pt`` (``--keep-best-checkpoints``) when the val
     loss is the best so far, and ``checkpoint_last.pt``, each with ``--checkpoint-suffix``
     before ``.pt``; then drop the oldest past ``--keep-interval-updates`` /
-    ``--keep-last-epochs`` / ``--keep-best-checkpoints``."""
-    check_format(args)
+    ``--keep-last-epochs`` / ``--keep-best-checkpoints``. With
+    ``--checkpoint-format sharded`` each is a directory
+    (``sharded_checkpoint``), written on a background thread under
+    ``--async-checkpoint``, which then drops the old ones once its files
+    are there."""
     if getattr(args, "no_save", False):
         return
     best_function = max if getattr(args, "maximize_best_checkpoint_metric", False) else min
@@ -301,12 +401,25 @@ def save_checkpoint(args, trainer, epoch_itr, val_loss) -> None:
             "last_optimizer_param_names": [names[id(p)] for g in trainer.optimizer.param_groups for p in g["params"]],
             "extra_state": extra_state,
         }
-        save_state(checkpoints[0], state)
-        for cp in checkpoints[1:]:
-            shutil.copyfile(checkpoints[0], cp + ".tmp")
-            os.replace(cp + ".tmp", cp)
+        if getattr(args, "checkpoint_format", "pickle") == "sharded":
+            if getattr(args, "async_checkpoint", False):
+                global _async_writer
+                if _async_writer is None:
+                    _async_writer = sharded.AsyncCheckpointWriter()
+                _async_writer.save(checkpoints, _sharded_state(state),
+                                   on_complete=lambda: _collect_garbage(args, save_dir))
+                logger.info("async checkpoint save started: {} (epoch {} @ {} updates)".format(
+                    checkpoints[0], epoch, updates))
+                return
+            sharded.save_sharded(checkpoints, _sharded_state(state))
+        else:
+            save_state(checkpoints[0], state)
+            for cp in checkpoints[1:]:
+                shutil.copyfile(checkpoints[0], cp + ".tmp")
+                os.replace(cp + ".tmp", cp)
         logger.info("saved checkpoint {} (epoch {} @ {} updates)".format(checkpoints[0], epoch, updates))
-    _collect_garbage(args, save_dir)
+    if not (getattr(args, "checkpoint_format", "pickle") == "sharded" and getattr(args, "async_checkpoint", False)):
+        _collect_garbage(args, save_dir)
 
 
 def _collect_garbage(args, save_dir: str) -> None:
@@ -314,11 +427,11 @@ def _collect_garbage(args, save_dir: str) -> None:
     keep = getattr(args, "keep_interval_updates", -1)
     if keep > 0:
         for old in checkpoint_paths(save_dir, pattern=r"checkpoint_\d+_(\d+)" + sfx + r"\.pt")[keep:]:
-            os.remove(old)
+            sharded.clear_path(old)
     keep = getattr(args, "keep_last_epochs", -1)
     if keep > 0:
         for old in checkpoint_paths(save_dir, pattern=r"checkpoint(\d+)" + sfx + r"\.pt")[keep:]:
-            os.remove(old)
+            sharded.clear_path(old)
     keep = getattr(args, "keep_best_checkpoints", -1)
     if keep > 0:
         found = checkpoint_paths(save_dir, pattern=r"checkpoint\.best_{}_(\d+\.?\d*){}\.pt".format(
@@ -326,7 +439,7 @@ def _collect_garbage(args, save_dir: str) -> None:
         if not getattr(args, "maximize_best_checkpoint_metric", False):
             found = found[::-1]
         for old in found[keep:]:
-            os.remove(old)
+            sharded.clear_path(old)
 
 
 def checkpoint_paths(path: str, pattern: str = r"checkpoint(\d+)\.pt") -> List[str]:
@@ -373,8 +486,9 @@ def training_state(state: Dict[str, Any], trainer, reset_optimizer: bool) -> Dic
 def load_checkpoint(args, trainer, task):
     """Load ``checkpoint_last`` (or ``--restore-file``) into the trainer and
     build the train iterator at its position: JAX :313-399 with the four
-    ``--reset-*`` flags. Returns (extra_state, epoch_itr)."""
-    check_format(args)
+    ``--reset-*`` flags and ``--allow-partial-restore``. Returns
+    (extra_state, epoch_itr)."""
+    wait_for_async_writes()
     reset_optimizer = getattr(args, "reset_optimizer", False)
     reset_lr_scheduler = getattr(args, "reset_lr_scheduler", False)
     reset_meters = getattr(args, "reset_meters", False)
@@ -388,6 +502,19 @@ def load_checkpoint(args, trainer, task):
     extra_state = None
     if os.path.exists(path):
         state = load_checkpoint_to_cpu(path)
+        if getattr(args, "allow_partial_restore", False):
+            own = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+            state["model"], missing, unexpected = merge_partial_state(own, state["model"])
+            if missing:
+                logger.warning("partial restore: %d params missing from the checkpoint keep their fresh "
+                               "initialization: %s", len(missing), ", ".join(missing[:8]))
+            if unexpected:
+                logger.warning("partial restore: %d checkpoint params have no counterpart in the model and "
+                               "were dropped: %s", len(unexpected), ", ".join(unexpected[:8]))
+            if (missing or unexpected) and not reset_optimizer:
+                # the saved moments belong to the checkpoint's parameters
+                logger.warning("partial restore changed the param tree; resetting the optimizer state")
+                reset_optimizer = True
         trainer.load_trainer_state(training_state(state, trainer, reset_optimizer),
                                    reset_optimizer=reset_optimizer, reset_lr_scheduler=reset_lr_scheduler)
         extra_state = state.get("extra_state")

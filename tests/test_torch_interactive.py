@@ -95,15 +95,19 @@ def test_interactive_matches_jax(trained, jax_records, capsys, monkeypatch, sour
 
 
 def test_interactive_refuses_what_jax_refuses(trained):
-    """--max-sentences above --buffer-size asserts, as in JAX; the codecs
-    and weight quantisation raise ``NotImplementedError``; without --cpu
-    and a card the CLI raises before loading anything."""
+    """--max-sentences above --buffer-size asserts, as in JAX; weight
+    quantisation raises ``NotImplementedError``, a codec whose library is
+    missing ``ImportError`` naming it and a ``--user-dir`` that does not
+    exist ``FileNotFoundError``, as in JAX; without --cpu and a card the
+    CLI raises before loading anything."""
     with pytest.raises(AssertionError):
         tinteractive.cli_main(_argv(trained, "--max-sentences", "4"))
-    for extra in (["--tokenizer", "moses"], ["--bpe", "subword_nmt"], ["--quantize-weights", "int8"],
-                  ["--user-dir", "/nonexistent"]):
-        with pytest.raises(NotImplementedError):
-            tinteractive.cli_main(_argv(trained, *extra))
+    with pytest.raises(NotImplementedError):
+        tinteractive.cli_main(_argv(trained, "--quantize-weights", "int8"))
+    with pytest.raises(ImportError, match="subword_nmt"):
+        tinteractive.cli_main(_argv(trained, "--bpe", "subword_nmt", "--bpe-codes", "codes"))
+    with pytest.raises(FileNotFoundError):
+        tinteractive.cli_main(_argv(trained, "--user-dir", "/nonexistent"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError):

@@ -520,7 +520,8 @@ def test_task_builds_both_families():
     for arch in ("transformer", "lstm"):
         with pytest.raises(NotImplementedError):
             task.build_model(argparse.Namespace(arch=arch, seed=1), device="cpu")
+    # --eval-bleu is ported; --load-alignments still raises
     with pytest.raises(NotImplementedError):
-        TranslationTask(argparse.Namespace(eval_bleu=True), src_dict, tgt_dict)
+        TranslationTask(argparse.Namespace(load_alignments=True), src_dict, tgt_dict)
     with pytest.raises(TypeError):
         tlcm.build_model("dynamicconv", tgt_dict, device="cpu", no_such_option=1)

@@ -561,8 +561,9 @@ def _target_items(data_dir, split, lang, dictionary):
 
 def test_langtok_names_and_refusals():
     """The language token's form and lookup; the multilingual presets in
-    the registry; the parser takes the model's flags and reads
-    ``--allow-partial-restore`` for it alone."""
+    the registry; the parser takes the model's flags and
+    ``--allow-partial-restore`` for every arch (the resume's partial
+    restore)."""
     d = _dicts(torch_dictionary)["de"]
     assert tmct.lang_token("nl") == "__nl__" and tmct.lang_token_index(d, "nl") == d.index("__nl__")
     with pytest.raises(ValueError):
@@ -573,6 +574,6 @@ def test_langtok_names_and_refusals():
         "--max-tokens", "10"])
     assert (args.share_encoders, args.share_decoder_embeddings, args.pretrained_encoder, args.allow_partial_restore) \
         == (True, True, "p.pt", True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        toptions.parse_args_and_arch(toptions.get_training_parser(), [
-            "/nonexistent", "--task", "speech_recognition", "--arch", "conv_transformer", "--allow-partial-restore"])
+    assert toptions.parse_args_and_arch(toptions.get_training_parser(), [
+        "/nonexistent", "--task", "speech_recognition", "--arch", "conv_transformer",
+        "--allow-partial-restore"]).allow_partial_restore

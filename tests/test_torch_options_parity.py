@@ -6,12 +6,17 @@ dest, or refused with ``NotImplementedError`` naming its ROADMAP item.
 Each flag is parsed alone on top of the arch's and task's base command
 line, with a value that differs from its default where it takes one.
 Component selectors (``--arch``, ``--task``, ``--criterion``, ...) and the
-positional data directory are part of the base. JAX's ``--user-dir``
-imports a module at the parse, so only the port's parser takes it (and
-refuses it). The attention-route flags set a process-wide route in both
-packages; each parse is followed by a reset."""
+positional data directory are part of the base. ``--user-dir`` imports
+a module at the parse in both packages: it names an empty package written
+at import. The attention-route flags set a process-wide route in both
+packages; each parse is followed by a reset. The generation parser's
+flags of ROADMAP Queue A item 3 (``--sacrebleu``, ``--replace-unk``,
+``--print-alignment``, ``--num-shards``, the codecs' own flags) are held
+to JAX's values too."""
 
 import argparse
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -45,6 +50,13 @@ VALUES = {
     "--decoder-glu": "False", "--weight-softmax": "False", "--left-pad-source": "False",
     "--left-pad-target": "True", "--adaptive-softmax-cutoff": "1000,4000",
 }
+# an empty package for --user-dir (one path, so every worker collects the
+# same test ids)
+USER_DIR = os.path.join(tempfile.gettempdir(), "fbk_user_dir_parity")
+os.makedirs(USER_DIR, exist_ok=True)
+with open(os.path.join(USER_DIR, "__init__.py"), "a"):
+    pass
+VALUES["--user-dir"] = USER_DIR
 
 
 def _base(arch):
@@ -109,16 +121,48 @@ def test_port_parser_takes_or_refuses_every_jax_flag(arch):
         except SystemExit:
             raise AssertionError(f"the port's parser refuses {argv[-2:]}")
         accepted.append(flag)
-        if flag == "--user-dir":
-            raise AssertionError("--user-dir is accepted")
         jargs = _parse(lambda a: joptions.parse_args_and_arch(joptions.get_training_parser(), a), argv)
         for dest in sorted(set(vars(jargs)) & set(vars(targs))):
             want, got = getattr(jargs, dest), getattr(targs, dest)
             assert got == want or (isinstance(want, float) and np.isclose(got, want)), (flag, dest, got, want)
     assert len(accepted) > 100
-    assert {"--use-bmuf", "--block-lr", "--distributed-coordinator", "--encoder-layers-to-keep",
-            "--quant-noise-pq", "--user-dir"} <= set(refused)
-    assert "--allow-partial-restore" in (accepted if arch.startswith("multilingual") else refused)
+    assert {"--use-bmuf", "--block-lr", "--distributed-coordinator", "--quant-noise-pq"} <= set(refused)
+    # the flags of ROADMAP Queue A item 3, ported
+    assert {"--encoder-layers-to-keep", "--decoder-layers-to-keep", "--user-dir", "--allow-partial-restore",
+            "--checkpoint-format", "--async-checkpoint"} <= set(accepted)
+    assert ("--eval-bleu" in accepted) == (arch == "dynamicconv_iwslt_de_en")
+
+
+GENERATION_FLAGS = [
+    ["--sacrebleu"], ["--replace-unk"], ["--replace-unk", "align.txt"], ["--print-alignment"],
+    ["--num-shards", "2", "--shard-id", "1"], ["--user-dir", USER_DIR],
+    ["--tokenizer", "moses", "--moses-source-lang", "de", "--moses-no-dash-splits", "--moses-no-escape"],
+    ["--tokenizer", "space"], ["--tokenizer", "nltk"], ["--bpe", "characters"], ["--bpe", "bytes"],
+    ["--bpe", "sentencepiece", "--sentencepiece-vocab", "m.model"],
+    ["--bpe", "subword_nmt", "--bpe-codes", "codes", "--bpe-separator", "++"],
+    ["--bpe", "gpt2", "--gpt2-encoder-json", "e.json", "--gpt2-vocab-bpe", "v.bpe"],
+    ["--bpe", "bert", "--bpe-cased", "--bpe-vocab-file", "vocab.txt"], ["--bpe", "fastbpe", "--bpe-codes", "c"],
+    ["--bpe", "byte_bpe", "--sentencepiece-model-path", "m.model"],
+    ["--bpe", "hf_byte_bpe", "--bpe-merges", "m.txt", "--bpe-vocab", "v.json", "--bpe-add-prefix-space"],
+]
+
+
+@pytest.mark.parametrize("extra", GENERATION_FLAGS,
+                         ids=lambda e: "_".join(w for w in e[:2] if w != USER_DIR).lstrip("-"))
+def test_ported_generation_flags_parse_as_jax(extra):
+    """Each flag of the generation parser of ROADMAP Queue A item 3 (and
+    each codec's own flags) parses to JAX's value, in every dest both
+    namespaces have."""
+    argv = ["/nonexistent", "--task", "speech_translation_with_transcription", "-s", "en", "-t", "de",
+            "--path", "ckpt.pt"] + extra
+    jargs = _parse(lambda a: joptions.parse_args_and_arch(joptions.get_generation_parser(), a), argv)
+    targs = _parse(lambda a: toptions.parse_args_and_arch(toptions.get_generation_parser(), a), argv)
+    shared = set(vars(jargs)) & set(vars(targs))
+    for flag in extra:
+        if flag.startswith("--"):
+            assert flag[2:].replace("-", "_") in shared, flag
+    for dest in sorted(shared):
+        assert getattr(targs, dest) == getattr(jargs, dest), (dest, getattr(targs, dest), getattr(jargs, dest))
 
 
 @pytest.mark.parametrize("arch", sorted(CASES))

@@ -390,8 +390,10 @@ def test_train_mode_on_the_cpu_learns_with_dropout(flash_routes):
 
 def test_off_path_training_options_raise():
     args = options.parse_args_and_arch(options.get_training_parser(), TRAIN_ARGV)
-    with pytest.raises(NotImplementedError):  # SpecAugment is ported since PR 11; the JSON route is not
-        SpeechRecognitionTask(argparse.Namespace(**{**vars(args), "dataset_from_json": True}),
+    # SpecAugment and the JSON route are ported: a
+    # split without its <split>.json is missing
+    with pytest.raises(FileNotFoundError, match="no data found for split train"):
+        SpeechRecognitionTask(argparse.Namespace(**{**vars(args), "dataset_from_json": True, "data": "/nonexistent"}),
                               torch_dictionary()).load_dataset("train")
     task = SpeechRecognitionTask(args, torch_dictionary())
     with pytest.raises(NotImplementedError):

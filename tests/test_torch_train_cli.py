@@ -32,6 +32,7 @@ import json
 import logging
 import os
 import shutil
+import sys
 
 import jax
 import numpy as np
@@ -46,10 +47,13 @@ from fbk_fairseq_st_tpu.cli import train as jtrain
 from fbk_fairseq_st_tpu.train import checkpoint as jcheckpoint
 from fbk_fairseq_st_tpu.train import metrics as jmetrics
 from fbk_fairseq_st_tpu_torch import criterions as tcriterions
+from fbk_fairseq_st_tpu_torch import options as toptions
 from fbk_fairseq_st_tpu_torch.cli import train as ttrain
 from fbk_fairseq_st_tpu_torch.train import checkpoint as tcheckpoint
 from fbk_fairseq_st_tpu_torch.train import metrics as tmetrics
 from fbk_fairseq_st_tpu_torch.utils.weights import state_dict_from_jax
+
+from .test_torch_model import torch_dictionary
 
 N_MELS = 8
 SPLITS = {"train": 16, "valid": 6, "test": 6}
@@ -260,7 +264,6 @@ def test_train_needs_the_card_without_cpu(corpus, monkeypatch):
 @pytest.mark.parametrize("extra", [
     ["--distributed-world-size", "2"], ["--fsdp"], ["--sequence-parallel"], ["--ring-attention"], ["--use-bmuf"],
     ["--steps-per-execution", "2"], ["--quantization-config-path", "q.yaml"],
-    ["--dataset-from-json"], ["--checkpoint-format", "sharded"], ["--async-checkpoint"],
 ], ids=lambda e: e[0].lstrip("-"))
 def test_unported_training_options_raise(corpus, extra):
     root, data_dir = corpus
@@ -268,11 +271,19 @@ def test_unported_training_options_raise(corpus, extra):
         ttrain.cli_main(argv(data_dir, os.path.join(root, "unported"), "nag_fixed", *extra))
 
 
-def test_eval_bleu_raises():
-    """--eval-bleu, a flag of the translation task, raises at the parse."""
-    with pytest.raises(NotImplementedError):
-        ttrain.cli_main(["/nonexistent", "--task", "translation", "-s", "en", "-t", "de", "--arch",
-                         "dynamicconv_iwslt_de_en", "--max-tokens", "100", "--cpu", "--eval-bleu"])
+def test_eval_bleu_raises(monkeypatch):
+    """--eval-bleu, a flag of the translation task, raises when the task
+    is set up and ``sacrebleu`` is missing (as on the card's machine),
+    naming the package."""
+    from fbk_fairseq_st_tpu_torch.tasks.translation import TranslationTask
+
+    args = toptions.parse_args_and_arch(toptions.get_training_parser(), [
+        "/nonexistent", "--task", "translation", "-s", "en", "-t", "de", "--arch", "dynamicconv_iwslt_de_en",
+        "--max-tokens", "100", "--cpu", "--eval-bleu"])
+    assert args.eval_bleu and args.eval_bleu_detok == "space"
+    monkeypatch.setitem(sys.modules, "sacrebleu", None)
+    with pytest.raises(ImportError, match="--eval-bleu needs the 'sacrebleu' package"):
+        TranslationTask(args, torch_dictionary(), torch_dictionary())
 
 
 def test_json_log_lines(corpus, caplog):

@@ -388,7 +388,22 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      batches (scores within 1e-4); the CLIs' walls, the busy ms and idle
      share of one scorer batch and one interactive batch, the phase's
      seconds;
- 31. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+ 31. the rest of the wiring from files (main path 21, ``wiring_from_files``):
+     the JSON audio route trained with sharded asynchronous checkpoints and
+     resumed bitwise, alignments, sharded and pruned decoding, the
+     fork-checkpoint CLIs, the codecs (``--bpe gpt2`` held to the CPU
+     test's ids, ``GPT2_IDS``) and ``--user-dir``;
+ 32. the fork's ASR side from files (main path 22, ``asr_from_files``), on
+     phase 31's JSON corpus: ``vggtransformer_base`` with
+     ``cross_entropy_acc`` (3 updates, bf16, 24 tensor-core forwards and
+     pairs an update) decoded by ``cli/infer`` with beam 5 in fp32 (12
+     tf32x3 forwards a batch); ``vggtransformer_enc_1`` with ``ctc_loss``
+     (2 updates, 16 an update) decoded greedily and by the lexicon beam
+     with a 3-gram ARPA LM (16 a batch); ``w2l_conv_glu_enc`` with
+     ``asg_loss`` (2 updates, no attention) decoded by ASG Viterbi and the
+     ASG beam; each decode against ``cli/infer --cpu`` on the same
+     checkpoint, and each leg's peak memory;
+ 33. the ``kernels`` line (the D 128 tensor-core kernels timed at the
      iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
@@ -746,6 +761,11 @@ USER_ARCH = "user_conv_transformer"
 # the codecs' libraries, each run where the card's machine has it
 CODEC_PACKAGES = ("sacremoses", "nltk", "sentencepiece", "subword_nmt", "transformers", "fastBPE", "tokenizers",
                   "sacrebleu", "torchaudio")
+# ``--bpe gpt2`` on ``codec_runs``' sentence and GPT-2-format files: the ids
+# tests/test_torch_encoders.py::test_gpt2_ids_of_the_chip_check gets on the
+# CPU (transformers 4.57.6) from the same files (``write_gpt2_files``)
+GPT2_TEXT = "Hello,  world! It's a well-known test."
+GPT2_IDS = "39 260 78 11 220 262 263 75 67 0 220 40 83 6 82 220 64 262 260 12 74 77 78 86 77 256 68 82 83 13"
 GRID_CAP_ROWS = 70_000
 # the single pass's bf16 out at bh 70,000 element by element: two bf16 ulps
 # of |plain| (72 M outputs reach further into the tail of P's rounding than
@@ -4668,30 +4688,16 @@ def generate_counted(modules, counters, argv):
     return launch_counts(fa, dconv, single), per_batch, wall
 
 
-def codec_runs(modules, work):
-    """Each codec whose library the machine has, on one sentence: its
-    encoding and decoding (``nltk`` without its data raises
-    ``LookupError``, as JAX's does); the SentencePiece codecs from a model
-    ``scripts/spm_tools`` trains here, whose ``spm_encode`` /
-    ``spm_decode`` give every line back; the codecs whose library is
-    absent raise ``ImportError`` naming it."""
-    import argparse
-    import importlib.util
+def write_gpt2_files(work):
+    """A byte-level BPE vocabulary of GPT-2's layout in ``work``: every
+    byte's char (the printable bytes as themselves, the others from U+0100
+    on), a few merges. Returns (encoder.json, vocab.bpe)."""
     import json as json_module
 
-    enc = modules["encoders"]
-    found = {p: importlib.util.find_spec(p) is not None for p in CODEC_PACKAGES}
-    text = "Hello,  world! It's a well-known test."
-    vocab = os.path.join(work, "vocab.txt")
-    with open(vocab, "w", encoding="utf-8") as f:
-        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", ",", "!", "it", "'", "s", "a",
-                           "test", "well", "-", "known", "."]) + "\n")
-    # a byte-level vocabulary of GPT-2's layout: every byte's char, a few merges
     byte_vocab = os.path.join(work, "encoder.json")
     merges = os.path.join(work, "vocab.bpe")
     printable = [*range(ord("!"), ord("~") + 1), *range(ord("\u00a1"), ord("\u00ac") + 1),
                  *range(ord("\u00ae"), ord("\u00ff") + 1)]
-    # GPT-2's alphabet: the printable bytes as themselves, the others from U+0100 on
     chars = sorted(chr(c) for c in printable + [256 + i for i in range(256 - len(printable))])
     pairs = ["\u0120 t", "h e", "\u0120t he", "e l", "el l", "l o", "\u0120 w", "o r"]
     vocab_ids = {c: i for i, c in enumerate(chars)}
@@ -4702,6 +4708,27 @@ def codec_runs(modules, work):
         json_module.dump(vocab_ids, f)
     with open(merges, "w", encoding="utf-8") as f:
         f.write("#version: 0.2\n" + "\n".join(pairs) + "\n")
+    return byte_vocab, merges
+
+
+def codec_runs(modules, work):
+    """Each codec whose library the machine has, on one sentence: its
+    encoding and decoding (``nltk`` without its data raises
+    ``LookupError``, as JAX's does); the SentencePiece codecs from a model
+    ``scripts/spm_tools`` trains here, whose ``spm_encode`` /
+    ``spm_decode`` give every line back; the codecs whose library is
+    absent raise ``ImportError`` naming it."""
+    import argparse
+    import importlib.util
+
+    enc = modules["encoders"]
+    found = {p: importlib.util.find_spec(p) is not None for p in CODEC_PACKAGES}
+    text = GPT2_TEXT
+    vocab = os.path.join(work, "vocab.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", ",", "!", "it", "'", "s", "a",
+                           "test", "well", "-", "known", "."]) + "\n")
+    byte_vocab, merges = write_gpt2_files(work)
     # a SentencePiece model trained here by scripts/spm_tools, where the
     # machine has sentencepiece: the two codecs and spm_encode / spm_decode
     rng = np.random.RandomState(0)
@@ -4743,6 +4770,15 @@ def codec_runs(modules, work):
             if package != "nltk":
                 raise
             out[name] = {"raises": type(e).__name__, "message": str(e)[:120]}
+    if found["transformers"]:
+        # --bpe gpt2 held to the CPU test's ids from the same files (an empty
+        # encoding was seen on the card's machine before)
+        import transformers
+
+        out["gpt2"].update(transformers=transformers.__version__, ids_the_cpu_test_gets=GPT2_IDS)
+        if not out["gpt2"].get("encoded") or out["gpt2"]["encoded"] != GPT2_IDS:
+            raise AssertionError(f"--bpe gpt2 with transformers {transformers.__version__}: {out['gpt2']}, "
+                                 f"the CPU test gets {GPT2_IDS!r}")
     if spm_round_trip is not None:
         out["spm_tools"] = {"lines": len(spm_lines), "round_trip_equal": spm_round_trip}
         if spm_round_trip != len(spm_lines):
@@ -5022,6 +5058,284 @@ def wiring_from_files(card, d, fa, dconv, single, modules, tmp, lc_dicts):
 
 
 # ---------------------------------------------------------------------------
+# 32. the fork's ASR side from files
+# ---------------------------------------------------------------------------
+
+ASR_ARGS = ["--task", "speech_recognition", "--dataset-from-json", "--input-feat-per-channel", str(N_MELS),
+            *OPTIM_ARGS, "--no-epoch-checkpoints", "--no-save-optimizer-state"]
+# leg: (arch, criterion, its extra flags, updates, the flash calls an update
+# and a validation batch (each forward with its dq + dkv pair in bf16), the
+# fp32 forwards of a cli/infer batch, the JSON corpus it reads)
+ASR_LEGS = {
+    # 12 encoder self-attentions + 6 causal decoder self-attentions + 6 cross-attentions, D 64 (512 / 8)
+    "vggtransformer_base": ("vggtransformer_base", "cross_entropy_acc", [], 3, 12 + 6 + 6, 12, "tokens"),
+    # 16 encoder self-attentions, D 64 (1024 / 16)
+    "vggtransformer_enc_1": ("vggtransformer_enc_1", "ctc_loss", [], 2, 16, 16, "letters"),
+    # no attention
+    "w2l_conv_glu_enc": ("w2l_conv_glu_enc", "asg_loss", ["--max-replabel", "2", "--silence-token", "|"], 2, 0, 0,
+                         "letters"),
+}
+# leg: [(route, its cli/infer flags, held exactly to the CPU's)]
+ASR_ROUTES = {
+    "vggtransformer_base": [("seq2seq_beam5", ["--beam", str(BEAM), "--max-len-b", str(MAX_LEN_B)], True)],
+    "vggtransformer_enc_1": [("greedy", ["--ctc-decoding", "greedy"], True),
+                             ("lexicon_arpa", ["--w2l-decoder", "kenlm", "--lexicon", "{lexicon}", "--kenlm-model",
+                                               "{arpa}", "--ctc-beam-size", "8"], False)],
+    "w2l_conv_glu_enc": [("asg_viterbi", ["--w2l-decoder", "viterbi"], False),
+                         ("asg_beam_lexicon", ["--ctc-decoding", "beam", "--lexicon", "{lexicon}", "--kenlm-model",
+                                               "{arpa}", "--ctc-beam-size", "8"], False)],
+}
+ASR_BEAM_HELD = 15  # of the 16 valid utterances: the host-side beams' card lines equal to the CPU's at least
+LETTER_WORDS = 16  # each utterance's first tokens, spelled as the letters words of the letters corpus
+
+
+def letters(token: str) -> str:
+    """A token ``tok<i>`` as a word of two letters, the digits of i % 100
+    (0 -> a, ..., 9 -> j)."""
+    i = int(token[3:]) % 100
+    return "abcdefghij"[i // 10] + "abcdefghij"[i % 10]
+
+
+def write_letters_corpus(modules, json_dir, work):
+    """Phase 31's WAVs with their labels spelled in letters: each of an
+    utterance's first LETTER_WORDS tokens a word of ``letters``, its
+    letters the units, "|" after each word; the dictionary of those units,
+    each split's JSON by ``scripts/asr_prep_json``, a wav2letter lexicon of
+    the corpus's words (one with the repeats packed into replabels, for
+    ASG) and a 3-gram ARPA model of the train split's word sequences.
+    Returns the directory and the seconds it took."""
+    t0 = time.perf_counter()
+    out = os.path.join(work, "letters")
+    os.makedirs(out)
+    d = modules["Dictionary"]()
+    for u in "abcdefghij|":
+        d.add_symbol(u)
+    d.save(os.path.join(out, "dict.txt"))
+    sentences = {}
+    for split in JSON_SPLITS:
+        with open(os.path.join(json_dir, f"{split}.labels"), encoding="utf-8") as f:
+            rows = [line.split() for line in f if line.strip()]
+        sentences[split] = [[letters(t) for t in toks[:LETTER_WORDS]] for _, *toks in rows]
+        label_path = os.path.join(out, f"{split}.labels")
+        with open(label_path, "w", encoding="utf-8") as f:
+            for (utt, *_), words in zip(rows, sentences[split]):
+                f.write(utt + " " + " ".join(" ".join(w) + " |" for w in words) + "\n")
+        modules["asr_prep_json"].cli_main(["--audio-dirs", os.path.join(json_dir, "wav", split), "--labels",
+                                           label_path, "--dictionary", os.path.join(out, "dict.txt"),
+                                           "--output", os.path.join(out, f"{split}.json")])
+    words = sorted({w for rows in sentences.values() for s in rows for w in s})
+    with open(os.path.join(out, "lexicon.txt"), "w", encoding="utf-8") as f:
+        f.writelines(f"{w}\t{' '.join(w)}\n" for w in words)
+    with open(os.path.join(out, "lexicon_asg.txt"), "w", encoding="utf-8") as f:
+        f.writelines(f"{w}\t{w[0]} {'1' if w[1] == w[0] else w[1]}\n" for w in words)
+    write_arpa(os.path.join(out, "lm.arpa"), sentences["train"])
+    return out, time.perf_counter() - t0
+
+
+def write_arpa(path, sentences, backoff=-0.5):
+    """A 3-gram ARPA model of ``sentences`` (lists of words, <s> and </s>
+    around each): relative frequencies in log10, one back-off weight for
+    every context that an n-gram extends."""
+    import collections
+
+    counts = [collections.Counter() for _ in range(3)]
+    for s in sentences:
+        seq = ["<s>", *s, "</s>"]
+        for n in range(3):
+            for i in range(len(seq) - n):
+                counts[n][tuple(seq[i: i + n + 1])] += 1
+    total = sum(c for g, c in counts[0].items() if g != ("<s>",))
+    extended = {g[:-1] for n in (1, 2) for g in counts[n]}
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\\data\\\n" + "".join(f"ngram {n + 1}={len(counts[n])}\n" for n in range(3)))
+        for n in range(3):
+            f.write(f"\n\\{n + 1}-grams:\n")
+            for gram, c in sorted(counts[n].items()):
+                denom = total if n == 0 else counts[n - 1][gram[:-1]]
+                logp = -99.0 if gram == ("<s>",) else math.log10(c / denom)
+                bo = f"\t{backoff}" if n < 2 and gram in extended else ""
+                f.write(f"{logp:.6f}\t{' '.join(gram)}{bo}\n")
+        f.write("\n\\end\\\n")
+
+
+def read_sclite(path):
+    """{utterance id: sentence} of an sclite trn file."""
+    out = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            sentence, _, utt = line.rstrip("\n").rpartition(" (")
+            out[int(utt.split("-")[0])] = sentence
+    return out
+
+
+def infer_counted(modules, counters, argv):
+    """``cli/infer``'s ``cli_main(argv)``: ((WER, UER), its launches in all,
+    the launches of each ``inference_step``, the wall seconds)."""
+    fa, dconv, single = counters
+    reset_counts(fa, dconv, single)
+    per_batch, restore = counted_calls(modules["Task"], "inference_step", counters)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = modules["infer_cli"].cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    return scores, launch_counts(fa, dconv, single), per_batch, wall
+
+
+def emission_gaps(modules, ckpt, argv, split="valid"):
+    """Per utterance id of ``split``: the largest gap between the card's and
+    the CPU's emissions (log-softmaxed for CTC, raw for ASG) over its
+    frames, the models loaded from ``ckpt`` on each device, all of the
+    split in one batch."""
+    options, registry, checkpoint = modules["options"], modules["registry"], modules["checkpoint"]
+    args = options.parse_args_and_arch(modules["infer_cli"].add_asr_eval_argument(
+        options.get_generation_parser(default_task="speech_recognition")), argv)
+    task = registry.TASKS[args.task].setup_task(args)
+    task.load_dataset(split)
+    ds = task.dataset(split)
+    batch = ds.collater([ds[i] for i in range(len(ds))])
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = checkpoint.load_model_ensemble([ckpt], task=task, device=device)[0][0]
+        with torch.no_grad():
+            enc = model.encode(torch.as_tensor(batch["net_input"]["src_tokens"], device=device),
+                               torch.as_tensor(batch["net_input"]["src_lengths"], device=device))
+            logits = enc.ctc_out.float()
+            if getattr(model, "asg_transitions", None) is None:
+                logits = torch.log_softmax(logits, -1)
+        out[device] = (logits.cpu().numpy(), enc.ctc_lengths.cpu().numpy())
+        del model
+    (card, lengths), (cpu, _) = out["cuda"], out["cpu"]
+    return {int(i): float(np.abs(card[r, : lengths[r]] - cpu[r, : lengths[r]]).max())
+            for r, i in enumerate(np.asarray(batch["id"]))}
+
+
+def asr_from_files(card, d, fa, dconv, single, modules, tmp):
+    """32. Main path 22, the fork's ASR side on the card, in phase 24's
+    directory after phase 31, on phase 31's seeded JSON corpus (64 + 16
+    WAVs of 409-509 frames):
+
+      * (a) ``cli/train --task speech_recognition --dataset-from-json
+        --arch vggtransformer_base --criterion cross_entropy_acc --bf16``
+        for 3 updates on phase 31's dictionary (the fork's ASR recipe: 12
+        x 512 encoder and 6 x 512 decoder layers, D 64), then ``cli/infer``
+        in fp32 with beam 5 on the 16 valid utterances;
+      * (b) ``vggtransformer_enc_1`` (16 x 1024/16/4096) with ``ctc_loss``
+        for 2 updates, then ``cli/infer --ctc-decoding greedy`` and
+        ``--w2l-decoder kenlm`` with a lexicon and a 3-gram ``.arpa`` over
+        the corpus's words;
+      * (c) ``w2l_conv_glu_enc`` (17 convs up to 1,816 channels) with
+        ``asg_loss --max-replabel 2`` for 2 updates, then ``--w2l-decoder
+        viterbi`` and the ASG beam with the lexicon.
+
+    (b) and (c) read the corpus spelled in letters (``write_letters_corpus``):
+    the host-side beams loop over the units of every frame. Each
+    ``cli/infer`` runs again with ``--cpu`` on the same checkpoint: the
+    seq2seq and greedy files equal the CPU's line for line; the LM and
+    ASG beams' hypotheses equal at least ASR_BEAM_HELD of the 16, a
+    differing line printed with the emission gap of its utterance. The
+    launches of each update, validation batch and decode batch are held to
+    ``ASR_LEGS``. Returns the launches of all of it."""
+    import logging
+
+    phase_t0 = time.perf_counter()
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "asr_from_files.log"))
+    root.addHandler(handler)
+    work = os.path.join(tmp, "asr")
+    os.makedirs(work)
+    counters = (fa, dconv, single)
+    json_dir = os.path.join(tmp, "wiring", "json")
+    letters_dir, letters_s = write_letters_corpus(modules, json_dir, work)
+    corpora = {"tokens": json_dir, "letters": letters_dir}
+    total = {k: 0 for k in launch_counts(fa, dconv, single)}
+    none = dict(total)
+    legs, bad = {}, []
+    for leg, (arch, criterion, extra, updates, calls, infer_calls, corpus) in ASR_LEGS.items():
+        data = corpora[corpus]
+        save = os.path.join(work, leg)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, dconv, single)
+        t0 = time.perf_counter()
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            data, *ASR_ARGS, "--arch", arch, "--criterion", criterion, *extra, "--max-update", str(updates),
+            "--save-dir", save], calls=calls)
+        train_wall = time.perf_counter() - t0
+        for k, v in launch_counts(fa, dconv, single).items():
+            total[k] += v
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        del trainer
+        torch.cuda.empty_cache()
+        train_peak = torch.cuda.max_memory_allocated() / 1e9
+        ckpt = os.path.join(save, "checkpoint_last.pt")
+        routes = {}
+        for route, flags, exact in ASR_ROUTES[leg]:
+            lexicon = os.path.join(letters_dir, "lexicon_asg.txt" if criterion == "asg_loss" else "lexicon.txt")
+            argv = [data, "--task", "speech_recognition", "--dataset-from-json", "--criterion", criterion,
+                    *extra, "--path", ckpt, "--gen-subset", "valid", "--max-sentences", str(JSON_SPLITS["valid"]),
+                    *[a.format(lexicon=lexicon, arpa=os.path.join(letters_dir, "lm.arpa")) for a in flags]]
+            card_res, cpu_res = os.path.join(work, f"{route}_card"), os.path.join(work, f"{route}_cpu")
+            torch.cuda.reset_peak_memory_stats()
+            scores, launches, per_batch, wall = infer_counted(modules, counters, [*argv, "--results-path", card_res])
+            infer_peak = torch.cuda.max_memory_allocated() / 1e9
+            for k, v in launches.items():
+                total[k] += v
+            t0 = time.perf_counter()
+            cpu_scores = modules["infer_cli"].cli_main([*argv, "--results-path", cpu_res, "--cpu"])
+            cpu_wall = time.perf_counter() - t0
+            name = os.path.basename(ckpt)
+            files = {p: (read_sclite(os.path.join(card_res, f"{p}-{name}-valid.txt")),
+                         read_sclite(os.path.join(cpu_res, f"{p}-{name}-valid.txt")))
+                     for p in ("hypo.units", "hypo.word", "ref.units")}
+            card_h, cpu_h = files["hypo.units"]
+            equal = sum(card_h[i] == cpu_h.get(i) for i in card_h)
+            differing = {}
+            if equal < len(card_h):
+                gaps = emission_gaps(modules, ckpt, argv)
+                for i in sorted(card_h):
+                    if card_h[i] != cpu_h.get(i):
+                        a, b = card_h[i].split(), cpu_h.get(i, "").split()
+                        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+                        differing[i] = {"card": card_h[i], "cpu": cpu_h.get(i), "first_difference_at": first,
+                                        "emission_gap": gaps[i]}
+            want = dict(none, **({FP32_FORWARD: infer_calls} if infer_calls else {}))
+            launch_ok = bool(per_batch) and all(b == want for b in per_batch)
+            routes[route] = {"batches": len(per_batch), "launches": {k: v for k, v in launches.items() if v},
+                             "launches_as_predicted": launch_ok,
+                             "wall_s": wall, "cpu_wall_s": cpu_wall, "wer_uer": scores, "cpu_wer_uer": cpu_scores,
+                             "h_lines": len(card_h), "equal_to_cpu": equal, "held_exactly": exact,
+                             "differing": differing, "refs_equal": files["ref.units"][0] == files["ref.units"][1],
+                             "peak_gb": infer_peak}
+            if not launch_ok:
+                bad.append(f"{leg} {route}: launches {per_batch} a batch, expected {want}")
+            if len(card_h) != JSON_SPLITS["valid"] or not routes[route]["refs_equal"]:
+                bad.append(f"{leg} {route}: {len(card_h)} hypotheses, refs equal {routes[route]['refs_equal']}")
+            elif exact and (equal != len(card_h) or files["hypo.word"][0] != files["hypo.word"][1]
+                            or scores != cpu_scores):
+                bad.append(f"{leg} {route}: {equal}/{len(card_h)} lines the CPU's, WER/UER {scores} {cpu_scores}")
+            elif not exact and equal < ASR_BEAM_HELD:
+                bad.append(f"{leg} {route}: {equal}/{len(card_h)} lines the CPU's: {differing}")
+        legs[leg] = {"arch": arch, "criterion": criterion, "parameters": n_params, "corpus": corpus,
+                     "updates": len(rec.updates),
+                     "update_launches": {k: v for k, v in rec.updates[0].items() if v} if rec.updates else None,
+                     "valid_batches": len(rec.valid_batches), "train_wall_s": train_wall, "train_peak_gb": train_peak,
+                     "losses": [v for _, k, v in rec.logged if k == "loss"], "infer": routes}
+        if len(rec.updates) != updates:
+            bad.append(f"{leg}: {len(rec.updates)} updates, expected {updates}")
+        emit({"phase": f"asr_from_files_{leg}", **legs[leg], "card": card})
+    root.removeHandler(handler)
+    handler.close()
+    emit({"phase": "asr_from_files", "letters_corpus_s": letters_s, "phase_s": time.perf_counter() - phase_t0,
+          "launches": total, "card": card})
+    if bad:
+        raise AssertionError("phase 32: " + "; ".join(bad))
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
@@ -5080,6 +5394,7 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.cli import export_fairseq_checkpoint as export_cli
     from fbk_fairseq_st_tpu_torch.cli import import_fairseq_checkpoint as import_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_topk as topk_cli
+    from fbk_fairseq_st_tpu_torch.cli import infer as infer_cli
     from fbk_fairseq_st_tpu_torch.cli import interactive as interactive_cli
     from fbk_fairseq_st_tpu_torch.cli import preprocess as preprocess_cli
     from fbk_fairseq_st_tpu_torch.cli import preprocess_audio as preprocess_audio_cli
@@ -5131,7 +5446,7 @@ def main() -> int:
                "average_cli": average_cli, "score_cli": score_cli, "interactive_cli": interactive_cli,
                "resegment": resegment_data_mustc, "asr_prep_json": asr_prep_json, "encoders": encoders,
                "alignment_utils": alignment_utils, "export_cli": export_cli, "import_cli": import_cli,
-               "spm_tools": spm_tools,
+               "spm_tools": spm_tools, "Dictionary": Dictionary, "infer_cli": infer_cli,
                "fbk_scripts": {m.__name__.rsplit(".", 1)[-1]: m for m in (
                    mustshe_acc, mustshe_acc_fulltable, accuracy_from_fulltable, mustshe_agr_fulltable,
                    agreement_from_fulltable, ne_terms_accuracy, combine_ne_terms)}}
@@ -5235,8 +5550,12 @@ def main() -> int:
         # sharded asynchronous checkpoints, alignments, sharded and pruned
         # decoding, the fork-checkpoint CLIs, the codecs and --user-dir
         drive("wiring_from_files", wiring_from_files, card, d, fa, dconv, single, modules, files_tmp, lc_dicts)
+        # 32. on phase 31's JSON corpus: the fork's ASR side, vggtransformer
+        # (cross_entropy_acc, ctc_loss) and w2l_conv_glu (asg_loss) trained
+        # through cli/train and decoded by cli/infer's five routes
+        drive("asr_from_files", asr_from_files, card, d, fa, dconv, single, modules, files_tmp)
 
-    # 32. kernels line, card line, ok line
+    # 33. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

@@ -1,3 +1,4 @@
+from .asg import ASGCriterion
 from .base import Criterion
 from .cross_entropy_acc import CrossEntropyWithAccCriterion
 from .cross_entropy_dualdecoder import CrossEntropyDualDecoder
@@ -22,9 +23,23 @@ CRITERIONS = {
     "cross_entropy_dualdecoder": CrossEntropyDualDecoder,
     "cross_entropy_multi_task": CrossEntropyMultitask,
     "knowledge_distillation": CrossEntropyKnowledgeDistillationCriterion,
+    "asg_loss": ASGCriterion,
 }
 
+# the ROADMAP Queue A item of each JAX criterion the port has not (every
+# other one is item 9's, with its model family)
+_NOT_PORTED_ITEMS = {
+    "adaptive_loss": "9(a)",
+    "vocab_parallel_cross_entropy": "6",
+}
+
+
+def roadmap_item(name: str) -> str:
+    """Where the ROADMAP queues the criterion ``name``, which the port lacks."""
+    return f"ROADMAP Queue A item {_NOT_PORTED_ITEMS.get(name, '9')}"
+
 __all__ = [
+    "ASGCriterion",
     "CRITERIONS",
     "CrossEntropyCriterion",
     "CrossEntropyDualDecoder",
@@ -38,4 +53,5 @@ __all__ = [
     "LabelSmoothedCrossEntropyCtxRegCriterion",
     "label_smoothed_nll_from_logits",
     "label_smoothed_nll_loss",
+    "roadmap_item",
 ]

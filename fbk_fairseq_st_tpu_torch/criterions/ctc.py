@@ -126,11 +126,13 @@ class CTCMultiLoss(Criterion):
 
     @staticmethod
     def build_real_criterion(args, task):
-        from . import CRITERIONS
+        from . import CRITERIONS, roadmap_item
 
         name = args.underlying_criterion
-        if name not in CRITERIONS or name in ("ctc_multi_loss", "ctc_loss"):
-            raise NotImplementedError(f"--underlying-criterion {name} is not ported (ROADMAP Queue A item 4)")
+        if name in ("ctc_multi_loss", "ctc_loss"):
+            raise NotImplementedError(f"--underlying-criterion {name}: a CTC criterion cannot be the underlying one")
+        if name not in CRITERIONS:
+            raise NotImplementedError(f"--underlying-criterion {name} is not ported ({roadmap_item(name)})")
         return CRITERIONS[name].build_criterion(args, task)
 
     def __call__(self, model, batch, generator=None, training: bool = False):

@@ -202,7 +202,10 @@ class SubwordNMTBPE(_Codec):
 @_register(BPES, "gpt2")
 class GPT2BPE(_Codec):
     """GPT-2 byte-level BPE through ``transformers.GPT2Tokenizer`` from a
-    local ``encoder.json`` and ``vocab.bpe``."""
+    local ``encoder.json`` and ``vocab.bpe``. The two paths go by position:
+    ``transformers`` 4.x names them ``vocab_file`` / ``merges_file`` and 5.x
+    ``vocab`` / ``merges`` (and ignores the 4.x keywords, leaving an empty
+    vocabulary); both read the same files to the same ids."""
 
     @staticmethod
     def add_args(parser):
@@ -216,7 +219,7 @@ class GPT2BPE(_Codec):
             raise ValueError("--bpe gpt2 needs local --gpt2-encoder-json and --gpt2-vocab-bpe files "
                              "(nothing is downloaded)")
         transformers = require_package("transformers", "--bpe gpt2")
-        self.bpe = transformers.GPT2Tokenizer(vocab_file=encoder_json, merges_file=vocab_bpe)
+        self.bpe = transformers.GPT2Tokenizer(encoder_json, vocab_bpe)
 
     def encode(self, x: str) -> str:
         return " ".join(map(str, self.bpe.encode(x)))

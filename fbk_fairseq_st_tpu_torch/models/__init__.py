@@ -12,7 +12,7 @@ family has raises ``NotImplementedError``.
 from typing import Any, Dict
 
 from . import (conv_transformer, conv_transformer_context, lightconv, multi_task, multilingual_conv_transformer,
-               multitask_conv_transformer)
+               multitask_conv_transformer, vggtransformer, w2l_conv_glu)
 from .base import EncoderOut, reorder_encoder_out
 from .conv_transformer import ConvolutionalTransformerModel
 from .conv_transformer_context import ConvolutionalTransformerContextAwareModel
@@ -25,9 +25,12 @@ from .multi_task import (
 )
 from .multilingual_conv_transformer import MultilingualConvolutionalTransformerModel
 from .multitask_conv_transformer import MultitaskConvolutionalTransformer
+from .vggtransformer import VGGTransformerEncoderModel, VGGTransformerModel
+from .w2l_conv_glu import W2lConvGluEncoderModel
 
 ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task, multitask_conv_transformer,
-                                             multilingual_conv_transformer, conv_transformer_context)
+                                             multilingual_conv_transformer, conv_transformer_context, vggtransformer,
+                                             w2l_conv_glu)
                  for arch in family.ARCHITECTURES}
 
 
@@ -35,7 +38,8 @@ def _family(arch: str):
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
             f"--arch {arch}: the port has the conv_transformer, lightconv, multi-decoder, multitask "
-            "classifier, multilingual and context-aware families (ROADMAP Queue A items 4, 5 and 9)")
+            "classifier, multilingual, context-aware, vggtransformer and w2l_conv_glu families; the other "
+            "JAX families are ROADMAP Queue A item 9")
     return ARCHITECTURES[arch]
 
 
@@ -62,6 +66,9 @@ __all__ = [
     "MultiTaskModel",
     "MultilingualConvolutionalTransformerModel",
     "MultitaskConvolutionalTransformer",
+    "VGGTransformerEncoderModel",
+    "VGGTransformerModel",
+    "W2lConvGluEncoderModel",
     "arch_defaults",
     "build_model",
     "reorder_encoder_out",

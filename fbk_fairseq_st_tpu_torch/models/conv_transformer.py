@@ -245,8 +245,8 @@ def _base_defaults(enc_dim: int, ffn_dim: int, heads: int) -> Dict[str, Any]:
 # Options of the reference arch that the port does not run yet: set to
 # anything but their default, they raise, naming the ROADMAP item.
 _NOT_YET = {
-    "adaptive_softmax_cutoff": "the adaptive softmax (ROADMAP Queue A item 5)",
-    "adaptive_input": "the adaptive input embedding (ROADMAP Queue A item 5)",
+    "adaptive_softmax_cutoff": "the adaptive softmax (ROADMAP Queue A item 9(a))",
+    "adaptive_input": "the adaptive input embedding (ROADMAP Queue A item 9(a))",
 }
 
 

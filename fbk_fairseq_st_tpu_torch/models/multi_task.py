@@ -22,8 +22,9 @@ states (the triangle's ``aux``, the 2-stage decoder's ``cross``) is
 gathered with the beams.
 
 The nine presets (JAX :313-363) are the conv_transformer presets' widths
-plus ``auxiliary_decoder_embed_path``, which raises unless None (loading a
-pre-trained embedding comes with the wiring, ROADMAP Queue A).
+plus ``auxiliary_decoder_embed_path``, which raises unless None: JAX
+declares the option and reads it nowhere, so there is no loading of a
+pre-trained embedding to port.
 """
 
 from __future__ import annotations
@@ -185,8 +186,8 @@ def configs(arch: str, tgt_dict, src_dict, **overrides
     if src_dict is None:
         raise ValueError(f"{arch} needs a source dictionary (the transcripts')")
     if overrides.pop("auxiliary_decoder_embed_path", None) is not None:
-        raise NotImplementedError("--auxiliary-decoder-embed-path: loading a pre-trained embedding is not "
-                                  "ported yet (ROADMAP Queue A)")
+        raise NotImplementedError("--auxiliary-decoder-embed-path: the JAX package declares this option and "
+                                  "reads it nowhere, so no pre-trained embedding is loaded from it")
     args = conv_transformer._base_defaults(*ARCHITECTURES[arch][1])
     encoder_cfg, decoder_cfg = conv_transformer.configs_from(args, tgt_dict, src_dict, **overrides)
     aux_decoder_cfg = decoder_cfg._replace(vocab_size=len(src_dict), padding_idx=src_dict.pad())

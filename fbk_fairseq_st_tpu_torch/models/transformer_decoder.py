@@ -13,7 +13,7 @@ auxiliary decoder's states.
 The config holds the options ``conv_transformer`` sets. Those of other
 model families (adaptive input/softmax, the character embedder,
 cross-self-attention, quant-noise, LayerDrop, decoders without encoder
-attention) come with those families (ROADMAP Queue A items 5 and 9).
+attention) come with those families (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations

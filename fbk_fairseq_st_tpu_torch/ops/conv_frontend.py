@@ -20,8 +20,8 @@ Semantics kept:
   * the channels-major flatten (B, C, T, F) -> (B, T, C*F).
 
 The batch-time rechunked pipeline of the JAX module
-(``_conv_pipeline_chunked``) is an exact re-layout for TPU tiling and is
-not ported (ROADMAP Queue A4).
+(``_conv_pipeline_chunked``) is an exact re-layout for TPU tiling: the
+same function, so the port has no counterpart of it.
 """
 
 from __future__ import annotations

@@ -260,3 +260,35 @@ def lengths_to_padding_mask(lengths, max_len: int):
     """True at padded positions (reference encoder_padding_mask)."""
     positions = torch.arange(max_len, device=lengths.device)[None, :]
     return positions >= lengths[:, None]
+
+
+# ---------------------------------------------------------------------------
+# 1-D convolution over (B, T, C) with a (K, C_in, C_out) kernel
+# ---------------------------------------------------------------------------
+
+class ConvTBC(nn.Module):
+    """A time convolution whose ``weight`` has the (K, C_in, C_out) layout of
+    the fork's ``ConvTBC`` / ``LinearizedConvolution`` (the JAX package's
+    ``WIO`` kernel, which the weight bridge copies as it is). ``forward``
+    takes (B, T, C_in) and pads ``padding = (left, right)`` zero frames
+    around T; compute runs in the input dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(kernel_size, in_channels, out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def init(self, generator: torch.Generator, std: float) -> None:
+        normal_(self.weight, generator, std)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x, padding: Tuple[int, int]):
+        w = self.weight.to(x.dtype).permute(2, 1, 0)  # (C_out, C_in, K)
+        y = F.conv1d(F.pad(x.transpose(1, 2), padding), w, self.bias.to(x.dtype))
+        return y.transpose(1, 2)
+
+    def step(self, window):
+        """One output frame from the last K input frames, window (B, K, C_in)
+        -> (B, C_out)."""
+        w = self.weight.to(window.dtype)
+        return torch.einsum("bkc,kcd->bd", window, w) + self.bias.to(window.dtype)

@@ -70,10 +70,19 @@ NOT_PORTED = {
     "warmup_iterations": (500, "BMUF (ROADMAP Queue A item 6)"),
     "use_nbm": (False, "BMUF (ROADMAP Queue A item 6)"),
     "average_sync": (False, "BMUF (ROADMAP Queue A item 6)"),
-    "adaptive_softmax_dropout": (None, "the adaptive softmax (ROADMAP Queue A item 5)"),
+    "adaptive_softmax_dropout": (None, "the adaptive softmax (ROADMAP Queue A item 9(a))"),
     "quant_noise_pq": (0, "quant-noise training (ROADMAP Queue A item 9)"),
     "quant_noise_pq_block_size": (8, "quant-noise training (ROADMAP Queue A item 9)"),
     "quant_noise_scalar": (0, "quant-noise training (ROADMAP Queue A item 9)"),
+    # the iterative refinement generator of the NAT family
+    "decoding_format": (None, "the NAT family's decoding formats (ROADMAP Queue A item 9)"),
+    "iter_decode_eos_penalty": (0.0, "iterative refinement decoding (ROADMAP Queue A item 9)"),
+    "iter_decode_max_iter": (10, "iterative refinement decoding (ROADMAP Queue A item 9)"),
+    "iter_decode_force_max_iter": (False, "iterative refinement decoding (ROADMAP Queue A item 9)"),
+    "iter_decode_with_beam": (1, "iterative refinement decoding (ROADMAP Queue A item 9)"),
+    "iter_decode_with_external_reranker": (False, "iterative refinement decoding (ROADMAP Queue A item 9)"),
+    "retain_iter_history": (False, "iterative refinement decoding (ROADMAP Queue A item 9)"),
+    "print_step": (False, "iterative refinement decoding (ROADMAP Queue A item 9)"),
 }
 # values of an option in NOT_PORTED that mean "off" besides its default
 _ALSO_OFF = {"distributed_world_size": (1,), "adaptive_softmax_dropout": (0,)}
@@ -112,6 +121,8 @@ _FORK_MODEL_FLAGS = {
     "conv_transformer": {**_TRANSFORMER_FLAGS, "--normalization-constant": dict(type=float, default=1.0),
                          "--freeze-pretrained": dict(action="store_true")},
     "lightconv": _TRANSFORMER_FLAGS,
+    "vggtransformer": {},
+    "w2l_conv_glu": {},
 }
 # a preset option's other flags (JAX's aliases)
 _ALIASES = {"relu_dropout": ("--activation-dropout",)}
@@ -120,9 +131,10 @@ _ALIASES = {"relu_dropout": ("--activation-dropout",)}
 _FLAG_KWARGS = {"distance_penalty": dict(type=str, choices=["log", "gauss"]),
                 "encoder_kernel_size_list": dict(type=str), "decoder_kernel_size_list": dict(type=str),
                 **{name: dict(type=str, choices=list(choices)) for name, choices in CONTEXT_CHOICES.items()}}
-# preset options that another component's flag sets (the criterion's, the
-# context task's --context-type): no model flag
-_NOT_MODEL_FLAGS = ("criterion", "context_type")
+# preset options that another component's flag sets (the criterion's and
+# ASG's --asg-transitions-init, the context task's --context-type): no
+# model flag
+_NOT_MODEL_FLAGS = ("criterion", "context_type", "asg_transitions_init")
 
 
 def get_preprocessing_parser(default_task: str = "translation") -> argparse.ArgumentParser:
@@ -413,7 +425,9 @@ def _add_arch_args(parser, arch: str) -> None:
     keep their definition. Then the family's flags of JAX's model parser
     that no preset reads (``_FORK_MODEL_FLAGS``)."""
     group = parser.add_argument_group("Model-specific configuration", argument_default=argparse.SUPPRESS)
-    family = "lightconv" if _family_name(arch) == "lightconv" else "conv_transformer"
+    family = _family_name(arch)
+    if family not in _FORK_MODEL_FLAGS:  # the conv_transformer-based families
+        family = "conv_transformer"
     explicit = _MODEL_PARSER_DEFAULTS.get(family, {})
     for name, value in arch_defaults(arch).items():
         flag = "--" + name.replace("_", "-")
@@ -486,6 +500,15 @@ def add_generation_args(parser):
     group.add_argument("--diverse-beam-strength", default=0.5, type=float, metavar="N")
     group.add_argument("--diversity-rate", default=-1.0, type=float, metavar="N")
     group.add_argument("--print-alignment", action="store_true")
+    # the iterative refinement generator's flags (NOT_PORTED)
+    group.add_argument("--decoding-format", default=None, type=str, choices=["unigram", "ensemble", "vote", "dp", "bs"])
+    group.add_argument("--iter-decode-eos-penalty", default=0.0, type=float, metavar="N")
+    group.add_argument("--iter-decode-max-iter", default=10, type=int, metavar="N")
+    group.add_argument("--iter-decode-force-max-iter", action="store_true")
+    group.add_argument("--iter-decode-with-beam", default=1, type=int, metavar="N")
+    group.add_argument("--iter-decode-with-external-reranker", action="store_true")
+    group.add_argument("--retain-iter-history", action="store_true")
+    group.add_argument("--print-step", action="store_true")
     return group
 
 

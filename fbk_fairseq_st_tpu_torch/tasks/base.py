@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..criterions import CRITERIONS
+from ..criterions import CRITERIONS, roadmap_item
 from ..data.batching import ShapeBucketer, batch_by_size, filter_by_size
 from ..data.iterators import EpochBatchIterator
 from ..device import DeviceLike
@@ -116,7 +116,7 @@ class Task:
     def build_criterion(self, args):
         name = args.criterion
         if name not in CRITERIONS:
-            raise NotImplementedError(f"--criterion {name} is not ported (ROADMAP Queue A item 4)")
+            raise NotImplementedError(f"--criterion {name} is not ported ({roadmap_item(name)})")
         return CRITERIONS[name].build_criterion(args, self)
 
     def build_generator(self, models, args):
@@ -181,7 +181,8 @@ class Task:
     def valid_step_extra(self, sample, trainer) -> dict:
         """Extra logging entries of a validation batch, computed on the host
         from the collated sample (JAX ``valid_step_extra``; none here: the
-        validation BLEU of ``--eval-bleu`` is ROADMAP Queue A item 3)."""
+        validation BLEU of ``--eval-bleu`` is the translation task's,
+        ``tasks/translation.py``)."""
         return {}
 
     def reduce_metrics(self, logging_outputs, criterion, metrics) -> None:

@@ -3,7 +3,8 @@
 Counterpart of ``fbk_fairseq_st_tpu/tasks/speech_recognition.py``
 (reference examples/speech_recognition/tasks/speech_recognition.py:86-263):
 the options (:47-96), ``setup_task`` (``dict.<tgt>.txt``, or ``dict.txt``;
-``<ctc_blank>`` added under ``ctc_loss``), ``load_dataset`` over the
+``<ctc_blank>`` added under ``ctc_loss``, the replabel symbols "1" ..
+``--max-replabel`` under ``asg_loss``), ``load_dataset`` over the
 indexed precomputed filterbanks (``<split>.npz.{bin,idx}`` and the
 ``<split>.<lang>`` indexed text, in each of the data directories joined by
 ``os.pathsep``; per-utterance CMVN unless ``--skip-normalization``), and
@@ -24,6 +25,7 @@ from ..data.asr_json import get_asr_dataset_from_json
 from ..data.datasets import ConcatDataset, FilterBankToTextDataset
 from ..data.dictionary import Dictionary
 from ..data.indexed_dataset import FilterBanksDataset, load_indexed_dataset
+from ..data.replabels import replabel_symbol
 from ..ops.core import device_generator
 from ..ops.specaugment import SpecAugmentConfig, TimeStretchConfig, specaugment, time_stretch
 from .base import Task
@@ -107,6 +109,12 @@ class SpeechRecognitionTask(Task):
         tgt_dict = Dictionary.load(dict_path)
         if getattr(args, "criterion", None) == "ctc_loss":
             tgt_dict.add_symbol("<ctc_blank>")
+        elif getattr(args, "criterion", None) == "asg_loss":
+            # the replabel symbols must be dictionary entries, or packing
+            # would map them to <unk> (JAX :136-143, reference
+            # tasks/speech_recognition.py:168-170)
+            for i in range(1, getattr(args, "max_replabel", 2) + 1):
+                tgt_dict.add_symbol(replabel_symbol(i))
         logger.info("dictionary: {} types".format(len(tgt_dict)))
         return cls(args, tgt_dict, **kwargs)
 

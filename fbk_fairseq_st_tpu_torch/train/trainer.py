@@ -142,8 +142,12 @@ class Trainer:
         the float features cast to the compute type on the host first (as
         the step casts them: half the bytes under ``--bf16``). The step
         waits on the copy's event (``_device_batch``). On the CPU the sample
-        is given back as it is."""
+        is given back as it is, and so it is under a criterion that prepares
+        its samples on the host at their step (ASG's packing reads the
+        update count)."""
         if not sample or self.device is None or self.device.type != "cuda":
+            return sample
+        if hasattr(self.criterion, "prepare_sample"):
             return sample
         if is_nested(sample):
             return {pair: self.stage_sample(sub) for pair, sub in sample.items()}
@@ -228,9 +232,13 @@ class Trainer:
         meta = {"ntokens": 0, "nsentences": 0}
         batches = []
         prepare = getattr(self.task, "prepare_sample", None)
+        crit_prepare = getattr(self.criterion, "prepare_sample", None)
         for sample in samples:
             if prepare is not None:
                 sample = prepare(sample, self._num_updates)
+            if crit_prepare is not None:
+                # the criterion's host-side batch work (ASG's replabel packing)
+                sample = crit_prepare(sample, self._num_updates)
             b = self._device_batch(sample)
             if b is None:
                 continue
@@ -334,6 +342,9 @@ class Trainer:
         prepare = getattr(self.task, "prepare_sample", None)
         if prepare is not None:
             sample = prepare(sample, self._num_updates, training=False)
+        crit_prepare = getattr(self.criterion, "prepare_sample", None)
+        if crit_prepare is not None:
+            sample = crit_prepare(sample, self._num_updates, training=False)
         batch = self._device_batch(sample)
         if batch is None:
             return None

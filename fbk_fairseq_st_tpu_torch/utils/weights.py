@@ -11,7 +11,12 @@ layout:
   * conv kernels HWIO -> OIHW;
   * BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``;
   * ``embed_out`` -> ``output_projection.weight``;
-  * (V, D) tables (embeddings, output projections) are copied as they are.
+  * (V, D) tables (embeddings, output projections) are copied as they are;
+  * 3-D conv kernels (K, C_in, C_out), the VGG-Transformer decoder's and
+    the w2l model's, are copied as they are: JAX's ``WIO`` layout is the
+    fork's ``ConvTBC`` / ``LinearizedConvolution`` one, and
+    ``export_parameters`` transposes only 2-D and 4-D leaves too; ASG's
+    (V, V) ``asg_transitions`` (not a ``weight``) stays as it is.
 
 Three kinds of 2-D ``weight`` leaf of the lightconv family are not linear
 weights and are copied as they are too: a lightweight convolution's (H, K)

@@ -33,7 +33,7 @@ from fbk_fairseq_st_tpu_torch.utils import align_utils
 
 from .test_torch_generate_cli import corpus  # noqa: F401  (the module fixture)
 from .test_torch_interactive import ARCH as LC_ARCH
-from .test_torch_model import _batch, _build_pair
+from .test_torch_model import _batch, _build_pair, shared_root  # noqa: F401  (the fixture)
 from .test_translation import create_translation_data
 from .utils import DummyTask
 
@@ -44,10 +44,15 @@ SCORE_ATOL = 1e-4
 def test_decoder_attention_matches_jax():
     _, jmodel, variables, _, tmodel = _build_pair()
     batch = _batch(seed=2)
-    enc, _ = jmodel.encode(variables, jnp.asarray(batch["src_tokens"]), jnp.asarray(batch["src_lengths"]))
-    jlogits, jextra = jmodel.decoder(variables["params"]["decoder"], jnp.asarray(batch["prev_output_tokens"]),
-                                     encoder_out=enc.encoder_out, encoder_padding_mask=enc.encoder_padding_mask,
-                                     need_attn=True)
+
+    @jax.jit
+    def forward(v, src, lengths, prev):
+        enc, _ = jmodel.encode(v, src, lengths)
+        return jmodel.decoder(v["params"]["decoder"], prev, encoder_out=enc.encoder_out,
+                              encoder_padding_mask=enc.encoder_padding_mask, need_attn=True)
+
+    jlogits, jextra = forward(variables, jnp.asarray(batch["src_tokens"]), jnp.asarray(batch["src_lengths"]),
+                              jnp.asarray(batch["prev_output_tokens"]))
     prev = torch.tensor(batch["prev_output_tokens"]).long()
     with torch.no_grad():
         tenc = tmodel.encode(torch.tensor(batch["src_tokens"]), torch.tensor(batch["src_lengths"]).long())
@@ -164,7 +169,7 @@ def lightconv(tmp_path_factory):
     src = JaxDictionary.load(os.path.join(data_dir, "dict.en.txt"))
     tgt = JaxDictionary.load(os.path.join(data_dir, "dict.de.txt"))
     model = registry.build_model(args, DummyTask(tgt, src))
-    variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(5)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(5)))
     ckpt = os.path.join(root, "checkpoint.pt")
     save_state(ckpt, {"args": vars(args), "model": variables["params"], "model_state": variables["state"]})
     return root, data_dir, ckpt

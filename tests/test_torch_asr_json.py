@@ -194,7 +194,7 @@ def test_first_update_from_json_matches_jax(corpus, monkeypatch):
     args = joptions.parse_args_and_arch(joptions.get_training_parser(), _argv(data_dir, "unused"))
     task = jregistry.TASKS[args.task].setup_task(args)
     model = jregistry.build_model(args, task)
-    variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(5)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(5)))
     opt_state = jregistry.OPTIMIZERS[args.optimizer].build_optimizer(args).init(variables["params"])
     seeded = os.path.join(root, "seed.pt")
     jcheckpoint.save_state(seeded, {

@@ -53,29 +53,34 @@ from .test_torch_lightconv import _EXPORT_SLIPS
 from .test_torch_lightconv import _build_pair as _build_lc_pair
 from .test_torch_train_cli import argv as train_argv
 from .test_torch_train_cli import write_corpus
+from .torch_shared import session_root, shared
 from .utils import DummyTask, model_args
 
 DEEP = {**SMALL, "encoder_layers": 3, "decoder_layers": 3}
 
 
-@pytest.fixture(scope="module")
-def corpus(tmp_path_factory):
-    """tests/test_torch_generate_cli.py's corpus and a JAX pickle of a
-    3 + 3-layer conv_transformer on it."""
+def _corpus(root):
     from fbk_fairseq_st_tpu.data import Dictionary as JaxDictionary
 
-    root = str(tmp_path_factory.mktemp("ckpt_options"))
     data_dir = os.path.join(root, "data")
     _write_corpus(data_dir, np.random.RandomState(0), n=8)
     args = model_args("conv_transformer", task="speech_translation_with_transcription", **DEEP)
     args.data, args.source_lang, args.target_lang = data_dir, "en", "de"
     jregistry.apply_architecture(args)
     model = jregistry.build_model(args, DummyTask(JaxDictionary.load(os.path.join(data_dir, "dict.de.txt"))))
-    variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(6)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(6)))
     pickled = os.path.join(root, "checkpoint.pt")
     jcheckpoint.save_state(pickled, {"args": vars(args), "model": variables["params"],
                                      "model_state": variables["state"]})
     return root, data_dir, pickled
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """tests/test_torch_generate_cli.py's corpus and a JAX pickle of a
+    3 + 3-layer conv_transformer on it, once for the session
+    (``torch_shared``); each test writes under names of its own."""
+    return shared(session_root(tmp_path_factory), "checkpoint_options", _corpus)
 
 
 def _gen_argv(data_dir, path, *extra):
@@ -124,7 +129,8 @@ def test_pruned_model_matches_jax(corpus):
     batch = {"src_tokens": rng.randn(2, 30, SMALL["input_feat_per_channel"]).astype(np.float32),
              "src_lengths": np.array([30, 24], np.int32),
              "prev_output_tokens": np.array([[2, 5, 6, 7], [2, 8, 9, 1]], np.int32)}
-    (jlogits, _), _ = jmodel.forward(variables, {k: jnp.asarray(v) for k, v in batch.items()}, training=False)
+    (jlogits, _), _ = jax.jit(lambda v, b: jmodel.forward(v, b, training=False))(
+        variables, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.no_grad():
         tlogits, _ = tmodel({k: torch.tensor(v).long() if v.dtype != np.float32 else torch.tensor(v)
                              for k, v in batch.items()})
@@ -151,7 +157,7 @@ def test_merge_partial_state_matches_jax(case):
     for i in range(12):
         d.add_symbol(f"w{i}")
     model = jregistry.build_model(args, DummyTask(d))
-    init = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(0)))["params"]
+    init = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0)))["params"]
     ckpt = jax.tree_util.tree_map(lambda x: x + 1.0, init)
     ckpt = {**ckpt, "decoder": dict(ckpt["decoder"])}
     if case in ("missing", "both"):

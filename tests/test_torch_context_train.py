@@ -162,7 +162,7 @@ def test_pretrained_merge_and_frozen_filter_match_jax(pretrained, context_type):
     fork name agree."""
     path, pre = pretrained
     jmodel = jax_model(context_type=context_type, pretrained_model=path)
-    jvars = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    jvars = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
     tmodel = tcc.build_model(ARCH, torch_dictionary(24), device="cpu", context_type=context_type,
                              pretrained_model=path, **SMALL)
     jnames = {fork_name(p.split("/")) for p in jmodel._pretrained_param_paths}

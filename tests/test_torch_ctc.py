@@ -31,7 +31,7 @@ from fbk_fairseq_st_tpu_torch.tasks import SpeechTranslationCTCTask
 from fbk_fairseq_st_tpu_torch.train import Trainer
 from fbk_fairseq_st_tpu_torch.utils.weights import state_dict_from_jax
 
-from .test_torch_model import SMALL, VOCAB, torch_dictionary
+from .test_torch_model import SMALL, VOCAB, jax_init, shared_root, torch_dictionary  # noqa: F401  (shared_root: the fixture)
 from .utils import DummyTask, dummy_dictionary, model_args
 
 SRC_VOCAB = 12
@@ -151,7 +151,7 @@ def ctc_pair():
     args.criterion = "ctc_multi_loss"
     registry.apply_architecture(args)
     jmodel = registry.build_model(args, DummyTask(jd, jsd))
-    variables = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+    variables = jax_init(jmodel, 0, "ctc_pair")
     targs = argparse.Namespace(criterion="ctc_multi_loss")
     task = SpeechTranslationCTCTask(targs, torch_dictionary(), tsd)
     tmodel = tct.build_model("conv_transformer", task.target_dictionary, task.source_dictionary, device="cpu",

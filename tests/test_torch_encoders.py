@@ -102,6 +102,27 @@ def test_gpt2_from_local_files_matches_jax(tmp_path):
     _check_same(*_both("bpe", "gpt2", gpt2_encoder_json=enc, gpt2_vocab_bpe=bpe), TEXTS[:3])
 
 
+def test_gpt2_ids_of_the_chip_check(tmp_path):
+    """``chip_smoke.py``'s phase 31 holds ``--bpe gpt2`` on the card to
+    ``GPT2_IDS``: the ids that the port's codec and JAX's give here for
+    ``GPT2_TEXT`` from the files of its ``write_gpt2_files`` (the same
+    vocabulary as ``_gpt2_files``'), not empty."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    (tmp_path / "chip").mkdir()
+    (tmp_path / "cpu").mkdir()
+    enc, bpe = chip_smoke.write_gpt2_files(str(tmp_path / "chip"))
+    with open(enc, encoding="utf-8") as f:
+        assert json.load(f) == json.loads(Path(_gpt2_files(tmp_path / "cpu")[0]).read_text(encoding="utf-8"))
+    j, t = _both("bpe", "gpt2", gpt2_encoder_json=enc, gpt2_vocab_bpe=bpe)
+    assert t.encode(chip_smoke.GPT2_TEXT) == j.encode(chip_smoke.GPT2_TEXT) == chip_smoke.GPT2_IDS != ""
+    assert t.decode(chip_smoke.GPT2_IDS) == chip_smoke.GPT2_TEXT
+
+
 def test_hf_byte_bpe_from_local_files_matches_jax(tmp_path):
     enc, bpe = _gpt2_files(tmp_path)
     for prefix in (False, True):
@@ -197,7 +218,7 @@ def test_interactive_with_codecs_matches_jax(tmp_path, capsys):
     src = JaxDictionary.load(os.path.join(data_dir, "dict.en.txt"))
     tgt = JaxDictionary.load(os.path.join(data_dir, "dict.de.txt"))
     model = jregistry.build_model(args, DummyTask(tgt, src))
-    variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(1)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(1)))
     ckpt = str(tmp_path / "ckpt.pt")
     save_state(ckpt, {"args": vars(args), "model": variables["params"], "model_state": variables["state"]})
     inputs = tmp_path / "input.txt"

@@ -79,7 +79,7 @@ def test_validation_bleu_fields_match_jax(corpus, extra):
     jtask = JTASKS[jargs.task].setup_task(jargs)
     ttask = TTASKS[targs.task].setup_task(targs)
     jmodel = jtask.build_model(jargs)
-    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(2)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(2)))
     tmodel = ttask.build_model(targs, device="cpu")
     tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
     jtask.load_dataset("valid")
@@ -114,7 +114,7 @@ def test_generate_sacrebleu_matches_jax(corpus):
     task = JTASKS[args.task].setup_task(args)
     args.eval_bleu = False
     model = task.build_model(args)
-    variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(3)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(3)))
     ckpt = os.path.join(root, "checkpoint.pt")
     save_state(ckpt, {"args": vars(args), "model": variables["params"], "model_state": variables["state"]})
     argv = [data_dir, "--task", "translation", "-s", "en", "-t", "de", "--path", ckpt, "--beam", "2",

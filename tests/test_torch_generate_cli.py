@@ -32,6 +32,7 @@ from fbk_fairseq_st_tpu.train.checkpoint import save_state
 from fbk_fairseq_st_tpu_torch.cli import generate as tgenerate
 from fbk_fairseq_st_tpu_torch.train import checkpoint as tcheckpoint
 
+from .torch_shared import session_root, shared
 from .utils import DummyTask, model_args
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,16 +65,14 @@ def _write_corpus(data_dir, rng, n=6):
                               "--destdir", data_dir, "--dataset-impl", "cached"])
 
 
-@pytest.fixture(scope="module")
-def corpus(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("generate_cli"))
+def _corpus(root):
     data_dir = os.path.join(root, "data")
     _write_corpus(data_dir, np.random.RandomState(0))
     tgt_dict = JaxDictionary.load(os.path.join(data_dir, "dict.de.txt"))
     args = model_args("conv_transformer", task="speech_translation_with_transcription", **SMALL)
     registry.apply_architecture(args)
     model = registry.build_model(args, DummyTask(tgt_dict))
-    variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(3)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(3)))
     pickled = os.path.join(root, "checkpoint_jax.pt")
     save_state(pickled, {
         "args": vars(args), "model": variables["params"], "model_state": variables["state"],
@@ -83,6 +82,14 @@ def corpus(tmp_path_factory):
     fork = os.path.join(root, "checkpoint_fork.pt")
     jexport.cli_main([pickled, fork])
     return root, data_dir, pickled, fork
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """The corpus and the checkpoints, once for the session
+    (``torch_shared``); a test writes its results under a name of its own
+    beside them, a module fixture in its worker's own temp directory."""
+    return shared(session_root(tmp_path_factory), "generate_cli", _corpus)
 
 
 def _argv(data_dir, path, results, *extra):
@@ -106,9 +113,9 @@ def _records(results):
 
 
 @pytest.fixture(scope="module")
-def jax_run(corpus):
-    root, data_dir, pickled, _ = corpus
-    results = os.path.join(root, "jax_results")
+def jax_run(corpus, tmp_path_factory):
+    _, data_dir, pickled, _ = corpus
+    results = str(tmp_path_factory.mktemp("jax_results"))
     scorer = jgenerate.cli_main(_argv(data_dir, pickled, results))
     return scorer, _records(results)
 

@@ -21,6 +21,7 @@ from fbk_fairseq_st_tpu.cli import train as jtrain
 from fbk_fairseq_st_tpu_torch.cli import generate_dualdecoder as tgenerate
 
 from .test_torch_train_cli import N_MELS, write_corpus
+from .torch_shared import session_root, shared
 
 SCORE_ATOL = 1e-4
 KINDS = ("T", "H", "D", "P", "AUX", "AUXD")
@@ -31,10 +32,7 @@ MODEL = ["--arch", "conv_transformer_dualdecoder", "--encoder-layers", "2", "--d
          "--max-source-positions", "64", "--max-target-positions", "32"]
 
 
-@pytest.fixture(scope="module")
-def trained(tmp_path_factory):
-    """The corpus and the checkpoint JAX's ``cli/train`` writes (4 updates)."""
-    root = str(tmp_path_factory.mktemp("generate_dualdecoder"))
+def _train(root):
     data_dir, save_dir = os.path.join(root, "data"), os.path.join(root, "ckpt")
     write_corpus(data_dir, np.random.RandomState(2))
     jtrain.cli_main([data_dir, "--task", "speech_translation_dualdecoding", "-s", "en", "-t", "de", *MODEL,
@@ -43,6 +41,14 @@ def trained(tmp_path_factory):
                      "--max-sentences", "4", "--max-update", "4", "--disable-validation", "--log-format", "none",
                      "--save-dir", save_dir, "--seed", "3"])
     return root, data_dir, os.path.join(save_dir, "checkpoint_last.pt")
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """The corpus and the checkpoint JAX's ``cli/train`` writes (4 updates),
+    once for the session (``torch_shared``); each test writes its results
+    under a name of its own beside them."""
+    return shared(session_root(tmp_path_factory), "generate_dualdecoder", _train)
 
 
 def _argv(data_dir, path, results, *extra):

@@ -11,6 +11,7 @@ P- values (printed at 4 decimals) within 1e-4."""
 
 import io
 import os
+import pathlib
 import sys
 
 import numpy as np
@@ -22,6 +23,7 @@ from fbk_fairseq_st_tpu.cli import train as jtrain
 from fbk_fairseq_st_tpu_torch.cli import interactive as tinteractive
 
 from .test_translation import create_translation_data
+from .torch_shared import session_root, shared
 
 SCORE_ATOL = 1e-5
 ARCH = ["--arch", "dynamicconv_iwslt_de_en", "--encoder-conv-type", "dynamic", "--decoder-conv-type", "dynamic",
@@ -32,12 +34,8 @@ ARCH = ["--arch", "dynamicconv_iwslt_de_en", "--encoder-conv-type", "dynamic", "
         "--max-source-positions", "64", "--max-target-positions", "64"]
 
 
-@pytest.fixture(scope="module")
-def trained(tmp_path_factory):
-    """One epoch of JAX's ``cli/train`` on 12 pairs, its checkpoint_last.pt,
-    and an input file of the test sources plus a line with an unknown
-    word."""
-    root = tmp_path_factory.mktemp("interactive")
+def _train(root):
+    root = pathlib.Path(root)
     data_dir, save_dir = str(root / "data"), str(root / "ckpt")
     create_translation_data(data_dir, n=12)
     jtrain.cli_main([data_dir, "--save-dir", save_dir, "--task", "translation", "-s", "en", "-t", "de", *ARCH,
@@ -47,6 +45,14 @@ def trained(tmp_path_factory):
     lines = open(os.path.join(data_dir, "raw", "test.en")).read().splitlines() + ["e1 e2 zz9 e3"]
     (root / "input.txt").write_text("\n".join(lines) + "\n")
     return data_dir, os.path.join(save_dir, "checkpoint_last.pt"), str(root / "input.txt"), len(lines)
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """One epoch of JAX's ``cli/train`` on 12 pairs, its checkpoint_last.pt,
+    and an input file of the test sources plus a line with an unknown
+    word, once for the session (``torch_shared``)."""
+    return shared(session_root(tmp_path_factory), "interactive", _train)
 
 
 def _argv(trained, *extra):

@@ -41,7 +41,7 @@ from fbk_fairseq_st_tpu_torch.utils.weights import state_dict_from_jax
 
 from .test_st_ctc import create_st_data
 from .test_torch_ctc import _Recorder
-from .test_torch_model import torch_dictionary
+from .test_torch_model import jax_init, shared_root, torch_dictionary  # noqa: F401  (shared_root: the fixture)
 from .utils import DummyTask, dummy_dictionary, model_args
 
 VOCAB = 24
@@ -73,7 +73,7 @@ def built():
     args = model_args("conv_transformer", **SMALL)
     registry.apply_architecture(args)
     jmodel = registry.build_model(args, DummyTask(dummy_dictionary(VOCAB)))
-    variables = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+    variables = jax_init(jmodel, 0, "kd_built")
     tmodel = tct.build_model("conv_transformer", torch_dictionary(VOCAB), device="cpu", **SMALL)
     tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
     return jmodel, variables, tmodel

@@ -36,7 +36,7 @@ from fbk_fairseq_st_tpu_torch.train import Trainer
 from fbk_fairseq_st_tpu_torch.utils.weights import state_dict_from_jax
 
 from .test_torch_model import SMALL as CT_SMALL
-from .test_torch_model import torch_dictionary
+from .test_torch_model import random_variables, torch_dictionary
 from .test_torch_train import _DeterministicJaxLSCE, _DeterministicLSCE
 from .utils import dummy_dictionary, model_args
 
@@ -185,7 +185,7 @@ def _build_pair(arch, **over):
     args = model_args(arch, **TINY, **over)
     registry.apply_architecture(args)
     jmodel = registry.build_model(args, _Task(jd))
-    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    variables = random_variables(jmodel, 0)
     td = torch_dictionary(VOCAB)
     tmodel = tlcm.build_model(arch, td, td, device="cpu", seed=1, **TINY, **over)
     tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
@@ -224,7 +224,8 @@ def test_teacher_forced_logits_match_jax(arch, variant):
     Function's plain version, or the plain unfold + einsum)."""
     _, jmodel, variables, _, tmodel = _build_pair(arch, **MODEL_VARIANTS[variant])
     batch = _text_batch()
-    (jlogits, jextra), _ = jmodel.forward(variables, {k: jnp.asarray(v) for k, v in batch.items()})
+    (jlogits, jextra), _ = jax.jit(lambda v, b: jmodel.forward(v, b))(
+        variables, {k: jnp.asarray(v) for k, v in batch.items()})
     for use_kernel in (False, True):
         tmodel.use_kernel = use_kernel
         with torch.no_grad():
@@ -244,7 +245,7 @@ def test_incremental_decode_matches_jax_step_by_step(arch):
     batch = _text_batch(seed=2)
     src, lengths, prev = batch["src_tokens"], batch["src_lengths"], batch["prev_output_tokens"]
     prev = np.where(prev == PAD, 5, prev)  # no pads inside the decoded prefix
-    jenc, _ = jmodel.encode(variables, jnp.asarray(src), jnp.asarray(lengths))
+    jenc = jax.jit(lambda v, s, n: jmodel.encode(v, s, n)[0])(variables, jnp.asarray(src), jnp.asarray(lengths))
     jcache = jmodel.init_cache(variables, 3, prev.shape[1], jenc)
     with torch.no_grad():
         tenc = tmodel.encode(torch.tensor(src), torch.tensor(lengths))

@@ -7,6 +7,7 @@ The port runs on ``device="cpu"`` with its plain versions. Tolerances are
 stated per test."""
 
 import ast
+import hashlib
 import pathlib
 
 import jax
@@ -26,6 +27,7 @@ from fbk_fairseq_st_tpu_torch.models import conv_transformer as tct
 from fbk_fairseq_st_tpu_torch.ops import attention as tattn
 from fbk_fairseq_st_tpu_torch.utils.weights import state_dict_from_jax
 
+from .torch_shared import session_root, shared
 from .utils import DummyTask, dummy_dictionary, model_args
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -62,13 +64,45 @@ def torch_dictionary(n: int = VOCAB) -> TorchDictionary:
     return d
 
 
+def random_variables(jmodel, seed):
+    """Seeded numpy values in the shapes of ``jmodel.init``'s tree (its
+    traced shapes: a jitted init costs seconds a model on the CPU), the
+    BatchNorm variances positive."""
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        if getattr(path[-1], "key", None) == "var":
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(leaf.dtype)
+        return (0.3 * rng.randn(*leaf.shape)).astype(leaf.dtype)
+
+    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(jmodel.init, jax.random.PRNGKey(0)))
+
+
+# the session's root for work shared across workers (``torch_shared``),
+# set by the autouse fixture below in every module that imports it
+SHARED_ROOT = []
+
+
+@pytest.fixture(autouse=True, scope="module")
+def shared_root(tmp_path_factory):
+    SHARED_ROOT[:] = [session_root(tmp_path_factory)]
+
+
+def jax_init(jmodel, seed: int, name: str):
+    """``jax.jit(jmodel.init)``'s variables as numpy, made once for the
+    session under ``name`` when a module set ``SHARED_ROOT``."""
+    def make(_):
+        return jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(seed)))
+    return shared(SHARED_ROOT[0], name, make) if SHARED_ROOT else make(None)
+
+
 def _build_pair(**over):
     jd = dummy_dictionary(VOCAB)
     options = {**SMALL, **over}
     args = model_args("conv_transformer", **options)
     registry.apply_architecture(args)
     jmodel = registry.build_model(args, DummyTask(jd))
-    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    variables = jax_init(jmodel, 0, "model_pair_" + hashlib.md5(repr(sorted(over.items())).encode()).hexdigest())
     td = torch_dictionary()
     tmodel = tct.build_model("conv_transformer", td, device="cpu", seed=1, **options)
     tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
@@ -133,9 +167,8 @@ def test_teacher_forced_logits_match_jax(pair, route, flash_routes):
     _, jmodel, variables, _, tmodel = pair
     batch = _batch()
     flash_routes(route == "flash")
-    (jlogits, jextra), _ = jmodel.forward(
-        variables, {k: jnp.asarray(v) for k, v in batch.items()}, training=False
-    )
+    (jlogits, jextra), _ = jax.jit(lambda v, b: jmodel.forward(v, b, training=False))(
+        variables, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.no_grad():
         tlogits, textra = tmodel({k: torch.tensor(v).long() if v.dtype != np.float32 else torch.tensor(v)
                                   for k, v in batch.items()})
@@ -229,7 +262,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "scripts/eval/agreement_from_fulltable.py", "scripts/eval/ne_terms_accuracy.py",
             "data/encoders.py", "data/audio.py", "data/asr_json.py", "utils/align_utils.py", "utils/user_dir.py",
             "generation/alignment_utils.py", "train/sharded_checkpoint.py", "cli/export_fairseq_checkpoint.py",
-            "cli/import_fairseq_checkpoint.py", "scripts/asr_prep_json.py", "scripts/spm_tools.py"} <= covered
+            "cli/import_fairseq_checkpoint.py", "scripts/asr_prep_json.py", "scripts/spm_tools.py",
+            "models/vggtransformer.py", "models/w2l_conv_glu.py", "ops/asg.py", "criterions/asg.py",
+            "data/replabels.py", "generation/ctc_decoder.py", "generation/arpa_lm.py", "cli/infer.py"} <= covered
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "flax", "optax", "fbk_fairseq_st_tpu"}, (path, roots)
@@ -311,7 +346,8 @@ def test_wide_heads_take_the_dense_route_and_match_jax(monkeypatch, flash_routes
     _, jmodel, variables, _, tmodel = _build_pair(**wide)
     batch = _batch(seed=1)
     flash_routes(False)
-    (jlogits, jextra), _ = jmodel.forward(variables, {k: jnp.asarray(v) for k, v in batch.items()}, training=False)
+    (jlogits, jextra), _ = jax.jit(lambda v, b: jmodel.forward(v, b, training=False))(
+        variables, {k: jnp.asarray(v) for k, v in batch.items()})
     tattn.set_flash_attention(True)
 
     def refuse(*args, **kwargs):

@@ -34,7 +34,7 @@ from fbk_fairseq_st_tpu_torch.train import Trainer
 from fbk_fairseq_st_tpu_torch.utils.weights import state_dict_from_jax
 
 from .test_torch_ctc import _Recorder
-from .test_torch_model import torch_dictionary
+from .test_torch_model import jax_init, shared_root, torch_dictionary  # noqa: F401  (shared_root: the fixture)
 from .utils import DummyTask, dummy_dictionary, model_args
 
 ARCHS = ["conv_transformer_dualdecoder", "conv_transformer_triangle", "conv_transformer_2stage"]
@@ -70,7 +70,7 @@ def build_pair(arch):
     args = model_args(arch, **SMALL)
     registry.apply_architecture(args)
     jmodel = registry.build_model(args, _jax_task())
-    variables = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+    variables = jax_init(jmodel, 0, "multi_task_" + arch)
     tmodel = tmt.build_model(arch, torch_dictionary(TGT_VOCAB), torch_dictionary(SRC_VOCAB), device="cpu", **SMALL)
     tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
     return jmodel, variables, tmodel

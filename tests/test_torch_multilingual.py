@@ -50,7 +50,7 @@ from fbk_fairseq_st_tpu_torch.train import Trainer
 from fbk_fairseq_st_tpu_torch.utils.weights import state_dict_from_jax
 
 from .test_multilingual import ML_ARGS, create_multilingual_data
-from .test_torch_model import torch_dictionary
+from .test_torch_model import random_variables, torch_dictionary
 from .utils import dummy_dictionary, model_args
 
 ARCH = "multilingual_conv_transformer"
@@ -93,20 +93,6 @@ CASES = {
     "concat-off-shared_both": ("concat", None, True, True),
     "sum-tgt-unshared": ("sum", "tgt", False, False),
 }
-
-
-def random_variables(jmodel, seed):
-    """Seeded numpy values in the shapes of ``jmodel.init``'s tree (its
-    traced shapes: a jitted init costs seconds a model on the CPU), the
-    BatchNorm variances positive."""
-    rng = np.random.RandomState(seed)
-
-    def fill(path, leaf):
-        if getattr(path[-1], "key", None) == "var":
-            return rng.uniform(0.5, 1.5, leaf.shape).astype(leaf.dtype)
-        return (0.3 * rng.randn(*leaf.shape)).astype(leaf.dtype)
-
-    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(jmodel.init, jax.random.PRNGKey(0)))
 
 
 @functools.lru_cache(maxsize=None)

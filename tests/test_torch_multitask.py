@@ -42,7 +42,7 @@ from fbk_fairseq_st_tpu_torch.utils.weights import state_dict_from_jax
 
 from .test_binaries import create_dummy_speech_data
 from .test_torch_ctc import _Recorder
-from .test_torch_model import torch_dictionary
+from .test_torch_model import jax_init, shared_root, torch_dictionary  # noqa: F401  (shared_root: the fixture)
 from .utils import DummyTask, dummy_dictionary, model_args
 
 ARCH = "multitask_conv_transformer"
@@ -72,7 +72,7 @@ def built(outputs):
     args = model_args(ARCH, additional_output_size=outputs, **SMALL)
     registry.apply_architecture(args)
     jmodel = registry.build_model(args, DummyTask(dummy_dictionary(VOCAB)))
-    variables = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+    variables = jax_init(jmodel, 0, f"multitask_{outputs}")
     tmodel = tmc.build_model(ARCH, torch_dictionary(VOCAB), device="cpu", additional_output_size=outputs, **SMALL)
     tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
     return jmodel, variables, tmodel

@@ -7,8 +7,8 @@ Each flag is parsed alone on top of the arch's and task's base command
 line, with a value that differs from its default where it takes one.
 Component selectors (``--arch``, ``--task``, ``--criterion``, ...) and the
 positional data directory are part of the base. ``--user-dir`` imports
-a module at the parse in both packages: it names an empty package written
-at import. The attention-route flags set a process-wide route in both
+a module at the parse in both packages: it names an empty package of the
+test data (tests/data/fbk_user_dir_parity). The attention-route flags set a process-wide route in both
 packages; each parse is followed by a reset. The generation parser's
 flags of ROADMAP Queue A item 3 (``--sacrebleu``, ``--replace-unk``,
 ``--print-alignment``, ``--num-shards``, the codecs' own flags) are held
@@ -16,18 +16,21 @@ to JAX's values too."""
 
 import argparse
 import os
-import tempfile
 
 import numpy as np
 import pytest
 
 import fbk_fairseq_st_tpu.criterions.label_smoothed_cross_entropy_ctx_reg  # noqa: F401  (registers it)
+import fbk_fairseq_st_tpu.models.vggtransformer  # noqa: F401  (registers the JAX models)
+import fbk_fairseq_st_tpu.models.w2l_conv_glu  # noqa: F401  (registers the JAX model)
+from fbk_fairseq_st_tpu.cli import infer as jinfer
 import fbk_fairseq_st_tpu.models.conv_transformer_context  # noqa: F401  (registers the JAX model)
 import fbk_fairseq_st_tpu.models.multilingual_conv_transformer  # noqa: F401  (registers the JAX model)
 import fbk_fairseq_st_tpu.tasks.multilingual_speech_translation  # noqa: F401  (registers the JAX task)
 from fbk_fairseq_st_tpu import options as joptions
 from fbk_fairseq_st_tpu.ops import attention as jattention
 from fbk_fairseq_st_tpu_torch import options as toptions
+from fbk_fairseq_st_tpu_torch.cli import infer as tinfer
 from fbk_fairseq_st_tpu_torch.ops import attention as tattention
 
 CASES = {
@@ -38,7 +41,12 @@ CASES = {
     "dynamicconv_iwslt_de_en": ["--task", "translation", "-s", "de", "-t", "en"],
     "conv_transformer_context": ["--task", "speech_recognition_context", "-t", "de", "--criterion",
                                  "label_smoothed_cross_entropy_ctxreg"],
+    "vggtransformer_base": ["--task", "speech_recognition", "-t", "de"],
+    "vggtransformer_enc_1": ["--task", "speech_recognition", "-t", "de", "--criterion", "ctc_loss"],
+    "w2l_conv_glu_enc": ["--task", "speech_recognition", "-t", "de", "--criterion", "asg_loss"],
 }
+# their JAX parsers have neither the transformer family's flags nor --relu-dropout
+ASR_ARCHS = ("vggtransformer_base", "vggtransformer_enc_1", "w2l_conv_glu_enc")
 SELECTORS = {"--arch", "-a", "--task", "--criterion", "--optimizer", "--lr-scheduler", "--tokenizer", "--bpe",
              "-h", "--help"}
 # values in the formats the flags parse (lists, tuples, expressions, choices)
@@ -50,17 +58,15 @@ VALUES = {
     "--decoder-glu": "False", "--weight-softmax": "False", "--left-pad-source": "False",
     "--left-pad-target": "True", "--adaptive-softmax-cutoff": "1000,4000",
 }
-# an empty package for --user-dir (one path, so every worker collects the
-# same test ids)
-USER_DIR = os.path.join(tempfile.gettempdir(), "fbk_user_dir_parity")
-os.makedirs(USER_DIR, exist_ok=True)
-with open(os.path.join(USER_DIR, "__init__.py"), "a"):
-    pass
+# an empty package for --user-dir, in the repo's test data (one path, so
+# every worker collects the same test ids, and nothing is written)
+USER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "fbk_user_dir_parity")
 VALUES["--user-dir"] = USER_DIR
 
 
 def _base(arch):
-    return ["/nonexistent", "--arch", arch, "--criterion", "label_smoothed_cross_entropy", *CASES[arch]]
+    criterion = [] if "--criterion" in CASES[arch] else ["--criterion", "label_smoothed_cross_entropy"]
+    return ["/nonexistent", "--arch", arch, *criterion, *CASES[arch]]
 
 
 def _reset_routes():
@@ -126,10 +132,12 @@ def test_port_parser_takes_or_refuses_every_jax_flag(arch):
             want, got = getattr(jargs, dest), getattr(targs, dest)
             assert got == want or (isinstance(want, float) and np.isclose(got, want)), (flag, dest, got, want)
     assert len(accepted) > 100
-    assert {"--use-bmuf", "--block-lr", "--distributed-coordinator", "--quant-noise-pq"} <= set(refused)
+    assert {"--use-bmuf", "--block-lr", "--distributed-coordinator"} <= set(refused)
+    assert ("--quant-noise-pq" in refused) == (arch not in ASR_ARCHS)  # a transformer-family flag
     # the flags of ROADMAP Queue A item 3, ported
-    assert {"--encoder-layers-to-keep", "--decoder-layers-to-keep", "--user-dir", "--allow-partial-restore",
-            "--checkpoint-format", "--async-checkpoint"} <= set(accepted)
+    assert {"--user-dir", "--allow-partial-restore", "--checkpoint-format", "--async-checkpoint"} <= set(accepted)
+    pruning = {"--encoder-layers-to-keep", "--decoder-layers-to-keep"}  # the transformer family's
+    assert (pruning <= set(accepted)) == (arch not in ASR_ARCHS)
     assert ("--eval-bleu" in accepted) == (arch == "dynamicconv_iwslt_de_en")
 
 
@@ -165,7 +173,56 @@ def test_ported_generation_flags_parse_as_jax(extra):
         assert getattr(targs, dest) == getattr(jargs, dest), (dest, getattr(targs, dest), getattr(jargs, dest))
 
 
-@pytest.mark.parametrize("arch", sorted(CASES))
+INFER_BASE = ["/nonexistent", "--task", "speech_recognition", "-t", "de", "--path", "ckpt.pt",
+              "--results-path", "out"]
+
+
+def test_port_infer_parser_takes_or_refuses_every_jax_flag():
+    """For every option string of JAX's ``cli/infer`` parser (the
+    generation parser and ``add_asr_eval_argument``): the port's accepts
+    it and sets each dest that JAX's sets to the same value, or raises
+    NotImplementedError naming a ROADMAP Queue A item (quantisation,
+    several updates a dispatch, the NAT family's iterative refinement
+    decoding)."""
+    def jparse(a):
+        return joptions.parse_args_and_arch(
+            jinfer.add_asr_eval_argument(joptions.get_generation_parser(default_task="speech_recognition")), a)
+
+    def tparse(a):
+        return toptions.parse_args_and_arch(
+            tinfer.add_asr_eval_argument(toptions.get_generation_parser(default_task="speech_recognition")), a)
+
+    jparser = jinfer.add_asr_eval_argument(joptions.get_generation_parser(default_task="speech_recognition"))
+    joptions.parse_args_and_arch(jparser, INFER_BASE, parse_known=True)
+    _reset_routes()
+    refused, accepted = [], []
+    for flag, action in sorted(jparser._option_string_actions.items()):
+        if flag in SELECTORS or not flag.startswith("-"):
+            continue
+        argv = INFER_BASE + _value(flag, action)
+        try:
+            targs = _parse(tparse, argv)
+        except NotImplementedError as e:
+            assert "ROADMAP Queue A item" in str(e), (flag, str(e))
+            refused.append(flag)
+            continue
+        except SystemExit:
+            raise AssertionError(f"the port's parser refuses {argv[-2:]}")
+        accepted.append(flag)
+        jargs = _parse(jparse, argv)
+        for dest in sorted(set(vars(jargs)) & set(vars(targs))):
+            want, got = getattr(jargs, dest), getattr(targs, dest)
+            assert got == want or (isinstance(want, float) and np.isclose(got, want)), (flag, dest, got, want)
+    assert set(refused) == {"--quantize-weights", "--quantization-config-path", "--steps-per-execution",
+                            "--decoding-format", "--iter-decode-eos-penalty",
+                            "--iter-decode-max-iter", "--iter-decode-force-max-iter", "--iter-decode-with-beam",
+                            "--iter-decode-with-external-reranker", "--retain-iter-history", "--print-step"}
+    assert {"--ctc-decoding", "--w2l-decoder", "--lexicon", "--kenlm-model", "--lm-weight", "--word-score",
+            "--beam-threshold", "--unk-weight", "--sil-weight", "--word-boundary-unit", "--ctc-beam-size"} <= set(
+                accepted)
+
+
+@pytest.mark.parametrize("arch", sorted(set(CASES) - set(ASR_ARCHS)))
 def test_activation_dropout_is_relu_dropout(arch):
     """``--activation-dropout 0.3`` sets ``relu_dropout`` to 0.3 in both
     parsers (JAX's alias, ``models/transformer_args.py:19-21``), and

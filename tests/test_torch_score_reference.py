@@ -55,9 +55,10 @@ def _pairs(n):
     registry.apply_architecture(args)
     model = registry.build_model(args, DummyTask(dummy_dictionary(VOCAB)))
     jmodel = Jitted(model)
+    init = jax.jit(model.init)
     pairs = []
     for key in range(n):
-        variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(key)))
+        variables = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(key)))
         tmodel = tct.build_model("conv_transformer", torch_dictionary(), device="cpu", seed=1, **TINY)
         tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
         pairs.append(((jmodel, variables), tmodel.eval()))
@@ -99,11 +100,11 @@ def test_sequence_scorer_matches_jax(n_models):
 
 
 @pytest.fixture(scope="module")
-def jax_scored(corpus):  # noqa: F811
+def jax_scored(corpus, tmp_path_factory):  # noqa: F811
     """JAX's CLI, its ensemble's forward jitted, over the 6 utterances in
     one batch."""
-    root, data_dir, pickled, _ = corpus
-    results = os.path.join(root, "jax_score_reference")
+    _, data_dir, pickled, _ = corpus
+    results = str(tmp_path_factory.mktemp("jax_score_reference"))
     load = jgenerate.checkpoint_utils.load_model_ensemble
 
     def load_jitted(*args, **kwargs):

@@ -21,7 +21,7 @@ from fbk_fairseq_st_tpu.generation import search as jsearch
 from fbk_fairseq_st_tpu_torch.generation import SequenceGenerator, search as tsearch
 from fbk_fairseq_st_tpu_torch.tasks import Task
 
-from .test_torch_model import _batch, _build_pair
+from .test_torch_model import _batch, _build_pair, shared_root  # noqa: F401  (the fixture)
 
 ATOL = 1e-4
 

@@ -46,7 +46,7 @@ def _jax_state():
     args = model_args("conv_transformer", task="speech_translation_with_transcription", **SMALL)
     jregistry.apply_architecture(args)
     model = jregistry.build_model(args, DummyTask(dummy_dictionary(40)))
-    variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(4)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(4)))
     tx = optax.chain(optax.clip_by_global_norm(10.0), optax.adam(1e-3))
     opt = tx.init(variables["params"])
     rng = np.random.RandomState(0)

@@ -114,7 +114,7 @@ def seed_checkpoint(path, data_dir, case):
     args = joptions.parse_args_and_arch(joptions.get_training_parser(), argv(data_dir, "unused", case))
     task = jregistry.TASKS[args.task].setup_task(args)
     model = jregistry.build_model(args, task)
-    variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(5)))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(5)))
     opt_state = jregistry.OPTIMIZERS[args.optimizer].build_optimizer(args).init(variables["params"])
     jcheckpoint.save_state(path, {
         "args": vars(args), "model": variables["params"], "model_state": variables["state"],

@@ -10,6 +10,7 @@ transcripts, origins and counts exactly."""
 
 import argparse
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ from fbk_fairseq_st_tpu_torch.generation.sequence_generator import EnsembleModel
 from fbk_fairseq_st_tpu_torch.models import reorder_encoder_out
 from fbk_fairseq_st_tpu_torch.tasks import SpeechTranslationDualDecodingTask
 
-from .test_torch_model import torch_dictionary
+from .test_torch_model import shared_root, torch_dictionary  # noqa: F401  (shared_root: the fixture)
 from .test_torch_multi_task import ARCHS, SMALL, SRC_VOCAB, TGT_VOCAB, built
 from .utils import dummy_dictionary
 
@@ -102,8 +103,8 @@ def test_phase2_search_with_init_scores_and_beam_ctx_matches_jax(arch):
     max_len = 7
 
     jgen = JaxSequenceGenerator(dummy_dictionary(TGT_VOCAB), beam_size=beam, temperature=0.7)
-    jenc = jax_reorder_encoder_out(jmodel.encode(variables, jnp.asarray(src), jnp.asarray(lengths))[0],
-                                   jnp.repeat(jnp.arange(bsz), beam))
+    jenc = jax_reorder_encoder_out(jax.jit(lambda v, s, n: jmodel.encode(v, s, n)[0])(
+        variables, jnp.asarray(src), jnp.asarray(lengths)), jnp.repeat(jnp.arange(bsz), beam))
     jfeats = jmodel.aux_features(variables, jnp.asarray(prev), jenc)
     want = jgen._run(JaxEnsembleModel([(jtp._TgtAdapter(jmodel), variables)]),
                      {"src_tokens": jnp.asarray(src), "src_lengths": jnp.asarray(lengths)}, max_len, None,
@@ -136,8 +137,8 @@ def test_generate_with_encoder_outs_temperature_and_match_source_len():
     sample = request(seed=5, lengths=(20, 24))
     src, lengths = sample["net_input"]["src_tokens"], sample["net_input"]["src_lengths"]
     beam = 3
-    jenc = jax_reorder_encoder_out(jmodel.encode(variables, jnp.asarray(src), jnp.asarray(lengths))[0],
-                                   jnp.repeat(jnp.arange(2), beam))
+    jenc = jax_reorder_encoder_out(jax.jit(lambda v, s, n: jmodel.encode(v, s, n)[0])(
+        variables, jnp.asarray(src), jnp.asarray(lengths)), jnp.repeat(jnp.arange(2), beam))
     with torch.no_grad():
         tenc = reorder_encoder_out(tmodel.encode(torch.tensor(src), torch.tensor(lengths)),
                                    torch.arange(2).repeat_interleave(beam))

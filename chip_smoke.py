@@ -403,7 +403,21 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      ``asg_loss`` (2 updates, no attention) decoded by ASG Viterbi and the
      ASG beam; each decode against ``cli/infer --cpu`` on the same
      checkpoint, and each leg's peak memory;
- 33. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+ 33. multi-GPU, on phase 24's corpus: (a) the ring attention's kernel route
+     in one process, N = 2 and 4 shards of the long-context call (bh 32,
+     T = S = 2048, D 64, ragged key padding), fp32 and bf16, causal and
+     not, against the plain dense attention at phase 4's tolerances, each
+     run's launches exactly N^2 (causal N(N+1)/2) forwards, dq and dkv; (b)
+     the quick start at full width through the distributed launcher over
+     NCCL (world size ``torch.cuda.device_count()``, dropout 0, 3 updates;
+     20 + 20 + 20 tensor-core launches a rank an update), its losses within
+     1e-3 relative of the plain ``cli/train``'s, the largest parameter
+     difference and bitwise equality printed; (c) the spawning launcher
+     with ``--fsdp`` and with ``--use-bmuf``: finite losses, FSDP's the
+     plain run's; with two cards or more, world size 2 (1e-2 relative),
+     TP 2 with sequence parallelism and ring attention at TP 2; the NCCL
+     version, the peak GB a rank and the phase's seconds;
+ 34. the ``kernels`` line (the D 128 tensor-core kernels timed at the
      iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
@@ -5336,6 +5350,257 @@ def asr_from_files(card, d, fa, dconv, single, modules, tmp):
 
 
 # ---------------------------------------------------------------------------
+# 33. multi-GPU: the ring's kernel route, cli/train through the launcher
+# ---------------------------------------------------------------------------
+
+RING_SHAPE = (32, 2048, 64)  # bh, T = S, D: the long-context step's call
+RING_SIZES = (2, 4)
+MULTI_UPDATES = 3
+MULTI_ARGS = ["--dropout", "0", "--attention-dropout", "0", "--relu-dropout", "0", "--max-update",
+              str(MULTI_UPDATES), "--max-epoch", "1"]
+RTOL_MULTI_LOSS = RTOL_RESUME_LOSS  # bf16 steps, as phase 24's resume
+RTOL_MULTI_RANKS = 1e-2  # bf16: two ranks sum their gradients in another order than one
+MULTI_DEADLINE_S = 300  # a launcher run on its own (spawned ranks)
+# the multi-rank legs' criterion: ctc_multi_loss with its model in eval mode
+# (the conv front end's dropout has a floor of 0.1 that no flag lowers, and
+# two ranks draw other bits than one process), registered by --user-dir
+EVAL_CRITERION = """from fbk_fairseq_st_tpu_torch.criterions import CRITERIONS
+
+_TRAIN_MODE = CRITERIONS["ctc_multi_loss"]
+
+
+class EvalModeCTCMultiLoss(_TRAIN_MODE):
+    def __call__(self, model, batch, generator=None, training=False):
+        return super().__call__(model, batch, generator, training=False)
+
+
+CRITERIONS["ctc_multi_loss"] = EvalModeCTCMultiLoss
+"""
+
+
+def ring_blocks(n, causal):
+    """The blocks a ring of n shards computes: N^2, or N(N+1)/2 under a
+    causal mask."""
+    return n * (n + 1) // 2 if causal else n * n
+
+
+def cuda_ms(fn, reps=3):
+    """The mean of ``reps`` calls after one warm-up, by CUDA events."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_ring_route(fa, dconv, single):
+    """33a. The ring's per-block route in one process: N = 2 and 4 shards of
+    the long-context call (bh 32, T = S = 2048, D 64; ragged key padding),
+    each block one launch of the flash forward and of the dq + dkv pair of
+    the type's route, the shards visiting in ring order
+    (``ring_attention_shards``: the rotation an index, no collective). Out,
+    lse and dq, dk, dv against the plain dense attention at phase 4's
+    tolerances; the launches of each run exactly ``ring_blocks``; the ring's
+    fwd + bwd time beside one flash call's at the same shape."""
+    from fbk_fairseq_st_tpu_torch.ops import ring_attention as ring
+
+    bh, t, dh = RING_SHAPE
+    scale = dh ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    rows, bad = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd_key = f"flash_fwd_{fa.fwd_route(dtype, dh)}"
+        pair = fa.split_route(dtype, dh)
+        q, k, v, bias = random_attention_inputs(gen, bh, t, t, dh, dtype)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        for causal in (False, True):
+            want_out, want_lse = fa.flash_attention_reference(q, k, v, bias, scale, causal)
+            want_grads = fa.flash_attention_backward_reference(q, k, v, bias, want_out, want_lse, g, scale, causal)
+
+            def one_call():
+                out, lse = fa._forward_cuda(q, k, v, bias, scale, causal, 0.0, 0)
+                fa.flash_attention_backward(q, k, v, bias, out, lse, g, scale, causal)
+
+            flash_ms = cuda_ms(one_call)
+            for n in RING_SIZES:
+                split = [list(x.chunk(n, dim=1)) for x in (q, k, v, bias, g)]
+                reset_counts(fa, dconv, single)
+                outs, lses = ring.ring_attention_shards(*split[:4], scale, causal)
+                dqs, dks, dvs = ring.ring_attention_shards_backward(*split[:4], outs, lses, split[4], scale, causal)
+                torch.cuda.synchronize()
+                counts = launch_counts(fa, dconv, single)
+                blocks = ring_blocks(n, causal)
+                want_counts = {key: 0 for key in counts}
+                want_counts.update({fwd_key: blocks, f"flash_bwd_dq_{pair}": blocks, f"flash_bwd_dkv_{pair}": blocks})
+                out_err = (torch.cat(outs, 1).float() - want_out.float()).abs().max().item()
+                lse_err = (torch.cat(lses, 1) - want_lse.float()).abs().max().item()
+                gerr, gratio, _, gok = grad_errors([torch.cat(x, 1) for x in (dqs, dks, dvs)], want_grads, dtype)
+
+                def ring_call():
+                    o, l = ring.ring_attention_shards(*split[:4], scale, causal)
+                    ring.ring_attention_shards_backward(*split[:4], o, l, split[4], scale, causal)
+
+                row = {"n": n, "dtype": str(dtype).removeprefix("torch."), "causal": causal, "bh": bh, "T": t,
+                       "D": dh, "blocks": blocks, "launches": {key: val for key, val in counts.items() if val},
+                       "max_abs_err_out": out_err, "max_abs_err_lse": lse_err, "max_abs_err_grad": gerr,
+                       "grad_err_over_max_plain": gratio, "ring_fwd_bwd_ms": cuda_ms(ring_call),
+                       "one_flash_call_fwd_bwd_ms": flash_ms}
+                rows.append(row)
+                if counts != want_counts:
+                    bad.append(f"ring n {n} {dtype} causal {causal}: launches {row['launches']}, expected "
+                               f"{blocks} {fwd_key} and {pair} pairs")
+                if not (out_err <= ATOL_KERNEL[dtype] and lse_err <= ATOL_LSE and gok):
+                    bad.append(f"ring n {n} {dtype} causal {causal}: out {out_err}, lse {lse_err}, grads {gerr} "
+                               f"({gratio} of max|plain|)")
+            del want_out, want_lse, want_grads
+    return rows, bad
+
+
+def launcher_run(argv, deadline=MULTI_DEADLINE_S):
+    """``cli/train`` as a process of its own (the launcher spawns its
+    ranks): the loss of each update from its JSON progress lines, and
+    the run's seconds."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fbk_fairseq_st_tpu_torch.cli.train", *argv], cwd=here, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=deadline)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli/train {argv[-6:]} exited {proc.returncode}:\n{proc.stdout[-3000:]}")
+    losses = []
+    for line in proc.stdout.splitlines():
+        if "train.progress" in line and line.rstrip().endswith("}"):
+            record = json.loads(line.split(" | ")[-1])
+            if "loss" in record and "num_updates" in record:
+                losses.append(float(record["loss"]))
+    return losses, wall
+
+
+def rel_diff(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b)) if a and len(a) == len(b) else float("inf")
+
+
+def multi_gpu(card, d, fa, dconv, single, modules, tmp):
+    """33. Main path 23, multi-GPU training, in phase 24's directory on its
+    corpus: (a) the ring's kernel route (``check_ring_route``); (b) the
+    README's quick start at full width through the distributed launcher
+    over NCCL, dropout 0, MULTI_UPDATES updates at world size
+    ``torch.cuda.device_count()``: on one card the rank runs in this
+    process (``cli/train.distributed_main``, so its launches are counted:
+    phase 7's 20 + 20 + 20 a rank an update), its losses held to the plain
+    ``cli/train``'s at RTOL_MULTI_LOSS; (c) the same run through the
+    spawning launcher (a process of its own) with ``--fsdp``, then with
+    ``--use-bmuf --global-sync-iter 2``: finite losses, FSDP's the plain
+    run's. With two cards or more: (b) at world size 2 against the plain
+    run at RTOL_MULTI_RANKS, tensor parallelism 2 with sequence
+    parallelism, and ring attention at model-parallel size 2, each with
+    the criterion's model in eval mode (``EVAL_CRITERION``) against the
+    plain ``cli/train`` with it. Returns the launches of (b)."""
+    import logging
+
+    phase_t0 = time.perf_counter()
+    train_cli, options = modules["train_cli"], modules["options"]
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(tmp, "multi_gpu.log"))
+    root.addHandler(handler)
+    work = os.path.join(tmp, "multi")
+    os.makedirs(work)
+    ring_rows, bad = check_ring_route(fa, dconv, single)
+    emit({"phase": "multi_gpu_ring_route", "rows": ring_rows, "card": card})
+    base = [os.path.join(tmp, "data"), *QUICK_START, *MULTI_ARGS]
+    n = torch.cuda.device_count()
+
+    plain_rec, plain = train_cli_run(modules, fa, dconv, single, [*base, "--save-dir", os.path.join(work, "plain"),
+                                                                    "--no-save"])
+    plain_losses = plain_rec.losses("train")
+    plain_state = {k: v.detach().clone() for k, v in plain.model.state_dict().items()}
+    del plain
+    torch.cuda.empty_cache()
+
+    save_b = os.path.join(work, "launcher")
+    args = options.parse_args_and_arch(options.get_training_parser(), [
+        *base, "--save-dir", save_b, "--distributed-world-size", "1", "--distributed-init-method",
+        f"tcp://localhost:{train_cli._free_port()}"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, dconv, single)
+    with _TrainRecorder(modules, fa, dconv, single) as rec:
+        t0 = time.perf_counter()
+        trainer, _ = train_cli.distributed_main(0, args, train_cli.Launch(args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts(fa, dconv, single)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_update, want_valid = cli_train_launches(launches)
+    if any(u != want_update for u in rec.updates) or any(v != want_valid for v in rec.valid_batches):
+        bad.append(f"launcher rank: launches {rec.updates[:1]} an update, expected {want_update}")
+    losses = rec.losses("train")
+    state = trainer.model.state_dict()
+    max_param_diff = max((state[k].float() - plain_state[k].float()).abs().max().item() for k in plain_state)
+    bitwise = all(torch.equal(state[k], plain_state[k]) for k in plain_state)
+    files = sorted(os.listdir(save_b))
+    del trainer, state
+    torch.cuda.empty_cache()
+    if not (len(losses) == MULTI_UPDATES and rel_diff(losses, plain_losses) <= RTOL_MULTI_LOSS):
+        bad.append(f"launcher losses {losses} against the plain run's {plain_losses}")
+    if "checkpoint_last.pt" not in files:
+        bad.append(f"the launcher's rank wrote {files}")
+
+    legs = {}
+    spawn = [*base, "--no-save", "--distributed-world-size", str(n)]
+    for leg, extra in (("fsdp", ["--fsdp"]), ("bmuf", ["--use-bmuf", "--global-sync-iter", "2"])):
+        leg_losses, leg_wall = launcher_run([*spawn, "--save-dir", os.path.join(work, leg), *extra])
+        legs[leg] = {"world_size": n, "losses": leg_losses, "wall_s": leg_wall,
+                     "max_rel_diff_to_plain": rel_diff(leg_losses, plain_losses)}
+        # one progress line an update: only the first rank prints them
+        if not (len(leg_losses) == MULTI_UPDATES and np.isfinite(leg_losses).all()):
+            bad.append(f"{leg}: losses {leg_losses}")
+    if n == 1 and legs["fsdp"]["max_rel_diff_to_plain"] > RTOL_MULTI_LOSS:
+        bad.append(f"fsdp losses {legs['fsdp']['losses']} against the plain run's {plain_losses}")
+    if n >= 2:
+        # the criterion in eval mode on both sides of each comparison
+        user_dir = os.path.join(work, "fbk_eval_ctc_multi_loss")
+        os.makedirs(user_dir)
+        with open(os.path.join(user_dir, "__init__.py"), "w") as f:
+            f.write(EVAL_CRITERION)
+        criterions = sys.modules["fbk_fairseq_st_tpu_torch.criterions"]
+        train_mode = criterions.CRITERIONS["ctc_multi_loss"]
+        try:
+            eval_rec, eval_trainer = train_cli_run(modules, fa, dconv, single, [
+                *base, "--no-save", "--save-dir", os.path.join(work, "plain_eval"), "--user-dir", user_dir])
+        finally:
+            criterions.CRITERIONS["ctc_multi_loss"] = train_mode
+        del eval_trainer
+        eval_losses = eval_rec.losses("train")
+        for leg, extra in (("ws2", []), ("tp2_sp", ["--model-parallel-size", "2", "--sequence-parallel"]),
+                           ("tp2_ring", ["--model-parallel-size", "2", "--ring-attention"])):
+            leg_losses, leg_wall = launcher_run([*base, "--no-save", "--distributed-world-size", "2",
+                                                 "--save-dir", os.path.join(work, leg), "--user-dir", user_dir, *extra])
+            legs[leg] = {"world_size": 2, "losses": leg_losses, "plain_eval_losses": eval_losses, "wall_s": leg_wall,
+                         "max_rel_diff_to_plain": rel_diff(leg_losses, eval_losses)}
+            if legs[leg]["max_rel_diff_to_plain"] > RTOL_MULTI_RANKS:
+                bad.append(f"{leg}: losses {leg_losses} against the plain eval-mode run's {eval_losses}")
+    root.removeHandler(handler)
+    handler.close()
+    emit({"phase": "multi_gpu", "world_sizes_run": sorted({1, n} | {legs[leg]["world_size"] for leg in legs}),
+          "multi_rank_legs": "run" if n >= 2 else f"not run: {n} CUDA device (they need a second one)",
+          "nccl_version": ".".join(map(str, torch.cuda.nccl.version())), "backend": "nccl", "updates": MULTI_UPDATES,
+          "plain_losses": plain_losses, "launcher_losses": losses,
+          "max_rel_loss_diff": rel_diff(losses, plain_losses), "rtol": RTOL_MULTI_LOSS,
+          "max_abs_param_diff": max_param_diff, "bitwise_equal_to_plain": bitwise, "checkpoint_files": files,
+          "launcher_wall_s": wall, "peak_gb_a_rank": peak_gb, "launches_per_update_a_rank": want_update,
+          "launches": launches, "legs": legs, "phase_s": time.perf_counter() - phase_t0, "card": card})
+    if bad:
+        raise AssertionError("phase 33: " + "; ".join(bad))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
@@ -5554,8 +5819,12 @@ def main() -> int:
         # (cross_entropy_acc, ctc_loss) and w2l_conv_glu (asg_loss) trained
         # through cli/train and decoded by cli/infer's five routes
         drive("asr_from_files", asr_from_files, card, d, fa, dconv, single, modules, files_tmp)
+        # 33. on phase 24's corpus: multi-GPU, the ring's kernel route and
+        # cli/train through the distributed launcher (NCCL), with FSDP and
+        # BMUF
+        drive("multi_gpu", multi_gpu, card, d, fa, dconv, single, modules, files_tmp)
 
-    # 33. kernels line, card line, ok line
+    # 34. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

@@ -20,6 +20,21 @@ and retention. SIGTERM and SIGINT finish the update in flight, save
 checkpoint, so the resumed run goes on at the next batch. ``--profile``
 writes a ``torch.profiler`` trace of the run to ``<save-dir>/profile``.
 
+Several GPUs (JAX's ``distributed_init`` :83-133, the reference's
+``distributed_utils.call_main``): ``--distributed-world-size N`` on one
+host spawns N ranks, one a GPU, over NCCL (gloo with ``--cpu``), each
+running ``main`` on its rank of one process group; more ranks than the
+host has GPUs raise. Across hosts, each host's process is started with
+``--distributed-init-method tcp://HOST:PORT`` (or
+``--distributed-coordinator HOST:PORT``), ``--distributed-num-processes``,
+``--distributed-process-id`` and ``--distributed-local-device-ids``, and
+spawns a rank for each of its devices: a JAX process is a host, a rank
+here a GPU, so the global rank is the process id x the local devices + the
+local rank. A rendezvous address given alone makes a group of
+``--distributed-world-size`` (1 by default) spawned ranks. Ranks other than
+the first log warnings only and print no progress lines; the first writes
+the checkpoints.
+
     python -m fbk_fairseq_st_tpu_torch.cli.train DATA --task speech_translation_with_transcription \\
         -s en -t de --arch conv_transformer --criterion ctc_multi_loss \\
         --underlying-criterion label_smoothed_cross_entropy --label-smoothing 0.1 \\
@@ -29,9 +44,11 @@ writes a ``torch.profiler`` trace of the run to ``<save-dir>/profile``.
 
 from __future__ import annotations
 
+import datetime
 import logging
 import math
 import os
+import socket
 import sys
 
 import numpy as np
@@ -287,12 +304,118 @@ def get_valid_stats(args, trainer, stats):
     return stats
 
 
-def cli_main(input_args=None):
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class Launch:
+    """The rendezvous and this host's share of a multi-GPU run."""
+
+    def __init__(self, args):
+        coord = getattr(args, "distributed_coordinator", None)
+        init = getattr(args, "distributed_init_method", None)
+        nproc = getattr(args, "distributed_num_processes", None)
+        world = getattr(args, "distributed_world_size", None)
+        port = getattr(args, "distributed_port", -1) or -1
+        if coord is not None:
+            init = "tcp://" + coord
+        elif init is not None and "://" not in init:
+            init = "tcp://" + init
+        if init is not None and not init.startswith(("tcp://", "file://")):
+            raise ValueError(f"--distributed-init-method takes tcp://HOST:PORT or file://PATH, got {init!r}")
+        if nproc is not None and nproc > 1 and init is None:
+            raise ValueError("--distributed-num-processes > 1 needs --distributed-init-method or "
+                             "--distributed-coordinator: the hosts' rendezvous")
+        self.num_processes = nproc or 1
+        self.process_id = getattr(args, "distributed_process_id", None) or 0
+        ids = getattr(args, "distributed_local_device_ids", None)
+        if ids:
+            self.local_devices = [int(x) for x in str(ids).split(",")]
+        else:
+            per_host = (world or 1) // self.num_processes
+            if per_host * self.num_processes != (world or 1):
+                raise ValueError(f"--distributed-world-size {world} does not split over "
+                                 f"{self.num_processes} processes")
+            self.local_devices = list(range(per_host))
+        self.world_size = self.num_processes * len(self.local_devices)
+        if world is not None and world != self.world_size:
+            raise ValueError(f"--distributed-world-size {world}, but {self.num_processes} processes x "
+                             f"{len(self.local_devices)} local devices make {self.world_size} ranks")
+        if init is None and port > 0:
+            init = f"tcp://localhost:{port}"
+        if init is None and self.world_size > 1:
+            init = f"tcp://localhost:{_free_port()}"
+        self.init_method = init
+        self.cpu = bool(getattr(args, "cpu", False))
+        backend = getattr(args, "distributed_backend", "pjit")
+        self.backend = ("gloo" if self.cpu else "nccl") if backend in (None, "pjit") else backend
+        if self.cpu and self.backend == "nccl":
+            raise ValueError("--distributed-backend nccl needs the GPUs: drop --cpu")
+
+    @property
+    def distributed(self) -> bool:
+        return self.init_method is not None
+
+    def check_devices(self) -> None:
+        """More ranks on this host than it has GPUs raise: no rank runs on
+        the CPU in their place."""
+        if self.cpu:
+            return
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if len(self.local_devices) > have or max(self.local_devices) >= have:
+            raise RuntimeError(f"{len(self.local_devices)} ranks on this host (devices {self.local_devices}), "
+                               f"which has {have} CUDA devices: lower --distributed-world-size, or pass --cpu")
+
+
+def distributed_main(local_rank: int, args, launch: Launch, timeout_s: float = 1800.0):
+    """One rank: join the process group, run ``main``, leave the group."""
+    _configure_logging()  # a spawned process starts with none
+    rank = launch.process_id * len(launch.local_devices) + local_rank
+    if not launch.cpu:
+        torch.cuda.set_device(launch.local_devices[local_rank])
+    torch.distributed.init_process_group(launch.backend, init_method=launch.init_method,
+                                         world_size=launch.world_size, rank=rank,
+                                         timeout=datetime.timedelta(seconds=timeout_s))
+    # JAX :123-126, reference distributed_utils.py:105-108: the other ranks
+    # log warnings only (the level set here: a handler that an import put
+    # on the root logger makes basicConfig a no-op)
+    logging.getLogger().setLevel(logging.INFO if rank == 0 else logging.WARNING)
+    if rank != 0:
+        args.log_format = "none"
+        args.tensorboard_logdir = None
+    logger.info("rank %d of %d (%s, %s)", rank, launch.world_size, launch.backend, launch.init_method)
+    try:
+        return main(args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def call_main(args):
+    """``main`` in this process, or on the ranks of a multi-GPU run."""
+    launch = Launch(args)
+    if not launch.distributed:
+        return main(args)
+    launch.check_devices()
+    if getattr(args, "distributed_no_spawn", False):
+        return distributed_main(getattr(args, "device_id", 0), args, launch)
+    import torch.multiprocessing as mp
+
+    mp.spawn(distributed_main, args=(args, launch), nprocs=len(launch.local_devices), join=True)
+    return None
+
+
+def _configure_logging() -> None:
     logging.basicConfig(format="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
                         datefmt="%Y-%m-%d %H:%M:%S", level=logging.INFO, stream=sys.stdout)
+
+
+def cli_main(input_args=None):
+    _configure_logging()
     parser = options.get_training_parser()
     args = options.parse_args_and_arch(parser, input_args)
-    return main(args)
+    return call_main(args)
 
 
 if __name__ == "__main__":

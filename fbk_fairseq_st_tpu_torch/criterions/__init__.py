@@ -12,6 +12,7 @@ from .label_smoothed_cross_entropy import (
     label_smoothed_nll_loss,
 )
 from .label_smoothed_cross_entropy_ctx_reg import LabelSmoothedCrossEntropyCtxRegCriterion
+from .vocab_parallel_cross_entropy import VocabParallelCrossEntropyCriterion
 
 CRITERIONS = {
     "cross_entropy": CrossEntropyCriterion,
@@ -24,13 +25,13 @@ CRITERIONS = {
     "cross_entropy_multi_task": CrossEntropyMultitask,
     "knowledge_distillation": CrossEntropyKnowledgeDistillationCriterion,
     "asg_loss": ASGCriterion,
+    "vocab_parallel_cross_entropy": VocabParallelCrossEntropyCriterion,
 }
 
 # the ROADMAP Queue A item of each JAX criterion the port has not (every
 # other one is item 9's, with its model family)
 _NOT_PORTED_ITEMS = {
     "adaptive_loss": "9(a)",
-    "vocab_parallel_cross_entropy": "6",
 }
 
 
@@ -54,4 +55,5 @@ __all__ = [
     "label_smoothed_nll_from_logits",
     "label_smoothed_nll_loss",
     "roadmap_item",
+    "VocabParallelCrossEntropyCriterion",
 ]

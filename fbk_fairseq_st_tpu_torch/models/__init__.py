@@ -34,7 +34,17 @@ ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_
                  for arch in family.ARCHITECTURES}
 
 
+# JAX's model-parallel presets (models/model_parallel.py): the text
+# transformer and its LM, which tensor parallelism splits like any model
+_MODEL_PARALLEL_ARCHS = ("model_parallel_transformer", "model_parallel_transformer_lm", "transformer_lm_megatron",
+                         "transformer_lm_megatron_11b")
+
+
 def _family(arch: str):
+    if arch in _MODEL_PARALLEL_ARCHS:
+        raise NotImplementedError(
+            f"--arch {arch}: a text transformer preset; --model-parallel-size splits any model the port has, "
+            "and the text transformer family is ROADMAP Queue A item 9(a)")
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
             f"--arch {arch}: the port has the conv_transformer, lightconv, multi-decoder, multitask "

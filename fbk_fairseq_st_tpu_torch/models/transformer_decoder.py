@@ -86,6 +86,9 @@ class TransformerDecoder(nn.Module):
             None if cfg.share_input_output_embed
             else nn.Linear(cfg.embed_dim, cfg.vocab_size, bias=False)
         )
+        # tensor parallelism's embedding and logits over this rank's rows of
+        # the vocabulary (parallel/tensor_parallel.py::VocabParallel)
+        self.vocab_parallel = None
 
     def init(self, generator: torch.Generator) -> None:
         std = self.cfg.embed_dim ** -0.5
@@ -101,7 +104,10 @@ class TransformerDecoder(nn.Module):
             normal_(self.output_projection.weight, generator, std)
 
     def _embed(self, tokens, dtype, generator, step: Optional[int] = None):
-        x = self.embed_scale * embedding(self.embed_tokens.weight, tokens, dtype)
+        if self.vocab_parallel is not None:
+            x = self.embed_scale * self.vocab_parallel.embed(self.embed_tokens.weight, tokens, dtype)
+        else:
+            x = self.embed_scale * embedding(self.embed_tokens.weight, tokens, dtype)
         if self.embed_positions is not None:
             x = x + self.embed_positions.from_ids(tokens, dtype, step=step)
         if self.layernorm_embedding is not None:
@@ -110,6 +116,8 @@ class TransformerDecoder(nn.Module):
 
     def output_layer(self, x):
         w = self.embed_tokens.weight if self.output_projection is None else self.output_projection.weight
+        if self.vocab_parallel is not None:
+            return self.vocab_parallel.logits(x, w)
         return torch.matmul(x, w.t().to(x.dtype))
 
     def forward(self, prev_output_tokens, encoder_out, encoder_padding_mask=None,

@@ -8,7 +8,9 @@ preallocated ``(B, H, T_max, Dh)`` self-attention cache written in place at
 ``cache_index`` (slots not yet written are masked); precomputed cross K/V;
 head-averaged ``need_weights``. Activations are batch-first (B, T, D).
 
-Flash routing follows the JAX eligibility rules: no cache, mask ``None`` or
+With ``ring`` set (``--ring-attention``) a call whose query and key
+lengths are equal and split over the ring takes ring attention, as JAX's
+``mha`` does inside its ring scope. Flash routing follows the JAX eligibility rules: no cache, mask ``None`` or
 causal, no penalty, no ``need_weights``; head dims above 128 take the dense
 route (``flash_eligible``). Calls with dropout active take the
 flash route too, with the kernel's in-kernel dropout and one seed drawn per
@@ -37,6 +39,7 @@ from torch import nn
 
 from .core import NEG_INF, GeneratorLike, Linear, draw_seed, dropout
 from .kernels.flash_attention import KERNEL_HEAD_DIMS, flash_attention
+from .ring_attention import ring_eligible, ring_self_attention
 
 
 class MHAConfig(NamedTuple):
@@ -127,6 +130,9 @@ class MultiheadAttention(nn.Module):
         self.k_proj = Linear(e, e, bias=cfg.bias)
         self.v_proj = Linear(e, e, bias=cfg.bias)
         self.out_proj = Linear(e, e, bias=cfg.bias)
+        # the ranks whose ring splits this attention's sequence
+        # (ops/ring_attention.py; --ring-attention)
+        self.ring = None
         if cfg.penalty == "gauss":
             self.penalty_variance = nn.Parameter(torch.full((cfg.num_heads,), float(cfg.init_variance)))
         elif cfg.penalty not in (None, "log"):
@@ -202,6 +208,16 @@ class MultiheadAttention(nn.Module):
         b, h, tq, hd = q.shape
         s = k.shape[2]
         mask = None if attn_mask is None else ("causal" if causal else "additive")
+        if (self.ring is not None and cache is None and mask in (None, "causal") and cfg.penalty is None
+                and not need_weights and ring_eligible(tq, s, self.ring.size)):
+            # JAX ops/attention.py:195-229: the sequence split over the ring
+            out = ring_self_attention(
+                q.reshape(b * h, tq, hd), k.reshape(b * h, s, hd), v.reshape(b * h, s, hd),
+                key_bias(key_padding_mask, b, s, h, q.device), self.ring, causal=causal,
+                rate=cfg.dropout if dropout_active else 0.0,
+                seed=draw_seed(generator) if dropout_active else 0,
+            ).reshape(b, h, tq, hd)
+            return self.out_proj(_merge_heads(out)), None, cache
         if flash_eligible(q.device.type, hd, mask, cache is not None, cfg.penalty is not None, need_weights,
                           _FLASH_ATTENTION):
             out = flash_attention(

@@ -189,6 +189,7 @@ def batch_norm(
     momentum: float = 0.1,
     eps: float = 1e-5,
     stats_from=None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """BatchNorm over ``axis`` (the one remaining axis is the channel).
 
@@ -197,16 +198,29 @@ def batch_norm(
     unbiased one enters the running estimate, ``(1-momentum)*old +
     momentum*batch``. Training statistics are one pass, ``E[x^2] - mean^2``
     clamped at 0, as in the JAX module; ``stats_from`` takes them from
-    another tensor of the same layout.
+    another tensor of the same layout. With a process ``group`` (the
+    data-parallel ranks, each holding its rows of one global batch) the
+    sums of x and x^2 and the count are all-reduced over it before the
+    division, in the same one-pass form, so the statistics and the running
+    update are the global batch's, as under JAX's data sharding; the
+    all-reduce's backward is an all-reduce, as every rank's loss reads the
+    statistics.
     """
     axis = tuple(a % x.dim() for a in axis)
     xf = x.float()
     if training:
         sf = xf if stats_from is None else stats_from.float()
-        mean = sf.mean(dim=axis)
-        meansq = sf.square().mean(dim=axis)
-        var = torch.clamp(meansq - mean.square(), min=0.0)
         n = math.prod(sf.shape[a] for a in axis)
+        if group is None:
+            mean = sf.mean(dim=axis)
+            meansq = sf.square().mean(dim=axis)
+        else:
+            from ..parallel.collectives import all_reduce_sum, group_size
+
+            sums = all_reduce_sum(torch.stack([sf.sum(dim=axis), sf.square().sum(dim=axis)]), group)
+            n *= group_size(group)
+            mean, meansq = sums[0] / n, sums[1] / n
+        var = torch.clamp(meansq - mean.square(), min=0.0)
         unbiased = var * (n / max(n - 1, 1))
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * unbiased
@@ -226,7 +240,9 @@ def batch_norm(
 class BatchNorm(nn.Module):
     """Channel-first BatchNorm (NCHW, channel axis 1) with the fork's names
     and no ``num_batches_tracked`` buffer. In training mode it normalises
-    with batch statistics and updates the running buffers in place."""
+    with batch statistics and updates the running buffers in place; the
+    statistics are over the ranks of ``sync_group`` when the trainer sets
+    one (``batch_norm``'s ``group``)."""
 
     def __init__(self, dim: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -236,12 +252,13 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
+        self.sync_group = None
 
     def forward(self, x):
         axis = tuple(a for a in range(x.dim()) if a != 1)
         y, mean, var = batch_norm(
             x, self.weight, self.bias, self.running_mean, self.running_var,
-            axis, self.training, self.momentum, self.eps,
+            axis, self.training, self.momentum, self.eps, group=self.sync_group,
         )
         if self.training:
             with torch.no_grad():

@@ -322,7 +322,7 @@ OPTIMIZERS = {
 def build_optimizer(args, params) -> torch.optim.Optimizer:
     name = getattr(args, "optimizer", "adam")
     if name not in OPTIMIZERS:
-        hint = "BMUF and local SGD are ROADMAP Queue A item 6" if name in ("bmuf", "local_sgd") else \
+        hint = f"BMUF and local SGD run with --use-bmuf over one of {sorted(OPTIMIZERS)}" if name in ("bmuf", "local_sgd") else \
             "not an optimiser of the JAX package"
         raise NotImplementedError(f"--optimizer {name}: {hint}")
     return OPTIMIZERS[name].build(args, params)

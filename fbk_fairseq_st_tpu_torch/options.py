@@ -53,23 +53,8 @@ from .utils.user_dir import import_user_module
 # option -> (its value when off, what it needs): set to anything else, it raises
 NOT_PORTED = {
     "quantize_weights": ("none", "weight-only quantisation (ROADMAP Queue A item 9)"),
-    "distributed_world_size": (None, "multi-GPU training (ROADMAP Queue A item 6)"),
-    "fsdp": (False, "FSDP (ROADMAP Queue A item 6)"),
-    "sequence_parallel": (False, "sequence parallelism (ROADMAP Queue A item 6)"),
-    "ring_attention": (False, "ring attention (ROADMAP Queue A item 6)"),
-    "use_bmuf": (False, "BMUF (ROADMAP Queue A item 6)"),
     "steps_per_execution": (1, "several updates a dispatch (ROADMAP Queue A item 8)"),
     "quantization_config_path": (None, "in-training quantisation (ROADMAP Queue A item 9)"),
-    "distributed_coordinator": (None, "multi-host training (ROADMAP Queue A item 6)"),
-    "distributed_num_processes": (None, "multi-host training (ROADMAP Queue A item 6)"),
-    "distributed_process_id": (None, "multi-host training (ROADMAP Queue A item 6)"),
-    "distributed_local_device_ids": (None, "multi-host training (ROADMAP Queue A item 6)"),
-    "block_lr": (1.0, "BMUF (ROADMAP Queue A item 6)"),
-    "block_momentum": (0.875, "BMUF (ROADMAP Queue A item 6)"),
-    "global_sync_iter": (50, "BMUF (ROADMAP Queue A item 6)"),
-    "warmup_iterations": (500, "BMUF (ROADMAP Queue A item 6)"),
-    "use_nbm": (False, "BMUF (ROADMAP Queue A item 6)"),
-    "average_sync": (False, "BMUF (ROADMAP Queue A item 6)"),
     "adaptive_softmax_dropout": (None, "the adaptive softmax (ROADMAP Queue A item 9(a))"),
     "quant_noise_pq": (0, "quant-noise training (ROADMAP Queue A item 9)"),
     "quant_noise_pq_block_size": (8, "quant-noise training (ROADMAP Queue A item 9)"),
@@ -85,7 +70,7 @@ NOT_PORTED = {
     "print_step": (False, "iterative refinement decoding (ROADMAP Queue A item 9)"),
 }
 # values of an option in NOT_PORTED that mean "off" besides its default
-_ALSO_OFF = {"distributed_world_size": (1,), "adaptive_softmax_dropout": (0,)}
+_ALSO_OFF = {"adaptive_softmax_dropout": (0,)}
 # the JAX model parsers' explicit defaults, which win over a preset's
 _MODEL_PARSER_DEFAULTS = {
     "conv_transformer": {"no_attn_2d": False, "distance_penalty": False, "init_variance": 1.0,
@@ -230,7 +215,7 @@ def get_parser(desc: str, default_task: str = "speech_recognition") -> argparse.
     parser.add_argument("--empty-cache-freq", default=0, type=int, help="parity flag")
     parser.add_argument("--all-gather-list-size", default=16384, type=int, help="parity flag")
     parser.add_argument("--model-parallel-size", type=int, metavar="N", default=1,
-                        help="tensor parallelism (not ported above 1)")
+                        help="tensor parallelism: the mesh's 'model' dim")
     parser.add_argument("--checkpoint-suffix", default="", help="suffix to add to the checkpoint file name before .pt")
     parser.add_argument("--quantization-config-path", default=None, help="in-training quantisation (not ported)")
     parser.add_argument("--user-dir", default=None,
@@ -307,26 +292,39 @@ def add_dataset_args(parser, train: bool = False, gen: bool = False):
 
 
 def add_distributed_training_args(parser):
-    """One device: the JAX group's flags, each a parity flag here or, set
-    to more than one device or a sharded layout, an error (``NOT_PORTED``)."""
+    """JAX's group: the ranks, their mesh and the multi-host rendezvous
+    (``cli/train.py::Launch``, ``train/trainer.py``, ``parallel/``); the
+    reference's DDP knobs are parity flags, as in JAX."""
     group = parser.add_argument_group("Distributed training")
     group.add_argument("--distributed-world-size", type=int, metavar="N", default=None,
-                       help="number of devices (one here)")
-    group.add_argument("--distributed-rank", default=0, type=int)
-    group.add_argument("--dcn-data-parallel", type=int, default=1, metavar="N")
-    group.add_argument("--fsdp", default=False, action="store_true")
+                       help="total number of ranks, one a GPU (gloo processes with --cpu)")
+    group.add_argument("--distributed-rank", default=0, type=int, help="parity flag")
+    group.add_argument("--dcn-data-parallel", type=int, default=1, metavar="N",
+                       help="an outer 'dcn' mesh dim: the batch splits over dcn x data, FSDP's chunks stay inside "
+                            "a dcn slice")
+    group.add_argument("--fsdp", default=False, action="store_true",
+                       help="ZeRO-3: leaves of at least --fsdp-min-shard-size elements held in chunks over 'data'")
     group.add_argument("--fsdp-min-shard-size", type=int, default=None, metavar="N")
-    group.add_argument("--sequence-parallel", default=False, action="store_true")
-    group.add_argument("--ring-attention", default=False, action="store_true")
+    group.add_argument("--sequence-parallel", default=False, action="store_true",
+                       help="with --model-parallel-size > 1, split the LayerNorm/dropout/residual segments over time")
+    group.add_argument("--ring-attention", default=False, action="store_true",
+                       help="with --model-parallel-size > 1, split self-attention's sequence over the model ranks "
+                            "(ring attention on the flash kernels)")
     group.add_argument("--ddp-backend", default="pjit", help="parity flag")
-    group.add_argument("--distributed-backend", default="pjit", metavar="BACKEND", help="parity flag")
-    group.add_argument("--distributed-init-method", default=None, help="parity flag")
-    group.add_argument("--distributed-port", default=-1, type=int, help="parity flag")
-    group.add_argument("--device-id", "--local_rank", default=0, type=int, help="parity flag")
-    group.add_argument("--distributed-no-spawn", action="store_true", help="parity flag")
+    group.add_argument("--distributed-backend", default="pjit", metavar="BACKEND",
+                       help="nccl or gloo (pjit, the JAX default: nccl on the GPUs, gloo with --cpu)")
+    group.add_argument("--distributed-init-method", default=None,
+                       help="the rendezvous, tcp://HOST:PORT or file://PATH (default: a free port on this host)")
+    group.add_argument("--distributed-port", default=-1, type=int,
+                       help="the rendezvous port on this host, without --distributed-init-method")
+    group.add_argument("--device-id", "--local_rank", default=0, type=int,
+                       help="this process's local rank with --distributed-no-spawn")
+    group.add_argument("--distributed-no-spawn", action="store_true",
+                       help="run one rank in this process (--device-id) instead of spawning this host's ranks")
     group.add_argument("--nprocs-per-node", type=int, default=None, help="parity flag")
     group.add_argument("--fix-batches-to-gpus", action="store_true", help="parity flag")
-    group.add_argument("--bucket-cap-mb", default=25, type=int, metavar="MB", help="parity flag")
+    group.add_argument("--bucket-cap-mb", default=25, type=int, metavar="MB",
+                       help="parity flag: the gradients go in one all-reduce")
     group.add_argument("--broadcast-buffers", action="store_true", help="parity flag")
     group.add_argument("--find-unused-parameters", action="store_true", help="parity flag")
     group.add_argument("--fast-stat-sync", action="store_true", help="parity flag")
@@ -335,13 +333,13 @@ def add_distributed_training_args(parser):
     group.add_argument("--slowmo-algorithm", default="LocalSGD", choices=["LocalSGD", "SGP"], help="parity flag")
     group.add_argument("--localsgd-frequency", default=3, type=int, help="parity flag")
     group.add_argument("--distributed-coordinator", default=None, metavar="HOST:PORT",
-                       help="multi-host training (not ported)")
+                       help="the hosts' rendezvous (reference --distributed-init-method)")
     group.add_argument("--distributed-num-processes", type=int, default=None, metavar="N",
-                       help="multi-host training (not ported)")
+                       help="the number of host processes of a multi-host run")
     group.add_argument("--distributed-process-id", type=int, default=None, metavar="I",
-                       help="multi-host training (not ported)")
+                       help="this host process's index")
     group.add_argument("--distributed-local-device-ids", default=None, metavar="IDS",
-                       help="multi-host training (not ported)")
+                       help="this host's GPUs, comma-separated: a rank each")
     return group
 
 
@@ -363,13 +361,16 @@ def add_optimization_args(parser):
                        help="learning rate for the first N epochs")
     group.add_argument("--min-lr", default=-1, type=float, metavar="LR",
                        help="stop training when the learning rate reaches this minimum")
-    group.add_argument("--use-bmuf", default=False, action="store_true", help="BMUF (not ported)")
-    group.add_argument("--block-lr", default=1.0, type=float, help="BMUF (not ported)")
-    group.add_argument("--block-momentum", default=0.875, type=float, help="BMUF (not ported)")
-    group.add_argument("--global-sync-iter", default=50, type=int, help="BMUF (not ported)")
-    group.add_argument("--warmup-iterations", default=500, type=int, help="BMUF (not ported)")
-    group.add_argument("--use-nbm", action="store_true", default=False, help="BMUF (not ported)")
-    group.add_argument("--average-sync", action="store_true", default=False, help="BMUF (not ported)")
+    group.add_argument("--use-bmuf", default=False, action="store_true",
+                       help="local SGD with BMUF block syncs (optim/local_sgd.py)")
+    group.add_argument("--block-lr", default=1.0, type=float, help="block learning rate for bmuf")
+    group.add_argument("--block-momentum", default=0.875, type=float, help="block momentum for bmuf")
+    group.add_argument("--global-sync-iter", default=50, type=int, help="iterations between global model syncs")
+    group.add_argument("--warmup-iterations", default=500, type=int,
+                       help="warmup iterations before block updates start")
+    group.add_argument("--use-nbm", action="store_true", default=False, help="use Nesterov-style block momentum")
+    group.add_argument("--average-sync", action="store_true", default=False,
+                       help="average optimizer state at sync points")
     return group
 
 

@@ -386,8 +386,12 @@ def save_checkpoint(args, trainer, epoch_itr, val_loss) -> None:
         extra_state["best"] = _manager.best
     checkpoints = [os.path.join(save_dir, fn) for fn, cond in conds.items() if cond]
     if checkpoints:
+        # every rank takes part in gathering a split layout; the first writes
         fetched = trainer.state_for_checkpoint()
-        names = {id(p): n for n, p in trainer.model.named_parameters()}
+        if not trainer.is_first_rank:
+            return
+        if "bmuf" in fetched:
+            extra_state["bmuf"] = fetched["bmuf"]
         state = {
             "args": args,
             "model": fetched["model"],
@@ -398,7 +402,7 @@ def save_checkpoint(args, trainer, epoch_itr, val_loss) -> None:
                 "num_updates": fetched["num_updates"],
             }],
             "last_optimizer_state": fetched["optimizer"],
-            "last_optimizer_param_names": [names[id(p)] for g in trainer.optimizer.param_groups for p in g["params"]],
+            "last_optimizer_param_names": trainer.param_names(),
             "extra_state": extra_state,
         }
         if getattr(args, "checkpoint_format", "pickle") == "sharded":
@@ -418,7 +422,8 @@ def save_checkpoint(args, trainer, epoch_itr, val_loss) -> None:
                 shutil.copyfile(checkpoints[0], cp + ".tmp")
                 os.replace(cp + ".tmp", cp)
         logger.info("saved checkpoint {} (epoch {} @ {} updates)".format(checkpoints[0], epoch, updates))
-    if not (getattr(args, "checkpoint_format", "pickle") == "sharded" and getattr(args, "async_checkpoint", False)):
+    if trainer.is_first_rank and not (getattr(args, "checkpoint_format", "pickle") == "sharded"
+                                      and getattr(args, "async_checkpoint", False)):
         _collect_garbage(args, save_dir)
 
 
@@ -473,14 +478,13 @@ def training_state(state: Dict[str, Any], trainer, reset_optimizer: bool) -> Dic
             raise NotImplementedError(
                 "restoring the optimiser state of a fork checkpoint: the port cannot show that its parameter "
                 "order is the fork's; pass --reset-optimizer to restore the model alone")
-        names = {id(p): n for n, p in trainer.model.named_parameters()}
-        ours = [names[id(p)] for g in trainer.optimizer.param_groups for p in g["params"]]
-        if ours != state["last_optimizer_param_names"]:
+        if trainer.param_names() != state["last_optimizer_param_names"]:
             raise ValueError("the checkpoint's optimiser holds other parameters than this model's; "
                              "pass --reset-optimizer to restore the model alone")
         optimizer = state["last_optimizer_state"]
     return {"model": state["model"], "optimizer": optimizer, "lr_scheduler": history.get("lr_scheduler_state"),
-            "num_updates": 0 if reset_optimizer else history.get("num_updates", 0)}
+            "num_updates": 0 if reset_optimizer else history.get("num_updates", 0),
+            "bmuf": None if reset_optimizer else (state.get("extra_state") or {}).get("bmuf")}
 
 
 def load_checkpoint(args, trainer, task):
@@ -503,7 +507,7 @@ def load_checkpoint(args, trainer, task):
     if os.path.exists(path):
         state = load_checkpoint_to_cpu(path)
         if getattr(args, "allow_partial_restore", False):
-            own = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+            own = trainer.full_model_state()
             state["model"], missing, unexpected = merge_partial_state(own, state["model"])
             if missing:
                 logger.warning("partial restore: %d params missing from the checkpoint keep their fresh "

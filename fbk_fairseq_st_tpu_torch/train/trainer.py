@@ -56,9 +56,39 @@ Counterpart of ``fbk_fairseq_st_tpu/train/trainer.py`` (``train_step``
     criterion sums its loss over the pairs, so an update is one loss and
     one backward, the gradients of JAX's single step over all pairs.
 
-The mesh features of the JAX trainer (TP, FSDP, sequence parallelism,
-ring attention, BMUF) raise here (ROADMAP Queue A item 6),
-``steps_per_execution`` > 1 too (item 8) and scalar quant-noise (item 9).
+Multi-GPU (JAX's mesh, :45-160; ``parallel/``): once ``torch.distributed``
+is initialised (``cli/train.py``) the trainer lays the ranks out on a mesh
+(``parallel.mesh.make_mesh``: ``--model-parallel-size``,
+``--dcn-data-parallel``, the rest ``data``) and computes what JAX's sharded
+step computes, the unsharded step on the global batch:
+
+  * every rank collates the same global batch and takes its own rows
+    (``local_row_range``); the BatchNorm statistics are all-reduced over
+    the data-parallel ranks (``ops/core.py::batch_norm``'s ``group``);
+  * after the update's last microbatch the gradients are summed over the
+    data-parallel ranks in one all-reduce of their flat concatenation (one
+    a process group: the ``batch`` group, and ``dcn`` for FSDP's chunks,
+    whose gather already reduce-scattered them over ``data``), and the
+    sample size and the logging sums in another, before the division, the
+    norm, ``--clip-norm`` and the step, so every rank holds the same
+    parameters and optimiser state;
+  * ``--model-parallel-size``: Megatron's tensor parallelism
+    (``parallel/tensor_parallel.py``), with ``--sequence-parallel`` and
+    ``--ring-attention``; ``--fsdp``: ZeRO-3 chunks (``parallel/fsdp.py``);
+    the gradient norm sums each chunked leaf's squares over its groups. An
+    optimiser whose update is not elementwise (Adafactor's factored
+    moments, LAMB's trust ratio) would see a chunk, and raises there;
+  * ``--use-bmuf``: local SGD (``optim/local_sgd.py``), no gradient or
+    BatchNorm all-reduce between the block syncs;
+  * dropout: each data-parallel rank draws its own stream (its rank folded
+    into ``update_seed``); the ranks of one model group draw alike;
+  * checkpoints hold the whole tensors under the fork's names
+    (``state_for_checkpoint`` gathers them, the mesh's first rank writes
+    them), and ``load_trainer_state`` takes each rank's chunk, so a run
+    resumes at another world size or layout.
+
+``steps_per_execution`` > 1 raises (ROADMAP Queue A item 8), and so does
+scalar quant-noise (item 9).
 """
 
 from __future__ import annotations
@@ -68,22 +98,26 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ..device import module_device
-from ..ops.core import make_generators
+from ..ops.core import BatchNorm, make_generators
 from ..optim import build_lr_scheduler, build_optimizer, set_lr
+from ..optim.local_sgd import LocalSGDBMUF
+from ..parallel.collectives import all_gather_tensor, all_reduce_, broadcast_, chunk_of, group_size
+from ..parallel.fsdp import apply_fsdp, canonical_name
+from ..parallel.mesh import local_row_range, make_mesh, param_sharding
+from ..parallel.tensor_parallel import apply_tensor_parallel
 from . import metrics
 
 # JAX trainer options off this slice's path: (value that means "off", what).
 _NOT_YET = {
-    "model_parallel_size": (1, "tensor parallelism (ROADMAP Queue A item 6)"),
-    "fsdp": (False, "FSDP (ROADMAP Queue A item 6)"),
-    "sequence_parallel": (False, "sequence parallelism (ROADMAP Queue A item 6)"),
-    "ring_attention": (False, "ring attention (ROADMAP Queue A item 6)"),
-    "use_bmuf": (False, "BMUF (ROADMAP Queue A item 6)"),
     "steps_per_execution": (1, "steps_per_execution (ROADMAP Queue A item 8)"),
     "quant_noise_scalar": (0, "scalar quant-noise (ROADMAP Queue A item 9)"),
 }
-_META = ("net_input", "id", "ntokens", "nsentences", "_staged")
+# the optimisers whose update reads more than one element of a leaf
+_NOT_ELEMENTWISE = ("adafactor", "lamb")
+_META = ("net_input", "id", "ntokens", "nsentences", "_staged", "_local")
 
 
 def is_nested(sample) -> bool:
@@ -92,15 +126,17 @@ def is_nested(sample) -> bool:
     return bool(sample) and "net_input" not in sample and all(isinstance(v, dict) for v in sample.values())
 
 
-def update_seed(seed: int, num_updates: int) -> int:
+def update_seed(seed: int, num_updates: int, rank: int = 0) -> int:
     """The generators' seed of update ``num_updates`` (0-based) of a run
-    seeded ``seed``: one 63-bit draw of numpy's SeedSequence over the
-    pair, so neighbouring updates and seeds share no stream."""
-    return int(np.random.SeedSequence([int(seed), int(num_updates) + 1]).generate_state(2, np.uint64)[0] >> 1)
+    seeded ``seed`` on data-parallel rank ``rank``: one 63-bit draw of
+    numpy's SeedSequence over the pair (the triple off rank 0), so
+    neighbouring updates, seeds and ranks share no stream."""
+    entropy = [int(seed), int(num_updates) + 1] + ([int(rank)] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(2, np.uint64)[0] >> 1)
 
 
 class Trainer:
-    def __init__(self, args, task, model, criterion):
+    def __init__(self, args, task, model, criterion, mesh=None):
         for name, (off, what) in _NOT_YET.items():
             value = getattr(args, name, None)
             if value is not None and value != off:
@@ -114,10 +150,24 @@ class Trainer:
         self.task = task
         self.model = model
         self.criterion = criterion
+        if mesh is None and dist.is_available() and dist.is_initialized():
+            mesh = make_mesh(model=getattr(args, "model_parallel_size", 1) or 1,
+                             dcn=getattr(args, "dcn_data_parallel", 1) or 1)
+        if mesh is None and (getattr(args, "model_parallel_size", 1) or 1) > 1:
+            raise ValueError("--model-parallel-size > 1 needs several ranks: launch with --distributed-world-size")
+        self.mesh = mesh
+        self.layout: Dict[str, tuple] = {}
+        self.bmuf = None
+        if getattr(args, "use_bmuf", False):
+            self.bmuf = LocalSGDBMUF(args, None if mesh is None else mesh.group("batch"))
+        if mesh is not None:
+            self._distribute()
         self.device = module_device(model)
         half = any(getattr(args, f, False) for f in ("bf16", "fp16", "memory_efficient_fp16"))
         self.compute_dtype = torch.bfloat16 if half else torch.float32
         self.params = [p for p in model.parameters() if p.requires_grad]
+        names = {id(p): canonical_name(n) for n, p in model.named_parameters()}
+        self._param_names = [names[id(p)] for p in self.params]
         self.optimizer = build_optimizer(args, self.params)
         self.lr_scheduler = build_lr_scheduler(args)
         self.seed = getattr(args, "seed", 1)
@@ -131,6 +181,124 @@ class Trainer:
         self._copy_stream = None
         self.lr_scheduler.step_update(0)
         metrics.log_start_time("wall", priority=790, round=0)
+
+    # ------------------------------------------------------------------
+    # the mesh
+    # ------------------------------------------------------------------
+
+    def _distribute(self) -> None:
+        """Split the model over the mesh: tensor parallelism, then FSDP's
+        chunks, then the BatchNorm statistics' group."""
+        args, mesh = self.args, self.mesh
+        fsdp = bool(getattr(args, "fsdp", False)) and mesh.size("data") > 1
+        use_tp = mesh.size("model") > 1
+        if fsdp and self.bmuf is not None:
+            raise NotImplementedError("--fsdp with --use-bmuf: local SGD keeps whole replicas, FSDP splits them")
+        if (use_tp or fsdp) and getattr(args, "optimizer", "adam") in _NOT_ELEMENTWISE:
+            raise NotImplementedError(f"--optimizer {args.optimizer} with --fsdp or --model-parallel-size: its update "
+                                      "reads a whole leaf, and a rank holds a chunk")
+        # every rank starts from the first rank's weights: the ranks build the
+        # model from one seed, and this keeps one that drew otherwise in step
+        with torch.no_grad():
+            for t in list(self.model.parameters()) + list(self.model.buffers()):
+                for axis in ("batch", "model"):
+                    broadcast_(t.data, mesh.group(axis))
+        shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        split = apply_tensor_parallel(self.model, mesh, bool(getattr(args, "sequence_parallel", False)),
+                                      bool(getattr(args, "ring_attention", False)),
+                                      keep_logits_sharded=getattr(self.criterion, "takes_split_logits", False))
+        layout = param_sharding(shapes, mesh, use_tp, fsdp, getattr(args, "fsdp_min_shard_size", None),
+                                tp_names=split)
+        self.layout = {name: spec for name, spec in layout.items() if any(spec)}
+        if fsdp:
+            apply_fsdp(self.model, self.layout, mesh)
+        if self.bmuf is None:
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm):
+                    m.sync_group = mesh.group("batch")
+
+    @property
+    def is_first_rank(self) -> bool:
+        """Whether this rank writes the checkpoints and the logs."""
+        return self.mesh is None or self.mesh.is_first
+
+    def param_names(self) -> List[str]:
+        """The fork's names of the optimiser's parameters, in its order."""
+        return list(self._param_names)
+
+    def _local_sample(self, sample):
+        """This rank's rows of a collated global batch (every array of
+        ``net_input`` and the top level, on its leading dim)."""
+        if self.mesh is None or self.mesh.batch_size == 1 or not sample:
+            return sample
+        if is_nested(sample):
+            return {pair: self._local_sample(sub) for pair, sub in sample.items()}
+        if sample.get("_local"):
+            return sample
+        rows = next(v.shape[0] for v in sample["net_input"].values() if hasattr(v, "shape") and len(v.shape))
+        lo, hi = local_row_range(self.mesh, rows)
+
+        def rows_of(v):
+            return v[lo:hi] if hasattr(v, "shape") and len(v.shape) else v
+
+        local = {k: (v if k in ("ntokens", "nsentences", "_staged") else rows_of(v)) for k, v in sample.items()}
+        local["net_input"] = {k: rows_of(v) for k, v in sample["net_input"].items()}
+        local["_local"] = True
+        return local
+
+    def _sync_grads(self, grads: List[torch.Tensor]) -> None:
+        """Sum the gradients over the data-parallel ranks: one all-reduce
+        of the flat gradients per group (FSDP's chunks over ``dcn`` only)."""
+        buckets: Dict[int, tuple] = {}
+        for name, g in zip(self._param_names, grads):
+            group = self.mesh.group("dcn" if "data" in self.layout.get(name, ()) else "batch")
+            if group_size(group) > 1:
+                buckets.setdefault(id(group), (group, []))[1].append(g)
+        for group, gs in buckets.values():
+            flat = torch.cat([g.reshape(-1) for g in gs])
+            all_reduce_(flat, group)
+            for g, part in zip(gs, torch.split(flat, [g.numel() for g in gs])):
+                g.copy_(part.view_as(g))
+
+    def _grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients: a chunked leaf's squares are
+        summed over the groups it is split over."""
+        if not self.layout:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch._foreach_norm(grads)
+        by_axes: Dict[tuple, List[torch.Tensor]] = {}
+        for name, n in zip(self._param_names, norms):
+            axes = tuple(a for a in ("data", "model") if a in self.layout.get(name, ()))
+            by_axes.setdefault(axes, []).append(n.float())
+        total = torch.zeros((), dtype=torch.float32, device=norms[0].device)
+        for axes, ns in by_axes.items():
+            sq = torch.stack(ns).square().sum()
+            for axis in axes:
+                all_reduce_(sq, self.mesh.group(axis))
+            total = total + sq
+        return total.sqrt()
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        spec = self.layout.get(name, ())
+        for axis in ("data", "model"):
+            if axis in spec:
+                t = all_gather_tensor(t, spec.index(axis), self.mesh.group(axis))
+        return t
+
+    def _chunk(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        spec = self.layout.get(name, ())
+        for axis in ("model", "data"):
+            if axis in spec:
+                t = chunk_of(t, spec.index(axis), self.mesh.group(axis))
+        return t
+
+    def _named_tensors(self) -> Dict[str, torch.Tensor]:
+        return {canonical_name(k): v for k, v in self.model.state_dict(keep_vars=True).items()}
+
+    def full_model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict, whole tensors under the fork's names, on
+        the CPU (a collective under a split layout)."""
+        return {k: self._whole(k, v.detach()).cpu() for k, v in self._named_tensors().items()}
 
     # ------------------------------------------------------------------
     # batches
@@ -151,6 +319,7 @@ class Trainer:
             return sample
         if is_nested(sample):
             return {pair: self.stage_sample(sub) for pair, sub in sample.items()}
+        sample = self._local_sample(sample)
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
 
@@ -218,7 +387,7 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _seed_update(self) -> None:
-        seed = update_seed(self.seed, self._num_updates)
+        seed = update_seed(self.seed, self._num_updates, 0 if self.mesh is None else self.mesh.batch_rank)
         for g in {id(g): g for g in self.generators}.values():
             g.manual_seed(seed)
 
@@ -239,7 +408,7 @@ class Trainer:
             if crit_prepare is not None:
                 # the criterion's host-side batch work (ASG's replabel packing)
                 sample = crit_prepare(sample, self._num_updates)
-            b = self._device_batch(sample)
+            b = self._device_batch(self._local_sample(sample))
             if b is None:
                 continue
             for k, v in self._sample_meta(sample).items():
@@ -274,14 +443,28 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        denom = torch.clamp(torch.as_tensor(sample_size, device=self.device).float(), min=1.0)
+        sample_size = torch.as_tensor(sample_size, device=self.device)
+        if self.mesh is not None:
+            local_size = sample_size
+            sample_size, logs = self._reduce_logs(sample_size, logs)
+            if self.bmuf is None:
+                self._sync_grads(grads)
+            else:
+                sample_size = local_size  # local SGD: each rank's own rows
+        denom = torch.clamp(sample_size.float(), min=1.0)
         torch._foreach_div_(grads, denom)
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        gnorm = self._grad_norm(grads)
         if self.clip_norm > 0:
             torch._foreach_mul_(grads, torch.clamp(self.clip_norm / (gnorm + 1e-6), max=1.0))
         set_lr(self.optimizer, lr)
         self.optimizer.step()
         self.set_num_updates(self._num_updates + 1)
+        if self.bmuf is not None:
+            self.bmuf.after_update(self.params, self.optimizer, self._num_updates)
+            if self.mesh is not None:
+                # the ranks' root mean square, so that every rank logs and
+                # checks the same value
+                gnorm = all_reduce_(gnorm.square(), self.mesh.group("batch")).div(self.mesh.batch_size).sqrt()
 
         logs["gnorm"] = gnorm
         logs["lr"] = torch.full((), lr, dtype=torch.float32, device=self.device)
@@ -290,6 +473,14 @@ class Trainer:
         self._last_batch = batches[-1]
         metrics.log_stop_time("train_wall")
         return logs
+
+    def _reduce_logs(self, sample_size, logs):
+        """The sample size and the logging sums over the data-parallel
+        ranks, in one all-reduce (fp64: exact counts)."""
+        keys = sorted(logs)
+        flat = torch.stack([sample_size.double().reshape(())] + [logs[k].detach().double().reshape(()) for k in keys])
+        all_reduce_(flat, self.mesh.group("batch"))
+        return flat[0], dict(zip(keys, flat[1:]))
 
     def flush_logs(self) -> Optional[Dict[str, float]]:
         """Bring every pending update's logging outputs to the host in one
@@ -345,12 +536,14 @@ class Trainer:
         crit_prepare = getattr(self.criterion, "prepare_sample", None)
         if crit_prepare is not None:
             sample = crit_prepare(sample, self._num_updates, training=False)
-        batch = self._device_batch(sample)
+        batch = self._device_batch(self._local_sample(sample))
         if batch is None:
             return None
         gens = make_generators(self._valid_seed, self.device)
         with torch.no_grad():
             _, _, logging_output = self.criterion(self.model, batch, gens, training=False)
+        if self.mesh is not None:
+            _, logging_output = self._reduce_logs(torch.zeros((), device=self.device), logging_output)
         keys = sorted(logging_output)
         flat = torch.stack([logging_output[k].detach().to(torch.float64).reshape(()) for k in keys])
         logging_output = dict(zip(keys, flat.cpu().tolist()))
@@ -379,26 +572,70 @@ class Trainer:
     def state_for_checkpoint(self) -> Dict[str, Any]:
         """The training state on the host: the model's state dict (fork
         names, CPU tensors), the optimiser's and the scheduler's state
-        dicts and the update count."""
-        return {
-            "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-            "optimizer": _to_cpu(self.optimizer.state_dict()),
+        dicts, the update count, and BMUF's block state under
+        ``--use-bmuf``. Under a split layout every tensor is whole (all the
+        ranks take part)."""
+        optimizer = self.optimizer.state_dict()
+        if self.layout:
+            optimizer["state"] = {i: {key: self._whole(self._param_names[i], v.detach())
+                                      if self._of_param(i, v) else v for key, v in st.items()}
+                                  for i, st in optimizer["state"].items()}
+        state = {
+            "model": self.full_model_state(),
+            "optimizer": _to_cpu(optimizer),
             "lr_scheduler": self.lr_scheduler.state_dict(),
             "num_updates": self._num_updates,
         }
+        if self.bmuf is not None:
+            state["bmuf"] = {key: None if v is None else [self._whole(n, t).cpu() for n, t in zip(self._param_names, v)]
+                             for key, v in self.bmuf.state_dict().items()}
+        return state
+
+    def _of_param(self, i: int, v) -> bool:
+        return isinstance(v, torch.Tensor) and v.dim() > 0 and v.shape == self.params[i].shape
 
     def load_trainer_state(self, state: Dict[str, Any], reset_optimizer: bool = False,
                            reset_lr_scheduler: bool = False) -> None:
         """Restore ``state_for_checkpoint``'s fields: the model strictly
         (in place, so the optimiser keeps its parameters), the optimiser's
         state unless ``reset_optimizer`` or it is None, the scheduler's
-        unless ``reset_lr_scheduler``, and the update count."""
-        self.model.load_state_dict(state["model"], strict=True)
+        unless ``reset_lr_scheduler``, and the update count. Under a split
+        layout each rank takes its chunk of every whole tensor."""
+        if not self.layout:
+            self.model.load_state_dict(state["model"], strict=True)
+        else:
+            own = self._named_tensors()
+            if sorted(own) != sorted(state["model"]):
+                raise KeyError("the checkpoint's model state has other keys than this model's: "
+                               f"missing {sorted(set(own) - set(state['model']))[:8]}, "
+                               f"unexpected {sorted(set(state['model']) - set(own))[:8]}")
+            with torch.no_grad():
+                for k, t in own.items():
+                    t.copy_(self._chunk(k, state["model"][k].to(t.device)))
         if not reset_optimizer and state.get("optimizer") is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
+            optimizer = state["optimizer"]
+            if self.layout:
+                optimizer = dict(optimizer)
+                optimizer["state"] = {i: {key: self._chunk(self._param_names[i], v)
+                                          if isinstance(v, torch.Tensor) and v.dim() > 0 and
+                                          v.shape == self._whole_shape(i) else v for key, v in st.items()}
+                                      for i, st in optimizer["state"].items()}
+            self.optimizer.load_state_dict(optimizer)
         if not reset_lr_scheduler and state.get("lr_scheduler") is not None:
             self.lr_scheduler.load_state_dict(state["lr_scheduler"])
+        if self.bmuf is not None and state.get("bmuf") is not None:
+            self.bmuf.load_state_dict({key: None if v is None else [self._chunk(n, t).to(self.device)
+                                                                   for n, t in zip(self._param_names, v)]
+                                       for key, v in state["bmuf"].items()})
         self.set_num_updates(state.get("num_updates", 0))
+
+    def _whole_shape(self, i: int) -> tuple:
+        shape = list(self.params[i].shape)
+        spec = self.layout.get(self._param_names[i], ())
+        for axis in ("data", "model"):
+            if axis in spec:
+                shape[spec.index(axis)] *= self.mesh.size(axis)
+        return tuple(shape)
 
 
 def _to_cpu(tree):

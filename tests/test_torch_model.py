@@ -264,7 +264,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "generation/alignment_utils.py", "train/sharded_checkpoint.py", "cli/export_fairseq_checkpoint.py",
             "cli/import_fairseq_checkpoint.py", "scripts/asr_prep_json.py", "scripts/spm_tools.py",
             "models/vggtransformer.py", "models/w2l_conv_glu.py", "ops/asg.py", "criterions/asg.py",
-            "data/replabels.py", "generation/ctc_decoder.py", "generation/arpa_lm.py", "cli/infer.py"} <= covered
+            "data/replabels.py", "generation/ctc_decoder.py", "generation/arpa_lm.py", "cli/infer.py",
+            "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py", "parallel/tensor_parallel.py",
+            "parallel/fsdp.py", "parallel/vocab_parallel.py", "ops/ring_attention.py", "optim/bmuf.py",
+            "optim/local_sgd.py", "criterions/vocab_parallel_cross_entropy.py"} <= covered
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "flax", "optax", "fbk_fairseq_st_tpu"}, (path, roots)

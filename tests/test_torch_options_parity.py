@@ -110,8 +110,8 @@ def test_port_parser_takes_or_refuses_every_jax_flag(arch):
     """For every option string of JAX's training parser: the port's parser
     accepts it and sets each dest that JAX's sets to the same value, or
     raises NotImplementedError naming a ROADMAP Queue A item. The refused
-    flags are the multi-host, BMUF, pruning, quant-noise, adaptive-softmax,
-    JSON-audio and user-module ones."""
+    flags are the quant-noise, adaptive-softmax and steps-per-execution
+    ones; the multi-GPU ones are taken."""
     jparser = _jax_parser(arch)
     refused, accepted = [], []
     for flag, action in sorted(jparser._option_string_actions.items()):
@@ -132,7 +132,12 @@ def test_port_parser_takes_or_refuses_every_jax_flag(arch):
             want, got = getattr(jargs, dest), getattr(targs, dest)
             assert got == want or (isinstance(want, float) and np.isclose(got, want)), (flag, dest, got, want)
     assert len(accepted) > 100
-    assert {"--use-bmuf", "--block-lr", "--distributed-coordinator"} <= set(refused)
+    # the multi-GPU flags (ROADMAP Queue A item 6), ported
+    assert not {"--use-bmuf", "--block-lr", "--distributed-coordinator", "--distributed-world-size", "--fsdp",
+                "--sequence-parallel", "--ring-attention", "--distributed-num-processes"} & set(refused)
+    assert {"--use-bmuf", "--block-lr", "--distributed-coordinator", "--distributed-world-size", "--fsdp",
+            "--sequence-parallel", "--ring-attention", "--distributed-num-processes"} <= set(accepted)
+    assert "--steps-per-execution" in refused
     assert ("--quant-noise-pq" in refused) == (arch not in ASR_ARCHS)  # a transformer-family flag
     # the flags of ROADMAP Queue A item 3, ported
     assert {"--user-dir", "--allow-partial-restore", "--checkpoint-format", "--async-checkpoint"} <= set(accepted)

@@ -401,10 +401,12 @@ def test_off_path_training_options_raise():
         task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "adaptive_loss"}))
     model = tct.build_model("conv_transformer", torch_dictionary(), device="cpu", **SMALL)
     crit = task.build_criterion(args)
-    for option in (dict(fsdp=True), dict(steps_per_execution=4), dict(use_bmuf=True),
-                   dict(quant_noise_scalar=0.1)):
+    for option in (dict(steps_per_execution=4), dict(quant_noise_scalar=0.1)):
         with pytest.raises(NotImplementedError):
             Trainer(argparse.Namespace(**{**vars(args), **option}), task, model, crit)
+    # the mesh's options need a process group
+    with pytest.raises(ValueError, match="--distributed-world-size"):
+        Trainer(argparse.Namespace(**{**vars(args), "model_parallel_size": 2}), task, model, crit)
     # every optimiser and scheduler of the JAX package is ported
     Trainer(argparse.Namespace(**{**vars(args), "optimizer": "sgd", "momentum": 0.0, "lr_scheduler": "fixed",
                                   "force_anneal": None, "lr_shrink": 0.1}), task, model, crit)

@@ -262,7 +262,6 @@ def test_train_needs_the_card_without_cpu(corpus, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--distributed-world-size", "2"], ["--fsdp"], ["--sequence-parallel"], ["--ring-attention"], ["--use-bmuf"],
     ["--steps-per-execution", "2"], ["--quantization-config-path", "q.yaml"],
 ], ids=lambda e: e[0].lstrip("-"))
 def test_unported_training_options_raise(corpus, extra):

@@ -417,7 +417,29 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      plain run's; with two cards or more, world size 2 (1e-2 relative),
      TP 2 with sequence parallelism and ring attention at TP 2; the NCCL
      version, the peak GB a rank and the phase's seconds;
- 34. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+ 34. the text transformer family from files (``text_transformer_from_files``),
+     on corpora binarized by ``cli/preprocess``: (a)
+     ``transformer_vaswani_wmt_en_de_big`` at full width with
+     ``--share-all-embeddings`` over a joined 32,768-symbol dictionary,
+     trained by ``cli/train`` (bf16, 3 updates of ``--max-tokens 3584``:
+     18 tensor-core forwards, dq and dkv an update), decoded by
+     ``cli/generate`` (fp32, beam 5, 32 sentences a batch: 6 tf32x3
+     forwards a batch) with its H- lines the in-memory generator's, scored
+     with ``--score-reference`` (18 a batch), then
+     ``transformer_wmt_en_de_big_align`` with ``--load-alignments`` (2
+     updates, 27 an update); (b) ``transformer_lm_wiki103`` at full width
+     (D 128, adaptive input and softmax tied over 267,744 symbols) trained
+     on 3072-token blocks (bf16, 3 updates: 16 D 128 tensor-core forwards,
+     dq and dkv an update; the tied tables one storage after them), then
+     ``cli/eval_lm --context-window 2560`` (fp32, 16 D 128 tf32x3 forwards
+     a window) within 1e-4 of the in-memory scorer and, on a 512-token
+     window, within 1e-3 of ``--cpu``; (c) ``transformer_lm_gbw
+     --character-embeddings`` (D 32) scored by one ``cli/eval_lm`` batch (12
+     tf32x3 forwards), card against ``--cpu`` within 1e-3; each leg's
+     update or batch seconds, device busy and idle share, peak GB; the
+     wiki103 call (bh 8, T = S = 3072, D 128, causal) timed in both types as
+     phase 4 times a call;
+ 35. the ``kernels`` line (the D 128 tensor-core kernels timed at the
      iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
@@ -518,6 +540,7 @@ PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PEAK_BF16 = 989e12
 
 ATOL_KERNEL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+PLAIN_ITERS = 5  # calls a mean of the plain attention's timings (milliseconds a call at S 2048)
 ATOL_GRAD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 RTOL_GRAD_BF16 = 1e-2  # flash dq / dk / dv in bf16: of max|plain|, tensor by tensor
 ATOL_LSE = 1e-4
@@ -536,7 +559,10 @@ RTOL_STEP_GRAD = {"other_forward": 5e-3, "same_forward": 1e-5}
 N_MELS = 80
 VOCAB = 8000
 BEAM = 5
-MAX_LEN_B = 100
+# the decode loops' length: random weights run every hypothesis to it, and
+# each step is a host loop on the card and on the CPU, so it sets much of the
+# script's time (its 1,200 s limit holds on a slower host too)
+MAX_LEN_B = 30
 FRAME_SECONDS = 0.01  # 10 ms fbank hop
 FLASH_LAUNCHES_PER_REQUEST = 8  # 2 ConvAttention2D blocks + 6 encoder layers
 
@@ -993,7 +1019,7 @@ def check_serving_kernels(fa):
                 calls["cuda_core"] = lambda: fa.forward_cuda_core(qp, kp, vp, bias, scale, causal, 0.0, 0)
             out_p, lse_p = fa.flash_attention_reference(q, k, v, bias, scale, causal)
             library_ms, library_backend = time_library(q, k, v, bias, scale, causal)
-            plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal))
+            plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal), iters=PLAIN_ITERS)
             for r, call in calls.items():
                 out_k, lse_k = call()
                 torch.cuda.synchronize()
@@ -1173,9 +1199,10 @@ def check_training_kernels(fa, philox):
                   and all(c[3] for c in checks.values()))
 
             library_ms, library_backend = time_library(q, k, v, bias, scale, causal)
-            plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal, rate, seed))
+            plain_fwd_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, scale, causal, rate, seed),
+                                   iters=PLAIN_ITERS)
             plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
-                q, k, v, bias, out_k, lse_k, g, scale, causal, rate, seed))
+                q, k, v, bias, out_k, lse_k, g, scale, causal, rate, seed), iters=PLAIN_ITERS)
             library_bwd_ms, library_bwd_backend = time_library(q, k, v, bias, scale, causal, grad=g)
             base = {"phase": "train_kernel_check", "shape": name, "bh": bh, "T": t, "S": s, "D": d,
                     "causal": causal, "rate": rate, "keys_padded_on_the_left": left,
@@ -3054,16 +3081,17 @@ def write_text(modules, d, data_dir, split, lang, n, lens, rng):
     text.finalize(os.path.join(data_dir, f"{split}.{lang}.idx"))
 
 
-def cli_train_launches(counts, calls=None, backward_calls=None):
+def cli_train_launches(counts, calls=None, backward_calls=None, route=BF16_BACKWARD, forward=BF16_FORWARD):
     """The launches of one ``cli/train`` update of a conv_transformer-family
     model in bf16 (phase 7's 20 + 20 + 20 tensor-core kernels, or ``calls``
-    forwards and ``backward_calls`` pairs, ``calls`` when None) and of one
-    of its validation batches (``calls`` forwards), as ``counts``' keys."""
+    forwards and ``backward_calls`` pairs, ``calls`` when None; at head dim
+    128 ``route`` / ``forward`` name the D 128 kernels) and of one of its
+    validation batches (``calls`` forwards), as ``counts``' keys."""
     calls = CT_FLASH_CALLS_PER_STEP if calls is None else calls
-    update = step_launches(counts, 1, calls)
+    update = step_launches(counts, 1, calls, route, forward)
     if backward_calls is not None:
-        update.update({k: backward_calls for k in BACKWARD_KERNELS[BF16_BACKWARD]})
-    return update, {k: (calls if k == BF16_FORWARD else 0) for k in counts}
+        update.update({k: backward_calls for k in BACKWARD_KERNELS[route]})
+    return update, {k: (calls if k == forward else 0) for k in counts}
 
 
 class _TrainRecorder:
@@ -3363,16 +3391,19 @@ def two_utterances(task, split, batch):
     return ds.collater([ds[int(i)] for i in batch["id"][:2]])
 
 
-def train_cli_run(modules, fa, dconv, single, argv, calls=None, backward_calls=None):
+def train_cli_run(modules, fa, dconv, single, argv, calls=None, backward_calls=None, route=BF16_BACKWARD,
+                  forward=BF16_FORWARD):
     """``cli/train``'s ``cli_main`` on ``argv`` under a ``_TrainRecorder``;
     the launches of each update and validation batch, held to phase 7's 20
     + 20 + 20 tensor-core kernels an update and 20 forwards a validation
-    batch (or ``calls`` forwards and ``backward_calls`` pairs); the losses
-    it logged finite. Returns the recorder and the trainer."""
+    batch (or ``calls`` forwards and ``backward_calls`` pairs, by ``route``
+    and ``forward``); the losses it logged finite. Returns the recorder and
+    the trainer."""
     with _TrainRecorder(modules, fa, dconv, single) as rec:
         trainer, _ = modules["train_cli"].cli_main(argv)
         torch.cuda.synchronize()
-    want_update, want_valid = cli_train_launches(launch_counts(fa, dconv, single), calls, backward_calls)
+    want_update, want_valid = cli_train_launches(launch_counts(fa, dconv, single), calls, backward_calls, route,
+                                                 forward)
     bad = [u for u in rec.updates if u != want_update] + [v for v in rec.valid_batches if v != want_valid]
     if bad or not rec.updates or not rec.valid_batches:
         raise AssertionError(f"cli/train {argv[1:6]}: launches {bad[:2]} off {want_update} an update / {want_valid} "
@@ -5602,6 +5633,489 @@ def multi_gpu(card, d, fa, dconv, single, modules, tmp):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 34. the text transformer family from files
+# ---------------------------------------------------------------------------
+
+TEXT_VOCAB = 32768  # the WMT big model's joined dictionary (a 32 k joined BPE)
+TEXT_LEN = (10, 60)  # tokens a sentence
+TEXT_SPLITS = {"train": 400, "valid": 64, "test": 64}  # sentence pairs
+ZIPF_A = 1.1  # the corpora's token ids: a Zipf law over the dictionary
+TT_ARCH = "transformer_vaswani_wmt_en_de_big"
+TT_ALIGN_ARCH = "transformer_wmt_en_de_big_align"
+TT_UPDATES, TT_ALIGN_UPDATES = 3, 2
+TT_CALLS = 18  # a step: 6 encoder self-attention, 6 causal decoder self-attention, 6 cross-attention
+TT_ALIGN_LAYER = 4  # the align presets' --alignment-layer
+# + the alignment pass over decoder layers 0-4: 5 self-attentions, 4
+# cross-attentions (the 5th returns its weights: the dense route)
+TT_ALIGN_CALLS = TT_CALLS + 2 * (TT_ALIGN_LAYER + 1) - 1
+TT_SERVE_BATCH = 32  # sentences a cli/generate batch
+TT_GEN_LAUNCHES = 6  # a batch: the encoder's (the cached decoder steps take the dense route)
+TT_SCORE_LAUNCHES = TT_CALLS  # --score-reference: one teacher-forced fp32 forward a batch
+TT_MAX_LEN_B = 30
+TT_ARGS = ["--task", "translation", "-s", "en", "-t", "de", "--share-all-embeddings",
+           "--label-smoothing", "0.1", "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--lr", "0.0005",
+           "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4000", "--clip-norm", "0", "--max-tokens", "3584",
+           "--bf16", "--log-format", "json", "--log-interval", "1", "--no-epoch-checkpoints",
+           "--no-save-optimizer-state"]
+LM_VOCAB = 267744  # wiki103's dictionary
+LM_ARCH, GBW_ARCH = "transformer_lm_wiki103", "transformer_lm_gbw"
+LM_TPS, LM_CONTEXT = 3072, 2560
+GBW_TPS = LM_TPS - LM_CONTEXT  # the test split: one window of 512 tokens
+LM_TOKENS = {"train": 32 * LM_TPS, "valid": 2048, "test": GBW_TPS}  # 32 blocks; 4 windows; one window
+LM_UPDATES = 3
+LM_CALLS = 16  # the 16 layers' causal self-attention at D 128
+GBW_CALLS = 12  # the 12 layers' at D 32
+LM_ARGS = ["--task", "language_modeling", "--criterion", "adaptive_loss", "--tokens-per-sample", str(LM_TPS),
+           "--max-tokens", str(LM_TPS), "--sample-break-mode", "none", "--optimizer", "adam", "--adam-betas",
+           "(0.9, 0.98)", "--lr", "0.0005", "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4000",
+           "--clip-norm", "0", "--bf16", "--log-format", "json", "--log-interval", "1", "--no-epoch-checkpoints",
+           "--no-save-optimizer-state"]
+# model flags appended to each leg's runs (empty on the card: full width)
+TT_SMALL_ARGS, LM_SMALL_ARGS, GBW_SMALL_ARGS = [], [], []
+LM_SCORER_ATOL = 1e-4  # eval_lm's loss (base 2) against the in-memory SequenceScorer on the card
+LM_CPU_ATOL = 1e-3  # the card's eval_lm against --cpu
+WIKI103_CALL = (8, 3072, 3072, 128)  # bh, T = S, D: the wiki103 step's causal self-attention
+# its fp32 dq, dk, dv: each a sum of up to 3072 products in 3xTF32 (about
+# 2^-21 of |a||b| each), against max|plain| ~ 4: of max|plain|, as bf16's
+RTOL_GRAD_FP32_LONG = 1e-4
+
+
+def zipf_ids(rng, n, vocab):
+    """n token ids in [4, vocab) by a Zipf law (rank 1 the most frequent)."""
+    return 4 + (rng.zipf(ZIPF_A, size=n) - 1) % (vocab - 4)
+
+
+def write_dictionary_file(path, vocab):
+    """A dictionary file of vocab - 4 words (the 4 specials come first on
+    load), counts falling with the rank."""
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(4, vocab):
+            f.write(f"w{i} {vocab - i}\n")
+
+
+def write_lines(path, rng, n, lens, vocab):
+    """n lines of ``lens`` Zipf words; returns their lengths."""
+    sizes = rng.randint(lens[0], lens[1] + 1, size=n)
+    with open(path, "w", encoding="utf-8") as f:
+        for size in sizes:
+            f.write(" ".join(f"w{i}" for i in zipf_ids(rng, int(size), vocab)) + "\n")
+    return sizes
+
+
+def write_text_corpora(modules, work, rng):
+    """The two corpora, written as raw text and binarized by the port's
+    ``cli/preprocess``: (a) TEXT_SPLITS sentence pairs over a joined
+    TEXT_VOCAB dictionary with Pharaoh alignments (each target word linked
+    to one source word) -> ``<work>/mt``; (b) a monolingual stream of
+    LM_TOKENS tokens over an LM_VOCAB dictionary -> ``<work>/lm``."""
+    raw = os.path.join(work, "raw")
+    os.makedirs(raw)
+    mt_dict, lm_dict = os.path.join(raw, "dict.mt.txt"), os.path.join(raw, "dict.lm.txt")
+    write_dictionary_file(mt_dict, TEXT_VOCAB)
+    write_dictionary_file(lm_dict, LM_VOCAB)
+    for split, n in TEXT_SPLITS.items():
+        src = write_lines(os.path.join(raw, f"{split}.en"), rng, n, (TEXT_LEN[0] - 1, TEXT_LEN[1] - 1), TEXT_VOCAB)
+        tgt = write_lines(os.path.join(raw, f"{split}.de"), rng, n, (TEXT_LEN[0] - 1, TEXT_LEN[1] - 1), TEXT_VOCAB)
+        with open(os.path.join(raw, f"{split}.align"), "w") as f:
+            for ls, lt in zip(src, tgt):
+                f.write(" ".join(f"{rng.randint(ls)}-{j}" for j in range(lt)) + "\n")
+    for split, tokens in LM_TOKENS.items():
+        with open(os.path.join(raw, f"lm.{split}"), "w", encoding="utf-8") as f:
+            left = tokens
+            while left > 0:  # lines of TEXT_LEN tokens, each ending in eos once binarized
+                size = min(left, rng.randint(*TEXT_LEN))
+                f.write(" ".join(f"w{i}" for i in zipf_ids(rng, size - 1, LM_VOCAB)) + "\n")
+                left -= size
+    pre = modules["preprocess_cli"].cli_main
+    mt, lm = os.path.join(work, "mt"), os.path.join(work, "lm")
+    pre(["-s", "en", "-t", "de", "--trainpref", os.path.join(raw, "train"), "--validpref", os.path.join(raw, "valid"),
+         "--testpref", os.path.join(raw, "test"), "--destdir", mt, "--srcdict", mt_dict, "--tgtdict", mt_dict,
+         "--align-suffix", "align"])
+    pre(["--only-source", "--trainpref", os.path.join(raw, "lm.train"), "--validpref", os.path.join(raw, "lm.valid"),
+         "--testpref", os.path.join(raw, "lm.test"), "--destdir", lm, "--srcdict", lm_dict])
+    return mt, lm
+
+
+def first_train_batch(modules, trainer):
+    task = trainer.task
+    return next(iter(modules["checkpoint"].get_train_iterator(trainer.args, trainer, task, epoch=0)
+                     .next_epoch_itr(shuffle=True)))
+
+
+def profiled(fn):
+    """One profiled run of ``fn``: wall seconds, device busy ms, idle share."""
+    wall_s, busy_s, top, classes = profile_window(fn)
+    return {"wall_s": wall_s, "device_busy_ms": busy_s * 1e3, "device_idle_share": 1.0 - busy_s / wall_s,
+            "busy_by_class_s": classes, "top_kernels_s": top[:5]}
+
+
+def eval_lm_run(modules, counters, argv):
+    """``cli/eval_lm``'s ``cli_main``: (loss in base 2, tokens, its standard
+    output, the launches of each scored batch)."""
+    import contextlib
+    import io
+
+    fa, dconv, single = counters
+    reset_counts(fa, dconv, single)
+    per_batch, restore = counted_calls(modules["SequenceScorer"], "generate", counters)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            loss, tokens = modules["eval_lm_cli"].cli_main(argv)
+    finally:
+        restore()
+    return loss, tokens, out.getvalue(), per_batch
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def only(counts, name, n):
+    """``counts`` with ``n`` launches of ``name`` and none of any other kernel."""
+    return {k: (n if k == name else 0) for k in counts}
+
+
+def time_wiki103_call(fa):
+    """The wiki103 step's causal self-attention (WIKI103_CALL) as phase 4
+    times a call: each type's forward and split pair against their plain
+    versions (bf16 at the step's rate 0.1, fp32 at rate 0 as eval_lm calls
+    it), the wrapper's time, the median device launch, the bound and SDPA's
+    fused-backend device time, forward and backward."""
+    bh, t, s, d = WIKI103_CALL
+    rows = []
+    for dtype, rate in ((torch.bfloat16, 0.1), (torch.float32, 0.0)):
+        gen = torch.Generator(device="cuda").manual_seed(34)
+        q, k, v, bias = random_attention_inputs(gen, bh, t, s, d, dtype, padded=False)
+        g = torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
+        scale, seed = d ** -0.5, 34
+        route, pair_route = fa.fwd_route(dtype, d), fa.split_route(dtype, d)
+
+        def fwd():
+            return fa.flash_attention(q, k, v, bias, scale, causal=True, return_lse=True, dropout_rate=rate,
+                                      dropout_seed=seed)
+
+        out, lse = fwd()
+        out_p, lse_p = fa.flash_attention_reference(q, k, v, bias, scale, True, rate, seed)
+        fwd_err = (out.float() - out_p.float()).abs().max().item()
+        lse_err = (lse - lse_p).abs().max().item()
+
+        def pair():
+            return fa.backward_pair(pair_route, q, k, v, bias, out, lse, g, scale, True, rate, seed)
+
+        err, ratio, tops, grads_ok = grad_errors(pair(), fa.flash_attention_backward_reference(
+            q, k, v, bias, out, lse, g, scale, True, rate, seed), dtype)
+        if dtype == torch.float32:
+            grads_ok = ratio <= RTOL_GRAD_FP32_LONG
+        del out_p, lse_p
+        torch.cuda.empty_cache()
+        lib_fwd = library_device_ms(q, k, v, bias, scale, True)
+        lib_bwd = library_device_ms(q, k, v, bias, scale, True, grad=g)
+        base = {"phase": "wiki103_call", "bh": bh, "T": t, "S": s, "D": d, "causal": True, "rate": rate,
+                "dtype": str(dtype).replace("torch.", ""), "card": CARD[0]}
+        fwd_bound = attention_bound_ms(bh, t, s, d, True, dtype)
+        suffix = "_tc128" if dtype == torch.bfloat16 else "_tf32x3_128"
+        row = {**base, "kernel": "flash_attention_fwd" + suffix, "kernel_ms": time_ms(fwd),
+               "kernel_device_ms": device_ms(fwd, FWD_KERNEL_NAMES[route]), "bound_ms": fwd_bound[0],
+               "bound_by": fwd_bound[1], "library_device_ms": lib_fwd[0], "library_device_backend": lib_fwd[1],
+               "max_abs_err": fwd_err, "lse_max_abs_err": lse_err, "atol": ATOL_KERNEL[dtype]}
+        emit(row)
+        rows.append(row)
+        pair_ms = time_ms(pair)
+        for kind, match in zip(("dq", "dkv"), BWD_KERNEL_NAMES[pair_route]):
+            bound = backward_bound_ms(kind, bh, t, s, d, True, dtype)
+            row = {**base, "kernel": f"flash_attention_bwd_{kind}{suffix}", "pair_ms": pair_ms,
+                   "kernel_device_ms": device_ms(pair, match), "bound_ms": bound[0], "bound_by": bound[1],
+                   "library_device_ms": lib_bwd[0], "library_device_backend": lib_bwd[1],
+                   "library_device": "sdpa backward alone, rate 0", "max_abs_err": err,
+                   "max_err_over_max_plain": ratio}
+            emit(row)
+            rows.append(row)
+        if not (fwd_err <= ATOL_KERNEL[dtype] and lse_err <= ATOL_LSE and grads_ok):
+            raise AssertionError(f"the wiki103 call in {dtype}: forward {fwd_err} / lse {lse_err}, "
+                                 f"gradients {err} ({ratio} of max|plain|)")
+        del q, k, v, bias, g, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def text_transformer_from_files(card, d, fa, dconv, single, modules, tmp):
+    """Main path 34, the text transformer family trained and served from
+    files on the card, on corpora binarized by the port's ``cli/preprocess``
+    (``write_text_corpora``).
+
+    (a) ``transformer_vaswani_wmt_en_de_big`` at full width (1024/4096, 16
+    heads, 6 + 6 post-norm layers, ``--share-all-embeddings`` over a joined
+    32,768-symbol dictionary) trained through ``cli/train`` in bf16 for
+    TT_UPDATES updates, each exactly TT_CALLS ``flash_fwd_tc`` +
+    ``flash_bwd_dq_tc`` + ``flash_bwd_dkv_tc`` launches (D 64); decoded by
+    ``cli/generate`` in fp32 (beam 5, TT_SERVE_BATCH sentences a batch, each
+    batch TT_GEN_LAUNCHES ``flash_fwd_tf32x3``), its H- lines equal to the
+    in-memory generator's; ``--score-reference`` (TT_SCORE_LAUNCHES a
+    batch); then ``transformer_wmt_en_de_big_align`` with
+    ``--load-alignments`` for TT_ALIGN_UPDATES updates (TT_ALIGN_CALLS of
+    each kernel an update: the alignment pass's cross-attention that returns
+    its weights takes the dense route).
+
+    (b) ``transformer_lm_wiki103`` at full width (16 layers, 1024/4096, 8
+    heads: D 128; adaptive input and softmax tied, cutoffs 20000,60000 over
+    a 267,744-symbol dictionary) trained through ``cli/train`` with
+    ``adaptive_loss`` on 3072-token blocks in bf16 for LM_UPDATES updates,
+    each exactly LM_CALLS ``flash_fwd_tc128`` + ``flash_bwd_dq_tc128`` +
+    ``flash_bwd_dkv_tc128``; the tied input and output tables stay one
+    storage; ``cli/eval_lm --context-window 2560`` in fp32 (LM_CALLS
+    ``flash_fwd_tf32x3_128`` a window), its loss within LM_SCORER_ATOL of
+    the in-memory ``SequenceScorer`` and, on one 512-token window, within
+    LM_CPU_ATOL of ``--cpu``.
+
+    (c) ``transformer_lm_gbw --character-embeddings`` at full width
+    (512/4096, 16 heads: D 32; 12 layers) with seeded weights, one
+    ``cli/eval_lm`` batch on (b)'s test window: GBW_CALLS
+    ``flash_fwd_tf32x3``, card against ``--cpu`` within LM_CPU_ATOL. Its
+    dictionary is (b)'s 267,744 symbols, not gbw's 793,471.
+
+    Each leg reports its update or batch seconds, device busy ms and idle
+    share from one profiled update or batch, and its peak GB; the wiki103
+    call is timed as phase 4 times a call (``time_wiki103_call``)."""
+    import logging
+
+    phase_t0 = time.perf_counter()
+    counters = (fa, dconv, single)
+    train_cli, options, registry, ckpt = (modules["train_cli"], modules["options"], modules["registry"],
+                                          modules["checkpoint"])
+    work = os.path.join(tmp, "text")
+    os.makedirs(work)
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(work, "text.log"))
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        mt_dir, lm_dir = write_text_corpora(modules, work, np.random.RandomState(34))
+        corpus_s = time.perf_counter() - t0
+        mt_dict = modules["Dictionary"].load(os.path.join(mt_dir, "dict.en.txt"))
+        lm_dict = modules["Dictionary"].load(os.path.join(lm_dir, "dict.txt"))
+        if (len(mt_dict), len(lm_dict)) != (TEXT_VOCAB, LM_VOCAB):
+            raise AssertionError(f"dictionaries of {len(mt_dict)} and {len(lm_dict)} symbols")
+        report = {"phase": "text_transformer_from_files", "corpus_s": corpus_s, "card": card}
+        total = {}  # the main path's launches: the CLI runs, not the in-memory checks beside them
+        leg_t0 = [time.perf_counter()]
+
+        def leg(name, fields):
+            """One leg's line, printed when it is done (its launch dicts
+            without the kernels it never launched)."""
+            fields = {k: ({kk: vv for kk, vv in v.items() if vv} if k.startswith("launches") else v)
+                      for k, v in fields.items()}
+            report[name] = {**fields, "seconds": time.perf_counter() - leg_t0[0]}
+            emit({"phase": f"text_transformer_from_files.{name}", **report[name], "card": card})
+            leg_t0[0] = time.perf_counter()
+
+        # (a) the WMT big model: train, decode, score, align
+        save = os.path.join(work, "wmt")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, dconv, single)
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            mt_dir, *TT_ARGS, "--arch", TT_ARCH, "--criterion", "label_smoothed_cross_entropy", "--max-update",
+            str(TT_UPDATES), "--save-dir", save, *TT_SMALL_ARGS], calls=TT_CALLS)
+        add_counts(total, launch_counts(fa, dconv, single))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if len(rec.updates) != TT_UPDATES:
+            raise AssertionError(f"{TT_ARCH}: {len(rec.updates)} updates")
+        step_s, wall_s, busy_s, _, classes = in_memory_update(trainer, first_train_batch(modules, trainer))
+        leg("wmt_train", {"updates": len(rec.updates), "valid_batches": len(rec.valid_batches),
+                               "launches_an_update": rec.updates[0], "losses": rec.losses("train"),
+                               "update_s_median": step_s, "profiled_update_s": wall_s,
+                               "device_busy_ms": busy_s * 1e3, "device_idle_share": 1.0 - busy_s / wall_s,
+                               "busy_by_class_s": classes, "peak_gb": peak})
+        del trainer
+        torch.cuda.empty_cache()
+        last = os.path.join(save, "checkpoint_last.pt")
+        results = os.path.join(work, "results")
+        gen_argv = [mt_dir, "--task", "translation", "-s", "en", "-t", "de", "--path", last, "--beam", str(BEAM),
+                    "--max-sentences", str(TT_SERVE_BATCH), "--max-len-b", str(TT_MAX_LEN_B), "--gen-subset",
+                    "test", "--results-path", results]
+        torch.cuda.reset_peak_memory_stats()
+        gen_launches, per_batch, gen_wall = generate_counted(modules, counters, gen_argv)
+        add_counts(total, gen_launches)
+        gen_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        hyps, _ = read_records(os.path.join(results, "generate-test.txt"))
+        args = options.parse_args_and_arch(options.get_generation_parser(), gen_argv)
+        task = registry.TASKS["translation"].setup_task(args)
+        task.load_dataset("test")
+        batches = list(task.get_batch_iterator(
+            task.dataset("test"), max_tokens=args.max_tokens, max_sentences=args.max_sentences,
+            max_positions=task.max_positions(),
+            required_batch_size_multiple=args.required_batch_size_multiple).next_epoch_itr(shuffle=False))
+        models, _ = ckpt.load_model_ensemble([last], task=task)
+        tgt = task.target_dictionary
+        generator = modules["SequenceGenerator"](tgt, beam_size=BEAM, max_len_b=TT_MAX_LEN_B)
+        same, worst, n = 0, 0.0, 0
+        with torch.no_grad():
+            for sample in batches:
+                for sid, sent in zip(sample["id"], generator.generate(models, sample)):
+                    score, text = hyps[int(sid)]
+                    same += text == tgt.string(sent[0]["tokens"])
+                    worst = max(worst, abs(score - sent[0]["score"] / math.log(2)))
+                    n += 1
+            gen_profile = profiled(lambda: generator.generate(models, batches[0]))
+        del models
+        torch.cuda.empty_cache()
+        want_gen = only(gen_launches, FP32_FORWARD, TT_GEN_LAUNCHES)
+        leg("wmt_generate", {"batches": len(per_batch), "launches_a_batch": per_batch[0], "wall_s": gen_wall,
+                                  "identical_hypotheses": f"{same}/{n}", "max_abs_score_diff_base2": worst,
+                                  "profiled_batch": gen_profile, "peak_gb": gen_peak})
+        if any(b != want_gen for b in per_batch) or not per_batch:
+            raise AssertionError(f"cli/generate launches {per_batch} a batch, expected {want_gen}")
+        if not (n == len(hyps) == TEXT_SPLITS["test"] and same == n and worst <= FILES_SCORE_ATOL):
+            raise AssertionError(f"cli/generate's H- lines against the in-memory generator: {same}/{n} identical, "
+                                 f"scores {worst} apart")
+        score_launches, score_batches, _ = generate_counted(modules, counters, gen_argv + ["--score-reference"])
+        add_counts(total, score_launches)
+        want_score = only(score_launches, FP32_FORWARD, TT_SCORE_LAUNCHES)
+        leg("wmt_score_reference", {"batches": len(score_batches), "launches_a_batch": score_batches[0]})
+        if any(b != want_score for b in score_batches) or not score_batches:
+            raise AssertionError(f"--score-reference launches {score_batches}, expected {want_score} a batch")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, dconv, single)
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            mt_dir, *TT_ARGS, "--arch", TT_ALIGN_ARCH, "--load-alignments", "--criterion",
+            "label_smoothed_cross_entropy_with_alignment", "--max-update", str(TT_ALIGN_UPDATES), "--no-save",
+            *TT_SMALL_ARGS], calls=TT_ALIGN_CALLS)
+        add_counts(total, launch_counts(fa, dconv, single))
+        align_losses = [v for t, key, v in rec.logged if t == "train" and key == "loss"]
+        leg("wmt_align_train", {"updates": len(rec.updates), "launches_an_update": rec.updates[0],
+                                     "losses": align_losses, "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        if len(rec.updates) != TT_ALIGN_UPDATES:
+            raise AssertionError(f"{TT_ALIGN_ARCH}: {len(rec.updates)} updates")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (b) the wiki103 language model: train, then eval_lm with context
+        save = os.path.join(work, "wiki103")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, dconv, single)
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            lm_dir, *LM_ARGS, "--arch", LM_ARCH, "--max-update", str(LM_UPDATES), "--save-dir", save,
+            *LM_SMALL_ARGS], calls=LM_CALLS, route=D128_BACKWARD, forward=D128_FORWARD)
+        add_counts(total, launch_counts(fa, dconv, single))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dec = trainer.model.decoder
+        tied = [(dec.adaptive_softmax.head.word_proj.weight, dec.embed_tokens.embeddings[0][0].weight)] + [
+            (dec.adaptive_softmax.tail[i][2].weight, dec.embed_tokens.embeddings[i + 1][0].weight)
+            for i in range(len(dec.adaptive_softmax.tail))] + [
+            (dec.adaptive_softmax.tail[i][0].weight, dec.embed_tokens.embeddings[i + 1][1].weight)
+            for i in range(len(dec.adaptive_softmax.tail))]
+        one_storage = all(a is b and a.data_ptr() == b.data_ptr() for a, b in tied)
+        losses = rec.losses("train")
+        step_s, wall_s, busy_s, _, classes = in_memory_update(trainer, first_train_batch(modules, trainer))
+        leg("wiki103_train", {"updates": len(rec.updates), "valid_batches": len(rec.valid_batches),
+                                   "launches_an_update": rec.updates[0], "losses": losses,
+                                   "tied_tables_one_storage": one_storage, "update_s_median": step_s,
+                                   "profiled_update_s": wall_s, "device_busy_ms": busy_s * 1e3,
+                                   "device_idle_share": 1.0 - busy_s / wall_s, "busy_by_class_s": classes,
+                                   "peak_gb": peak})
+        if not (len(rec.updates) == LM_UPDATES and one_storage and np.isfinite(losses).all()):
+            raise AssertionError(f"{LM_ARCH}: {len(rec.updates)} updates, losses {losses}, tied tables one "
+                                 f"storage: {one_storage}")
+        del trainer, dec, tied
+        torch.cuda.empty_cache()
+        last = os.path.join(save, "checkpoint_last.pt")
+        eval_argv = [lm_dir, "--path", last, "--tokens-per-sample", str(LM_TPS), "--context-window",
+                     str(LM_CONTEXT), "--max-sentences", "1"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, tokens, _, per_batch = eval_lm_run(modules, counters, eval_argv + ["--gen-subset", "valid"])
+        add_counts(total, launch_counts(fa, dconv, single))
+        eval_wall = time.perf_counter() - t0
+        eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want_eval = only(per_batch[0], FP32_D128_FORWARD, LM_CALLS)
+        # the in-memory scorer over the same windows
+        args = options.parse_args_and_arch(options.get_eval_lm_parser(), eval_argv + ["--gen-subset", "valid"])
+        args.tokens_per_sample -= LM_CONTEXT
+        task = registry.TASKS["language_modeling"].setup_task(args)
+        task.load_dataset("valid")
+        ds = modules["LMContextWindowDataset"](task.dataset("valid"), args.tokens_per_sample, LM_CONTEXT,
+                                               task.target_dictionary.pad())
+        models, _ = ckpt.load_model_ensemble([last], task=task)
+        scorer = modules["SequenceScorer"](task.target_dictionary)
+        nll, count, samples = 0.0, 0, []
+        for sample in task.get_batch_iterator(
+                ds, max_tokens=args.max_tokens, max_sentences=args.max_sentences, max_positions=task.max_positions(),
+                ignore_invalid_inputs=True,
+                required_batch_size_multiple=args.required_batch_size_multiple).next_epoch_itr(shuffle=False):
+            for hypo in scorer.generate(models, sample):
+                nll -= float(np.sum(hypo[0]["positional_scores"], dtype=np.float64))
+                count += len(hypo[0]["tokens"])
+            samples.append(sample)
+        mem_loss = nll / count / math.log(2)
+        eval_profile = profiled(lambda: scorer.generate(models, samples[-1]))
+        # the test window on the card (the scorer, as the CLI above) and by cli/eval_lm --cpu
+        task.load_dataset("test")
+        test = modules["LMContextWindowDataset"](task.dataset("test"), args.tokens_per_sample, LM_CONTEXT,
+                                                 task.target_dictionary.pad())
+        test_hypos = [h[0] for sample in task.get_batch_iterator(
+            test, max_sentences=1, max_positions=task.max_positions()).next_epoch_itr(shuffle=False)
+            for h in scorer.generate(models, sample)]
+        card_test = (-sum(float(np.sum(h["positional_scores"], dtype=np.float64)) for h in test_hypos)
+                     / sum(len(h["tokens"]) for h in test_hypos) / math.log(2), sum(len(h["tokens"]) for h in test_hypos))
+        del models
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu_test = eval_lm_run(modules, counters, eval_argv + ["--gen-subset", "test", "--cpu"])
+        cpu_s = time.perf_counter() - t0
+        leg("wiki103_eval_lm", {"windows": len(per_batch), "tokens": tokens, "loss_base2": loss,
+                                     "in_memory_scorer_loss": mem_loss, "launches_a_window": per_batch[0],
+                                     "wall_s": eval_wall, "profiled_window": eval_profile, "peak_gb": eval_peak,
+                                     "test_window_card_cpu": [card_test[0], cpu_test[0]], "cpu_s": cpu_s})
+        if any(b != want_eval for b in per_batch) or not per_batch or tokens != count:
+            raise AssertionError(f"eval_lm launches {per_batch[:2]} a window, expected {want_eval}")
+        if not (abs(loss - mem_loss) <= LM_SCORER_ATOL and abs(card_test[0] - cpu_test[0]) <= LM_CPU_ATOL
+                and card_test[1] == cpu_test[1] == LM_TOKENS["test"]):
+            raise AssertionError(f"eval_lm {loss} against the scorer's {mem_loss}; test window card {card_test[:2]}"
+                                 f" against the CPU's {cpu_test[:2]}")
+
+        # (c) the gbw preset with character embeddings: one eval_lm batch
+        gbw_argv = [lm_dir, "--task", "language_modeling", "--arch", GBW_ARCH, "--character-embeddings",
+                    "--tokens-per-sample", str(GBW_TPS), "--criterion", "adaptive_loss", *GBW_SMALL_ARGS]
+        args = options.parse_args_and_arch(options.get_training_parser(), gbw_argv)
+        task = registry.TASKS["language_modeling"].setup_task(args)
+        model = task.build_model(args).eval()
+        gbw_path = os.path.join(work, "gbw.pt")
+        modules["save_model_checkpoint"](gbw_path, args, model)
+        task.load_dataset("test")
+        sample = next(iter(task.get_batch_iterator(task.dataset("test"), max_tokens=36000,
+                                                   max_positions=task.max_positions()).next_epoch_itr(shuffle=False)))
+        gbw_profile = profiled(lambda: modules["SequenceScorer"](task.target_dictionary).generate([model], sample))
+        del model
+        torch.cuda.empty_cache()
+        gbw_eval = [lm_dir, "--path", gbw_path, "--tokens-per-sample", str(GBW_TPS), "--gen-subset", "test"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gbw_card = eval_lm_run(modules, counters, gbw_eval)
+        add_counts(total, launch_counts(fa, dconv, single))
+        gbw_wall = time.perf_counter() - t0
+        gbw_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gbw_cpu = eval_lm_run(modules, counters, gbw_eval + ["--cpu"])
+        want_gbw = only(gbw_card[3][0], FP32_FORWARD, GBW_CALLS)
+        leg("gbw_eval_lm", {"batches": len(gbw_card[3]), "launches_a_batch": gbw_card[3][0],
+                                 "loss_card_cpu": [gbw_card[0], gbw_cpu[0]], "wall_s": gbw_wall,
+                                 "profiled_batch": gbw_profile, "peak_gb": gbw_peak})
+        if gbw_card[3] != [want_gbw] or abs(gbw_card[0] - gbw_cpu[0]) > LM_CPU_ATOL:
+            raise AssertionError(f"gbw eval_lm: launches {gbw_card[3]} (expected [{want_gbw}]), loss card "
+                                 f"{gbw_card[0]} against the CPU's {gbw_cpu[0]}")
+    finally:
+        root.removeHandler(handler)
+        handler.close()
+    report["phase_s"] = time.perf_counter() - phase_t0
+    report["launches"] = {k: v for k, v in total.items() if v}
+    emit({"phase": "text_transformer_from_files", "phase_s": report["phase_s"], "corpus_s": report["corpus_s"],
+          "launches": report["launches"], "card": card})
+    time_wiki103_call(fa)
+    return total
+
+
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
                 and r["dtype"] == timed_at[1] and r.get("t_block") == (timed_at[2] if len(timed_at) > 2 else None))
@@ -5659,6 +6173,7 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.cli import export_fairseq_checkpoint as export_cli
     from fbk_fairseq_st_tpu_torch.cli import import_fairseq_checkpoint as import_cli
     from fbk_fairseq_st_tpu_torch.cli import generate_topk as topk_cli
+    from fbk_fairseq_st_tpu_torch.cli import eval_lm as eval_lm_cli
     from fbk_fairseq_st_tpu_torch.cli import infer as infer_cli
     from fbk_fairseq_st_tpu_torch.cli import interactive as interactive_cli
     from fbk_fairseq_st_tpu_torch.cli import preprocess as preprocess_cli
@@ -5667,6 +6182,7 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.cli import train as train_cli
     from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
     from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, encoders, indexed_dataset
+    from fbk_fairseq_st_tpu_torch.data.monolingual import LMContextWindowDataset
     from fbk_fairseq_st_tpu_torch.generation import (ContextAwareSequenceGenerator, SequenceGenerator,
                                                      SequenceScorer, TwoPhaseSequenceGenerator, alignment_utils,
                                                      search)
@@ -5712,6 +6228,7 @@ def main() -> int:
                "resegment": resegment_data_mustc, "asr_prep_json": asr_prep_json, "encoders": encoders,
                "alignment_utils": alignment_utils, "export_cli": export_cli, "import_cli": import_cli,
                "spm_tools": spm_tools, "Dictionary": Dictionary, "infer_cli": infer_cli,
+               "eval_lm_cli": eval_lm_cli, "LMContextWindowDataset": LMContextWindowDataset,
                "fbk_scripts": {m.__name__.rsplit(".", 1)[-1]: m for m in (
                    mustshe_acc, mustshe_acc_fulltable, accuracy_from_fulltable, mustshe_agr_fulltable,
                    agreement_from_fulltable, ne_terms_accuracy, combine_ne_terms)}}
@@ -5733,14 +6250,24 @@ def main() -> int:
         d.add_symbol(f"tok{i}")
     d.finalize(padding_factor=8)
 
+    # each check's and path's seconds, printed before the kernels line (the
+    # script must end within its time limit on a slower host too)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     # 3.-5., 12. kernels against their plain versions
-    _, serve_worst = check_serving_kernels(fa)
-    rows, worst, worst_ratio = check_training_kernels(fa, philox)
+    _, serve_worst = timed("check_serving_kernels", check_serving_kernels, fa)
+    rows, worst, worst_ratio = timed("check_training_kernels", check_training_kernels, fa, philox)
     for key, err in serve_worst.items():
         worst[key] = max(worst[key], err)
-    dconv_rows, dconv_worst = check_dconv_kernels(dconv)
-    single_rows, single_worst = check_single_kernel(single)
-    check_past_grid_cap(single, dconv)
+    dconv_rows, dconv_worst = timed("check_dconv_kernels", check_dconv_kernels, dconv)
+    single_rows, single_worst = timed("check_single_kernel", check_single_kernel, single)
+    timed("check_past_grid_cap", check_past_grid_cap, single, dconv)
 
     # the main paths, each with every count set to 0 just before it
     paths = {}
@@ -5748,18 +6275,18 @@ def main() -> int:
     def drive(name, fn, *args):
         """Run a path that resets the counts just before its main work and
         returns them just after it (before its cross-checks)."""
-        paths[name] = fn(*args)
+        paths[name] = timed(name, fn, *args)
         torch.cuda.empty_cache()
 
     # 6.-11. conv_transformer and dynamicconv, serving and training
     drive("serve", serve, card, d, fa, dconv, single, attention, build_model, SequenceGenerator)
     drive("train", train, card, d, fa, dconv, single, modules)
-    check_train_steps(d, fa, attention, modules)
+    timed("check_train_steps", check_train_steps, d, fa, attention, modules)
     lc_dicts = (lc_dictionary(Dictionary), lc_dictionary(Dictionary))
     drive("serve_lightconv", serve_lightconv, card, lc_dicts, fa, dconv, single, modules)
     drive("train_lightconv", train_lightconv, card, lc_dicts, fa, dconv, single, modules)
     torch.cuda.empty_cache()
-    check_lightconv_steps(lc_dicts, modules)
+    timed("check_lightconv_steps", check_lightconv_steps, lc_dicts, modules)
     torch.cuda.empty_cache()
     # 13. the flash sweep
     drive("flash_sweep", flash_sweep, card, sweep, fa, dconv, single)
@@ -5768,10 +6295,10 @@ def main() -> int:
     # 14.-16. the CTC flagship and the long-context step
     ctc_dicts = ctc_dictionaries(Dictionary, d)
     drive("train_ctc_flagship", train_ctc, card, ctc_dicts, fa, dconv, single, modules)
-    check_ctc_steps(ctc_dicts, modules, attention)
+    timed("check_ctc_steps", check_ctc_steps, ctc_dicts, modules, attention)
     torch.cuda.empty_cache()
     drive("train_longcontext", train_long, card, d, fa, dconv, single, modules)
-    check_long_steps(d, modules, attention)
+    timed("check_long_steps", check_long_steps, d, modules, attention)
     torch.cuda.empty_cache()
     # 17.-19. the multi-decoder family: two-phase serving, the dual-decoder step
     rng = np.random.RandomState(3)
@@ -5783,7 +6310,7 @@ def main() -> int:
     for arch, requests in twophase_requests.items():
         drive(f"serve_{arch}", serve_twophase, card, d, fa, dconv, single, attention, modules, arch, requests)
     drive("train_dualdecoder", train_dual, card, d, fa, dconv, single, modules)
-    check_dual_steps(d, fa, attention, modules)
+    timed("check_dual_steps", check_dual_steps, d, fa, attention, modules)
     # 20. the iwslt lightconv step: head dim 128, the D 128 tensor-core flash
     # forward and pair; 20b. the same step in fp32: the D 128 tf32x3 forward
     # and pair
@@ -5823,8 +6350,13 @@ def main() -> int:
         # cli/train through the distributed launcher (NCCL), with FSDP and
         # BMUF
         drive("multi_gpu", multi_gpu, card, d, fa, dconv, single, modules, files_tmp)
+        # 34. the text transformer family from files: the WMT big model
+        # trained, decoded, scored and aligned, the wiki103 language model
+        # trained and scored by cli/eval_lm, and the gbw preset scored
+        drive("text_transformer_from_files", text_transformer_from_files, card, d, fa, dconv, single, modules,
+              files_tmp)
 
-    # 34. kernels line, card line, ok line
+    # 35. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():
@@ -5914,6 +6446,7 @@ def main() -> int:
                      "fbk_fairseq_st_tpu/scripts/bench_flash_sweep.py:28", launches["flash_fwd_single"],
                      single_rows, single_worst[f32], single_worst[b16], SINGLE_TIMED_AT),
     ]
+    emit({"phase": "seconds_by_check_and_path", **seconds})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -1,3 +1,4 @@
+from .adaptive_loss import AdaptiveLoss
 from .asg import ASGCriterion
 from .base import Criterion
 from .cross_entropy_acc import CrossEntropyWithAccCriterion
@@ -12,6 +13,7 @@ from .label_smoothed_cross_entropy import (
     label_smoothed_nll_loss,
 )
 from .label_smoothed_cross_entropy_ctx_reg import LabelSmoothedCrossEntropyCtxRegCriterion
+from .label_smoothed_cross_entropy_with_alignment import LabelSmoothedCrossEntropyCriterionWithAlignment
 from .vocab_parallel_cross_entropy import VocabParallelCrossEntropyCriterion
 
 CRITERIONS = {
@@ -26,13 +28,13 @@ CRITERIONS = {
     "knowledge_distillation": CrossEntropyKnowledgeDistillationCriterion,
     "asg_loss": ASGCriterion,
     "vocab_parallel_cross_entropy": VocabParallelCrossEntropyCriterion,
+    "adaptive_loss": AdaptiveLoss,
+    "label_smoothed_cross_entropy_with_alignment": LabelSmoothedCrossEntropyCriterionWithAlignment,
 }
 
-# the ROADMAP Queue A item of each JAX criterion the port has not (every
-# other one is item 9's, with its model family)
-_NOT_PORTED_ITEMS = {
-    "adaptive_loss": "9(a)",
-}
+# the ROADMAP Queue A item of each JAX criterion the port has not, where it
+# is not item 9's (with its model family)
+_NOT_PORTED_ITEMS = {}
 
 
 def roadmap_item(name: str) -> str:
@@ -41,6 +43,7 @@ def roadmap_item(name: str) -> str:
 
 __all__ = [
     "ASGCriterion",
+    "AdaptiveLoss",
     "CRITERIONS",
     "CrossEntropyCriterion",
     "CrossEntropyDualDecoder",
@@ -51,6 +54,7 @@ __all__ = [
     "CTCMultiLoss",
     "Criterion",
     "LabelSmoothedCrossEntropyCriterion",
+    "LabelSmoothedCrossEntropyCriterionWithAlignment",
     "LabelSmoothedCrossEntropyCtxRegCriterion",
     "label_smoothed_nll_from_logits",
     "label_smoothed_nll_loss",

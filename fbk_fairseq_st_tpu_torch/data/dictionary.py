@@ -204,3 +204,25 @@ def post_process(sentence: str, bpe_symbol: Optional[str]) -> str:
     elif bpe_symbol is not None:
         sentence = (sentence + " ").replace(bpe_symbol, "").rstrip()
     return sentence
+
+
+class TruncatedDictionary:
+    """A Dictionary's first ``length`` types (``--output-dictionary-size``,
+    JAX ``data/dictionary.py:262``): ``len()`` is the truncated size, a
+    lookup past it gives unk, and everything else is the wrapped
+    dictionary's."""
+
+    def __init__(self, wrapped_dict, length: int):
+        self.wrapped_dict = wrapped_dict
+        self.length = min(len(wrapped_dict), length)
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __getitem__(self, idx: int) -> str:
+        return self.wrapped_dict[idx] if idx < self.length else self.wrapped_dict[self.wrapped_dict.unk()]
+
+    def __getattr__(self, name):
+        if name == "wrapped_dict":  # unpickling: no recursion
+            raise AttributeError(name)
+        return getattr(self.wrapped_dict, name)

@@ -16,9 +16,14 @@ language_pair_dataset.py:17-110):
 The size methods (``num_tokens``, ``num_tokens_vec``,
 ``filter_indices_by_size``, ``size``, ``ordered_indices``: sorted by
 target, then source length, from a seeded permutation with ``shuffle``)
-feed the task's batch iterator. Alignments and the options no port caller
-sets (``input_feeding``, ``append_eos_to_target``, an ``eos`` other than
-</s>) are not ported (ROADMAP Queue A item 3).
+feed the task's batch iterator. With an ``align_dataset`` (one (n, 2)
+array of (source, target) positions a pair, ``--load-alignments``) each
+item carries its ``alignment`` and the collater a dense ``align_weights``
+(B, T_tgt, T_src): 1/count of the target position's links at each link,
+the source positions shifted by the left padding (JAX :143-165), links
+past the source's length dropped (JAX indexes past the row there). The
+options no port caller sets (``input_feeding``, ``append_eos_to_target``,
+an ``eos`` other than </s>) are not ported.
 """
 
 from __future__ import annotations
@@ -54,8 +59,10 @@ class LanguagePairDataset:
     eos), with their sizes, as the JAX constructor takes them."""
 
     def __init__(self, src, src_sizes, src_dict, tgt=None, tgt_sizes=None, tgt_dict=None,
-                 left_pad_source: bool = True, left_pad_target: bool = False, shuffle: bool = True):
+                 left_pad_source: bool = True, left_pad_target: bool = False, shuffle: bool = True,
+                 align_dataset=None):
         self.shuffle = shuffle
+        self.align_dataset = align_dataset
         self.src = src
         self.tgt = tgt
         self.src_sizes = np.array(src_sizes)
@@ -67,7 +74,10 @@ class LanguagePairDataset:
 
     def __getitem__(self, index: int):
         tgt_item = np.asarray(self.tgt[index]) if self.tgt is not None else None
-        return {"id": index, "source": np.asarray(self.src[index]), "target": tgt_item}
+        item = {"id": index, "source": np.asarray(self.src[index]), "target": tgt_item}
+        if self.align_dataset is not None:
+            item["alignment"] = np.asarray(self.align_dataset[index])
+        return item
 
     def __len__(self) -> int:
         return len(self.src)
@@ -123,7 +133,28 @@ class LanguagePairDataset:
         }
         if prev_output_tokens is not None:
             batch["net_input"]["prev_output_tokens"] = prev_output_tokens
+        if self.align_dataset is not None and target is not None:
+            batch["align_weights"] = self._align_weights([samples[i] for i in sort_order], target.shape,
+                                                         src_tokens.shape[1], src_lengths)
         return batch
+
+    def _align_weights(self, ordered, tgt_shape, t_src: int, src_lengths) -> np.ndarray:
+        rows, t_tgt = tgt_shape
+        weights = np.zeros((rows, t_tgt, t_src), np.float32)
+        for row, s in enumerate(ordered):
+            align = s.get("alignment")
+            if align is None or len(align) == 0:
+                continue
+            # links past the source's own length (a source cut by
+            # --truncate-source) are dropped: JAX keeps those below the
+            # padded length and indexes past the row (ROADMAP Queue C)
+            align = align[(align[:, 0] < min(t_src, src_lengths[row])) & (align[:, 1] < t_tgt)]
+            if self.left_pad_source:  # source positions count from the right-aligned sentence
+                align = align.copy()
+                align[:, 0] += t_src - src_lengths[row]
+            counts = np.bincount(align[:, 1], minlength=t_tgt)
+            weights[row, align[:, 1], align[:, 0]] = 1.0 / np.maximum(counts[align[:, 1]], 1)
+        return weights
 
     def num_tokens(self, index):
         return max(self.src_sizes[index], self.tgt_sizes[index] if self.tgt_sizes is not None else 0)

@@ -9,7 +9,9 @@ alignment is None. An ensemble sums its models' probabilities as JAX does,
 ``np.logaddexp`` over the models, then ``- log(n)``. Each model's
 log-probabilities are gathered at the targets on the device, so only
 (B, T) values a model reach the host (the sum is elementwise, so it is the
-same as JAX's sum over the whole vocabulary followed by the gather).
+same as JAX's sum over the whole vocabulary followed by the gather). A
+language model's batch has no ``prev_output_tokens`` (its input is
+``src_tokens``): the keys the batch has are passed (``cli/eval_lm``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class SequenceScorer:
         device = module_device(models[0])
         net_input = sample["net_input"]
         batch = {k: torch.as_tensor(net_input[k], device=device)
-                 for k in ("src_tokens", "src_lengths", "prev_output_tokens")}
+                 for k in ("src_tokens", "src_lengths", "prev_output_tokens") if k in net_input}
         target = torch.as_tensor(sample["target"], device=device)
 
         avg_probs = None

@@ -11,8 +11,9 @@ family has raises ``NotImplementedError``.
 
 from typing import Any, Dict
 
-from . import (conv_transformer, conv_transformer_context, lightconv, multi_task, multilingual_conv_transformer,
-               multitask_conv_transformer, vggtransformer, w2l_conv_glu)
+from . import (conv_transformer, conv_transformer_context, lightconv, model_parallel, multi_task,
+               multilingual_conv_transformer, multitask_conv_transformer, transformer, transformer_align,
+               transformer_lm, vggtransformer, w2l_conv_glu)
 from .base import EncoderOut, reorder_encoder_out
 from .conv_transformer import ConvolutionalTransformerModel
 from .conv_transformer_context import ConvolutionalTransformerContextAwareModel
@@ -25,31 +26,27 @@ from .multi_task import (
 )
 from .multilingual_conv_transformer import MultilingualConvolutionalTransformerModel
 from .multitask_conv_transformer import MultitaskConvolutionalTransformer
+from .transformer import TransformerModel
+from .transformer_align import TransformerAlignModel
+from .transformer_lm import TransformerLanguageModel
 from .vggtransformer import VGGTransformerEncoderModel, VGGTransformerModel
 from .w2l_conv_glu import W2lConvGluEncoderModel
 
 ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task, multitask_conv_transformer,
                                              multilingual_conv_transformer, conv_transformer_context, vggtransformer,
-                                             w2l_conv_glu)
+                                             w2l_conv_glu, transformer, transformer_lm, transformer_align)
                  for arch in family.ARCHITECTURES}
-
-
-# JAX's model-parallel presets (models/model_parallel.py): the text
-# transformer and its LM, which tensor parallelism splits like any model
-_MODEL_PARALLEL_ARCHS = ("model_parallel_transformer", "model_parallel_transformer_lm", "transformer_lm_megatron",
-                         "transformer_lm_megatron_11b")
+# the model-parallel names (models/model_parallel.py) are presets of the
+# text transformer and its language model
+assert set(model_parallel.TRANSFORMER_ARCHS) | set(model_parallel.LM_ARCHS) <= set(ARCHITECTURES)
 
 
 def _family(arch: str):
-    if arch in _MODEL_PARALLEL_ARCHS:
-        raise NotImplementedError(
-            f"--arch {arch}: a text transformer preset; --model-parallel-size splits any model the port has, "
-            "and the text transformer family is ROADMAP Queue A item 9(a)")
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
             f"--arch {arch}: the port has the conv_transformer, lightconv, multi-decoder, multitask "
-            "classifier, multilingual, context-aware, vggtransformer and w2l_conv_glu families; the other "
-            "JAX families are ROADMAP Queue A item 9")
+            "classifier, multilingual, context-aware, vggtransformer, w2l_conv_glu and text transformer "
+            "families; the other JAX families are ROADMAP Queue A item 9")
     return ARCHITECTURES[arch]
 
 
@@ -76,6 +73,9 @@ __all__ = [
     "MultiTaskModel",
     "MultilingualConvolutionalTransformerModel",
     "MultitaskConvolutionalTransformer",
+    "TransformerAlignModel",
+    "TransformerLanguageModel",
+    "TransformerModel",
     "VGGTransformerEncoderModel",
     "VGGTransformerModel",
     "W2lConvGluEncoderModel",

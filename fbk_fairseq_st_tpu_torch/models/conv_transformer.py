@@ -242,12 +242,9 @@ def _base_defaults(enc_dim: int, ffn_dim: int, heads: int) -> Dict[str, Any]:
     )
 
 
-# Options of the reference arch that the port does not run yet: set to
-# anything but their default, they raise, naming the ROADMAP item.
-_NOT_YET = {
-    "adaptive_softmax_cutoff": "the adaptive softmax (ROADMAP Queue A item 9(a))",
-    "adaptive_input": "the adaptive input embedding (ROADMAP Queue A item 9(a))",
-}
+# The reference arch's --adaptive-softmax-cutoff and --adaptive-input are
+# options of the preset that JAX's conv_transformer never reads (ROADMAP
+# Queue C, JAX side): taken and ignored here too.
 
 
 def conv_transformer() -> Dict[str, Any]:
@@ -318,9 +315,6 @@ def configs_from(args: Dict[str, Any], tgt_dict, src_dict=None, **overrides
     unknown = set(overrides) - set(args)
     if unknown:
         raise TypeError(f"unknown conv_transformer options: {sorted(unknown)}")
-    for name, what in _NOT_YET.items():
-        if name in overrides and overrides[name] != args[name]:
-            raise NotImplementedError(f"{name}: {what} is not ported yet")
     args.update(overrides)
     frontend = ConvFrontendConfig(
         convolutions=_parse_convolutions(args["encoder_convolutions"]),

@@ -7,7 +7,14 @@ residual -> [LN] -> attention -> dropout -> add -> [LN], then the same
 around fc1/activation/fc2, with the LayerNorm placement set by
 ``normalize_before``. Decoder layers carry two caches: ``self`` (written in
 place each step) and ``cross`` (encoder K/V, precomputed once); the
-triangle layer a third, ``aux`` (the auxiliary decoder's K/V).
+triangle layer a third, ``aux`` (the auxiliary decoder's K/V). A decoder
+layer may have no encoder attention (``no_encoder_attn``: the language
+model's), and with ``cross_self_attention`` its self-attention keys are
+the encoder states followed by its own (JAX :371-412): teacher-forced, the
+keys are cat(encoder_out, x) under an additive mask (the dense route);
+stepping, the ``self`` cache holds the projected encoder rows first and
+each step writes at S + step. Quant-noise is ROADMAP Queue A item 9(c)
+(``options.NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from .attention import MHAConfig, MultiheadAttention, init_cache
+from .attention import MHAConfig, MultiheadAttention, _split_heads, causal_mask, init_cache
 from .core import GeneratorLike, LayerNorm, Linear, dropout, get_activation
 
 
@@ -33,6 +40,8 @@ class TransformerLayerConfig(NamedTuple):
     # encoder self-attention distance penalty ('log' | 'gauss' | None)
     distance_penalty: Optional[str] = None
     init_variance: float = 1.0
+    # decoder self-attention keys include the encoder states
+    cross_self_attention: bool = False
 
     @property
     def self_attn_cfg(self) -> MHAConfig:
@@ -98,15 +107,16 @@ class TransformerEncoderLayer(_FFNMixin, nn.Module):
 
 
 class TransformerDecoderLayer(_FFNMixin, nn.Module):
-    """``decoder_layer``: causal self-attention, cross-attention, FFN."""
+    """``decoder_layer``: causal self-attention, cross-attention (none
+    with ``no_encoder_attn``), FFN."""
 
-    def __init__(self, cfg: TransformerLayerConfig):
+    def __init__(self, cfg: TransformerLayerConfig, no_encoder_attn: bool = False):
         super().__init__()
         self.cfg = cfg
         self.self_attn = MultiheadAttention(cfg.self_attn_cfg)
         self.self_attn_layer_norm = LayerNorm(cfg.embed_dim)
-        self.encoder_attn = MultiheadAttention(cfg.cross_attn_cfg)
-        self.encoder_attn_layer_norm = LayerNorm(cfg.embed_dim)
+        self.encoder_attn = None if no_encoder_attn else MultiheadAttention(cfg.cross_attn_cfg)
+        self.encoder_attn_layer_norm = None if no_encoder_attn else LayerNorm(cfg.embed_dim)
         self.fc1 = Linear(cfg.embed_dim, cfg.ffn_dim)
         self.fc2 = Linear(cfg.ffn_dim, cfg.embed_dim)
         self.final_layer_norm = LayerNorm(cfg.embed_dim)
@@ -133,27 +143,52 @@ class TransformerDecoderLayer(_FFNMixin, nn.Module):
         (B, T, S)): that attention takes the dense route (JAX
         ``decoder_layer``'s ``need_attn``)."""
         cfg = self.cfg
-        x = self._self_block(x, self_attn_mask, self_attn_padding_mask, generator, cache, cache_index)
-        residual = x
-        if cfg.normalize_before:
-            x = self.encoder_attn_layer_norm(x)
-        x = self._cross(self.encoder_attn, x, encoder_out, encoder_padding_mask, generator, cache, "cross",
-                        need_weights=need_attn)
-        if need_attn:
-            x, attn = x
-        x = residual + x
-        if not cfg.normalize_before:
-            x = self.encoder_attn_layer_norm(x)
+        x = self._self_block(x, self_attn_mask, self_attn_padding_mask, generator, cache, cache_index,
+                             encoder_out, encoder_padding_mask)
+        attn = None
+        if self.encoder_attn is not None:
+            residual = x
+            if cfg.normalize_before:
+                x = self.encoder_attn_layer_norm(x)
+            x = self._cross(self.encoder_attn, x, encoder_out, encoder_padding_mask, generator, cache, "cross",
+                            need_weights=need_attn)
+            if need_attn:
+                x, attn = x
+            x = residual + x
+            if not cfg.normalize_before:
+                x = self.encoder_attn_layer_norm(x)
         x = self._ffn(x, generator)
         return (x, attn) if need_attn else x
 
-    def _self_block(self, x, attn_mask, padding_mask, generator, cache, cache_index):
+    def _self_block(self, x, attn_mask, padding_mask, generator, cache, cache_index, encoder_out=None,
+                    encoder_padding_mask=None):
         cfg = self.cfg
         residual = x
         if cfg.normalize_before:
             x = self.self_attn_layer_norm(x)
+        key = None
+        if cfg.cross_self_attention and cache is None and encoder_out is not None:
+            # keys cat(encoder_out, x): every encoder row, causal over the
+            # decoder's own (JAX :374-396)
+            b, t, s = x.shape[0], x.shape[1], encoder_out.shape[1]
+            key = torch.cat([encoder_out.to(x.dtype), x], dim=1)
+            if isinstance(attn_mask, str) and attn_mask == "causal":
+                attn_mask = torch.cat([torch.zeros((t, s), device=x.device), causal_mask(t, device=x.device)], 1)
+            epm = encoder_padding_mask if encoder_padding_mask is not None else torch.zeros(
+                (b, s), dtype=torch.bool, device=x.device)
+            spm = padding_mask if padding_mask is not None else torch.zeros(
+                (b, t), dtype=torch.bool, device=x.device)
+            padding_mask = torch.cat([epm, spm], dim=1)
+        elif cfg.cross_self_attention and cache is not None and encoder_padding_mask is not None:
+            # the buffer's first S rows are the encoder's (init_decoder_layer_cache)
+            s = encoder_padding_mask.shape[1]
+            buf_len = cache["self"]["k"].shape[2]
+            cache_index = cache_index + s
+            padding_mask = torch.cat([encoder_padding_mask, torch.zeros(
+                (x.shape[0], buf_len - s), dtype=torch.bool, device=x.device)], dim=1)
         x, _, _ = self.self_attn(
             x,
+            key=key,
             key_padding_mask=padding_mask,
             attn_mask=attn_mask,
             generator=generator,
@@ -224,13 +259,26 @@ class TriangleDecoderLayer(TransformerDecoderLayer):
 
 
 def init_decoder_layer_cache(layer: TransformerDecoderLayer, batch: int, max_len: int,
-                             encoder_out, dtype=torch.float32) -> Dict[str, Any]:
+                             encoder_out, dtype=torch.float32, device=None) -> Dict[str, Any]:
     """Preallocated self-attention K/V and the encoder output's
-    cross-attention K/V, projected once."""
-    return {
-        "self": init_cache(batch, max_len, layer.cfg.self_attn_cfg, dtype, encoder_out.device),
-        "cross": layer.encoder_attn.precompute_cross_cache(encoder_out),
-    }
+    cross-attention K/V, projected once (no encoder output: the self
+    cache alone, on ``device``). With ``cross_self_attention`` the self
+    buffer is S + max_len long, its first S rows the encoder output's
+    projected K/V (JAX :189-226)."""
+    cfg = layer.cfg
+    if encoder_out is None:
+        return {"self": init_cache(batch, max_len, cfg.self_attn_cfg, dtype, device)}
+    if cfg.cross_self_attention:
+        s = encoder_out.shape[1]
+        self_cache = init_cache(batch, s + max_len, cfg.self_attn_cfg, dtype, encoder_out.device)
+        self_cache["k"][:, :, :s] = _split_heads(layer.self_attn.k_proj(encoder_out), cfg.num_heads)
+        self_cache["v"][:, :, :s] = _split_heads(layer.self_attn.v_proj(encoder_out), cfg.num_heads)
+    else:
+        self_cache = init_cache(batch, max_len, cfg.self_attn_cfg, dtype, encoder_out.device)
+    cache = {"self": self_cache}
+    if layer.encoder_attn is not None:
+        cache["cross"] = layer.encoder_attn.precompute_cross_cache(encoder_out)
+    return cache
 
 
 def init_triangle_decoder_layer_cache(layer: TriangleDecoderLayer, batch: int, max_len: int, encoder_out,

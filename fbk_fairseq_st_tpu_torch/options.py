@@ -34,7 +34,9 @@ nothing, as in JAX; ``--activation-dropout`` is JAX's alias of
 ``--freeze-pretrained`` with JAX's string choices, where the
 conv_transformer family keeps JAX's inert store-true flag; ``--use-pallas-attention`` / ``--no-pallas-attention``
 force the flash / the dense attention route, as JAX forces its Pallas
-kernels' route.
+kernels' route. ``--adaptive-softmax-dropout`` is parsed and never
+applied, as in JAX (ROADMAP Queue C, JAX side). ``get_eval_lm_parser``
+is ``cli/eval_lm``'s (JAX :48, ``add_eval_lm_args`` :469).
 """
 
 from __future__ import annotations
@@ -42,23 +44,24 @@ from __future__ import annotations
 import argparse
 import ast
 import re
+import sys
 from typing import List, Optional
 
 from . import registry
 from .models import ARCHITECTURES, arch_defaults
 from .models.conv_transformer_context import CHOICES as CONTEXT_CHOICES
+from .models.transformer_lm import CHARACTER_FILTERS
 from .optim import LR_SCHEDULERS, OPTIMIZERS
 from .utils.user_dir import import_user_module
 
 # option -> (its value when off, what it needs): set to anything else, it raises
 NOT_PORTED = {
-    "quantize_weights": ("none", "weight-only quantisation (ROADMAP Queue A item 9)"),
+    "quantize_weights": ("none", "weight-only quantisation (ROADMAP Queue A item 9(c))"),
     "steps_per_execution": (1, "several updates a dispatch (ROADMAP Queue A item 8)"),
-    "quantization_config_path": (None, "in-training quantisation (ROADMAP Queue A item 9)"),
-    "adaptive_softmax_dropout": (None, "the adaptive softmax (ROADMAP Queue A item 9(a))"),
-    "quant_noise_pq": (0, "quant-noise training (ROADMAP Queue A item 9)"),
-    "quant_noise_pq_block_size": (8, "quant-noise training (ROADMAP Queue A item 9)"),
-    "quant_noise_scalar": (0, "quant-noise training (ROADMAP Queue A item 9)"),
+    "quantization_config_path": (None, "in-training quantisation (ROADMAP Queue A item 9(c))"),
+    "quant_noise_pq": (0, "quant-noise training (ROADMAP Queue A item 9(c))"),
+    "quant_noise_pq_block_size": (8, "quant-noise training (ROADMAP Queue A item 9(c))"),
+    "quant_noise_scalar": (0, "quant-noise training (ROADMAP Queue A item 9(c))"),
     # the iterative refinement generator of the NAT family
     "decoding_format": (None, "the NAT family's decoding formats (ROADMAP Queue A item 9)"),
     "iter_decode_eos_penalty": (0.0, "iterative refinement decoding (ROADMAP Queue A item 9)"),
@@ -69,14 +72,19 @@ NOT_PORTED = {
     "retain_iter_history": (False, "iterative refinement decoding (ROADMAP Queue A item 9)"),
     "print_step": (False, "iterative refinement decoding (ROADMAP Queue A item 9)"),
 }
-# values of an option in NOT_PORTED that mean "off" besides its default
-_ALSO_OFF = {"adaptive_softmax_dropout": (0,)}
 # the JAX model parsers' explicit defaults, which win over a preset's
+_TRANSFORMER_PARSER_DEFAULTS = {"encoder_layerdrop": 0, "decoder_layerdrop": 0, "no_cross_attention": False,
+                                "cross_self_attention": False}
 _MODEL_PARSER_DEFAULTS = {
     "conv_transformer": {"no_attn_2d": False, "distance_penalty": False, "init_variance": 1.0,
                          "ctc_compress_out": False, "ctc_compress_strategy": "avg"},
     "lightconv": {"encoder_glu": None, "decoder_glu": None, "encoder_conv_type": "lightweight",
                   "decoder_conv_type": "lightweight", "weight_softmax": True},
+    "transformer": _TRANSFORMER_PARSER_DEFAULTS,
+    "transformer_align": _TRANSFORMER_PARSER_DEFAULTS,
+    "transformer_lm": {**_TRANSFORMER_PARSER_DEFAULTS, "character_embeddings": False,
+                       "character_embedding_dim": 4, "char_embedder_highway_layers": 2,
+                       "character_filters": CHARACTER_FILTERS},
 }
 _EVAL_BOOL = ("encoder_glu", "decoder_glu", "weight_softmax")
 # the JAX model parsers' flags that no preset of the port reads (flag ->
@@ -106,6 +114,14 @@ _FORK_MODEL_FLAGS = {
     "conv_transformer": {**_TRANSFORMER_FLAGS, "--normalization-constant": dict(type=float, default=1.0),
                          "--freeze-pretrained": dict(action="store_true")},
     "lightconv": _TRANSFORMER_FLAGS,
+    "transformer": _TRANSFORMER_FLAGS,
+    "transformer_align": _TRANSFORMER_FLAGS,
+    # the LM's parser has every add_transformer_args flag, the encoder's too
+    "transformer_lm": {**_TRANSFORMER_FLAGS, "--decoder-input-dim": dict(type=int),
+                       **{f"--encoder-{name}": dict(type=int) for name in ("embed-dim", "ffn-embed-dim", "layers",
+                                                                           "attention-heads")},
+                       "--encoder-normalize-before": dict(action="store_true"),
+                       "--encoder-learned-pos": dict(action="store_true")},
     "vggtransformer": {},
     "w2l_conv_glu": {},
 }
@@ -117,9 +133,10 @@ _FLAG_KWARGS = {"distance_penalty": dict(type=str, choices=["log", "gauss"]),
                 "encoder_kernel_size_list": dict(type=str), "decoder_kernel_size_list": dict(type=str),
                 **{name: dict(type=str, choices=list(choices)) for name, choices in CONTEXT_CHOICES.items()}}
 # preset options that another component's flag sets (the criterion's and
-# ASG's --asg-transitions-init, the context task's --context-type): no
-# model flag
-_NOT_MODEL_FLAGS = ("criterion", "context_type", "asg_transitions_init")
+# ASG's --asg-transitions-init, the context task's --context-type), or that
+# no flag sets (the wiki103 preset's activation_dropout: --activation-dropout
+# is --relu-dropout's alias): no model flag
+_NOT_MODEL_FLAGS = ("criterion", "context_type", "asg_transitions_init", "activation_dropout")
 
 
 def get_preprocessing_parser(default_task: str = "translation") -> argparse.ArgumentParser:
@@ -136,6 +153,28 @@ def get_training_parser(default_task: str = "speech_recognition") -> argparse.Ar
     add_optimization_args(parser)
     add_checkpoint_args(parser)
     return parser
+
+
+def get_eval_lm_parser(default_task: str = "language_modeling") -> argparse.ArgumentParser:
+    parser = get_parser("Evaluate Language Model", default_task)
+    add_dataset_args(parser, gen=True)
+    add_distributed_training_args(parser)
+    add_eval_lm_args(parser)
+    return parser
+
+
+def add_eval_lm_args(parser):
+    group = parser.add_argument_group("LM Evaluation")
+    add_common_eval_args(group)
+    group.add_argument("--output-word-probs", action="store_true",
+                       help="print each word with its log-probability")
+    group.add_argument("--output-word-stats", action="store_true",
+                       help="log each word's count and mean log-probability, by count")
+    group.add_argument("--context-window", default=0, type=int, metavar="N",
+                       help="score each window with up to N tokens of the rows before as context")
+    group.add_argument("--softmax-batch", default=sys.maxsize, type=int, metavar="N",
+                       help="parity flag: the scorer takes the whole softmax")
+    return group
 
 
 def get_validation_parser(default_task: str = "speech_recognition") -> argparse.ArgumentParser:
@@ -525,7 +564,7 @@ def check_ported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` for a set option the port lacks."""
     for name, (off, what) in NOT_PORTED.items():
         value = getattr(args, name, off)
-        if value != off and value not in _ALSO_OFF.get(name, ()):
+        if value != off:
             raise NotImplementedError(f"--{name.replace('_', '-')}: {what} is not ported")
 
 

@@ -15,7 +15,11 @@ rules name by Megatron's (Shoeybi et al. 2019) with explicit ones:
     over the vocabulary: the embedding masks the ids outside its rows and
     all-reduces, the logits are this rank's columns, gathered for every
     criterion but ``vocab_parallel_cross_entropy``
-    (``parallel/vocab_parallel.py``).
+    (``parallel/vocab_parallel.py``); the text transformer encoder's
+    ``embed_tokens`` too (one table under ``--share-all-embeddings``,
+    split once). An adaptive input or softmax and the character embedder
+    stay whole (JAX's rules name ``embed_tokens/w`` and ``embed_out``
+    only).
 
 A column-parallel linear's input enters through ``copy_to`` (all-reduce in
 the backward) and a row-parallel linear's output leaves through
@@ -198,17 +202,32 @@ def apply_tensor_parallel(model: nn.Module, mesh: Mesh, sequence_parallel: bool 
     split: Set[str] = set()
     if n == 1:
         return split
+    from ..models.transformer import TransformerEncoder
     from ..models.transformer_decoder import TransformerDecoder
+
+    chunks = {}  # a table's id -> its chunk, so a shared table stays one Parameter
+
+    def chunk_table(w):
+        if id(w) not in chunks:
+            chunks[id(w)] = nn.Parameter(chunk_of(w, 0, group), requires_grad=w.requires_grad)
+        return chunks[id(w)]
 
     modules = list(model.named_modules())
     for name, module in modules:
-        if isinstance(module, TransformerDecoder):
+        if isinstance(module, TransformerEncoder):
+            w = module.embed_tokens.weight
+            if tp_dim(f"{_prefix(name)}embed_tokens.weight", w.shape, n) is not None:
+                module.embed_tokens.weight = chunk_table(w)
+                split.add(f"{_prefix(name)}embed_tokens.weight")
+                module.vocab_parallel = VocabParallel(group, keep_logits_sharded)
+        if isinstance(module, TransformerDecoder) and isinstance(module.embed_tokens, nn.Embedding) \
+                and module.adaptive_softmax is None:
             w = module.embed_tokens.weight
             out = module.output_projection
             if (tp_dim(f"{_prefix(name)}embed_tokens.weight", w.shape, n) is not None
                     and (out is None or tp_dim(f"{_prefix(name)}output_projection.weight", out.weight.shape, n)
                          is not None)):
-                module.embed_tokens.weight = nn.Parameter(chunk_of(w, 0, group), requires_grad=w.requires_grad)
+                module.embed_tokens.weight = chunk_table(w)
                 split.add(f"{_prefix(name)}embed_tokens.weight")
                 if out is not None:
                     out.weight = nn.Parameter(chunk_of(out.weight, 0, group), requires_grad=out.weight.requires_grad)

@@ -268,13 +268,15 @@ def time_library(q, k, v, bias, scale: float, causal: bool, grad=None, iters: in
     return best
 
 
-def library_device_ms(q, k, v, bias, scale: float, causal: bool, grad=None, iters: int = 20):
+def library_device_ms(q, k, v, bias, scale: float, causal: bool, grad=None, iters: int = 20, tries: int = 5):
     """SDPA's device time on these inputs: for each fused backend alone,
     the kernels one call launches, summed, per call over ``iters`` calls in
     a trace (``device_busy``); the forward alone, or with ``grad`` the
     backward alone (``autograd.grad`` of a forward made before the trace).
     Returns (ms, backend) of the fastest, or (None, None) when every
-    backend refuses the shape."""
+    backend refuses the shape. A trace that caught no device event reads
+    0 ms: it is taken again (up to ``tries`` times), and a backend whose
+    every trace was empty is left out."""
     mask = library_mask(bias, q.shape[1], causal, q.dtype)
     if grad is not None:
         q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -290,10 +292,15 @@ def library_device_ms(q, k, v, bias, scale: float, causal: bool, grad=None, iter
         except RuntimeError:
             continue
         if grad is None:
-            ms = device_busy(lambda name=name: library_attention(q, k, v, mask, scale, causal, name), iters)[1]
+            call = lambda name=name: library_attention(q, k, v, mask, scale, causal, name)  # noqa: E731
         else:
-            ms = device_busy(lambda out=out: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True), iters)[1]
-        if best[0] is None or ms < best[0]:
+            call = lambda out=out: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)  # noqa: E731
+        ms = 0.0
+        for _ in range(tries):
+            ms = device_busy(call, iters)[1]
+            if ms > 0:
+                break
+        if ms > 0 and (best[0] is None or ms < best[0]):
             best = (ms, name)
     return best
 

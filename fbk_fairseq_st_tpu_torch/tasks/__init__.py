@@ -1,4 +1,5 @@
 from .base import Task
+from .language_modeling import LanguageModelingTask
 from .multilingual_speech_translation import (MultilingualSpeechTranslationTask,
                                               MultilingualSpeechTranslationWithTranscriptionTask)
 from .multilingual_speech_translation_kd import MultilingualSpeechTranslationWithTranscriptionKDTask
@@ -18,12 +19,13 @@ TASKS = {
     "speech_translation_multitask": SpeechTranslationMultiTask,
     "speech_translation_with_transcription_kd": SpeechTranslationCTCWithKDTask,
     "translation": TranslationTask,
+    "language_modeling": LanguageModelingTask,
     "multilingual_speech_translation": MultilingualSpeechTranslationTask,
     "multilingual_speech_translation_with_transcr": MultilingualSpeechTranslationWithTranscriptionTask,
     "multilingual_speech_translation_with_transcr_kd": MultilingualSpeechTranslationWithTranscriptionKDTask,
 }
 
-__all__ = ["TASKS", "ContextAwareSpeechRecognitionTask", "MultilingualSpeechTranslationTask", "MultilingualSpeechTranslationWithTranscriptionKDTask",
+__all__ = ["TASKS", "ContextAwareSpeechRecognitionTask", "LanguageModelingTask", "MultilingualSpeechTranslationTask", "MultilingualSpeechTranslationWithTranscriptionKDTask",
            "MultilingualSpeechTranslationWithTranscriptionTask", "SpeechRecognitionTask", "SpeechTranslationCTCTask",
            "SpeechTranslationCTCWithKDTask", "SpeechTranslationDualDecodingTask", "SpeechTranslationMultiTask", "Task",
            "TranslationTask"]

@@ -15,8 +15,12 @@ hypotheses and references (``--eval-bleu-detok``, ``-detok-args``,
 sufficient statistics join the batch's logging outputs
 (``valid_step_extra``) and give the epoch's ``bleu``
 (``reduce_metrics``); without ``sacrebleu`` the task raises when it is
-set up. ``--load-alignments`` and ``--truncate-source`` raise (ROADMAP
-Queue A item 3).
+set up. ``--load-alignments`` (JAX :121-140) reads each split's
+binarized ``<split>.align.<src>-<tgt>`` written by ``cli/preprocess
+--align-suffix`` (flat s0, t0, s1, t1, ... rows), or else the text file
+``<split>.<src>-<tgt>.align`` of Pharaoh ``s-t`` pairs, for the
+collater's ``align_weights``; ``--truncate-source`` (JAX :51-62) cuts a
+source to ``--max-source-positions`` with its eos kept.
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ from ..data import encoders
 from ..data.encoders import require_package
 from ..data.datasets import ConcatDataset
 from ..data.dictionary import Dictionary
-from ..data.indexed_dataset import dataset_exists, infer_dataset_impl, load_indexed_dataset
+from ..data.indexed_dataset import dataset_exists, infer_dataset_impl, load_indexed_dataset, make_dataset
 from ..data.language_pair_dataset import LanguagePairDataset
+from ..data.wrappers import AppendTokenDataset, StripTokenDataset, TruncateDataset
 from .base import Task
 
 logger = logging.getLogger(__name__)
@@ -51,8 +56,29 @@ def infer_language_pair(path):
     return None, None
 
 
+def load_alignments(data_path, split, src, tgt, n):
+    """The (n_links, 2) arrays of the split's alignments (JAX :121-140), or
+    None when it has none."""
+    bin_prefix = os.path.join(data_path, f"{split}.align.{src}-{tgt}")
+    impl = infer_dataset_impl(bin_prefix)
+    if impl is not None:
+        ds = make_dataset(bin_prefix, impl)
+        aligns = [np.asarray(ds[i], np.int64).reshape(-1, 2) for i in range(len(ds))]
+    else:
+        path = os.path.join(data_path, f"{split}.{src}-{tgt}.align")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            aligns = [np.array([tuple(map(int, p.split("-"))) for p in line.split()], np.int64).reshape(-1, 2)
+                      for line in f]
+    if len(aligns) != n:
+        raise ValueError(f"{split}: {len(aligns)} alignments for {n} pairs")
+    return aligns
+
+
 def load_langpair_dataset(data_path, split, src, src_dict, tgt, tgt_dict, combine, dataset_impl,
-                          left_pad_source, left_pad_target):
+                          left_pad_source, left_pad_target, max_source_positions=1024, with_alignments=False,
+                          truncate_source=False):
     def split_exists(split_k, src_l, tgt_l, lang):
         filename = os.path.join(data_path, f"{split_k}.{src_l}-{tgt_l}.{lang}")
         if dataset_impl is not None:
@@ -70,7 +96,11 @@ def load_langpair_dataset(data_path, split, src, src_dict, tgt, tgt_dict, combin
             break
         else:
             raise FileNotFoundError(f"Dataset not found: {split} ({data_path})")
-        src_datasets.append(load_indexed_dataset(prefix + src, src_dict, dataset_impl))
+        src_dataset = load_indexed_dataset(prefix + src, src_dict, dataset_impl)
+        if truncate_source:  # strip eos, cut, append it again (JAX :51-62)
+            src_dataset = AppendTokenDataset(TruncateDataset(StripTokenDataset(src_dataset, src_dict.eos()),
+                                                             max_source_positions - 1), src_dict.eos())
+        src_datasets.append(src_dataset)
         tgt_datasets.append(load_indexed_dataset(prefix + tgt, tgt_dict, dataset_impl))
         logger.info("{} {} {}-{} {} examples".format(data_path, split_k, src, tgt, len(src_datasets[-1])))
         if not combine:
@@ -79,8 +109,10 @@ def load_langpair_dataset(data_path, split, src, src_dict, tgt, tgt_dict, combin
         src_dataset, tgt_dataset = src_datasets[0], tgt_datasets[0]
     else:
         src_dataset, tgt_dataset = ConcatDataset(src_datasets), ConcatDataset(tgt_datasets)
+    align_dataset = load_alignments(data_path, split, src, tgt, len(src_dataset)) if with_alignments else None
     return LanguagePairDataset(src_dataset, src_dataset.sizes, src_dict, tgt_dataset, tgt_dataset.sizes, tgt_dict,
-                               left_pad_source=left_pad_source, left_pad_target=left_pad_target)
+                               left_pad_source=left_pad_source, left_pad_target=left_pad_target,
+                               align_dataset=align_dataset)
 
 
 class TranslationTask(Task):
@@ -111,9 +143,6 @@ class TranslationTask(Task):
 
     def __init__(self, args, src_dict, tgt_dict):
         super().__init__(args)
-        for flag in ("load_alignments", "truncate_source"):
-            if getattr(args, flag, False):
-                raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported (ROADMAP Queue A item 3)")
         if src_dict.pad() != tgt_dict.pad() or src_dict.eos() != tgt_dict.eos() or src_dict.unk() != tgt_dict.unk():
             raise ValueError("source and target dictionaries must share pad, eos and unk")
         self.src_dict = src_dict
@@ -142,7 +171,10 @@ class TranslationTask(Task):
             self.paths[0], split, self.args.source_lang, self.src_dict, self.args.target_lang, self.tgt_dict,
             combine=combine, dataset_impl=getattr(self.args, "dataset_impl", None),
             left_pad_source=getattr(self.args, "left_pad_source", True),
-            left_pad_target=getattr(self.args, "left_pad_target", False))
+            left_pad_target=getattr(self.args, "left_pad_target", False),
+            max_source_positions=getattr(self.args, "max_source_positions", 1024),
+            with_alignments=getattr(self.args, "load_alignments", False),
+            truncate_source=getattr(self.args, "truncate_source", False))
 
     @property
     def source_dictionary(self):

@@ -88,7 +88,7 @@ step computes, the unsharded step on the global batch:
     resumes at another world size or layout.
 
 ``steps_per_execution`` > 1 raises (ROADMAP Queue A item 8), and so does
-scalar quant-noise (item 9).
+scalar quant-noise (item 9(c)).
 """
 
 from __future__ import annotations
@@ -113,7 +113,7 @@ from . import metrics
 # JAX trainer options off this slice's path: (value that means "off", what).
 _NOT_YET = {
     "steps_per_execution": (1, "steps_per_execution (ROADMAP Queue A item 8)"),
-    "quant_noise_scalar": (0, "scalar quant-noise (ROADMAP Queue A item 9)"),
+    "quant_noise_scalar": (0, "scalar quant-noise (ROADMAP Queue A item 9(c))"),
 }
 # the optimisers whose update reads more than one element of a leaf
 _NOT_ELEMENTWISE = ("adafactor", "lamb")

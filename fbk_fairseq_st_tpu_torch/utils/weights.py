@@ -44,11 +44,35 @@ statistics, which the bridge puts in that encoder as its buffers
 (``context_encoder.audio_encoder.bn.{i}.running_mean``; ROADMAP Queue C);
 the values agree.
 
+The text transformer family's embeddings and outputs take the fork's
+module names (fairseq/modules/adaptive_input.py, adaptive_softmax.py,
+character_token_embedder.py), where ``export_parameters`` flattens JAX's
+tree by path (ROADMAP Queue C, JAX side; the fork's names were not
+checked against a reference checkout):
+
+  * ``shared_embed_tokens`` (``--share-all-embeddings``) is
+    ``encoder.embed_tokens.weight`` and ``decoder.embed_tokens.weight``,
+    one tensor;
+  * ``adaptive_input.clusters.{i}.embed`` / ``.proj`` are
+    ``embed_tokens.embeddings.{i}.0`` (a table, as it is) / ``.1``;
+  * ``adaptive_softmax.tails.{i}.proj`` / ``.out`` are
+    ``adaptive_softmax.tail.{i}.0`` / ``.2``; tied to the adaptive input,
+    ``class_proj`` is ``head.class_proj``, ``projs.{i}`` is
+    ``tail.{i}.0``, and the shared tables appear again as
+    ``head.word_proj.weight`` (band 0), ``tail.{i}.2.weight`` (band i+1)
+    and, with ``--tie-adaptive-proj``, ``tail.{i}.0.weight`` (band i+1's
+    input projection);
+  * ``char_embedder`` is ``embed_tokens`` (``char_embeddings.weight``, a
+    table; ``symbol_embeddings``; ``convolutions.{i}``, whose (W, C_in,
+    C_out) kernels become ``Conv1d``'s (C_out, C_in, W);
+    ``highway.layers.{i}``; ``projection``).
+
 The tree's leaves are numpy arrays (or anything ``np.asarray`` accepts).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -89,7 +113,12 @@ _NO_TRANSPOSE_SUFFIX = (
     "encoder_embed.weight",
     "decoder_embed.weight",
     ".conv.weight",
+    "char_embeddings.weight",
 )
+_ADAPTIVE_TABLE = re.compile(r".*embed_tokens\.embeddings\.\d+\.0\.weight$")
+# the text family's subtrees, renamed component by component
+_TEXT_COMPONENTS = {"adaptive_input": "embed_tokens", "clusters": "embeddings", "char_embedder": "embed_tokens",
+                    "tails": "tail", "projs": "tail", "class_proj": "head.class_proj", "highway": "highway.layers"}
 
 
 def fork_name(parts: List[str]) -> str:
@@ -99,7 +128,21 @@ def fork_name(parts: List[str]) -> str:
         prev = parts[i - 1] if i > 0 else ""
         if part in _TRANSPARENT:
             continue
-        if part == "context_ln":
+        if i == 0 and part == "shared_embed_tokens":
+            out.append("encoder.embed_tokens")
+        elif part in _TEXT_COMPONENTS and ("adaptive_softmax" in parts or "adaptive_input" in parts
+                                           or "char_embedder" in parts):
+            out.append(_TEXT_COMPONENTS[part])
+            if part == "projs":  # tail i's free projection: the tail's first module
+                out.append(parts[i + 1])
+                out.append("0")
+        elif prev == "projs" and "adaptive_softmax" in parts:
+            continue  # the index, written with "projs"
+        elif part in ("embed", "proj", "out") and i >= 2 and parts[i - 2] in ("clusters", "tails"):
+            out.append({"embed": "0", "proj": "1" if parts[i - 2] == "clusters" else "0", "out": "2"}[part])
+        elif part == "char_embeddings" and i == len(parts) - 1:
+            out.append("char_embeddings.weight")
+        elif part == "context_ln":
             out.append("context_attn_layer_norm" if parts[0] == "decoder" else "context_layer_norm")
         elif part == "audio_encoder_state":  # the audio context encoder's BatchNorm statistics
             out.append("audio_encoder")
@@ -120,8 +163,11 @@ def fork_name(parts: List[str]) -> str:
 def fork_axes(name: str, ndim: int) -> Tuple[int, ...]:
     """The permutation ``fork_layout`` applies: axis i of the fork's array
     is axis ``fork_axes(name, ndim)[i]`` of the JAX array."""
-    if ndim == 2 and name.endswith("weight") and not name.endswith(_NO_TRANSPOSE_SUFFIX):
+    if (ndim == 2 and name.endswith("weight") and not name.endswith(_NO_TRANSPOSE_SUFFIX)
+            and not _ADAPTIVE_TABLE.match(name)):
         return (1, 0)  # (in, out) -> nn.Linear (out, in)
+    if ndim == 3 and "embed_tokens.convolutions." in name:
+        return (2, 1, 0)  # the char embedder's (W, C_in, C_out) -> Conv1d (C_out, C_in, W)
     if ndim == 4:
         return (3, 2, 0, 1)  # HWIO -> OIHW
     return tuple(range(ndim))
@@ -151,7 +197,25 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             name = fork_name(list(path))
             arr = np.asarray(leaf)
             out[name] = torch.tensor(np.ascontiguousarray(fork_layout(name, arr)))
-    return out
+    if "shared_embed_tokens" in (variables.get("params") or {}):
+        out["decoder.embed_tokens.weight"] = out["encoder.embed_tokens.weight"]
+    return _with_tied_names(out)
+
+
+def _with_tied_names(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The tables a tied adaptive softmax shares with the adaptive input
+    under each of their fork names, as the fork's state dict lists a shared
+    tensor under every module that holds it."""
+    for name in [k for k in sd if k.endswith("adaptive_softmax.head.class_proj.weight")]:
+        prefix = name[:-len("adaptive_softmax.head.class_proj.weight")]
+        table = prefix + "embed_tokens.embeddings.{}.{}.weight"
+        sd[prefix + "adaptive_softmax.head.word_proj.weight"] = sd[table.format(0, 0)]
+        for i in range(sd[name].shape[0]):
+            sd[f"{prefix}adaptive_softmax.tail.{i}.2.weight"] = sd[table.format(i + 1, 0)]
+            proj = f"{prefix}adaptive_softmax.tail.{i}.0.weight"
+            if proj not in sd:  # --tie-adaptive-proj
+                sd[proj] = sd[table.format(i + 1, 1)]
+    return sd
 
 
 # optax's state classes and their fields, in the order they pickle: the

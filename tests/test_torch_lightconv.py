@@ -518,11 +518,11 @@ def test_task_builds_both_families():
     assert {"conv_transformer", "lightconv", "dynamicconv_wmt_en_de_big"} <= set(tmodels.ARCHITECTURES)
     assert tmodels.ARCHITECTURES["dynamicconv_wmt_en_de_big"] is tlcm
 
-    for arch in ("transformer", "lstm"):
+    for arch in ("fconv", "lstm"):
         with pytest.raises(NotImplementedError):
             task.build_model(argparse.Namespace(arch=arch, seed=1), device="cpu")
-    # --eval-bleu is ported; --load-alignments still raises
-    with pytest.raises(NotImplementedError):
-        TranslationTask(argparse.Namespace(load_alignments=True), src_dict, tgt_dict)
+    # the text transformer family and --load-alignments are ported
+    assert tmodels.ARCHITECTURES["transformer"] is not tlcm
+    TranslationTask(argparse.Namespace(load_alignments=True), src_dict, tgt_dict)
     with pytest.raises(TypeError):
         tlcm.build_model("dynamicconv", tgt_dict, device="cpu", no_such_option=1)

@@ -27,6 +27,11 @@ from fbk_fairseq_st_tpu.cli import infer as jinfer
 import fbk_fairseq_st_tpu.models.conv_transformer_context  # noqa: F401  (registers the JAX model)
 import fbk_fairseq_st_tpu.models.multilingual_conv_transformer  # noqa: F401  (registers the JAX model)
 import fbk_fairseq_st_tpu.tasks.multilingual_speech_translation  # noqa: F401  (registers the JAX task)
+import fbk_fairseq_st_tpu.models.transformer_align  # noqa: F401  (registers the JAX model)
+import fbk_fairseq_st_tpu.models.transformer_lm  # noqa: F401  (registers the JAX model)
+import fbk_fairseq_st_tpu.tasks.language_modeling  # noqa: F401  (registers the JAX task)
+import fbk_fairseq_st_tpu.criterions.adaptive_loss  # noqa: F401  (registers the JAX criterion)
+import fbk_fairseq_st_tpu.criterions.label_smoothed_cross_entropy_with_alignment  # noqa: F401
 from fbk_fairseq_st_tpu import options as joptions
 from fbk_fairseq_st_tpu.ops import attention as jattention
 from fbk_fairseq_st_tpu_torch import options as toptions
@@ -44,7 +49,13 @@ CASES = {
     "vggtransformer_base": ["--task", "speech_recognition", "-t", "de"],
     "vggtransformer_enc_1": ["--task", "speech_recognition", "-t", "de", "--criterion", "ctc_loss"],
     "w2l_conv_glu_enc": ["--task", "speech_recognition", "-t", "de", "--criterion", "asg_loss"],
+    "transformer_vaswani_wmt_en_de_big": ["--task", "translation", "-s", "de", "-t", "en"],
+    "transformer_wmt_en_de_big_align": ["--task", "translation", "-s", "de", "-t", "en", "--criterion",
+                                        "label_smoothed_cross_entropy_with_alignment"],
+    "transformer_lm_wiki103": ["--task", "language_modeling", "--criterion", "adaptive_loss"],
 }
+# the archs of the translation task, which has --eval-bleu
+TRANSLATION_ARCHS = ("dynamicconv_iwslt_de_en", "transformer_vaswani_wmt_en_de_big", "transformer_wmt_en_de_big_align")
 # their JAX parsers have neither the transformer family's flags nor --relu-dropout
 ASR_ARCHS = ("vggtransformer_base", "vggtransformer_enc_1", "w2l_conv_glu_enc")
 SELECTORS = {"--arch", "-a", "--task", "--criterion", "--optimizer", "--lr-scheduler", "--tokenizer", "--bpe",
@@ -143,7 +154,7 @@ def test_port_parser_takes_or_refuses_every_jax_flag(arch):
     assert {"--user-dir", "--allow-partial-restore", "--checkpoint-format", "--async-checkpoint"} <= set(accepted)
     pruning = {"--encoder-layers-to-keep", "--decoder-layers-to-keep"}  # the transformer family's
     assert (pruning <= set(accepted)) == (arch not in ASR_ARCHS)
-    assert ("--eval-bleu" in accepted) == (arch == "dynamicconv_iwslt_de_en")
+    assert ("--eval-bleu" in accepted) == (arch in TRANSLATION_ARCHS)
 
 
 GENERATION_FLAGS = [
@@ -231,13 +242,16 @@ def test_port_infer_parser_takes_or_refuses_every_jax_flag():
 def test_activation_dropout_is_relu_dropout(arch):
     """``--activation-dropout 0.3`` sets ``relu_dropout`` to 0.3 in both
     parsers (JAX's alias, ``models/transformer_args.py:19-21``), and
-    ``--relu-dropout`` still does."""
+    ``--relu-dropout`` still does; no parser makes ``activation_dropout``
+    a dest of its own (the wiki103 preset sets that attribute in both, and
+    no layer reads it)."""
     for flag in ("--activation-dropout", "--relu-dropout"):
         argv = _base(arch) + [flag, "0.3"]
         jargs = _parse(lambda a: joptions.parse_args_and_arch(joptions.get_training_parser(), a), argv)
         targs = _parse(lambda a: toptions.parse_args_and_arch(toptions.get_training_parser(), a), argv)
         assert targs.relu_dropout == jargs.relu_dropout == 0.3
-        assert not hasattr(targs, "activation_dropout")
+        assert getattr(targs, "activation_dropout", None) == getattr(jargs, "activation_dropout", None)
+        assert hasattr(targs, "activation_dropout") == (arch == "transformer_lm_wiki103")
 
 
 def test_attention_route_flags_set_the_route():

@@ -41,11 +41,14 @@ def _np(t):
 
 
 def build(argv, vocab, src_vocab=None):
-    """(args, task, model, criterion) of the port on the CPU."""
-    from fbk_fairseq_st_tpu_torch.tasks import SpeechRecognitionTask, SpeechTranslationCTCTask
+    """(args, task, model, criterion) of the port on the CPU (a language
+    model's task when ``argv`` names ``language_modeling``)."""
+    from fbk_fairseq_st_tpu_torch.tasks import LanguageModelingTask, SpeechRecognitionTask, SpeechTranslationCTCTask
 
     args = options.parse_args_and_arch(options.get_training_parser(), argv)
-    if src_vocab is None:
+    if args.task == "language_modeling":
+        task = LanguageModelingTask(args, dictionary(vocab))
+    elif src_vocab is None:
         task = SpeechRecognitionTask(args, dictionary(vocab))
     else:
         task = SpeechTranslationCTCTask(args, dictionary(vocab), dictionary(src_vocab))

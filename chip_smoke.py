@@ -439,7 +439,28 @@ Phases (each prints JSON lines; any failure raises, exit code != 0):
      update or batch seconds, device busy and idle share, peak GB; the
      wiki103 call (bh 8, T = S = 3072, D 128, causal) timed in both types as
      phase 4 times a call;
- 35. the ``kernels`` line (the D 128 tensor-core kernels timed at the
+ 35. simultaneous translation and quantisation (``simultaneous_and_quantized``),
+     on phase 34's corpus and checkpoint and phase 24's: (a)
+     ``transformer_monotonic_vaswani_wmt_en_de_big`` at full width
+     (``--simul-type infinite_lookback``, the latency-augmented criterion
+     with ``--latency-weight-avg 0.1 --latency-weight-var 0.1``, bf16)
+     trained by ``cli/train`` (3 updates and 1 validation batch: 12
+     tensor-core forwards, dq and dkv an update, the 6 monotonic
+     cross-attentions plain tensor ops), with the alignment recurrence's
+     share of an update timed; (b) ``cli/simul_eval`` of that checkpoint on
+     8 valid sentences (decoding capped at 30 tokens; 12 tf32x3 forwards an
+     agent step that encodes its prefix, 6 one that reuses it), every line
+     equal to the in-memory agent's on the card,
+     and the 2 shortest sentences equal to ``--cpu``; (c) seeded wait-k (k
+     3) and hard-aligned models, one sentence each through the agent, card
+     against CPU; (d) ``cli/generate --quantize-weights int8`` on phase
+     24's conv_transformer and phase 34's WMT big checkpoints, H- lines
+     equal to the in-memory quantised generator's, the quantised linears'
+     MB; (e) two WMT big updates with ``--quant-noise-pq 0.1
+     --quant-noise-scalar 0.1``; (f) a two-stage ``--quantization-config-path``
+     run (decoder fc1 / fc2, then its self-attention, 256 centroids), then
+     ``cli/generate`` on its checkpoint;
+ 36. the ``kernels`` line (the D 128 tensor-core kernels timed at the
      iwslt call and at ``d128_long`` in their type; the CUDA-core dynamic-conv kernels with 0
      main-path launches, marked as reached by a direct call only), the card
      line, and the final ``ok`` line.
@@ -477,6 +498,12 @@ Tolerances (stated here, checked below):
     scorer, on the same batches and weights: the same hypotheses, scores
     within 1e-4 (the same kernels on the same inputs; a P- value is printed
     at 4 decimals, 5e-5 of rounding);
+  * ``cli/simul_eval`` against the in-memory agent on the card: every H-,
+    DEL- and LAT- line equal (the same kernels on the same inputs); against
+    ``--cpu``: equal too, and a seeded agent's READ / WRITE decisions equal
+    card against CPU, where a decision that parts passes only when its
+    p_choose lies within 1e-4 of the 0.5 threshold on both sides (a flip
+    by rounding, reported with its value);
   * ``cli/train`` resumed against the straight run: the losses after the
     stop within 1e-3 relative (bf16 compute, and ``F.ctc_loss``'s CUDA
     backward sums with atomics, so two runs of the same update may part in
@@ -540,7 +567,7 @@ PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PEAK_BF16 = 989e12
 
 ATOL_KERNEL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-PLAIN_ITERS = 5  # calls a mean of the plain attention's timings (milliseconds a call at S 2048)
+PLAIN_ITERS = 1  # calls a mean of the plain attention's timings (milliseconds a call at S 2048)
 ATOL_GRAD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 RTOL_GRAD_BF16 = 1e-2  # flash dq / dk / dv in bf16: of max|plain|, tensor by tensor
 ATOL_LSE = 1e-4
@@ -720,7 +747,7 @@ QUICK_START = ["--task", "speech_translation_with_transcription", "-s", "en", "-
                "--ctc-encoder-layer", "4", "--ctc-compress-out", "--optimizer", "adam", "--lr", "0.002",
                "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4000", "--clip-norm", "10",
                "--max-tokens", "25000", "--bf16", "--max-epoch", "2", "--log-format", "json", "--log-interval", "1"]
-CLI_TIMED_STEPS = 5  # Trainer.train_step on the CLI's first batch, beside the CLI's update wall
+CLI_TIMED_STEPS = 3  # Trainer.train_step on the CLI's first batch, beside the CLI's update wall
 # phases 25-26 (on phase 24's corpus): the quick start's optimisation, bf16
 OPTIM_ARGS = ["--optimizer", "adam", "--lr", "0.002", "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4000",
               "--clip-norm", "10", "--max-tokens", "25000", "--bf16", "--log-format", "json", "--log-interval", "1"]
@@ -2154,15 +2181,22 @@ def train_lightconv(card, dicts, fa, dconv, single, modules, arch=LC_ARCH, timed
     return launches
 
 
+_LC_BUILT = {}  # arch -> its seeded fp32 model on the CPU, copied for each step (one init draw)
+
+
 def one_lc_step(dicts, modules, device, sample, use_kernel, deterministic=False, arch=LC_ARCH):
     """A fresh full-width fp32 lightconv of ``arch`` (seed 1) after one
     train step with lr 2e-3 from the first update; returns (model, step
     outputs)."""
+    import copy
+
     Trainer, TranslationTask = modules["Trainer"], modules["TranslationTask"]
     args = lc_train_args(arch, bf16=False, dropout=0.0, attention_dropout=0.0, relu_dropout=0.0,
                          weight_dropout=0.0, input_dropout=0.0, warmup_updates=1, warmup_init_lr=0.002)
     task = TranslationTask(args, *dicts)
-    model = task.build_model(args, device=device)
+    if arch not in _LC_BUILT:
+        _LC_BUILT[arch] = task.build_model(args, device="cpu")
+    model = copy.deepcopy(_LC_BUILT[arch]).to(device)
     model.use_kernel = use_kernel
     criterion = task.build_criterion(args)
     trainer = Trainer(args, task, model, _EvalCriterion(criterion) if deterministic else criterion)
@@ -2179,6 +2213,7 @@ def check_lightconv_steps(dicts, modules):
     cpu = one_lc_step(dicts, modules, "cpu", staged_text(small, "cpu"), use_kernel=False, deterministic=True)
     card = one_lc_step(dicts, modules, "cuda", staged_text(small), use_kernel=True, deterministic=True)
     compare_steps("lightconv_card_vs_cpu", card, cpu, "other_forward")
+    _LC_BUILT.clear()
 
 
 def train_iwslt_fp32(card, dicts, fa, dconv, single, modules, attention):
@@ -2230,6 +2265,7 @@ def train_iwslt_fp32(card, dicts, fa, dconv, single, modules, attention):
     dense = counted_step(fa, {}, step_fn=step)
     attention.set_flash_attention(None)
     compare_steps("iwslt_fp32_flash_vs_dense", flash, dense, "other_forward")
+    _LC_BUILT.clear()
     return launches
 
 
@@ -5652,7 +5688,7 @@ TT_ALIGN_CALLS = TT_CALLS + 2 * (TT_ALIGN_LAYER + 1) - 1
 TT_SERVE_BATCH = 32  # sentences a cli/generate batch
 TT_GEN_LAUNCHES = 6  # a batch: the encoder's (the cached decoder steps take the dense route)
 TT_SCORE_LAUNCHES = TT_CALLS  # --score-reference: one teacher-forced fp32 forward a batch
-TT_MAX_LEN_B = 30
+TT_MAX_LEN_B = 20
 TT_ARGS = ["--task", "translation", "-s", "en", "-t", "de", "--share-all-embeddings",
            "--label-smoothing", "0.1", "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--lr", "0.0005",
            "--lr-scheduler", "inverse_sqrt", "--warmup-updates", "4000", "--clip-norm", "0", "--max-tokens", "3584",
@@ -6116,6 +6152,465 @@ def text_transformer_from_files(card, d, fa, dconv, single, modules, tmp):
     return total
 
 
+# phase 35: simultaneous translation and quantisation, on phase 34's corpus
+# and checkpoint and phase 24's checkpoint
+SIMUL_ARCH = "transformer_monotonic_vaswani_wmt_en_de_big"
+SIMUL_UPDATES = 3
+# a step: 6 causal encoder and 6 causal decoder self-attentions; the 6
+# monotonic cross-attentions are plain tensor ops (ops/monotonic_attention.py)
+SIMUL_CALLS = 12
+# an agent step's fp32 forward: the same 12, tf32x3, or the decoder's 6 where
+# the step reuses the prefix's encoder states (after a WRITE)
+SIMUL_AGENT_LAUNCHES, SIMUL_DECODER_LAUNCHES = 12, 6
+SIMUL_SENTENCES, SIMUL_CPU_SENTENCES = 8, 2  # the valid split's shortest sentences decoded; the shortest also by --cpu
+SIMUL_MAX_LEN = 30  # tokens an agent writes at most
+SIMUL_SEEDED_MAX_LEN = 10  # the seeded agents' (c), which run on the CPU too
+SIMUL_WAITK = 3
+# a READ / WRITE decision card and CPU may take apart: p_choose within this of 0.5
+SIMUL_FLIP_BAND = 1e-4
+SIMUL_ARGS = [*TT_ARGS, "--simul-type", "infinite_lookback", "--criterion",
+              "latency_augmented_label_smoothed_cross_entropy", "--latency-weight-avg", "0.1", "--latency-weight-var",
+              "0.1", "--max-tokens-valid", "8192"]
+QN_UPDATES = 2
+QN_ARGS = ["--quant-noise-pq", "0.1", "--quant-noise-scalar", "0.1"]
+IPQ_UPDATES = 2  # two stages, one an update
+IPQ_CONFIG = """n_centroids:
+  Linear:
+    key: in_features
+    value: {"*": 256}
+  Embedding:
+    key: embedding_dim
+    value: {"*": 256}
+block_sizes:
+  Linear:
+    key: fuzzy_name
+    value: {fc: 8, attn: 4, emb: 4}
+  Embedding:
+    key: fuzzy_name
+    value: {emb: 8}
+layers_to_quantize:
+  - decoder\\.layers\\.\\d+\\.fc[12]
+  - decoder\\.layers\\.\\d+\\.self_attn\\.(k_proj|v_proj|q_proj|out_proj)
+"""
+# model flags appended to the phase's training runs and seeded builds (empty on the card: full width)
+SIMUL_SMALL_ARGS, SIMUL_SMALL = [], {}
+
+
+def simul_lines(sample_id, out, tgt_dict):
+    """The H-, DEL- and LAT- lines ``cli/simul_eval`` prints for one sentence."""
+    lines = [f"H-{sample_id}\t{tgt_dict.string(np.asarray(out['tokens'], np.int64))}",
+             "DEL-{}\t{}".format(sample_id, " ".join(str(d) for d in out["delays"]))]
+    if out["latency"]:
+        lat = out["latency"]
+        lines.append("LAT-{}\tAP={:.4f} AL={:.4f} DAL={:.4f}".format(
+            sample_id, lat["average_proportion"], lat["average_lagging"], lat["differentiable_average_lagging"]))
+    return lines
+
+
+def with_simul_type(model, **changes):
+    """A copy of a monotonic model whose attention runs with ``changes`` to
+    its config (hard-aligned and wait-k attention read the same parameters)."""
+    import copy
+
+    model = copy.deepcopy(model)
+    model.mono_cfg = model.decoder.mono_cfg = model.mono_cfg._replace(**changes)
+    for layer in model.decoder.layers:
+        layer.encoder_attn.cfg = layer.encoder_attn.cfg._replace(**changes)
+    return model
+
+
+def lines_by_id(lines):
+    """{sentence id: its (kind, text) lines} of H- / DEL- / LAT- lines."""
+    out = {}
+    for line in lines:
+        head, _, rest = line.partition("\t")
+        kind, _, sid = head.partition("-")
+        out.setdefault(int(sid), []).append((kind, rest))
+    return out
+
+
+def traced_agent(sd, model, src, eos, max_len=SIMUL_MAX_LEN):
+    """The agent's output on ``src`` and each step's (n_read, tokens
+    written, p_write or None for wait-k): the layers' p_choose rows that
+    ``forward_decision`` hands back, read as the agent reads them."""
+    steps, original = [], sd.forward_decision
+
+    def record(model_, prefix, tokens, encoder_out=None):
+        pcs, next_tok, encoder_out = original(model_, prefix, tokens, encoder_out)
+        n_read = int(prefix.shape[0])
+        idx = min(pcs.shape[1] - 1, len(tokens) - 1, n_read - 1)
+        steps.append((n_read, len(tokens), float(pcs[:, idx].max()), next_tok))
+        return pcs, next_tok, encoder_out
+
+    sd.forward_decision = record
+    try:
+        out = sd.greedy_simul_decode(model, src, eos=eos, max_len=max_len)
+    finally:
+        sd.forward_decision = original
+    return out, steps
+
+
+def agent_flip(card_steps, cpu_steps, waitk):
+    """None when card and CPU took the same decisions, else the first step
+    they parted at: its p_write on both sides and whether it lies within
+    SIMUL_FLIP_BAND of the 0.5 threshold (a READ / WRITE flip by rounding)."""
+    for i, (a, b) in enumerate(zip(card_steps, cpu_steps)):
+        if a[:2] != b[:2] or a[3] != b[3]:
+            prev = card_steps[i - 1] if i else None
+            return {"step": i, "card": a, "cpu": b, "previous_card": prev, "previous_cpu": cpu_steps[i - 1] if i else None,
+                    "within_band": (not waitk and prev is not None
+                                    and abs(prev[2] - 0.5) <= SIMUL_FLIP_BAND and abs(cpu_steps[i - 1][2] - 0.5)
+                                    <= SIMUL_FLIP_BAND)}
+    if len(card_steps) != len(cpu_steps):
+        return {"steps": [len(card_steps), len(cpu_steps)], "within_band": False}
+    return None
+
+
+def write_simul_split(modules, work, raw, dict_path):
+    """The ``SIMUL_SENTENCES`` shortest sentence pairs of phase 34's raw valid
+    split (each READ or WRITE of the agent is a forward over the prefix, on
+    the CPU too) binarized as ``test``, and the ``SIMUL_CPU_SENTENCES``
+    shortest of them as ``valid``; returns the directory and the rows of
+    ``valid`` in ``test``."""
+    src_lines = open(os.path.join(raw, "valid.en"), encoding="utf-8").read().splitlines()
+    tgt_lines = open(os.path.join(raw, "valid.de"), encoding="utf-8").read().splitlines()
+    rows = sorted(range(len(src_lines)), key=lambda i: (len(src_lines[i].split()), i))[:SIMUL_SENTENCES]
+    shortest = sorted(range(len(rows)), key=lambda i: (len(src_lines[rows[i]].split()), i))[:SIMUL_CPU_SENTENCES]
+    pre = os.path.join(work, "raw")
+    os.makedirs(pre)
+    for split, picks in (("test", range(len(rows))), ("valid", shortest)):
+        for lang, lines in (("en", src_lines), ("de", tgt_lines)):
+            with open(os.path.join(pre, f"{split}.{lang}"), "w", encoding="utf-8") as f:
+                f.write("".join(lines[rows[i]] + "\n" for i in picks))
+    out = os.path.join(work, "data")
+    modules["preprocess_cli"].cli_main(["-s", "en", "-t", "de", "--testpref", os.path.join(pre, "test"), "--validpref",
+                                        os.path.join(pre, "valid"), "--destdir", out, "--srcdict", dict_path,
+                                        "--tgtdict", dict_path])
+    return out, shortest
+
+
+def alignment_recurrence_ms(sample_shape, heads, reps=3):
+    """Device milliseconds of the expected-alignment recurrence, forward and
+    backward, for the 6 decoder layers at a batch's (B, H, T, S) (CUDA
+    events around 6 calls, the best of ``reps``)."""
+    from fbk_fairseq_st_tpu_torch.ops.monotonic_attention import expected_alignment_train
+
+    b, t, s = sample_shape
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    pcs = [torch.rand((b, heads, t, s), generator=gen, device="cuda").requires_grad_() for _ in range(6)]
+    best = math.inf
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for pc in pcs:
+            expected_alignment_train(pc, 1e-6, True).sum().backward()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def int8_generate(modules, counters, argv, want_launches, results):
+    """``cli/generate --quantize-weights int8`` on ``argv`` against the
+    in-memory quantised generator on the same batches (the same tokens,
+    scores within FILES_SCORE_ATOL); each batch's launches ``want_launches``
+    ``FP32_FORWARD``s. Returns the leg's fields."""
+    options, registry, ckpt = modules["options"], modules["registry"], modules["checkpoint"]
+    argv = [*argv, "--quantize-weights", "int8", "--results-path", results]
+    torch.cuda.reset_peak_memory_stats()
+    launches, per_batch, wall = generate_counted(modules, counters, argv)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    args = options.parse_args_and_arch(options.get_generation_parser(), argv)
+    task = registry.TASKS[args.task].setup_task(args)
+    task.load_dataset(args.gen_subset)
+    batches = list(task.get_batch_iterator(
+        task.dataset(args.gen_subset), max_tokens=args.max_tokens, max_sentences=args.max_sentences,
+        max_positions=task.max_positions(),
+        required_batch_size_multiple=args.required_batch_size_multiple).next_epoch_itr(shuffle=False))
+    models, _ = ckpt.load_model_ensemble([args.path], task=task)
+    stats = modules["weight_only"].quantize_linear_weights(models[0])
+    hyps, _ = read_records(os.path.join(results, f"generate-{args.gen_subset}.txt"))
+    tgt = task.target_dictionary
+    generator = modules["SequenceGenerator"](tgt, beam_size=BEAM, max_len_b=args.max_len_b)
+    same, worst, n = 0, 0.0, 0
+    with torch.no_grad():
+        for sample in batches:
+            for sid, sent in zip(sample["id"], generator.generate(models, sample)):
+                score, text = hyps[int(sid)]
+                same += text == tgt.string(sent[0]["tokens"])
+                worst = max(worst, abs(score - sent[0]["score"] / math.log(2)))
+                n += 1
+        profile = profiled(lambda: generator.generate(models, batches[0]))
+    del models
+    torch.cuda.empty_cache()
+    want = only(launches, FP32_FORWARD, want_launches)
+    fields = {"batches": len(per_batch), "launches_a_batch": per_batch[0] if per_batch else None, "wall_s": wall,
+              "identical_hypotheses": f"{same}/{n}", "max_abs_score_diff_base2": worst,
+              "quantized_linears": stats["quantized"], "mb_fp32": stats["bytes_before"] / 1e6,
+              "mb_int8_with_scales": stats["bytes_after"] / 1e6,
+              "quantized_params_m": stats["bytes_before"] / 4e6, "profiled_batch": profile, "peak_gb": peak}
+    if not per_batch or any(b != want for b in per_batch):
+        raise AssertionError(f"int8 cli/generate launches {per_batch[:2]} a batch, expected {want}")
+    if not (n == len(hyps) and same == n and worst <= FILES_SCORE_ATOL and stats["quantized"] > 0):
+        raise AssertionError(f"int8 cli/generate against the in-memory quantised generator: {same}/{n} identical, "
+                             f"scores {worst} apart, {stats['quantized']} linears")
+    return fields, launches
+
+
+def simultaneous_and_quantized(card, d, fa, dconv, single, modules, tmp):
+    """Main path 35: simultaneous translation and quantisation on the card,
+    on phase 34's WMT corpus (``<tmp>/text``) and checkpoint and phase 24's
+    conv_transformer checkpoint (``<tmp>/straight/checkpoint_best.pt``).
+
+    (a) ``transformer_monotonic_vaswani_wmt_en_de_big`` at full width
+    (MMA-IL, ``--share-all-embeddings`` over the joined 32,768 symbols)
+    trained through ``cli/train`` with the latency-augmented criterion in
+    bf16 for SIMUL_UPDATES updates and one validation batch, each update
+    SIMUL_CALLS ``flash_fwd_tc`` + ``flash_bwd_dq_tc`` + ``flash_bwd_dkv_tc``;
+    the expected-alignment recurrence timed alone at the first batch's
+    shape beside the in-memory update. (b) ``cli/simul_eval`` of its
+    checkpoint on the SIMUL_SENTENCES shortest valid sentences (SIMUL_MAX_LEN tokens at
+    most; SIMUL_AGENT_LAUNCHES ``flash_fwd_tf32x3`` an agent step that
+    encodes its prefix, SIMUL_DECODER_LAUNCHES one that reuses it), each
+    line equal to the in-memory agent's on the card, and the
+    SIMUL_CPU_SENTENCES shortest equal to ``cli/simul_eval --cpu``. (c)
+    seeded wait-k (k SIMUL_WAITK) and hard-aligned models through the agent
+    on the shortest sentence (SIMUL_SEEDED_MAX_LEN tokens at most), card
+    against CPU; a READ / WRITE decision the
+    two take apart is reported with its p_choose, and passes only within
+    SIMUL_FLIP_BAND of 0.5. (d) ``cli/generate --quantize-weights int8`` on
+    phase 24's and phase 34's checkpoints against the in-memory quantised
+    generator, with the quantised linears' MB. (e) QN_UPDATES WMT big
+    updates with ``--quant-noise-pq 0.1 --quant-noise-scalar 0.1`` (18 + 18
+    + 18 an update). (f) the two-stage ``--quantization-config-path`` run
+    (IPQ_CONFIG; one stage an update) of the WMT big model and
+    ``cli/generate`` of its checkpoint (6 tf32x3 forwards a batch)."""
+    import copy
+    import logging
+
+    phase_t0 = time.perf_counter()
+    counters = (fa, dconv, single)
+    options, registry, ckpt = modules["options"], modules["registry"], modules["checkpoint"]
+    sd = modules["simultaneous_decoder"]
+    text = os.path.join(tmp, "text")
+    mt_dir, raw = os.path.join(text, "mt"), os.path.join(text, "raw")
+    work = os.path.join(tmp, "simul")
+    os.makedirs(work)
+    root = logging.getLogger()
+    handler = logging.FileHandler(os.path.join(work, "simul.log"))
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    report = {"phase": "simultaneous_and_quantized", "card": card}
+    total = {}
+    leg_t0 = [time.perf_counter()]
+
+    def leg(name, fields):
+        fields = {k: ({kk: vv for kk, vv in v.items() if vv} if k.startswith("launches") and isinstance(v, dict)
+                      else v) for k, v in fields.items()}
+        report[name] = {**fields, "seconds": time.perf_counter() - leg_t0[0]}
+        emit({"phase": f"simultaneous_and_quantized.{name}", **report[name], "card": card})
+        leg_t0[0] = time.perf_counter()
+
+    try:
+        # (a) the monotonic WMT big model through cli/train
+        save = os.path.join(work, "mma")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, dconv, single)
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            mt_dir, *SIMUL_ARGS, "--arch", SIMUL_ARCH, "--max-update", str(SIMUL_UPDATES), "--save-dir", save,
+            *SIMUL_SMALL_ARGS], calls=SIMUL_CALLS)
+        add_counts(total, launch_counts(fa, dconv, single))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if (len(rec.updates), len(rec.valid_batches)) != (SIMUL_UPDATES, 1):
+            raise AssertionError(f"{SIMUL_ARCH}: {len(rec.updates)} updates, {len(rec.valid_batches)} valid batches")
+        first = first_train_batch(modules, trainer)
+        step_s, wall_s, busy_s, _, classes = in_memory_update(trainer, first)
+        shape = (first["net_input"]["src_tokens"].shape[0], first["net_input"]["prev_output_tokens"].shape[1],
+                 first["net_input"]["src_tokens"].shape[1])
+        recurrence_ms = alignment_recurrence_ms(shape, trainer.model.mono_cfg.num_heads)
+        leg("mma_train", {"updates": len(rec.updates), "valid_batches": len(rec.valid_batches),
+                          "launches_an_update": rec.updates[0], "launches_a_valid_batch": rec.valid_batches[0],
+                          "losses": rec.losses("train"), "valid_losses": rec.losses("valid"),
+                          "update_s_median": step_s, "profiled_update_s": wall_s, "device_busy_ms": busy_s * 1e3,
+                          "device_idle_share": 1.0 - busy_s / wall_s, "busy_by_class_s": classes,
+                          "alignment_recurrence_fwd_bwd_ms": recurrence_ms, "batch_b_t_s": list(shape),
+                          "peak_gb": peak})
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (b) cli/simul_eval on the card, the in-memory agent, --cpu
+        last = os.path.join(save, "checkpoint_last.pt")
+        simul_dir, shortest = write_simul_split(modules, work, raw, os.path.join(raw, "dict.mt.txt"))
+        eval_argv = [simul_dir, "--task", "translation", "-s", "en", "-t", "de", "--path", last, "--max-len-b",
+                     str(SIMUL_MAX_LEN)]
+        reset_counts(fa, dconv, single)
+        per_step, restore = counted_calls(sd, "forward_decision", counters)
+        try:
+            t0 = time.perf_counter()
+            out = captured(modules["simul_eval_cli"].cli_main, eval_argv + ["--gen-subset", "test"])
+            eval_wall = time.perf_counter() - t0
+        finally:
+            restore()
+        add_counts(total, launch_counts(fa, dconv, single))
+        card_lines = [ln for ln in out.splitlines() if ln.startswith(("H-", "DEL-", "LAT-"))]
+        want_step = only(per_step[0], FP32_FORWARD, SIMUL_AGENT_LAUNCHES)
+        want_reuse = only(per_step[0], FP32_FORWARD, SIMUL_DECODER_LAUNCHES)
+        # a sentence encodes once a prefix: its first step and each step after a
+        # READ, so as many times as it read source tokens, its last delay
+        encodes = sum(int(ln.split("\t")[1].split()[-1]) for ln in card_lines if ln.startswith("DEL-"))
+        args = options.parse_args_and_arch(options.get_generation_parser(default_task="translation"),
+                                           eval_argv + ["--gen-subset", "test"])
+        task = registry.TASKS["translation"].setup_task(args)
+        task.load_dataset("test")
+        ds, tgt = task.dataset("test"), task.target_dictionary
+        models, _ = ckpt.load_model_ensemble([last], task=task)
+        mem_lines, lengths = [], []
+        for i in range(len(ds)):
+            src = ds[i]["source"].numpy() if hasattr(ds[i]["source"], "numpy") else np.asarray(ds[i]["source"])
+            lengths.append(len(src))
+            mem_lines += simul_lines(i, sd.greedy_simul_decode(models[0], src, eos=tgt.eos(), max_len=SIMUL_MAX_LEN),
+                                     tgt)
+        first_src = np.asarray(ds[0]["source"])
+        agent_profile = profiled(lambda: sd.forward_decision(models[0], torch.as_tensor(first_src, device="cuda"),
+                                                             [tgt.eos()] * 8))
+        del models
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu_out = captured(modules["simul_eval_cli"].cli_main, eval_argv + ["--gen-subset", "valid", "--cpu"])
+        cpu_s = time.perf_counter() - t0
+        cpu_lines = [ln for ln in cpu_out.splitlines() if ln.startswith(("H-", "DEL-", "LAT-"))]
+        card_by_id, mem_by_id = lines_by_id(card_lines), lines_by_id(mem_lines)
+        cpu_by_id = {shortest[i]: v for i, v in lines_by_id(cpu_lines).items()}
+        cpu_same = sum(cpu_by_id[i] == card_by_id.get(i) for i in cpu_by_id)
+        leg("simul_eval", {"sentences": len(ds), "source_lengths": lengths, "agent_steps": len(per_step),
+                           "launches_an_agent_step": per_step[0], "encoding_steps": encodes, "wall_s": eval_wall,
+                           "s_an_agent_step": eval_wall / max(len(per_step), 1), "profiled_agent_step": agent_profile,
+                           "lines_equal_in_memory": card_by_id == mem_by_id, "cpu_sentences": len(cpu_by_id),
+                           "cpu_lines_equal": f"{cpu_same}/{len(cpu_by_id)}", "cpu_s": cpu_s,
+                           "corpus_line": [ln.split(" | ")[-1] for ln in out.splitlines() if "Simultaneous eval" in ln]})
+        total_forwards = sum(s[FP32_FORWARD] for s in per_step)
+        if (any(s not in (want_step, want_reuse) for s in per_step) or not per_step or total_forwards
+                != SIMUL_AGENT_LAUNCHES * encodes + SIMUL_DECODER_LAUNCHES * (len(per_step) - encodes)):
+            raise AssertionError(f"cli/simul_eval launches {per_step[:2]} an agent step, expected {want_step} on the "
+                                 f"{encodes} steps that encode and {want_reuse} on the others")
+        if card_by_id != mem_by_id or len(card_by_id) != SIMUL_SENTENCES:
+            raise AssertionError(f"cli/simul_eval's lines against the in-memory agent: {card_lines[:6]} / {mem_lines[:6]}")
+        if cpu_same != len(cpu_by_id) or len(cpu_by_id) != SIMUL_CPU_SENTENCES:
+            raise AssertionError(f"cli/simul_eval --cpu: {cpu_same}/{len(cpu_by_id)} sentences equal the card's")
+
+        # (c) seeded wait-k and hard-aligned models, card against CPU
+        td = modules["Dictionary"].load(os.path.join(mt_dir, "dict.en.txt"))
+        src = np.asarray(ds[shortest[0]]["source"])
+        agents = {}
+        # hard-aligned and wait-k attention have the same parameters: one seeded build
+        hard = modules["build_model"](SIMUL_ARCH, td, td, device="cpu", seed=35, share_all_embeddings=True,
+                                      simul_type="hard_aligned", **SIMUL_SMALL)
+        for name, over in (("waitk", dict(simul_type="waitk", waitk_lagging=SIMUL_WAITK)),
+                           ("hard_aligned", dict(simul_type="hard_aligned"))):
+            cpu_model = with_simul_type(hard, **over)
+            card_model = copy.deepcopy(cpu_model).to("cuda")
+            t0 = time.perf_counter()
+            card_out, card_steps = traced_agent(sd, card_model, src, td.eos(), SIMUL_SEEDED_MAX_LEN)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu_out_, cpu_steps = traced_agent(sd, cpu_model, src, td.eos(), SIMUL_SEEDED_MAX_LEN)
+            cpu_agent_s = time.perf_counter() - t0
+            flip = agent_flip(card_steps, cpu_steps, name == "waitk")
+            agents[name] = {"tokens": len(card_out["tokens"]), "delays_card": card_out["delays"],
+                            "equal": flip is None, "flip": flip, "latency": card_out["latency"],
+                            "min_abs_p_minus_half": min((abs(st[2] - 0.5) for st in card_steps), default=None),
+                            "card_s": card_s, "cpu_s": cpu_agent_s}
+            del cpu_model, card_model
+            torch.cuda.empty_cache()
+            if flip is not None and not flip["within_band"]:
+                raise AssertionError(f"{name} agent: card and CPU part at {flip}")
+            if name == "waitk" and card_out["delays"][:1] != [min(SIMUL_WAITK, len(src))]:
+                raise AssertionError(f"wait-{SIMUL_WAITK} agent's first delay {card_out['delays'][:1]}")
+        del hard
+        leg("agents_card_cpu", {"source_length": len(src), **agents})
+
+        # (d) weight-only int8 serving: phase 24's conv_transformer, phase 34's WMT big
+        conv_argv = [os.path.join(tmp, "data"), "--task", "speech_translation_with_transcription", "-s", "en", "-t",
+                     "de", "--path", os.path.join(tmp, "straight", "checkpoint_best.pt"), "--criterion",
+                     "ctc_multi_loss", "--underlying-criterion", "label_smoothed_cross_entropy", "--beam", str(BEAM),
+                     "--max-len-b", str(MAX_LEN_B), "--gen-subset", "valid", "--max-tokens", "25000"]
+        fields, launches = int8_generate(modules, counters, conv_argv, FLASH_LAUNCHES_PER_REQUEST,
+                                         os.path.join(work, "int8_conv"))
+        add_counts(total, launches)
+        leg("int8_conv_transformer", fields)
+        wmt_argv = [mt_dir, "--task", "translation", "-s", "en", "-t", "de", "--path",
+                    os.path.join(text, "wmt", "checkpoint_last.pt"), "--beam", str(BEAM), "--max-sentences",
+                    str(TT_SERVE_BATCH), "--max-len-b", str(TT_MAX_LEN_B), "--gen-subset", "test"]
+        fields, launches = int8_generate(modules, counters, wmt_argv, TT_GEN_LAUNCHES, os.path.join(work, "int8_wmt"))
+        add_counts(total, launches)
+        leg("int8_wmt_big", fields)
+
+        # (e) quant-noise training of the WMT big model
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, dconv, single)
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            mt_dir, *TT_ARGS, "--arch", TT_ARCH, "--criterion", "label_smoothed_cross_entropy", "--max-update",
+            str(QN_UPDATES), "--no-save", "--max-tokens-valid", "8192", *QN_ARGS, *TT_SMALL_ARGS], calls=TT_CALLS)
+        add_counts(total, launch_counts(fa, dconv, single))
+        qn_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_s, wall_s, busy_s, _, classes = in_memory_update(trainer, first_train_batch(modules, trainer))
+        leg("quant_noise_train", {"updates": len(rec.updates), "launches_an_update": rec.updates[0],
+                                  "losses": rec.losses("train"), "update_s_median": step_s,
+                                  "profiled_update_s": wall_s, "device_busy_ms": busy_s * 1e3,
+                                  "device_idle_share": 1.0 - busy_s / wall_s, "busy_by_class_s": classes,
+                                  "peak_gb": qn_peak})
+        if len(rec.updates) != QN_UPDATES:
+            raise AssertionError(f"quant-noise run: {len(rec.updates)} updates")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (f) two-stage iPQ, then decoding its checkpoint
+        config = os.path.join(work, "ipq.yaml")
+        with open(config, "w") as f:
+            f.write(IPQ_CONFIG)
+        ipq_save = os.path.join(work, "ipq")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, dconv, single)
+        t0 = time.perf_counter()
+        rec, trainer = train_cli_run(modules, fa, dconv, single, [
+            mt_dir, *TT_ARGS, "--arch", TT_ARCH, "--criterion", "label_smoothed_cross_entropy", "--max-update",
+            str(IPQ_UPDATES), "--save-dir", ipq_save, "--max-tokens-valid", "8192", "--quantization-config-path",
+            config, *TT_SMALL_ARGS], calls=TT_CALLS)
+        ipq_wall = time.perf_counter() - t0
+        add_counts(total, launch_counts(fa, dconv, single))
+        pq_layers = modules["quantizer"].quantized_layers(trainer.model)
+        want_layers = 6 * len(trainer.model.decoder.layers)  # fc1, fc2 and q, k, v, out of each
+        ipq_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer
+        torch.cuda.empty_cache()
+        gen_argv = [mt_dir, "--task", "translation", "-s", "en", "-t", "de", "--path",
+                    os.path.join(ipq_save, "checkpoint_last.pt"), "--beam", str(BEAM), "--max-sentences",
+                    str(TT_SERVE_BATCH), "--max-len-b", str(TT_MAX_LEN_B), "--gen-subset", "test", "--results-path",
+                    os.path.join(work, "ipq_results")]
+        gen_launches, per_batch, gen_wall = generate_counted(modules, counters, gen_argv)
+        add_counts(total, gen_launches)
+        hyps, _ = read_records(os.path.join(work, "ipq_results", "generate-test.txt"))
+        want_gen = only(gen_launches, FP32_FORWARD, TT_GEN_LAUNCHES)
+        leg("ipq", {"updates": len(rec.updates), "launches_an_update": rec.updates[0], "losses": rec.losses("train"),
+                    "pq_layers": len(pq_layers), "cli_wall_s": ipq_wall, "peak_gb": ipq_peak,
+                    "decode_batches": len(per_batch), "decode_launches_a_batch": per_batch[0] if per_batch else None,
+                    "hypotheses": len(hyps), "decode_wall_s": gen_wall})
+        if len(rec.updates) != IPQ_UPDATES or len(pq_layers) != want_layers:
+            raise AssertionError(f"iPQ run: {len(rec.updates)} updates, {len(pq_layers)} PQ layers ({want_layers} "
+                                 "expected: fc1, fc2 and q, k, v, out of every decoder layer)")
+        if any(b != want_gen for b in per_batch) or not per_batch or len(hyps) != TEXT_SPLITS["test"]:
+            raise AssertionError(f"iPQ cli/generate: launches {per_batch[:2]} (expected {want_gen}), {len(hyps)} "
+                                 "hypotheses")
+    finally:
+        root.removeHandler(handler)
+        handler.close()
+    report["phase_s"] = time.perf_counter() - phase_t0
+    report["launches"] = {k: v for k, v in total.items() if v}
+    emit({"phase": "simultaneous_and_quantized", "phase_s": report["phase_s"], "launches": report["launches"],
+          "card": card})
+    return total
+
+
 def find_row(rows, row_kernel, timed_at):
     return next(r for r in rows if r["kernel"] == row_kernel and r["shape"] == timed_at[0]
                 and r["dtype"] == timed_at[1] and r.get("t_block") == (timed_at[2] if len(timed_at) > 2 else None))
@@ -6179,13 +6674,15 @@ def main() -> int:
     from fbk_fairseq_st_tpu_torch.cli import preprocess as preprocess_cli
     from fbk_fairseq_st_tpu_torch.cli import preprocess_audio as preprocess_audio_cli
     from fbk_fairseq_st_tpu_torch.cli import score as score_cli
+    from fbk_fairseq_st_tpu_torch.cli import simul_eval as simul_eval_cli
     from fbk_fairseq_st_tpu_torch.cli import train as train_cli
     from fbk_fairseq_st_tpu_torch.criterions import CrossEntropyDualDecoder, CTCMultiLoss
     from fbk_fairseq_st_tpu_torch.data import Dictionary, LanguagePairDataset, encoders, indexed_dataset
     from fbk_fairseq_st_tpu_torch.data.monolingual import LMContextWindowDataset
     from fbk_fairseq_st_tpu_torch.generation import (ContextAwareSequenceGenerator, SequenceGenerator,
                                                      SequenceScorer, TwoPhaseSequenceGenerator, alignment_utils,
-                                                     search)
+                                                     search, simultaneous_decoder)
+    from fbk_fairseq_st_tpu_torch.quantization import quantizer, weight_only
     from fbk_fairseq_st_tpu_torch.ops.core import make_generators
     from fbk_fairseq_st_tpu_torch.ops.specaugment import specaugment
     from fbk_fairseq_st_tpu_torch.train.checkpoint import save_model_checkpoint
@@ -6229,6 +6726,8 @@ def main() -> int:
                "alignment_utils": alignment_utils, "export_cli": export_cli, "import_cli": import_cli,
                "spm_tools": spm_tools, "Dictionary": Dictionary, "infer_cli": infer_cli,
                "eval_lm_cli": eval_lm_cli, "LMContextWindowDataset": LMContextWindowDataset,
+               "simul_eval_cli": simul_eval_cli, "simultaneous_decoder": simultaneous_decoder,
+               "weight_only": weight_only, "quantizer": quantizer,
                "fbk_scripts": {m.__name__.rsplit(".", 1)[-1]: m for m in (
                    mustshe_acc, mustshe_acc_fulltable, accuracy_from_fulltable, mustshe_agr_fulltable,
                    agreement_from_fulltable, ne_terms_accuracy, combine_ne_terms)}}
@@ -6355,8 +6854,13 @@ def main() -> int:
         # trained and scored by cli/eval_lm, and the gbw preset scored
         drive("text_transformer_from_files", text_transformer_from_files, card, d, fa, dconv, single, modules,
               files_tmp)
+        # 35. on phase 34's corpus and checkpoint and phase 24's: the
+        # monotonic WMT big model trained and evaluated simultaneously
+        # (cli/simul_eval), int8 serving, quant-noise and two-stage iPQ
+        drive("simultaneous_and_quantized", simultaneous_and_quantized, card, d, fa, dconv, single, modules,
+              files_tmp)
 
-    # 35. kernels line, card line, ok line
+    # 36. kernels line, card line, ok line
     launches = {k: sum(p[k] for p in paths.values()) for k in paths["serve"]}
     emit({"phase": "main_path_launches", **paths, "total": launches})
     for k, n in launches.items():

@@ -45,6 +45,7 @@ from .. import options
 from ..device import resolve_device
 from ..data.encoders import codec_chain
 from ..generation.alignment_utils import attach_alignments
+from ..quantization.weight_only import maybe_quantize_ensemble
 from ..registry import TASKS
 from ..scoring import bleu
 from ..train import checkpoint as checkpoint_utils
@@ -96,6 +97,7 @@ def _generate(args, output_file):
     models, _ = checkpoint_utils.load_model_ensemble(args.path.split(":"),
                                                      arg_overrides=ast.literal_eval(args.model_overrides),
                                                      task=task, device=device)
+    models = maybe_quantize_ensemble(models, args, logger)
     src_dict = getattr(task, "source_dictionary", None)
     tgt_dict = task.target_dictionary
 

@@ -52,6 +52,7 @@ from ..generation.arpa_lm import load_word_lm
 from ..generation.ctc_decoder import ASGBeamDecoder, CTCPrefixBeamDecoder, LexiconTrie, ctc_beam_decode_batch
 from ..ops.asg import asg_viterbi_decode
 from ..ops.ctc import ctc_greedy_decode
+from ..quantization.weight_only import maybe_quantize_ensemble
 from ..registry import TASKS
 from ..train import checkpoint as checkpoint_utils
 from ..utils.user_dir import import_user_module
@@ -241,6 +242,7 @@ def main(args):
     models, _ = checkpoint_utils.load_model_ensemble(args.path.split(":"),
                                                      arg_overrides=ast.literal_eval(args.model_overrides),
                                                      task=task, device=device)
+    models = maybe_quantize_ensemble(models, args, logger)
     tgt_dict = task.target_dictionary
 
     # the w2l decoders map onto the native ones: Viterbi over CTC emissions

@@ -33,6 +33,7 @@ from .. import options
 from ..data.encoders import codec_chain
 from ..data.language_pair_dataset import collate_tokens
 from ..device import resolve_device
+from ..quantization.weight_only import maybe_quantize_ensemble
 from ..registry import TASKS
 from ..train import checkpoint as checkpoint_utils
 from ..utils.user_dir import import_user_module
@@ -80,6 +81,7 @@ def main(args):
     models, _ = checkpoint_utils.load_model_ensemble(args.path.split(":"),
                                                      arg_overrides=ast.literal_eval(args.model_overrides),
                                                      task=task, device=device)
+    models = maybe_quantize_ensemble(models, args, logger)
     generator = task.build_generator(models, args)
     src_dict, tgt_dict = task.source_dictionary, task.target_dictionary
     encode_fn, decode_fn = codec_chain(args)

@@ -58,6 +58,7 @@ from .. import options
 from ..criterions.base import get_perplexity
 from ..data.iterators import DevicePrefetchIterator, GroupedIterator
 from ..device import resolve_device
+from ..quantization.quantizer import Quantizer
 from ..registry import TASKS
 from ..train import checkpoint as checkpoint_utils
 from ..utils.user_dir import import_user_module
@@ -120,11 +121,21 @@ def main(args):
     model = task.build_model(args, device=device)
     criterion = task.build_criterion(args)
     logger.info(f"model {args.arch}, criterion {criterion.__class__.__name__}")
-    trainer = Trainer(args, task, model, criterion)
+    quantizer = None
+    if getattr(args, "quantization_config_path", None):
+        # in-training iterative PQ (reference fairseq_cli/train.py:81-94)
+        quantizer = Quantizer(args.quantization_config_path, max_epoch=getattr(args, "max_epoch", 0) or 0,
+                              max_update=getattr(args, "max_update", 0) or 0)
+    trainer = Trainer(args, task, model, criterion, quantizer=quantizer)
+    if quantizer is not None:
+        quantizer.set_trainer(trainer)
     logger.info("num. model params: {}".format(sum(p.numel() for p in model.parameters())))
     logger.info("training on {}".format(torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU"))
 
     _, epoch_itr = checkpoint_utils.load_checkpoint(args, trainer, task)
+    if quantizer is not None:
+        # again after the restore: a quantised checkpoint's stages are done
+        quantizer.set_trainer(trainer)
     lr = trainer.get_lr()
     max_epoch = args.max_epoch or math.inf
     max_update = args.max_update or math.inf
@@ -194,6 +205,9 @@ def _flush(trainer) -> None:
 def train(args, trainer, task, epoch_itr, max_update):
     """One epoch (reference fairseq_cli/train.py:157-212)."""
     itr = epoch_itr.next_epoch_itr(shuffle=(epoch_itr.epoch > args.curriculum))
+    if trainer.quantizer is not None:
+        # the epoch-scheduled iPQ stage boundaries (reference trainer.py:328)
+        trainer.quantizer.begin_epoch(epoch_itr.epoch)
     update_freq = (args.update_freq[epoch_itr.epoch - 1] if epoch_itr.epoch <= len(args.update_freq)
                    else args.update_freq[-1])
     if getattr(args, "device_prefetch", 2) > 0:

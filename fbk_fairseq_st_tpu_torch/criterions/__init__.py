@@ -6,6 +6,7 @@ from .cross_entropy_dualdecoder import CrossEntropyDualDecoder
 from .cross_entropy_multi_task import CrossEntropyMultitask
 from .ctc import CTCCriterion, CTCMultiLoss
 from .knowledge_distillation import CrossEntropyKnowledgeDistillationCriterion
+from .latency_augmented import LatencyAugmentedLabelSmoothedCrossEntropyCriterion
 from .label_smoothed_cross_entropy import (
     CrossEntropyCriterion,
     LabelSmoothedCrossEntropyCriterion,
@@ -30,6 +31,7 @@ CRITERIONS = {
     "vocab_parallel_cross_entropy": VocabParallelCrossEntropyCriterion,
     "adaptive_loss": AdaptiveLoss,
     "label_smoothed_cross_entropy_with_alignment": LabelSmoothedCrossEntropyCriterionWithAlignment,
+    "latency_augmented_label_smoothed_cross_entropy": LatencyAugmentedLabelSmoothedCrossEntropyCriterion,
 }
 
 # the ROADMAP Queue A item of each JAX criterion the port has not, where it
@@ -56,6 +58,7 @@ __all__ = [
     "LabelSmoothedCrossEntropyCriterion",
     "LabelSmoothedCrossEntropyCriterionWithAlignment",
     "LabelSmoothedCrossEntropyCtxRegCriterion",
+    "LatencyAugmentedLabelSmoothedCrossEntropyCriterion",
     "label_smoothed_nll_from_logits",
     "label_smoothed_nll_loss",
     "roadmap_item",

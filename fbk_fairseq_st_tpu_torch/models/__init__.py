@@ -13,7 +13,7 @@ from typing import Any, Dict
 
 from . import (conv_transformer, conv_transformer_context, lightconv, model_parallel, multi_task,
                multilingual_conv_transformer, multitask_conv_transformer, transformer, transformer_align,
-               transformer_lm, vggtransformer, w2l_conv_glu)
+               transformer_lm, transformer_monotonic, vggtransformer, w2l_conv_glu)
 from .base import EncoderOut, reorder_encoder_out
 from .conv_transformer import ConvolutionalTransformerModel
 from .conv_transformer_context import ConvolutionalTransformerContextAwareModel
@@ -29,12 +29,14 @@ from .multitask_conv_transformer import MultitaskConvolutionalTransformer
 from .transformer import TransformerModel
 from .transformer_align import TransformerAlignModel
 from .transformer_lm import TransformerLanguageModel
+from .transformer_monotonic import TransformerMonotonicModel, TransformerUnidirectionalModel
 from .vggtransformer import VGGTransformerEncoderModel, VGGTransformerModel
 from .w2l_conv_glu import W2lConvGluEncoderModel
 
 ARCHITECTURES = {arch: family for family in (conv_transformer, lightconv, multi_task, multitask_conv_transformer,
                                              multilingual_conv_transformer, conv_transformer_context, vggtransformer,
-                                             w2l_conv_glu, transformer, transformer_lm, transformer_align)
+                                             w2l_conv_glu, transformer, transformer_lm, transformer_align,
+                                             transformer_monotonic)
                  for arch in family.ARCHITECTURES}
 # the model-parallel names (models/model_parallel.py) are presets of the
 # text transformer and its language model
@@ -45,8 +47,8 @@ def _family(arch: str):
     if arch not in ARCHITECTURES:
         raise NotImplementedError(
             f"--arch {arch}: the port has the conv_transformer, lightconv, multi-decoder, multitask "
-            "classifier, multilingual, context-aware, vggtransformer, w2l_conv_glu and text transformer "
-            "families; the other JAX families are ROADMAP Queue A item 9")
+            "classifier, multilingual, context-aware, vggtransformer, w2l_conv_glu, text transformer and "
+            "simultaneous (monotonic) families; the other JAX families are ROADMAP Queue A item 9")
     return ARCHITECTURES[arch]
 
 
@@ -76,6 +78,8 @@ __all__ = [
     "TransformerAlignModel",
     "TransformerLanguageModel",
     "TransformerModel",
+    "TransformerMonotonicModel",
+    "TransformerUnidirectionalModel",
     "VGGTransformerEncoderModel",
     "VGGTransformerModel",
     "W2lConvGluEncoderModel",

@@ -57,6 +57,7 @@ from ..ops.lightconv import (
     lightweight_conv_step,
 )
 from ..ops.positional import PositionalEmbedding
+from ..quantization.weight_only import weight_of
 from .base import EncoderOut
 
 
@@ -273,8 +274,8 @@ class LightConvModel(nn.Module):
             x = layer(x, encoder_out=encoder_out.encoder_out,
                       encoder_padding_mask=encoder_out.encoder_padding_mask, generator=generator,
                       cache=None if cache is None else cache[i], use_kernel=self.use_kernel)
-        w = self.decoder_embed.weight if self.output_projection is None else self.output_projection.weight
-        return torch.matmul(x, w.t().to(x.dtype))
+        w = weight_of(self.decoder_embed if self.output_projection is None else self.output_projection, x.dtype)
+        return torch.matmul(x, w.t())
 
     def forward(self, batch: Dict[str, Any], generator: GeneratorLike = None):
         """batch: src_tokens (B, S), src_lengths, prev_output_tokens (B, T)

@@ -63,6 +63,7 @@ class TransformerEncoderConfig(NamedTuple):
             embed_dim=self.embed_dim, ffn_dim=self.ffn_dim, num_heads=self.heads, dropout=self.dropout,
             attention_dropout=self.attention_dropout, activation_dropout=self.activation_dropout,
             activation=self.activation, normalize_before=self.normalize_before,
+            quant_noise_pq=self.quant_noise_pq, quant_noise_block=self.quant_noise_block,
         )
 
 
@@ -117,13 +118,14 @@ class TransformerEncoder(nn.Module):
 
 class TransformerModel(nn.Module):
     def __init__(self, encoder_cfg: TransformerEncoderConfig, decoder_cfg: TransformerDecoderConfig,
-                 share_all_embeddings: bool = False):
+                 share_all_embeddings: bool = False, encoder: nn.Module = None, decoder: nn.Module = None):
+        """``encoder`` / ``decoder``: a subclass's own, built on the configs."""
         super().__init__()
         self.encoder_cfg = encoder_cfg
         self.decoder_cfg = decoder_cfg
         self.share_all_embeddings = share_all_embeddings
-        self.encoder = TransformerEncoder(encoder_cfg)
-        self.decoder = TransformerDecoder(decoder_cfg)
+        self.encoder = TransformerEncoder(encoder_cfg) if encoder is None else encoder
+        self.decoder = TransformerDecoder(decoder_cfg) if decoder is None else decoder
         if share_all_embeddings:
             self.decoder.embed_tokens.weight = self.encoder.embed_tokens.weight
         self.max_source_positions = encoder_cfg.max_positions
@@ -273,17 +275,10 @@ def apply_preset(arch: str, args) -> None:
     ARCHITECTURES[arch](args)
 
 
-def _check_ported(args) -> None:
-    if (getattr(args, "quant_noise_pq", 0) or 0) != 0 or (getattr(args, "quant_noise_scalar", 0) or 0) != 0:
-        raise NotImplementedError("--quant-noise-pq / --quant-noise-scalar: quant-noise training is not ported "
-                                  "(ROADMAP Queue A item 9(c))")
-
-
 def configs_from_args(args, tgt_dict, src_dict=None
                       ) -> Tuple[TransformerEncoderConfig, TransformerDecoderConfig, bool]:
     """JAX ``TransformerModel.build_model`` (:175-253) on a namespace the
     preset has filled: the two configs and ``share_all_embeddings``."""
-    _check_ported(args)
     src_dict = tgt_dict if src_dict is None else src_dict
     share_all = getattr(args, "share_all_embeddings", False)
     if share_all:

@@ -23,8 +23,9 @@ embedding and output hooks: ``embed_tokens`` is an ``nn.Embedding``, an
 the dense projection or ``adaptive_softmax`` (free, or tied to the
 adaptive input), whose output is fp32 log-probabilities (the dense
 projection's logits take the activations' type). Adaptive input tied to a
-dense projection raises ``ValueError`` (JAX :242-252). Quant-noise is
-ROADMAP Queue A item 9(c).
+dense projection raises ``ValueError`` (JAX :242-252). ``--quant-noise-pq``
+reaches every layer (``layer_cfg``); a weight-only int8 or iPQ output
+projection is dequantised or rebuilt at its use (``output_layer``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..ops.adaptive_softmax import AdaptiveInput, AdaptiveSoftmax
 from ..ops.character_embedder import CharacterTokenEmbedder
 from ..ops.core import Generators, GeneratorLike, LayerNorm, dropout, embedding, normal_
 from ..ops.positional import PositionalEmbedding
+from ..quantization.weight_only import weight_of
 from ..ops.transformer_layer import (
     TransformerDecoderLayer,
     TransformerLayerConfig,
@@ -94,6 +96,8 @@ class TransformerDecoderConfig(NamedTuple):
             activation=self.activation,
             normalize_before=self.normalize_before,
             cross_self_attention=self.cross_self_attention,
+            quant_noise_pq=self.quant_noise_pq,
+            quant_noise_block=self.quant_noise_block,
         )
 
 
@@ -196,10 +200,11 @@ class TransformerDecoder(nn.Module):
         softmax fp32 log-probabilities (their log-softmax is themselves)."""
         if self.adaptive_softmax is not None:
             return self.adaptive_softmax.log_probs(x)
-        w = self.embed_tokens.weight if self.output_projection is None else self.output_projection.weight
         if self.vocab_parallel is not None:
+            w = self.embed_tokens.weight if self.output_projection is None else self.output_projection.weight
             return self.vocab_parallel.logits(x, w)
-        return torch.matmul(x, w.t().to(x.dtype))
+        w = weight_of(self.embed_tokens if self.output_projection is None else self.output_projection, x.dtype)
+        return torch.matmul(x, w.t())
 
     def forward(self, prev_output_tokens, encoder_out, encoder_padding_mask=None,
                 generator: GeneratorLike = None, features_only: bool = False, need_attn: bool = False,

@@ -33,7 +33,6 @@ from ..device import DeviceLike, resolve_device
 from ..ops.character_embedder import CharEmbedderConfig, build_word_to_char
 from ..ops.core import GeneratorLike
 from .base import EncoderOut
-from .transformer import _check_ported
 from .transformer_decoder import TransformerDecoder, TransformerDecoderConfig
 
 
@@ -185,7 +184,6 @@ def config_from_args(args, dictionary, input_dictionary=None):
     ``--character-embeddings``). ``input_dictionary`` is the task's source
     dictionary, larger than ``dictionary`` under
     ``--output-dictionary-size``."""
-    _check_ported(args)
     d = dictionary
     src_d = input_dictionary or d
     cfg = TransformerDecoderConfig(

@@ -14,6 +14,7 @@ JAX non-TPU branch (a Bernoulli keep mask, ``x / keep``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -31,13 +32,33 @@ NEG_INF = -1e9
 # weights on every device)
 # ---------------------------------------------------------------------------
 
+# set while a model is built only to take a checkpoint's weights
+_NO_DRAWS = [False]
+
+
+@contextlib.contextmanager
+def weights_from_state_dict():
+    """Within the block ``xavier_uniform_`` and ``normal_`` draw nothing: a
+    model built there takes every weight from a state dict that it then
+    loads strictly (``train/checkpoint.py``), so the draws would be lost."""
+    _NO_DRAWS[0] = True
+    try:
+        yield
+    finally:
+        _NO_DRAWS[0] = False
+
+
 def xavier_uniform_(t: torch.Tensor, generator: torch.Generator, fan_in: int,
                     fan_out: int, gain: float = 1.0) -> None:
+    if _NO_DRAWS[0]:
+        return
     limit = gain * (6.0 / (fan_in + fan_out)) ** 0.5
     _fill(t, torch.rand(t.shape, generator=generator) * (2 * limit) - limit)
 
 
 def normal_(t: torch.Tensor, generator: torch.Generator, std: float) -> None:
+    if _NO_DRAWS[0]:
+        return
     _fill(t, torch.randn(t.shape, generator=generator) * std)
 
 
@@ -51,8 +72,13 @@ def _fill(t: torch.Tensor, values: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 def linear(x, weight, bias=None):
-    """``y = x W^T + b`` with the nn.Linear (out, in) weight layout."""
-    return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+    """``y = x W^T + b`` with the nn.Linear (out, in) weight layout, the
+    weight and bias cast to the input's type where it differs."""
+    if weight.dtype != x.dtype:
+        weight = weight.to(x.dtype)
+    if bias is not None and bias.dtype != x.dtype:
+        bias = bias.to(x.dtype)
+    return F.linear(x, weight, bias)
 
 
 class Linear(nn.Linear):

@@ -13,8 +13,9 @@ model's), and with ``cross_self_attention`` its self-attention keys are
 the encoder states followed by its own (JAX :371-412): teacher-forced, the
 keys are cat(encoder_out, x) under an additive mask (the dense route);
 stepping, the ``self`` cache holds the projected encoder rows first and
-each step writes at S + step. Quant-noise is ROADMAP Queue A item 9(c)
-(``options.NOT_PORTED``).
+each step writes at S + step. Under ``--quant-noise-pq`` a layer in
+training runs on block-dropped copies of its projection weights
+(``quantization/quant_noise.py``, JAX ``_pq_noised`` :86-116).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..quantization.quant_noise import QuantNoiseMixin
 from .attention import MHAConfig, MultiheadAttention, _split_heads, causal_mask, init_cache
 from .core import GeneratorLike, LayerNorm, Linear, dropout, get_activation
 
@@ -42,6 +44,9 @@ class TransformerLayerConfig(NamedTuple):
     init_variance: float = 1.0
     # decoder self-attention keys include the encoder states
     cross_self_attention: bool = False
+    # --quant-noise-pq's rate and block size on every projection weight
+    quant_noise_pq: float = 0.0
+    quant_noise_block: int = 8
 
     @property
     def self_attn_cfg(self) -> MHAConfig:
@@ -55,7 +60,7 @@ class TransformerLayerConfig(NamedTuple):
         return MHAConfig(self.embed_dim, self.num_heads, dropout=self.attention_dropout)
 
 
-class _FFNMixin:
+class _FFNMixin(QuantNoiseMixin):
     def _ffn(self, x, generator):
         cfg = self.cfg
         residual = x
@@ -89,6 +94,9 @@ class TransformerEncoderLayer(_FFNMixin, nn.Module):
 
     def forward(self, x, key_padding_mask=None, attn_mask=None,
                 generator: GeneratorLike = None):
+        noised = self.pq_noised(generator, x, key_padding_mask=key_padding_mask, attn_mask=attn_mask)
+        if noised is not None:
+            return noised
         return self._ffn(self._self_block(x, key_padding_mask, attn_mask, generator), generator)
 
     def _self_block(self, x, key_padding_mask, attn_mask, generator):
@@ -142,6 +150,11 @@ class TransformerDecoderLayer(_FFNMixin, nn.Module):
         ``need_attn`` -> (x, the cross-attention's head-averaged weights
         (B, T, S)): that attention takes the dense route (JAX
         ``decoder_layer``'s ``need_attn``)."""
+        noised = self.pq_noised(generator, x, encoder_out=encoder_out, encoder_padding_mask=encoder_padding_mask,
+                                self_attn_mask=self_attn_mask, self_attn_padding_mask=self_attn_padding_mask,
+                                cache=cache, cache_index=cache_index, need_attn=need_attn)
+        if noised is not None:
+            return noised
         cfg = self.cfg
         x = self._self_block(x, self_attn_mask, self_attn_padding_mask, generator, cache, cache_index,
                              encoder_out, encoder_padding_mask)

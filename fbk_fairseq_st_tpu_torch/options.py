@@ -51,17 +51,13 @@ from . import registry
 from .models import ARCHITECTURES, arch_defaults
 from .models.conv_transformer_context import CHOICES as CONTEXT_CHOICES
 from .models.transformer_lm import CHARACTER_FILTERS
+from .ops.monotonic_attention import MONOTONIC_ATTENTION
 from .optim import LR_SCHEDULERS, OPTIMIZERS
 from .utils.user_dir import import_user_module
 
 # option -> (its value when off, what it needs): set to anything else, it raises
 NOT_PORTED = {
-    "quantize_weights": ("none", "weight-only quantisation (ROADMAP Queue A item 9(c))"),
     "steps_per_execution": (1, "several updates a dispatch (ROADMAP Queue A item 8)"),
-    "quantization_config_path": (None, "in-training quantisation (ROADMAP Queue A item 9(c))"),
-    "quant_noise_pq": (0, "quant-noise training (ROADMAP Queue A item 9(c))"),
-    "quant_noise_pq_block_size": (8, "quant-noise training (ROADMAP Queue A item 9(c))"),
-    "quant_noise_scalar": (0, "quant-noise training (ROADMAP Queue A item 9(c))"),
     # the iterative refinement generator of the NAT family
     "decoding_format": (None, "the NAT family's decoding formats (ROADMAP Queue A item 9)"),
     "iter_decode_eos_penalty": (0.0, "iterative refinement decoding (ROADMAP Queue A item 9)"),
@@ -82,6 +78,7 @@ _MODEL_PARSER_DEFAULTS = {
                   "decoder_conv_type": "lightweight", "weight_softmax": True},
     "transformer": _TRANSFORMER_PARSER_DEFAULTS,
     "transformer_align": _TRANSFORMER_PARSER_DEFAULTS,
+    "transformer_monotonic": _TRANSFORMER_PARSER_DEFAULTS,
     "transformer_lm": {**_TRANSFORMER_PARSER_DEFAULTS, "character_embeddings": False,
                        "character_embedding_dim": 4, "char_embedder_highway_layers": 2,
                        "character_filters": CHARACTER_FILTERS},
@@ -116,6 +113,9 @@ _FORK_MODEL_FLAGS = {
     "lightconv": _TRANSFORMER_FLAGS,
     "transformer": _TRANSFORMER_FLAGS,
     "transformer_align": _TRANSFORMER_FLAGS,
+    # the monotonic presets' --no-mass-preservation (JAX add_monotonic_args)
+    "transformer_monotonic": {**_TRANSFORMER_FLAGS,
+                              "--no-mass-preservation": dict(action="store_false", dest="mass_preservation")},
     # the LM's parser has every add_transformer_args flag, the encoder's too
     "transformer_lm": {**_TRANSFORMER_FLAGS, "--decoder-input-dim": dict(type=int),
                        **{f"--encoder-{name}": dict(type=int) for name in ("embed-dim", "ffn-embed-dim", "layers",
@@ -130,13 +130,15 @@ _ALIASES = {"relu_dropout": ("--activation-dropout",)}
 # preset options whose flag JAX's parser defines otherwise than the
 # preset's value type says (a kernel list stays the string JAX keeps)
 _FLAG_KWARGS = {"distance_penalty": dict(type=str, choices=["log", "gauss"]),
+                "simul_type": dict(type=str, choices=list(MONOTONIC_ATTENTION)),
                 "encoder_kernel_size_list": dict(type=str), "decoder_kernel_size_list": dict(type=str),
                 **{name: dict(type=str, choices=list(choices)) for name, choices in CONTEXT_CHOICES.items()}}
 # preset options that another component's flag sets (the criterion's and
 # ASG's --asg-transitions-init, the context task's --context-type), or that
 # no flag sets (the wiki103 preset's activation_dropout: --activation-dropout
 # is --relu-dropout's alias): no model flag
-_NOT_MODEL_FLAGS = ("criterion", "context_type", "asg_transitions_init", "activation_dropout")
+_NOT_MODEL_FLAGS = ("criterion", "context_type", "asg_transitions_init", "activation_dropout",
+                    "encoder_unidirectional")
 
 
 def get_preprocessing_parser(default_task: str = "translation") -> argparse.ArgumentParser:
@@ -256,7 +258,9 @@ def get_parser(desc: str, default_task: str = "speech_recognition") -> argparse.
     parser.add_argument("--model-parallel-size", type=int, metavar="N", default=1,
                         help="tensor parallelism: the mesh's 'model' dim")
     parser.add_argument("--checkpoint-suffix", default="", help="suffix to add to the checkpoint file name before .pt")
-    parser.add_argument("--quantization-config-path", default=None, help="in-training quantisation (not ported)")
+    parser.add_argument("--quantization-config-path", default=None,
+                        help="a quantisation config (the reference's YAML) for in-training iterative product "
+                             "quantisation (quantization/quantizer.py)")
     parser.add_argument("--user-dir", default=None,
                         help="path to a python module containing custom extensions (tasks and/or architectures)")
     parser.add_argument("--tokenizer", default=None, help="tokenizer applied to raw text before BPE")
@@ -487,7 +491,10 @@ def _add_arch_args(parser, arch: str) -> None:
             group.add_argument(*flags, dest=name, type=_number, **kwargs)
         else:
             group.add_argument(*flags, dest=name, type=str, **kwargs)
-    for flag, kwargs in _FORK_MODEL_FLAGS[family].items():
+    fork_flags = _FORK_MODEL_FLAGS[family]
+    if family == "transformer_monotonic" and not arch.startswith(family):  # the unidirectional presets
+        fork_flags = _TRANSFORMER_FLAGS
+    for flag, kwargs in fork_flags.items():
         if flag not in parser._option_string_actions:
             group.add_argument(flag, **kwargs)
 
@@ -510,7 +517,8 @@ def add_generation_args(parser):
     group = parser.add_argument_group("Generation")
     add_common_eval_args(group)
     group.add_argument("--quantize-weights", choices=["none", "int8"], default="none",
-                       help="weight-only quantization of linear layers for serving")
+                       help="weight-only quantization of linear layers for serving (int8 codes, an fp32 scale an "
+                            "output channel, dequantized at the matmul)")
     group.add_argument("--beam", default=5, type=int, metavar="N", help="beam size")
     group.add_argument("--nbest", default=1, type=int, metavar="N", help="number of hypotheses to output")
     group.add_argument("--max-len-a", default=0, type=float, metavar="N")

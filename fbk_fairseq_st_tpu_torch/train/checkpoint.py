@@ -60,6 +60,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..ops.core import weights_from_state_dict
+from ..quantization.pq import adopt_pq_layout
 from ..utils.weights import optimizer_state_from_jax, state_dict_from_jax
 from . import metrics
 from . import sharded_checkpoint as sharded
@@ -196,9 +198,10 @@ def load_model_ensemble_and_task(filenames: List[str], arg_overrides: Optional[D
                                  device=None):
     """Rebuild each checkpoint's model from its args (reference
     checkpoint_utils.py:181-215) on ``device`` (the CUDA card when None),
-    its weights loaded strictly, in eval mode. Returns (models, the last
-    args, task); the task is set up from the first checkpoint's args when
-    None is given."""
+    without the seeded init draws that the strict load of its weights
+    would overwrite, and with the checkpoint's iPQ layers, in eval mode.
+    Returns (models, the last args, task); the task is set up from the
+    first checkpoint's args when None is given."""
     from ..registry import TASKS
 
     models, args = [], None
@@ -212,7 +215,9 @@ def load_model_ensemble_and_task(filenames: List[str], arg_overrides: Optional[D
             model_sd = prune_layers(model_sd, args)
         if task is None:
             task = TASKS[args.task].setup_task(args)
-        model = task.build_model(args, device=device)
+        with weights_from_state_dict():  # every weight comes from the strict load below
+            model = task.build_model(args, device=device)
+        adopt_pq_layout(model, model_sd)  # iPQ layers (--quantization-config-path) as the checkpoint holds them
         model.load_state_dict(model_sd, strict=True)
         models.append(model.eval())
     return models, args, task
@@ -506,6 +511,8 @@ def load_checkpoint(args, trainer, task):
     extra_state = None
     if os.path.exists(path):
         state = load_checkpoint_to_cpu(path)
+        if trainer.adopt_quantized_layout(state["model"]):
+            logger.info("the checkpoint's iPQ layers swapped in; a fresh optimizer over their parameters")
         if getattr(args, "allow_partial_restore", False):
             own = trainer.full_model_state()
             state["model"], missing, unexpected = merge_partial_state(own, state["model"])

@@ -87,12 +87,24 @@ step computes, the unsharded step on the global batch:
     them), and ``load_trainer_state`` takes each rank's chunk, so a run
     resumes at another world size or layout.
 
-``steps_per_execution`` > 1 raises (ROADMAP Queue A item 8), and so does
-scalar quant-noise (item 9(c)).
+Quantisation (JAX :256-305, :797-800): ``--quant-noise-scalar p`` puts
+each large parameter's int8 noise in place for a microbatch's forward and
+backward and the stored values back after it (``quantization/scalar.py``:
+the straight-through gradient at the noised weights reaches the stored
+ones); an iPQ ``Quantizer`` (``--quantization-config-path``) steps at the
+update boundaries of its schedule from ``set_num_updates``, and after a
+stage's module swaps ``reinitialize`` takes a fresh optimiser over the new
+parameters, the update count and the scheduler kept; a checkpoint whose
+layers are quantised swaps the same modules in before it is restored
+(``adopt_quantized_layout``). Neither runs on a split layout (FSDP or
+tensor parallelism: a rank holds a chunk of a weight) or under BMUF.
+
+``steps_per_execution`` > 1 raises (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -113,7 +125,6 @@ from . import metrics
 # JAX trainer options off this slice's path: (value that means "off", what).
 _NOT_YET = {
     "steps_per_execution": (1, "steps_per_execution (ROADMAP Queue A item 8)"),
-    "quant_noise_scalar": (0, "scalar quant-noise (ROADMAP Queue A item 9(c))"),
 }
 # the optimisers whose update reads more than one element of a leaf
 _NOT_ELEMENTWISE = ("adafactor", "lamb")
@@ -136,7 +147,7 @@ def update_seed(seed: int, num_updates: int, rank: int = 0) -> int:
 
 
 class Trainer:
-    def __init__(self, args, task, model, criterion, mesh=None):
+    def __init__(self, args, task, model, criterion, mesh=None, quantizer=None):
         for name, (off, what) in _NOT_YET.items():
             value = getattr(args, name, None)
             if value is not None and value != off:
@@ -165,10 +176,12 @@ class Trainer:
         self.device = module_device(model)
         half = any(getattr(args, f, False) for f in ("bf16", "fp16", "memory_efficient_fp16"))
         self.compute_dtype = torch.bfloat16 if half else torch.float32
-        self.params = [p for p in model.parameters() if p.requires_grad]
-        names = {id(p): canonical_name(n) for n, p in model.named_parameters()}
-        self._param_names = [names[id(p)] for p in self.params]
-        self.optimizer = build_optimizer(args, self.params)
+        self.quantizer = quantizer
+        self.quant_noise_scalar = float(getattr(args, "quant_noise_scalar", 0) or 0)
+        if (self.quant_noise_scalar > 0 or quantizer is not None) and (self.layout or self.bmuf is not None):
+            raise NotImplementedError("--quant-noise-scalar and --quantization-config-path need whole weights on "
+                                      "every rank: not with --fsdp, --model-parallel-size or --use-bmuf")
+        self._collect_params()
         self.lr_scheduler = build_lr_scheduler(args)
         self.seed = getattr(args, "seed", 1)
         self.generators = make_generators(self.seed, self.device)
@@ -181,6 +194,36 @@ class Trainer:
         self._copy_stream = None
         self.lr_scheduler.step_update(0)
         metrics.log_start_time("wall", priority=790, round=0)
+
+    def _collect_params(self) -> None:
+        """The trainable parameters, their fork names and a fresh optimiser over them."""
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        names = {id(p): canonical_name(n) for n, p in self.model.named_parameters()}
+        self._param_names = [names[id(p)] for p in self.params]
+        self.optimizer = build_optimizer(self.args, self.params)
+
+    def reinitialize(self) -> None:
+        """After the model's parameters changed (iPQ's module swaps; JAX
+        ``reinitialize`` :256-280): a fresh optimiser over the trainable
+        parameters, the model's frozen filter applied again; the update
+        count and the scheduler's state carry over."""
+        frozen = getattr(self.model, "frozen_param_filter", None)
+        if frozen is not None:
+            for name, p in self.model.named_parameters():
+                if frozen(name):
+                    p.requires_grad_(False)
+        self._collect_params()
+
+    def adopt_quantized_layout(self, model_state: Dict[str, torch.Tensor]) -> bool:
+        """Swap in the iPQ modules a checkpoint's model state holds where
+        the model has plain ones (JAX restores into the checkpoint's tree
+        and reinitialises, :851-860); True when any was swapped."""
+        from ..quantization.pq import adopt_pq_layout
+
+        if not adopt_pq_layout(self.model, model_state):
+            return False
+        self.reinitialize()
+        return True
 
     # ------------------------------------------------------------------
     # the mesh
@@ -431,8 +474,9 @@ class Trainer:
                     for buf, start in zip(self.model.buffers(), start_buffers):
                         buf.copy_(start)
             batch = self.task.augment_batch(batch, self.generators)
-            loss, size, logging_output = self.criterion(self.model, batch, self.generators, training=True)
-            loss.backward()
+            with self._scalar_quant_noise():
+                loss, size, logging_output = self.criterion(self.model, batch, self.generators, training=True)
+                loss.backward()
             sample_size = sample_size + size
             for k, v in logging_output.items():
                 logs[k] = logs[k] + v if k in logs else v
@@ -473,6 +517,15 @@ class Trainer:
         self._last_batch = batches[-1]
         metrics.log_stop_time("train_wall")
         return logs
+
+    def _scalar_quant_noise(self):
+        """``--quant-noise-scalar``'s noised weights in place for one
+        microbatch (JAX ``_loss_fn`` :298-305), or nothing."""
+        if self.quant_noise_scalar <= 0:
+            return contextlib.nullcontext()
+        from ..quantization.scalar import scalar_quant_noise_
+
+        return scalar_quant_noise_(self.model, self.quant_noise_scalar, self.generators)
 
     def _reduce_logs(self, sample_size, logs):
         """The sample size and the logging sums over the data-parallel
@@ -561,6 +614,9 @@ class Trainer:
     def set_num_updates(self, num_updates: int) -> None:
         self._num_updates = num_updates
         self.lr_scheduler.step_update(num_updates)
+        if self.quantizer is not None:
+            # the update-scheduled iPQ stage boundaries (reference trainer.py:624-625)
+            self.quantizer.step_update(num_updates)
         metrics.log_scalar("num_updates", num_updates, weight=0, priority=200)
 
     def get_lr(self) -> float:

@@ -67,6 +67,16 @@ checked against a reference checkout):
     C_out) kernels become ``Conv1d``'s (C_out, C_in, W);
     ``highway.layers.{i}``; ``projection``).
 
+The simultaneous models' monotonic cross-attention is the fork's
+``encoder_attn`` with ``{q,k,v,out}_proj``, ``q_proj_soft`` /
+``k_proj_soft`` (JAX's ``q_soft`` / ``k_soft``) and ``energy_bias``. The
+quantised layers: weight-only int8's ``w_q`` / ``w_scale`` become
+``weight_q`` (int8, (out, in)) / ``weight_scale`` ((out, 1)), transposed
+as a linear's weight; iPQ's ``w_codes`` (n_blocks, out), float32 holding
+ints, become ``assignments`` (int64, flattened block-major) and
+``w_centroids`` ``centroids`` as they are. None of these names was checked
+against a reference checkout.
+
 The tree's leaves are numpy arrays (or anything ``np.asarray`` accepts).
 """
 
@@ -90,7 +100,8 @@ _COMPONENT_MAP = {
     "aux_decoder_attn_ln": "aux_decoder_attn_layer_norm",
 }
 _TRANSPARENT = {"frontend"}
-_ATTN_PROJ = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "out": "out_proj"}
+_ATTN_PROJ = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "out": "out_proj", "q_soft": "q_proj_soft",
+              "k_soft": "k_proj_soft"}
 _ATTN_BLOCKS = {"self_attn", "encoder_attn", "aux_attn", "aux_decoder_attn", "context_attn", "attn"}
 _LEAF_NAMES = {
     "w": "weight",
@@ -103,6 +114,10 @@ _LEAF_NAMES = {
     "out_proj_w": "out_proj.weight",
     "out_proj_b": "out_proj.bias",
     "embed_out": "output_projection.weight",
+    "w_q": "weight_q",
+    "w_scale": "weight_scale",
+    "w_codes": "assignments",
+    "w_centroids": "centroids",
 }
 # 2-D weights that are no linear's: copied as they are
 _NO_TRANSPOSE_SUFFIX = (
@@ -164,7 +179,7 @@ def fork_axes(name: str, ndim: int) -> Tuple[int, ...]:
     """The permutation ``fork_layout`` applies: axis i of the fork's array
     is axis ``fork_axes(name, ndim)[i]`` of the JAX array."""
     if (ndim == 2 and name.endswith("weight") and not name.endswith(_NO_TRANSPOSE_SUFFIX)
-            and not _ADAPTIVE_TABLE.match(name)):
+            and not _ADAPTIVE_TABLE.match(name)) or name.endswith(("weight_q", "weight_scale")):
         return (1, 0)  # (in, out) -> nn.Linear (out, in)
     if ndim == 3 and "embed_tokens.convolutions." in name:
         return (2, 1, 0)  # the char embedder's (W, C_in, C_out) -> Conv1d (C_out, C_in, W)
@@ -196,6 +211,8 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for path, leaf in _leaves(tree or {}):
             name = fork_name(list(path))
             arr = np.asarray(leaf)
+            if name.endswith(".assignments"):  # iPQ codes: float32 holding ints
+                arr = arr.reshape(-1).astype(np.int64)
             out[name] = torch.tensor(np.ascontiguousarray(fork_layout(name, arr)))
     if "shared_embed_tokens" in (variables.get("params") or {}):
         out["decoder.embed_tokens.weight"] = out["encoder.embed_tokens.weight"]

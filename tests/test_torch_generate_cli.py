@@ -180,13 +180,14 @@ def test_generate_needs_the_card_without_cpu(corpus, monkeypatch):
 
 
 def test_unported_generation_options_raise(corpus):
-    """Weight quantisation is not ported; a codec whose library is missing
-    raises ``ImportError`` naming it (the alignments, ``--sacrebleu`` and
-    ``--num-shards`` are ported: tests/test_torch_alignment.py
-    and tests/test_torch_checkpoint_options.py)."""
+    """A codec whose library is missing raises ``ImportError`` naming it
+    (the alignments, ``--sacrebleu`` and ``--num-shards`` are ported:
+    tests/test_torch_alignment.py and tests/test_torch_checkpoint_options.py;
+    weight quantisation too: ``--quantize-weights int8`` decodes here, and
+    tests/test_torch_quantization.py holds it against JAX)."""
     root, data_dir, pickled, _ = corpus
-    with pytest.raises(NotImplementedError):
-        tgenerate.cli_main(_argv(data_dir, pickled, os.path.join(root, "unported"), "--quantize-weights", "int8"))
+    scorer = tgenerate.cli_main(_argv(data_dir, pickled, os.path.join(root, "int8"), "--quantize-weights", "int8"))
+    assert scorer.stat.predlen > 0
     with pytest.raises(ImportError, match="subword_nmt"):
         tgenerate.cli_main(_argv(data_dir, pickled, os.path.join(root, "unported"), "--bpe", "subword_nmt",
                                  "--bpe-codes", "codes"))

@@ -162,8 +162,9 @@ def test_infer_writes_jax_files(corpus, route):
 
 def test_infer_refuses_what_jax_refuses(corpus):
     """``--w2l-decoder kenlm`` needs ``--lexicon`` and ``--kenlm-model``;
-    greedy CTC needs a blank or ASG transitions; weight quantisation stays
-    unported; without ``--cpu`` and without a card it raises."""
+    greedy CTC needs a blank or ASG transitions; without ``--cpu`` and
+    without a card it raises. Weight quantisation is ported:
+    ``--quantize-weights int8`` decodes greedy CTC here."""
     root, data_dir, paths = corpus
     res = os.path.join(root, "refused")
     with pytest.raises(ValueError, match="requires --lexicon"):
@@ -173,8 +174,8 @@ def test_infer_refuses_what_jax_refuses(corpus):
                               ["--w2l-decoder", "kenlm", "--lexicon", "{lexicon}", "--cpu"]))
     with pytest.raises(ValueError, match="<ctc_blank>"):
         tinfer.cli_main(_argv(data_dir, paths["seq2seq"], res, "seq2seq", ["--ctc-decoding", "greedy", "--cpu"]))
-    with pytest.raises(NotImplementedError, match="quantisation"):
-        tinfer.cli_main(_argv(data_dir, paths["ctc"], res, "greedy", ["--quantize-weights", "int8", "--cpu"]))
+    assert tinfer.cli_main(_argv(data_dir, paths["ctc"], os.path.join(root, "int8"), "greedy",
+                                 ["--ctc-decoding", "greedy", "--quantize-weights", "int8", "--cpu"])) is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tinfer.cli_main(_argv(data_dir, paths["ctc"], res, "greedy", ["--ctc-decoding", "greedy"]))

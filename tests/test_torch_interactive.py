@@ -101,15 +101,15 @@ def test_interactive_matches_jax(trained, jax_records, capsys, monkeypatch, sour
 
 
 def test_interactive_refuses_what_jax_refuses(trained):
-    """--max-sentences above --buffer-size asserts, as in JAX; weight
-    quantisation raises ``NotImplementedError``, a codec whose library is
-    missing ``ImportError`` naming it and a ``--user-dir`` that does not
-    exist ``FileNotFoundError``, as in JAX; without --cpu and a card the
-    CLI raises before loading anything."""
+    """--max-sentences above --buffer-size asserts, as in JAX; a codec
+    whose library is missing raises ``ImportError`` naming it and a
+    ``--user-dir`` that does not exist ``FileNotFoundError``, as in JAX;
+    without --cpu and a card the CLI raises before loading anything. Weight
+    quantisation is ported: ``--quantize-weights int8``
+    serves."""
     with pytest.raises(AssertionError):
         tinteractive.cli_main(_argv(trained, "--max-sentences", "4"))
-    with pytest.raises(NotImplementedError):
-        tinteractive.cli_main(_argv(trained, "--quantize-weights", "int8"))
+    tinteractive.cli_main(_argv(trained, "--quantize-weights", "int8"))
     with pytest.raises(ImportError, match="subword_nmt"):
         tinteractive.cli_main(_argv(trained, "--bpe", "subword_nmt", "--bpe-codes", "codes"))
     with pytest.raises(FileNotFoundError):

@@ -121,8 +121,8 @@ def test_port_parser_takes_or_refuses_every_jax_flag(arch):
     """For every option string of JAX's training parser: the port's parser
     accepts it and sets each dest that JAX's sets to the same value, or
     raises NotImplementedError naming a ROADMAP Queue A item. The refused
-    flags are the quant-noise, adaptive-softmax and steps-per-execution
-    ones; the multi-GPU ones are taken."""
+    flag is steps-per-execution; the multi-GPU and the
+    quant-noise and quantisation ones are taken."""
     jparser = _jax_parser(arch)
     refused, accepted = [], []
     for flag, action in sorted(jparser._option_string_actions.items()):
@@ -149,7 +149,9 @@ def test_port_parser_takes_or_refuses_every_jax_flag(arch):
     assert {"--use-bmuf", "--block-lr", "--distributed-coordinator", "--distributed-world-size", "--fsdp",
             "--sequence-parallel", "--ring-attention", "--distributed-num-processes"} <= set(accepted)
     assert "--steps-per-execution" in refused
-    assert ("--quant-noise-pq" in refused) == (arch not in ASR_ARCHS)  # a transformer-family flag
+    # quant-noise and in-training quantisation (ROADMAP Queue A item 9(c)), ported
+    assert not {"--quant-noise-pq", "--quant-noise-pq-block-size", "--quant-noise-scalar",
+                "--quantization-config-path"} & set(refused)
     # the flags of ROADMAP Queue A item 3, ported
     assert {"--user-dir", "--allow-partial-restore", "--checkpoint-format", "--async-checkpoint"} <= set(accepted)
     pruning = {"--encoder-layers-to-keep", "--decoder-layers-to-keep"}  # the transformer family's
@@ -229,7 +231,7 @@ def test_port_infer_parser_takes_or_refuses_every_jax_flag():
         for dest in sorted(set(vars(jargs)) & set(vars(targs))):
             want, got = getattr(jargs, dest), getattr(targs, dest)
             assert got == want or (isinstance(want, float) and np.isclose(got, want)), (flag, dest, got, want)
-    assert set(refused) == {"--quantize-weights", "--quantization-config-path", "--steps-per-execution",
+    assert set(refused) == {"--steps-per-execution",
                             "--decoding-format", "--iter-decode-eos-penalty",
                             "--iter-decode-max-iter", "--iter-decode-force-max-iter", "--iter-decode-with-beam",
                             "--iter-decode-with-external-reranker", "--retain-iter-history", "--print-step"}

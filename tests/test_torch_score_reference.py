@@ -142,16 +142,16 @@ def test_generate_score_reference_matches_jax(corpus, jax_scored, checkpoint):  
 @pytest.mark.parametrize("extra", [["--tokenizer", "moses"], ["--bpe", "subword_nmt"],
                                    ["--quantize-weights", "int8"], ["--user-dir", "/nonexistent"]])
 def test_generate_still_refuses_the_unported_options(corpus, extra):  # noqa: F811
-    """``--score-reference``, the codecs and the user modules are ported;
-    weight quantisation still raises
-    ``NotImplementedError``; a codec whose library is missing raises
-    ``ImportError`` naming it and a missing ``--user-dir``
-    ``FileNotFoundError``, as in JAX; ``--tokenizer moses`` scores."""
+    """``--score-reference``, the codecs, the user modules and weight
+    quantisation are ported; a codec whose library is missing
+    raises ``ImportError`` naming it and a missing ``--user-dir``
+    ``FileNotFoundError``, as in JAX; ``--tokenizer moses`` and
+    ``--quantize-weights int8`` score."""
     root, data_dir, pickled, _ = corpus
     argv = _argv(data_dir, pickled, os.path.join(root, "refused"), *SCORE_ARGS, *extra)
-    if extra[0] == "--tokenizer":
+    if extra[0] in ("--tokenizer", "--quantize-weights"):
         assert tgenerate.cli_main(argv).result_string().startswith("BLEU4 = 100.00")
         return
-    expected = {"--bpe": ImportError, "--quantize-weights": NotImplementedError, "--user-dir": FileNotFoundError}
+    expected = {"--bpe": ImportError, "--user-dir": FileNotFoundError}
     with pytest.raises(expected[extra[0]], match="subword_nmt" if extra[0] == "--bpe" else None):
         tgenerate.cli_main(argv)

@@ -402,9 +402,11 @@ def test_off_path_training_options_raise():
     task.build_criterion(argparse.Namespace(**{**vars(args), "criterion": "adaptive_loss"}))
     model = tct.build_model("conv_transformer", torch_dictionary(), device="cpu", **SMALL)
     crit = task.build_criterion(args)
-    for option in (dict(steps_per_execution=4), dict(quant_noise_scalar=0.1)):
-        with pytest.raises(NotImplementedError):
-            Trainer(argparse.Namespace(**{**vars(args), **option}), task, model, crit)
+    with pytest.raises(NotImplementedError):
+        Trainer(argparse.Namespace(**{**vars(args), "steps_per_execution": 4}), task, model, crit)
+    # scalar quant-noise is ported (tests/test_torch_quantization.py)
+    assert Trainer(argparse.Namespace(**{**vars(args), "quant_noise_scalar": 0.1}), task, model,
+                   crit).quant_noise_scalar == 0.1
     # the mesh's options need a process group
     with pytest.raises(ValueError, match="--distributed-world-size"):
         Trainer(argparse.Namespace(**{**vars(args), "model_parallel_size": 2}), task, model, crit)

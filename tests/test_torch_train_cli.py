@@ -265,8 +265,12 @@ def test_train_needs_the_card_without_cpu(corpus, monkeypatch):
     ["--steps-per-execution", "2"], ["--quantization-config-path", "q.yaml"],
 ], ids=lambda e: e[0].lstrip("-"))
 def test_unported_training_options_raise(corpus, extra):
+    """--steps-per-execution is unported (ROADMAP Queue A item 8); iPQ is
+    ported and, as JAX's, reads its config first: a missing
+    one raises FileNotFoundError."""
     root, data_dir = corpus
-    with pytest.raises(NotImplementedError):
+    expected = FileNotFoundError if extra[0] == "--quantization-config-path" else NotImplementedError
+    with pytest.raises(expected):
         ttrain.cli_main(argv(data_dir, os.path.join(root, "unported"), "nag_fixed", *extra))
 
 

@@ -206,8 +206,9 @@ def test_share_all_embeddings_needs_a_joined_dictionary():
     with pytest.raises(ValueError, match="embed-dim"):
         ttr.build_model(ARCH, src, src, device="cpu", share_all_embeddings=True,
                         **{**TINY, "decoder_embed_dim": 32})
-    with pytest.raises(NotImplementedError, match=r"9\(c\)"):
-        ttr.build_model(ARCH, src, src, device="cpu", quant_noise_pq=0.1, **TINY)
+    # quant-noise is ported: its rate reaches every layer (tests/test_torch_quantization.py)
+    noised = ttr.build_model(ARCH, src, src, device="cpu", quant_noise_pq=0.1, **TINY)
+    assert {layer.cfg.quant_noise_pq for layer in [*noised.encoder.layers, *noised.decoder.layers]} == {0.1}
 
 
 def test_layerdrop_one_drops_every_layer_as_jax():
